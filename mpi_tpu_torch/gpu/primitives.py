@@ -1,0 +1,250 @@
+"""The SPMD world on one device: the rank context and the communication
+primitives every collective is built from.
+
+The reference runs a rank as an index on a mesh axis inside
+``jax.shard_map`` and communicates with ``lax.ppermute`` / ``lax.psum`` /
+``lax.all_gather`` / ``lax.all_to_all``.  Here ``run_spmd`` runs the
+per-rank program under ``torch.vmap`` over a leading rank dimension, and
+each primitive is a ``torch.library.custom_op`` whose ``register_vmap``
+rule receives the physical ``[P, ...]`` world tensor: a ppermute is a
+permutation of the rank dimension, a psum a reduction over it.
+
+Every primitive takes the batched world index as an argument, so its vmap rule always runs — even for a payload that is the
+same on every rank — and the op's own implementation is reached only by
+calling it outside ``run_spmd``, which raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+Pair = Tuple[int, int]
+
+
+class SpmdContextError(RuntimeError):
+    """A communication primitive was called outside ``run_spmd``."""
+
+
+def _outside(name: str) -> SpmdContextError:
+    return SpmdContextError(
+        f"{name} is a collective of the SPMD world: call it inside "
+        f"mpi_tpu_torch.run / run_spmd, where the rank dimension exists")
+
+
+class _World:
+    __slots__ = ("idx", "nranks", "device")
+
+    def __init__(self, idx: torch.Tensor, nranks: int, device: torch.device):
+        self.idx = idx
+        self.nranks = nranks
+        self.device = device
+
+
+_STACK: List[_World] = []
+
+
+@contextlib.contextmanager
+def world(idx: torch.Tensor, nranks: int, device: torch.device):
+    """Bind the batched world index for the duration of one SPMD call."""
+    _STACK.append(_World(idx, nranks, device))
+    try:
+        yield
+    finally:
+        _STACK.pop()
+
+
+def current(name: str = "this collective", nranks: Optional[int] = None) -> _World:
+    if not _STACK:
+        raise _outside(name)
+    w = _STACK[-1]
+    if nranks is not None and nranks != w.nranks:
+        raise ValueError(
+            f"communicator spans {nranks} ranks but the running SPMD world "
+            f"has {w.nranks}")
+    return w
+
+
+def lookup(values: Sequence, dtype=torch.long) -> torch.Tensor:
+    """``values[world index]`` for a host table with one entry per world rank."""
+    w = current("lookup")
+    return torch.as_tensor(list(values), dtype=dtype, device=w.device)[w.idx]
+
+
+def as_tensor(obj) -> torch.Tensor:
+    """A payload as a tensor on the running world's device."""
+    w = current("as_tensor")
+    if isinstance(obj, torch.Tensor):
+        return obj if obj.device == w.device else obj.to(w.device)
+    return torch.as_tensor(obj, device=w.device)
+
+
+def as_world(x: torch.Tensor, dim: Optional[int], nranks: int) -> torch.Tensor:
+    """The physical ``[P, ...]`` world of a vmap-rule operand: batched
+    operands move their rank dimension to the front; an unbatched one is
+    the same value on every rank (``in_specs=P()``) and is expanded."""
+    if dim is None:
+        return x.unsqueeze(0).expand(nranks, *x.shape).contiguous()
+    return x.movedim(dim, 0).contiguous()
+
+
+def _members(groups: Sequence[int], size: int) -> torch.Tensor:
+    """``[P, size]`` table: row w lists the world ranks of w's group."""
+    n = len(groups)
+    rows = [None] * n
+    for g0 in range(0, n, size):
+        g = list(groups[g0:g0 + size])
+        for w in g:
+            rows[w] = g
+    return torch.as_tensor(rows, dtype=torch.long)
+
+
+def _positions(groups: Sequence[int], size: int) -> torch.Tensor:
+    pos = [0] * len(groups)
+    for i, w in enumerate(groups):
+        pos[w] = i % size
+    return torch.as_tensor(pos, dtype=torch.long)
+
+
+# -- ppermute ---------------------------------------------------------------
+
+
+@torch.library.custom_op("mpi_tpu_torch::ppermute", mutates_args=())
+def _ppermute(x: torch.Tensor, rank: torch.Tensor, src: List[int],
+              dst: List[int]) -> torch.Tensor:
+    raise _outside("ppermute")
+
+
+def _ppermute_vmap(info, in_dims, x, rank, src, dst):
+    w = as_world(x, in_dims[0], info.batch_size)
+    out = torch.zeros_like(w)
+    if src:
+        out[list(dst)] = w[list(src)]
+    return out, 0
+
+
+_ppermute.register_vmap(_ppermute_vmap)
+
+
+def ppermute(x, pairs: Sequence[Pair]) -> torch.Tensor:
+    """``lax.ppermute``: rank ``d`` receives rank ``s``'s payload for every
+    world-level ``(s, d)``; ranks receiving nothing get zeros."""
+    w = current("ppermute")
+    x = as_tensor(x)
+    return _ppermute(x, w.idx, [int(s) for s, _ in pairs],
+                     [int(d) for _, d in pairs])
+
+
+# -- fused group collectives -----------------------------------------------
+
+
+@torch.library.custom_op("mpi_tpu_torch::group_reduce", mutates_args=())
+def _group_reduce(x: torch.Tensor, rank: torch.Tensor, groups: List[int],
+                  size: int, op: str) -> torch.Tensor:
+    raise _outside("group_reduce")
+
+
+def _group_reduce_vmap(info, in_dims, x, rank, groups, size, op):
+    w = as_world(x, in_dims[0], info.batch_size)
+    stacked = w[_members(groups, size).to(w.device)]  # [P, size, ...]
+    if op == "sum":
+        out = torch.sum(stacked, dim=1, dtype=w.dtype)
+    elif op == "max":
+        out = torch.amax(stacked, dim=1)
+    elif op == "min":
+        out = torch.amin(stacked, dim=1)
+    else:
+        raise ValueError(f"group_reduce supports sum/max/min, got {op!r}")
+    return out, 0
+
+
+_group_reduce.register_vmap(_group_reduce_vmap)
+
+
+def group_reduce(x, groups: Sequence[int], size: int, op: str) -> torch.Tensor:
+    """Fused allreduce (``lax.psum``/``pmax``/``pmin`` with
+    ``axis_index_groups``): plain torch over the rank dimension, as XLA
+    computed it outside any Pallas kernel.  ``groups`` is the flattened
+    partition (the whole axis for an unsplit communicator)."""
+    w = current("group_reduce")
+    return _group_reduce(as_tensor(x), w.idx, list(groups), size, op)
+
+
+@torch.library.custom_op("mpi_tpu_torch::all_gather", mutates_args=())
+def _all_gather(x: torch.Tensor, rank: torch.Tensor, groups: List[int],
+                size: int) -> torch.Tensor:
+    raise _outside("all_gather")
+
+
+def _all_gather_vmap(info, in_dims, x, rank, groups, size):
+    w = as_world(x, in_dims[0], info.batch_size)
+    return w[_members(groups, size).to(w.device)], 0
+
+
+_all_gather.register_vmap(_all_gather_vmap)
+
+
+def all_gather(x, groups: Sequence[int], size: int) -> torch.Tensor:
+    """``lax.all_gather(tiled=False)``: the stacked ``[size, ...]`` group
+    payloads in group-rank order."""
+    w = current("all_gather")
+    return _all_gather(as_tensor(x), w.idx, list(groups), size)
+
+
+@torch.library.custom_op("mpi_tpu_torch::all_to_all", mutates_args=())
+def _all_to_all(x: torch.Tensor, rank: torch.Tensor, groups: List[int],
+                size: int) -> torch.Tensor:
+    raise _outside("all_to_all")
+
+
+def _all_to_all_vmap(info, in_dims, x, rank, groups, size):
+    w = as_world(x, in_dims[0], info.batch_size)  # [P, size, ...]
+    members = _members(groups, size).to(w.device)
+    pos = _positions(groups, size).to(w.device)
+    return w[members, pos[:, None]], 0
+
+
+_all_to_all.register_vmap(_all_to_all_vmap)
+
+
+def all_to_all(x, groups: Sequence[int], size: int) -> torch.Tensor:
+    """``lax.all_to_all(split_axis=0, concat_axis=0)``: block j of the
+    result is group rank j's block for this rank."""
+    w = current("all_to_all")
+    return _all_to_all(as_tensor(x), w.idx, list(groups), size)
+
+
+# -- per-rank random numbers -------------------------------------------------
+
+
+@torch.library.custom_op("mpi_tpu_torch::rank_uniform", mutates_args=())
+def _rank_uniform(rank: torch.Tensor, seed: int, shape: List[int]) -> torch.Tensor:
+    raise _outside("rank_uniform")
+
+
+def _rank_uniform_vmap(info, in_dims, rank, seed, shape):
+    ranks = as_world(rank, in_dims[0], info.batch_size)
+    out = []
+    # the draws are plain per-rank calls: keep the vmap layer's random-op
+    # interception (which would batch or refuse them) out of the way
+    with torch._C._ExcludeDispatchKeyGuard(
+            torch._C.DispatchKeySet(torch._C.DispatchKey.FuncTorchVmapMode)):
+        for r in ranks.tolist():
+            gen = torch.Generator(device=ranks.device)
+            gen.manual_seed(seed * 1_000_003 + int(r))
+            out.append(torch.rand(shape, generator=gen, device=ranks.device))
+    return torch.stack(out), 0
+
+
+_rank_uniform.register_vmap(_rank_uniform_vmap)
+
+
+def rank_uniform(shape: Sequence[int], seed: int) -> torch.Tensor:
+    """Uniform [0, 1) float32 samples from this rank's own
+    ``torch.Generator``, seeded from ``(seed, world rank)`` — the
+    counterpart of ``jax.random.fold_in(PRNGKey(seed), rank)``.  The
+    streams differ from JAX's."""
+    w = current("rank_uniform")
+    return _rank_uniform(w.idx, int(seed), [int(s) for s in shape])
