@@ -10,7 +10,7 @@ ok line:
    (``nvcc`` of every ``mpi_tpu_torch/csrc`` source, in parallel, timed);
 2. Jacobi through ``mpi_tpu_torch.run(jacobi_program, nranks=8)`` on the
    card, against the same program on the CPU;
-3. the main path: a data-parallel step through ``run(..., nranks=8)`` with a
+3. the main path of the collectives: a data-parallel step through ``run(..., nranks=8)`` with a
    256 MiB float32 gradient per rank that differs by rank — the north-star
    ``allreduce(algorithm="pallas_ring")``, then the ZeRO pair
    ``reduce_scatter`` / ``allgather`` on the same kernel.  Launch counters
@@ -27,9 +27,37 @@ ok line:
    same function, at the north-star sizes, beside the least time the card
    could take (bytes moved over the 3.35 TB/s datasheet rate), and the
    measured device-to-device copy rate;
-6. one ``{"kernels": [...]}`` JSON line, then the ok line.
+6. ring attention, serving leg: ``ring_attention_program`` of
+   ``mpi_tpu_torch.examples.ring_attention`` through ``run(..., nranks=8)``
+   at Llama-3-8B's attention geometry (32 query heads, 8 K/V heads, head
+   dim 128; ``meta-llama/Meta-Llama-3-8B`` ``config.json``) over a causal
+   sequence of 32 768 (4096 rows per rank), bfloat16 and then float32.  The
+   forward kernel must have launched; the output must agree with the plain
+   version on the card (float32: max abs <= 1e-5; bfloat16: rtol = atol =
+   2e-2, about two bfloat16 ulps, since the two sum each dot product in
+   their own order);
+7. ring attention, training leg: one ``sharded_train_step`` of
+   ``mpi_tpu_torch.examples.long_context_training`` through ``run(...,
+   nranks=8)`` at 4096 rows per rank, d = 128, float32, causal.  Every
+   attention kernel must have launched; loss and gradients must agree with
+   the dense one-device step on the card (the tolerances of
+   ``tests/test_long_context.py:180-185``);
+8. attention kernels vs plain versions on the card: {float32, bfloat16} x
+   {full, causal} x {MHA 4/4, GQA 4/2, MQA 4/1} x {world of 8, 2 groups of
+   4} x Sb in {16, 48, 128} x d in {128, 256}, forward (out and lse) and
+   backward (dq, dk, dv); float32 out/lse max abs <= 1e-5 and gradients
+   ``rtol=1e-4, atol=1e-5``, bfloat16 ``rtol = atol = 2e-2``;
+9. attention timing with CUDA events at the serving shape, in bfloat16 (the
+   ``kernels`` line) and float32 (the record): forward, backward (both
+   kernels and each alone), the plain versions (3 runs), and as a yardstick
+   only ``scaled_dot_product_attention`` on the whole sequence, beside the
+   least time the card could take (operations over the datasheet peak:
+   989 TFLOP/s for bfloat16 inputs, 67 TFLOP/s for float32, which may not
+   go through TF32; bytes over 3.35 TB/s);
+10. one ``{"kernels": [...]}`` JSON line, then the ok line.
 
-The full record also goes to ``chiprun_out/chip_smoke.json``.
+Every phase prints its wall time.  The full record also goes to
+``chiprun_out/chip_smoke.json``.
 """
 
 import json
@@ -41,10 +69,24 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
 P = 8
 NORTH_STAR_ELEMS = (256 << 20) // 4     # 256 MiB of float32 per rank
 REPLACES = "mpi_tpu/tpu/pallas_ring.py:434"
 SOURCE = "mpi_tpu_torch/csrc/ring.cu"
+ATTN_SOURCE = "mpi_tpu_torch/csrc/attention.cu"
+ATTN_REPLACES = {"fwd": "mpi_tpu/tpu/pallas_attention.py:1059",
+                 "bwd_dq": "mpi_tpu/tpu/pallas_attention.py:1130",
+                 "bwd_dkv": "mpi_tpu/tpu/pallas_attention.py:1130"}
+# the serving leg: Llama-3-8B attention (meta-llama/Meta-Llama-3-8B config.json:
+# num_attention_heads 32, num_key_value_heads 8, head dim 4096/32 = 128),
+# 8 ranks x 4096 rows = a causal sequence of 32 768
+SERVE = dict(seq_per_rank=4096, d=128, heads=32, kv_heads=8)
+TRAIN_SEQ_PER_RANK = 4096       # the training leg: 8 x 4096 rows, d = 128
+# flops per unmasked score entry and head dim (bench.py:198-233): forward
+# QK^T and PV; backward QK^T, dO V^T, dS K, dS^T Q, P^T dO (dq alone needs
+# the first three, dk/dv the first two and the last two)
+FLOPS_PER_ENTRY = {"fwd": 4, "bwd": 10, "bwd_dq": 6, "bwd_dkv": 8}
 
 
 def log(msg):
@@ -68,6 +110,16 @@ def spread_data(torch, gen, shape, device):
     return torch.randn(shape, device=device, generator=gen) * mag
 
 
+_LAP = [time.perf_counter()]
+
+
+def lap(name):
+    """Print the wall time since the previous phase ended."""
+    now = time.perf_counter()
+    log(f"[phase {name}: {now - _LAP[0]:.2f} s wall]")
+    _LAP[0] = now
+
+
 def time_ms(torch, fn, reps=10, warmup=2):
     for _ in range(warmup):
         fn()
@@ -82,6 +134,273 @@ def time_ms(torch, fn, reps=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def world_to_sequence(t):
+    """``[P, H, Sb, d]`` rank blocks -> ``[1, H, P*Sb, d]`` whole sequence."""
+    P, H, sb, d = t.shape
+    return t.transpose(0, 1).reshape(1, H, P * sb, d).contiguous()
+
+
+def attention_bound(kind, dtype_bytes, peak, shape, reads, writes):
+    """(bound_ms, bound_by) at the serving shape for one function:
+    operations over the unmasked causal entries, bytes = each input read
+    once and each output written once."""
+    P, hq, hkv, sb, d = shape
+    S = P * sb
+    entries = hq * S * (S + 1) / 2
+    op_ms = FLOPS_PER_ENTRY[kind] * d * entries / peak * 1e3
+    q_elems, kv_elems, row_elems = P * hq * sb * d, P * hkv * sb * d, P * hq * sb
+    sizes = {"q": q_elems * dtype_bytes, "kv": kv_elems * dtype_bytes,
+             "rows": row_elems * 4}
+    nbytes = sum(sizes[n] * c for n, c in reads.items()) + \
+        sum(sizes[n] * c for n, c in writes.items())
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), nbytes
+
+
+def check_close(torch, name, got, want, dtype, normwise=False):
+    """bfloat16: rtol = atol = 2e-2.  float32: max abs <= 1e-5 for forward
+    outputs; gradients rtol 1e-4 / atol 1e-5, or with ``normwise`` (the
+    serving shape, where one dK/dV element sums up to 131 072 products in
+    another order than the plain version) max abs <= 1e-4 * max |plain|."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    if not torch.isfinite(g).all():
+        raise RuntimeError(f"{name}: non-finite values")
+    if dtype == torch.bfloat16:
+        ok = torch.allclose(g, w, rtol=2e-2, atol=2e-2)
+    elif name.endswith(("out", "lse")):
+        ok = err <= 1e-5
+    elif normwise:
+        ok = err <= 1e-4 * float(w.abs().max())
+    else:
+        ok = torch.allclose(g, w, rtol=1e-4, atol=1e-5)
+    if not ok:
+        raise RuntimeError(f"{name}: kernel disagrees with the plain version "
+                           f"(max abs {err})")
+    return err
+
+
+def attention_phases(torch, dev, gen, record):
+    """Phases 6-9; returns the three attention entries of the kernels line."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    import mpi_tpu_torch
+    from mpi_tpu_torch.examples import long_context_training as lct
+    from mpi_tpu_torch.examples.ring_attention import ring_attention_program
+    from mpi_tpu_torch.gpu import attention
+
+    main_launches = {k: 0 for k in attention.LAUNCHES}
+    errs = {}
+
+    # 6. serving leg at full width ---------------------------------------------
+    serve = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        attention.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, q, k, v = mpi_tpu_torch.run(ring_attention_program, nranks=P,
+                                         kernel=True, causal=True, dtype=dtype,
+                                         **SERVE)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(attention.LAUNCHES)
+        if launches["fwd"] == 0:
+            raise RuntimeError(f"serving leg ({tag}) never launched the forward kernel")
+        for key, c in launches.items():
+            main_launches[key] += c
+        if tuple(out.shape) != (P, SERVE["heads"], SERVE["seq_per_rank"], SERVE["d"]) \
+                or out.dtype != dtype:
+            raise RuntimeError(f"serving leg output {tuple(out.shape)} {out.dtype}")
+        want = attention.ring_attention_plain(q, k, v, causal=True)
+        err = check_close(torch, f"serving {tag} out", out, want, dtype)
+        errs[("fwd", dtype)] = err
+        serve[dtype] = (q, k, v)
+        record[f"serving_{tag}"] = {"run_s": run_s, "launches": launches,
+                                    "max_abs_err_vs_plain": err,
+                                    "shape": list(out.shape)}
+        log(f"serving leg {tag}: run {run_s:.3f} s, launches {launches}, "
+            f"max abs err vs plain {err:.3g}")
+        del out, want
+    lap("attention serving leg")
+
+    # 7. training leg at the example's width -------------------------------------
+    d, S = 128, P * TRAIN_SEQ_PER_RANK
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(S, d).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randn(S, d).astype(np.float32)).to(dev)
+    block = lct.block_from_numpy(lct.init_params(d, 2 * d), dev)
+    params = {n: p.detach() for n, p in block.named_parameters()}
+    attention.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_s, grads_s = mpi_tpu_torch.run(lct.sharded_program, block, params, x, y,
+                                        nranks=P)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(attention.LAUNCHES)
+    missing = [k for k, c in launches.items() if c == 0]
+    if missing:
+        raise RuntimeError(f"training leg never launched {missing}")
+    for key, c in launches.items():
+        main_launches[key] += c
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # a second step: the first pays first-call costs
+    mpi_tpu_torch.run(lct.sharded_program, block, params, x, y, nranks=P)
+    torch.cuda.synchronize()
+    step2_s = time.perf_counter() - t0
+    loss_d, grads_d = lct.dense_train_step(block)(params, x, y)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(loss_s).all() and
+            torch.allclose(loss_s[0], loss_d, rtol=1e-5, atol=1e-6)):
+        raise RuntimeError(f"training loss {float(loss_s[0])} != dense {float(loss_d)}")
+    grad_err = {}
+    for name, g in grads_d.items():
+        if not torch.allclose(grads_s[name][0], g, rtol=5e-4, atol=5e-5):
+            raise RuntimeError(f"training gradient {name} disagrees with the dense step")
+        grad_err[name] = float((grads_s[name][0] - g).abs().max())
+    record["training"] = {"step_s": step_s, "second_step_s": step2_s,
+                          "launches": launches,
+                          "loss": float(loss_s[0]), "dense_loss": float(loss_d),
+                          "grad_max_abs_err_vs_dense": grad_err,
+                          "seq": S, "d": d, "nranks": P}
+    log(f"training leg: step {step_s:.3f} s (second {step2_s:.3f} s), "
+        f"launches {launches}, loss "
+        f"{float(loss_s[0]):.6f} vs dense {float(loss_d):.6f}")
+    del x, y, block, params, loss_s, grads_s, loss_d, grads_d
+    torch.cuda.empty_cache()
+    lap("attention training leg")
+
+    # 8. kernel vs plain grid ---------------------------------------------------
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (128, 256):
+            for sb in (16, 48, 128):
+                for hq, hkv in ((4, 4), (4, 2), (4, 1)):
+                    for causal in (False, True):
+                        for groups in (None, [[0, 1, 2, 3], [4, 5, 6, 7]]):
+                            q, k, v, do = (torch.randn(
+                                (P, h, sb, dh), device=dev, generator=gen).to(dtype)
+                                for h in (hq, hkv, hkv, hq))
+                            out, lse = attention.ring_attention_world(
+                                q, k, v, groups, causal=causal, with_lse=True)
+                            pout, plse = attention.ring_attention_plain(
+                                q, k, v, groups, causal=causal, with_lse=True)
+                            grads = attention.ring_attention_bwd_world(
+                                q, k, v, pout, plse, do, groups, causal=causal)
+                            pgrads = attention.ring_attention_bwd_plain(
+                                q, k, v, pout, plse, do, groups, causal=causal)
+                            torch.cuda.synchronize()
+                            case = f"{dtype} d={dh} sb={sb} {hq}/{hkv} causal={causal} groups={groups is not None}"
+                            check_close(torch, f"{case} out", out, pout, dtype)
+                            check_close(torch, f"{case} lse", lse, plse, torch.float32)
+                            for nm, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
+                                check_close(torch, f"{case} {nm}", a, b, dtype)
+                            n_cases += 2
+    record["attention_parity_cases"] = n_cases
+    log(f"attention parity: {n_cases} cases (forward and backward) within tolerance")
+    lap("attention parity")
+
+    # 9. timing at the serving shape ---------------------------------------------
+    shape = (P, SERVE["heads"], SERVE["kv_heads"], SERVE["seq_per_rank"], SERVE["d"])
+    rep = SERVE["heads"] // SERVE["kv_heads"]
+    entries = []
+    timing = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        q, k, v = serve.pop(dtype)
+        esz = q.element_size()
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+        out, lse = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+        ops = attention.bwd_operands(q, k, v, out, lse, do, causal=True)
+        got = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+        want = attention.ring_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+        errs[("bwd_dq", dtype)] = check_close(torch, f"{tag} dq", got[0], want[0],
+                                              dtype, normwise=True)
+        errs[("bwd_dkv", dtype)] = max(
+            check_close(torch, f"{tag} dk", got[1], want[1], dtype, normwise=True),
+            check_close(torch, f"{tag} dv", got[2], want[2], dtype, normwise=True))
+        log(f"{tag} backward at the serving shape: max abs err dq "
+            f"{errs[('bwd_dq', dtype)]:.3g}, dk/dv {errs[('bwd_dkv', dtype)]:.3g}; "
+            f"max |plain| dq {float(want[0].float().abs().max()):.4g}, dk "
+            f"{float(want[1].float().abs().max()):.4g}, dv "
+            f"{float(want[2].float().abs().max()):.4g}")
+        del got, want
+        t = {
+            "fwd": time_ms(torch, lambda: attention.ring_attention_world(
+                q, k, v, causal=True, with_lse=True), reps=5, warmup=1),
+            "bwd": time_ms(torch, lambda: attention.ring_attention_bwd_world(
+                q, k, v, out, lse, do, causal=True), reps=5, warmup=1),
+            "bwd_dq": time_ms(torch, lambda: attention.launch_bwd("bwd_dq", ops),
+                              reps=5, warmup=1),
+            "bwd_dkv": time_ms(torch, lambda: attention.launch_bwd("bwd_dkv", ops),
+                               reps=5, warmup=1),
+            "plain_fwd": time_ms(torch, lambda: attention.ring_attention_plain(
+                q, k, v, causal=True, with_lse=True), reps=3, warmup=0),
+            "plain_bwd": time_ms(torch, lambda: attention.ring_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=True), reps=3, warmup=0),
+        }
+        # the yardstick: one library call over the whole sequence
+        ql, kl, vl, dol = (world_to_sequence(a) for a in (q, k, v, do))
+        gqa = dtype == torch.bfloat16
+        if not gqa:  # the float32 kernels take expanded heads
+            kl, vl = kl.repeat_interleave(rep, 1), vl.repeat_interleave(rep, 1)
+        ql.requires_grad_(True)
+        kl.requires_grad_(True)
+        vl.requires_grad_(True)
+        backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+
+        def sdpa():
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                      enable_gqa=gqa)
+
+        def sdpa_fwd_bwd():
+            o = sdpa()
+            return torch.autograd.grad(o, (ql, kl, vl), dol)
+
+        with torch.no_grad():
+            t["library_fwd"] = time_ms(torch, sdpa, reps=5, warmup=1)
+        t["library_fwd_bwd"] = time_ms(torch, sdpa_fwd_bwd, reps=5, warmup=1)
+        t["library_variant"] = "enable_gqa" if gqa else "K/V heads repeated"
+        del ql, kl, vl, dol
+        io = {"fwd": ({"q": 1, "kv": 2}, {"q": 1, "rows": 1}),
+              "bwd": ({"q": 3, "kv": 2, "rows": 1}, {"q": 1, "kv": 2}),
+              "bwd_dq": ({"q": 2, "kv": 2, "rows": 2}, {"q": 1}),
+              "bwd_dkv": ({"q": 2, "kv": 2, "rows": 2}, {"kv": 2})}
+        for kind, (reads, writes) in io.items():
+            bound, by, nbytes = attention_bound(kind, esz, peak, shape, reads, writes)
+            t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"] = bound, by
+            t[f"{kind}_bytes"] = nbytes
+            t[f"{kind}_pct_of_bound"] = 100.0 * bound / t[kind]
+        timing[tag] = t
+        log(f"attention timing {tag}: " + ", ".join(
+            f"{key} {val:.3f}" if isinstance(val, float) else f"{key} {val}"
+            for key, val in t.items() if not key.endswith("_bytes")))
+        del q, k, v, do, out, lse, ops
+        torch.cuda.empty_cache()
+    record["attention_timing"] = timing
+    record["attention_launches_main_path"] = main_launches
+    lap("attention timing")
+
+    bt = timing["bfloat16"]
+    for kind in ("fwd", "bwd_dq", "bwd_dkv"):
+        entries.append({
+            "name": f"attention_{kind}", "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_REPLACES[kind], "launches": main_launches[kind],
+            "max_abs_err": errs[(kind, torch.bfloat16)], "ms": bt[kind],
+            "plain_ms": bt["plain_fwd"] if kind == "fwd" else bt["plain_bwd"],
+            "bound_ms": bt[f"{kind}_bound_ms"], "bound_by": bt[f"{kind}_bound_by"],
+            "library_ms": bt["library_fwd"] if kind == "fwd" else None,
+            "library_fwd_bwd_ms": bt["library_fwd_bwd"],
+            "pct_of_bound": bt[f"{kind}_pct_of_bound"], "dtype": "bfloat16",
+        })
+    return entries
 
 
 def main():
@@ -101,6 +420,10 @@ def main():
     record = {"card": card_line(), "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     log(f"card: {record['card']}")
+    # a float32 product must stay float32 (TF32 would leave the tolerances)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lap("card")
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -111,6 +434,7 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+    lap("build")
 
     # 2. Jacobi on the card vs the CPU ------------------------------------------
     jk = dict(rows_per_rank=128, cols=1024, iters=50)
@@ -123,6 +447,7 @@ def main():
     record["jacobi"] = {"shape": list(blk_g.shape), "max_abs_err_vs_cpu": jerr,
                         "residual": float(res_g[0])}
     log(f"jacobi: {record['jacobi']}")
+    lap("jacobi")
 
     # 3. the main path: north-star data-parallel step -----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -168,6 +493,7 @@ def main():
     record["main_path"] = {"step_s": step_s, "launches": launches,
                            "bytes_per_rank": NORTH_STAR_ELEMS * 4}
     del avg, shard, params, grad_w, base
+    lap("data-parallel step")
 
     # 4. kernel vs plain, every mode x dtype x op x grouping --------------------
     groupings = {"world": None, "2x4": [[0, 1, 2, 3], [4, 5, 6, 7]]}
@@ -198,6 +524,7 @@ def main():
                         n_cases += 1
     record["parity_cases"] = n_cases
     log(f"parity: {n_cases} cases bitwise equal")
+    lap("ring parity")
 
     # 5. timing at the north-star sizes -------------------------------------------
     itemsize = 4
@@ -259,6 +586,12 @@ def main():
         log(f"{mode}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
             f"{l_ms:.3f} ms, bound {bound_ms:.3f} ms "
             f"({entry['pct_of_bound']:.1f}% of bound, {entry['GBps']:.1f} GB/s)")
+    del x, out, xs, xb
+    lap("ring timing")
+
+    # 6-9. ring attention -------------------------------------------------------
+    attn = attention_phases(torch, dev, gen, record)
+    kernels += attn
     record["kernels"] = kernels
 
     os.makedirs("chiprun_out", exist_ok=True)

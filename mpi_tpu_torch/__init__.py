@@ -5,7 +5,9 @@ over P virtual ranks on one CUDA card: ``run(fn, *args, nranks=P)`` calls
 ``fn(comm, *args)`` once per rank under ``torch.vmap`` and returns the
 per-rank results stacked ``[P, ...]``.  Collectives keep the reference's
 ``algorithm=`` names; ``"pallas_ring"`` runs the hand-written CUDA ring
-kernel (``csrc/ring.cu``).
+kernel (``csrc/ring.cu``).  ``gpu.attention.ring_attention`` is exact ring
+attention over the ranks, forward and backward on the CUDA kernels of
+``csrc/attention.cu``.
 
 The package imports torch, numpy and the standard library only; the JAX
 package ``mpi_tpu`` is its reference and is never imported.
@@ -17,8 +19,8 @@ from typing import Any, Callable, Optional
 
 from . import ops
 from .gpu import (SpmdContextError, SpmdSemanticsError, TorchCommunicator,
-                  rank_uniform, resolve_device, run_spmd)
-from .interop import to_numpy, world_from_numpy
+                  rank_normal, rank_uniform, resolve_device, run_spmd)
+from .interop import params_from_numpy, to_numpy, world_from_numpy
 
 _HOST_BACKENDS = ("socket", "local", "shm", "self")
 
@@ -39,5 +41,5 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
 
 
 __all__ = ["SpmdContextError", "SpmdSemanticsError", "TorchCommunicator",
-           "ops", "rank_uniform", "resolve_device", "run",
-           "run_spmd", "to_numpy", "world_from_numpy"]
+           "ops", "params_from_numpy", "rank_normal", "rank_uniform",
+           "resolve_device", "run", "run_spmd", "to_numpy", "world_from_numpy"]

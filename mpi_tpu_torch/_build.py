@@ -28,6 +28,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _c_ptr, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the attention entry points' tail: groups, ngroups, g, hq, hkv, sb, d,
+# scale, causal, dtype, stream
+_ATTN_TAIL = [_c_ptr] + [_c_int] * 6 + [ctypes.c_float, _c_int, _c_int, _c_ptr]
 # C signatures of every entry point, by source
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "ring": {
@@ -36,6 +39,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                       _c_ptr],
         "ring_gather": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ll, _c_int,
                         _c_int, _c_ptr],
+    },
+    "attention": {
+        "attn_fwd": [_c_ptr] * 5 + _ATTN_TAIL,
+        "attn_bwd_dq": [_c_ptr] * 7 + _ATTN_TAIL,
+        "attn_bwd_dkv": [_c_ptr] * 8 + _ATTN_TAIL,
     },
 }
 

@@ -1,8 +1,8 @@
 """The SPMD backend on one CUDA card (counterpart of ``mpi_tpu/tpu``)."""
 
 from .communicator import SpmdSemanticsError, TorchCommunicator
-from .primitives import SpmdContextError, rank_uniform
+from .primitives import SpmdContextError, rank_normal, rank_uniform
 from .runner import resolve_device, run_spmd
 
 __all__ = ["SpmdContextError", "SpmdSemanticsError", "TorchCommunicator",
-           "rank_uniform", "resolve_device", "run_spmd"]
+           "rank_normal", "rank_uniform", "resolve_device", "run_spmd"]

@@ -224,8 +224,8 @@ def _rank_uniform(rank: torch.Tensor, seed: int, shape: List[int]) -> torch.Tens
     raise _outside("rank_uniform")
 
 
-def _rank_uniform_vmap(info, in_dims, rank, seed, shape):
-    ranks = as_world(rank, in_dims[0], info.batch_size)
+def _rank_draws(draw, rank, in_dims, nranks, seed, shape):
+    ranks = as_world(rank, in_dims[0], nranks)
     out = []
     # the draws are plain per-rank calls: keep the vmap layer's random-op
     # interception (which would batch or refuse them) out of the way
@@ -234,11 +234,35 @@ def _rank_uniform_vmap(info, in_dims, rank, seed, shape):
         for r in ranks.tolist():
             gen = torch.Generator(device=ranks.device)
             gen.manual_seed(seed * 1_000_003 + int(r))
-            out.append(torch.rand(shape, generator=gen, device=ranks.device))
+            out.append(draw(shape, generator=gen, device=ranks.device))
     return torch.stack(out), 0
 
 
+def _rank_uniform_vmap(info, in_dims, rank, seed, shape):
+    return _rank_draws(torch.rand, rank, in_dims, info.batch_size, seed, shape)
+
+
 _rank_uniform.register_vmap(_rank_uniform_vmap)
+
+
+@torch.library.custom_op("mpi_tpu_torch::rank_normal", mutates_args=())
+def _rank_normal(rank: torch.Tensor, seed: int, shape: List[int]) -> torch.Tensor:
+    raise _outside("rank_normal")
+
+
+def _rank_normal_vmap(info, in_dims, rank, seed, shape):
+    return _rank_draws(torch.randn, rank, in_dims, info.batch_size, seed, shape)
+
+
+_rank_normal.register_vmap(_rank_normal_vmap)
+
+
+def rank_normal(shape: Sequence[int], seed: int) -> torch.Tensor:
+    """Standard normal float32 samples from this rank's own
+    ``torch.Generator`` (seeded as ``rank_uniform``) — the counterpart of
+    ``jax.random.normal`` under ``fold_in(PRNGKey(seed), rank)``."""
+    w = current("rank_normal")
+    return _rank_normal(w.idx, int(seed), [int(s) for s in shape])
 
 
 def rank_uniform(shape: Sequence[int], seed: int) -> torch.Tensor:
