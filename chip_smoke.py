@@ -27,15 +27,14 @@ ok line:
    same function, at the north-star sizes, beside the least time the card
    could take (bytes moved over the 3.35 TB/s datasheet rate), and the
    measured device-to-device copy rate;
-6. ring attention, serving leg: ``ring_attention_program`` of
-   ``mpi_tpu_torch.examples.ring_attention`` through ``run(..., nranks=8)``
-   at Llama-3-8B's attention geometry (32 query heads, 8 K/V heads, head
-   dim 128; ``meta-llama/Meta-Llama-3-8B`` ``config.json``) over a causal
-   sequence of 32 768 (4096 rows per rank), bfloat16 and then float32.  The
-   forward kernel must have launched; the output must agree with the plain
-   version on the card (float32: max abs <= 1e-5; bfloat16: rtol = atol =
-   2e-2, about two bfloat16 ulps, since the two sum each dot product in
-   their own order);
+6. ring attention, serving leg: a per-rank program that draws its Q/K/V
+   with ``mpi_tpu_torch.rank_normal`` and calls
+   ``mpi_tpu_torch.gpu.attention.ring_attention``, through ``run(...,
+   nranks=8)``, at Llama-3-8B's attention geometry (32 query heads, 8 K/V
+   heads, head dim 128; ``meta-llama/Meta-Llama-3-8B`` ``config.json``)
+   over a causal sequence of 32 768 (4096 rows per rank), bfloat16 and then
+   float32.  The forward kernel must have launched; the output must agree
+   with the plain version on the card (see ``check_close``);
 7. ring attention, training leg: one ``sharded_train_step`` of
    ``mpi_tpu_torch.examples.long_context_training`` through ``run(...,
    nranks=8)`` at 4096 rows per rank, d = 128, float32, causal.  Every
@@ -45,15 +44,17 @@ ok line:
 8. attention kernels vs plain versions on the card: {float32, bfloat16} x
    {full, causal} x {MHA 4/4, GQA 4/2, MQA 4/1} x {world of 8, 2 groups of
    4} x Sb in {16, 48, 128} x d in {128, 256}, forward (out and lse) and
-   backward (dq, dk, dv); float32 out/lse max abs <= 1e-5 and gradients
-   ``rtol=1e-4, atol=1e-5``, bfloat16 ``rtol = atol = 2e-2``;
+   backward (dq, dk, dv), with the tolerances of ``check_close``;
 9. attention timing with CUDA events at the serving shape, in bfloat16 (the
    ``kernels`` line) and float32 (the record): forward, backward (both
    kernels and each alone), the plain versions (3 runs), and as a yardstick
-   only ``scaled_dot_product_attention`` on the whole sequence, beside the
+   only ``scaled_dot_product_attention`` on the whole sequence (forward,
+   backward alone from the forward's saved outputs, and both), beside the
    least time the card could take (operations over the datasheet peak:
-   989 TFLOP/s for bfloat16 inputs, 67 TFLOP/s for float32, which may not
-   go through TF32; bytes over 3.35 TB/s);
+   989 TFLOP/s for bfloat16 inputs; for float32, 67 TFLOP/s on the FMA
+   units, which the kernels use, and beside it 495/3 TFLOP/s, the rate of
+   a float32-accurate product split into three TF32 tensor-core products;
+   bytes over 3.35 TB/s);
 10. one ``{"kernels": [...]}`` JSON line, then the ok line.
 
 Every phase prints its wall time.  The full record also goes to
@@ -69,7 +70,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+F32_SPLIT_TF32_FLOPS = 495e12 / 3   # float32 products as three TF32 products
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
+BF16_ROUNDING = 2.0 ** -7       # one bfloat16 ulp of x is at most 2^-7 |x|
 P = 8
 NORTH_STAR_ELEMS = (256 << 20) // 4     # 256 MiB of float32 per rank
 REPLACES = "mpi_tpu/tpu/pallas_ring.py:434"
@@ -159,27 +162,54 @@ def attention_bound(kind, dtype_bytes, peak, shape, reads, writes):
     return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), nbytes
 
 
+# the largest share of its allowance that any comparison used, by kind
+ALLOWANCE_USED = {}
+
+
 def check_close(torch, name, got, want, dtype, normwise=False):
-    """bfloat16: rtol = atol = 2e-2.  float32: max abs <= 1e-5 for forward
-    outputs; gradients rtol 1e-4 / atol 1e-5, or with ``normwise`` (the
-    serving shape, where one dK/dV element sums up to 131 072 products in
-    another order than the plain version) max abs <= 1e-4 * max |plain|."""
+    """Hold a kernel's result against its plain version's; both are float32
+    sums in different orders, rounded once to their output type.
+
+    float32 allowance per element: out and lse 1e-5; gradients
+    1e-5 + 1e-4 |plain|, or with ``normwise`` (the serving shape, where
+    one dK/dV element sums up to 131 072 products in another order than
+    the plain version) 1e-4 * max |plain|.  bfloat16: the float32
+    allowance plus 2^-7 |plain|, since each side rounds a float32 value to
+    bfloat16 once and two such roundings of values that agree within the
+    float32 allowance differ by at most that allowance and one bfloat16
+    ulp.  Returns the max abs error."""
     g, w = got.float(), want.float()
-    err = float((g - w).abs().max())
     if not torch.isfinite(g).all():
         raise RuntimeError(f"{name}: non-finite values")
-    if dtype == torch.bfloat16:
-        ok = torch.allclose(g, w, rtol=2e-2, atol=2e-2)
-    elif name.endswith(("out", "lse")):
-        ok = err <= 1e-5
+    if name.endswith(("out", "lse")):
+        kind, allow = name[-3:], torch.full_like(w, 1e-5)
     elif normwise:
-        ok = err <= 1e-4 * float(w.abs().max())
+        kind, allow = "grad_normwise", torch.full_like(w, 1e-4 * float(w.abs().max()))
     else:
-        ok = torch.allclose(g, w, rtol=1e-4, atol=1e-5)
-    if not ok:
+        kind, allow = "grad", 1e-5 + 1e-4 * w.abs()
+    if dtype == torch.bfloat16:
+        allow = allow + BF16_ROUNDING * w.abs()
+    diff = (g - w).abs()
+    err, used = float(diff.max()), float((diff / allow).max())
+    key = f"{str(dtype).split('.')[-1]} {kind}"
+    ALLOWANCE_USED[key] = max(ALLOWANCE_USED.get(key, 0.0), used)
+    if used > 1.0:
         raise RuntimeError(f"{name}: kernel disagrees with the plain version "
-                           f"(max abs {err})")
+                           f"(max abs {err}, {used:.3g} of the allowance)")
     return err
+
+
+def serving_program(comm, dtype):
+    """One rank of the serving leg: Q/K/V from the rank's own generator,
+    then causal ring attention at Llama-3-8B's head geometry."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch.gpu.attention import ring_attention
+
+    sb, d = SERVE["seq_per_rank"], SERVE["d"]
+    q = mpi_tpu_torch.rank_normal((SERVE["heads"], sb, d), 7).to(dtype)
+    k, v = (mpi_tpu_torch.rank_normal((SERVE["kv_heads"], sb, d), seed).to(dtype)
+            for seed in (8, 9))
+    return ring_attention(q, k, v, comm, causal=True), q, k, v
 
 
 def attention_phases(torch, dev, gen, record):
@@ -190,7 +220,6 @@ def attention_phases(torch, dev, gen, record):
 
     import mpi_tpu_torch
     from mpi_tpu_torch.examples import long_context_training as lct
-    from mpi_tpu_torch.examples.ring_attention import ring_attention_program
     from mpi_tpu_torch.gpu import attention
 
     main_launches = {k: 0 for k in attention.LAUNCHES}
@@ -203,9 +232,7 @@ def attention_phases(torch, dev, gen, record):
         attention.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, q, k, v = mpi_tpu_torch.run(ring_attention_program, nranks=P,
-                                         kernel=True, causal=True, dtype=dtype,
-                                         **SERVE)
+        out, q, k, v = mpi_tpu_torch.run(serving_program, dtype, nranks=P)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(attention.LAUNCHES)
@@ -367,8 +394,11 @@ def attention_phases(torch, dev, gen, record):
         with torch.no_grad():
             t["library_fwd"] = time_ms(torch, sdpa, reps=5, warmup=1)
         t["library_fwd_bwd"] = time_ms(torch, sdpa_fwd_bwd, reps=5, warmup=1)
+        o_lib = sdpa()  # the backward alone, from this forward's saved outputs
+        t["library_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl), dol, retain_graph=True), reps=5, warmup=1)
         t["library_variant"] = "enable_gqa" if gqa else "K/V heads repeated"
-        del ql, kl, vl, dol
+        del o_lib, ql, kl, vl, dol
         io = {"fwd": ({"q": 1, "kv": 2}, {"q": 1, "rows": 1}),
               "bwd": ({"q": 3, "kv": 2, "rows": 1}, {"q": 1, "kv": 2}),
               "bwd_dq": ({"q": 2, "kv": 2, "rows": 2}, {"q": 1}),
@@ -378,6 +408,11 @@ def attention_phases(torch, dev, gen, record):
             t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"] = bound, by
             t[f"{kind}_bytes"] = nbytes
             t[f"{kind}_pct_of_bound"] = 100.0 * bound / t[kind]
+            if dtype == torch.float32:
+                split, _, _ = attention_bound(kind, esz, F32_SPLIT_TF32_FLOPS,
+                                              shape, reads, writes)
+                t[f"{kind}_split_tf32_bound_ms"] = split
+                t[f"{kind}_pct_of_split_tf32_bound"] = 100.0 * split / t[kind]
         timing[tag] = t
         log(f"attention timing {tag}: " + ", ".join(
             f"{key} {val:.3f}" if isinstance(val, float) else f"{key} {val}"
@@ -386,6 +421,8 @@ def attention_phases(torch, dev, gen, record):
         torch.cuda.empty_cache()
     record["attention_timing"] = timing
     record["attention_launches_main_path"] = main_launches
+    record["allowance_used"] = dict(ALLOWANCE_USED)
+    log(f"largest share of the allowance used: {ALLOWANCE_USED}")
     lap("attention timing")
 
     bt = timing["bfloat16"]
@@ -396,7 +433,10 @@ def attention_phases(torch, dev, gen, record):
             "max_abs_err": errs[(kind, torch.bfloat16)], "ms": bt[kind],
             "plain_ms": bt["plain_fwd"] if kind == "fwd" else bt["plain_bwd"],
             "bound_ms": bt[f"{kind}_bound_ms"], "bound_by": bt[f"{kind}_bound_by"],
-            "library_ms": bt["library_fwd"] if kind == "fwd" else None,
+            # SDPA's backward computes dq, dk and dv in one call
+            "library_ms": bt["library_fwd"] if kind == "fwd" else bt["library_bwd"],
+            "library_call": "SDPA forward" if kind == "fwd" else
+            "SDPA backward (dq, dk and dv together)",
             "library_fwd_bwd_ms": bt["library_fwd_bwd"],
             "pct_of_bound": bt[f"{kind}_pct_of_bound"], "dtype": "bfloat16",
         })

@@ -8,7 +8,7 @@ ring attention of ``mpi_tpu_torch.gpu.attention``, whose forward is the
 hand-written CUDA kernel on the card.
 
     python -m mpi_tpu_torch.examples.ring_attention -n 8 --seq-per-rank 4096 \\
-        --dim 128 --kernel --causal --heads 32 --kv-heads 8 --dtype bfloat16
+        --dim 128 --kernel --causal
     python -m mpi_tpu_torch.examples.ring_attention -n 4 --device cpu
 """
 
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import argparse
 import math
-from typing import Optional
 
 import torch
 
@@ -56,26 +55,11 @@ def ring_attention(comm, q, k, v, causal: bool = False):
 
 
 def ring_attention_program(comm, seq_per_rank: int = 64, d: int = 32,
-                           kernel: bool = False, causal: bool = False,
-                           heads: Optional[int] = None,
-                           kv_heads: Optional[int] = None,
-                           dtype: torch.dtype = torch.float32):
+                           kernel: bool = False, causal: bool = False):
     """Draw this rank's Q/K/V from its own generator and attend; returns
     ``(out, q, k, v)``.  ``kernel=True`` takes the fused ring attention
-    (d a multiple of 128, block rows a multiple of 8, 16 for bfloat16);
-    ``heads``/``kv_heads`` give it ``[H, Sb, d]`` blocks (GQA when
-    ``kv_heads < heads``), and ``dtype`` its input type."""
-    if heads is None:
-        shape_q = shape_kv = (seq_per_rank, d)
-    else:
-        if not kernel:
-            raise ValueError("the shift-loop spelling takes one head: pass "
-                             "kernel=True for [H, Sb, d] blocks")
-        shape_q = (heads, seq_per_rank, d)
-        shape_kv = (kv_heads or heads, seq_per_rank, d)
-    q = rank_normal(shape_q, 7).to(dtype)
-    k = rank_normal(shape_kv, 8).to(dtype)
-    v = rank_normal(shape_kv, 9).to(dtype)
+    (d a multiple of 128, block rows a multiple of 8)."""
+    q, k, v = (rank_normal((seq_per_rank, d), seed) for seed in (7, 8, 9))
     if kernel:
         out = fused_ring_attention(q, k, v, comm, causal=causal)
     else:
@@ -92,17 +76,13 @@ def main():
     ap.add_argument("--kernel", action="store_true",
                     help="use the fused ring attention (--dim multiple of 128)")
     ap.add_argument("--causal", action="store_true")
-    ap.add_argument("--heads", type=int, default=None)
-    ap.add_argument("--kv-heads", type=int, default=None)
-    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
     out, _, _, _ = mpi_tpu_torch.run(
         ring_attention_program, nranks=args.nranks, device=args.device,
         seq_per_rank=args.seq_per_rank, d=args.dim, kernel=args.kernel,
-        causal=args.causal, heads=args.heads, kv_heads=args.kv_heads,
-        dtype=getattr(torch, args.dtype))
+        causal=args.causal)
     print(f"ring attention OK: local block {tuple(out.shape[1:])}, "
-          f"|out| = {float(out.float().abs().mean()):.4f}")
+          f"|out| = {float(out.abs().mean()):.4f}")
 
 
 if __name__ == "__main__":
