@@ -7,7 +7,9 @@ Phases, in order; any failure raises and exits non-zero without the final
 ok line:
 
 1. the card's name and power limit (nvidia-smi) and the kernel build
-   (``nvcc`` of every ``mpi_tpu_torch/csrc`` source, in parallel, timed);
+   (``nvcc`` of every ``mpi_tpu_torch/csrc`` source, in parallel, timed),
+   with the registers and spills ``ptxas`` reports for every kernel
+   instance;
 2. Jacobi through ``mpi_tpu_torch.run(jacobi_program, nranks=8)`` on the
    card, against the same program on the CPU;
 3. the main path of the collectives: a data-parallel step through ``run(..., nranks=8)`` with a
@@ -45,16 +47,20 @@ ok line:
    {full, causal} x {MHA 4/4, GQA 4/2, MQA 4/1} x {world of 8, 2 groups of
    4} x Sb in {16, 48, 128} x d in {128, 256}, forward (out and lse) and
    backward (dq, dk, dv), with the tolerances of ``check_close``;
-9. attention timing with CUDA events at the serving shape, in bfloat16 (the
-   ``kernels`` line) and float32 (the record): forward, backward (both
-   kernels and each alone), the plain versions (3 runs), and as a yardstick
-   only ``scaled_dot_product_attention`` on the whole sequence (forward,
+9. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
+   float32 (the record): the backward kernels against the plain version
+   (see ``check_close``) and against themselves (two launches must be
+   bitwise equal: no atomics, a fixed order of sums); then timing with CUDA
+   events: forward, backward (both kernels and each alone), the plain
+   versions (3 runs), and as a yardstick only
+   ``scaled_dot_product_attention`` on the whole sequence (forward,
    backward alone from the forward's saved outputs, and both), beside the
    least time the card could take (operations over the datasheet peak:
    989 TFLOP/s for bfloat16 inputs; for float32, 67 TFLOP/s on the FMA
-   units, which the kernels use, and beside it 495/3 TFLOP/s, the rate of
-   a float32-accurate product split into three TF32 tensor-core products;
-   bytes over 3.35 TB/s);
+   units, where the forward multiplies, and 495/3 TFLOP/s, the rate of a
+   float32-accurate product split into three TF32 tensor-core products, as
+   the backward multiplies; bytes over 3.35 TB/s), the achieved TFLOP/s
+   and the backward's design floor (``FLOOR_FLOPS_PER_ENTRY``);
 10. one ``{"kernels": [...]}`` JSON line, then the ok line.
 
 Every phase prints its wall time.  The full record also goes to
@@ -63,6 +69,7 @@ Every phase prints its wall time.  The full record also goes to
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -77,7 +84,9 @@ P = 8
 NORTH_STAR_ELEMS = (256 << 20) // 4     # 256 MiB of float32 per rank
 REPLACES = "mpi_tpu/tpu/pallas_ring.py:434"
 SOURCE = "mpi_tpu_torch/csrc/ring.cu"
-ATTN_SOURCE = "mpi_tpu_torch/csrc/attention.cu"
+ATTN_SOURCE = {"fwd": "mpi_tpu_torch/csrc/attention.cu",
+               "bwd_dq": "mpi_tpu_torch/csrc/attention_bwd.cu",
+               "bwd_dkv": "mpi_tpu_torch/csrc/attention_bwd.cu"}
 ATTN_REPLACES = {"fwd": "mpi_tpu/tpu/pallas_attention.py:1059",
                  "bwd_dq": "mpi_tpu/tpu/pallas_attention.py:1130",
                  "bwd_dkv": "mpi_tpu/tpu/pallas_attention.py:1130"}
@@ -90,10 +99,44 @@ TRAIN_SEQ_PER_RANK = 4096       # the training leg: 8 x 4096 rows, d = 128
 # QK^T and PV; backward QK^T, dO V^T, dS K, dS^T Q, P^T dO (dq alone needs
 # the first three, dk/dv the first two and the last two)
 FLOPS_PER_ENTRY = {"fwd": 4, "bwd": 10, "bwd_dq": 6, "bwd_dkv": 8}
+# what the backward kernels' design multiplies per entry and head dim
+# (csrc/attention_bwd.cu): each kernel recomputes QK^T and dO V^T; bf16
+# inputs: a product with P or dS is two bf16 products (hi and lo), so dq
+# 2 + 2 x 2 = 8, dk/dv 4 + 2 x 4 = 12; float32 inputs: every product is three
+# TF32 products, dq 3 x 6, dk/dv 3 x 8 (at the TF32 peak)
+FLOOR_FLOPS_PER_ENTRY = {
+    "bf16": {"bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
+    "f32": {"bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
+TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor cores
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def ptxas_table(reports):
+    """Registers and spills of every kernel instance, from ``nvcc -Xptxas
+    -v`` output by source."""
+    rows = []
+    for source, text in reports.items():
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = {"source": source, "function": m.group(1)}
+                k = re.search(r"\d(attn_[a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E", m.group(1))
+                if k:
+                    cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f' else 'bf16'}, "
+                                     f"{k.group(3)}>")
+                rows.append(cur)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+    return rows
 
 
 def card_line():
@@ -145,13 +188,19 @@ def world_to_sequence(t):
     return t.transpose(0, 1).reshape(1, H, P * sb, d).contiguous()
 
 
+def causal_entries(shape):
+    """Unmasked score entries of causal attention over the whole sequence."""
+    P, hq, hkv, sb, d = shape
+    S = P * sb
+    return hq * S * (S + 1) / 2
+
+
 def attention_bound(kind, dtype_bytes, peak, shape, reads, writes):
     """(bound_ms, bound_by) at the serving shape for one function:
     operations over the unmasked causal entries, bytes = each input read
     once and each output written once."""
     P, hq, hkv, sb, d = shape
-    S = P * sb
-    entries = hq * S * (S + 1) / 2
+    entries = causal_entries(shape)
     op_ms = FLOPS_PER_ENTRY[kind] * d * entries / peak * 1e3
     q_elems, kv_elems, row_elems = P * hq * sb * d, P * hkv * sb * d, P * hq * sb
     sizes = {"q": q_elems * dtype_bytes, "kv": kv_elems * dtype_bytes,
@@ -357,7 +406,12 @@ def attention_phases(torch, dev, gen, record):
             f"max |plain| dq {float(want[0].float().abs().max()):.4g}, dk "
             f"{float(want[1].float().abs().max()):.4g}, dv "
             f"{float(want[2].float().abs().max()):.4g}")
-        del got, want
+        again = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{tag} backward: two launches differ (not deterministic)")
+        log(f"{tag} backward at the serving shape: two launches bitwise equal")
+        record.setdefault("deterministic", {})[tag] = True
+        del got, want, again
         t = {
             "fwd": time_ms(torch, lambda: attention.ring_attention_world(
                 q, k, v, causal=True, with_lse=True), reps=5, warmup=1),
@@ -408,6 +462,12 @@ def attention_phases(torch, dev, gen, record):
             t[f"{kind}_bound_ms"], t[f"{kind}_bound_by"] = bound, by
             t[f"{kind}_bytes"] = nbytes
             t[f"{kind}_pct_of_bound"] = 100.0 * bound / t[kind]
+            t[f"{kind}_tflops"] = (FLOPS_PER_ENTRY[kind] * shape[4] * causal_entries(shape)
+                                   / (t[kind] * 1e-3) / 1e12)
+            if kind.startswith("bwd"):
+                key, rate = ("bf16", BF16_FLOPS) if dtype == torch.bfloat16 else ("f32", TF32_FLOPS)
+                t[f"{kind}_design_floor_ms"] = (FLOOR_FLOPS_PER_ENTRY[key][kind] * shape[4]
+                                                * causal_entries(shape) / rate * 1e3)
             if dtype == torch.float32:
                 split, _, _ = attention_bound(kind, esz, F32_SPLIT_TF32_FLOPS,
                                               shape, reads, writes)
@@ -428,7 +488,7 @@ def attention_phases(torch, dev, gen, record):
     bt = timing["bfloat16"]
     for kind in ("fwd", "bwd_dq", "bwd_dkv"):
         entries.append({
-            "name": f"attention_{kind}", "route": "cuda", "source": ATTN_SOURCE,
+            "name": f"attention_{kind}", "route": "cuda", "source": ATTN_SOURCE[kind],
             "replaces": ATTN_REPLACES[kind], "launches": main_launches[kind],
             "max_abs_err": errs[(kind, torch.bfloat16)], "ms": bt[kind],
             "plain_ms": bt["plain_fwd"] if kind == "fwd" else bt["plain_bwd"],
@@ -438,8 +498,11 @@ def attention_phases(torch, dev, gen, record):
             "library_call": "SDPA forward" if kind == "fwd" else
             "SDPA backward (dq, dk and dv together)",
             "library_fwd_bwd_ms": bt["library_fwd_bwd"],
-            "pct_of_bound": bt[f"{kind}_pct_of_bound"], "dtype": "bfloat16",
+            "pct_of_bound": bt[f"{kind}_pct_of_bound"], "tflops": bt[f"{kind}_tflops"],
+            "dtype": "bfloat16",
         })
+        if kind != "fwd":
+            entries[-1]["design_floor_ms"] = bt[f"{kind}_design_floor_ms"]
     return entries
 
 
@@ -470,10 +533,11 @@ def main():
     built = _build.build()
     record["build_s"] = {k: round(v, 2) for k, v in built.items()}
     log(f"build: {record['build_s']} (wall {time.perf_counter() - t0:.2f} s)")
-    for name, report in _build.PTXAS_REPORT.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+    record["ptxas"] = ptxas_table(_build.PTXAS_REPORT)
+    for row in record["ptxas"]:
+        log(f"  ptxas {row['source']}: {row.get('kernel', row['function'])}: "
+            f"{row.get('registers')} registers, spill stores {row.get('spill_stores')} "
+            f"bytes, loads {row.get('spill_loads')} bytes")
     lap("build")
 
     # 2. Jacobi on the card vs the CPU ------------------------------------------

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/<name>-<hash>.so``, where the hash is
-that of the source and the flags: an edited source never loads a stale
-library.  ``build(names)`` starts one ``nvcc`` per source, all at once, and
-waits for them together.  A failed build raises with the compiler's output.
+that of the source, of every ``csrc/`` header it includes (directly or
+through another header) and of the flags: an edited source or header never
+loads a stale library.  ``build(names)`` starts one ``nvcc`` per source,
+all at once, and waits for them together.  A failed build raises with the
+compiler's output.
 
 The first kernel call builds what it needs; ``chip_smoke.py`` calls
 ``build`` up front to time it.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,6 +45,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "attention": {
         "attn_fwd": [_c_ptr] * 5 + _ATTN_TAIL,
+    },
+    "attention_bwd": {
         "attn_bwd_dq": [_c_ptr] * 7 + _ATTN_TAIL,
         "attn_bwd_dkv": [_c_ptr] * 8 + _ATTN_TAIL,
     },
@@ -60,10 +65,27 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, each once."""
+    seen, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [SRC_DIR / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:

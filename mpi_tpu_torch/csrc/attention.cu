@@ -1,35 +1,23 @@
 // Ring attention over P virtual ranks held in one device memory: the
-// forward (attn_fwd) and the two halves of the backward (attn_bwd_dq,
-// attn_bwd_dkv).
+// forward (attn_fwd).  The backward is csrc/attention_bwd.cu.
 //
-// Replaces the Pallas TPU kernels of mpi_tpu/tpu/pallas_attention.py:
-//   attn_fwd      <- _kernel (:367), launched by _kernel_call (:1059);
-//   attn_bwd_dq   <- _bwd_kernel (:617), launched by _bwd_kernel_call
-//   attn_bwd_dkv     (:1130): its local dQ and its circulating dK/dV.
+// Replaces the Pallas TPU kernel _kernel (mpi_tpu/tpu/pallas_attention.py
+// :367), launched by _kernel_call (:1059).
 //
-// What they compute.  Rank r (position r of a group of g ranks) holds
+// What it computes.  Rank r (position r of a group of g ranks) holds
 // Q [Hq, Sb, d] and K, V [Hkv, Sb, d]; on the TPU, arrival a = 0..g-1
 // brings K/V block (r - a) mod g and is folded into the online-softmax
 // state (m, l, o), all float32: S = (Q K^T) * scale, masked with -1e30 on
 // the diagonal block under causal (later blocks are skipped), m' =
 // max(m, rowmax S), l' = l e^(m-m') + rowsum e^(S-m'), o' = o e^(m-m') +
-// e^(S-m') V; out = o / l, lse = m + log l.  The backward recomputes
-// P = exp(S - lse) from the saved lse, dP = dO V^T, dS = P (dP - delta)
-// scale with delta = rowsum(dO O) (computed before the launch, as the
-// reference computes it outside its kernel), dQ += dS K locally in
-// arrival order, and dK += dS^T Q, dV += P^T dO into block j's
-// accumulators as the block visits ranks j, j+1, ..., j+g-1, query heads
-// of the GQA group in increasing order.  Query head h reads K/V head
+// e^(S-m') V; out = o / l, lse = m + log l.  Query head h reads K/V head
 // h / (Hq / Hkv).  bf16 inputs are widened to float32 at the load (the
 // reference upcasts at the product); outputs are rounded once at the end.
 //
-// What bounds them.  Each score entry costs 4d flops forward (two
-// products) and 10d backward (five products), over every unmasked entry:
-// at long sequences the work is far above the card's bytes-to-flops line,
-// so they are bound by arithmetic.  The products run on the float32 FMA
-// units (67 TFLOP/s): a float32 input may not go through TF32 (it would
-// leave the tolerance), and bf16 products keep a float32 probability
-// matrix, as the reference does.
+// What bounds it.  Each score entry costs 4d flops (two products), over
+// every unmasked entry: at long sequences the work is far above the card's
+// bytes-to-flops line, so it is bound by arithmetic.  The products run on
+// the float32 FMA units (67 TFLOP/s).
 //
 // Design.  On one card all ranks' blocks share one memory, so no K/V
 // block travels: a rank's thread block reads the blocks its ring would
@@ -43,12 +31,10 @@
 // ty + 16a, columns tx + 16b, so a row's 16 owners are one half-warp and
 // reduce with shuffles) and (T/16) x (d/16) accumulators (columns
 // 4 tx + 64 b + e, read as 16-byte vectors).  The softmax state of a row
-// lives in registers.  Every block owns its outputs: dK/dV are summed by
-// the block of their K tile over all visiting ranks, so there are no
-// atomics and the results are deterministic.  Tiles that causal masking
-// empties are skipped: future blocks, and k-tiles above the diagonal.
-// This is the simple first form; tensor-core products (wgmma with TMA
-// staging) are the later step.
+// lives in registers.  Every block owns its outputs.  Tiles that causal
+// masking empties are skipped: future blocks, and k-tiles above the
+// diagonal.  This is the simple first form; the tensor-core design of the
+// backward (hopper.cuh) is the next step for it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -163,25 +149,6 @@ __device__ __forceinline__ void tile_mul(float4 (&acc)[RA][NC], const float* W,
   }
 }
 
-// acc[a][c] += sum_i W[i][ty+16a] * M[i][c] (W transposed: T x (T+4))
-template <int D, int T, int RA, int NC>
-__device__ __forceinline__ void tile_mul_t(float4 (&acc)[RA][NC], const float* W,
-                                           const float* M, int ty, int tx) {
-#pragma unroll 4
-  for (int i = 0; i < T; ++i) {
-    float w[RA];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) w[a] = W[i * (T + 4) + ty + 16 * a];
-    const float* row = M + i * (D + 4) + 4 * tx;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float4 m = load4(row + 64 * c);
-#pragma unroll
-      for (int a = 0; a < RA; ++a) acc[a][c] = fma4(w[a], m, acc[a][c]);
-    }
-  }
-}
-
 struct Geo {
   const int* groups;  // [ngroups, g] world ranks in ring order
   int g, hq, hkv, sb;
@@ -284,165 +251,6 @@ attn_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------ backward: dQ
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                   const E* __restrict__ v, const E* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   E* __restrict__ dq, Geo geo) {
-  constexpr int T = Tile<D>::T, RA = T / 16, NC = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* DOs = Qs + T * (D + 4);
-  float* Ks = DOs + T * (D + 4);
-  float* Vs = Ks + T * (D + 4);
-  float* Ss = Vs + T * (D + 4);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int member = blockIdx.z, r = member % geo.g;
-  const int* G = geo.groups + (member - r);
-  const int w = G[r], h = blockIdx.y, kvh = h / (geo.hq / geo.hkv);
-  const int sb = geo.sb, q0 = blockIdx.x * T;
-  const long long plane = (long long)sb * D;
-  const long long row0 = ((long long)w * geo.hq + h) * sb;
-
-  load_tile<E, D, T>(Qs, q + row0 * D + (long long)q0 * D, sb - q0);
-  load_tile<E, D, T>(DOs, dout + row0 * D + (long long)q0 * D, sb - q0);
-  float L[RA], Dl[RA];
-  float4 acc[RA][NC];
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int qi = q0 + ty + 16 * a;
-    L[a] = qi < sb ? lse[row0 + qi] : 0.f;
-    Dl[a] = qi < sb ? delta[row0 + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const int nk = (sb + T - 1) / T;
-  for (int arr = 0; arr < geo.g; ++arr) {
-    const int j = (r - arr + geo.g) % geo.g;
-    if (geo.causal && j > r) continue;
-    const bool diag = geo.causal && j == r;
-    const long long kv_off = ((long long)G[j] * geo.hkv + kvh) * plane;
-    const int nk_eff = diag ? min(nk, (int)blockIdx.x + 1) : nk;
-    for (int kt = 0; kt < nk_eff; ++kt) {
-      const int k0 = kt * T;
-      __syncthreads();
-      load_tile<E, D, T>(Ks, k + kv_off + (long long)k0 * D, sb - k0);
-      load_tile<E, D, T>(Vs, v + kv_off + (long long)k0 * D, sb - k0);
-      __syncthreads();
-      float s[RA][RA], dp[RA][RA];
-      tile_dot<D, RA>(s, Qs, Ks, ty, tx);
-      tile_dot<D, RA>(dp, DOs, Vs, ty, tx);
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        const int qi = q0 + ty + 16 * a;
-#pragma unroll
-        for (int b = 0; b < RA; ++b) {
-          const int kj = k0 + tx + 16 * b;
-          float p = expf(s[a][b] * geo.scale - L[a]);
-          if (kj >= sb || qi >= sb || (diag && kj > qi)) p = 0.f;
-          Ss[(ty + 16 * a) * (T + 4) + tx + 16 * b] = p * (dp[a][b] - Dl[a]) * geo.scale;
-        }
-      }
-      __syncthreads();
-      tile_mul<D, T, RA, NC>(acc, Ss, Ks, ty, tx);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int qi = q0 + ty + 16 * a;
-    if (qi >= sb) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      store4(dq + (row0 + qi) * D + 4 * tx + 64 * c, acc[a][c]);
-  }
-}
-
-// -------------------------------------------------------- backward: dK, dV
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                    const E* __restrict__ v, const E* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    E* __restrict__ dk, E* __restrict__ dv, Geo geo) {
-  constexpr int T = Tile<D>::T, RA = T / 16, NC = D / 64;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + T * (D + 4);
-  float* Qs = Vs + T * (D + 4);
-  float* DOs = Qs + T * (D + 4);
-  float* Ps = DOs + T * (D + 4);
-  float* Ss = Ps + T * (T + 4);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int member = blockIdx.z, j = member % geo.g;  // the K/V block's owner
-  const int* G = geo.groups + (member - j);
-  const int kvh = blockIdx.y, rep = geo.hq / geo.hkv;
-  const int sb = geo.sb, k0 = blockIdx.x * T, kt = blockIdx.x;
-  const long long kv_row0 = ((long long)G[j] * geo.hkv + kvh) * sb;
-
-  load_tile<E, D, T>(Ks, k + (kv_row0 + k0) * D, sb - k0);
-  load_tile<E, D, T>(Vs, v + (kv_row0 + k0) * D, sb - k0);
-  float4 adk[RA][NC], adv[RA][NC];
-#pragma unroll
-  for (int a = 0; a < RA; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      adk[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-      adv[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  const int nq = (sb + T - 1) / T;
-  // block j visits ranks j, j+1, ..., j+g-1 (arrival order of the ring)
-  for (int arr = 0; arr < geo.g; ++arr) {
-    const int r = (j + arr) % geo.g;
-    if (geo.causal && j > r) continue;
-    const bool diag = geo.causal && j == r;
-    for (int t = 0; t < rep; ++t) {
-      const int h = kvh * rep + t;
-      const long long row0 = ((long long)G[r] * geo.hq + h) * sb;
-      // on the diagonal, q-tiles above this k-tile are fully masked
-      for (int qt = diag ? kt : 0; qt < nq; ++qt) {
-        const int q0 = qt * T;
-        __syncthreads();
-        load_tile<E, D, T>(Qs, q + (row0 + q0) * D, sb - q0);
-        load_tile<E, D, T>(DOs, dout + (row0 + q0) * D, sb - q0);
-        __syncthreads();
-        float s[RA][RA], dp[RA][RA];
-        tile_dot<D, RA>(s, Qs, Ks, ty, tx);   // rows: q, columns: k
-        tile_dot<D, RA>(dp, DOs, Vs, ty, tx);
-#pragma unroll
-        for (int a = 0; a < RA; ++a) {
-          const int qi = q0 + ty + 16 * a;
-          const float L = qi < sb ? lse[row0 + qi] : 0.f;
-          const float Dl = qi < sb ? delta[row0 + qi] : 0.f;
-#pragma unroll
-          for (int b = 0; b < RA; ++b) {
-            const int kj = k0 + tx + 16 * b;
-            float p = expf(s[a][b] * geo.scale - L);
-            if (kj >= sb || qi >= sb || (diag && kj > qi)) p = 0.f;
-            const int at = (ty + 16 * a) * (T + 4) + tx + 16 * b;
-            Ps[at] = p;
-            Ss[at] = p * (dp[a][b] - Dl) * geo.scale;
-          }
-        }
-        __syncthreads();
-        tile_mul_t<D, T, RA, NC>(adv, Ps, DOs, ty, tx);  // dV += P^T dO
-        tile_mul_t<D, T, RA, NC>(adk, Ss, Qs, ty, tx);   // dK += dS^T Q
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int kj = k0 + ty + 16 * a;
-    if (kj >= sb) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      store4(dk + (kv_row0 + kj) * D + 4 * tx + 64 * c, adk[a][c]);
-      store4(dv + (kv_row0 + kj) * D + 4 * tx + 64 * c, adv[a][c]);
-    }
-  }
-}
-
 template <int D> constexpr int row_bytes() { return Tile<D>::T * (D + 4) * 4; }
 template <int D> constexpr int score_bytes() {
   return Tile<D>::T * (Tile<D>::T + 4) * 4;
@@ -477,37 +285,6 @@ int fwd(const void* q, const void* k, const void* v, void* out, float* lse, Geo 
   return (int)cudaGetLastError();
 }
 
-template <typename E, int D>
-int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, void* dq, Geo geo, int ngroups,
-           cudaStream_t s) {
-  constexpr int T = Tile<D>::T;
-  const int bytes = 4 * row_bytes<D>() + score_bytes<D>();
-  int err = set_smem(attn_bwd_dq_kernel<E, D>, bytes);
-  if (err) return err;
-  dim3 grid((geo.sb + T - 1) / T, geo.hq, ngroups * geo.g);
-  attn_bwd_dq_kernel<E, D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq), geo);
-  return (int)cudaGetLastError();
-}
-
-template <typename E, int D>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const float* lse, const float* delta, void* dk, void* dv, Geo geo,
-            int ngroups, cudaStream_t s) {
-  constexpr int T = Tile<D>::T;
-  const int bytes = 4 * row_bytes<D>() + 2 * score_bytes<D>();
-  int err = set_smem(attn_bwd_dkv_kernel<E, D>, bytes);
-  if (err) return err;
-  dim3 grid((geo.sb + T - 1) / T, geo.hkv, ngroups * geo.g);
-  attn_bwd_dkv_kernel<E, D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk),
-      static_cast<E*>(dv), geo);
-  return (int)cudaGetLastError();
-}
-
 constexpr int kBadShape = 1000;  // a head dim or dtype the kernels were not built for
 
 }  // namespace
@@ -528,47 +305,5 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* out,
     return fwd<__nv_bfloat16, 128>(q, k, v, out, L, geo, ngroups, s);
   if (dtype == 1 && d == 256)
     return fwd<__nv_bfloat16, 256>(q, k, v, out, L, geo, ngroups, s);
-  return kBadShape;
-}
-
-// dout like q; lse, delta [P, Hq, Sb] float32; dq like q.
-extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse, const void* delta,
-                           void* dq, const void* groups, int ngroups, int g, int hq,
-                           int hkv, int sb, int d, float scale, int causal,
-                           int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
-  const float* L = static_cast<const float*>(lse);
-  const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0 && d == 128)
-    return bwd_dq<float, 128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  if (dtype == 0 && d == 256)
-    return bwd_dq<float, 256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  if (dtype == 1 && d == 128)
-    return bwd_dq<__nv_bfloat16, 128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  if (dtype == 1 && d == 256)
-    return bwd_dq<__nv_bfloat16, 256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  return kBadShape;
-}
-
-// dk, dv like k, v.
-extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse, const void* delta,
-                            void* dk, void* dv, const void* groups, int ngroups,
-                            int g, int hq, int hkv, int sb, int d, float scale,
-                            int causal, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
-  const float* L = static_cast<const float*>(lse);
-  const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0 && d == 128)
-    return bwd_dkv<float, 128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
-  if (dtype == 0 && d == 256)
-    return bwd_dkv<float, 256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
-  if (dtype == 1 && d == 128)
-    return bwd_dkv<__nv_bfloat16, 128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
-  if (dtype == 1 && d == 256)
-    return bwd_dkv<__nv_bfloat16, 256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   return kBadShape;
 }

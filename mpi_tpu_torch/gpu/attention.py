@@ -8,12 +8,13 @@ rank's K/V block around the ring as RDMAs and folds each arrival into an
 online-softmax state; the TPU backward (``_bwd_kernel`` :617, launched by
 ``_bwd_kernel_call`` :1130) circulates [K, V, dK, dV] for a full cycle.  On
 one card all P ranks' blocks share one memory, so ``csrc/attention.cu``
-reads, for each rank, the blocks its ring would have delivered, in the
-order it would have delivered them (the design notes are in the source).
+(forward) and ``csrc/attention_bwd.cu`` (backward, on the tensor cores)
+read, for each rank, the blocks its ring would have delivered, in the order
+it would have delivered them (the design notes are in the sources).
 No slot, credit, barrier or VMEM plan carries over: ``interpret`` and
 ``vmem_limit_bytes`` have no counterpart and are dropped, and there is no
-fallback.  A head dim the kernels' fixed shared-memory tiles cannot hold
-raises ``NotImplementedError`` with the byte arithmetic.
+fallback.  A head dim the kernels are not built for raises
+``NotImplementedError`` with the byte arithmetic of their shared memory.
 
 Three layers:
 
@@ -42,7 +43,8 @@ from .ring import (_DTYPE_CODE, _LANES, _SUBLANES, Groups, _group_list,
                    _group_table, _stream)
 
 _MASKED = -1e30  # large-negative finite, as pallas_attention.py:109
-# the kernels' tile rows per head dim (csrc/attention.cu ``Tile<D>::T``)
+# the forward's tile rows per head dim (csrc/attention.cu ``Tile<D>::T``);
+# the head dims every kernel is built for
 _KERNEL_TILE = {128: 64, 256: 32}
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # score-block elements per plain-version step: bounds its peak memory
@@ -251,29 +253,38 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
 
 # -- the CUDA kernels --------------------------------------------------------------
 
-def kernel_smem_bytes(d: int) -> Dict[str, int]:
-    """Shared memory per block of each kernel at head dim ``d`` (the
-    layout of csrc/attention.cu: float32 tiles of ``tile`` rows with a
-    row stride of d + 4, score tiles with a stride of tile + 4)."""
+def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """Shared memory per block of each kernel at head dim ``d``.  The
+    forward (csrc/attention.cu): three float32 tiles of ``tile`` rows with
+    a row stride of d + 4 and a score tile with a stride of tile + 4.  The
+    backward (csrc/attention_bwd.cu, both kernels alike): for bf16, 1 KB of
+    swizzle alignment, six 64 x d bf16 tiles (two resident, two stages of
+    two streamed) and 1 KB of lse/delta rows; for float32, two resident
+    64-row and two streamed 32-row tiles with a row stride of d + 4 and
+    256 bytes of lse/delta rows."""
     t = _KERNEL_TILE.get(d, 32)
-    row, score = t * (d + 4) * 4, t * (t + 4) * 4
-    return {"fwd": 3 * row + score, "bwd_dq": 4 * row + score,
-            "bwd_dkv": 4 * row + 2 * score}
+    fwd = 3 * t * (d + 4) * 4 + t * (t + 4) * 4
+    if dtype == torch.bfloat16:
+        bwd = 1024 + 6 * 64 * d * 2 + 4 * 64 * 4
+    else:
+        bwd = (2 * 64 + 2 * 32) * (d + 4) * 4 + 2 * 32 * 4
+    return {"fwd": fwd, "bwd_dq": bwd, "bwd_dkv": bwd}
 
 
 def _kernel_plan(d: int) -> None:
     """The kernels are compiled for d in (128, 256) (the dispatch of
-    csrc/attention.cu); any other head dim raises, with the shared memory
-    their largest block would need there."""
+    csrc/attention.cu and csrc/attention_bwd.cu); any other head dim
+    raises, with the shared memory their largest block (the float32
+    backward) would need there."""
     if d not in _KERNEL_TILE:
         need = kernel_smem_bytes(d)["bwd_dkv"]
         verdict = "within" if need <= _SMEM_LIMIT else "beyond"
         raise NotImplementedError(
             f"the ring-attention kernels are compiled for head dims "
-            f"{sorted(_KERNEL_TILE)}, got {d}: at 32-row float32 tiles the "
-            f"dK/dV kernel would need 4 x 32 x ({d} + 4) x 4 + 2 x 32 x 36 x 4 "
-            f"= {need} bytes of shared memory per block, {verdict} the "
-            f"{_SMEM_LIMIT} bytes a block may use")
+            f"{sorted(_KERNEL_TILE)}, got {d}: the float32 backward block "
+            f"would need (2 x 64 + 2 x 32) x ({d} + 4) x 4 + 256 = {need} "
+            f"bytes of shared memory, {verdict} the {_SMEM_LIMIT} bytes a "
+            f"block may use")
 
 
 def _require_cuda(*tensors: torch.Tensor) -> None:
@@ -288,6 +299,13 @@ def _raise_on(err: int, name: str) -> None:
     if err:
         raise RuntimeError(
             f"ring attention {name} kernel launch failed: CUDA error {err}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels stage
+    16-byte chunks); a copy only where a view starts elsewhere."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _geometry(q4, k4, gl, d):
@@ -352,11 +370,11 @@ def bwd_operands(q, k, v, out, lse, dout, groups: Groups = None, *,
     _kernel_plan(d)
     nranks = q.shape[0]
     gl = _group_list(groups, nranks)
-    do4 = (dout if multihead else dout.unsqueeze(1)).to(q.dtype).contiguous()
+    do4 = _aligned((dout if multihead else dout.unsqueeze(1)).to(q.dtype))
     o4 = out if multihead else out.unsqueeze(1)
     return {
-        "q": q4.contiguous(), "k": k4.contiguous(), "v": v4.contiguous(),
-        "dout": do4, "lse": lse.reshape(nranks, hq, sb).float().contiguous(),
+        "q": _aligned(q4), "k": _aligned(k4), "v": _aligned(v4),
+        "dout": do4, "lse": _aligned(lse.reshape(nranks, hq, sb).float()),
         "delta": (do4.float() * o4.float()).sum(dim=-1).contiguous(),
         "table": _group_table(gl, q.device), "geometry": _geometry(q4, k4, gl, d),
         "scale": _default_scale(scale, d), "causal": int(causal),
@@ -368,7 +386,7 @@ def launch_bwd(name: str, ops: dict) -> Tuple[torch.Tensor, ...]:
     ``attn_bwd_dkv`` (``"bwd_dkv"``, returns (dk, dv)) on ``bwd_operands``."""
     from .. import _build
 
-    lib = _build.load("attention")
+    lib = _build.load("attention_bwd")
     q4, k4 = ops["q"], ops["k"]
     outs = (torch.empty_like(q4),) if name == "bwd_dq" else \
         (torch.empty_like(k4), torch.empty_like(k4))

@@ -205,12 +205,19 @@ def test_diagnoses_match_reference():
 
 
 def test_kernel_plan_gives_the_byte_arithmetic():
-    """Head dims the kernels' shared-memory tiles cannot hold raise with
-    the numbers; d = 128 and 256 fit a block."""
+    """Head dims the kernels are not built for raise with the numbers of
+    the largest block (the float32 backward); d = 128 and 256 fit a block
+    in both dtypes, and the backward's plans are those of
+    csrc/attention_bwd.cu's header."""
     for d in (128, 256):
         attention._kernel_plan(d)
-        assert max(attention.kernel_smem_bytes(d).values()) <= attention._SMEM_LIMIT
-    with pytest.raises(NotImplementedError, match="207872 bytes .* within"):
+        for dt in (torch.float32, torch.bfloat16):
+            assert max(attention.kernel_smem_bytes(d, dt).values()) <= attention._SMEM_LIMIT
+    assert attention.kernel_smem_bytes(128, torch.bfloat16)["bwd_dkv"] == 100352
+    assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 198656
+    assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
+    assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
+    with pytest.raises(NotImplementedError, match="298240 bytes .* beyond"):
         attention._kernel_plan(384)
     with pytest.raises(NotImplementedError, match="beyond"):
         attention._kernel_plan(512)
