@@ -24,9 +24,15 @@ ok line:
    positions included), for every mode x {float32, bfloat16} x
    {SUM, MAX, MIN} x {whole world, 2 groups of 4} at ragged and aligned
    small sizes;
-5. timing with CUDA events (median of 10 runs after 2 warm-up runs) of the
-   kernel, the plain version and one PyTorch library call computing the
-   same function, at the north-star sizes, beside the least time the card
+5. timing with CUDA events at the north-star sizes: the kernel and one
+   PyTorch library call computing the same function, in turns (kernel,
+   library, library, kernel, twice), each turn timed two ways: launched one
+   at a time with a synchronisation after each (``time_ms``, median of 10
+   runs after 2 warm-up runs; it holds the host's time to prepare the
+   launch: the ``ms`` and ``library_ms`` of the ``kernels`` line) and 20
+   back-to-back launches (``time_b2b``, median of 5: the card's time alone,
+   ``ms_b2b`` and ``library_ms_b2b``), the median of each side's four
+   turns; the plain version (``time_ms``); beside the least time the card
    could take (bytes moved over the 3.35 TB/s datasheet rate), and the
    measured device-to-device copy rate;
 6. ring attention, serving leg: a per-rank program that draws its Q/K/V
@@ -45,22 +51,23 @@ ok line:
    ``tests/test_long_context.py:180-185``);
 8. attention kernels vs plain versions on the card: {float32, bfloat16} x
    {full, causal} x {MHA 4/4, GQA 4/2, MQA 4/1} x {world of 8, 2 groups of
-   4} x Sb in {16, 48, 128} x d in {128, 256}, forward (out and lse) and
-   backward (dq, dk, dv), with the tolerances of ``check_close``;
+   4} x Sb in {16, 48, 112, 128} x d in {128, 256}, forward (out and lse)
+   and backward (dq, dk, dv), with the tolerances of ``check_close``
+   (Sb = 16, 48 and 112 end in a partial 64-row tile);
 9. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
-   float32 (the record): the backward kernels against the plain version
-   (see ``check_close``) and against themselves (two launches must be
-   bitwise equal: no atomics, a fixed order of sums); then timing with CUDA
-   events: forward, backward (both kernels and each alone), the plain
-   versions (3 runs), and as a yardstick only
-   ``scaled_dot_product_attention`` on the whole sequence (forward,
-   backward alone from the forward's saved outputs, and both), beside the
-   least time the card could take (operations over the datasheet peak:
-   989 TFLOP/s for bfloat16 inputs; for float32, 67 TFLOP/s on the FMA
-   units, where the forward multiplies, and 495/3 TFLOP/s, the rate of a
-   float32-accurate product split into three TF32 tensor-core products, as
-   the backward multiplies; bytes over 3.35 TB/s), the achieved TFLOP/s
-   and the backward's design floor (``FLOOR_FLOPS_PER_ENTRY``);
+   float32 (the record): the forward (out and lse) and the backward
+   kernels against the plain version (see ``check_close``), the backward
+   against itself (two launches must be bitwise equal: no atomics, a
+   fixed order of sums); then timing with CUDA events: forward, backward
+   (both kernels and each alone), the plain versions (3 runs), and as a
+   yardstick only ``scaled_dot_product_attention`` on the whole sequence
+   (forward, backward alone from the forward's saved outputs, and both),
+   beside the least time the card could take (operations over the
+   datasheet peak: 989 TFLOP/s for bfloat16 inputs; for float32, 495/3
+   TFLOP/s, the rate of a float32-accurate product split into three TF32
+   tensor-core products, as every attention kernel multiplies; bytes over
+   3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
+   (``FLOOR_FLOPS_PER_ENTRY``);
 10. one ``{"kernels": [...]}`` JSON line, then the ok line.
 
 Every phase prints its wall time.  The full record also goes to
@@ -99,14 +106,15 @@ TRAIN_SEQ_PER_RANK = 4096       # the training leg: 8 x 4096 rows, d = 128
 # QK^T and PV; backward QK^T, dO V^T, dS K, dS^T Q, P^T dO (dq alone needs
 # the first three, dk/dv the first two and the last two)
 FLOPS_PER_ENTRY = {"fwd": 4, "bwd": 10, "bwd_dq": 6, "bwd_dkv": 8}
-# what the backward kernels' design multiplies per entry and head dim
-# (csrc/attention_bwd.cu): each kernel recomputes QK^T and dO V^T; bf16
-# inputs: a product with P or dS is two bf16 products (hi and lo), so dq
-# 2 + 2 x 2 = 8, dk/dv 4 + 2 x 4 = 12; float32 inputs: every product is three
-# TF32 products, dq 3 x 6, dk/dv 3 x 8 (at the TF32 peak)
+# what the kernels' design multiplies per entry and head dim
+# (csrc/attention.cu, csrc/attention_bwd.cu): each backward kernel
+# recomputes QK^T and dO V^T; bf16 inputs: a product with P or dS is two
+# bf16 products (hi and lo), so the forward 2 + 2 x 2 = 6, dq 2 + 2 x 2 = 8,
+# dk/dv 4 + 2 x 4 = 12; float32 inputs: every product is three TF32
+# products, the forward 3 x 4, dq 3 x 6, dk/dv 3 x 8 (at the TF32 peak)
 FLOOR_FLOPS_PER_ENTRY = {
-    "bf16": {"bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
-    "f32": {"bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
+    "bf16": {"fwd": 6, "bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
+    "f32": {"fwd": 12, "bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
 TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor cores
 
 
@@ -179,6 +187,25 @@ def time_ms(torch, fn, reps=10, warmup=2):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_b2b(torch, fn, launches=20, reps=5):
+    """Median ms per launch over ``reps`` timings of ``launches``
+    back-to-back launches between two CUDA events: the host enqueues a
+    launch while the card runs the one before, so this is the card's time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -355,7 +382,7 @@ def attention_phases(torch, dev, gen, record):
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for dh in (128, 256):
-            for sb in (16, 48, 128):
+            for sb in (16, 48, 112, 128):
                 for hq, hkv in ((4, 4), (4, 2), (4, 1)):
                     for causal in (False, True):
                         for groups in (None, [[0, 1, 2, 3], [4, 5, 6, 7]]):
@@ -377,6 +404,21 @@ def attention_phases(torch, dev, gen, record):
                             for nm, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
                                 check_close(torch, f"{case} {nm}", a, b, dtype)
                             n_cases += 2
+    # contiguous bf16 views 8 bytes past a 16-byte boundary: the kernels stage
+    # 16-byte chunks, so the wrapper must hand them an aligned copy
+    views = [torch.randn(P * 4 * 48 * 128 + 4, device=dev, generator=gen)
+             .to(torch.bfloat16)[4:].view(P, 4, 48, 128) for _ in range(3)]
+    if any(t.data_ptr() % 16 != 8 for t in views):
+        raise RuntimeError("the misaligned views are not 8 bytes past a boundary")
+    out, lse = attention.ring_attention_world(*views, causal=True, with_lse=True)
+    aout, alse = attention.ring_attention_world(*(t.clone() for t in views), causal=True,
+                                                with_lse=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, aout) and torch.equal(lse, alse)):
+        raise RuntimeError("forward on views off 16 bytes != forward on aligned copies")
+    check_close(torch, "bf16 views off 16 bytes: out", out,
+                attention.ring_attention_plain(*views, causal=True), torch.bfloat16)
+    record["attention_misaligned_view_forward"] = "bitwise equal to the aligned copies"
     record["attention_parity_cases"] = n_cases
     log(f"attention parity: {n_cases} cases (forward and backward) within tolerance")
     lap("attention parity")
@@ -390,9 +432,19 @@ def attention_phases(torch, dev, gen, record):
         tag = str(dtype).split(".")[-1]
         q, k, v = serve.pop(dtype)
         esz = q.element_size()
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_SPLIT_TF32_FLOPS
         do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
         out, lse = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+        pout, plse = attention.ring_attention_plain(q, k, v, causal=True, with_lse=True)
+        errs[("fwd", dtype)] = max(errs[("fwd", dtype)], check_close(
+            torch, f"{tag} forward at the serving shape: out", out, pout, dtype))
+        lse_err = check_close(torch, f"{tag} forward at the serving shape: lse", lse, plse,
+                              torch.float32)
+        record.setdefault("serving_shape_forward_max_abs_err", {})[tag] = {
+            "out": errs[("fwd", dtype)], "lse": lse_err}
+        log(f"{tag} forward at the serving shape: max abs err out "
+            f"{errs[('fwd', dtype)]:.3g}, lse {lse_err:.3g}")
+        del pout, plse
         ops = attention.bwd_operands(q, k, v, out, lse, do, causal=True)
         got = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
         want = attention.ring_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
@@ -464,15 +516,9 @@ def attention_phases(torch, dev, gen, record):
             t[f"{kind}_pct_of_bound"] = 100.0 * bound / t[kind]
             t[f"{kind}_tflops"] = (FLOPS_PER_ENTRY[kind] * shape[4] * causal_entries(shape)
                                    / (t[kind] * 1e-3) / 1e12)
-            if kind.startswith("bwd"):
-                key, rate = ("bf16", BF16_FLOPS) if dtype == torch.bfloat16 else ("f32", TF32_FLOPS)
-                t[f"{kind}_design_floor_ms"] = (FLOOR_FLOPS_PER_ENTRY[key][kind] * shape[4]
-                                                * causal_entries(shape) / rate * 1e3)
-            if dtype == torch.float32:
-                split, _, _ = attention_bound(kind, esz, F32_SPLIT_TF32_FLOPS,
-                                              shape, reads, writes)
-                t[f"{kind}_split_tf32_bound_ms"] = split
-                t[f"{kind}_pct_of_split_tf32_bound"] = 100.0 * split / t[kind]
+            key, rate = ("bf16", BF16_FLOPS) if dtype == torch.bfloat16 else ("f32", TF32_FLOPS)
+            t[f"{kind}_design_floor_ms"] = (FLOOR_FLOPS_PER_ENTRY[key][kind] * shape[4]
+                                            * causal_entries(shape) / rate * 1e3)
         timing[tag] = t
         log(f"attention timing {tag}: " + ", ".join(
             f"{key} {val:.3f}" if isinstance(val, float) else f"{key} {val}"
@@ -499,10 +545,8 @@ def attention_phases(torch, dev, gen, record):
             "SDPA backward (dq, dk and dv together)",
             "library_fwd_bwd_ms": bt["library_fwd_bwd"],
             "pct_of_bound": bt[f"{kind}_pct_of_bound"], "tflops": bt[f"{kind}_tflops"],
-            "dtype": "bfloat16",
+            "design_floor_ms": bt[f"{kind}_design_floor_ms"], "dtype": "bfloat16",
         })
-        if kind != "fwd":
-            entries[-1]["design_floor_ms"] = bt[f"{kind}_design_floor_ms"]
     return entries
 
 
@@ -671,9 +715,14 @@ def main():
         if not torch.equal(got, want):
             raise RuntimeError(f"{mode} kernel != plain at the north-star size")
         del got, want
-        k_ms = time_ms(torch, m["kernel"])
+        turns = {"kernel": [], "library": []}  # (one at a time, back to back)
+        for _ in range(2):  # in turns: kernel, library, library, kernel
+            for side in ("kernel", "library", "library", "kernel"):
+                turns[side].append((time_ms(torch, m[side]), time_b2b(torch, m[side])))
+        (k_ms, k_b2b), (l_ms, l_b2b) = (
+            tuple(statistics.median(t[j] for t in turns[side]) for j in (0, 1))
+            for side in ("kernel", "library"))
         p_ms = time_ms(torch, m["plain"])
-        l_ms = time_ms(torch, m["library"])
         byte_ms = m["nbytes"] / HBM_BYTES_PER_S * 1e3
         op_ms = m["ops"] / F32_FLOPS * 1e3
         bound_ms = max(byte_ms, op_ms)
@@ -685,11 +734,17 @@ def main():
             "library_ms": l_ms,
             "bytes": m["nbytes"], "GBps": m["nbytes"] / (k_ms * 1e-3) / 1e9,
             "pct_of_bound": 100.0 * bound_ms / k_ms,
+            "ms_b2b": k_b2b, "library_ms_b2b": l_b2b,
+            "pct_of_bound_b2b": 100.0 * bound_ms / k_b2b,
+            "ms_turns": turns["kernel"], "library_ms_turns": turns["library"],
         }
         kernels.append(entry)
-        log(f"{mode}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
-            f"{l_ms:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({entry['pct_of_bound']:.1f}% of bound, {entry['GBps']:.1f} GB/s)")
+        fmt = lambda ts: ", ".join(f"{a:.4f}/{b:.4f}" for a, b in ts)
+        log(f"{mode} (one at a time/back to back): kernel {k_ms:.4f}/{k_b2b:.4f} ms "
+            f"({fmt(turns['kernel'])}), library {l_ms:.4f}/{l_b2b:.4f} ms "
+            f"({fmt(turns['library'])}), plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({entry['pct_of_bound']:.1f}/{entry['pct_of_bound_b2b']:.1f}% of bound, "
+            f"{entry['GBps']:.1f} GB/s one at a time)")
     del x, out, xs, xb
     lap("ring timing")
 

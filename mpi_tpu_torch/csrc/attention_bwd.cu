@@ -73,28 +73,13 @@
 //   k index permuted (k = t <-> column 2t, k = t + 4 <-> 2t + 1); the B rows
 //   are read in the same permutation.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
 
-#include "hopper.cuh"
+#include "ring_attention.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-using namespace hopper;
-
-constexpr int kThreads = 128;  // one warpgroup, or four warps
-
-struct Geo {
-  const int* groups;  // [ngroups, g] world ranks in ring order
-  int g, hq, hkv, sb;
-  float scale;
-  int causal;
-};
 
 template <int D> struct Bf16Plan {
   static constexpr int T = 64, TILE = T * D * 2;
@@ -132,49 +117,7 @@ struct DkvWalk {
   }
 };
 
-// attn_bwd_dq, block of rank r and q-tile [q0, q0 + qrows): arrivals a = 0,
-// 1, ... (block (r - a) mod g; under causal only blocks <= r), then k-tiles
-// of `rows` rows (on the diagonal up to the one holding the tile's last row)
-struct DqWalk {
-  int nk, first, total;
-  __device__ DqWalk(const Geo& geo, int r, int q0, int qrows, int rows) {
-    nk = (geo.sb + rows - 1) / rows;
-    first = geo.causal ? min(nk, (q0 + qrows - 1) / rows + 1) : nk;
-    total = first + ((geo.causal ? r + 1 : geo.g) - 1) * nk;
-  }
-  __device__ void at(int i, int& arr, int& kt) const {
-    if (i < first) {
-      arr = 0; kt = i;
-      return;
-    }
-    i -= first;
-    arr = 1 + i / nk; kt = i % nk;
-  }
-};
-
 // -- staging ------------------------------------------------------------------
-// rows [0, R) of a row-major [*, D] bf16 block into a swizzled tile, zeros
-// beyond `valid` rows
-template <int R, int D>
-__device__ __forceinline__ void stage_bf16(uint8_t* dst, const bf16* src, int valid) {
-  constexpr int C = D / 8;
-  for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
-    const int r = idx / C, c = (idx % C) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + sw128_offset(r, c, R), ok ? src + (long long)r * D + c : src, ok);
-  }
-}
-// rows [0, R) of a row-major [*, D] float32 block into a tile of row stride
-// D + 4, zeros beyond `valid` rows
-template <int R, int D>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, int valid) {
-  constexpr int C = D / 4;
-  for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
-    const int r = idx / C, c = (idx % C) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * (D + 4) + c, ok ? src + (long long)r * D + c : src, ok);
-  }
-}
 // N float32 values (lse or delta of a tile's rows), zeros beyond `valid`
 // (a multiple of 8)
 template <int N>
@@ -183,13 +126,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int val
     const bool ok = 4 * idx < valid;
     cp_async16(dst + 4 * idx, ok ? src + 4 * idx : src, ok);
   }
-}
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // P and dS of one score entry, in place (s: the raw product, dp: dO.V)
@@ -456,23 +392,6 @@ __device__ __forceinline__ void dq_bf16(const bf16* __restrict__ q, const bf16* 
 }
 
 // -------------------------------------------------------- float32: dK, dV
-// A fragment of a 16-row strip (rows 16w.., columns c0 and c0 + 4), split
-__device__ __forceinline__ void frag_rows(const float* strip, int ld, int g4, int c0,
-                                          Tf32x2 (&a)[4]) {
-  a[0] = split(strip[g4 * ld + c0]);
-  a[1] = split(strip[(g4 + 8) * ld + c0]);
-  a[2] = split(strip[g4 * ld + c0 + 4]);
-  a[3] = split(strip[(g4 + 8) * ld + c0 + 4]);
-}
-// an m16n8 accumulator as the A operand of the next product, k permuted
-// (k = t <-> column 2t, k = t + 4 <-> column 2t + 1), split
-__device__ __forceinline__ void frag_acc(const float (&c)[4], Tf32x2 (&a)[4]) {
-  a[0] = split(c[0]);
-  a[1] = split(c[2]);
-  a[2] = split(c[1]);
-  a[3] = split(c[3]);
-}
-
 template <int D>
 __device__ __forceinline__ void dkv_f32(const float* __restrict__ q,
                                         const float* __restrict__ k,
@@ -680,11 +599,6 @@ __device__ __forceinline__ void dq_f32(const float* __restrict__ q, const float*
 }
 
 // ----------------------------------------------------------------- launches
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <typename E, int D> constexpr int smem_bytes() {
   return std::is_same<E, bf16>::value ? Bf16Plan<D>::SMEM : F32Plan<D>::SMEM;
 }
@@ -733,16 +647,6 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
       static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), geo);
   return (int)cudaGetLastError();
 }
-
-Geo make_geo(const void* groups, int g, int hq, int hkv, int sb, float scale, int causal) {
-  Geo geo;
-  geo.groups = static_cast<const int*>(groups);
-  geo.g = g; geo.hq = hq; geo.hkv = hkv; geo.sb = sb;
-  geo.scale = scale; geo.causal = causal;
-  return geo;
-}
-
-constexpr int kBadShape = 1000;  // a head dim or dtype the kernels were not built for
 
 }  // namespace
 

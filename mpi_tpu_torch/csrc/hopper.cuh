@@ -60,6 +60,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// at most N committed groups still pending (groups complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // shared-memory writes of the generic proxy (cp.async) become visible to
 // wgmma's reads (the async proxy)
 __device__ __forceinline__ void fence_async_shared() {

@@ -23,9 +23,11 @@
 // bandwidth (the fold is one add per element read).
 //
 // Design.  One thread per (group, VEC consecutive elements): it reads the
-// g ranks' elements with 16-byte vector loads where the layout allows,
-// folds them in ring order in registers and writes the result straight to
-// the output(s).  That moves the minimum number of bytes.  The RDMA steps,
+// g ranks' elements with 16-byte vector loads where the layout allows, up
+// to eight of them before the first fold (that many loads in flight), folds them in ring
+// order in registers and writes the result straight to the output(s).
+// That moves the minimum number of bytes.  The fold's grid is 2-D over
+// (chunk, offset), so no thread divides.  The RDMA steps,
 // landing slots, credits and barriers of the TPU design exist to move
 // chunks between chips and have no counterpart here; a pipelined
 // peer-to-peer ring over NVLink belongs to the multi-card port.
@@ -61,43 +63,60 @@ __device__ __forceinline__ float combine(float own, float acc) {
   return own < acc ? own : acc;
 }
 
+constexpr int kThreads = 256;
+
 // x: [P, n_inner] per-rank inputs; groups: [ngroups, g] world ranks in ring
 // order.  Element i of a rank lies in chunk a = i / chunk_len at offset
-// inner = i % chunk_len, in tile inner / tile_elems.  scatter == 0
-// (allreduce): the folded value goes to every member at offset i of an
-// [P, n_inner] output.  scatter == 1 (reduce_scatter): it goes to member a
-// at offset inner of an [P, chunk_len] output.
+// inner = i % chunk_len; its fold walks right (s = +1) when inner lies in
+// the chunk's first tA tiles (inner < split = tA * tile_elems), else left.
+// The grid is (vectors of a chunk, chunk a, group): a block knows its
+// chunk, and no thread divides.  scatter == 0 (allreduce): the folded value
+// goes to every member at offset i of an [P, n_inner] output.  scatter == 1
+// (reduce_scatter): it goes to member a at offset inner of an
+// [P, chunk_len] output.  A thread issues the loads of its vector's ranks
+// in batches of kBatch before it folds them: the order of the folds is the
+// ring's, the order of the loads is free.
+constexpr int kBatch = 8;
+
 template <typename T, int OP, int VEC>
-__global__ void fold_kernel(const T* __restrict__ x, T* __restrict__ out,
-                            const int* __restrict__ groups, int g,
-                            long long n_inner, long long chunk_len,
-                            long long tile_elems, int tA, int rot, int scatter) {
-  const int* G = groups + (long long)blockIdx.y * g;
-  const long long nvec = n_inner / VEC;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
-       v += (long long)gridDim.x * blockDim.x) {
-    const long long i = v * VEC;
-    const long long a = i / chunk_len;
-    const long long inner = i - a * chunk_len;
-    const int s = (inner / tile_elems) < tA ? 1 : -1;
-    int p = (int)(((a - (long long)s * rot) % g + g) % g);
-    Pack<T, VEC> acc = *reinterpret_cast<const Pack<T, VEC>*>(x + G[p] * n_inner + i);
-    for (int k = 1; k < g; ++k) {
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const T* __restrict__ x, T* __restrict__ out, const int* __restrict__ groups,
+            int g, long long n_inner, long long chunk_len, long long split, int rot,
+            int scatter) {
+  using V = Pack<T, VEC>;
+  const int a = blockIdx.y;
+  const int* G = groups + (long long)blockIdx.z * g;
+  const long long inner = ((long long)blockIdx.x * kThreads + threadIdx.x) * VEC;
+  const long long i = a * chunk_len + inner;
+  if (inner >= chunk_len || i >= n_inner) return;
+  const int s = inner < split ? 1 : -1;
+  int p = ((a - s * rot) % g + g) % g;
+  V acc;
+  for (int k0 = 0; k0 < g; k0 += kBatch) {
+    V own[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (k0 + b < g) own[b] = *reinterpret_cast<const V*>(x + G[p] * n_inner + i);
       p += s;
       if (p == g) p = 0;
       if (p < 0) p = g - 1;
-      const Pack<T, VEC> own =
-          *reinterpret_cast<const Pack<T, VEC>*>(x + G[p] * n_inner + i);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (k0 + b >= g) break;
+      if (k0 + b == 0) {
+        acc = own[0];
+        continue;
+      }
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        acc.v[e] = from_f<T>(combine<OP>(to_f(own.v[e]), to_f(acc.v[e])));
+        acc.v[e] = from_f<T>(combine<OP>(to_f(own[b].v[e]), to_f(acc.v[e])));
     }
-    if (scatter) {
-      *reinterpret_cast<Pack<T, VEC>*>(out + G[a] * chunk_len + inner) = acc;
-    } else {
-      for (int q = 0; q < g; ++q)
-        *reinterpret_cast<Pack<T, VEC>*>(out + G[q] * n_inner + i) = acc;
-    }
+  }
+  if (scatter) {
+    *reinterpret_cast<V*>(out + G[a] * chunk_len + inner) = acc;
+  } else {
+    for (int q = 0; q < g; ++q) *reinterpret_cast<V*>(out + G[q] * n_inner + i) = acc;
   }
 }
 
@@ -121,8 +140,6 @@ __global__ void gather_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
-constexpr int kThreads = 256;
-
 dim3 grid_for(long long nvec, int ngroups) {
   long long blocks = (nvec + kThreads - 1) / kThreads;
   const long long cap = 132LL * 16;  // 16 resident blocks' worth per SM
@@ -131,13 +148,17 @@ dim3 grid_for(long long nvec, int ngroups) {
   return dim3((unsigned)blocks, (unsigned)ngroups, 1);
 }
 
+// a grid of (vectors of a chunk, chunks, groups)
 template <typename T, int OP, int VEC>
 void launch_fold(const void* x, void* out, const int* groups, int ngroups, int g,
-                 long long n_inner, long long chunk_len, long long tile_elems,
-                 int tA, int rot, int scatter, cudaStream_t stream) {
-  fold_kernel<T, OP, VEC><<<grid_for(n_inner / VEC, ngroups), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), groups, g, n_inner,
-      chunk_len, tile_elems, tA, rot, scatter);
+                 long long n_inner, long long chunk_len, long long tile_elems, int tA,
+                 int rot, int scatter, cudaStream_t stream) {
+  const long long chunks = (n_inner + chunk_len - 1) / chunk_len;
+  const long long blocks = (chunk_len / VEC + kThreads - 1) / kThreads;
+  dim3 grid((unsigned)blocks, (unsigned)chunks, (unsigned)ngroups);
+  fold_kernel<T, OP, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), groups, g, n_inner, chunk_len,
+      tA * tile_elems, rot, scatter);
 }
 
 template <typename T, int OP>
@@ -146,11 +167,11 @@ void dispatch_vec(int vec, const void* x, void* out, const int* groups, int ngro
                   int tA, int rot, int scatter, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec == kVec)
-    launch_fold<T, OP, kVec>(x, out, groups, ngroups, g, n_inner, chunk_len,
-                             tile_elems, tA, rot, scatter, stream);
+    launch_fold<T, OP, kVec>(x, out, groups, ngroups, g, n_inner, chunk_len, tile_elems, tA,
+                             rot, scatter, stream);
   else
-    launch_fold<T, OP, 1>(x, out, groups, ngroups, g, n_inner, chunk_len,
-                          tile_elems, tA, rot, scatter, stream);
+    launch_fold<T, OP, 1>(x, out, groups, ngroups, g, n_inner, chunk_len, tile_elems, tA,
+                          rot, scatter, stream);
 }
 
 template <typename T>

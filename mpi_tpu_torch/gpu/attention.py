@@ -8,9 +8,10 @@ rank's K/V block around the ring as RDMAs and folds each arrival into an
 online-softmax state; the TPU backward (``_bwd_kernel`` :617, launched by
 ``_bwd_kernel_call`` :1130) circulates [K, V, dK, dV] for a full cycle.  On
 one card all P ranks' blocks share one memory, so ``csrc/attention.cu``
-(forward) and ``csrc/attention_bwd.cu`` (backward, on the tensor cores)
-read, for each rank, the blocks its ring would have delivered, in the order
-it would have delivered them (the design notes are in the sources).
+(forward) and ``csrc/attention_bwd.cu`` (backward), both on the tensor
+cores, read, for each rank, the blocks its ring would have delivered, in
+the order it would have delivered them (the design notes are in the
+sources).
 No slot, credit, barrier or VMEM plan carries over: ``interpret`` and
 ``vmem_limit_bytes`` have no counterpart and are dropped, and there is no
 fallback.  A head dim the kernels are not built for raises
@@ -33,7 +34,9 @@ Three layers:
 
 from __future__ import annotations
 
+import functools
 import math
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -43,9 +46,9 @@ from .ring import (_DTYPE_CODE, _LANES, _SUBLANES, Groups, _group_list,
                    _group_table, _stream)
 
 _MASKED = -1e30  # large-negative finite, as pallas_attention.py:109
-# the forward's tile rows per head dim (csrc/attention.cu ``Tile<D>::T``);
-# the head dims every kernel is built for
-_KERNEL_TILE = {128: 64, 256: 32}
+# the head dims every kernel is built for (the dispatch of csrc/attention.cu
+# and csrc/attention_bwd.cu)
+_HEAD_DIMS = (128, 256)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # score-block elements per plain-version step: bounds its peak memory
 _PLAIN_SCORES = 1 << 26
@@ -253,37 +256,60 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
 
 # -- the CUDA kernels --------------------------------------------------------------
 
+# the shared-memory plan of each kernel per input dtype: a ``template <int D>
+# struct`` in its source whose ``SMEM`` is the bytes a block uses
+_PLANS = {"fwd": ("attention.cu", {torch.bfloat16: "FwdBf16Plan",
+                                   torch.float32: "FwdF32Plan"}),
+          "bwd": ("attention_bwd.cu", {torch.bfloat16: "Bf16Plan",
+                                       torch.float32: "F32Plan"})}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_smem(source: str, plan: str, d: int) -> int:
+    """``SMEM`` of ``struct <plan>`` in ``csrc/<source>`` at D = ``d``: its
+    ``static constexpr int`` members evaluated in order (a C ternary
+    ``c ? a : b`` becomes Python's), so the sources stay the one place the
+    plans are written."""
+    from .. import _build
+
+    text = (_build.SRC_DIR / source).read_text()
+    body = re.search(r"struct %s \{(.*?)\};" % plan, text, re.S).group(1)
+    env = {"D": d}
+    for decl in re.findall(r"static constexpr int ([^;]+);", body):
+        for item in decl.split(","):
+            name, expr = (part.strip() for part in item.split("=", 1))
+            expr = re.sub(r"(.+?) \? (.+?) : (.+)", r"(\2 if \1 else \3)", expr)
+            env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return env["SMEM"]
+
+
 def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
-    """Shared memory per block of each kernel at head dim ``d``.  The
-    forward (csrc/attention.cu): three float32 tiles of ``tile`` rows with
-    a row stride of d + 4 and a score tile with a stride of tile + 4.  The
-    backward (csrc/attention_bwd.cu, both kernels alike): for bf16, 1 KB of
-    swizzle alignment, six 64 x d bf16 tiles (two resident, two stages of
-    two streamed) and 1 KB of lse/delta rows; for float32, two resident
-    64-row and two streamed 32-row tiles with a row stride of d + 4 and
-    256 bytes of lse/delta rows."""
-    t = _KERNEL_TILE.get(d, 32)
-    fwd = 3 * t * (d + 4) * 4 + t * (t + 4) * 4
-    if dtype == torch.bfloat16:
-        bwd = 1024 + 6 * 64 * d * 2 + 4 * 64 * 4
-    else:
-        bwd = (2 * 64 + 2 * 32) * (d + 4) * 4 + 2 * 32 * 4
+    """Shared memory per block of each kernel at head dim ``d``, from the
+    plans in the sources.  bf16 tiles are 64 x d in the 128-byte swizzle
+    after 1 KB of alignment: the forward (csrc/attention.cu
+    ``FwdBf16Plan``) holds W resident Q tiles, two stages of K and three of
+    V; the backward (csrc/attention_bwd.cu ``Bf16Plan``, both kernels
+    alike) two resident tiles, two stages of two streamed ones and 1 KB of
+    lse/delta rows.  float32 tiles have a row stride of d + 4: the forward
+    (``FwdF32Plan``) holds 64 W Q rows and two stages of 32-row K and V
+    tiles, the backward (``F32Plan``) two resident 64-row and two streamed
+    32-row tiles and 256 bytes of lse/delta rows."""
+    fwd, bwd = (_plan_smem(src, plans[dtype], d) for src, plans in _PLANS.values())
     return {"fwd": fwd, "bwd_dq": bwd, "bwd_dkv": bwd}
 
 
 def _kernel_plan(d: int) -> None:
-    """The kernels are compiled for d in (128, 256) (the dispatch of
-    csrc/attention.cu and csrc/attention_bwd.cu); any other head dim
-    raises, with the shared memory their largest block (the float32
-    backward) would need there."""
-    if d not in _KERNEL_TILE:
+    """The kernels are compiled for the head dims ``_HEAD_DIMS``; any other
+    head dim raises, with the shared memory their largest block (the
+    float32 backward) would need there."""
+    if d not in _HEAD_DIMS:
         need = kernel_smem_bytes(d)["bwd_dkv"]
         verdict = "within" if need <= _SMEM_LIMIT else "beyond"
         raise NotImplementedError(
             f"the ring-attention kernels are compiled for head dims "
-            f"{sorted(_KERNEL_TILE)}, got {d}: the float32 backward block "
-            f"would need (2 x 64 + 2 x 32) x ({d} + 4) x 4 + 256 = {need} "
-            f"bytes of shared memory, {verdict} the {_SMEM_LIMIT} bytes a "
+            f"{list(_HEAD_DIMS)}, got {d}: the float32 backward block "
+            f"(F32Plan in csrc/attention_bwd.cu) would need {need} bytes "
+            f"of shared memory, {verdict} the {_SMEM_LIMIT} bytes a "
             f"block may use")
 
 
@@ -324,7 +350,7 @@ def ring_attention_world(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q4, k4, v4, (multihead, hq, hkv, sb, d) = _world_blocks(q, k, v)
     _kernel_plan(d)
     gl = _group_list(groups, q.shape[0])
-    q4, k4, v4 = q4.contiguous(), k4.contiguous(), v4.contiguous()
+    q4, k4, v4 = _aligned(q4), _aligned(k4), _aligned(v4)
     out = torch.empty_like(q4)
     lse = torch.empty((q.shape[0], hq, sb), dtype=torch.float32, device=q.device)
     from .. import _build

@@ -207,12 +207,19 @@ def test_diagnoses_match_reference():
 def test_kernel_plan_gives_the_byte_arithmetic():
     """Head dims the kernels are not built for raise with the numbers of
     the largest block (the float32 backward); d = 128 and 256 fit a block
-    in both dtypes, and the backward's plans are those of
-    csrc/attention_bwd.cu's header."""
+    in both dtypes.  The bytes are read from the plans of csrc/attention.cu
+    (``FwdBf16Plan``, ``FwdF32Plan``) and csrc/attention_bwd.cu, so these
+    numbers pin the kernels' layout."""
     for d in (128, 256):
         attention._kernel_plan(d)
         for dt in (torch.float32, torch.bfloat16):
             assert max(attention.kernel_smem_bytes(d, dt).values()) <= attention._SMEM_LIMIT
+    # the forward: Q tiles of three warpgroups at d = 128 (two for bf16 at
+    # d = 256, one for float32), sharing the staged K/V tiles
+    assert attention.kernel_smem_bytes(128, torch.bfloat16)["fwd"] == 132096
+    assert attention.kernel_smem_bytes(256, torch.bfloat16)["fwd"] == 230400
+    assert attention.kernel_smem_bytes(128)["fwd"] == 168960
+    assert attention.kernel_smem_bytes(256)["fwd"] == 199680
     assert attention.kernel_smem_bytes(128, torch.bfloat16)["bwd_dkv"] == 100352
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 198656
     assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
@@ -221,6 +228,63 @@ def test_kernel_plan_gives_the_byte_arithmetic():
         attention._kernel_plan(384)
     with pytest.raises(NotImplementedError, match="beyond"):
         attention._kernel_plan(512)
+
+
+def test_smem_bytes_follow_the_plans_in_the_sources(tmp_path, monkeypatch):
+    """``kernel_smem_bytes`` evaluates the plan structs of the sources: a
+    copy of csrc/ with one more staged V tile in the bf16 forward's plan
+    gives one more 64 x d bf16 tile, and nothing else moves."""
+    from mpi_tpu_torch import _build
+
+    for f in _build.SRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    cu = tmp_path / "attention.cu"
+    text = cu.read_text()
+    assert text.count("(W + 2 + 3) * TILE") == 1
+    cu.write_text(text.replace("(W + 2 + 3) * TILE", "(W + 2 + 4) * TILE"))
+    before = {(d, dt): attention.kernel_smem_bytes(d, dt)
+              for d in (128, 256) for dt in (torch.float32, torch.bfloat16)}
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    attention._plan_smem.cache_clear()
+    try:
+        for (d, dt), was in before.items():
+            now = attention.kernel_smem_bytes(d, dt)
+            grown = 64 * d * 2 if dt == torch.bfloat16 else 0
+            assert now == dict(was, fwd=was["fwd"] + grown), (d, dt)
+    finally:
+        attention._plan_smem.cache_clear()
+
+
+def test_aligned_copies_only_a_view_off_16_bytes():
+    """The kernels stage 16-byte chunks: a bf16 view that starts 8 bytes
+    past an aligned address is copied, an aligned tensor is passed as is."""
+    base = torch.arange(4 * 128 + 4, dtype=torch.float32).to(torch.bfloat16)
+    view = base[4:].view(1, 4, 128)
+    assert view.data_ptr() % 16 == 8
+    got = attention._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    assert attention._aligned(got) is got
+
+
+@pytest.mark.gpu
+def test_forward_takes_a_bf16_view_off_16_bytes_on_card():
+    """A contiguous bf16 Q/K/V view starting 8 bytes past a 16-byte
+    boundary runs the forward (its 16-byte copies would fault on it) and
+    agrees with the same values at an aligned address."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: pytest -m gpu on the card)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = 8 * 2 * 48 * 128
+    views = []
+    for _ in range(3):
+        base = torch.randn(n + 4, device="cuda", generator=gen).to(torch.bfloat16)
+        views.append(base[4:].view(8, 2, 48, 128))
+    assert all(t.data_ptr() % 16 == 8 for t in views)
+    out, lse = attention.ring_attention_world(*views, causal=True, with_lse=True)
+    want, wlse = attention.ring_attention_world(*(t.clone() for t in views), causal=True,
+                                                with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(lse, wlse)
 
 
 def test_wrapper_launches_or_raises_off_cpu():

@@ -1,23 +1,28 @@
-"""The backward kernels' operand splits (mpi_tpu_torch/csrc/attention_bwd.cu
-and hopper.cuh), emulated with torch ops on the CPU and held against the
-plain backward ``ring_attention_bwd_plain`` under chip_smoke.py's
-``check_close`` rule, and at one size against ``jax.grad`` through the
-reference's fused backward (Pallas interpret mode).
+"""The attention kernels' operand splits (mpi_tpu_torch/csrc/attention.cu,
+attention_bwd.cu and hopper.cuh), emulated with torch ops on the CPU and
+held against the plain versions ``ring_attention_plain`` and
+``ring_attention_bwd_plain`` under chip_smoke.py's ``check_close`` rule, and
+at one size against the reference (Pallas interpret mode): the forward's
+output, and ``jax.grad`` through the fused backward.
 
 What the kernels multiply:
 
 * bf16 inputs: Q K^T and dO V^T as bf16 x bf16 (exact in float32); the
-  float32 operands P and dS enter P^T dO, dS^T Q and dS K as hi = bf16(x)
-  plus lo = bf16(x - hi), two products each.
+  float32 operands P and dS enter P V, P^T dO, dS^T Q and dS K as
+  hi = bf16(x) plus lo = bf16(x - hi), two products each.
 * float32 inputs: every operand of every product as TF32 hi plus lo,
   hi = x with its low 13 mantissa bits cleared, lo = x - hi, which the
   tensor core reads with its low 13 bits cleared as well; a product is
   a_lo b_hi + a_hi b_hi + a_hi b_lo.
 
-The emulation differs from the kernels only in the order of the float32
-sums, so these tests are the evidence, before the card sees the kernels,
-that the split depth fits the tolerance; a single bf16 P and dS, or a
-single TF32 product, does not fit it.
+The forward folds the K/V block in tiles of 64 (bf16) or 32 (float32)
+rows with the online rescale, in log2 units (scores times scale log2(e),
+exp2, lse = m ln 2 + log l).  The emulation differs from the kernels only
+in the order of the float32 sums and in exp2 (the card's ex2.approx is
+within two ulps), so these tests are the evidence, before the card sees
+the kernels, that the split depth fits the tolerance.  In the backward a
+single bf16 P and dS, or a single TF32 product, does not fit it; in the
+forward, whose only float32 operand is P, neither does.
 """
 
 import numpy as np
@@ -27,6 +32,7 @@ from hypothesis import given, settings, strategies as st
 
 import chip_smoke
 from mpi_tpu_torch.gpu import attention
+from test_torch_attention import jax_forward
 from test_torch_attention_grad import TOL, inputs, jax_grads
 
 MASK13 = -8192  # 0xFFFFE000 as int32: clears the low 13 mantissa bits
@@ -118,6 +124,56 @@ def emulated_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False,
     return dq, dk, dv
 
 
+# the forward's products: (Q K^T, P V) and its k-tile rows, by input dtype
+FWD_PRODUCTS = {torch.float32: (mm_3xtf32, mm_3xtf32, 32),
+                torch.bfloat16: (torch.matmul, mm_split_bf16, 64)}
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def emulated_fwd(q, k, v, groups=None, *, causal=False, products=None, cast=True):
+    """The forward kernel's arithmetic on the CPU (shapes as
+    ``ring_attention_plain``, multi-head): each arrival's K/V block in
+    tiles of 64 (bf16) or 32 (float32) rows, each tile folded into the
+    float32 state (m in log2 units, l, o); returns (out, lse)."""
+    qk, pv, tile = products or FWD_PRODUCTS[q.dtype]
+    nranks, hq, sb, d = q.shape
+    rep = hq // k.shape[1]
+    heads = torch.arange(hq) // rep
+    scale2 = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    gl = groups or [list(range(nranks))]
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    mask = torch.arange(sb)[None, :] <= torch.arange(sb)[:, None]
+    out = torch.empty(qf.shape)
+    lse = torch.empty((nranks, hq, sb))
+    for grp in gl:
+        g = len(grp)
+        for r, w in enumerate(grp):
+            m = torch.full((hq, sb, 1), -np.inf)
+            l = torch.zeros((hq, sb, 1))
+            o = torch.zeros((hq, sb, d))
+            for a in range(g):
+                j = (r - a) % g
+                if causal and j > r:
+                    continue
+                kb, vb = kf[grp[j]][heads], vf[grp[j]][heads]
+                for k0 in range(0, sb, tile):
+                    cols = slice(k0, min(sb, k0 + tile))
+                    x = qk(qf[w], kb[:, cols].transpose(-1, -2)) * scale2
+                    if causal and j == r:
+                        x = torch.where(mask[:, cols], x, torch.full_like(x, -1e30))
+                    m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(x - m_new)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    o = o * alpha + pv(p, vb[:, cols])
+                    m = m_new
+            out[w] = o / l
+            lse[w] = (m * LN2 + torch.log(l))[..., 0]
+    return (out.to(q.dtype) if cast else out), lse
+
+
 def world(P, hq, hkv, sb, d, dtype, causal, groups=None, seed=0):
     rs = np.random.RandomState(seed)
     q, k, v, do = (torch.from_numpy(rs.randn(P, h, sb, d).astype(np.float32)).to(dtype)
@@ -175,6 +231,57 @@ def test_split_backward_matches_jax_grad_of_the_reference():
     got = emulated_bwd(tq, tk, tv, out, lse, tct, causal=True)
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", **TOL["f32"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)])
+def test_split_forward_within_check_close_of_plain(dtype, causal, hq, hkv):
+    """{f32, bf16} x {full, causal} x {MHA, GQA, MQA}, two groups of 2 on
+    a world of 4 for GQA: the forward's tiles and splits against the plain
+    forward, out and lse.  Sb = 80 (bf16) and 48 (float32) end in a partial
+    k-tile."""
+    groups = [[0, 1], [2, 3]] if hkv == 2 else None
+    sb = 80 if dtype == torch.bfloat16 else 48
+    q, k, v, _, _, _ = world(4, hq, hkv, sb, 128, dtype, causal, groups, seed=hq + 10 * hkv)
+    out, lse = emulated_fwd(q, k, v, groups, causal=causal)
+    want, want_lse = attention.ring_attention_plain(q, k, v, groups, causal=causal,
+                                                    with_lse=True)
+    assert out.dtype == want.dtype == dtype and out.shape == want.shape
+    chip_smoke.check_close(torch, "split forward out", out, want, dtype)
+    chip_smoke.check_close(torch, "split forward lse", lse, want_lse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype,products", [
+    (torch.bfloat16, (torch.matmul, mm_single_bf16, 64)),
+    (torch.float32, (mm_1xtf32, mm_1xtf32, 32)),
+])
+def test_forward_one_term_leaves_the_float32_allowance(dtype, products):
+    """Before the final rounding the forward's output is float32: with the
+    hi/lo splits it stays within the float32 allowance of the plain
+    version; with a single bf16 P, or single TF32 products, it does not
+    (the recorded share is above 1)."""
+    q, k, v, _, _, _ = world(4, 4, 2, 64, 128, dtype, True, seed=5)
+    want, want_lse = attention.ring_attention_plain(*(t.float() for t in (q, k, v)),
+                                                    causal=True, with_lse=True)
+    split, split_lse = emulated_fwd(q, k, v, causal=True, cast=False)
+    chip_smoke.check_close(torch, "split out", split, want, torch.float32)
+    chip_smoke.check_close(torch, "split lse", split_lse, want_lse, torch.float32)
+    one, _ = emulated_fwd(q, k, v, causal=True, products=products, cast=False)
+    share = float(((one - want).abs() / 1e-5).max())
+    assert share > 1.0, share
+
+
+def test_split_forward_matches_the_reference():
+    """At one size (GQA, causal, Sb = 48: a full and a partial 32-row
+    k-tile) the float32 forward's tiles and splits against the reference's
+    Pallas forward in interpret mode, with tests/test_torch_attention.py's
+    float32 tolerance."""
+    rs = np.random.RandomState(21)
+    q, k, v = (rs.randn(4, h, 48, 128).astype(np.float32) for h in (4, 2, 2))
+    want = jax_forward(q, k, v, "f32", causal=True)
+    got, _ = emulated_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 finite = st.floats(min_value=2.0 ** -100, max_value=2.0 ** 100, allow_nan=False,

@@ -28,12 +28,14 @@ def test_editing_an_included_header_changes_the_target(tmp_path, monkeypatch):
 
 def test_every_source_has_its_signatures_and_headers():
     """Each library of SIGNATURES is a csrc/ source; the backward kernels
-    are their own source, built beside the forward, with the Hopper
-    header in their key."""
+    are their own source, built beside the forward.  Both include the
+    ring-attention header they share, and through it the Hopper header:
+    both are in their keys."""
     assert set(_build.SIGNATURES) == {"ring", "attention", "attention_bwd"}
     for name in _build.SIGNATURES:
         assert (_build.SRC_DIR / f"{name}.cu").exists(), name
     assert set(_build.SIGNATURES["attention_bwd"]) == {"attn_bwd_dq", "attn_bwd_dkv"}
-    assert [p.name for p in _build._sources("attention_bwd")] == ["attention_bwd.cu",
-                                                                  "hopper.cuh"]
-    assert [p.name for p in _build._sources("attention")] == ["attention.cu"]
+    for name in ("attention", "attention_bwd"):
+        assert [p.name for p in _build._sources(name)] == [f"{name}.cu", "ring_attention.cuh",
+                                                           "hopper.cuh"]
+    assert [p.name for p in _build._sources("ring")] == ["ring.cu"]
