@@ -22,9 +22,37 @@ ok line:
    sum (rtol 1e-5);
 4. kernel vs plain version on the card, bitwise (``torch.equal``, NaN
    positions included), for every mode x {float32, bfloat16} x
-   {SUM, MAX, MIN} x {whole world, 2 groups of 4} at ragged and aligned
-   small sizes;
-5. timing with CUDA events at the north-star sizes: the kernel and one
+   {SUM, MAX, MIN} x {whole world, 2 groups of 4, the dry run's dp groups
+   of 2 at stride 4} at ragged and aligned small sizes;
+5. the multi-parallel dry run, ``mpi_tpu_torch.entry.dryrun_multichip(8)``
+   on the card with the reference's shapes (a 2 x 4 layout, then the 1-D
+   attention leg against its float64 oracle).  Counters zeroed before and
+   read after: the attention forward and both backward kernels must have
+   launched;
+6. the full-width multi-parallel step: one ``entry._build_step(2, 4, ...)``
+   step at Llama-3-8B's MLP widths (``meta-llama/Meta-Llama-3-8B``
+   ``config.json``: hidden_size 4096, intermediate_size 14336, so 3584 per
+   mp rank), 2048 rows per dp shard, float32, the reference's init (x, y
+   ~ N(0, 1), weights 0.1 N(0, 1)), once with ``dp_algorithm="ring"`` and
+   once with ``"pallas_ring"``, whose ring kernel must launch on the dp
+   groups [[0, 4], [1, 5], [2, 6], [3, 7]] (counters and the groups it was
+   handed).  The two spellings agree within rtol 1e-5, atol 1e-6
+   (``tests/test_dryrun.py:63-65``), and each agrees with a float64 dense
+   step on the card: the loss within rtol 1e-5, the w1 and w2 updates
+   within 1e-2 of their norm (relu kinks under float32 rounding, see
+   ``step_phase``; the largest share of each allowance is recorded); a
+   second step takes the first one's outputs.  Then the step is timed by both spellings with CUDA events
+   (median of 5 after 1 warm-up), the ring kernel alone on the step's
+   gradient (its share of the step), and one pallas_ring step is traced
+   with ``torch.profiler`` (device time by kernel, the device's busy time
+   and idle share);
+7. the examples ``jacobi2d``, ``pipeline``, ``moe``, ``ulysses_attention``
+   and ``data_parallel`` through ``run(..., nranks=8)`` on the card at
+   their default sizes, each against the same program on the CPU (the
+   programs that draw with ``rank_normal`` on the card's draws, carried
+   across), moe and pipeline also against their numpy oracles (see each
+   ``agree`` call for its tolerance);
+8. timing with CUDA events at the north-star sizes: the kernel and one
    PyTorch library call computing the same function, in turns (kernel,
    library, library, kernel, twice), each turn timed two ways: launched one
    at a time with a synchronisation after each (``time_ms``, median of 10
@@ -35,7 +63,7 @@ ok line:
    turns; the plain version (``time_ms``); beside the least time the card
    could take (bytes moved over the 3.35 TB/s datasheet rate), and the
    measured device-to-device copy rate;
-6. ring attention, serving leg: a per-rank program that draws its Q/K/V
+9. ring attention, serving leg: a per-rank program that draws its Q/K/V
    with ``mpi_tpu_torch.rank_normal`` and calls
    ``mpi_tpu_torch.gpu.attention.ring_attention``, through ``run(...,
    nranks=8)``, at Llama-3-8B's attention geometry (32 query heads, 8 K/V
@@ -43,32 +71,35 @@ ok line:
    over a causal sequence of 32 768 (4096 rows per rank), bfloat16 and then
    float32.  The forward kernel must have launched; the output must agree
    with the plain version on the card (see ``check_close``);
-7. ring attention, training leg: one ``sharded_train_step`` of
-   ``mpi_tpu_torch.examples.long_context_training`` through ``run(...,
-   nranks=8)`` at 4096 rows per rank, d = 128, float32, causal.  Every
-   attention kernel must have launched; loss and gradients must agree with
-   the dense one-device step on the card (the tolerances of
-   ``tests/test_long_context.py:180-185``);
-8. attention kernels vs plain versions on the card: {float32, bfloat16} x
-   {full, causal} x {MHA 4/4, GQA 4/2, MQA 4/1} x {world of 8, 2 groups of
-   4} x Sb in {16, 48, 112, 128} x d in {128, 256}, forward (out and lse)
-   and backward (dq, dk, dv), with the tolerances of ``check_close``
-   (Sb = 16, 48 and 112 end in a partial 64-row tile);
-9. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
-   float32 (the record): the forward (out and lse) and the backward
-   kernels against the plain version (see ``check_close``), the backward
-   against itself (two launches must be bitwise equal: no atomics, a
-   fixed order of sums); then timing with CUDA events: forward, backward
-   (both kernels and each alone), the plain versions (3 runs), and as a
-   yardstick only ``scaled_dot_product_attention`` on the whole sequence
-   (forward, backward alone from the forward's saved outputs, and both),
-   beside the least time the card could take (operations over the
-   datasheet peak: 989 TFLOP/s for bfloat16 inputs; for float32, 495/3
-   TFLOP/s, the rate of a float32-accurate product split into three TF32
-   tensor-core products, as every attention kernel multiplies; bytes over
-   3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
-   (``FLOOR_FLOPS_PER_ENTRY``);
-10. one ``{"kernels": [...]}`` JSON line, then the ok line.
+10. ring attention, training leg: one ``sharded_train_step`` of
+    ``mpi_tpu_torch.examples.long_context_training`` through ``run(...,
+    nranks=8)`` at 4096 rows per rank, d = 128, float32, causal.  Every
+    attention kernel must have launched; loss and gradients must agree with
+    the dense one-device step on the card (the tolerances of
+    ``tests/test_long_context.py:180-185``);
+11. attention kernels vs plain versions on the card: {float32, bfloat16} x
+    {full, causal} x {MHA 4/4, GQA 4/2, MQA 4/1} x {world of 8, 2 groups of
+    4} x Sb in {16, 48, 112, 128} (and 8, the dry run's block, in float32)
+    x d in {128, 256}, forward (out and lse) and backward (dq, dk, dv),
+    with the tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in
+    a partial tile);
+12. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
+    float32 (the record): the forward (out and lse) and the backward
+    kernels against the plain version (see ``check_close``), the backward
+    against itself (two launches must be bitwise equal: no atomics, a
+    fixed order of sums); then timing with CUDA events: forward, backward
+    (both kernels and each alone), the plain versions (3 runs), and as a
+    yardstick only ``scaled_dot_product_attention`` on the whole sequence
+    (forward, backward alone from the forward's saved outputs, and both),
+    beside the least time the card could take (operations over the
+    datasheet peak: 989 TFLOP/s for bfloat16 inputs; for float32, 495/3
+    TFLOP/s, the rate of a float32-accurate product split into three TF32
+    tensor-core products, as every attention kernel multiplies; bytes over
+    3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
+    (``FLOOR_FLOPS_PER_ENTRY``);
+13. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+    ``launches`` is the sum over the main paths (phases 3, 5, 6, 9, 10),
+    each read right after it ran (``launches_by_path``).
 
 Every phase prints its wall time.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -116,6 +147,15 @@ FLOOR_FLOPS_PER_ENTRY = {
     "bf16": {"fwd": 6, "bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
     "f32": {"fwd": 12, "bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
 TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor cores
+# K1's parity groupings: the whole world, two contiguous groups of four, and
+# the dp groups of the 2 x 4 layout of the multi-parallel step (stride 4)
+DP_GROUPS = [[0, 4], [1, 5], [2, 6], [3, 7]]
+RING_GROUPINGS = {"world": None, "2x4": [[0, 1, 2, 3], [4, 5, 6, 7]],
+                  "4x2 stride 4": DP_GROUPS}
+# the full-width step: Llama-3-8B's MLP (meta-llama/Meta-Llama-3-8B
+# config.json: hidden_size 4096, intermediate_size 14336) on the 2 x 4
+# layout, 2048 rows per dp shard, float32
+STEP = dict(dp=2, mp=4, rows_per_shard=2048, d=4096, hidden=14336)
 
 
 def log(msg):
@@ -288,8 +328,17 @@ def serving_program(comm, dtype):
     return ring_attention(q, k, v, comm, causal=True), q, k, v
 
 
-def attention_phases(torch, dev, gen, record):
-    """Phases 6-9; returns the three attention entries of the kernels line."""
+def attention_launches(attention):
+    return {f"attention_{k}": c for k, c in attention.LAUNCHES.items()}
+
+
+def ring_launches(ring):
+    return {f"ring_{m}": c for m, c in ring.LAUNCHES.items()}
+
+
+def attention_phases(torch, dev, gen, record, paths):
+    """Phases 9-12; returns the three attention entries of the kernels line
+    and adds the serving and training legs' launches to ``paths``."""
     import numpy as np
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -298,10 +347,9 @@ def attention_phases(torch, dev, gen, record):
     from mpi_tpu_torch.examples import long_context_training as lct
     from mpi_tpu_torch.gpu import attention
 
-    main_launches = {k: 0 for k in attention.LAUNCHES}
     errs = {}
 
-    # 6. serving leg at full width ---------------------------------------------
+    # 9. serving leg at full width ---------------------------------------------
     serve = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).split(".")[-1]
@@ -314,8 +362,7 @@ def attention_phases(torch, dev, gen, record):
         launches = dict(attention.LAUNCHES)
         if launches["fwd"] == 0:
             raise RuntimeError(f"serving leg ({tag}) never launched the forward kernel")
-        for key, c in launches.items():
-            main_launches[key] += c
+        paths[f"serving leg {tag}"] = attention_launches(attention)
         if tuple(out.shape) != (P, SERVE["heads"], SERVE["seq_per_rank"], SERVE["d"]) \
                 or out.dtype != dtype:
             raise RuntimeError(f"serving leg output {tuple(out.shape)} {out.dtype}")
@@ -331,7 +378,7 @@ def attention_phases(torch, dev, gen, record):
         del out, want
     lap("attention serving leg")
 
-    # 7. training leg at the example's width -------------------------------------
+    # 10. training leg at the example's width ------------------------------------
     d, S = 128, P * TRAIN_SEQ_PER_RANK
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(S, d).astype(np.float32)).to(dev)
@@ -349,8 +396,7 @@ def attention_phases(torch, dev, gen, record):
     missing = [k for k, c in launches.items() if c == 0]
     if missing:
         raise RuntimeError(f"training leg never launched {missing}")
-    for key, c in launches.items():
-        main_launches[key] += c
+    paths["training leg"] = attention_launches(attention)
     torch.cuda.synchronize()
     t0 = time.perf_counter()  # a second step: the first pays first-call costs
     mpi_tpu_torch.run(lct.sharded_program, block, params, x, y, nranks=P)
@@ -378,11 +424,13 @@ def attention_phases(torch, dev, gen, record):
     torch.cuda.empty_cache()
     lap("attention training leg")
 
-    # 8. kernel vs plain grid ---------------------------------------------------
+    # 11. kernel vs plain grid --------------------------------------------------
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for dh in (128, 256):
-            for sb in (16, 48, 112, 128):
+            # Sb = 8 (float32 only: bf16 blocks are multiples of 16) is the
+            # dry run's [8, 128] block
+            for sb in (8, 16, 48, 112, 128) if dtype == torch.float32 else (16, 48, 112, 128):
                 for hq, hkv in ((4, 4), (4, 2), (4, 1)):
                     for causal in (False, True):
                         for groups in (None, [[0, 1, 2, 3], [4, 5, 6, 7]]):
@@ -423,7 +471,7 @@ def attention_phases(torch, dev, gen, record):
     log(f"attention parity: {n_cases} cases (forward and backward) within tolerance")
     lap("attention parity")
 
-    # 9. timing at the serving shape ---------------------------------------------
+    # 12. timing at the serving shape --------------------------------------------
     shape = (P, SERVE["heads"], SERVE["kv_heads"], SERVE["seq_per_rank"], SERVE["d"])
     rep = SERVE["heads"] // SERVE["kv_heads"]
     entries = []
@@ -526,7 +574,6 @@ def attention_phases(torch, dev, gen, record):
         del q, k, v, do, out, lse, ops
         torch.cuda.empty_cache()
     record["attention_timing"] = timing
-    record["attention_launches_main_path"] = main_launches
     record["allowance_used"] = dict(ALLOWANCE_USED)
     log(f"largest share of the allowance used: {ALLOWANCE_USED}")
     lap("attention timing")
@@ -535,7 +582,7 @@ def attention_phases(torch, dev, gen, record):
     for kind in ("fwd", "bwd_dq", "bwd_dkv"):
         entries.append({
             "name": f"attention_{kind}", "route": "cuda", "source": ATTN_SOURCE[kind],
-            "replaces": ATTN_REPLACES[kind], "launches": main_launches[kind],
+            "replaces": ATTN_REPLACES[kind],
             "max_abs_err": errs[(kind, torch.bfloat16)], "ms": bt[kind],
             "plain_ms": bt["plain_fwd"] if kind == "fwd" else bt["plain_bwd"],
             "bound_ms": bt[f"{kind}_bound_ms"], "bound_by": bt[f"{kind}_bound_by"],
@@ -548,6 +595,260 @@ def attention_phases(torch, dev, gen, record):
             "design_floor_ms": bt[f"{kind}_design_floor_ms"], "dtype": "bfloat16",
         })
     return entries
+
+
+def agree(torch, name, got, want, rtol, atol, record):
+    """``got`` (card) within ``atol + rtol |want|`` of ``want``; records
+    the max abs error and the largest share of the allowance used."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    if g.shape != w.shape or not torch.isfinite(g).all():
+        raise RuntimeError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} "
+                           f"or non-finite values")
+    diff = (g - w).abs()
+    share = float((diff / (atol + rtol * w.abs())).max()) if diff.numel() else 0.0
+    record[name] = {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+                    "allowance_share": share, "rtol": rtol, "atol": atol}
+    if share > 1.0:
+        raise RuntimeError(f"{name}: max abs error {float(diff.max())} exceeds "
+                           f"rtol {rtol} atol {atol} ({share:.3g} of the allowance)")
+    return record[name]["max_abs_err"]
+
+
+def agree_update(torch, name, got, want, before, tol, record):
+    """The update ``got - before`` within ``tol`` of ``want - before`` in
+    relative 2-norm: ||got - want|| <= tol ||want - before||."""
+    g, w, b = (t.detach().double() for t in (got, want, before))
+    err = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w - b))
+    record[name] = {"relative_update_err": err, "allowance_share": err / tol, "tol": tol,
+                    "max_abs_err": float((g - w).abs().max())}
+    if not err <= tol:
+        raise RuntimeError(f"{name}: update off by {err:.3g} of its norm (tolerance {tol})")
+    return err
+
+
+def dryrun_phase(torch, paths, record):
+    """Phase 5: ``entry.dryrun_multichip(8)`` on the card, the reference's
+    shapes; the attention kernels (forward and both backward) must have
+    launched."""
+    import contextlib
+    import io
+
+    from mpi_tpu_torch import entry
+    from mpi_tpu_torch.gpu import attention, ring
+
+    ring.reset_launches()
+    attention.reset_launches()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        entry.dryrun_multichip(P)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**ring_launches(ring), **attention_launches(attention)}
+    missing = [k for k in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
+               if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"dry run never launched {missing}")
+    paths["dry run"] = launches
+    line = out.getvalue().strip().splitlines()[-1]
+    if not line.startswith("dryrun_multichip OK: mesh=(2x4)") or "cuda_kernels(" not in line:
+        raise RuntimeError(f"dry run printed {line!r}")
+    record["dry_run"] = {"line": line, "run_s": run_s, "launches": launches}
+    log(f"{line} ({run_s:.3f} s, launches {launches})")
+
+
+def step_phase(torch, dev, paths, record):
+    """Phase 6: one step of ``entry._build_step(2, 4, ...)`` at Llama-3-8B's
+    MLP widths, as "ring" and as "pallas_ring" (K1 on the dp groups); the
+    two agree, and both agree with a float64 dense step on the card; a
+    second step takes the first one's outputs; then timing (CUDA events,
+    median of 5 after 1 warm-up), K1 alone on the step's gradient, and a
+    ``torch.profiler`` breakdown of one pallas_ring step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_tpu_torch import entry
+    from mpi_tpu_torch.gpu import attention, ring
+
+    dp, mp, rows, d, hidden = (STEP[k] for k in ("dp", "mp", "rows_per_shard", "d",
+                                                 "hidden"))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # the reference's init: x, y ~ N(0, 1), w1, w2 ~ 0.1 N(0, 1)
+    x, y = (torch.randn((dp * rows, d), device=dev, generator=gen) for _ in range(2))
+    w1 = torch.randn((d, hidden), device=dev, generator=gen) * 0.1
+    w2 = torch.randn((hidden, d), device=dev, generator=gen) * 0.1
+    info = {"shapes": {"x": list(x.shape), "w1": list(w1.shape), "w2": list(w2.shape)}}
+    outs, steps = {}, {}
+    fold_calls = []
+    fold = ring.allreduce_world
+
+    def spy(world, groups=None, *args, **kwargs):  # records what K1 folds
+        fold_calls.append((groups, list(world.shape)))
+        return fold(world, groups, *args, **kwargs)
+
+    for alg in ("ring", "pallas_ring"):
+        step = steps[alg] = entry._build_step(dp, mp, dp_algorithm=alg)
+        ring.reset_launches()
+        attention.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring.allreduce_world = spy
+        try:
+            out = step(x, y, w1, w2)
+        finally:
+            ring.allreduce_world = fold
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        paths[f"full-width step ({alg})"] = {**ring_launches(ring),
+                                             **attention_launches(attention)}
+        info[alg] = {"first_step_s": first_s, "launches": paths[f"full-width step ({alg})"],
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "loss": float(out[2])}
+        again = step(x, y, out[0], out[1])  # the step takes its own outputs
+        if not all(bool(torch.isfinite(t).all()) for t in (*out, *again)):
+            raise RuntimeError(f"full-width step ({alg}) produced non-finite values")
+        info[alg]["second_loss"] = float(again[2])
+        outs[alg] = out
+        del again
+    k1 = paths["full-width step (pallas_ring)"]["ring_allreduce"]
+    if k1 == 0 or paths["full-width step (ring)"]["ring_allreduce"] != 0:
+        raise RuntimeError("K1 must launch in the pallas_ring step and only there")
+    if [g for g, _ in fold_calls] != [DP_GROUPS] * k1:
+        raise RuntimeError(f"K1 folded groups {fold_calls}, not {DP_GROUPS}")
+    info["k1_fold_calls"] = fold_calls
+    for name, a, b in zip(("w1", "w2", "loss", "aux"), outs["ring"], outs["pallas_ring"]):
+        agree(torch, f"step {name}: pallas_ring vs ring", b, a, 1e-5, 1e-6, info)
+
+    # the float64 dense step on one device: one SGD step (lr 0.1) on the sum
+    # over the dp shards of their mean squared errors, the reference's step.
+    # The loss is held elementwise (rtol 1e-5); the weights by their update
+    # in relative 2-norm (1e-2): float32 rounding of x @ w1 (error about
+    # 2.4e-5 on values of spread 6.4, K = 4096) flips about 200 of the 58.7M
+    # relu mask entries, each moving a column of the w1 gradient by about
+    # 8e-5 times a row of x: an expected 2-3e-3 of the update's norm, and
+    # up to 3e-5 on single elements of w1 (measured on an H100)
+    X, Y, W1, W2 = (t.double() for t in (x, y, w1, w2))
+    xs, ys = X.view(dp, rows, d), Y.view(dp, rows, d)
+
+    def total_loss(a, b):
+        return ((torch.relu(xs @ a) @ b - ys) ** 2).mean(dim=(1, 2)).sum()
+
+    g1, g2 = torch.func.grad(total_loss, argnums=(0, 1))(W1, W2)
+    dense = (W1 - 0.1 * g1, W2 - 0.1 * g2, total_loss(W1, W2))
+    for alg in ("ring", "pallas_ring"):
+        for name, got, want, before in zip(("w1", "w2"), outs[alg], dense, (w1, w2)):
+            agree_update(torch, f"step {name} update ({alg}) vs float64 dense", got, want,
+                         before, 1e-2, info)
+        agree(torch, f"step loss ({alg}) vs float64 dense", outs[alg][2], dense[2], 1e-5,
+              0.0, info)
+    del X, Y, W1, W2, xs, ys, g1, g2, dense, outs
+    torch.cuda.empty_cache()
+
+    # timing: the step by both spellings, K1 alone on the step's operand
+    for alg, step in steps.items():
+        info[alg]["step_ms"] = time_ms(torch, lambda: step(x, y, w1, w2), reps=5, warmup=1)
+    g_world = torch.randn((P, d, hidden // mp), device=dev, generator=gen)
+    info["k1_ms"] = time_ms(torch, lambda: ring.allreduce_world(g_world, DP_GROUPS),
+                            reps=5, warmup=1)
+    info["k1_share_of_pallas_ring_step"] = info["k1_ms"] / info["pallas_ring"]["step_ms"]
+    del g_world
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps["pallas_ring"](x, y, w1, w2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_ms(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    # the kernels themselves (device events); an operator's row would count
+    # its kernels' time a second time
+    by_kernel = sorted(((e.key, device_ms(e), e.count) for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA),
+                       key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in by_kernel)
+    info["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                       "idle_share": (1.0 - busy / wall_ms) if busy else None,
+                       "kernels": len(by_kernel),
+                       "launches": sum(c for _, _, c in by_kernel),
+                       "top": [{"op": k, "device_ms": t, "count": c}
+                               for k, t, c in by_kernel[:15]]}
+    record["full_width_step"] = info
+    log(f"full-width step (D={d}, H={hidden}, {rows} rows per dp shard, 2 x 4): "
+        f"first step ring {info['ring']['first_step_s']:.3f} s / pallas_ring "
+        f"{info['pallas_ring']['first_step_s']:.3f} s; step ring "
+        f"{info['ring']['step_ms']:.3f} ms, pallas_ring {info['pallas_ring']['step_ms']:.3f} ms; "
+        f"K1 alone {info['k1_ms']:.4f} ms ({100 * info['k1_share_of_pallas_ring_step']:.2f}% "
+        f"of the pallas_ring step); peak {info['pallas_ring']['peak_bytes'] / 2**30:.2f} GiB; "
+        f"profiled step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms in "
+        f"{info['profile']['launches']} kernel launches")
+    for row in info["profile"]["top"][:8]:
+        log(f"  {row['device_ms']:9.3f} ms  x{row['count']:<4d} {row['op'][:90]}")
+    log("  allowance shares: " + ", ".join(
+        f"{k}: {v['allowance_share']:.3g}" for k, v in info.items()
+        if isinstance(v, dict) and "allowance_share" in v))
+    del x, y, w1, w2
+    torch.cuda.empty_cache()
+
+
+def examples_phase(torch, record):
+    """Phase 7: jacobi2d, pipeline, moe, ulysses and data_parallel through
+    ``run(..., nranks=8)`` on the card at their default sizes, each against
+    the same program on the CPU (the random ones on the card's draws,
+    carried across) and moe / pipeline against their numpy oracles."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch.examples import data_parallel as dpx
+    from mpi_tpu_torch.examples import jacobi2d, moe, pipeline
+    from mpi_tpu_torch.examples import ulysses_attention as ul
+
+    run = mpi_tpu_torch.run
+    info = {}
+
+    def on_cpu(fn, *args):
+        return run(fn, *(a.cpu() if isinstance(a, torch.Tensor) else
+                         {k: v.cpu() for k, v in a.items()} for a in args),
+                   nranks=P, device="cpu")
+
+    tile, res = run(jacobi2d.jacobi2d_program, nranks=P)
+    tile_c, res_c = run(jacobi2d.jacobi2d_program, nranks=P, device="cpu")
+    agree(torch, "jacobi2d tiles vs cpu", tile, tile_c, 0.0, 1e-6, info)
+    agree(torch, "jacobi2d residual vs cpu", res, res_c, 0.0, 1e-6, info)
+
+    out = run(pipeline.pipeline_program, nranks=P)
+    mx, w, b = run(pipeline.pipeline_inputs, nranks=P)
+    agree(torch, "pipeline vs cpu", out, on_cpu(
+        lambda c, mx, w, b: pipeline.pipeline_forward(c, mx[c.rank], w[c.rank], b[c.rank]),
+        mx, w, b), 1e-5, 1e-6, info)
+    agree(torch, "pipeline vs numpy oracle", out[-1], torch.from_numpy(
+        pipeline.pipeline_oracle(*(t.cpu().numpy() for t in (mx[0], w, b)))), 0.0, 1e-5, info)
+
+    out = run(moe.moe_program, nranks=P)
+    xs, wr, wi, wo = run(moe.moe_inputs, nranks=P)
+    agree(torch, "moe vs cpu", out, on_cpu(
+        lambda c, x, wr, wi, wo: moe.moe_layer(c, x[c.rank], wr[c.rank], wi[c.rank],
+                                               wo[c.rank], 8), xs, wr, wi, wo),
+          1e-5, 1e-6, info)
+    agree(torch, "moe vs numpy oracle", out, torch.from_numpy(moe.moe_oracle(
+        *(t.cpu().numpy() for t in (xs, wr[0], wi, wo)), 8)), 0.0, 1e-5, info)
+
+    out, q, k, v = run(ul.ulysses_program, nranks=P)
+    agree(torch, "ulysses vs cpu", out, on_cpu(
+        lambda c, q, k, v: ul.ulysses_attention(c, q[c.rank], k[c.rank], v[c.rank]),
+        q, k, v), 1e-5, 1e-6, info)
+
+    loss, ck = run(dpx.dp_train_program, nranks=P)
+    params, x, y = run(dpx.dp_inputs, nranks=P)
+    loss_c, ck_c = on_cpu(lambda c, p, x, y: dpx.dp_train(c, p, x[c.rank], y[c.rank]),
+                          {n: t[0] for n, t in params.items()}, x, y)
+    agree(torch, "data_parallel loss vs cpu", loss, loss_c, 1e-5, 0.0, info)
+    agree(torch, "data_parallel checksum vs cpu", ck, ck_c, 1e-5, 0.0, info)
+    info["data_parallel_loss"] = float(loss[0])
+    record["examples"] = info
+    log("examples on the card vs the CPU and the oracles: " + ", ".join(
+        f"{k} {v['max_abs_err']:.3g} ({v['allowance_share']:.3g} of allowance)"
+        for k, v in info.items() if isinstance(v, dict)))
 
 
 def main():
@@ -619,6 +920,8 @@ def main():
     missing = [m for m, c in launches.items() if c == 0]
     if missing:
         raise RuntimeError(f"main path never launched the ring kernel for {missing}")
+    # each main path's launches, read right after the path ran
+    paths = {"north-star data-parallel step": ring_launches(ring)}
 
     scale = 1.0 + 0.125 * torch.arange(P, device=dev, dtype=torch.float32)
     grad_w = base[None] * scale[:, None]
@@ -644,11 +947,10 @@ def main():
     lap("data-parallel step")
 
     # 4. kernel vs plain, every mode x dtype x op x grouping --------------------
-    groupings = {"world": None, "2x4": [[0, 1, 2, 3], [4, 5, 6, 7]]}
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for gname, groups in groupings.items():
-            g = P if groups is None else 4
+        for gname, groups in RING_GROUPINGS.items():
+            g = P if groups is None else len(groups[0])
             for op in ("sum", "max", "min"):
                 for n in (1001, 600_001, 600_064):
                     x = spread_data(torch, gen, (P, n), dev)
@@ -674,7 +976,15 @@ def main():
     log(f"parity: {n_cases} cases bitwise equal")
     lap("ring parity")
 
-    # 5. timing at the north-star sizes -------------------------------------------
+    # 5-7. the multi-parallel dry run, the full-width step, the examples -------
+    dryrun_phase(torch, paths, record)
+    lap("dry run")
+    step_phase(torch, dev, paths, record)
+    lap("full-width step")
+    examples_phase(torch, record)
+    lap("examples")
+
+    # 8. timing at the north-star sizes -------------------------------------------
     itemsize = 4
     block = NORTH_STAR_ELEMS // P
     timing = {}
@@ -728,7 +1038,7 @@ def main():
         bound_ms = max(byte_ms, op_ms)
         entry = {
             "name": f"ring_{mode}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches[mode],
+            "replaces": REPLACES,
             "max_abs_err": errs[mode], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": l_ms,
@@ -748,9 +1058,13 @@ def main():
     del x, out, xs, xb
     lap("ring timing")
 
-    # 6-9. ring attention -------------------------------------------------------
-    attn = attention_phases(torch, dev, gen, record)
-    kernels += attn
+    # 9-12. ring attention -----------------------------------------------------
+    kernels += attention_phases(torch, dev, gen, record, paths)
+    for k in kernels:  # launches: every main path's, summed
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
+                                 if c.get(k["name"])}
+        k["launches"] = sum(k["launches_by_path"].values())
+    record["launches_by_path"] = paths
     record["kernels"] = kernels
 
     os.makedirs("chiprun_out", exist_ok=True)

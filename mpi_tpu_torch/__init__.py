@@ -7,7 +7,11 @@ per-rank results stacked ``[P, ...]``.  Collectives keep the reference's
 ``algorithm=`` names; ``"pallas_ring"`` runs the hand-written CUDA ring
 kernel (``csrc/ring.cu``).  ``gpu.attention.ring_attention`` is exact ring
 attention over the ranks, forward and backward on the CUDA kernels of
-``csrc/attention.cu``.
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu``.  ``comm.win_create``
+gives fence-epoch RMA windows, ``datatypes`` the MPI derived datatypes,
+``CartComm``/``cart_create``/``graph_create`` the process topologies, and
+``entry.dryrun_multichip`` one training step over a 2-D (dp, mp) layout
+that runs every parallelism primitive.
 
 The package imports torch, numpy and the standard library only; the JAX
 package ``mpi_tpu`` is its reference and is never imported.
@@ -17,10 +21,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-from . import ops
+from . import datatypes, ops
 from .gpu import (SpmdContextError, SpmdSemanticsError, TorchCommunicator,
                   rank_normal, rank_uniform, resolve_device, run_spmd)
 from .interop import params_from_numpy, to_numpy, world_from_numpy
+from .topology import CartComm, GraphComm, cart_create, dims_create, graph_create
 
 _HOST_BACKENDS = ("socket", "local", "shm", "self")
 
@@ -40,6 +45,8 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
     return run_spmd(fn, *args, nranks=nranks, device=device, **kwargs)
 
 
-__all__ = ["SpmdContextError", "SpmdSemanticsError", "TorchCommunicator",
-           "ops", "params_from_numpy", "rank_normal", "rank_uniform",
-           "resolve_device", "run", "run_spmd", "to_numpy", "world_from_numpy"]
+__all__ = ["CartComm", "GraphComm", "SpmdContextError", "SpmdSemanticsError",
+           "TorchCommunicator", "cart_create", "datatypes", "dims_create",
+           "graph_create", "ops", "params_from_numpy", "rank_normal",
+           "rank_uniform", "resolve_device", "run", "run_spmd", "to_numpy",
+           "world_from_numpy"]

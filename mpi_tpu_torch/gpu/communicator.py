@@ -32,6 +32,7 @@ from ..communicator import Communicator, _CompletedRequest
 from . import collectives as algos
 from . import primitives
 from . import ring
+from .window import TorchWindow
 
 Pair = Tuple[int, int]
 
@@ -275,10 +276,10 @@ class TorchCommunicator(Communicator):
 
     # -- one-sided (RMA) ---------------------------------------------------
 
-    def win_create(self, init: Any):
-        raise NotImplementedError(
-            "one-sided windows are not ported yet: see ROADMAP.md, "
-            "'Port queue' (windows)")
+    def win_create(self, init: Any) -> TorchWindow:
+        """MPI_Win_create over this communicator: fence epochs of static
+        (src, dst) patterns (``gpu/window.py``)."""
+        return TorchWindow(self, init)
 
     # -- collectives -------------------------------------------------------
 

@@ -7,7 +7,9 @@ The reference runs a rank as an index on a mesh axis inside
 per-rank program under ``torch.vmap`` over a leading rank dimension, and
 each primitive is a ``torch.library.custom_op`` whose ``register_vmap``
 rule receives the physical ``[P, ...]`` world tensor: a ppermute is a
-permutation of the rank dimension, a psum a reduction over it.
+permutation of the rank dimension, a psum a reduction over it.  The fused
+reduction is a ``torch.autograd.Function`` with a ``vmap`` rule instead,
+so that its SUM is differentiable inside the rank vmap.
 
 Every primitive takes the batched world index as an argument, so its vmap rule always runs — even for a payload that is the
 same on every rank — and the op's own implementation is reached only by
@@ -140,36 +142,62 @@ def ppermute(x, pairs: Sequence[Pair]) -> torch.Tensor:
 # -- fused group collectives -----------------------------------------------
 
 
-@torch.library.custom_op("mpi_tpu_torch::group_reduce", mutates_args=())
-def _group_reduce(x: torch.Tensor, rank: torch.Tensor, groups: List[int],
-                  size: int, op: str) -> torch.Tensor:
-    raise _outside("group_reduce")
+class _GroupReduce(torch.autograd.Function):
+    """The fused allreduce as a world-level op: its ``vmap`` rule reduces
+    the ``[P, ...]`` world over each group.  An ``autograd.Function`` (not
+    a ``custom_op``) so that ``torch.func.grad`` inside the rank vmap can
+    differentiate through it.
 
+    The SUM backward hands each rank its cotangent unchanged, as JAX
+    transposes ``lax.psum`` of a rank-varying operand whose result feeds
+    only replicated computation (the tensor-parallel loss of
+    ``entry._build_step``): each rank's gradient is that of one copy of the
+    replicated loss, not of the sum of its ``size`` copies.  Where JAX's
+    varying-axes typing sees rank-varying values mixed in after the
+    reduction, or the reference's 1-D ``split_by`` spelling
+    (``psum_scatter`` + ``all_gather``, ``tpu/communicator.py:455``), it
+    sums the cotangents over the group instead; the port does not."""
 
-def _group_reduce_vmap(info, in_dims, x, rank, groups, size, op):
-    w = as_world(x, in_dims[0], info.batch_size)
-    stacked = w[_members(groups, size).to(w.device)]  # [P, size, ...]
-    if op == "sum":
-        out = torch.sum(stacked, dim=1, dtype=w.dtype)
-    elif op == "max":
-        out = torch.amax(stacked, dim=1)
-    elif op == "min":
-        out = torch.amin(stacked, dim=1)
-    else:
-        raise ValueError(f"group_reduce supports sum/max/min, got {op!r}")
-    return out, 0
+    @staticmethod
+    def forward(x, rank, groups, size, op):
+        raise _outside("group_reduce")
 
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.op = inputs[4]
 
-_group_reduce.register_vmap(_group_reduce_vmap)
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.op != "sum":
+            raise RuntimeError(
+                f"the fused {ctx.op.upper()} allreduce has no gradient (nor "
+                f"has lax.p{ctx.op} in the reference); only SUM is "
+                f"differentiable")
+        return grad, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, rank, groups, size, op):
+        w = as_world(x, in_dims[0], info.batch_size)
+        stacked = w[_members(groups, size).to(w.device)]  # [P, size, ...]
+        if op == "sum":
+            out = torch.sum(stacked, dim=1, dtype=w.dtype)
+        elif op == "max":
+            out = torch.amax(stacked, dim=1)
+        elif op == "min":
+            out = torch.amin(stacked, dim=1)
+        else:
+            raise ValueError(f"group_reduce supports sum/max/min, got {op!r}")
+        return out, 0
 
 
 def group_reduce(x, groups: Sequence[int], size: int, op: str) -> torch.Tensor:
     """Fused allreduce (``lax.psum``/``pmax``/``pmin`` with
     ``axis_index_groups``): plain torch over the rank dimension, as XLA
     computed it outside any Pallas kernel.  ``groups`` is the flattened
-    partition (the whole axis for an unsplit communicator)."""
+    partition (the whole axis for an unsplit communicator).  SUM is
+    differentiable (see ``_GroupReduce``)."""
     w = current("group_reduce")
-    return _group_reduce(as_tensor(x), w.idx, list(groups), size, op)
+    return _GroupReduce.apply(as_tensor(x), w.idx, list(groups), size, op)
 
 
 @torch.library.custom_op("mpi_tpu_torch::all_gather", mutates_args=())

@@ -3,8 +3,9 @@
 Own copy of the parts of ``mpi_tpu/schedules.py`` that the hand-scheduled
 SPMD algorithms call: ``is_pow2`` (:31), the binomial rounds (:100-124),
 ``ring_perm`` (:132), the ring chunk formulas (:152-193), the
-halving/doubling masks (:201-221), ``xor_perm`` (:224) and
-``alltoall_rounds`` (:234).
+halving/doubling masks (:201-221), ``xor_perm`` (:224),
+``alltoall_rounds`` (:234), and the graph-topology rounds
+``dedupe_edges`` (:464) and ``graph_rounds`` (:483).
 
 A round is a list of ``(src, dst)`` comm-rank pairs; chunk helpers take the
 rank as a Python int or as a (batched) integer tensor and use only
@@ -13,7 +14,7 @@ rank as a Python int or as a (batched) integer tensor and use only
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 Pair = Tuple[int, int]
 
@@ -117,3 +118,46 @@ def xor_perm(size: int, mask: int) -> List[Pair]:
 def alltoall_rounds(size: int) -> List[int]:
     """Offsets for the pairwise-exchange alltoall: P-1 rounds."""
     return list(range(1, size))
+
+
+def dedupe_edges(edges: Sequence[Pair], size: int) -> List[Pair]:
+    """Validate a directed edge list and drop duplicates, keeping the
+    FIRST occurrence's position (neighbor order is input order — the
+    dist_graph contract).  Self-edges are rejected (keep local data
+    local); shared by graph_rounds and topology.GraphComm."""
+    seen = set()
+    out: List[Pair] = []
+    for s, d in edges:
+        s, d = int(s), int(d)
+        if not (0 <= s < size and 0 <= d < size):
+            raise ValueError(f"edge ({s}, {d}) out of range for size {size}")
+        if s == d:
+            raise ValueError(f"self-edge ({s}, {d}): keep local data local")
+        if (s, d) not in seen:
+            seen.add((s, d))
+            out.append((s, d))
+    return out
+
+
+def graph_rounds(edges: Sequence[Pair], size: int) -> List[List[Pair]]:
+    """Decompose an arbitrary directed edge set into partial-permutation
+    rounds (greedy edge coloring): within a round no rank sends twice and
+    no rank receives twice — exactly ``lax.ppermute``'s precondition, so a
+    graph-neighborhood collective lowers to one ppermute per round.  Round
+    count ≤ 2·max(in_degree, out_degree) − 1 (bipartite greedy bound)."""
+    remaining = dedupe_edges(edges, size)
+    rounds: List[List[Pair]] = []
+    while remaining:
+        used_s, used_d = set(), set()
+        this_round, rest = [], []
+        for e in remaining:
+            s, d = e
+            if s in used_s or d in used_d:
+                rest.append(e)
+            else:
+                used_s.add(s)
+                used_d.add(d)
+                this_round.append(e)
+        rounds.append(this_round)
+        remaining = rest
+    return rounds

@@ -24,6 +24,7 @@ from mpi_tpu.tpu import TpuCommunicator, default_mesh, run_spmd
 from mpi_tpu_torch import (SpmdContextError, SpmdSemanticsError,
                            TorchCommunicator)
 from mpi_tpu_torch import ops as tops
+from mpi_tpu_torch.gpu.window import TorchWindow
 from mpi_tpu_torch.interop import to_numpy
 
 P = 8
@@ -283,8 +284,9 @@ def test_split_type_create_dup():
     jcreated = TpuCommunicator("world", default_mesh()).create(Group())
     assert created.axis_index_groups == jcreated.axis_index_groups
     assert world.dup().axis_index_groups is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        world.win_create(torch.zeros(2))
+    kinds = []
+    trun(lambda c: (kinds.append(type(c.win_create(torch.zeros(2)))), c.rank)[1])
+    assert kinds == [TorchWindow]
 
 
 # -- misc ------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """mpi_tpu_torch and chip_smoke.py import nothing of JAX or of the JAX
 package: proven in a subprocess whose import system refuses ``jax``,
-``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``)."""
+``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``),
+which imports every module of the port and runs the multi-parallel dry
+run on the CPU."""
 
 import ast
 import os
@@ -32,6 +34,14 @@ names = ["mpi_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     mpi_tpu_torch.__path__, "mpi_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.datatypes",
+       "mpi_tpu_torch.topology", "mpi_tpu_torch.examples.jacobi2d",
+       "mpi_tpu_torch.examples.pipeline", "mpi_tpu_torch.examples.moe",
+       "mpi_tpu_torch.examples.ulysses_attention",
+       "mpi_tpu_torch.examples.data_parallel", "mpi_tpu_torch.entry"]
+assert not set(NEW) - set(names), set(NEW) - set(names)
+from mpi_tpu_torch.entry import dryrun_multichip
+dryrun_multichip(8, device="cpu")
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), \
     [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 
