@@ -42,10 +42,33 @@ ok line:
    within 1e-2 of their norm (relu kinks under float32 rounding, see
    ``step_phase``; the largest share of each allowance is recorded); a
    second step takes the first one's outputs.  Then the step is timed by both spellings with CUDA events
-   (median of 5 after 1 warm-up), the ring kernel alone on the step's
-   gradient (its share of the step), and one pallas_ring step is traced
-   with ``torch.profiler`` (device time by kernel, the device's busy time
-   and idle share);
+   (median of 5 after 1 warm-up; pallas_ring also by
+   ``mpi_tpu_torch.profiling.timeit``), the ring kernel alone on the step's
+   gradient (its share of the step), the fused SUM backward's rule alone
+   and the step with it against the step with the old pass-through rule
+   (in turns), and one pallas_ring step is traced with
+   ``profiling.trace``, whose Chrome trace is read back
+   (``profiling.trace_summary``: device time by kernel, the device's busy
+   time and idle share, kernel launches counted apart from copies and
+   fills);
+6a. checkpoint: the full-width step's w1 and w2 after step 1, laid out as
+   the reference's out_specs over the 2 x 4 mesh, through
+   ``checkpoint.save_sharded`` under chiprun_out/ and ``load_sharded``
+   onto the card; step 2 from the loaded state equals step 2 from the
+   state in memory, bitwise (bytes, save and load seconds printed; the
+   files are removed after);
+6b. AOT: ``entry.lower_multichip(8)`` at the reference's shapes on fake
+   tensors (no change in allocated device memory; the pallas_ring graph
+   holds one ``ring_fold`` node and ``attn_fwd`` nodes), then
+   ``entry.export_multichip(8, "pallas_ring")`` at full width through
+   ``torch.export.save`` / ``load``: the loaded program's outputs equal the
+   eager step's bitwise and it launches K1 and K2 (counters zeroed before
+   and read after); both timed with CUDA events (median of 5);
+6c. gradient: the fused SUM's gradient where the reduced value meets
+   rank-varying values (marked by ``comm.localize``), in a residual block,
+   and where it feeds replicated computation, on the card against the CPU
+   (rtol 1e-5, atol 1e-6); the unmarked mixed program raises naming
+   ``comm.localize`` on both;
 7. the examples ``jacobi2d``, ``pipeline``, ``moe``, ``ulysses_attention``
    and ``data_parallel`` through ``run(..., nranks=8)`` on the card at
    their default sizes, each against the same program on the CPU (the
@@ -98,8 +121,8 @@ ok line:
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
     (``FLOOR_FLOPS_PER_ENTRY``);
 13. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
-    ``launches`` is the sum over the main paths (phases 3, 5, 6, 9, 10),
-    each read right after it ran (``launches_by_path``).
+    ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
+    10), each read right after it ran (``launches_by_path``).
 
 Every phase prints its wall time.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -663,11 +686,11 @@ def step_phase(torch, dev, paths, record):
     MLP widths, as "ring" and as "pallas_ring" (K1 on the dp groups); the
     two agree, and both agree with a float64 dense step on the card; a
     second step takes the first one's outputs; then timing (CUDA events,
-    median of 5 after 1 warm-up), K1 alone on the step's gradient, and a
-    ``torch.profiler`` breakdown of one pallas_ring step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from mpi_tpu_torch import entry
+    median of 5 after 1 warm-up, and ``profiling.timeit``), K1 alone on
+    the step's gradient, the fused SUM backward's cost, and a breakdown of
+    one pallas_ring step read back from the trace ``profiling.trace``
+    wrote.  Returns the two steps and their inputs."""
+    from mpi_tpu_torch import entry, profiling
     from mpi_tpu_torch.gpu import attention, ring
 
     dp, mp, rows, d, hidden = (STEP[k] for k in ("dp", "mp", "rows_per_shard", "d",
@@ -753,44 +776,258 @@ def step_phase(torch, dev, paths, record):
                             reps=5, warmup=1)
     info["k1_share_of_pallas_ring_step"] = info["k1_ms"] / info["pallas_ring"]["step_ms"]
     del g_world
+    info["pallas_ring"]["step_timeit_ms"] = profiling.timeit(
+        lambda: steps["pallas_ring"](x, y, w1, w2), iters=5, warmup=1).p50_s * 1e3
+    sum_backward_cost(torch, dev, steps["pallas_ring"], (x, y, w1, w2), info)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    trace_dir = os.path.join("chiprun_out", "step_trace")
+    with profiling.trace(trace_dir):
         t0 = time.perf_counter()
         steps["pallas_ring"](x, y, w1, w2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_ms(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    # the kernels themselves (device events); an operator's row would count
-    # its kernels' time a second time
-    by_kernel = sorted(((e.key, device_ms(e), e.count) for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA),
-                       key=lambda r: -r[1])
-    busy = sum(t for _, t, _ in by_kernel)
+    # read back from the Chrome trace profiling.trace wrote: the device's
+    # kernels, copies and fills (busy time), kernel launches counted apart
+    summary = profiling.trace_summary(os.path.join(trace_dir, profiling.TRACE_FILE))
+    busy = summary["busy_ms"]
     info["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                       "device_span_ms": summary["span_ms"],
                        "idle_share": (1.0 - busy / wall_ms) if busy else None,
-                       "kernels": len(by_kernel),
-                       "launches": sum(c for _, _, c in by_kernel),
+                       "device_op_names": len(summary["by_name"]),
+                       "kernel_launches": summary["kernel_launches"],
+                       "copies_and_fills": summary["copies_and_fills"],
+                       "source": os.path.join(trace_dir, profiling.TRACE_FILE),
                        "top": [{"op": k, "device_ms": t, "count": c}
-                               for k, t, c in by_kernel[:15]]}
+                               for k, t, c in summary["by_name"][:15]]}
     record["full_width_step"] = info
     log(f"full-width step (D={d}, H={hidden}, {rows} rows per dp shard, 2 x 4): "
         f"first step ring {info['ring']['first_step_s']:.3f} s / pallas_ring "
         f"{info['pallas_ring']['first_step_s']:.3f} s; step ring "
         f"{info['ring']['step_ms']:.3f} ms, pallas_ring {info['pallas_ring']['step_ms']:.3f} ms; "
+        f"(timeit {info['pallas_ring']['step_timeit_ms']:.3f} ms); "
         f"K1 alone {info['k1_ms']:.4f} ms ({100 * info['k1_share_of_pallas_ring_step']:.2f}% "
         f"of the pallas_ring step); peak {info['pallas_ring']['peak_bytes'] / 2**30:.2f} GiB; "
-        f"profiled step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms in "
-        f"{info['profile']['launches']} kernel launches")
+        f"profiled step (profiling.trace): wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms in {info['profile']['kernel_launches']} kernel launches and "
+        f"{info['profile']['copies_and_fills']} copies and fills; SUM backward "
+        f"{info['sum_backward']['rule_ms']:.4f} ms alone, step with the old rule "
+        f"{info['sum_backward']['step_old_rule_ms']:.3f} ms vs "
+        f"{info['sum_backward']['step_new_rule_ms']:.3f} ms")
     for row in info["profile"]["top"][:8]:
         log(f"  {row['device_ms']:9.3f} ms  x{row['count']:<4d} {row['op'][:90]}")
     log("  allowance shares: " + ", ".join(
         f"{k}: {v['allowance_share']:.3g}" for k, v in info.items()
         if isinstance(v, dict) and "allowance_share" in v))
-    del x, y, w1, w2
-    torch.cuda.empty_cache()
+    return steps, (x, y, w1, w2)
+
+
+def sum_backward_cost(torch, dev, step, args, info):
+    """What the fused SUM backward's rule costs in the full-width step: the
+    rule alone on a cotangent of the tp allreduce's shape (``[P, rows,
+    d]``, groups of the mp axis), and the step with it against the step
+    with the rule it replaced (each cotangent passed through unchanged),
+    timed in turns (new, old, old, new; CUDA events, median of 5 each)."""
+    from mpi_tpu_torch.gpu import primitives
+
+    dp, mp, rows, d = (STEP[k] for k in ("dp", "mp", "rows_per_shard", "d"))
+    groups = list(range(P))  # the mp groups [[0, 1, 2, 3], [4, 5, 6, 7]], flattened
+    gen = torch.Generator(device=dev).manual_seed(11)
+    # as in the step, each mp group's cotangents are equal (else it raises)
+    cot = torch.randn((P // mp, rows, d), device=dev, generator=gen).repeat_interleave(mp, 0)
+
+    rule_ms = time_ms(torch, lambda: primitives.group_cotangent_world(cot, groups, mp),
+                      reps=5, warmup=1)
+    del cot
+    new_backward = primitives._GroupReduce.backward
+
+    def old_backward(ctx, grad):
+        return grad, None, None, None, None
+
+    turns = {"new": [], "old": []}
+    for side in ("new", "old", "old", "new"):
+        if side == "old":
+            primitives._GroupReduce.backward = staticmethod(old_backward)
+        try:
+            turns[side].append(time_ms(torch, lambda: step(*args), reps=5, warmup=1))
+        finally:
+            primitives._GroupReduce.backward = staticmethod(new_backward)
+    info["sum_backward"] = {
+        "rule_ms": rule_ms, "cotangent_shape": [P, rows, d],
+        "step_new_rule_ms": statistics.median(turns["new"]),
+        "step_old_rule_ms": statistics.median(turns["old"]), "turns": turns}
+
+
+def checkpoint_phase(torch, dev, steps, args, record):
+    """The full-width step's state after step 1 (w1 and w2, laid out as
+    the reference's out_specs P(None, "mp") and P("mp", None) over the 2 x
+    4 mesh) through ``checkpoint.save_sharded`` under chiprun_out/ and
+    ``load_sharded`` onto the card into a template; step 2 from the loaded
+    state must equal step 2 from the state in memory, bitwise."""
+    import shutil
+
+    from mpi_tpu_torch.checkpoint import Layout, Sharded, load_sharded, save_sharded
+
+    x, y, w1, w2 = args
+    step = steps["pallas_ring"]
+    w1n, w2n, _, _ = step(x, y, w1, w2)
+    mesh = {"dp": STEP["dp"], "mp": STEP["mp"]}
+    layouts = {"w1": Layout(mesh, (None, "mp")), "w2": Layout(mesh, ("mp", None))}
+    state = {"w1": Sharded(w1n, layouts["w1"]), "w2": Sharded(w2n, layouts["w2"])}
+    path = os.path.join("chiprun_out", "checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = save_sharded(path, state)
+    save_s = time.perf_counter() - t0
+    files = sum(len(f) for _, _, f in os.walk(path))
+    template = {k: Sharded(torch.empty_like(v.tensor), layouts[k]) for k, v in state.items()}
+    t0 = time.perf_counter()
+    loaded = load_sharded(path, template)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(path)
+    for k, v in state.items():
+        got = loaded[k].tensor
+        if got.device != dev or not torch.equal(got, v.tensor):
+            raise RuntimeError(f"checkpoint: {k} came back different (on {got.device})")
+    want = step(x, y, w1n, w2n)
+    got = step(x, y, loaded["w1"].tensor, loaded["w2"].tensor)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("checkpoint: step 2 from the loaded state differs")
+    record["checkpoint"] = {"bytes": nbytes, "files": files, "save_s": save_s,
+                            "load_s": load_s,
+                            "step2_from_loaded_state": "bitwise equal"}
+    log(f"checkpoint: {nbytes} bytes in {files} files (shards and manifest), save "
+        f"{save_s:.3f} s, load {load_s:.3f} s; step 2 from the loaded state bitwise "
+        f"equal")
+
+
+def aot_phase(torch, dev, steps, args, paths, record):
+    """``entry.lower_multichip(8)`` at the reference's shapes on fake
+    tensors (device memory allocated must not change; the pallas_ring
+    graph must hold one ``ring_fold`` node and ``attn_fwd`` nodes), then
+    ``entry.export_multichip(8, "pallas_ring")`` at full width through
+    ``torch.export.save`` / ``load``: the loaded program's outputs must
+    equal the eager step's bitwise, and running it must launch K1 and K2
+    (counters zeroed before, read after); both timed with CUDA events
+    (median of 5 after 1 warm-up)."""
+    from mpi_tpu_torch import aot, entry
+    from mpi_tpu_torch.gpu import attention, ring
+
+    info = {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    graph = entry.lower_multichip(P)
+    info["lower_s"] = time.perf_counter() - t0
+    graph_k = entry.lower_multichip(P, "pallas_ring")
+    info["lower_allocated_bytes"] = torch.cuda.memory_allocated() - before
+    info["lower_nodes"] = len(graph.graph.nodes)
+    info["lower_kernel_nodes"] = {"ring": aot.kernel_nodes(graph),
+                                  "pallas_ring": aot.kernel_nodes(graph_k)}
+    if info["lower_allocated_bytes"] != 0:
+        raise RuntimeError(f"lower_multichip allocated {info['lower_allocated_bytes']} bytes")
+    nodes = info["lower_kernel_nodes"]["pallas_ring"]
+    if nodes.get("ring_fold") != 1 or not nodes.get("attn_fwd"):
+        raise RuntimeError(f"the lowered pallas_ring step holds kernel nodes {nodes}")
+    del graph, graph_k
+
+    shapes = tuple(tuple(t.shape) for t in args)
+    t0 = time.perf_counter()
+    program = entry.export_multichip(P, "pallas_ring", shapes=shapes)
+    info["export_s"] = time.perf_counter() - t0
+    info["export_kernel_nodes"] = aot.kernel_nodes(program.graph_module)
+    nodes = info["export_kernel_nodes"]
+    if nodes.get("ring_fold") != 1 or not nodes.get("attn_fwd"):
+        raise RuntimeError(f"the exported step holds kernel nodes {nodes}")
+    path = os.path.join("chiprun_out", "full_width_step.pt2")
+    t0 = time.perf_counter()
+    torch.export.save(program, path)
+    loaded = torch.export.load(path).module()
+    info["save_load_s"] = time.perf_counter() - t0
+    info["pt2_bytes"] = os.path.getsize(path)
+    os.remove(path)
+    eager = steps["pallas_ring"](*args)
+    ring.reset_launches()
+    attention.reset_launches()
+    torch.cuda.synchronize()
+    out = loaded(*args)
+    torch.cuda.synchronize()
+    launches = {**ring_launches(ring), **attention_launches(attention)}
+    if not launches["ring_allreduce"] or not launches["attention_fwd"]:
+        raise RuntimeError(f"the exported step launched {launches}")
+    paths["exported full-width step"] = launches
+    info["launches"] = launches
+    if not all(torch.equal(a, b) for a, b in zip(out, eager)):
+        raise RuntimeError("the exported step's outputs differ from the eager step's")
+    del out, eager
+    info["exported_step_ms"] = time_ms(torch, lambda: loaded(*args), reps=5, warmup=1)
+    info["eager_step_ms"] = time_ms(torch, lambda: steps["pallas_ring"](*args), reps=5,
+                                    warmup=1)
+    record["aot"] = info
+    log(f"AOT: lower_multichip(8) {info['lower_s']:.3f} s, {info['lower_nodes']} nodes, "
+        f"kernel nodes {info['lower_kernel_nodes']}, {info['lower_allocated_bytes']} bytes "
+        f"allocated; export at full width {info['export_s']:.3f} s, kernel nodes "
+        f"{nodes}, .pt2 {info['pt2_bytes']} bytes; loaded program bitwise equal to the "
+        f"eager step, launches {launches}; step {info['exported_step_ms']:.3f} ms "
+        f"exported vs {info['eager_step_ms']:.3f} ms eager")
+
+
+def gradient_phase(torch, record):
+    """The fused SUM's gradient on the card against the CPU, 8 ranks, numpy
+    inputs (rtol 1e-5, atol 1e-6): the mixed program (the reduced value,
+    marked by ``comm.localize``, times a rank-varying y: each rank's
+    gradient is x_r times the sum of y), the residual block (h1 + the
+    allreduce of localize(h1) times a rank-varying u) and the replicated
+    one (the reduced value squared).  The mixed program without the mark
+    must raise, naming ``comm.localize``, on the card as on the CPU."""
+    import numpy as np
+
+    import mpi_tpu_torch
+
+    rng = np.random.RandomState(0)
+    x, w, y = (rng.randn(P, 3).astype(np.float32) for _ in range(3))
+
+    def mixed(comm, x, w, y, mark=True):
+        def loss(v):
+            r = comm.allreduce(x[comm.rank] * v, algorithm="fused")
+            return torch.sum((comm.localize(r) if mark else r) * y[comm.rank])
+        return torch.func.grad(loss)(w[comm.rank])
+
+    def residual(comm, x, w, u):
+        def loss(v):
+            h1 = comm.allreduce(x[comm.rank] * v, algorithm="fused")
+            h2 = h1 + comm.allreduce(comm.localize(h1) * u[comm.rank], algorithm="fused")
+            return torch.sum(h2 ** 2)
+        return torch.func.grad(loss)(w[comm.rank])
+
+    def replicated(comm, x, w, y):
+        return torch.func.grad(lambda v: torch.sum(comm.allreduce(
+            x[comm.rank] * v, algorithm="fused") ** 2))(w[comm.rank])
+
+    info = {}
+    for name, prog in (("mixed", mixed), ("residual", residual),
+                       ("replicated", replicated)):
+        card = mpi_tpu_torch.run(prog, x, w, y, nranks=P)
+        cpu = mpi_tpu_torch.run(prog, x, w, y, nranks=P, device="cpu")
+        agree(torch, f"gradient {name}: card vs cpu", card, cpu, 1e-5, 1e-6, info)
+        if name == "mixed":  # JAX's result: x_r times the sum of y
+            agree(torch, "gradient mixed: card vs x * sum(y)", card,
+                  torch.from_numpy(x * y.sum(0)), 1e-5, 1e-6, info)
+    for dev in (None, "cpu"):
+        try:
+            mpi_tpu_torch.run(lambda c, *a: mixed(c, *a, mark=False), x, w, y,
+                              nranks=P, device=dev)
+        except RuntimeError as e:
+            if "comm.localize" not in str(e):
+                raise
+        else:
+            raise RuntimeError(f"the unmarked mixed program ran on {dev or 'the card'}")
+    info["unmarked_mixed_raises"] = True
+    record["gradient"] = info
+    log("gradient programs on the card vs the CPU: " + ", ".join(
+        f"{k} {v['max_abs_err']:.3g}" for k, v in info.items() if isinstance(v, dict))
+        + "; the unmarked mixed program raises naming comm.localize on both")
 
 
 def examples_phase(torch, record):
@@ -979,8 +1216,16 @@ def main():
     # 5-7. the multi-parallel dry run, the full-width step, the examples -------
     dryrun_phase(torch, paths, record)
     lap("dry run")
-    step_phase(torch, dev, paths, record)
+    steps, step_args = step_phase(torch, dev, paths, record)
     lap("full-width step")
+    checkpoint_phase(torch, dev, steps, step_args, record)
+    lap("checkpoint")
+    aot_phase(torch, dev, steps, step_args, paths, record)
+    lap("AOT")
+    del steps, step_args
+    torch.cuda.empty_cache()
+    gradient_phase(torch, record)
+    lap("gradient")
     examples_phase(torch, record)
     lap("examples")
 

@@ -9,9 +9,12 @@ kernel (``csrc/ring.cu``).  ``gpu.attention.ring_attention`` is exact ring
 attention over the ranks, forward and backward on the CUDA kernels of
 ``csrc/attention.cu`` and ``csrc/attention_bwd.cu``.  ``comm.win_create``
 gives fence-epoch RMA windows, ``datatypes`` the MPI derived datatypes,
-``CartComm``/``cart_create``/``graph_create`` the process topologies, and
+``CartComm``/``cart_create``/``graph_create`` the process topologies,
 ``entry.dryrun_multichip`` one training step over a 2-D (dp, mp) layout
-that runs every parallelism primitive.
+that runs every parallelism primitive, ``entry.lower_multichip`` /
+``export_multichip`` that step traced and exported ahead of time (``aot``),
+``checkpoint.save_sharded`` / ``load_sharded`` sharded state, and
+``profiling`` traces and timings.
 
 The package imports torch, numpy and the standard library only; the JAX
 package ``mpi_tpu`` is its reference and is never imported.
@@ -25,7 +28,8 @@ from . import datatypes, ops
 from .gpu import (SpmdContextError, SpmdSemanticsError, TorchCommunicator,
                   rank_normal, rank_uniform, resolve_device, run_spmd)
 from .interop import params_from_numpy, to_numpy, world_from_numpy
-from .topology import CartComm, GraphComm, cart_create, dims_create, graph_create
+from .topology import (CartComm, GraphComm, cart_create, dims_create,
+                       dist_graph_create_adjacent, graph_create)
 
 _HOST_BACKENDS = ("socket", "local", "shm", "self")
 
@@ -47,6 +51,6 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
 
 __all__ = ["CartComm", "GraphComm", "SpmdContextError", "SpmdSemanticsError",
            "TorchCommunicator", "cart_create", "datatypes", "dims_create",
-           "graph_create", "ops", "params_from_numpy", "rank_normal",
+           "dist_graph_create_adjacent", "graph_create", "ops", "params_from_numpy", "rank_normal",
            "rank_uniform", "resolve_device", "run", "run_spmd", "to_numpy",
            "world_from_numpy"]

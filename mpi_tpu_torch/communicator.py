@@ -68,8 +68,10 @@ class Communicator(ABC):
     def scan(self, obj: Any, op: _ops.ReduceOp = _ops.SUM) -> Any: ...
 
     def localize(self, obj: Any) -> Any:
-        """Mark ``obj`` as rank-local state (identity: torch has no
-        varying-axes typing to brand)."""
+        """Mark ``obj`` as rank-local state: the identity here, as on the
+        reference's process backends (``mpi_tpu/communicator.py:1034``);
+        the SPMD communicator overrides it with the reference's ``pvary``
+        (``TorchCommunicator.localize``)."""
         return obj
 
     def exscan(self, obj: Any, op: _ops.ReduceOp = _ops.SUM) -> Any:

@@ -37,6 +37,12 @@ __all__ = [
 
 BaseLike = Union[str, type, np.dtype, "Datatype"]
 
+# the torch dtype of each numpy base type the torch path takes
+_TORCH_DTYPES = {np.dtype(t): torch.from_numpy(np.zeros(0, t)).dtype for t in (
+    np.bool_, np.uint8, np.uint16, np.uint32, np.uint64, np.int8, np.int16,
+    np.int32, np.int64, np.float16, np.float32, np.float64, np.complex64,
+    np.complex128)}
+
 
 def _as_base(base: BaseLike) -> "Datatype":
     if isinstance(base, Datatype):
@@ -183,7 +189,14 @@ class Datatype:
     # -- device (torch) path --------------------------------------------
 
     def _torch_dtype(self):
-        return torch.from_numpy(np.zeros(0, self.base_dtype)).dtype
+        # a table, not ``torch.from_numpy(np.zeros(0, dt)).dtype``: under a
+        # trace that empty tensor would be lifted into the graph as a
+        # constant with no storage, which ``torch.export.save`` cannot write
+        dt = np.dtype(self.base_dtype)
+        if dt not in _TORCH_DTYPES:
+            raise TypeError(f"datatype base {dt} has no torch dtype; the torch "
+                            f"path takes {sorted(str(d) for d in _TORCH_DTYPES)}")
+        return _TORCH_DTYPES[dt]
 
     @staticmethod
     def _byte_view(x: torch.Tensor) -> torch.Tensor:

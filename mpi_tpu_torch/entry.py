@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import aot
 from . import datatypes as dtt
 from . import ops
 from .examples.jacobi import jacobi_step
@@ -160,6 +161,33 @@ def _build_step(dp: int, mp: int, dp_algorithm: str = "ring"):
         return w1n, w2n, loss[0], aux[0]
 
     return step
+
+
+def lower_multichip(n_devices: int, dp_algorithm: str = "ring", device=None,
+                    shapes=None):
+    """The whole step for ``n_devices`` ranks (forward, ``torch.func.grad``
+    and update) traced on fake tensors for ``device`` (default: the card;
+    the counterpart of ``__graft_entry__.py:216 lower_multichip``, an
+    ``AbstractMesh`` lowering): a ``torch.fx.GraphModule`` taking (x, y,
+    w1, w2) of ``shapes`` (default: the reference's ``_shapes``), made
+    without allocating device memory.  For the card, ``pallas_ring``'s dp
+    sync and the attention are ``mpi_tpu_torch::ring_fold`` and
+    ``::attn_fwd`` nodes (a PyTorch built without CUDA cannot trace the
+    step's backward for the card: ``aot.lower`` raises saying so)."""
+    dp, mp = _split_axes(n_devices)
+    step = _build_step(dp, mp, dp_algorithm)
+    return aot.lower(step, *(shapes or _shapes(dp, mp)), device=device)
+
+
+def export_multichip(n_devices: int, dp_algorithm: str = "pallas_ring",
+                     device=None, shapes=None):
+    """``torch.export`` of ``lower_multichip`` (the counterpart of
+    ``__graft_entry__.py:223 export_multichip_tpu``): an
+    ``ExportedProgram`` that round-trips through ``torch.export.save`` /
+    ``load``; its ``module()`` runs the step, kernels included."""
+    dp, mp = _split_axes(n_devices)
+    step = _build_step(dp, mp, dp_algorithm)
+    return aot.export(step, *(shapes or _shapes(dp, mp)), device=device)
 
 
 def _dense_causal_attention(q: np.ndarray) -> np.ndarray:

@@ -334,8 +334,104 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _geometry(q4, k4, gl, d):
-    return (len(gl), len(gl[0]), q4.shape[1], k4.shape[1], q4.shape[2], d)
+def _geometry(q4, k4, groups, size, d):
+    return (len(groups) // size, size, q4.shape[1], k4.shape[1], q4.shape[2], d)
+
+
+# Each C entry point of csrc/attention.cu and csrc/attention_bwd.cu is a
+# world-level ``torch.library`` op on 4-D ``[P, H, Sb, d]`` operands
+# (``mpi_tpu_torch::attn_fwd``, ``::attn_bwd_dq``, ``::attn_bwd_dkv``): its
+# CUDA implementation launches the kernel and counts the launch; its fake
+# implementation only states the outputs, so a trace on fake CUDA tensors
+# records each launch as one graph node and never builds or launches.
+
+
+def _lse_shape(q4: torch.Tensor) -> Tuple[int, int, int]:
+    return tuple(q4.shape[:3])
+
+
+@torch.library.custom_op("mpi_tpu_torch::attn_fwd", mutates_args=(),
+                         device_types="cuda")
+def attn_fwd(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+             groups: List[int], size: int, scale: float,
+             causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attn_fwd`` of csrc/attention.cu: (out like q4, lse ``[P, Hq, Sb]``
+    float32) for each group of ``size`` consecutive entries of ``groups``."""
+    from .. import _build
+
+    q4, k4, v4 = _aligned(q4), _aligned(k4), _aligned(v4)
+    out = torch.empty_like(q4)
+    lse = torch.empty(_lse_shape(q4), dtype=torch.float32, device=q4.device)
+    lib = _build.load("attention")
+    table = _group_table(_split(groups, size), q4.device)
+    with torch.cuda.device(q4.device):
+        err = lib.attn_fwd(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                           out.data_ptr(), lse.data_ptr(), table.data_ptr(),
+                           *_geometry(q4, k4, groups, size, q4.shape[3]),
+                           scale, int(causal), _DTYPE_CODE[q4.dtype], _stream(q4))
+    _raise_on(err, "forward")
+    LAUNCHES["fwd"] += 1
+    return out, lse
+
+
+@attn_fwd.register_fake
+def _(q4, k4, v4, groups, size, scale, causal):
+    return (torch.empty_like(q4, memory_format=torch.contiguous_format),
+            q4.new_empty(_lse_shape(q4), dtype=torch.float32))
+
+
+def _launch_bwd(name: str, q4, k4, v4, dout4, lse, delta, groups, size, scale,
+                causal, outs) -> None:
+    from .. import _build
+
+    lib = _build.load("attention_bwd")
+    q4, k4, v4, dout4, lse = (_aligned(t) for t in (q4, k4, v4, dout4, lse))
+    fn = lib.attn_bwd_dq if name == "bwd_dq" else lib.attn_bwd_dkv
+    table = _group_table(_split(groups, size), q4.device)
+    with torch.cuda.device(q4.device):
+        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), dout4.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+                 table.data_ptr(), *_geometry(q4, k4, groups, size, q4.shape[3]),
+                 scale, int(causal), _DTYPE_CODE[q4.dtype], _stream(q4))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+
+
+@torch.library.custom_op("mpi_tpu_torch::attn_bwd_dq", mutates_args=(),
+                         device_types="cuda")
+def attn_bwd_dq(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+                dout4: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                groups: List[int], size: int, scale: float,
+                causal: bool) -> torch.Tensor:
+    """``attn_bwd_dq`` of csrc/attention_bwd.cu: dq like q4."""
+    dq = torch.empty(q4.shape, dtype=q4.dtype, device=q4.device)
+    _launch_bwd("bwd_dq", q4, k4, v4, dout4, lse, delta, groups, size, scale,
+                causal, (dq,))
+    return dq
+
+
+@attn_bwd_dq.register_fake
+def _(q4, k4, v4, dout4, lse, delta, groups, size, scale, causal):
+    return q4.new_empty(q4.shape)
+
+
+@torch.library.custom_op("mpi_tpu_torch::attn_bwd_dkv", mutates_args=(),
+                         device_types="cuda")
+def attn_bwd_dkv(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
+                 dout4: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 groups: List[int], size: int, scale: float,
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attn_bwd_dkv`` of csrc/attention_bwd.cu: (dk, dv) like k4."""
+    dk, dv = (torch.empty(k4.shape, dtype=k4.dtype, device=k4.device)
+              for _ in range(2))
+    _launch_bwd("bwd_dkv", q4, k4, v4, dout4, lse, delta, groups, size, scale,
+                causal, (dk, dv))
+    return dk, dv
+
+
+@attn_bwd_dkv.register_fake
+def _(q4, k4, v4, dout4, lse, delta, groups, size, scale, causal):
+    return k4.new_empty(k4.shape), k4.new_empty(k4.shape)
 
 
 def ring_attention_world(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -350,21 +446,8 @@ def ring_attention_world(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q4, k4, v4, (multihead, hq, hkv, sb, d) = _world_blocks(q, k, v)
     _kernel_plan(d)
     gl = _group_list(groups, q.shape[0])
-    q4, k4, v4 = _aligned(q4), _aligned(k4), _aligned(v4)
-    out = torch.empty_like(q4)
-    lse = torch.empty((q.shape[0], hq, sb), dtype=torch.float32, device=q.device)
-    from .. import _build
-
-    lib = _build.load("attention")
-    table = _group_table(gl, q.device)
-    with torch.cuda.device(q.device):
-        err = lib.attn_fwd(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                           out.data_ptr(), lse.data_ptr(), table.data_ptr(),
-                           *_geometry(q4, k4, gl, d),
-                           _default_scale(scale, d), int(causal),
-                           _DTYPE_CODE[q.dtype], _stream(q))
-    _raise_on(err, "forward")
-    LAUNCHES["fwd"] += 1
+    out, lse = attn_fwd(q4, k4, v4, [w for g in gl for w in g], len(gl[0]),
+                        _default_scale(scale, d), bool(causal))
     out = out if multihead else out[:, 0]
     return (out, lse) if with_lse else out
 
@@ -386,6 +469,10 @@ def ring_attention_bwd_world(q, k, v, out, lse, dout, groups: Groups = None, *,
     return dq, dk, dv
 
 
+_BWD_ARGS = ("q", "k", "v", "dout", "lse", "delta", "groups", "size", "scale",
+             "causal")
+
+
 def bwd_operands(q, k, v, out, lse, dout, groups: Groups = None, *,
                  scale: Optional[float] = None, causal: bool = False) -> dict:
     """Check and lay out the backward kernels' operands on the card,
@@ -396,36 +483,24 @@ def bwd_operands(q, k, v, out, lse, dout, groups: Groups = None, *,
     _kernel_plan(d)
     nranks = q.shape[0]
     gl = _group_list(groups, nranks)
-    do4 = _aligned((dout if multihead else dout.unsqueeze(1)).to(q.dtype))
+    do4 = (dout if multihead else dout.unsqueeze(1)).to(q.dtype)
     o4 = out if multihead else out.unsqueeze(1)
     return {
-        "q": _aligned(q4), "k": _aligned(k4), "v": _aligned(v4),
-        "dout": do4, "lse": _aligned(lse.reshape(nranks, hq, sb).float()),
+        "q": q4, "k": k4, "v": v4, "dout": do4,
+        "lse": lse.reshape(nranks, hq, sb).float(),
         "delta": (do4.float() * o4.float()).sum(dim=-1).contiguous(),
-        "table": _group_table(gl, q.device), "geometry": _geometry(q4, k4, gl, d),
-        "scale": _default_scale(scale, d), "causal": int(causal),
+        "groups": [w for g in gl for w in g], "size": len(gl[0]),
+        "scale": _default_scale(scale, d), "causal": bool(causal),
         "multihead": multihead}
 
 
 def launch_bwd(name: str, ops: dict) -> Tuple[torch.Tensor, ...]:
     """Launch ``attn_bwd_dq`` (``name="bwd_dq"``, returns (dq,)) or
     ``attn_bwd_dkv`` (``"bwd_dkv"``, returns (dk, dv)) on ``bwd_operands``."""
-    from .. import _build
-
-    lib = _build.load("attention_bwd")
-    q4, k4 = ops["q"], ops["k"]
-    outs = (torch.empty_like(q4),) if name == "bwd_dq" else \
-        (torch.empty_like(k4), torch.empty_like(k4))
-    fn = lib.attn_bwd_dq if name == "bwd_dq" else lib.attn_bwd_dkv
-    with torch.cuda.device(q4.device):
-        err = fn(q4.data_ptr(), k4.data_ptr(), ops["v"].data_ptr(),
-                 ops["dout"].data_ptr(), ops["lse"].data_ptr(),
-                 ops["delta"].data_ptr(), *(t.data_ptr() for t in outs),
-                 ops["table"].data_ptr(), *ops["geometry"], ops["scale"],
-                 ops["causal"], _DTYPE_CODE[q4.dtype], _stream(q4))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return outs
+    args = [ops[a] for a in _BWD_ARGS]
+    if name == "bwd_dq":
+        return (attn_bwd_dq(*args),)
+    return tuple(attn_bwd_dkv(*args))
 
 
 # -- per-rank entry point (inside run_spmd) -----------------------------------------

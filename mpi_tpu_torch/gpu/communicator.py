@@ -24,6 +24,7 @@ import warnings
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import ops as _ops
 from .. import schedules
@@ -228,6 +229,27 @@ class TorchCommunicator(Communicator):
                 self._axis_size)
             recvd = torch.where(has_src, recvd, torch.full_like(recvd, fill))
         return recvd
+
+    def localize(self, obj):
+        """Brand a value as rank-varying over this comm's groups (the
+        reference's ``localize``, ``tpu/communicator.py:274``, a
+        ``pvary``): the value is unchanged; a gradient that flows back
+        through it is summed over each group whose values were all equal
+        (``pvary`` of an invariant value) and passes unchanged elsewhere.
+        Outside a differentiated function it changes nothing: per-rank
+        state wrapped once at creation keeps local gradients, as on every
+        backend.  Inside one, wrap a value the same on every rank of a
+        group (a reduced value, a replicated input) at each use where it
+        meets rank-varying values, where JAX's typing puts its ``pvary``:
+        the gradients then equal ``jax.grad``'s.  Without the mark the
+        fused SUM's backward raises where its cotangents differ, and a
+        replicated input's gradient is each rank's own part (see
+        ``primitives._GroupReduce``)."""
+        if self.size == 1:
+            return obj
+        self._world("localize")
+        return pytree.tree_map(
+            lambda x: primitives.localize(x, self._flat_groups, self.size), obj)
 
     def replicate(self, obj, root: int = 0):
         """Every rank takes ``root``'s value (a masked fused sum, as the

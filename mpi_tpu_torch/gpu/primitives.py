@@ -22,6 +22,7 @@ import contextlib
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch._guards import detect_fake_mode
 
 Pair = Tuple[int, int]
 
@@ -69,10 +70,23 @@ def current(name: str = "this collective", nranks: Optional[int] = None) -> _Wor
     return w
 
 
+def host_table(values, device, dtype=None) -> torch.Tensor:
+    """A constant built on the host and copied to ``device``: the same H2D
+    copy as ``torch.as_tensor(values, device=device)``, spelled so that a
+    trace on fake tensors records it (the constant stays on the host and
+    its copy is a graph node) even for a device this host has no card for:
+    ``copy_`` into a new tensor, since a trace evaluates an op whose inputs
+    are all one-element constants (``.to`` of the table) for real."""
+    table = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type == "cpu":
+        return table
+    return torch.empty(table.shape, dtype=table.dtype, device=device).copy_(table)
+
+
 def lookup(values: Sequence, dtype=torch.long) -> torch.Tensor:
     """``values[world index]`` for a host table with one entry per world rank."""
     w = current("lookup")
-    return torch.as_tensor(list(values), dtype=dtype, device=w.device)[w.idx]
+    return host_table(list(values), w.device, dtype)[w.idx]
 
 
 def as_tensor(obj) -> torch.Tensor:
@@ -80,7 +94,7 @@ def as_tensor(obj) -> torch.Tensor:
     w = current("as_tensor")
     if isinstance(obj, torch.Tensor):
         return obj if obj.device == w.device else obj.to(w.device)
-    return torch.as_tensor(obj, device=w.device)
+    return host_table(obj, w.device)
 
 
 def as_world(x: torch.Tensor, dim: Optional[int], nranks: int) -> torch.Tensor:
@@ -92,7 +106,7 @@ def as_world(x: torch.Tensor, dim: Optional[int], nranks: int) -> torch.Tensor:
     return x.movedim(dim, 0).contiguous()
 
 
-def _members(groups: Sequence[int], size: int) -> torch.Tensor:
+def _members(groups: Sequence[int], size: int) -> List[List[int]]:
     """``[P, size]`` table: row w lists the world ranks of w's group."""
     n = len(groups)
     rows = [None] * n
@@ -100,14 +114,14 @@ def _members(groups: Sequence[int], size: int) -> torch.Tensor:
         g = list(groups[g0:g0 + size])
         for w in g:
             rows[w] = g
-    return torch.as_tensor(rows, dtype=torch.long)
+    return rows
 
 
-def _positions(groups: Sequence[int], size: int) -> torch.Tensor:
+def _positions(groups: Sequence[int], size: int) -> List[int]:
     pos = [0] * len(groups)
     for i, w in enumerate(groups):
         pos[w] = i % size
-    return torch.as_tensor(pos, dtype=torch.long)
+    return pos
 
 
 # -- ppermute ---------------------------------------------------------------
@@ -123,7 +137,8 @@ def _ppermute_vmap(info, in_dims, x, rank, src, dst):
     w = as_world(x, in_dims[0], info.batch_size)
     out = torch.zeros_like(w)
     if src:
-        out[list(dst)] = w[list(src)]
+        out = out.index_copy(0, host_table(list(dst), w.device),
+                             w.index_select(0, host_table(list(src), w.device)))
     return out, 0
 
 
@@ -148,15 +163,19 @@ class _GroupReduce(torch.autograd.Function):
     a ``custom_op``) so that ``torch.func.grad`` inside the rank vmap can
     differentiate through it.
 
-    The SUM backward hands each rank its cotangent unchanged, as JAX
-    transposes ``lax.psum`` of a rank-varying operand whose result feeds
-    only replicated computation (the tensor-parallel loss of
-    ``entry._build_step``): each rank's gradient is that of one copy of the
-    replicated loss, not of the sum of its ``size`` copies.  Where JAX's
-    varying-axes typing sees rank-varying values mixed in after the
-    reduction, or the reference's 1-D ``split_by`` spelling
-    (``psum_scatter`` + ``all_gather``, ``tpu/communicator.py:455``), it
-    sums the cotangents over the group instead; the port does not."""
+    The SUM backward is JAX's transpose of ``lax.psum`` whose result fed
+    replicated computation: each rank keeps its cotangent (the gradient of
+    one copy of the replicated loss, as in the tensor-parallel loss of
+    ``entry._build_step``).  JAX sums cotangents not here but at the
+    ``pvary`` its varying-axes typing inserts where a replicated value
+    meets rank-varying ones; the port has no such typing, and
+    ``comm.localize`` is that ``pvary``, written out.  Cotangents that
+    differ across a group mean a ``pvary`` is missing, and no rule on the
+    cotangents alone can place it: ``h + psum(f(h, w_r))`` must sum only
+    the ``f`` branch.  So the backward raises there, naming
+    ``comm.localize`` (``_GroupCotangent``).  The reference's 1-D
+    ``split_by`` spelling (``psum_scatter`` + ``all_gather``,
+    ``tpu/communicator.py:455``) always sums."""
 
     @staticmethod
     def forward(x, rank, groups, size, op):
@@ -164,6 +183,8 @@ class _GroupReduce(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+        ctx.config = (inputs[2], inputs[3])
         ctx.op = inputs[4]
 
     @staticmethod
@@ -173,12 +194,14 @@ class _GroupReduce(torch.autograd.Function):
                 f"the fused {ctx.op.upper()} allreduce has no gradient (nor "
                 f"has lax.p{ctx.op} in the reference); only SUM is "
                 f"differentiable")
-        return grad, None, None, None, None
+        rank, = ctx.saved_tensors
+        return (_GroupCotangent.apply(grad, None, rank, *ctx.config),
+                None, None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, x, rank, groups, size, op):
         w = as_world(x, in_dims[0], info.batch_size)
-        stacked = w[_members(groups, size).to(w.device)]  # [P, size, ...]
+        stacked = w[host_table(_members(groups, size), w.device)]  # [P, size, ...]
         if op == "sum":
             out = torch.sum(stacked, dim=1, dtype=w.dtype)
         elif op == "max":
@@ -188,6 +211,139 @@ class _GroupReduce(torch.autograd.Function):
         else:
             raise ValueError(f"group_reduce supports sum/max/min, got {op!r}")
         return out, 0
+
+
+def _by_group(w: torch.Tensor, groups: Sequence[int], size: int) -> torch.Tensor:
+    """The ``[P, ...]`` world as ``[G, size, ...]``, group by group in
+    group-rank order: a view when the groups are the ranks in order (the
+    dry run's mp rows), one gather otherwise."""
+    if list(groups) != list(range(len(groups))):
+        w = w.index_select(0, host_table(list(groups), w.device))
+    return w.reshape((len(groups) // size, size) + tuple(w.shape[1:]))
+
+
+def _group_of(groups: Sequence[int], size: int, device) -> torch.Tensor:
+    """``[P]``: the group index of each world rank."""
+    of = [0] * len(groups)
+    for i, r in enumerate(groups):
+        of[r] = i // size
+    return host_table(of, device)
+
+
+def _replicated(wg: torch.Tensor) -> torch.Tensor:
+    """``[G]`` bool of a ``_by_group`` world: does the group hold ``size``
+    bitwise-equal values?  (The value-level stand-in for JAX's typing of a
+    value as invariant over the axis.)"""
+    return (wg == wg[:, :1]).reshape(wg.shape[0], -1).all(dim=1)
+
+
+def _per_rank(mask: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (w.dim() - 1))
+
+
+# under 255 characters: the card's ``aten._assert_async`` takes no longer message
+_MISSING_LOCALIZE = (
+    "fused SUM allreduce: cotangents differ across a group, so a replicated "
+    "value met rank-varying ones unmarked; wrap each such use in "
+    "comm.localize (JAX's pvary), e.g. h + allreduce(f(comm.localize(h), w_r))")
+
+
+def _require(ok: torch.Tensor, msg: str) -> None:
+    """Raise ``msg`` unless the bool tensor ``ok`` holds.  Under a trace on
+    fake tensors the check is an ``aten._assert_async`` graph node (there
+    is no value to branch on); it raises on the CPU and traps on the card
+    when the traced program runs."""
+    if detect_fake_mode((ok,)) is not None:
+        torch._assert_async(ok, msg)
+    elif not bool(ok):
+        raise RuntimeError(msg)
+
+
+class _GroupCotangent(torch.autograd.Function):
+    """A backward of the fused SUM as a world-level op.  ``mask=None`` is
+    the SUM allreduce's rule: each rank keeps its cotangent, which must be
+    equal across its group (else it raises, see ``_GroupReduce``).  With
+    the per-rank ``mask`` that ``comm.localize`` recorded, the ranks it
+    marks take the group sum (the transpose of ``pvary``) and the others
+    keep theirs."""
+
+    @staticmethod
+    def forward(grad, mask, rank, groups, size):
+        raise _outside("a fused backward")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the fused allreduce has no second derivative in the port")
+
+    @staticmethod
+    def vmap(info, in_dims, grad, mask, rank, groups, size):
+        w = as_world(grad, in_dims[0], info.batch_size)
+        if mask is not None:
+            mask = as_world(mask, in_dims[1], info.batch_size)
+        return group_cotangent_world(w, groups, size, mask), 0
+
+
+def group_cotangent_world(w: torch.Tensor, groups: Sequence[int], size: int,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``_GroupCotangent`` on the ``[P, ...]`` world of cotangents.  With
+    ``mask=None``: ``w`` itself, once every group is checked to hold equal
+    cotangents.  With a ``[P]`` ``mask``: each group summed once over its
+    members (``[G, ...]``) and handed to its marked ranks; the unmarked
+    keep their own."""
+    wg = _by_group(w, groups, size)
+    if mask is None:
+        _require(_replicated(wg).all(), _MISSING_LOCALIZE)
+        return w
+    total = wg.sum(dim=1)[_group_of(groups, size, w.device)]
+    return torch.where(_per_rank(mask, w), total, w)
+
+
+class _Localize(torch.autograd.Function):
+    """``comm.localize`` as a world-level op (the reference's
+    ``localize``, ``tpu/communicator.py:274``): the identity forward,
+    which records where the group's values are all equal (where the
+    reference's ``pvary`` would brand an invariant value varying); the
+    backward sums the cotangents over the group there, and passes them
+    through elsewhere (``pvary`` of a value already varying is a no-op)."""
+
+    @staticmethod
+    def forward(x, rank, groups, size):
+        raise _outside("localize")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output[1], inputs[1])
+        ctx.config = (inputs[2], inputs[3])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, grad, _):
+        mask, rank = ctx.saved_tensors
+        return (_GroupCotangent.apply(grad, mask, rank, *ctx.config),
+                None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, rank, groups, size):
+        n = info.batch_size
+        if in_dims[0] is None:  # the same value on every rank
+            same = torch.ones(n, dtype=torch.bool, device=x.device)
+        else:
+            wg = _by_group(x.movedim(in_dims[0], 0), groups, size)
+            same = _replicated(wg)[_group_of(groups, size, x.device)]
+        return (x.view_as(x), same), (in_dims[0], 0)
+
+
+def localize(x, groups: Sequence[int], size: int) -> torch.Tensor:
+    """Mark ``x`` as rank-varying over the groups: the value is unchanged;
+    where a group's values are all equal, a gradient through it is summed
+    over the group."""
+    w = current("localize")
+    return _Localize.apply(as_tensor(x), w.idx, list(groups), size)[0]
 
 
 def group_reduce(x, groups: Sequence[int], size: int, op: str) -> torch.Tensor:
@@ -208,7 +364,7 @@ def _all_gather(x: torch.Tensor, rank: torch.Tensor, groups: List[int],
 
 def _all_gather_vmap(info, in_dims, x, rank, groups, size):
     w = as_world(x, in_dims[0], info.batch_size)
-    return w[_members(groups, size).to(w.device)], 0
+    return w[host_table(_members(groups, size), w.device)], 0
 
 
 _all_gather.register_vmap(_all_gather_vmap)
@@ -229,8 +385,8 @@ def _all_to_all(x: torch.Tensor, rank: torch.Tensor, groups: List[int],
 
 def _all_to_all_vmap(info, in_dims, x, rank, groups, size):
     w = as_world(x, in_dims[0], info.batch_size)  # [P, size, ...]
-    members = _members(groups, size).to(w.device)
-    pos = _positions(groups, size).to(w.device)
+    members = host_table(_members(groups, size), w.device)
+    pos = host_table(_positions(groups, size), w.device)
     return w[members, pos[:, None]], 0
 
 

@@ -245,6 +245,12 @@ def allgather_plain(world: torch.Tensor, groups: Groups = None,
 
 
 # -- the CUDA kernel -------------------------------------------------------------
+#
+# Each C entry point of csrc/ring.cu is a world-level ``torch.library`` op
+# (``mpi_tpu_torch::ring_fold``, ``::ring_gather``): its CUDA
+# implementation launches the kernel and counts the launch; its fake
+# implementation only states the output, so a trace on fake CUDA tensors
+# records the launch as one graph node and never builds or launches.
 
 _TABLES: Dict[tuple, torch.Tensor] = {}
 
@@ -282,20 +288,80 @@ def _require_cuda(world: torch.Tensor) -> None:
             f"version); got a tensor on {world.device}")
 
 
-def _fold(world, out, gl, n_inner, chunk_len, tile_rows, tA, rot, scatter, op,
-          mode):
+def _fold_shape(world: torch.Tensor, scatter: bool) -> Tuple[int, ...]:
+    return (world.shape[0],) + tuple(world.shape[2:]) if scatter else tuple(world.shape)
+
+
+@torch.library.custom_op("mpi_tpu_torch::ring_fold", mutates_args=(),
+                         device_types="cuda")
+def ring_fold(world: torch.Tensor, groups: List[int], size: int, op: str,
+              tile_rows: int, bidirectional: bool, scatter: bool) -> torch.Tensor:
+    """``ring_fold`` of csrc/ring.cu on a checked contiguous world: the
+    allreduce (``scatter=False``, ``[P, *shape]`` out) or the
+    reduce-scatter (``[P, g, *block]`` -> ``[P, *block]``) of each group of
+    ``size`` consecutive entries of ``groups``."""
     from .. import _build
 
+    gl = [list(groups[i:i + size]) for i in range(0, len(groups), size)]
+    out = torch.empty(_fold_shape(world, scatter), dtype=world.dtype,
+                      device=world.device)
+    n_inner = world[0].numel()
+    rows, _ = _geometry(n_inner, size, tile_rows)
+    chunk_len = n_inner // size if scatter else rows * _LANES
+    if n_inner == 0:
+        return out
+    mode = "reduce_scatter" if scatter else "allreduce"
     lib = _build.load("ring")
     table = _group_table(gl, world.device)
     vec = _vec(world, out, n_inner, chunk_len)
     with torch.cuda.device(world.device):
         err = lib.ring_fold(
-            world.data_ptr(), out.data_ptr(), table.data_ptr(), len(gl),
-            len(gl[0]), n_inner, chunk_len, tile_rows * _LANES, tA, rot,
-            scatter, _DTYPE_CODE[world.dtype], _OP_CODE[op], vec, _stream(world))
+            world.data_ptr(), out.data_ptr(), table.data_ptr(), len(gl), size,
+            n_inner, chunk_len, tile_rows * _LANES,
+            _right_tiles(rows, tile_rows, bidirectional), -1 if scatter else 0,
+            int(scatter), _DTYPE_CODE[world.dtype], _OP_CODE[op], vec,
+            _stream(world))
     _raise_on(err, mode)
     LAUNCHES[mode] += 1
+    return out
+
+
+@ring_fold.register_fake
+def _(world, groups, size, op, tile_rows, bidirectional, scatter):
+    return world.new_empty(_fold_shape(world, scatter))
+
+
+@torch.library.custom_op("mpi_tpu_torch::ring_gather", mutates_args=(),
+                         device_types="cuda")
+def ring_gather(world: torch.Tensor, groups: List[int], size: int) -> torch.Tensor:
+    """``ring_gather`` of csrc/ring.cu: ``[P, *block]`` -> ``[P, g, *block]``."""
+    from .. import _build
+
+    gl = [list(groups[i:i + size]) for i in range(0, len(groups), size)]
+    out = torch.empty((world.shape[0], size) + tuple(world.shape[1:]),
+                      dtype=world.dtype, device=world.device)
+    block_n = world[0].numel()
+    if block_n == 0:
+        return out
+    lib = _build.load("ring")
+    table = _group_table(gl, world.device)
+    vec = _vec(world, out, block_n)
+    with torch.cuda.device(world.device):
+        err = lib.ring_gather(world.data_ptr(), out.data_ptr(), table.data_ptr(),
+                              len(gl), size, block_n, _DTYPE_CODE[world.dtype],
+                              vec, _stream(world))
+    _raise_on(err, "allgather")
+    LAUNCHES["allgather"] += 1
+    return out
+
+
+@ring_gather.register_fake
+def _(world, groups, size):
+    return world.new_empty((world.shape[0], size) + tuple(world.shape[1:]))
+
+
+def _flat(gl: List[List[int]]) -> List[int]:
+    return [w for g in gl for w in g]
 
 
 def allreduce_world(world: torch.Tensor, groups: Groups = None, op: str = "sum",
@@ -306,13 +372,8 @@ def allreduce_world(world: torch.Tensor, groups: Groups = None, op: str = "sum",
         return allreduce_plain(world, groups, op, tile_rows, bidirectional)
     _require_cuda(world)
     gl = _check_world(world, groups, op, tile_rows)
-    g, n = len(gl[0]), world[0].numel()
-    rows, _ = _geometry(n, g, tile_rows)
-    out = torch.empty_like(world)
-    if n:
-        _fold(world, out, gl, n, rows * _LANES, tile_rows,
-              _right_tiles(rows, tile_rows, bidirectional), 0, 0, op, "allreduce")
-    return out
+    return ring_fold(world, _flat(gl), len(gl[0]), op, tile_rows,
+                     bidirectional, False)
 
 
 def reduce_scatter_world(world: torch.Tensor, groups: Groups = None,
@@ -323,17 +384,9 @@ def reduce_scatter_world(world: torch.Tensor, groups: Groups = None,
         return reduce_scatter_plain(world, groups, op, tile_rows, bidirectional)
     _require_cuda(world)
     gl = _check_world(world, groups, op, tile_rows)
-    g = len(gl[0])
-    _check_leading(world.shape[1:], g)
-    block_n = world[0, 0].numel()
-    rows, _ = _geometry(block_n * g, g, tile_rows)
-    out = torch.empty((world.shape[0],) + tuple(world.shape[2:]),
-                      dtype=world.dtype, device=world.device)
-    if block_n:
-        _fold(world, out, gl, g * block_n, block_n, tile_rows,
-              _right_tiles(rows, tile_rows, bidirectional), -1, 1, op,
-              "reduce_scatter")
-    return out
+    _check_leading(world.shape[1:], len(gl[0]))
+    return ring_fold(world, _flat(gl), len(gl[0]), op, tile_rows,
+                     bidirectional, True)
 
 
 def allgather_world(world: torch.Tensor, groups: Groups = None,
@@ -343,22 +396,7 @@ def allgather_world(world: torch.Tensor, groups: Groups = None,
         return allgather_plain(world, groups, tile_rows, bidirectional)
     _require_cuda(world)
     gl = _check_world(world, groups, "sum", tile_rows)
-    g, block_n = len(gl[0]), world[0].numel()
-    out = torch.empty((world.shape[0], g) + tuple(world.shape[1:]),
-                      dtype=world.dtype, device=world.device)
-    if block_n:
-        from .. import _build
-
-        lib = _build.load("ring")
-        table = _group_table(gl, world.device)
-        vec = _vec(world, out, block_n)
-        with torch.cuda.device(world.device):
-            err = lib.ring_gather(world.data_ptr(), out.data_ptr(),
-                                  table.data_ptr(), len(gl), g, block_n,
-                                  _DTYPE_CODE[world.dtype], vec, _stream(world))
-        _raise_on(err, "allgather")
-        LAUNCHES["allgather"] += 1
-    return out
+    return ring_gather(world, _flat(gl), len(gl[0]))
 
 
 # -- per-rank entry points (inside run_spmd) -----------------------------------

@@ -273,11 +273,16 @@ class GraphComm:
     ``[:in_degree(r)]`` follow rank r's in-neighbor order.
     """
 
-    def __init__(self, comm: Communicator, edges: Sequence[Pair]):
+    def __init__(self, comm: Communicator, edges: Sequence[Pair],
+                 in_order: Optional[Sequence[Sequence[int]]] = None,
+                 out_order: Optional[Sequence[Sequence[int]]] = None):
         self.comm = comm
         size = comm.size
         # neighbor order is the INPUT edge-list order — never the
-        # coloring's round order, which would silently permute results
+        # coloring's round order, which would silently permute results;
+        # in_order/out_order override it with each rank's own order
+        # (MPI_Dist_graph_create_adjacent's contract), as the reference's
+        # (mpi_tpu/topology.py:274-302)
         self.edges = schedules.dedupe_edges(edges, size)
         self._rounds = schedules.graph_rounds(self.edges, size)
         self._in: List[List[int]] = [[] for _ in range(size)]
@@ -285,6 +290,16 @@ class GraphComm:
         for s, d in self.edges:  # one O(E) pass
             self._in[d].append(s)
             self._out[s].append(d)
+        for given, derived, what in ((in_order, self._in, "in_order"),
+                                     (out_order, self._out, "out_order")):
+            if given is None:
+                continue
+            for r in range(size):
+                if sorted(given[r]) != sorted(derived[r]):
+                    raise ValueError(
+                        f"{what}[{r}]={list(given[r])} names a different "
+                        f"neighbor set than the edges ({derived[r]})")
+                derived[r] = [int(x) for x in given[r]]
         # round index of each (src, dst) edge
         self._round_of = {e: k for k, rnd in enumerate(self._rounds)
                           for e in rnd}
@@ -376,3 +391,17 @@ def graph_create(comm: Communicator, edges: Sequence[Pair]) -> GraphComm:
     """MPI_Dist_graph_create with the global edge list [S] (identical on
     every rank)."""
     return GraphComm(comm, edges)
+
+
+def dist_graph_create_adjacent(comm: Communicator, sources: Sequence[int],
+                               destinations: Sequence[int]) -> GraphComm:
+    """MPI_Dist_graph_create_adjacent [S]: every rank names ITS incoming
+    ``sources`` and outgoing ``destinations``.  The reference builds the
+    global edge list by an allgather of per-rank Python lists, on its
+    process backends only (mpi_tpu/topology.py:725-738); one SPMD program
+    cannot collect per-rank lists, so here, as under the reference's SPMD
+    backend, it raises and names ``graph_create``."""
+    raise TypeError(
+        "dist_graph_create_adjacent needs per-rank adjacency lists, "
+        "which an SPMD trace cannot collect — pass the global edge "
+        "list to graph_create instead")

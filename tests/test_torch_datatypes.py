@@ -108,6 +108,19 @@ def test_dtype_checks():
     assert got.dtype == torch.float64 and got.tolist() == [0.0, 1.0]
 
 
+@pytest.mark.parametrize("base", [np.int16, np.longdouble])
+def test_torch_path_base_dtypes(base):
+    """The torch path's base dtypes come from one table: a base in it
+    packs its own dtype, one outside it (no torch dtype) raises naming it."""
+    t = tdt.type_contiguous(2, base).commit()
+    if base is np.longdouble:
+        with pytest.raises(TypeError, match="no torch dtype"):
+            t.pack_torch(torch.zeros(4))
+        return
+    got = t.pack_torch(torch.arange(4).to(torch.int16))
+    assert got.dtype == torch.int16 and got.tolist() == [0, 1]
+
+
 def test_struct_pack_matches_host_bytes():
     """tests/test_datatypes.py:384: byte-based maps view the buffer as
     uint8, so the device pack equals the host pack byte for byte."""

@@ -201,3 +201,194 @@ def test_fused_max_min_have_no_gradient(op):
 
     with pytest.raises(RuntimeError, match=f"fused {op} allreduce has no gradient"):
         mpi_tpu_torch.run(prog, x, nranks=8, device="cpu")
+
+
+# -- the SUM backward's rule where the reduced value meets varying values --------
+
+
+def _mixed_port(comm, x, w, y, localize=False):
+    """Each rank's gradient of sum(allreduce(x_r·w_r, fused) · y_r), the
+    reduced value optionally marked by comm.localize."""
+    def prog(cm, x, w, y):
+        def loss(w_):
+            r = comm.allreduce(x[cm.rank] * w_, algorithm="fused")
+            return torch.sum((comm.localize(r) if localize else r) * y[cm.rank])
+        return torch.func.grad(loss)(w[cm.rank])
+
+    return mpi_tpu_torch.run(prog, x, w, y, nranks=8, device="cpu").numpy()
+
+
+def _mixed_jax(comm, mesh, spec, x, w, y):
+    def per(xb, wb, yb):
+        def loss(w_):
+            r = comm.allreduce(xb.reshape(1, -1) * w_, algorithm="fused")
+            return jnp.sum(r * yb.reshape(1, -1))
+        return jax.grad(loss)(wb.reshape(1, -1)).reshape(wb.shape)
+
+    f = jax.jit(jax.shard_map(per, mesh=mesh, in_specs=(Pspec(*spec),) * 3,
+                              out_specs=Pspec(*spec)))
+    shape = tuple(mesh.devices.shape) + (x.shape[-1],)
+    return np.asarray(f(*(a.reshape(shape) for a in (x, w, y)))).reshape(x.shape)
+
+
+def test_fused_allreduce_gradient_meeting_varying_values():
+    """The program of ROADMAP Queue 3 item 1: the reduced value times a
+    rank-varying y.  JAX's pvary sums that branch's cotangents over the
+    group (x·Σ_s y_s); the port gave x·y_r, a max difference of 11.9.  Now
+    comm.localize on the reduced value is that pvary and gives JAX's
+    result; without it the cotangents differ and the backward raises,
+    naming comm.localize."""
+    x, w = _data()
+    y = np.random.RandomState(0).randn(8, 3).astype(np.float32)
+    mesh = default_mesh(8)
+    want = _mixed_jax(TpuCommunicator("world", mesh), mesh, ("world",), x, w, y)
+    np.testing.assert_allclose(want, x * y.sum(0), rtol=RTOL, atol=ATOL)
+    world = mpi_tpu_torch.TorchCommunicator(8)
+    got = _mixed_port(world, x, w, y, localize=True)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(RuntimeError, match=r"comm\.localize"):
+        _mixed_port(world, x, w, y)
+
+
+def test_fused_allreduce_gradient_meeting_varying_values_per_group():
+    """Two groups of four (the 2 x 4 mesh's mp axis): each group sums its
+    own cotangents at the mark, and the unmarked program raises."""
+    x, w = _data(2)
+    y = np.random.RandomState(3).randn(8, 3).astype(np.float32)
+    halves = mpi_tpu_torch.TorchCommunicator(8).split_by(lambda i: i // 4)
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("dp", "mp"))
+    want = _mixed_jax(TpuCommunicator("mp", mesh), mesh, ("dp", "mp"), x, w, y)
+    got = _mixed_port(halves, x, w, y, localize=True)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(RuntimeError, match=r"comm\.localize"):
+        _mixed_port(halves, x, w, y)
+
+
+def _residual_port(comm, x, w, u, localize):
+    """Each rank's gradient of sum(h2²) for the residual tensor-parallel
+    block h1 = allreduce(x_r·w_r), h2 = h1 + allreduce(h1·u_r), with h1's
+    varying use optionally marked by comm.localize."""
+    def prog(cm, x, w, u):
+        def loss(w_):
+            h1 = comm.allreduce(x[cm.rank] * w_, algorithm="fused")
+            h1v = comm.localize(h1) if localize else h1
+            h2 = h1 + comm.allreduce(h1v * u[cm.rank], algorithm="fused")
+            return torch.sum(h2 ** 2)
+        return torch.func.grad(loss)(w[cm.rank])
+
+    return mpi_tpu_torch.run(prog, x, w, u, nranks=8, device="cpu").numpy()
+
+
+def _residual_jax(comm, mesh, spec, x, w, u):
+    def per(xb, wb, ub):
+        def loss(w_):
+            h1 = comm.allreduce(xb.reshape(1, -1) * w_, algorithm="fused")
+            h2 = h1 + comm.allreduce(h1 * ub.reshape(1, -1), algorithm="fused")
+            return jnp.sum(h2 ** 2)
+        return jax.grad(loss)(wb.reshape(1, -1)).reshape(wb.shape)
+
+    f = jax.jit(jax.shard_map(per, mesh=mesh, in_specs=(Pspec(*spec),) * 3,
+                              out_specs=Pspec(*spec)))
+    shape = tuple(mesh.devices.shape) + (x.shape[-1],)
+    return np.asarray(f(*(a.reshape(shape) for a in (x, w, u)))).reshape(x.shape)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_residual_block_gradient(split):
+    """The residual block sums only the varying branch's cotangents:
+    h1's is c + Σ_s c·u_s (c = 2·h2), not Σ_s (c + c·u_s), which a rule
+    summing every differing cotangent would give.  With comm.localize at
+    h1's varying use the port equals jax.grad; without it, it raises."""
+    x, w = _data(7)
+    u = np.random.RandomState(8).randn(8, 3).astype(np.float32)
+    if split:
+        comm = mpi_tpu_torch.TorchCommunicator(8).split_by(lambda i: i // 4)
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("dp", "mp"))
+        want = _residual_jax(TpuCommunicator("mp", mesh), mesh, ("dp", "mp"), x, w, u)
+    else:
+        comm = mpi_tpu_torch.TorchCommunicator(8)
+        mesh = default_mesh(8)
+        want = _residual_jax(TpuCommunicator("world", mesh), mesh, ("world",), x, w, u)
+    np.testing.assert_allclose(_residual_port(comm, x, w, u, True), want,
+                               rtol=RTOL, atol=ATOL)
+    with pytest.raises(RuntimeError, match=r"comm\.localize"):
+        _residual_port(comm, x, w, u, False)
+
+
+def test_varying_values_equal_by_chance_need_localize():
+    """Recorded difference: a y sharded over the ranks whose shards happen
+    to be equal is still rank-varying to JAX, which sums the cotangents
+    (8·x·y).  The port sees equal cotangents, as of replicated
+    computation, and keeps them (x·y); comm.localize on the reduced value
+    is the reference's pvary and gives JAX's sum."""
+    x, w = _data(4)
+    y = np.broadcast_to(np.random.RandomState(5).randn(3), (8, 3)).astype(np.float32)
+    mesh = default_mesh(8)
+    want = _mixed_jax(TpuCommunicator("world", mesh), mesh, ("world",), x, w, y)
+    np.testing.assert_allclose(want, 8 * x * y, rtol=RTOL, atol=ATOL)
+    world = mpi_tpu_torch.TorchCommunicator(8)
+    np.testing.assert_allclose(_mixed_port(world, x, w, y), x * y, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(_mixed_port(world, x, w, y, localize=True), want,
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_localize_transposes_like_pvary():
+    """comm.localize is the reference's pvary: the gradient through a value
+    the same on every rank is summed over the group; through a value that
+    already varies, it passes unchanged — in both packages."""
+    x, w = _data(6)
+    w0 = w[0]
+    mesh = default_mesh(8)
+    comm = TpuCommunicator("world", mesh)
+
+    def tprog(cm, x, w, w0):
+        grad = torch.func.grad(lambda v: torch.sum(cm.localize(v) * x[cm.rank]))
+        return grad(w[cm.rank]), grad(w0)
+
+    varying, replicated = (t.numpy() for t in mpi_tpu_torch.run(
+        tprog, x, w, w0, nranks=8, device="cpu"))
+
+    def per(xb, wb, v0):
+        grad = jax.grad(lambda v: jnp.sum(comm.localize(v) * xb.reshape(-1)))
+        return grad(wb.reshape(-1)).reshape(wb.shape), grad(v0)
+
+    f = jax.jit(jax.shard_map(per, mesh=mesh,
+                              in_specs=(Pspec("world"), Pspec("world"), Pspec()),
+                              out_specs=(Pspec("world"), Pspec())))
+    want_varying, want_replicated = (np.asarray(o) for o in f(x, w, w0))
+    np.testing.assert_allclose(varying, want_varying, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(varying, x, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(replicated, np.broadcast_to(want_replicated, x.shape),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(want_replicated, x.sum(0), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("groups", [[[0, 1, 2, 3], [4, 5, 6, 7]], [[0, 4], [1, 5], [2, 6], [3, 7]],
+                                    [[3, 0, 6, 5], [1, 7, 2, 4]]])
+def test_group_cotangent_world_per_group(groups):
+    """The SUM backward on the world, for contiguous, strided and shuffled
+    groups: the cotangents pass unchanged where every group's are equal,
+    and it raises where one group's differ; with localize's mask, the
+    marked ranks take the group sum (in group-rank order, float32)."""
+    from mpi_tpu_torch.gpu.primitives import _MISSING_LOCALIZE, group_cotangent_world
+
+    assert len(_MISSING_LOCALIZE) < 255  # the card's aten._assert_async limit
+    w = torch.from_numpy(np.random.RandomState(7).randn(8, 5).astype(np.float32))
+    flat = [r for g in groups for r in g]
+    size = len(groups[0])
+    with pytest.raises(RuntimeError, match=r"comm\.localize"):
+        group_cotangent_world(w, flat, size)
+    for g in groups[:-1]:
+        w[g] = w[g[0]].clone()
+    with pytest.raises(RuntimeError, match=r"comm\.localize"):
+        group_cotangent_world(w, flat, size)  # the last group's still differ
+    eq = w.clone()
+    eq[groups[-1]] = eq[groups[-1][0]].clone()
+    assert torch.equal(group_cotangent_world(eq, flat, size), eq)
+    mask = torch.zeros(8, dtype=torch.bool)
+    mask[groups[1]] = True  # localize's transpose: the marked ranks sum
+    got = group_cotangent_world(w, flat, size, mask)
+    for gi, g in enumerate(groups):
+        for r in g:
+            want = sum(w[s] for s in g) if gi == 1 else w[r]
+            torch.testing.assert_close(got[r], want, rtol=RTOL, atol=ATOL)

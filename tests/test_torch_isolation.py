@@ -2,7 +2,7 @@
 package: proven in a subprocess whose import system refuses ``jax``,
 ``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``),
 which imports every module of the port and runs the multi-parallel dry
-run on the CPU."""
+run, its trace, a checkpoint and a profile on the CPU."""
 
 import ast
 import os
@@ -38,10 +38,20 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.topology", "mpi_tpu_torch.examples.jacobi2d",
        "mpi_tpu_torch.examples.pipeline", "mpi_tpu_torch.examples.moe",
        "mpi_tpu_torch.examples.ulysses_attention",
-       "mpi_tpu_torch.examples.data_parallel", "mpi_tpu_torch.entry"]
+       "mpi_tpu_torch.examples.data_parallel", "mpi_tpu_torch.entry",
+       "mpi_tpu_torch.aot", "mpi_tpu_torch.checkpoint", "mpi_tpu_torch.profiling"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
-from mpi_tpu_torch.entry import dryrun_multichip
+from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")
+assert len(lower_multichip(8, "pallas_ring", device="cpu").graph.nodes) > 100
+import tempfile
+from mpi_tpu_torch import checkpoint, profiling
+with tempfile.TemporaryDirectory() as tmp:
+    checkpoint.save_sharded(tmp, {"w": torch.ones(2)})
+    assert torch.equal(checkpoint.load_sharded(tmp, {"w": torch.zeros(2)})["w"],
+                       torch.ones(2))
+    with profiling.trace(tmp):
+        torch.ones(3).sum()
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), \
     [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 

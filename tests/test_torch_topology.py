@@ -215,3 +215,58 @@ def test_graph_rejects_self_edges_and_edgeless_is_empty():
     g = graph_create(TorchCommunicator(4), [])
     out = trun(lambda comm: g.neighbor_allgather(comm.rank.to(torch.float32)), nranks=4)
     assert out.shape == (4, 0)
+
+
+def test_graph_in_order_sets_each_ranks_neighbor_order():
+    """GraphComm's in_order/out_order (mpi_tpu/topology.py:274-302): rank 2
+    names its sources reversed, and its receipts follow that order, in
+    both packages."""
+    from mpi_tpu.topology import GraphComm as JGraphComm
+    from mpi_tpu_torch.topology import GraphComm
+
+    edges = [(0, 2), (1, 2), (2, 3), (3, 0)]
+    in_order = [[3], [], [1, 0], [2]]
+    out_order = [[2], [2], [3], [0]]
+    data = np.arange(4.0, dtype=np.float32) * 10
+    g = GraphComm(TorchCommunicator(4), edges, in_order=in_order, out_order=out_order)
+    got = trun(lambda comm, x: g.neighbor_allgather(x[comm.rank], fill=-1.0), data,
+               nranks=4)
+    mesh = default_mesh(4)
+    jg = JGraphComm(TpuCommunicator("world", mesh), edges, in_order=in_order,
+                    out_order=out_order)
+    want = np.asarray(run_spmd(lambda comm, x: jg.neighbor_allgather(
+        x[comm.rank], fill=-1.0), data, mesh=mesh, nranks=4))
+    np.testing.assert_array_equal(got, want.reshape(got.shape))
+    np.testing.assert_array_equal(got[2], [10.0, 0.0])
+    assert g.in_neighbors_of(2) == jg.in_neighbors_of(2) == [1, 0]
+
+
+@pytest.mark.parametrize("what", ["in_order", "out_order"])
+def test_graph_order_naming_other_neighbors_raises(what):
+    from mpi_tpu.topology import GraphComm as JGraphComm
+    from mpi_tpu_torch.topology import GraphComm
+
+    edges = [(0, 1), (1, 2), (2, 0)]
+    bad = {what: [[2], [0], [9]]}
+    with pytest.raises(ValueError) as mine:
+        GraphComm(TorchCommunicator(3), edges, **bad)
+    with pytest.raises(ValueError) as ref:
+        JGraphComm(TpuCommunicator("world", default_mesh(3)), edges, **bad)
+    assert str(mine.value) == str(ref.value)
+    assert what in str(mine.value)
+
+
+def test_dist_graph_create_adjacent_raises_under_spmd():
+    """The reference's SPMD diagnosis (mpi_tpu/topology.py:733-738): per-rank
+    adjacency lists cannot be collected in one SPMD program."""
+    from mpi_tpu.topology import dist_graph_create_adjacent as jadjacent
+
+    def tprog(comm):
+        mpi_tpu_torch.dist_graph_create_adjacent(comm, [0], [1])
+
+    with pytest.raises(TypeError, match="graph_create") as mine:
+        mpi_tpu_torch.run(tprog, nranks=4, device="cpu")
+    with pytest.raises(TypeError, match="graph_create") as ref:
+        run_spmd(lambda comm, _: jadjacent(comm, [0], [1]),
+                 np.zeros(1, np.float32), mesh=default_mesh(4), nranks=4)
+    assert str(mine.value) == str(ref.value)
