@@ -120,9 +120,33 @@ ok line:
     tensor-core products, as every attention kernel multiplies; bytes over
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
     (``FLOOR_FLOPS_PER_ENTRY``);
-13. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+13. host-local: the host layer's local backend, 8 rank threads on the
+    card through ``run(..., backend="local", nranks=8)``, 256 MiB of seeded
+    normal float32 per rank: allreduce by ``ring``, ``recursive_halving``,
+    ``rabenseifner`` and ``reduce_bcast``, reduce_scatter, allgather
+    (``ring`` and ``doubling``, 32 MiB per rank in), bcast (the segmented
+    tree) and alltoall.  Each result is held bitwise across ranks (or
+    against the copies it must be), bitwise against the same program run
+    by the same engine with ``device="cpu"`` in this process, and the
+    reductions within rtol 1e-5, atol 1e-5 of a float64 sum; each
+    collective's median ms over 3 timed calls after 1 warm-up (a
+    synchronize before the clock stops, the slowest rank's time) and its
+    bandwidth; one ring allreduce traced with ``profiling.trace`` for the
+    card's busy share;
+14. host-socket: ``python -m mpi_tpu_torch.launcher -n 4
+    mpi_tpu_torch/examples/host_allreduce.py`` — 4 rank processes on the
+    card over loopback TCP: ring and Rabenseifner allreduce at 256 MiB per
+    rank (every rank regenerates every input for a float64 check and
+    matches rank 0 bitwise, and the ``bytes_pickled_sent`` pvar must not
+    move), a 1 KiB float32 allreduce on 2 ranks (the ``BASELINE.json``
+    latency config), and the examples of phase 15 as socket ranks;
+15. the examples ``pi`` and ``jacobi``, unmodified, under
+    ``backend="local"`` on the card and as the launcher's socket ranks,
+    against their SPMD results on the card (bitwise);
+16. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
-    10), each read right after it ran (``launches_by_path``).
+    10), each read right after it ran (``launches_by_path``).  The host
+    layer launches none of the kernels: its folds are in-place torch ops.
 
 Every phase prints its wall time.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -1088,6 +1112,194 @@ def examples_phase(torch, record):
         for k, v in info.items() if isinstance(v, dict)))
 
 
+HOST_SEED = 7
+
+
+def _timed_program(torch, call):
+    """A rank program: 1 warm-up and 3 timed calls of ``call(comm, xs)`` (a
+    barrier and a synchronize before each, a synchronize before the clock
+    stops); returns the last result and the rank's seconds."""
+    def prog(comm, xs):
+        call(comm, xs)
+        secs, out = [], None
+        for _ in range(3):
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(comm, xs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, secs
+    return prog
+
+
+def host_local_phase(torch, record):
+    """Phase 13: the local backend's collectives on the card at 256 MiB per
+    rank, against the CPU and a float64 sum, timed."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch import profiling
+    from mpi_tpu_torch.examples.host_allreduce import rank_input
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    n, numel = P, NORTH_STAR_ELEMS
+    nbytes = numel * 4
+    xs = [rank_input(r, numel, HOST_SEED, dev) for r in range(n)]
+    xs_cpu = [x.cpu() for x in xs]
+    want = torch.zeros(numel, dtype=torch.float64, device=dev)
+    for x in xs:
+        want += x.double()
+    shard = numel // n
+    # name -> (call, bytes the bandwidth counts, its bus factor)
+    colls = {f"allreduce {a}": (lambda c, xs, a=a: c.allreduce(xs[c.rank], algorithm=a),
+                                nbytes, 2 * (n - 1) / n)
+             for a in ("ring", "recursive_halving", "rabenseifner", "reduce_bcast")}
+    colls["reduce_scatter"] = (lambda c, xs: c.reduce_scatter(xs[c.rank].view(n, -1)),
+                               nbytes, (n - 1) / n)
+    for a in ("ring", "doubling"):
+        colls[f"allgather {a}"] = (
+            lambda c, xs, a=a: c.allgather(xs[c.rank][:shard], algorithm=a),
+            nbytes, (n - 1) / n)
+    colls["bcast tree"] = (lambda c, xs: c.bcast(xs[0] if c.rank == 0 else None, root=0),
+                           nbytes, 1.0)
+    # the blocks as one [P, N/P] tensor: the result comes back stacked
+    colls["alltoall"] = (lambda c, xs: c.alltoall(xs[c.rank].view(n, -1)),
+                         nbytes, (n - 1) / n)
+
+    def expect(name, r, got):
+        """The check of rank r's result beyond card == CPU: copies must be
+        the inputs exactly; reductions agree across ranks bitwise and with
+        the float64 sum."""
+        if name.startswith("allreduce"):
+            return (torch.equal(got, results[0]) and torch.allclose(
+                got.double(), want, rtol=1e-5, atol=1e-5))
+        if name == "reduce_scatter":
+            return torch.allclose(got.double(), want.view(n, -1)[r], rtol=1e-5, atol=1e-5)
+        if name.startswith("allgather"):
+            return torch.equal(got, torch.stack([x[:shard] for x in xs]))
+        if name == "bcast tree":
+            return torch.equal(got, xs[0])
+        return torch.equal(got, torch.stack([x.view(n, -1)[r] for x in xs]))
+
+    info = {"card": card, "ranks": n, "bytes_per_rank": nbytes}
+    for name, (call, nb, factor) in colls.items():
+        outs = mpi_tpu_torch.run(_timed_program(torch, call), xs, backend="local", nranks=n)
+        results = [o for o, _ in outs]
+        secs = [max(ts[i] for _, ts in outs) for i in range(3)]
+        bad = [r for r, got in enumerate(results) if not expect(name, r, got)]
+        if bad:
+            raise RuntimeError(f"host-local {name}: ranks {bad} fail their check")
+        cpu = mpi_tpu_torch.run(lambda c, xs: call(c, xs), xs_cpu, backend="local",
+                                nranks=n, device="cpu")
+        if not all(torch.equal(results[r].cpu(), cpu[r]) for r in range(n)):
+            raise RuntimeError(f"host-local {name}: the card differs from the CPU")
+        med = statistics.median(secs)
+        err = (float((results[0].double() - want).abs().max())
+               if name.startswith("allreduce") else 0.0)
+        info[name] = {"s": secs, "median_ms": med * 1e3,
+                      "algbw_GBps": nb / med / 1e9, "busbw_GBps": factor * nb / med / 1e9,
+                      "bus_factor": factor, "max_abs_err_vs_f64": err}
+        log(f"host-local {name}: median {med * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in secs)}), "
+            f"bus bandwidth {factor:.3f} N/t = {factor * nb / med / 1e9:.2f} GB/s; "
+            f"bitwise across ranks and vs the CPU [{card}]")
+        del outs, results, cpu
+    # the card's busy share over one ring allreduce, from a profiler trace
+    trace_dir = os.path.join("chiprun_out", "host_local_trace")
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir):
+        t0 = time.perf_counter()
+        mpi_tpu_torch.run(lambda c, xs: c.allreduce(xs[c.rank], algorithm="ring"), xs,
+                          backend="local", nranks=n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(trace_dir, profiling.TRACE_FILE)
+    summary = profiling.trace_summary(path)
+    os.remove(path)  # tens of MB of events; the summary is what is kept
+    info["profile_ring"] = {"wall_ms": wall_ms, "device_busy_ms": summary["busy_ms"],
+                            "busy_share": summary["busy_ms"] / wall_ms,
+                            "kernel_launches": summary["kernel_launches"],
+                            "copies_and_fills": summary["copies_and_fills"],
+                            "top": summary["by_name"][:6]}
+    log(f"host-local ring allreduce traced: wall {wall_ms:.1f} ms, card busy "
+        f"{summary['busy_ms']:.1f} ms ({100 * summary['busy_ms'] / wall_ms:.1f}%), "
+        f"{summary['kernel_launches']} kernel launches, "
+        f"{summary['copies_and_fills']} copies and fills [{card}]")
+    record["host_local"] = info
+    del xs, xs_cpu, want
+    torch.cuda.empty_cache()
+
+
+def host_socket_phase(torch, record):
+    """Phases 14 and 15: the launcher's socket ranks on the card, and the
+    examples under the local backend and as socket ranks against SPMD."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch.examples.jacobi import jacobi_program
+    from mpi_tpu_torch.examples.pi import pi_program
+
+    card = card_line()
+    nr = 4
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "host_socket"))
+    if os.path.isdir(out_dir):
+        for f in os.listdir(out_dir):
+            os.remove(os.path.join(out_dir, f))
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", str(nr), "--timeout", "400",
+         os.path.join("mpi_tpu_torch", "examples", "host_allreduce.py"),
+         "--out", out_dir, "--mib", str(NORTH_STAR_ELEMS * 4 >> 20), "--seed", str(HOST_SEED)],
+        cwd=root, capture_output=True, text=True, timeout=450)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"host-socket ranks failed (rc {res.returncode}):\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    ranks = []
+    for r in range(nr):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if not all(d["device"].startswith("cuda") for d in ranks):
+        raise RuntimeError(f"socket ranks not on the card: {[d['device'] for d in ranks]}")
+    info = {"card": card, "ranks": nr, "launcher_wall_s": wall,
+            "bytes_per_rank": ranks[0]["bytes_per_rank"]}
+    nb = ranks[0]["bytes_per_rank"]
+    for algo in ("ring", "rabenseifner"):
+        d = ranks[0][algo]
+        med = d["median_ms"] / 1e3
+        info[f"allreduce {algo}"] = dict(
+            d, busbw_GBps=2 * (nr - 1) / nr * nb / med / 1e9,
+            pickled_bytes_all_ranks=[x[algo]["pickled_bytes"] for x in ranks])
+        log(f"host-socket allreduce {algo}: median {d['median_ms']:.1f} ms "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in d['s'])}), bus bandwidth 2(P-1)/P N/t "
+            f"= {info[f'allreduce {algo}']['busbw_GBps']:.2f} GB/s, pickled bytes "
+            f"{info[f'allreduce {algo}']['pickled_bytes_all_ranks']}, float64 error "
+            f"{d['max_abs_err_vs_f64']:.3g} [{card}]")
+    small = ranks[0]["allreduce_1KiB_2ranks"]
+    info["allreduce_1KiB_2ranks"] = small
+    log(f"host-socket allreduce 1 KiB float32, 2 ranks: median {small['median_ms']:.3f} ms "
+        f"({', '.join(f'{t * 1e3:.3f}' for t in small['s'])}) [{card}]")
+    log(f"host-socket: launcher wall {wall:.1f} s for {nr} ranks")
+    record["host_socket"] = info
+
+    # 15. the examples, unmodified, against their SPMD results on the card
+    pi_spmd = mpi_tpu_torch.run(pi_program, nranks=nr)
+    pi_local = mpi_tpu_torch.run(pi_program, backend="local", nranks=nr)
+    blocks, resid = mpi_tpu_torch.run(jacobi_program, nranks=nr)
+    jac_local = mpi_tpu_torch.run(jacobi_program, backend="local", nranks=nr)
+    for r in range(nr):
+        if not (torch.equal(pi_local[r], pi_spmd[r]) and float(pi_spmd[r]) == ranks[r]["pi"]):
+            raise RuntimeError(f"pi rank {r}: local {float(pi_local[r])}, socket "
+                               f"{ranks[r]['pi']}, SPMD {float(pi_spmd[r])}")
+        sock_block = torch.tensor(ranks[r]["jacobi"]["block"], dtype=torch.float32)
+        if not (torch.equal(jac_local[r][0], blocks[r]) and torch.equal(jac_local[r][1], resid[r])
+                and torch.equal(sock_block, blocks[r].cpu())
+                and ranks[r]["jacobi"]["residual"] == float(resid[r])):
+            raise RuntimeError(f"jacobi rank {r}: local or socket differs from SPMD")
+    record["host_examples"] = {"pi": float(pi_spmd[0]), "jacobi_residual": float(resid[0]),
+                               "ranks": nr}
+    log(f"examples pi ({float(pi_spmd[0]):.6f}) and jacobi (residual {float(resid[0]):.3e}): "
+        f"local backend and socket ranks on the card bitwise equal to SPMD")
+
+
 def main():
     import torch
 
@@ -1305,6 +1517,13 @@ def main():
 
     # 9-12. ring attention -----------------------------------------------------
     kernels += attention_phases(torch, dev, gen, record, paths)
+    torch.cuda.empty_cache()
+
+    # 13-15. the host layer -------------------------------------------------------
+    host_local_phase(torch, record)
+    lap("host-local")
+    host_socket_phase(torch, record)
+    lap("host-socket and examples")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

@@ -25,7 +25,9 @@ def jacobi_step(comm, local: torch.Tensor) -> torch.Tensor:
     """One halo exchange + 5-point sweep on this rank's row block."""
     # my last row goes down to rank+1; their last row arrives from rank-1
     above = comm.shift(local[-1], offset=1, wrap=False, fill=0.0)
-    above = torch.where(comm.rank == 0, torch.ones_like(above), above)  # hot top edge
+    # hot top edge (as_tensor: the rank is an int on the host backends)
+    top = torch.as_tensor(comm.rank == 0, device=above.device)
+    above = torch.where(top, torch.ones_like(above), above)
     below = comm.shift(local[0], offset=-1, wrap=False, fill=0.0)
     padded = torch.cat([above[None], local, below[None]], dim=0)
     north, south = padded[:-2], padded[2:]

@@ -19,6 +19,7 @@ calling it outside ``run_spmd``, which raises.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -441,10 +442,45 @@ def _rank_normal_vmap(info, in_dims, rank, seed, shape):
 _rank_normal.register_vmap(_rank_normal_vmap)
 
 
+# The host layer's rank of the calling thread (a rank thread of the local
+# backend) or process (a socket rank): ``(world rank, device)``, bound by
+# the host runners so that a program's per-rank draws run there too.
+_HOST = threading.local()
+_HOST_PROCESS: List[Tuple[int, torch.device]] = []
+
+
+def bind_host_rank(rank: int, device: torch.device, process: bool = False) -> None:
+    """Bind the host rank whose stream ``rank_uniform`` / ``rank_normal``
+    draw from outside an SPMD world (this thread's, or the process's)."""
+    if process:
+        _HOST_PROCESS[:] = [(rank, device)]
+    else:
+        _HOST.rank = (rank, device)
+
+
+def unbind_host_process() -> None:
+    """Undo ``bind_host_rank(..., process=True)`` (at ``finalize``): a draw
+    outside any world raises again."""
+    _HOST_PROCESS.clear()
+
+
+def _host_draw(draw, name: str, shape: Sequence[int], seed: int) -> torch.Tensor:
+    bound = getattr(_HOST, "rank", None) or (_HOST_PROCESS[0] if _HOST_PROCESS
+                                             else None)
+    if bound is None:
+        raise _outside(name)
+    rank, device = bound
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) * 1_000_003 + rank)
+    return draw([int(s) for s in shape], generator=gen, device=device)
+
+
 def rank_normal(shape: Sequence[int], seed: int) -> torch.Tensor:
     """Standard normal float32 samples from this rank's own
     ``torch.Generator`` (seeded as ``rank_uniform``) — the counterpart of
     ``jax.random.normal`` under ``fold_in(PRNGKey(seed), rank)``."""
+    if not _STACK:
+        return _host_draw(torch.randn, "rank_normal", shape, seed)
     w = current("rank_normal")
     return _rank_normal(w.idx, int(seed), [int(s) for s in shape])
 
@@ -453,6 +489,10 @@ def rank_uniform(shape: Sequence[int], seed: int) -> torch.Tensor:
     """Uniform [0, 1) float32 samples from this rank's own
     ``torch.Generator``, seeded from ``(seed, world rank)`` — the
     counterpart of ``jax.random.fold_in(PRNGKey(seed), rank)``.  The
-    streams differ from JAX's."""
+    streams differ from JAX's.  On a host rank (the local and socket
+    backends) the same stream is drawn eagerly, so a program's samples are
+    the same on every backend."""
+    if not _STACK:
+        return _host_draw(torch.rand, "rank_uniform", shape, seed)
     w = current("rank_uniform")
     return _rank_uniform(w.idx, int(seed), [int(s) for s in shape])

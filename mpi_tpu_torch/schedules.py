@@ -1,10 +1,14 @@
-"""Pure collective-schedule generators used by ``gpu/collectives.py``.
+"""Pure collective-schedule generators used by ``gpu/collectives.py`` and
+by the host collective engine (``communicator.P2PCommunicator``).
 
 Own copy of the parts of ``mpi_tpu/schedules.py`` that the hand-scheduled
-SPMD algorithms call: ``is_pow2`` (:31), the binomial rounds (:100-124),
+SPMD algorithms and the segmented host engine call: ``is_pow2`` (:31),
+the segment tables ``chunk_offsets`` (:46) and ``segment_spans`` (:64),
+``binomial_tree_links`` (:76), the binomial rounds (:100-124),
 ``ring_perm`` (:132), the ring chunk formulas (:152-193), the
 halving/doubling masks (:201-221), ``xor_perm`` (:224),
-``alltoall_rounds`` (:234), and the graph-topology rounds
+``alltoall_rounds`` (:234), ``dissemination_offsets`` (:246), and the
+graph-topology rounds
 ``dedupe_edges`` (:464) and ``graph_rounds`` (:483).
 
 A round is a list of ``(src, dst)`` comm-rank pairs; chunk helpers take the
@@ -14,13 +18,60 @@ rank as a Python int or as a (batched) integer tensor and use only
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 Pair = Tuple[int, int]
+Span = Tuple[int, int]
 
 
 def is_pow2(n: int) -> bool:
     return n >= 1 and (n & (n - 1)) == 0
+
+
+# The host engine slices ONE contiguous working buffer with these pure
+# tables, so both sides of every exchange agree on message boundaries
+# without any metadata traffic.
+
+
+def chunk_offsets(n: int, parts: int) -> List[int]:
+    """``parts + 1`` monotone element offsets splitting ``n`` elements into
+    ``parts`` chunks, np.array_split-compatible (the first ``n % parts``
+    chunks get one extra element; trailing chunks may be empty).  Chunks
+    ``[a, b)`` together are the contiguous range ``[offs[a], offs[b])``."""
+    if parts < 1:
+        raise ValueError(f"need at least one chunk, got {parts}")
+    base, extra = divmod(n, parts)
+    offs = [0]
+    for i in range(parts):
+        offs.append(offs[-1] + base + (1 if i < extra else 0))
+    return offs
+
+
+def segment_spans(lo: int, hi: int, max_elems: int) -> List[Span]:
+    """Split element range ``[lo, hi)`` into pipeline segments of at most
+    ``max_elems`` elements; an empty range produces no spans (and so no
+    messages) on either side of an exchange."""
+    if max_elems < 1:
+        raise ValueError(f"segments need >= 1 element, got {max_elems}")
+    if hi <= lo:
+        return []
+    return [(s, min(s + max_elems, hi)) for s in range(lo, hi, max_elems)]
+
+
+def binomial_tree_links(size: int, rank: int,
+                        root: int = 0) -> Tuple[Optional[int], List[int]]:
+    """``(parent, children-in-send-order)`` of ``rank`` in the binomial
+    broadcast tree; ``parent`` is None exactly at ``root``.  The segmented
+    bcast forwards each segment to the children the moment it lands."""
+    parent: Optional[int] = None
+    children: List[int] = []
+    for pairs in binomial_bcast_rounds(size, root):
+        for s, d in pairs:
+            if d == rank:
+                parent = s
+            elif s == rank:
+                children.append(d)
+    return parent, children
 
 
 def binomial_bcast_rounds(size: int, root: int = 0) -> List[List[Pair]]:
@@ -92,6 +143,19 @@ def ring_rs_block_recv_chunk(rank, step: int, size: int):
     return (rank - step - 2) % size
 
 
+# Allgather ring for block-distributed chunks (rank r starts holding chunk
+# r): composed with the block reduce-scatter above it is the Rabenseifner
+# allreduce.
+
+
+def ring_ag_block_send_chunk(rank, step: int, size: int):
+    return (rank - step) % size
+
+
+def ring_ag_block_recv_chunk(rank, step: int, size: int):
+    return (rank - step - 1) % size
+
+
 def halving_masks(size: int) -> List[int]:
     """Partner masks for recursive-halving reduce-scatter, high bit first
     (power-of-two sizes only)."""
@@ -118,6 +182,17 @@ def xor_perm(size: int, mask: int) -> List[Pair]:
 def alltoall_rounds(size: int) -> List[int]:
     """Offsets for the pairwise-exchange alltoall: P-1 rounds."""
     return list(range(1, size))
+
+
+def dissemination_offsets(size: int) -> List[int]:
+    """Offsets 1, 2, 4, ... < P of the dissemination barrier: at each round
+    rank r signals (r+off)%P and waits on (r-off)%P."""
+    offs = []
+    k = 1
+    while k < size:
+        offs.append(k)
+        k *= 2
+    return offs
 
 
 def dedupe_edges(edges: Sequence[Pair], size: int) -> List[Pair]:
