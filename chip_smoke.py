@@ -143,7 +143,41 @@ ok line:
 15. the examples ``pi`` and ``jacobi``, unmodified, under
     ``backend="local"`` on the card and as the launcher's socket ranks,
     against their SPMD results on the card (bitwise);
-16. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+16. host-nbc: 8 local rank threads on the card with ``progress="thread"``:
+    (a) 1000 concurrent 1 KiB ``iallreduce``s per rank, then a waitall —
+    ``nbc_threads_spawned`` must read 0 and ``nbc_state_machines`` 1000 per
+    rank, every result bitwise equal to the blocking allreduce's; (b)
+    every i-collective at 1 MiB per rank (``nbc_sm_max_bytes``' default,
+    the largest state-machine payload), bitwise against the blocking call
+    and against the same program with ``device="cpu"``; (c) ``iallreduce``
+    at 256 MiB per rank (the segmented thread path) overlapping bf16
+    [8192, 8192] products, as many as make the computation alone about as
+    long as the allreduce alone: t_comm, t_comp, t_both and overlap =
+    (t_comm + t_comp - t_both) / min(t_comm, t_comp); (d) ``allreduce_init``
+    at 1 MiB, 20 rounds refilled in place on the card, each bitwise equal
+    to the blocking call, ``persistent_starts`` 20 per rank, ms per round
+    beside ``iallreduce``'s ms per call;
+17. host-ft-local: 8 local ranks on the card with fault tolerance
+    (``fault_detect_timeout_s`` 2.0, heartbeat 0.2 s): rank 5 dies by
+    ``FaultyTransport(kill_after_n=448)`` (half-way through the
+    reduce-scatter) inside a 256 MiB ring allreduce;
+    every survivor raises ``ProcFailedError`` with ``failed == (5,)``,
+    collective ``allreduce`` and a segment, within 3 x 2.0 + 8 s of the
+    death; then ``failure_ack`` and an agreement among the survivors (so
+    each has its diagnosis before anyone revokes), revoke, shrink to 7
+    ranks (epoch 1), ``agree(True)``, and
+    a 256 MiB ring allreduce on the shrunk world, bitwise across ranks and
+    against the same 7-rank program on the CPU;
+18. host-ft-socket: ``examples/host_ft.py`` — 4 socket rank processes on
+    the card with ``MPI_TPU_FT=1`` and ``MPI_TPU_PROGRESS=thread``: rank 1
+    ``os._exit(42)``s while rank 0 is inside a 256 MiB ring allreduce;
+    rank 0 raises ``ProcFailedError``, ranks 2-3 ``RevokedError``, within
+    the bound; shrink, agree, the survivors' allreduce; ``accept_rejoin``
+    and a fresh process's ``membership.rejoin`` into slot 1 at epoch 1; the
+    full world's 256 MiB allreduce bitwise across ranks and against a
+    float64 sum; detection, shrink and rejoin seconds and the launcher's
+    per-rank exit summary;
+19. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10), each read right after it ran (``launches_by_path``).  The host
     layer launches none of the kernels: its folds are in-place torch ops.
@@ -152,6 +186,7 @@ Every phase prints its wall time.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import gc
 import json
 import os
 import re
@@ -1300,6 +1335,353 @@ def host_socket_phase(torch, record):
         f"local backend and socket ranks on the card bitwise equal to SPMD")
 
 
+NBC_SM_BYTES = 1 << 20          # nbc_sm_max_bytes' default: the largest SM payload
+
+
+def _pvar_deltas(mpit, names, fn):
+    base = {k: mpit.pvar_read(k) for k in names}
+    out = fn()
+    return out, {k: mpit.pvar_read(k) - base[k] for k in names}
+
+
+def host_nbc_phase(torch, record):
+    """Phase 16: the nonblocking engine on 8 local rank threads on the card
+    with the progress engine: 1000 concurrent iallreduces (state machines,
+    no thread), every i-collective at 1 MiB against the blocking calls and
+    the CPU, iallreduce at 256 MiB overlapping bf16 products, and a
+    persistent allreduce refilled in place."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch import mpit
+    from mpi_tpu_torch.examples.host_allreduce import rank_input
+
+    card = card_line()
+    n = P
+    info = {"card": card, "ranks": n}
+
+    # (a) 1000 concurrent 1 KiB iallreduces per rank, then waitall; the
+    # blocking results come from a world of their own (no engine)
+    def inputs(comm):
+        return [rank_input(comm.rank, 256, HOST_SEED + i, comm.device) for i in range(1000)]
+
+    def many(comm):
+        xs = inputs(comm)
+        comm.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [comm.iallreduce(x) for x in xs]
+        outs = [r.wait() for r in reqs]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, outs
+
+    names = ("nbc_threads_spawned", "nbc_state_machines")
+    # the cyclic collector off while 8000 machines are alive, as timeit
+    # runs: its full passes over the growing heap would be timed instead
+    gc.disable()
+    try:
+        res, d = _pvar_deltas(mpit, names, lambda: mpi_tpu_torch.run(
+            many, backend="local", nranks=n, progress="thread"))
+        blocking = mpi_tpu_torch.run(lambda c: [c.allreduce(x) for x in inputs(c)],
+                                     backend="local", nranks=n)
+    finally:
+        gc.enable()
+    if d != {"nbc_threads_spawned": 0, "nbc_state_machines": 1000 * n}:
+        raise RuntimeError(f"host-nbc 1000 iallreduce: pvars {d}")
+    if not all(torch.equal(a, b) for r in range(n) for a, b in zip(res[r][1], blocking[r])):
+        raise RuntimeError("host-nbc 1000 iallreduce: a result differs from the blocking call")
+    secs = max(s for s, _ in res)
+    info["iallreduce_1000x1KiB"] = {"s": secs, "ms_per_call": secs, "pvars": d}
+    log(f"host-nbc (a) 1000 concurrent iallreduce of 1 KiB on {n} ranks: {secs:.3f} s "
+        f"({secs:.3f} ms per call), pvars {d}, bitwise vs blocking [{card}]")
+    del res, blocking
+
+    # (b) every i-collective at 1 MiB per rank, vs blocking and vs the CPU
+    numel = NBC_SM_BYTES // 4
+
+    dev = torch.device("cuda", 0)
+    xs = [rank_input(r, numel, HOST_SEED, dev) for r in range(n)]
+    roots = [rank_input(100 + d, numel, HOST_SEED, dev) for d in range(n)]
+
+    def family(comm, xs, roots, nonblocking):
+        x = xs[comm.rank]
+        blocks = x.view(n, -1)
+        scat = roots if comm.rank == 0 else None
+        if nonblocking:
+            return [comm.iallreduce(x).wait(), comm.ireduce(x, root=3).wait(),
+                    comm.ibcast(x if comm.rank == 2 else None, root=2).wait(),
+                    comm.iallgather(x).wait(), comm.ialltoall(blocks).wait(),
+                    comm.ibarrier().wait(), comm.iscatter(scat, root=0).wait(),
+                    comm.igather(x, root=1).wait()]
+        return [comm.allreduce(x), comm.reduce(x, root=3),
+                comm.bcast(x if comm.rank == 2 else None, root=2),
+                comm.allgather(x), comm.alltoall(blocks), comm.barrier(),
+                comm.scatter(scat, root=0), comm.gather(x, root=1)]
+
+    kinds = ["iallreduce", "ireduce", "ibcast", "iallgather", "ialltoall",
+             "ibarrier", "iscatter", "igather"]
+
+    def same(a, b):
+        if isinstance(a, (list, tuple)):
+            return isinstance(b, (list, tuple)) and len(a) == len(b) and \
+                all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+        return a == b
+
+    t0 = time.perf_counter()
+    (nb, d) = _pvar_deltas(mpit, ("nbc_threads_spawned",), lambda: mpi_tpu_torch.run(
+        family, xs, roots, True, backend="local", nranks=n, progress="thread"))
+    t_nb = time.perf_counter() - t0
+    bl = mpi_tpu_torch.run(family, xs, roots, False, backend="local", nranks=n)
+    cpu = mpi_tpu_torch.run(family, [x.cpu() for x in xs], [x.cpu() for x in roots],
+                            True, backend="local", nranks=n, progress="thread",
+                            device="cpu")
+    if d["nbc_threads_spawned"]:
+        raise RuntimeError(f"host-nbc (b): {d['nbc_threads_spawned']} threads spawned")
+    for r in range(n):
+        for k, kind in enumerate(kinds):
+            if not same(nb[r][k], bl[r][k]):
+                raise RuntimeError(f"host-nbc (b) {kind} rank {r}: differs from blocking")
+            if not same(nb[r][k], cpu[r][k]):
+                raise RuntimeError(f"host-nbc (b) {kind} rank {r}: the card differs from the CPU")
+    info["family_1MiB"] = {"kinds": kinds, "s": t_nb}
+    log(f"host-nbc (b) every i-collective at 1 MiB per rank: {t_nb:.3f} s, bitwise vs "
+        f"blocking and vs the CPU, 0 threads [{card}]")
+    del nb, bl, cpu, xs, roots
+
+    # (c) iallreduce at 256 MiB (thread path) overlapping bf16 products
+    big = NORTH_STAR_ELEMS
+
+    def overlap(comm):
+        x = rank_input(comm.rank, big, HOST_SEED, comm.device)
+        g = torch.Generator(device=comm.device).manual_seed(comm.rank)
+        a = torch.randn(8192, 8192, device=comm.device, generator=g).to(torch.bfloat16)
+        b = torch.randn(8192, 8192, device=comm.device, generator=g).to(torch.bfloat16)
+        c = torch.empty_like(a)
+
+        def timed(fn):
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, max(comm.allgather(time.perf_counter() - t0))
+
+        def products(k):
+            for _ in range(k):
+                torch.matmul(a, b, out=c)
+
+        ref, t_comm = timed(lambda: comm.iallreduce(x).wait())
+        timed(lambda: products(2))  # warm-up: the library's first calls
+        _, t_cal = timed(lambda: products(8))
+        k = max(1, round(t_comm / (t_cal / 8)))
+        _, t_comp = timed(lambda: products(k))
+
+        def both():
+            req = comm.iallreduce(x)
+            products(k)
+            return req.wait()
+
+        out, t_both = timed(both)
+        return t_comm, t_comp, t_both, k, torch.equal(out, ref)
+
+    names = ("nbc_threads_spawned", "nbc_state_machines")
+    res, d = _pvar_deltas(mpit, names, lambda: mpi_tpu_torch.run(
+        overlap, backend="local", nranks=n, progress="thread"))
+    t_comm, t_comp, t_both, k, _ = res[0]
+    if not all(r[4] for r in res):
+        raise RuntimeError("host-nbc (c): the overlapped iallreduce differs from the alone one")
+    if d["nbc_state_machines"] or d["nbc_threads_spawned"] != 2 * n:
+        raise RuntimeError(f"host-nbc (c): 256 MiB must take the thread path: {d}")
+    ov = (t_comm + t_comp - t_both) / min(t_comm, t_comp)
+    info["overlap_256MiB"] = {"t_comm_s": t_comm, "t_comp_s": t_comp, "t_both_s": t_both,
+                              "products_per_rank": k, "overlap": ov, "pvars": d}
+    log(f"host-nbc (c) iallreduce 256 MiB x {n} with {k} bf16 [8192, 8192] products per "
+        f"rank: t_comm {t_comm:.3f} s, t_comp {t_comp:.3f} s, t_both {t_both:.3f} s, "
+        f"overlap {ov:.3f} [{card}]")
+
+    # (d) allreduce_init at 1 MiB, 20 rounds refilled in place on the card
+    def persistent(comm):
+        x = torch.empty(numel, device=comm.device)
+        h = comm.allreduce_init(x)
+        same, secs = True, []
+        for rd in range(20):
+            x.copy_(rank_input(comm.rank, numel, HOST_SEED + rd, comm.device))
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = h.start().wait()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            same = same and torch.equal(got, comm.allreduce(x))
+        isecs = []
+        for rd in range(20):
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comm.iallreduce(x).wait()
+            torch.cuda.synchronize()
+            isecs.append(time.perf_counter() - t0)
+        return same, secs, isecs
+
+    res, d = _pvar_deltas(mpit, ("persistent_starts", "nbc_threads_spawned"),
+                          lambda: mpi_tpu_torch.run(persistent, backend="local",
+                                                    nranks=n, progress="thread"))
+    if not all(r[0] for r in res):
+        raise RuntimeError("host-nbc (d): a persistent round differs from the blocking call")
+    if d != {"persistent_starts": 20 * n, "nbc_threads_spawned": 0}:
+        raise RuntimeError(f"host-nbc (d): pvars {d}")
+    round_ms = statistics.median(max(r[1][i] for r in res) for i in range(20)) * 1e3
+    i_ms = statistics.median(max(r[2][i] for r in res) for i in range(20)) * 1e3
+    info["persistent_1MiB"] = {"ms_per_round": round_ms, "iallreduce_ms_per_call": i_ms,
+                               "pvars": d}
+    log(f"host-nbc (d) allreduce_init 1 MiB, 20 rounds refilled in place: {round_ms:.3f} ms "
+        f"per round (median, slowest rank), iallreduce {i_ms:.3f} ms per call, pvars {d} "
+        f"[{card}]")
+    record["host_nbc"] = info
+    torch.cuda.empty_cache()
+
+
+FT_DETECT_S = 2.0
+FT_HEARTBEAT_S = 0.2
+
+
+def host_ft_local_phase(torch, record):
+    """Phase 17: rank 5 of 8 local ranks on the card dies inside a 256 MiB
+    ring allreduce; the survivors diagnose, revoke, shrink, agree, and the
+    shrunk world's allreduce is checked against the CPU."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch import mpit
+    from mpi_tpu_torch.errors import ProcFailedError, RevokedError
+    from mpi_tpu_torch.examples.host_allreduce import rank_input
+    from mpi_tpu_torch.transport.faulty import FaultyTransport
+    from mpi_tpu_torch.transport.local import KILLED
+
+    card = card_line()
+    n, dead, numel = P, 5, NORTH_STAR_ELEMS
+    dev = torch.device("cuda", 0)
+    xs = [rank_input(r, numel, HOST_SEED, dev) for r in range(n)]
+    died = []
+    # half-way through the reduce-scatter: its P-1 steps send a chunk each,
+    # in segments of the local transport's 256 KiB
+    segs = -(-(numel // n * 4) // (256 << 10))
+    kill_after = max(2, (n - 1) * segs // 2)
+
+    class Killer(FaultyTransport):
+        def _die(self, why):
+            if not self.killed:
+                died.append(time.monotonic())
+            super()._die(why)
+
+    def prog(comm, xs):
+        t0 = time.monotonic()
+        try:
+            comm.allreduce(xs[comm.rank], algorithm="ring")
+            raise RuntimeError(f"rank {comm.rank}: completed impossibly")
+        except ProcFailedError as e:
+            t = time.monotonic()
+            diag = (e.failed, e.collective, e.segment)
+        # every survivor has its own diagnosis before anyone revokes: the
+        # fault-tolerant agreement holds them together (the death acked)
+        comm.failure_ack()
+        comm.agree(True)
+        comm.revoke()
+        t1 = time.monotonic()
+        new = comm.shrink()
+        t2 = time.monotonic()
+        agreed = new.agree(True)
+        t3 = time.monotonic()
+        out = new.allreduce(xs[comm.rank], algorithm="ring")
+        torch.cuda.synchronize()
+        return dict(diag=diag, detect_from_start_s=t - t0, detected_at=t,
+                    shrink_ms=(t2 - t1) * 1e3, agree_ms=(t3 - t2) * 1e3, agreed=agreed,
+                    size=new.size, epoch=comm.membership_epoch, out=out,
+                    allreduce_s=time.monotonic() - t3)
+
+    old = {k: mpit.cvar_read(k) for k in ("fault_detect_timeout_s",
+                                          "fault_heartbeat_interval_s")}
+    mpit.cvar_write("fault_detect_timeout_s", FT_DETECT_S)
+    mpit.cvar_write("fault_heartbeat_interval_s", FT_HEARTBEAT_S)
+    try:
+        res = mpi_tpu_torch.run(
+            prog, xs, backend="local", nranks=n, fault_tolerance=True,
+            transport_wrapper=lambda t: Killer(t, kill_after_n=kill_after)
+            if t.world_rank == dead else t)
+    finally:
+        for k, v in old.items():
+            mpit.cvar_write(k, v)
+    bound = 3 * FT_DETECT_S + 8.0
+    if res[dead] is not KILLED or not died:
+        raise RuntimeError(f"host-ft-local: rank {dead} did not die by injection")
+    survivors = [r for r in range(n) if r != dead]
+    detect = {}
+    for r in survivors:
+        s = res[r]
+        if s["diag"][:2] != ((dead,), "allreduce") or s["diag"][2] is None:
+            raise RuntimeError(f"host-ft-local rank {r}: diagnosis {s['diag']}")
+        detect[r] = s["detected_at"] - died[0]
+        if detect[r] > bound or s["size"] != n - 1 or s["epoch"] != 1 or not s["agreed"]:
+            raise RuntimeError(f"host-ft-local rank {r}: detect {detect[r]:.2f} s "
+                               f"(bound {bound}), size {s['size']}, epoch {s['epoch']}")
+    outs = [res[r]["out"] for r in survivors]
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        raise RuntimeError("host-ft-local: the shrunk allreduce differs across ranks")
+    xs_cpu = [xs[r].cpu() for r in survivors]
+    cpu = mpi_tpu_torch.run(lambda c, xs: c.allreduce(xs[c.rank], algorithm="ring"),
+                            xs_cpu, backend="local", nranks=n - 1, device="cpu")
+    if not all(torch.equal(outs[i].cpu(), cpu[i]) for i in range(n - 1)):
+        raise RuntimeError("host-ft-local: the shrunk allreduce on the card differs from the CPU")
+    info = {"card": card, "ranks": n, "dead": dead, "bound_s": bound,
+            "detect_after_death_s": detect,
+            "detect_from_allreduce_start_s": {r: res[r]["detect_from_start_s"]
+                                              for r in survivors},
+            "segments": {r: res[r]["diag"][2] for r in survivors},
+            "shrink_ms": {r: res[r]["shrink_ms"] for r in survivors},
+            "agree_ms": {r: res[r]["agree_ms"] for r in survivors},
+            "shrunk_allreduce_s": max(res[r]["allreduce_s"] for r in survivors)}
+    record["host_ft_local"] = info
+    log(f"host-ft-local: rank {dead} killed in a 256 MiB ring allreduce on {n} ranks; "
+        f"detection after the death {min(detect.values()):.2f}-{max(detect.values()):.2f} s "
+        f"(bound {bound:.0f} s), segments {sorted(set(info['segments'].values()))}, shrink "
+        f"{max(info['shrink_ms'].values()):.1f} ms, agree {max(info['agree_ms'].values()):.1f} "
+        f"ms, shrunk 256 MiB ring {info['shrunk_allreduce_s']:.3f} s, bitwise across ranks "
+        f"and vs the CPU [{card}]")
+    del xs, res, outs, cpu
+    torch.cuda.empty_cache()
+
+
+def host_ft_socket_phase(torch, record):
+    """Phase 18: 4 socket rank processes on the card with MPI_TPU_FT=1 and
+    a progress engine each: a death, detection, revoke, shrink, and a fresh
+    process's rejoin at 256 MiB per rank (``examples/host_ft.py``)."""
+    from mpi_tpu_torch.examples import host_ft
+
+    card = card_line()
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "host_ft"))
+    res = host_ft.drive(out_dir, ranks=4, mib=NORTH_STAR_ELEMS * 4 >> 20, seed=HOST_SEED,
+                        detect=FT_DETECT_S, heartbeat=FT_HEARTBEAT_S, timeout=300.0)
+    recs = res["records"]
+    if not all(recs[r]["device"].startswith("cuda") for r in (0, 2, 3)):
+        raise RuntimeError(f"host-ft-socket ranks not on the card: {recs}")
+    if recs[0]["outcome"] != "ProcFailedError" or recs[0]["failed"] != [host_ft.DEAD]:
+        raise RuntimeError(f"host-ft-socket rank 0: {recs[0]}")
+    if any(recs[r]["outcome"] != "RevokedError" for r in (2, 3)):
+        raise RuntimeError(f"host-ft-socket ranks 2-3: {[recs[r] for r in (2, 3)]}")
+    info = {"card": card, "ranks": 4, "wall_s": res["wall_s"],
+            "exit_summary": res["exit_summary"], "records": recs}
+    record["host_ft_socket"] = info
+    for line in res["exit_summary"].splitlines():
+        log(line)
+    log(f"host-ft-socket: detection {', '.join(f'{recs[r]['detect_s']:.2f}' for r in (0, 2, 3))} s "
+        f"(bound {recs[0]['bound_s']:.0f} s), shrink "
+        f"{max(recs[r]['shrink_s'] for r in (0, 2, 3)) * 1e3:.1f} ms, agree "
+        f"{max(recs[r]['agree_s'] for r in (0, 2, 3)) * 1e3:.1f} ms, accept_rejoin "
+        f"{max(recs[r]['accept_rejoin_s'] for r in (0, 2, 3)):.2f} s, joiner's rejoin "
+        f"{recs['joiner']['rejoin_wait_s']:.2f} s after its start, 256 MiB ring: shrunk "
+        f"{max(recs[r]['shrunk_allreduce_s'] for r in (0, 2, 3)):.3f} s, full "
+        f"{recs['joiner']['full_allreduce_s']:.3f} s; bitwise across ranks, float64 error "
+        f"{recs['joiner']['full_err_vs_f64']:.3g}; {res['wall_s']:.1f} s wall [{card}]")
+
+
 def main():
     import torch
 
@@ -1524,6 +1906,14 @@ def main():
     lap("host-local")
     host_socket_phase(torch, record)
     lap("host-socket and examples")
+
+    # 16-18. the host layer's nonblocking engine and fault tolerance -------------
+    host_nbc_phase(torch, record)
+    lap("host-nbc")
+    host_ft_local_phase(torch, record)
+    lap("host-ft-local")
+    host_ft_socket_phase(torch, record)
+    lap("host-ft-socket")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

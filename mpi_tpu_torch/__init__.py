@@ -23,7 +23,13 @@ per rank, in a list), ``python -m mpi_tpu_torch.launcher -n P prog.py``
 runs P rank processes over TCP (``run(fn)`` there picks ``"socket"``, as
 ``init()`` / ``COMM_WORLD`` do), and ``backend="self"`` is a one-rank
 world.  Their tensors stay on the card; ``device="cpu"`` (``--device cpu``
-for the launcher) runs them on the CPU.
+for the launcher) runs them on the CPU.  The host layer's nonblocking
+engine and fault tolerance: ``run(..., backend="local",
+progress="thread", fault_tolerance=True, transport_wrapper=...)`` (the
+launcher's ``--progress thread`` and ``MPI_TPU_FT=1``), the
+i-collectives and persistent collectives, ``revoke`` / ``shrink`` /
+``agree`` (``ft``) and elastic membership (``membership.rejoin``,
+``comm.accept_rejoin``).
 
 The package imports torch, numpy and the standard library only; the JAX
 package ``mpi_tpu`` is its reference and is never imported.
@@ -49,9 +55,10 @@ from .topology import (CartComm, GraphComm, cart_create, dims_create,
 from .membership import ENV_BACKEND, ENV_DEVICE, ENV_RANK, ENV_RDV, ENV_SIZE
 
 # run_local keywords of the reference whose features are not ported yet
-_UNPORTED_RUN_KWARGS = {"fault_tolerance": "16.2", "verify": "16.2",
-                        "progress": "16.2", "trace": "16.3",
+_UNPORTED_RUN_KWARGS = {"verify": "16.2b", "trace": "16.3",
                         "tuning_table": "16.3"}
+# the local backend's world options (transport/local.py run_local)
+_LOCAL_RUN_KWARGS = ("fault_tolerance", "progress", "transport_wrapper")
 
 _world = None
 _world_lock = threading.Lock()
@@ -88,19 +95,38 @@ def init(backend: Optional[str] = None, device=None):
         backend = backend or os.environ.get(ENV_BACKEND) or (
             "socket" if ENV_RANK in os.environ else "self")
         if backend == "socket":
+            from . import membership, progress
             from .transport.socket import SocketTransport
 
             rank = int(os.environ[ENV_RANK])
             size = int(os.environ[ENV_SIZE])
+            rdv = os.environ[ENV_RDV]
             dev = _rank_device(rank, device)
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
-            t = SocketTransport(rank, size, os.environ[ENV_RDV], device=dev)
-            # close (and join the reader threads) before the interpreter
-            # finalizes, also when the program never calls finalize()
-            atexit.register(t.close)
+            t = SocketTransport(rank, size, rdv, device=dev)
             primitives.bind_host_rank(rank, dev, process=True)
-            _world = P2PCommunicator(t, range(size))
+            # which incarnation holds this slot: accept_rejoin refuses an
+            # ousted-but-live one until its failure is acknowledged
+            membership.publish_incarnation(rdv, rank)
+            _world = P2PCommunicator(t, range(size))._mark_generation()
+            if os.environ.get("MPI_TPU_FT", "") not in ("", "0"):
+                # ULFM (ft.py): heartbeat files under the rendezvous dir
+                # and a detector thread
+                from . import ft
+
+                ft.enable(_world, rdv_dir=rdv)
+            if os.environ.get("MPI_TPU_VERIFY", "") not in ("", "0"):
+                raise NotImplementedError(
+                    "MPI_TPU_VERIFY (the runtime verifier) is not ported "
+                    "yet: ROADMAP.md item 16.2b")
+            if progress.resolve_mode() == "thread":
+                progress.enable(_world)  # MPI_TPU_PROGRESS / --progress
+            # stop the detector and the engine and close the transport
+            # (joining their threads) before the interpreter finalizes,
+            # also when the program never calls finalize(): a helper
+            # thread inside a torch call at finalization aborts the rank
+            atexit.register(_world.close_transport)
         elif backend in ("self", "local"):
             from .transport.local import LocalTransport, LocalWorld
 
@@ -142,7 +168,9 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
       virtual ranks on ``device`` (default: the CUDA card); returns the
       per-rank results stacked ``[P, ...]``;
     * ``backend="local"``: ``nranks`` rank threads; returns the list of
-      per-rank results;
+      per-rank results.  ``fault_tolerance``, ``progress`` and
+      ``transport_wrapper`` configure the world
+      (``transport.local.run_local``);
     * ``backend="socket"`` (the default under the launcher) or ``"self"``:
       ``fn`` on this process's world communicator; returns its result.
 
@@ -158,13 +186,21 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
                     f"run(..., {name}=) is not ported yet: ROADMAP.md item "
                     f"{item}")
     if backend in ("socket", "self"):
+        for name in ("fault_tolerance", "progress"):
+            if name in kwargs:
+                raise ValueError(
+                    f"run(..., {name}=) configures the local backend; a "
+                    f"process world takes it from the launcher "
+                    f"(MPI_TPU_FT=1, --progress thread)")
         return fn(init(backend, device), *args, **kwargs)
     if backend == "local":
         from .transport.local import run_local
 
         if nranks is None:
             nranks = int(os.environ.get(ENV_SIZE, "1"))
-        return run_local(fn, nranks, args=args, kwargs=kwargs, device=device)
+        world = {k: kwargs.pop(k) for k in _LOCAL_RUN_KWARGS if k in kwargs}
+        return run_local(fn, nranks, args=args, kwargs=kwargs, device=device,
+                         **world)
     if backend == "shm":
         raise _shm_unported()
     if backend not in (None, "gpu"):

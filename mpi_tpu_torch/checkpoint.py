@@ -23,7 +23,8 @@ torn before the rename leaves the previous checkpoint loadable, and the
 orphaned directory is swept by the next save.  ``load_sharded`` restores
 onto the template's device, dtype and layout, shard by shard, and raises
 on any mismatch, naming the tensor.  The process backends' ``save`` /
-``load`` belong to the host layer, which is not ported yet.
+``load`` (:51, :138, the commit ``save(..., agree=True)``) are not ported
+yet: they raise naming ROADMAP item 16.5.
 """
 
 from __future__ import annotations
@@ -256,3 +257,20 @@ def load_sharded(path: str, template: Any) -> Any:
         restored.append(Sharded(out, layout) if sharded else out)
     _, spec = pytree.tree_flatten(template, is_leaf=_is_leaf)
     return pytree.tree_unflatten(restored, spec)
+
+
+def save(path: str, state: Any, comm=None, agree: bool = False) -> None:
+    """The process backends' collective checkpoint (the reference's
+    ``save`` :51, with its ``agree=True`` commit): not ported yet."""
+    raise NotImplementedError(
+        "checkpoint.save (the process backends' collective checkpoint, "
+        "agree=True commits included) is not ported yet: ROADMAP.md item "
+        "16.5; SPMD state goes through save_sharded")
+
+
+def load(path: str, comm=None) -> Any:
+    """The process backends' restore (the reference's ``load`` :138): not
+    ported yet."""
+    raise NotImplementedError(
+        "checkpoint.load (the process backends' restore) is not ported yet: "
+        "ROADMAP.md item 16.5; SPMD state goes through load_sharded")

@@ -12,6 +12,24 @@ split — the port's own copy of ``mpi_tpu/communicator.py``.
   allgather :2512, alltoall :2635, barrier :2725, scan :2747,
   reduce_scatter :2826, scatter/gather :2985-3030), split/dup/create
   (:3204-3237).
+* The progress engine's hooks (``progress.py``): engine-side completion
+  of posted receives (:658-708), ``_progress_wait_request`` (:1544), the
+  registration of posted queues (:1815-1822), the segmented engine's
+  engine-advanced send window ``_SegSender`` (:342) and the engine's
+  ``stop`` (:3441).
+* Nonblocking collectives (:3265-3385): ``ibcast``, ``ireduce``,
+  ``iallreduce``, ``iallgather``, ``ialltoall``, ``ibarrier``,
+  ``iscatter``, ``igather`` — schedule state machines on worlds with a
+  progress engine (``nbc.py``), else one ``_ThreadRequest`` thread per
+  call on an isolated context — and the persistent ``allreduce_init``,
+  ``bcast_init``, ``alltoall_init``, ``reduce_scatter_init``
+  (:3387-3421).
+* Fault tolerance (ULFM, ``ft.py``): with ``_ft`` attached every blocking
+  wait runs in slices that re-check the detector and the revocation flag
+  (``_sliced_wait`` :1432, ``_empty_poll_check`` :1618), and ``revoke``,
+  ``shrink``, ``agree``, ``get_failed``, ``failure_ack``,
+  ``failure_get_acked``, ``membership_epoch`` and ``accept_rejoin``
+  (:3032-3200) recover from a death.
 
 Payloads are ``torch.Tensor``s and stay on the device they live on: the
 engine's working buffers are made on the payload's device and every fold
@@ -26,16 +44,26 @@ everywhere; user tags are ints >= 0 and the wildcards ANY_SOURCE /
 ANY_TAG are -1; internal traffic (collectives, barrier, shift) uses
 negative tags that user wildcards never match.
 
+Streams: every host thread (a rank thread, the progress engine, the
+fold pool, a nonblocking collective's thread) launches on its device's
+default stream, so host order is launch order.  A nonblocking collective
+issued under a side stream first makes the default stream wait on the
+caller's stream (its inputs were produced there) and is issued on the
+default stream; ``wait()``/``test()`` completion makes the caller's
+current stream wait on the default stream.
+
 Not ported yet, each raising ``NotImplementedError`` where a program
 reaches it: the shared-memory arena ``algorithm="sm"`` (ROADMAP 16.4),
-the ``compressed*`` algorithms (16.3), nonblocking and persistent
-collectives (16.2), fault tolerance and RMA windows on host backends.
+the ``compressed*`` algorithms (16.3), RMA windows on host backends
+(16.4), and the runtime verifier's hooks (16.2b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import pickle
 import threading
+import time
 from abc import ABC, abstractmethod
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -48,7 +76,10 @@ from . import ops as _ops
 from . import recvpool as _recvpool
 from . import schedules
 from .transport import codec as _codec
-from .transport.base import ANY_SOURCE, ANY_TAG, Transport, payload_nbytes
+from .errors import ProcFailedError
+from .transport.base import (ANY_SOURCE, ANY_TAG, RecvTimeout, Transport,
+                             TransportError, bind_thread_device,
+                             payload_nbytes)
 
 # allreduce "auto": latency-optimal recursive halving below this size on
 # power-of-two groups (mpit cvar allreduce_ring_crossover_bytes) ...
@@ -77,6 +108,9 @@ _RS_SEGMENT_MIN_BYTES = 1 << 20
 _TAG_COLL = -2
 _TAG_SHIFT = -3
 _TAG_BARRIER = -4
+
+# Slice of the fault-tolerant and engine-parked blocking waits (ft.POLL_S).
+_FT_POLL_S = 0.05
 
 # The reference's algorithm names this slice accepts but does not run yet.
 _COMPRESSED_ALLREDUCE = ("compressed", "compressed:bf16", "compressed:int8",
@@ -169,15 +203,104 @@ def _unpost(reqs: Sequence["_RecvRequest"]) -> None:
     """Failure path of a collective that posted internal irecvs: remove
     the not-yet-completed ones from their posted queues (and their
     steering entries), so a stale queue head cannot absorb the first
-    frames of a LATER collective on the same channel and misfold."""
+    frames of a LATER collective on the same channel and misfold.  Under
+    the progress engine the removal holds its completion lock: the engine
+    may be completing one of these right now."""
     if not reqs:
         return
     reg = reqs[0]._comm._recv_reg
-    for req in reqs:
-        if reg is not None:
+    if reg is not None:
+        for req in reqs:
             reg.cancel(req._steer_token)
-        if not req._done and req in req._queue:
-            req._queue.remove(req)
+    eng = reqs[0]._comm._progress
+    with (eng.cv if eng is not None else contextlib.nullcontext()):
+        for req in reqs:
+            if not req._done and req in req._queue:
+                req._queue.remove(req)
+
+
+@contextlib.contextmanager
+def _on_default_stream(device):
+    """Issue a nonblocking collective on ``device``'s default stream (the
+    stream every helper thread of the host layer works on): when the
+    caller runs under a side stream, the default stream first waits on it,
+    since the payload was produced there."""
+    if device is None or device.type != "cuda":
+        yield
+        return
+    cur = torch.cuda.current_stream(device)
+    dflt = torch.cuda.default_stream(device)
+    if cur == dflt:
+        yield
+        return
+    dflt.wait_stream(cur)
+    with torch.cuda.stream(dflt):
+        yield
+
+
+def _caller_waits(device) -> None:
+    """Completion of a nonblocking collective: the caller's current stream
+    waits on the default stream the collective's work was launched on."""
+    if device is None or device.type != "cuda":
+        return
+    cur = torch.cuda.current_stream(device)
+    dflt = torch.cuda.default_stream(device)
+    if cur != dflt:
+        cur.wait_stream(dflt)
+
+
+class _SegSender:
+    """Engine-advanced send window of one ``_seg_exchange`` step
+    (``progress="thread"`` only): the pipelined sends beyond the initial
+    ``_SEG_WINDOW`` credit are posted by whoever completes the matching
+    receives — usually the progress engine, through each pipeline irecv's
+    ``_on_complete`` — so the window advances without the caller being
+    inside ``_seg_exchange``.  Sends happen under the sender lock (spans
+    must leave in table order: the receiver folds by position).  A send
+    failure on the engine thread is recorded, and re-raised at the
+    caller's next fold/drain step (``check``)."""
+
+    __slots__ = ("_comm", "_work", "_spans", "_dest", "_si", "_lock", "error")
+
+    def __init__(self, comm: "P2PCommunicator", work: torch.Tensor,
+                 spans, dest: int):
+        self._comm, self._work, self._spans = comm, work, spans
+        self._dest = dest
+        self._si = 0
+        self._lock = threading.Lock()
+        self.error: Optional[BaseException] = None
+
+    def post(self, n: int) -> None:
+        with self._lock:
+            while n > 0 and self._si < len(self._spans):
+                lo, hi = self._spans[self._si]
+                self._si += 1
+                n -= 1
+                self._comm._send_internal(
+                    self._comm._coll_payload(self._work[lo:hi]), self._dest,
+                    _TAG_COLL)
+
+    def advance(self) -> None:
+        """One receive completed: extend the credit window by one span
+        (on the completing thread, outside the engine's lock)."""
+        if self.error is not None:
+            return
+        try:
+            self.post(1)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+            self.error = e
+
+    def check(self) -> None:
+        if self.error is not None:
+            raise self.error
+
+    def drain(self) -> None:
+        """Caller, after every fold: post what the callbacks have not
+        (receive range shorter than the send range), then surface any
+        engine-side send failure."""
+        self.check()
+        self.post(len(self._spans))
+        self.check()
 
 
 def _as_tensor(obj: Any, device) -> torch.Tensor:
@@ -329,8 +452,16 @@ class _RecvRequest(Request):
     """Outstanding receive.  Requests posted on the same (source, tag) key
     complete in POSTED order regardless of wait()/test() call order (the
     MPI matching rule): completing a later request first drains its
-    earlier siblings from the shared posted queue."""
+    earlier siblings from the shared posted queue.
 
+    With the progress engine attached, completion is SHARED between the
+    caller and the engine thread: both go through the engine's
+    completion lock (``ProgressEngine.try_complete``), so a message is
+    consumed once and ``_done`` may flip in the background.
+    ``_on_complete`` is the engine's post-completion callback slot
+    (``_SegSender.advance``, the state machines' kick)."""
+
+    _on_complete = None
     # recv-steering registry token of an internal posted irecv
     _steer_token = None
     # irecv(buf=...) destination, filled at completion
@@ -357,6 +488,12 @@ class _RecvRequest(Request):
         return self._comm._t.poll(src_world, self._comm._ctx, self._tag)
 
     def wait(self) -> Any:
+        if self._comm._progress is not None:
+            # engine mode: a blocking consume here could swallow a message
+            # the engine already matched to an earlier sibling, so the
+            # wait parks on the engine instead
+            self._comm._progress_wait_request(self)
+            return self._value
         while not self._done:
             head = self._queue[0]  # earliest posted request gets the message
             # _recv_internal, not recv: internal (negative-tag) requests —
@@ -367,10 +504,25 @@ class _RecvRequest(Request):
         return self._value
 
     def test(self) -> Tuple[bool, Any]:
+        eng = self._comm._progress
+        if eng is not None:
+            if not self._done:
+                with eng.cv:
+                    cbs = eng.try_complete(self)
+                for cb in cbs:  # outside the lock
+                    cb()
+            if not self._done:
+                self._comm._empty_poll_check(self._source, self._tag)
+                return False, None
+            return True, self._value
         while not self._done:
             head = self._queue[0]
             hit = head._poll_once()
             if hit is None:
+                # a polling loop over a dead peer (or a revoked comm) must
+                # fail within the detection bound; a message already
+                # delivered stays receivable
+                self._comm._empty_poll_check(self._source, self._tag)
                 return False, None
             head._complete(hit[0])
         return True, self._value
@@ -429,6 +581,47 @@ def startall(requests: Sequence[PersistentRequest]) -> List[PersistentRequest]:
     for r in requests:
         r.start()
     return list(requests)
+
+
+class _ThreadRequest(Request):
+    """A nonblocking collective in flight as the blocking algorithm on a
+    thread of its own, against an isolated context (``_nbc_comm``): the
+    path of worlds without the progress engine, of ``nbc_mode="thread"``
+    and of payloads above ``nbc_sm_max_bytes``.  Counted in the
+    ``nbc_threads_spawned`` pvar.  The thread binds ``device`` before its
+    first launch; its error is re-raised at ``wait()``/``test()``."""
+
+    def __init__(self, fn, device=None):
+        _mpit.count(nbc_threads_spawned=1)
+        self._value: Any = None
+        self._error: Optional[BaseException] = None
+        self._device = device
+
+        def run():
+            try:
+                bind_thread_device(device)
+                self._value = fn()
+            except BaseException as e:  # noqa: BLE001 - re-raised at wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="mpi-tpu-torch-nbc")
+        self._thread.start()
+
+    def wait(self) -> Any:
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        _caller_waits(self._device)
+        return self._value
+
+    def test(self) -> Tuple[bool, Any]:
+        if self._thread.is_alive():
+            return False, None
+        if self._error is not None:
+            raise self._error
+        _caller_waits(self._device)
+        return True, self._value
 
 
 class Keyval:
@@ -788,9 +981,17 @@ class P2PCommunicator(Communicator):
         # pending-message summary) instead of a hang
         self.recv_timeout = recv_timeout
         self._irecv_queues: dict = {}
+        # which collective is waiting on internal tags: named in
+        # ProcFailedError diagnoses
         self._coll_name: Optional[str] = None
         # recv-steering registry (socket only); None = one attribute test
         self._recv_reg = transport.recv_registry
+        # ULFM state (ft.CommFT), attached by ft.enable(); None = the
+        # fault-tolerance machinery is one attribute test per operation
+        self._ft = None
+        # the world's progress engine (progress.py), inherited from the
+        # transport so split/dup/nbc children share its thread
+        self._progress = getattr(transport, "_progress_engine", None)
 
     # -- identity ----------------------------------------------------------
 
@@ -827,7 +1028,25 @@ class P2PCommunicator(Communicator):
 
     def _send_internal(self, obj: Any, dest: int, tag: int) -> None:
         _mpit.count(sends=1, send_bytes=int(payload_nbytes(obj) or 0))
-        self._t.send(self._world(dest), self._ctx, tag, obj)
+        dest_world = self._world(dest)
+        if self._ft is not None:
+            self._ft.check(self)  # raises RevokedError on a revoked comm
+            if dest_world in self._ft.world.failed:
+                raise ProcFailedError(
+                    f"rank {self._rank}: send to dead rank {dest}",
+                    failed=(dest,),
+                    collective=self._coll_name if tag < 0 else None)
+            try:
+                self._t.send(dest_world, self._ctx, tag, obj)
+            except TransportError as e:
+                # transport evidence beats the detector to the diagnosis
+                self._ft.world.observe(dest_world, f"send failed: {e}")
+                raise ProcFailedError(
+                    f"rank {self._rank}: send to rank {dest} failed ({e})",
+                    failed=(dest,),
+                    collective=self._coll_name if tag < 0 else None) from e
+            return
+        self._t.send(dest_world, self._ctx, tag, obj)
 
     def recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
              status: Optional[Status] = None) -> Any:
@@ -845,12 +1064,132 @@ class P2PCommunicator(Communicator):
             # frame/consumer indices stay aligned (_posted marks the
             # queue-head servicing call of an already-counted irecv)
             self._recv_reg.note_consume(src_world, self._ctx, tag)
-        obj, src, t = self._t.recv(src_world, self._ctx, tag,
-                                   timeout=self.recv_timeout)
+        if self._ft is not None:
+            obj, src, t = self._sliced_wait(src_world, tag)
+        else:
+            obj, src, t = self._t.recv(src_world, self._ctx, tag,
+                                       timeout=self.recv_timeout)
         _mpit.count(recvs=1)
         if status is not None:
             status._fill(self._from_world(src), t, obj)
         return obj
+
+    # -- sliced blocking waits (ft.py) and the engine-parked wait ----------
+
+    def _sliced_wait(self, src_world: int, tag: int, consume: bool = True):
+        """Every fault-tolerant blocking wait (recv, probe, and through
+        ``_RecvRequest.wait`` the segmented engine's receive drains): the
+        transport wait runs in _FT_POLL_S slices, and between slices a
+        queued revocation raises RevokedError and a detector hit on a
+        relevant peer raises ProcFailedError — a death is noticed within
+        the detection bound whatever ``recv_timeout`` is."""
+        ft = self._ft
+        timeout = self.recv_timeout
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            ft.check(self)
+            remaining = (None if deadline is None
+                         else deadline - time.monotonic())
+            slice_s = (_FT_POLL_S if remaining is None
+                       else max(0.0, min(_FT_POLL_S, remaining)))
+            try:
+                if consume:
+                    return self._t.recv(src_world, self._ctx, tag,
+                                        timeout=slice_s)
+                return self._t.peek(src_world, self._ctx, tag,
+                                    timeout=slice_s)
+            except RecvTimeout:
+                suspects = self._ft_suspects(src_world, tag)
+                if suspects:
+                    what = (f"collective {self._coll_name!r}" if tag < 0
+                            else f"recv(tag={tag})")
+                    raise ProcFailedError(
+                        f"rank {self._rank}: peer death detected while "
+                        f"blocked in {what}", failed=suspects,
+                        collective=self._coll_name if tag < 0 else None)
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise RecvTimeout(
+                        f"recv(source={src_world}, ctx={self._ctx}, "
+                        f"tag={tag}) timed out after {timeout}s; "
+                        f"pending={self._t.mailbox.pending_summary()}")
+
+    def _progress_wait_request(self, req: "_RecvRequest") -> None:
+        """Blocking wait on a posted receive under the progress engine:
+        completion is serialized with the engine through its lock, and
+        the caller PARKS on the engine's condition between slices.  Each
+        slice keeps the fault-tolerance checks and ``recv_timeout``, and
+        retries completion itself, so liveness never depends on the
+        engine thread."""
+        eng = self._progress
+        ft = self._ft
+        timeout = self.recv_timeout
+        deadline = None if timeout is None else time.monotonic() + timeout
+        src_world = (ANY_SOURCE if req._source == ANY_SOURCE
+                     else self._world(req._source))
+        while True:
+            if ft is not None:
+                ft.check(self)
+            if not req._done:
+                with eng.cv:
+                    cbs = eng.try_complete(req)
+                for cb in cbs:  # credit-window sends, lock released
+                    cb()
+            if req._done:
+                return
+            if ft is not None:
+                suspects = self._ft_suspects(src_world, req._tag)
+                if suspects:
+                    what = (f"collective {self._coll_name!r}"
+                            if req._tag < 0 else f"irecv(tag={req._tag})")
+                    raise ProcFailedError(
+                        f"rank {self._rank}: peer death detected while "
+                        f"waiting on {what}", failed=suspects,
+                        collective=self._coll_name if req._tag < 0 else None)
+            if deadline is not None and time.monotonic() >= deadline:
+                raise RecvTimeout(
+                    f"irecv wait(source={src_world}, ctx={self._ctx}, "
+                    f"tag={req._tag}) timed out after {timeout}s; "
+                    f"pending={self._t.mailbox.pending_summary()}")
+            with eng.cv:
+                # _done flips under eng.cv: this re-check loses no wakeup
+                if not req._done:
+                    eng.cv.wait(_FT_POLL_S)
+
+    def _empty_poll_check(self, source: int, tag: int) -> None:
+        """Fault-tolerance gate of the NONBLOCKING completion paths
+        (``Request.test``, ``iprobe``, ``improbe``) on their empty path:
+        apply a queued revocation and turn a detector hit on a relevant
+        peer into ProcFailedError, as the sliced wait does."""
+        if self._ft is None:
+            return
+        self._ft.check(self)
+        src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
+        suspects = self._ft_suspects(src_world, tag)
+        if suspects:
+            what = (f"collective {self._coll_name!r}" if tag < 0
+                    else f"poll(tag={tag})")
+            raise ProcFailedError(
+                f"rank {self._rank}: peer death detected while polling "
+                f"{what}", failed=suspects,
+                collective=self._coll_name if tag < 0 else None)
+
+    def _ft_suspects(self, src_world: int, tag: int) -> Tuple[int, ...]:
+        """The known-dead comm ranks that make THIS wait hopeless.
+        Internal (negative) tags are collective machinery: every failed
+        member dooms it.  A user recv from a specific source fails only if
+        that source is dead; a wildcard recv on any unacknowledged death
+        (``failure_ack`` re-arms it)."""
+        ft = self._ft
+        failed_world = ft.world.failed_snapshot() & set(self._group)
+        if not failed_world:
+            return ()
+        failed = sorted(self._group.index(w) for w in failed_world)
+        if tag < 0:
+            return tuple(failed)
+        if src_world == ANY_SOURCE:
+            return tuple(r for r in failed if r not in ft.acked)
+        src = self._from_world(src_world)
+        return (src,) if src in failed else ()
 
     def sendrecv(self, sendobj: Any, dest: int, source: int = ANY_SOURCE,
                  sendtag: int = 0, recvtag: int = ANY_TAG,
@@ -905,6 +1244,10 @@ class P2PCommunicator(Communicator):
             # collective may attach a destination view to the token
             req._steer_token = self._recv_reg.note_post(
                 self._world(source), self._ctx, tag)
+        if self._progress is not None:
+            # background completion: the engine scans this comm's posted
+            # queues while it has any
+            self._progress.register(self)
         return req
 
     def send_init(self, buf: Any, dest: int, tag: int = 0) -> PersistentRequest:
@@ -927,8 +1270,11 @@ class P2PCommunicator(Communicator):
         consuming it); fills ``status`` with its envelope and size."""
         _check_user_tag(tag)
         src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
-        s, t, n = self._t.peek(src_world, self._ctx, tag,
-                               timeout=self.recv_timeout)
+        if self._ft is not None:
+            s, t, n = self._sliced_wait(src_world, tag, consume=False)
+        else:
+            s, t, n = self._t.peek(src_world, self._ctx, tag,
+                                   timeout=self.recv_timeout)
         if status is not None:
             status._fill_envelope(self._from_world(s), t, n)
 
@@ -938,8 +1284,11 @@ class P2PCommunicator(Communicator):
         matching; consume it later with ``message.recv()``."""
         _check_user_tag(tag)
         src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
-        obj, src, t = self._t.recv(src_world, self._ctx, tag,
-                                   timeout=self.recv_timeout)
+        if self._ft is not None:
+            obj, src, t = self._sliced_wait(src_world, tag)
+        else:
+            obj, src, t = self._t.recv(src_world, self._ctx, tag,
+                                       timeout=self.recv_timeout)
         msg = Message(obj, self._from_world(src), t, comm=self)
         if status is not None:
             status._fill(msg.source, msg.tag, obj)
@@ -952,6 +1301,7 @@ class P2PCommunicator(Communicator):
         src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
         hit = self._t.poll(src_world, self._ctx, tag)
         if hit is None:
+            self._empty_poll_check(source, tag)
             return None
         obj, src, t = hit
         msg = Message(obj, self._from_world(src), t, comm=self)
@@ -966,6 +1316,7 @@ class P2PCommunicator(Communicator):
         src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
         hit = self._t.peek_nowait(src_world, self._ctx, tag)
         if hit is None:
+            self._empty_poll_check(source, tag)
             return False
         if status is not None:
             status._fill_envelope(self._from_world(hit[0]), hit[1], hit[2])
@@ -1164,20 +1515,38 @@ class P2PCommunicator(Communicator):
         dests = None
         if op is None and self._recv_reg is not None:
             dests = [work[lo:hi] for lo, hi in rspans]
+        eng = self._progress
+        sender = None
+        if eng is not None and len(sspans) > _SEG_WINDOW:
+            # engine mode: the sends beyond the initial credit are posted
+            # by whoever COMPLETES each receive (normally the engine, via
+            # _on_complete), so the window advances while the caller
+            # folds.  Receives are posted and their callbacks attached
+            # under the completion lock, or an early completion in the
+            # gap would lose its send credit.
+            sender = _SegSender(self, work, sspans, dest)
         reqs = []
-        for i in range(len(rspans)):
-            req = self._irecv_internal(src, _TAG_COLL)
-            if dests is not None:
-                self._recv_reg.attach(req._steer_token, dests[i])
-            reqs.append(req)
+        with (eng.cv if sender is not None else contextlib.nullcontext()):
+            for i in range(len(rspans)):
+                req = self._irecv_internal(src, _TAG_COLL)
+                if dests is not None:
+                    self._recv_reg.attach(req._steer_token, dests[i])
+                if sender is not None:
+                    req._on_complete = sender.advance
+                reqs.append(req)
         try:
             si = 0
+            if sender is not None:
+                sender.post(_SEG_WINDOW)
+                si = len(sspans)  # the sender owns every later send
             while si < min(len(sspans), _SEG_WINDOW):
                 lo, hi = sspans[si]
                 self._send_internal(self._coll_payload(work[lo:hi]), dest,
                                     _TAG_COLL)
                 si += 1
             for seg_i, ((lo, hi), req) in enumerate(zip(rspans, reqs)):
+                if sender is not None:
+                    sender.check()  # engine-side send failures surface
                 got = req.wait()
                 view = work[lo:hi] if dests is None else dests[seg_i]
                 if op is None:
@@ -1199,7 +1568,14 @@ class P2PCommunicator(Communicator):
                 self._send_internal(self._coll_payload(work[slo:shi]), dest,
                                     _TAG_COLL)
                 si += 1
-        except BaseException:
+            if sender is not None:
+                sender.drain()
+        except BaseException as e:
+            if isinstance(e, ProcFailedError) and e.segment is None:
+                # name the pipeline segment in flight: the first receive
+                # not yet completed (a send failure included)
+                e.segment = next((i for i, q in enumerate(reqs)
+                                  if not q._done), len(reqs))
             # a failed exchange must not leave stale queue heads on the
             # internal (src, _TAG_COLL) channel
             _unpost(reqs)
@@ -1553,15 +1929,247 @@ class P2PCommunicator(Communicator):
         self._send_internal(obj, root, _TAG_COLL)
         return None
 
-    ibcast = _unported("ibcast", "nonblocking collectives", "16.2")
-    ireduce = _unported("ireduce", "nonblocking collectives", "16.2")
-    iallreduce = _unported("iallreduce", "nonblocking collectives", "16.2")
-    iallgather = _unported("iallgather", "nonblocking collectives", "16.2")
-    ialltoall = _unported("ialltoall", "nonblocking collectives", "16.2")
-    ibarrier = _unported("ibarrier", "nonblocking collectives", "16.2")
-    iscatter = _unported("iscatter", "nonblocking collectives", "16.2")
-    igather = _unported("igather", "nonblocking collectives", "16.2")
     win_create = _unported("win_create", "one-sided RMA (P2PWindow)", "16.4")
+
+    # -- fault tolerance (ULFM, ft.py) ----------------------------------------
+
+    def _require_ft(self, what: str):
+        if self._ft is None:
+            raise RuntimeError(
+                f"{what}() needs fault tolerance enabled on this "
+                f"communicator: mpi_tpu_torch.ft.enable(comm), MPI_TPU_FT=1 "
+                f"under the launcher, or run(..., backend='local', "
+                f"fault_tolerance=True)")
+        return self._ft
+
+    @property
+    def revoked(self) -> bool:
+        """True once this communicator was revoked (locally or by a
+        delivered remote revocation)."""
+        return self._ft is not None and self._ft.revoked
+
+    def revoke(self) -> None:
+        """MPIX_Comm_revoke: mark this communicator dead everywhere — a
+        best-effort notice to every other rank on the reserved control
+        tag; every rank entering or blocked inside an operation on it
+        raises RevokedError.  Not collective."""
+        from . import ft as _ftm
+
+        ft = self._require_ft("revoke")
+        if not ft.revoked:
+            ft.revoked = True
+            _mpit.count(revokes=1)
+        for peer in range(self.size):
+            if peer == self._rank:
+                continue
+            try:
+                self._t.send(self._group[peer], ft.home_ctx,
+                             _ftm.TAG_REVOKE, None)
+            except (TransportError, ValueError):
+                pass  # dead or unreachable peers need no revocation
+
+    def get_failed(self) -> List[int]:
+        """The comm ranks this process currently believes dead (sorted;
+        empty without fault tolerance)."""
+        from . import ft as _ftm
+
+        return _ftm.failed_comm_ranks(self)
+
+    def failure_ack(self) -> List[int]:
+        """MPIX_Comm_failure_ack: acknowledge every known failure —
+        wildcard receives stop raising for these ranks and ``agree`` stops
+        treating them as fatal.  Returns the acknowledged comm ranks."""
+        ft = self._require_ft("failure_ack")
+        failed = set(self.get_failed())
+        ft.acked |= failed
+        # world-level record: membership's re-admission gate
+        ft.world.ack_world(self._group[r] for r in failed)
+        return sorted(ft.acked)
+
+    def failure_get_acked(self) -> List[int]:
+        """MPIX_Comm_failure_get_acked."""
+        return sorted(self._require_ft("failure_get_acked").acked)
+
+    def shrink(self) -> "P2PCommunicator":
+        """MPIX_Comm_shrink: the survivors agree on the failed set
+        (``ft._agreement``) and return a dense sub-communicator of the
+        survivors, ordered by old rank.  Valid on a revoked communicator
+        (the agreement runs below the revocation check).  Shrinking a
+        world-generation communicator bumps the membership epoch in
+        survivor lockstep."""
+        from . import ft as _ftm
+
+        ft = self._require_ft("shrink")
+        view, _ = _ftm._agreement(self, _ftm.TAG_SHRINK, True)
+        if (view >> self._rank) & 1:
+            raise ProcFailedError(
+                f"rank {self._rank}: suspected dead by the survivors during "
+                f"shrink (false suspicion: this rank stalled past the "
+                f"detection bound)", failed=(self._rank,),
+                collective="shrink")
+        survivors = [q for q in range(self.size) if not (view >> q) & 1]
+        # derived from AGREED state with no further communication, the
+        # agreement epoch included: two shrinks with the same failed set
+        # get distinct contexts
+        ctx = (self._ctx, "shrink", ft.current_epoch(_ftm.TAG_SHRINK),
+               tuple(survivors))
+        new = P2PCommunicator(self._t, [self._group[q] for q in survivors],
+                              ctx, recv_timeout=self.recv_timeout)
+        new._ft = _ftm.CommFT(ft.world, ctx)
+        # only world-GENERATION comms (the world at creation, or an earlier
+        # generation's shrink) bump the epoch: a sub-communicator's shrink
+        # is no membership change
+        if self._ctx in getattr(self._t, "_gen_ctxs", ()):
+            self._t.epoch += 1
+            self._t._gen_ctxs.add(ctx)
+        _mpit.count(shrinks=1)
+        return self._inherit_errhandler(new)
+
+    def _mark_generation(self) -> "P2PCommunicator":
+        """Register this communicator as a world-GENERATION comm: its
+        ``shrink()`` is a membership transition and bumps the epoch.
+        Marked at the world-creation sites (``init``, ``run_local``,
+        ``rejoin``, ``accept_rejoin``) and propagated by ``shrink``."""
+        if not hasattr(self._t, "_gen_ctxs"):
+            self._t._gen_ctxs = set()
+        self._t._gen_ctxs.add(self._ctx)
+        return self
+
+    @property
+    def membership_epoch(self) -> int:
+        """The monotone membership epoch of this communicator's world: 0
+        at creation, bumped by every world ``shrink()``; stamped into the
+        socket hello so generations never cross-wire."""
+        return self._t.epoch
+
+    def accept_rejoin(self, timeout: Optional[float] = None
+                      ) -> "P2PCommunicator":
+        """Elastic recovery, collective over the SURVIVORS (call it on the
+        communicator ``shrink()`` returned): announce the vacant world
+        slots under the current epoch on the rendezvous dir, admit fresh
+        processes' claims (refusing an ousted-but-live incarnation until
+        its failure was ``failure_ack``ed), wait for every replacement,
+        and return a FULL-SIZE communicator over the world under the new
+        epoch.  The joiner side is ``mpi_tpu_torch.membership.rejoin()``."""
+        from . import membership as _membership
+
+        return _membership.accept_rejoin(self, timeout=timeout)
+
+    def agree(self, value: bool = True) -> bool:
+        """MPIX_Comm_agree: fault-tolerant agreement on the AND of every
+        live rank's ``value``.  Completes despite failures; raises
+        ProcFailedError AFTER the agreement when a member is dead and not
+        acknowledged (the agreed value rides on it as ``.value``)."""
+        from . import ft as _ftm
+
+        ft = self._require_ft("agree")
+        view, anded = _ftm._agreement(self, _ftm.TAG_AGREE, value)
+        failed = [q for q in range(self.size) if (view >> q) & 1]
+        if set(failed) - ft.acked:
+            exc = ProcFailedError(
+                f"rank {self._rank}: agreement completed but members are "
+                f"dead and unacknowledged", failed=failed,
+                collective="agree")
+            exc.value = anded
+            raise exc
+        return anded
+
+    # -- nonblocking collectives (MPI-3 MPI_Ibcast & co.) ----------------------
+
+    def _nbc_comm(self) -> "P2PCommunicator":
+        """Isolated-context clone for ONE nonblocking collective: every
+        rank issues them in the same order, so the per-comm counter gives
+        the same context on every rank with no communication."""
+        with self._lock:
+            self._nbc_count = getattr(self, "_nbc_count", 0) + 1
+            k = self._nbc_count
+        c = P2PCommunicator(self._t, self._group, (self._ctx, "nbc", k),
+                            recv_timeout=self.recv_timeout)
+        # SHARE the parent's fault-tolerance state: revoking the parent
+        # must unblock its collectives in flight
+        c._ft = self._ft
+        return c
+
+    def _nbc_issue(self, kind: str, fn, *args: Any, **kwargs: Any) -> Request:
+        """Issue one i-collective on the default stream: a schedule state
+        machine on the progress engine when this call compiles into one
+        (``nbc.py``), else the blocking algorithm ``fn(clone)`` on a
+        thread.  Eligibility depends only on group-congruent facts (the
+        world's engine and mode, the kind, root and reduction geometry),
+        so every rank takes the same path."""
+        from . import nbc as _nbc
+
+        with _on_default_stream(self.device):
+            if self._progress is not None and _nbc.mode() == "auto":
+                req = _nbc.try_state_machine(self, kind, *args, **kwargs)
+                if req is not None:
+                    return req
+            c = self._nbc_comm()
+            return _ThreadRequest(lambda: fn(c), self.device)
+
+    def ibcast(self, obj: Any, root: int = 0) -> Request:
+        return self._nbc_issue("ibcast", lambda c: c.bcast(obj, root),
+                               obj, root=root)
+
+    def ireduce(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
+                root: int = 0) -> Request:
+        return self._nbc_issue("ireduce", lambda c: c.reduce(obj, op, root),
+                               obj, op=op, root=root)
+
+    def iallreduce(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
+                   algorithm: str = "auto") -> Request:
+        return self._nbc_issue(
+            "iallreduce", lambda c: c.allreduce(obj, op, algorithm),
+            obj, op=op, algorithm=algorithm)
+
+    def iallgather(self, obj: Any) -> Request:
+        return self._nbc_issue("iallgather", lambda c: c.allgather(obj), obj)
+
+    def ialltoall(self, objs: Sequence[Any]) -> Request:
+        return self._nbc_issue("ialltoall", lambda c: c.alltoall(objs), objs)
+
+    def ibarrier(self) -> Request:
+        return self._nbc_issue("ibarrier", lambda c: c.barrier())
+
+    def iscatter(self, objs: Optional[Sequence[Any]], root: int = 0) -> Request:
+        return self._nbc_issue("iscatter", lambda c: c.scatter(objs, root),
+                               objs, root=root)
+
+    def igather(self, obj: Any, root: int = 0) -> Request:
+        return self._nbc_issue("igather", lambda c: c.gather(obj, root),
+                               obj, root=root)
+
+    # -- persistent collectives (MPI-4 MPI_Allreduce_init & co., nbc.py) -------
+
+    def allreduce_init(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
+                       algorithm: str = "auto"):
+        """MPI_Allreduce_init: a ``PersistentColl`` handle that hoists the
+        child context, the algorithm resolution, the schedule and the
+        working buffers out of the loop; ``start()`` re-reads ``obj`` (the
+        buffer-reuse idiom: refill it in place between rounds)."""
+        from . import nbc as _nbc
+
+        return _nbc.persistent_init(self, "allreduce", obj, op, algorithm)
+
+    def bcast_init(self, obj: Any, root: int = 0, algorithm: str = "auto"):
+        """MPI_Bcast_init: a planned binomial-tree broadcast."""
+        from . import nbc as _nbc
+
+        return _nbc.persistent_init(self, "bcast", obj, root, algorithm)
+
+    def alltoall_init(self, objs: Sequence[Any], algorithm: str = "auto"):
+        """MPI_Alltoall_init: a planned pairwise exchange."""
+        from . import nbc as _nbc
+
+        return _nbc.persistent_init(self, "alltoall", objs, algorithm)
+
+    def reduce_scatter_init(self, blocks: Any, op: _ops.ReduceOp = _ops.SUM,
+                            algorithm: str = "auto"):
+        """MPI_Reduce_scatter_init: a planned block-ring reduce_scatter."""
+        from . import nbc as _nbc
+
+        return _nbc.persistent_init(self, "reduce_scatter", blocks, op,
+                                    algorithm)
 
     # -- communicator management ------------------------------------------
 
@@ -1580,18 +2188,32 @@ class P2PCommunicator(Communicator):
         members = sorted(
             (k, cr) for cr, (c, k) in enumerate(infos) if c == color)
         group = [self._group[cr] for _, cr in members]
-        return self._inherit_errhandler(P2PCommunicator(
-            self._t, group, ctx, recv_timeout=self.recv_timeout))
+        return self._inherit_errhandler(self._inherit_ft(P2PCommunicator(
+            self._t, group, ctx, recv_timeout=self.recv_timeout)))
 
     def dup(self) -> "P2PCommunicator":
         self.barrier()  # collectiveness check + sync, like MPI_Comm_dup
         ctx = self._alloc_context()
-        return self._copy_attrs_to(P2PCommunicator(
-            self._t, self._group, ctx, recv_timeout=self.recv_timeout))
+        return self._copy_attrs_to(self._inherit_ft(P2PCommunicator(
+            self._t, self._group, ctx, recv_timeout=self.recv_timeout)))
+
+    def _inherit_ft(self, new: "P2PCommunicator") -> "P2PCommunicator":
+        """A split/dup child of a fault-tolerant communicator is fault
+        tolerant too: the same detector world, FRESH revocation state."""
+        if self._ft is not None:
+            from . import ft as _ftm
+
+            new._ft = _ftm.CommFT(self._ft.world, new._ctx)
+        return new
 
     def close_transport(self) -> List[Tuple[int, Any, int]]:
-        """Finalize-time shutdown: returns any unexpected pending messages
-        (the 'unreceived message' check)."""
+        """Finalize-time shutdown: stops the detector and the progress
+        engine, returns any unexpected pending messages (the 'unreceived
+        message' check)."""
+        if self._ft is not None:
+            self._ft.world.stop()
+        if self._progress is not None:
+            self._progress.stop()
         pending = self._t.mailbox.drain()
         self._t.close()
         return pending

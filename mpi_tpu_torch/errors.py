@@ -6,9 +6,9 @@ exception onto the MPI error-class constants, ``error_string`` (:330)
 renders one, and ``invoke_handler`` (:334) dispatches an exception
 through a communicator's error handler (``ERRORS_ARE_FATAL`` propagates,
 ``ERRORS_RETURN`` returns an :class:`ErrorCode`, a callable is called).
-``ProcFailedError`` and ``RevokedError`` are kept as types only: fault
-tolerance (ULFM) is not ported yet (ROADMAP item 16.2), so nothing in the
-port raises them.
+The fault-tolerance layer (``ft.py``, ``membership.py``) raises
+``ProcFailedError`` (:93), ``RevokedError`` (:120), ``EpochSkewError``
+(:127) and ``RejoinRefusedError`` (:145).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ __all__ = [
     "MPI_ERR_PROC_FAILED", "MPI_ERR_REVOKED",
     "ERRORS_ARE_FATAL", "ERRORS_RETURN", "ErrorCode",
     "ProcFailedError", "RevokedError",
+    "EpochSkewError", "RejoinRefusedError",
     "error_class", "error_string", "invoke_handler",
 ]
 
@@ -111,6 +112,31 @@ class RevokedError(RuntimeError):
     (``comm.revoke()`` on any rank); every pending and future p2p or
     collective operation on it raises this — the mechanism that unblocks
     survivors who were not themselves talking to a dead rank."""
+
+
+class EpochSkewError(RuntimeError):
+    """Elastic-membership generation mismatch (``membership.py``): this
+    process tried to talk to a peer of a DIFFERENT membership epoch — it
+    was shrunk out and the survivors moved on, or it re-handshakes against
+    endpoints a replacement re-created under a newer epoch.  Raised
+    instead of cross-wiring two world generations.  Carries both epochs
+    and the peer."""
+
+    def __init__(self, msg: str, local_epoch: Optional[int] = None,
+                 peer_epoch: Optional[int] = None,
+                 peer: Optional[int] = None):
+        super().__init__(msg)
+        self.local_epoch = local_epoch
+        self.peer_epoch = peer_epoch
+        self.peer = peer
+
+
+class RejoinRefusedError(RuntimeError):
+    """A rejoin claim was refused by the survivors (``membership.py``):
+    most commonly a falsely-suspected-but-live incarnation trying to
+    re-enter its old slot before the survivors ``failure_ack``ed its
+    failure — re-admitting it would resurrect the split the epoch
+    protocol exists to prevent."""
 
 
 class _FatalHandler:

@@ -12,10 +12,16 @@ rank shares card 0: a CUDA card, unlike a TPU, can be shared between
 processes).  ``--device cpu`` runs the ranks on the CPU instead — the
 counterpart of the reference's CPU pin of its ranks' JAX.
 
+``--progress thread`` starts a progress engine in every rank
+(``MPI_TPU_PROGRESS``); ``MPI_TPU_FT=1`` in the launcher's environment
+enables fault tolerance in every rank (``ft.py``).  ``--verify`` (the
+runtime verifier) is not ported yet (ROADMAP item 16.2b).
+
 Usage::
 
     python -m mpi_tpu_torch.launcher -n 4 prog.py [script args...]
     python -m mpi_tpu_torch.launcher -n 4 --device cpu prog.py
+    MPI_TPU_FT=1 python -m mpi_tpu_torch.launcher -n 4 --progress thread prog.py
 """
 
 from __future__ import annotations
@@ -36,15 +42,18 @@ _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def launch(nranks: int, argv: Sequence[str], timeout: Optional[float] = None,
            backend: Optional[str] = None, restarts: int = 0,
-           device: Optional[str] = None) -> int:
+           device: Optional[str] = None,
+           env_extra: Optional[dict] = None) -> int:
     """Run ``python argv...`` as ``nranks`` rank processes; return the exit
     code.  ``restarts``: after a nonzero exit or a hang (timeout), the
     WHOLE world is killed and relaunched up to this many times
     (``MPI_TPU_ATTEMPT`` carries the attempt number to the ranks).
-    ``device`` (``"cpu"`` or a card) overrides every rank's default."""
+    ``device`` (``"cpu"`` or a card) overrides every rank's default;
+    ``env_extra`` is added to every rank's environment."""
     last = 0
     for attempt in range(restarts + 1):
-        extra = {"MPI_TPU_ATTEMPT": str(attempt)}
+        extra = dict(env_extra or {})
+        extra["MPI_TPU_ATTEMPT"] = str(attempt)
         if device is not None:
             extra[ENV_DEVICE] = device
         try:
@@ -166,13 +175,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--device", default=None,
                         help="device of every rank ('cpu', or a card such as "
                              "'cuda:0'); default: card rank %% device_count")
+    parser.add_argument("--progress", choices=("none", "thread"), default=None,
+                        help="progress mode of every rank (MPI_TPU_PROGRESS): "
+                             "'thread' starts one progress engine per rank")
+    parser.add_argument("--verify", action="store_true",
+                        help="the runtime verifier (not ported yet: ROADMAP "
+                             "item 16.2b)")
     parser.add_argument("script", help="python script to run on every rank")
     parser.add_argument("script_args", nargs=argparse.REMAINDER,
                         help="arguments passed to the script")
     args = parser.parse_args(argv)
+    if args.verify:
+        raise NotImplementedError(
+            "launcher --verify (the runtime verifier) is not ported yet: "
+            "ROADMAP.md item 16.2b")
+    env_extra = {}
+    if args.progress is not None:
+        env_extra["MPI_TPU_PROGRESS"] = args.progress
     return launch(args.nranks, [args.script, *args.script_args],
                   timeout=args.timeout, backend=args.backend,
-                  restarts=args.restarts, device=args.device)
+                  restarts=args.restarts, device=args.device,
+                  env_extra=env_extra)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,19 @@
   (:126) takes the reference's keyword names; ``pvar_read`` /
   ``pvar_reset`` (:437-445) read them under the reference's pvar names
   (``msgs_sent``, ``bytes_raw_sent``, ``bytes_pickled_sent``,
-  ``payload_copies``, the ``link_*`` and ``recv_*`` families).
+  ``payload_copies``, the ``link_*`` and ``recv_*`` families; the
+  fault-tolerance, progress and nonblocking-collective counters
+  ``proc_failures_detected``, ``revokes_delivered``,
+  ``shrinks_completed``, ``rejoins_completed``, ``epoch_skews_detected``,
+  ``faulty_dropped`` / ``faulty_duplicated``, ``progress_*``,
+  ``nbc_threads_spawned``, ``nbc_state_machines``, ``persistent_starts``).
 * Control variables (cvars): ``cvar_read`` / ``cvar_write`` (:602-611)
-  over the knobs this slice steers — ``collective_segment_bytes``, the
-  two allreduce crossovers and ``recv_steering``.
+  over the knobs the host layer reads — ``collective_segment_bytes``,
+  the two allreduce crossovers, ``recv_steering``, and (:700-1000)
+  ``progress``, ``nbc_mode``, ``nbc_fold_workers``, ``nbc_sm_max_bytes``,
+  ``fault_detect_timeout_s``, ``fault_heartbeat_interval_s``,
+  ``epoch_grace_s`` and ``link_keepalive_s``, with the reference's
+  defaults and validation.
 
 Sessions and histogram pvars are not ported yet (ROADMAP item 16.3).
 """
@@ -46,6 +55,19 @@ _PVAR_OF = {
     "recv_pool_rendezvous": "recv_pool_rendezvous",
     "recv_bytes_steered": "recv_bytes_steered",
     "recv_pool_fold_fallbacks": "recv_pool_fold_fallbacks",
+    "proc_failed": "proc_failures_detected",
+    "revokes": "revokes_delivered",
+    "shrinks": "shrinks_completed",
+    "rejoins": "rejoins_completed",
+    "epoch_skews": "epoch_skews_detected",
+    "faulty_dropped": "faulty_dropped",
+    "faulty_duplicated": "faulty_duplicated",
+    "progress_wakeups": "progress_wakeups",
+    "progress_completions": "progress_completions",
+    "progress_idle_parks": "progress_idle_parks",
+    "nbc_threads_spawned": "nbc_threads_spawned",
+    "nbc_state_machines": "nbc_state_machines",
+    "persistent_starts": "persistent_starts",
 }
 
 _counters: Dict[str, int] = {name: 0 for name in _PVAR_OF.values()}
@@ -90,7 +112,12 @@ def _builtin_cvars() -> None:
     if _CVARS:
         return
     from . import communicator as _c
+    from . import ft as _ft
+    from . import nbc as _nbc
+    from . import progress as _prog
     from . import recvpool as _recvpool
+    from . import resilience as _resilience
+    from .transport import socket as _socket
 
     def _set_nonneg(attr: str, what: str):
         def write(v):
@@ -101,6 +128,42 @@ def _builtin_cvars() -> None:
 
     def _set_steering(v):
         _recvpool._STEERING = 1 if int(v) else 0
+
+    def _set_positive(mod, attr: str, what: str):
+        def write(v):
+            if float(v) <= 0:
+                raise ValueError(f"{what} must be > 0")
+            setattr(mod, attr, float(v))
+        return write
+
+    def _set_nonneg_s(mod, attr: str, what: str):
+        def write(v):
+            if float(v) < 0:
+                raise ValueError(f"{what} must be >= 0")
+            setattr(mod, attr, float(v))
+        return write
+
+    def _set_progress(v):
+        if v not in _prog.MODES:
+            raise ValueError(
+                f"progress must be one of {list(_prog.MODES)}, got {v!r}")
+        _prog._DEFAULT_MODE = v
+
+    def _set_nbc_mode(v):
+        if v not in _nbc.MODES:
+            raise ValueError(
+                f"nbc_mode must be one of {list(_nbc.MODES)}, got {v!r}")
+        _nbc._MODE = v
+
+    def _set_nbc_fold_workers(v):
+        if int(v) < 1:
+            raise ValueError("nbc_fold_workers must be >= 1")
+        _nbc._FOLD_WORKERS = int(v)
+
+    def _set_nbc_sm_max(v):
+        if int(v) < 0:
+            raise ValueError("nbc_sm_max_bytes must be >= 0 (0 = no cap)")
+        _nbc._SM_MAX_BYTES = int(v)
 
     _CVARS.update({
         "collective_segment_bytes": (
@@ -126,6 +189,53 @@ def _builtin_cvars() -> None:
             "1: socket readers land collective segments directly in the "
             "posted destination views; 0: every frame takes the pool "
             "path (accounting stays on)"),
+        "progress": (
+            lambda: _prog._DEFAULT_MODE, _set_progress,
+            "default progress mode of new worlds: 'thread' starts one "
+            "progress engine per world (background completion of "
+            "nonblocking operations), 'none' keeps progress "
+            "caller-financed; run(progress=...) and MPI_TPU_PROGRESS "
+            "override"),
+        "nbc_mode": (
+            lambda: _nbc._MODE, _set_nbc_mode,
+            "'auto' runs i-collectives as schedule state machines on "
+            "worlds with a progress engine; 'thread' runs each on a "
+            "thread of its own; MPI_TPU_NBC seeds the default"),
+        "nbc_fold_workers": (
+            lambda: _nbc._FOLD_WORKERS, _set_nbc_fold_workers,
+            "width of the per-world pool that applies the state "
+            "machines' folds and posts their sends; read at a world's "
+            "first state machine; MPI_TPU_NBC_FOLD_WORKERS seeds it"),
+        "nbc_sm_max_bytes": (
+            lambda: _nbc._SM_MAX_BYTES, _set_nbc_sm_max,
+            "payload ceiling of the state-machine path (reductions: the "
+            "working buffer; ialltoall: the largest block); larger calls "
+            "take the segmented blocking algorithms on a thread; 0 "
+            "removes the cap; MPI_TPU_NBC_SM_MAX_BYTES seeds it"),
+        "fault_detect_timeout_s": (
+            lambda: _ft._DETECT_TIMEOUT_S,
+            _set_positive(_ft, "_DETECT_TIMEOUT_S", "fault_detect_timeout_s"),
+            "failure-detection bound: a peer whose heartbeat is stale "
+            "this long is declared dead; read at ft.enable()"),
+        "fault_heartbeat_interval_s": (
+            lambda: _ft._HEARTBEAT_S,
+            _set_positive(_ft, "_HEARTBEAT_S", "fault_heartbeat_interval_s"),
+            "how often each fault-tolerant rank beats and scans its "
+            "peers; keep well below fault_detect_timeout_s; read at "
+            "ft.enable()"),
+        "epoch_grace_s": (
+            lambda: _socket._EPOCH_GRACE_S,
+            _set_nonneg_s(_socket, "_EPOCH_GRACE_S", "epoch_grace_s"),
+            "how long a peer's newer membership epoch is tolerated in the "
+            "socket hello before this process is declared a stale "
+            "straggler (EpochSkewError)"),
+        "link_keepalive_s": (
+            lambda: _resilience._KEEPALIVE_S,
+            _set_nonneg_s(_resilience, "_KEEPALIVE_S",
+                          "link_keepalive_s (0 = no probing)"),
+            "idle socket links that sent nothing for this long are probed "
+            "with a header-only ack frame, so a link torn while idle heals "
+            "before the next send; 0 disables probing"),
     })
 
 

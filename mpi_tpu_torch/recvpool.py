@@ -223,6 +223,17 @@ class PostedRecvRegistry:
             if fold_race:
                 _mpit.count(recv_pool_fold_fallbacks=1)
 
+    def purge_src(self, src, gen: int) -> None:
+        """Membership removal of ``src``: its in-flight frames died with the
+        purged stream, so arrivals resync to posts, entries are dropped and
+        the watermark is fenced to the bumped generation."""
+        with self._lock:
+            for key, ch in self._ch.items():
+                if key[0] == src:
+                    ch.entries.clear()
+                    ch.arrived = ch.posted
+                    ch.wm = (gen, 0)
+
     def note_local(self, src, ctx, tag) -> None:
         """Count a self-send delivery (value-copy path, never steered) so
         loopback traffic on a counted channel keeps indices aligned."""

@@ -1,6 +1,8 @@
 """Link resilience: sequenced frames, cumulative acks, bounded replay —
 the port's own copy of what ``transport/socket.py`` uses of
-``mpi_tpu/resilience.py``: ``LinkState`` and ``backoff_delays`` (:131).
+``mpi_tpu/resilience.py``: ``LinkState`` with its per-peer stream
+generation (``peer_gen`` :261, ``purge_peer`` :478, the ``gen`` argument
+of ``rx_fresh`` / ``tx_ack`` / ``rx_gate``) and ``backoff_delays`` (:131).
 
 A mid-send ``OSError`` on a socket is a LINK fault (a reset, a dropped
 connection) between two live processes; it is healed transparently by
@@ -19,9 +21,16 @@ reconnecting and replaying what the peer did not receive:
 * the reconnect handshake answers with ``resume(last delivered seq)``,
   so the sender replays only unacked frames.
 
-Telling a PEER fault (a dead process) from a link fault needs the fault
-tolerance layer, which is not ported yet (ROADMAP 16.2): here every
+A PEER fault (a dead process) is told from a link fault by the fault
+tolerance layer (``ft.WorldFT.link_suspect``): the socket transport gives
+up healing a link at once when its peer is suspect, and a full window's
+wait re-checks the verdict every slice.  Without fault tolerance every
 fault is a link fault and only the retry budget decides.
+
+A membership transition (``membership.survivor_transition``) purges a
+replaced slot's streams: its retained replay window and seq/delivery
+marks belong to the dead incarnation, and the generation bump makes every
+reader still draining the old connection drop its acks and frames.
 """
 
 from __future__ import annotations
@@ -56,6 +65,12 @@ _BACKOFF_FACTOR = 2.0
 _BACKOFF_CAP_S = 0.5
 
 _WINDOW_POLL_S = 0.05  # slice of the window-full wait
+
+# Idle-link keepalive cadence (cvar link_keepalive_s): cached connections
+# that sent nothing for this long are probed with a header-only ack frame
+# by the ack flusher, so a link torn while idle heals before the next
+# send.  0 disables probing.
+_KEEPALIVE_S = 1.0
 
 
 def backoff_delays(base: float = _BACKOFF_BASE_S,
@@ -119,6 +134,11 @@ class LinkState:
         self._cv = threading.Condition(self._lock)
         # sources with delivered > ack_sent (the flusher's work list)
         self._ack_pending: set = set()
+        # per-peer STREAM GENERATION, bumped by purge_peer: a reader still
+        # draining a replaced slot's old connection captured the old one,
+        # and its acks/frames are dropped (one stale ack applied to the
+        # replacement's fresh stream would stall its window for good)
+        self._gen: Dict[int, int] = {}
         self._closed = False
 
     # -- tiny accessors ----------------------------------------------------
@@ -141,14 +161,23 @@ class LinkState:
         with self._lock:
             return self._rx_of(src).delivered
 
-    def rx_fresh(self, src: int, seq: int) -> bool:
-        """True iff data frame ``seq`` from ``src`` is the next in-sequence
-        frame — exactly the frames ``rx_gate`` will deliver, in delivery
-        order.  The steering registry (recvpool.py) gates its arrival
-        counting on this so duplicates and gap frames never advance a
+    def peer_gen(self, rank: int) -> int:
+        """Current stream generation of ``rank``: readers capture it at
+        handshake and present it with every ack and frame."""
+        with self._lock:
+            return self._gen.get(rank, 0)
+
+    def rx_fresh(self, src: int, seq: int, gen: int) -> bool:
+        """True iff data frame ``(seq, gen)`` from ``src`` is the next
+        in-sequence frame of the CURRENT generation — exactly the frames
+        ``rx_gate`` will deliver, in delivery order.  The steering
+        registry (recvpool.py) gates its arrival counting on this so
+        duplicates, stale generations and gap frames never advance a
         channel's pairing index; its per-channel watermark closes the
         race of two connections presenting the same fresh frame."""
         with self._lock:
+            if gen != self._gen.get(src, 0):
+                return False
             st = self._rx.get(src)
             return seq == (st.delivered if st is not None else 0) + 1
 
@@ -164,12 +193,14 @@ class LinkState:
     # -- sender side -------------------------------------------------------
 
     def wait_window(self, dest: int, nbytes: int,
+                    suspect: Callable[[int], bool],
                     closing: Callable[[], bool]) -> None:
         """Block until ``nbytes`` more retained bytes fit the window (or
         the window is empty — one oversized frame may always proceed).
-        The no-ack-progress wait is bounded by the retry budget: a peer
-        that stops acking for that long IS a link verdict, promoted to
-        TransportError here."""
+        Re-checks the fault-tolerance suspect verdict every slice; the
+        no-ack-progress wait is bounded by the retry budget: a peer that
+        stops acking for that long IS a link verdict, promoted to
+        TransportError here (ProcFailedError under fault tolerance)."""
         deadline = time.monotonic() + _RETRY_TIMEOUT_S
         with self._cv:
             while True:
@@ -185,6 +216,11 @@ class LinkState:
                 if st.acked > progress_mark:
                     deadline = time.monotonic() + _RETRY_TIMEOUT_S
                     continue
+                if suspect(dest):
+                    raise TransportError(
+                        f"peer {dest} declared failed while its link "
+                        f"window was full ({st.retained_bytes} unacked "
+                        f"bytes)")
                 if time.monotonic() > deadline:
                     raise TransportError(
                         f"link to rank {dest}: no ack progress for "
@@ -209,12 +245,16 @@ class LinkState:
             _mpit.count(link_bytes_retained=body.nbytes)
             return st.seq
 
-    def tx_ack(self, dest: int, ack: int) -> None:
+    def tx_ack(self, dest: int, ack: int,
+               gen: Optional[int] = None) -> None:
         """Apply a cumulative ack from ``dest`` (piggybacked or
         standalone): prune the retained prefix, wake window waiters.
-        Acks are monotone; a stale value (a replayed header) is a
-        no-op."""
+        Acks are monotone; a stale value (a replayed header) is a no-op,
+        and so is an ack read on a since-purged incarnation's connection
+        (``gen`` mismatch)."""
         with self._cv:
+            if gen is not None and gen != self._gen.get(dest, 0):
+                return
             st = self._tx_of(dest)
             if ack <= st.acked:
                 return
@@ -239,8 +279,8 @@ class LinkState:
 
     # -- receiver side -----------------------------------------------------
 
-    def rx_gate(self, src: int, seq: int,
-                deliver: Callable[[], None]) -> bool:
+    def rx_gate(self, src: int, seq: int, deliver: Callable[[], None],
+                gen: Optional[int] = None) -> bool:
         """Deliver-or-drop decision for an arriving data frame, atomic
         with the delivery itself (two reader threads of one src — the
         dying connection's and its replacement's — may race here, and
@@ -249,6 +289,8 @@ class LinkState:
         TCP FIFO + resume-replay): raised loudly, never reordered
         around."""
         with self._cv:
+            if gen is not None and gen != self._gen.get(src, 0):
+                return False  # a purged incarnation's stream died with it
             st = self._rx_of(src)
             if seq <= st.delivered:
                 return False  # replay duplicate: already delivered
@@ -299,6 +341,23 @@ class LinkState:
             if not self._ack_pending and not self._closed:
                 self._cv.wait(timeout)
             return sorted(self._ack_pending)
+
+    def purge_peer(self, rank: int) -> None:
+        """Slot replacement (``membership_invalidate``): the old
+        incarnation's streams die with it.  Its retained replay window is
+        released (a rejoiner must never see a stale replay: its streams
+        start at seq 1), our seq toward it and its delivery mark reset, and
+        the generation bump invalidates every reader still draining its
+        old connections."""
+        with self._cv:
+            st = self._tx.pop(rank, None)
+            self._rx.pop(rank, None)
+            self._ack_pending.discard(rank)
+            self._gen[rank] = self._gen.get(rank, 0) + 1
+            self._cv.notify_all()
+        if st is not None:
+            for _, _, body in st.retained:
+                body.release()
 
     def close(self) -> None:
         # free the retained windows: the refs pin caller buffers for

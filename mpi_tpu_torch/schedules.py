@@ -7,8 +7,11 @@ the segment tables ``chunk_offsets`` (:46) and ``segment_spans`` (:64),
 ``binomial_tree_links`` (:76), the binomial rounds (:100-124),
 ``ring_perm`` (:132), the ring chunk formulas (:152-193), the
 halving/doubling masks (:201-221), ``xor_perm`` (:224),
-``alltoall_rounds`` (:234), ``dissemination_offsets`` (:246), and the
-graph-topology rounds
+``alltoall_rounds`` (:234), ``dissemination_offsets`` (:246), the
+per-rank step plans of the nonblocking collectives (span plans
+``ring_allreduce_steps`` :288 through ``block_ring_reduce_scatter_steps``
+:396, value plans ``bcast_value_steps`` :419 through
+``barrier_value_steps`` :454), and the graph-topology rounds
 ``dedupe_edges`` (:464) and ``graph_rounds`` (:483).
 
 A round is a list of ``(src, dst)`` comm-rank pairs; chunk helpers take the
@@ -193,6 +196,213 @@ def dissemination_offsets(size: int) -> List[int]:
         offs.append(k)
         k *= 2
     return offs
+
+
+# ---------------------------------------------------------------------------
+# Compiled per-rank step plans (engine-owned nonblocking collectives,
+# nbc.py).  A *step plan* is this rank's whole collective as pure
+# data: a list of steps, each ``(sends, recvs)`` where
+#
+#   sends = ((peer, lo, hi), ...)        element spans of the flat work
+#   recvs = ((peer, lo, hi, fold), ...)  buffer; fold=True accumulates
+#                                        (op.combine_into), False copies
+#
+# advanced by the progress engine's completion callbacks (nbc.py — the
+# MPICH/libNBC shape) instead of a per-call thread running the
+# blocking loops.  The tables mirror the blocking algorithms above
+# EXACTLY (same chunk functions, same step order, same skip-empty-span
+# rule as segment_spans), so each plan's wire traffic is the per-step
+# frame sequence the blocking path would emit unsegmented.  Spans with
+# ``hi <= lo`` produce no message on either side — both ranks derive
+# them from the same global chunk table, the zero-metadata invariant the
+# segmented engine already leans on.
+# ---------------------------------------------------------------------------
+
+SpanSend = Tuple[int, int, int]
+SpanRecv = Tuple[int, int, int, bool]
+SpanStep = Tuple[Tuple[SpanSend, ...], Tuple[SpanRecv, ...]]
+
+
+def _span_step(sends, recvs) -> SpanStep:
+    """Drop empty spans (the segment_spans symmetry rule)."""
+    return (tuple((d, lo, hi) for d, lo, hi in sends if hi > lo),
+            tuple((s, lo, hi, f) for s, lo, hi, f in recvs if hi > lo))
+
+
+def ring_allreduce_steps(size: int, rank: int,
+                         offs: Sequence[int]) -> List[SpanStep]:
+    """The 2(P-1)-step segmented ring allreduce as a per-rank plan
+    (reduce-scatter ring then allgather ring — _allreduce_ring's exact
+    step order)."""
+    right, left = (rank + 1) % size, (rank - 1) % size
+    steps: List[SpanStep] = []
+    for step in range(size - 1):
+        si = ring_rs_send_chunk(rank, step, size)
+        ri = ring_rs_recv_chunk(rank, step, size)
+        steps.append(_span_step(((right, offs[si], offs[si + 1]),),
+                                ((left, offs[ri], offs[ri + 1], True),)))
+    for step in range(size - 1):
+        si = ring_ag_send_chunk(rank, step, size)
+        ri = ring_ag_recv_chunk(rank, step, size)
+        steps.append(_span_step(((right, offs[si], offs[si + 1]),),
+                                ((left, offs[ri], offs[ri + 1], False),)))
+    return steps
+
+
+def halving_allreduce_steps(size: int, rank: int,
+                            offs: Sequence[int]) -> List[SpanStep]:
+    """Recursive-halving reduce-scatter + recursive-doubling allgather
+    (pow2 only) — _allreduce_halving's exact partner/range walk."""
+    masks = halving_masks(size)
+    steps: List[SpanStep] = []
+    lo, hi = 0, size
+    for mask in masks:
+        partner = rank ^ mask
+        mid = (lo + hi) // 2
+        if rank & mask:
+            mine, theirs = (mid, hi), (lo, mid)
+        else:
+            mine, theirs = (lo, mid), (mid, hi)
+        steps.append(_span_step(
+            ((partner, offs[theirs[0]], offs[theirs[1]]),),
+            ((partner, offs[mine[0]], offs[mine[1]], True),)))
+        lo, hi = mine
+    for mask in reversed(masks):
+        partner = rank ^ mask
+        w = hi - lo
+        rb = (lo - w, lo) if rank & mask else (hi, hi + w)
+        steps.append(_span_step(
+            ((partner, offs[lo], offs[hi]),),
+            ((partner, offs[rb[0]], offs[rb[1]], False),)))
+        lo, hi = (rb[0], hi) if rank & mask else (lo, rb[1])
+    return steps
+
+
+def rabenseifner_allreduce_steps(size: int, rank: int,
+                                 offs: Sequence[int]) -> List[SpanStep]:
+    """Block-ring reduce_scatter + ring allgather composition [S: Thakur
+    et al.] — _allreduce_rabenseifner's exact step order, any P."""
+    right, left = (rank + 1) % size, (rank - 1) % size
+    steps: List[SpanStep] = []
+    for step in range(size - 1):
+        si = ring_rs_block_send_chunk(rank, step, size)
+        ri = ring_rs_block_recv_chunk(rank, step, size)
+        steps.append(_span_step(((right, offs[si], offs[si + 1]),),
+                                ((left, offs[ri], offs[ri + 1], True),)))
+    for step in range(size - 1):
+        si = ring_ag_block_send_chunk(rank, step, size)
+        ri = ring_ag_block_recv_chunk(rank, step, size)
+        steps.append(_span_step(((right, offs[si], offs[si + 1]),),
+                                ((left, offs[ri], offs[ri + 1], False),)))
+    return steps
+
+
+def reduce_bcast_allreduce_steps(size: int, rank: int,
+                                 n: int) -> List[SpanStep]:
+    """The naive reference composition as a plan: binomial reduce to
+    rank 0 (whole-buffer folds) then binomial bcast of the result."""
+    steps: List[SpanStep] = []
+    for pairs in binomial_reduce_rounds(size, 0):
+        sends, recvs = [], []
+        for s, d in pairs:
+            if rank == s:
+                sends.append((d, 0, n))
+            elif rank == d:
+                recvs.append((s, 0, n, True))
+        steps.append(_span_step(sends, recvs))
+    for pairs in binomial_bcast_rounds(size, 0):
+        sends, recvs = [], []
+        for s, d in pairs:
+            if rank == s:
+                sends.append((d, 0, n))
+            elif rank == d:
+                recvs.append((s, 0, n, False))
+        steps.append(_span_step(sends, recvs))
+    return [st for st in steps if st[0] or st[1]]
+
+
+def reduce_tree_steps(size: int, rank: int, root: int,
+                      n: int) -> List[SpanStep]:
+    """Binomial-tree reduce to ``root``: whole-buffer folds, children →
+    parents in round order (reduce's exact wire pattern)."""
+    steps: List[SpanStep] = []
+    for pairs in binomial_reduce_rounds(size, root):
+        sends, recvs = [], []
+        for s, d in pairs:
+            if rank == s:
+                sends.append((d, 0, n))
+            elif rank == d:
+                recvs.append((s, 0, n, True))
+        steps.append(_span_step(sends, recvs))
+    return [st for st in steps if st[0] or st[1]]
+
+
+def block_ring_reduce_scatter_steps(size: int, rank: int,
+                                    bn: int) -> List[SpanStep]:
+    """MPI_Reduce_scatter_block's P-1-step block ring over a flat [P*bn]
+    working buffer — reduce_scatter's segmented path, unsegmented."""
+    right, left = (rank + 1) % size, (rank - 1) % size
+    steps: List[SpanStep] = []
+    for step in range(size - 1):
+        si = ring_rs_block_send_chunk(rank, step, size)
+        ri = ring_rs_block_recv_chunk(rank, step, size)
+        steps.append(_span_step(((right, si * bn, (si + 1) * bn),),
+                                ((left, ri * bn, (ri + 1) * bn, True),)))
+    return steps
+
+
+# Value plans: the same step shape over OPAQUE payload slots instead of
+# buffer spans — for the collectives that move whole (possibly pickled)
+# payloads rather than folding arrays.  sends = ((peer, slot), ...) and
+# recvs = ((peer, slot), ...) where slot indexes the state machine's
+# value table; slot -1 sends/receives a bare None (barrier signals).
+
+ValueStep = Tuple[Tuple[Tuple[int, int], ...], Tuple[Tuple[int, int], ...]]
+
+
+def bcast_value_steps(size: int, rank: int, root: int) -> List[ValueStep]:
+    """Binomial-tree bcast: one recv-from-parent step (non-root), then
+    one send step per child in tree order — the cut-through walk of
+    binomial_tree_links, whole payloads."""
+    parent, children = binomial_tree_links(size, rank, root)
+    steps: List[ValueStep] = []
+    if parent is not None:
+        steps.append(((), ((parent, 0),)))
+    if children:
+        steps.append((tuple((c, 0) for c in children), ()))
+    return steps
+
+
+def allgather_ring_value_steps(size: int, rank: int) -> List[ValueStep]:
+    """The rotating allgather ring over P value slots (allgather's ring
+    branch, whole payloads per step)."""
+    right, left = (rank + 1) % size, (rank - 1) % size
+    steps: List[ValueStep] = []
+    for step in range(size - 1):
+        si = ring_ag_send_chunk(rank, step + 1, size)
+        ri = ring_ag_recv_chunk(rank, step + 1, size)
+        steps.append((((right, si),), ((left, ri),)))
+    return steps
+
+
+def alltoall_value_steps(size: int, rank: int) -> List[ValueStep]:
+    """Pairwise-exchange alltoall: P-1 independent rounds (slot k is the
+    payload for / from the round-k partner)."""
+    steps: List[ValueStep] = []
+    for k in alltoall_rounds(size):
+        steps.append(((((rank + k) % size, (rank + k) % size),),
+                      (((rank - k) % size, (rank - k) % size),)))
+    return steps
+
+
+def barrier_value_steps(size: int, rank: int) -> List[ValueStep]:
+    """Dissemination barrier: ceil(log2 P) signal rounds (slot -1 =
+    None payloads, discarded on receive)."""
+    steps: List[ValueStep] = []
+    for off in dissemination_offsets(size):
+        steps.append(((((rank + off) % size, -1),),
+                      (((rank - off) % size, -1),)))
+    return steps
 
 
 def dedupe_edges(edges: Sequence[Pair], size: int) -> List[Pair]:

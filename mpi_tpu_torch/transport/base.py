@@ -1,8 +1,12 @@
 """Transport plugin boundary and the shared message-matching engine — the
 port's own copy of ``mpi_tpu/transport/base.py``: ``ANY_SOURCE`` /
 ``ANY_TAG``, ``TransportError`` / ``RecvTimeout``, ``payload_nbytes``
-(:36), ``Mailbox`` (:47) and ``Transport`` (:234) with its
-``aliases_payloads`` (:252) and ``coll_segment_hint`` (:261).
+(:36), ``Mailbox`` (:47) with the progress engine's doorbell
+(``deliveries``, ``nudge``, ``wait_activity``, :59-87) and ``Transport``
+(:234) with its ``aliases_payloads`` (:252), ``coll_segment_hint``
+(:261), the membership ``epoch`` / ``min_peer_epoch`` (:295-305), the
+survivor-transition hook ``membership_invalidate`` (:340) and
+``progress_park`` (:350).
 
 A Transport moves opaque payloads between world ranks; every transport
 shares one Mailbox so matching semantics are identical across them:
@@ -22,7 +26,7 @@ from __future__ import annotations
 import threading
 import time
 from abc import ABC, abstractmethod
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,18 +54,64 @@ def payload_nbytes(obj: Any) -> Optional[int]:
 
 
 class Mailbox:
-    """Thread-safe matching queue of (src, ctx, tag, payload) messages."""
+    """Thread-safe matching queue of (src, ctx, tag, payload) messages.
+
+    A match names its context exactly, so the queue is kept per context
+    (in arrival order within each): a receive scans only its own
+    context's messages.  Thousands of nonblocking collectives in flight,
+    each on a context of its own, then cost a short scan per match
+    instead of one over every pending message of the rank."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        self._items: List[Tuple[int, Any, int, Any]] = []
+        # ctx -> [(src, ctx, tag, payload, arrival), ...]
+        self._by_ctx: Dict[Any, List[Tuple[int, Any, int, Any, int]]] = {}
         self._closed = False
+        # lifetime delivery count: the progress engine's doorbell
+        self.deliveries = 0
+        # contexts that received messages since the progress engine last
+        # looked (take_dirty): a pass visits only their communicators
+        self._dirty: set = set()
 
     def deliver(self, src: int, ctx, tag: int, payload: Any) -> None:
         with self._cv:
-            self._items.append((src, ctx, tag, payload))
+            self.deliveries += 1
+            self._by_ctx.setdefault(ctx, []).append(
+                (src, ctx, tag, payload, self.deliveries))
+            self._dirty.add(ctx)
             self._cv.notify_all()
+
+    def take_dirty(self) -> set:
+        """The contexts that received messages since the last call."""
+        with self._lock:
+            dirty, self._dirty = self._dirty, set()
+            return dirty
+
+    def _pending_locked(self, limit: Optional[int] = None
+                        ) -> List[Tuple[int, Any, int]]:
+        """(src, ctx, tag) of the pending messages in arrival order."""
+        items = sorted((i for q in self._by_ctx.values() for i in q),
+                       key=lambda i: i[4])
+        return [i[:3] for i in items[:limit]]
+
+    def nudge(self) -> None:
+        """Wake every waiter without delivering anything (the progress
+        engine's stop path pops its parked thread out of
+        ``wait_activity``)."""
+        with self._cv:
+            self._cv.notify_all()
+
+    def wait_activity(self, seen: int, timeout: float) -> int:
+        """Park until the delivery count moves past ``seen`` (or timeout);
+        returns the current count.  Raises TransportError once closed, so
+        a parked engine exits instead of spinning."""
+        with self._cv:
+            if self.deliveries == seen and not self._closed:
+                self._cv.wait(timeout)
+            if self._closed:
+                raise TransportError("transport closed while parked")
+            return self.deliveries
 
     def close(self) -> None:
         with self._cv:
@@ -83,10 +133,15 @@ class Mailbox:
                      consume: bool) -> Optional[Tuple[Any, int, int]]:
         """Oldest matching message as (payload, src, tag); pops iff
         consume.  Caller holds the lock."""
-        for i, item in enumerate(self._items):
+        queue = self._by_ctx.get(ctx)
+        if not queue:
+            return None
+        for i, item in enumerate(queue):
             if self._matches(item, source, ctx, tag):
                 if consume:
-                    self._items.pop(i)
+                    queue.pop(i)
+                    if not queue:
+                        del self._by_ctx[ctx]
                 return item[3], item[0], item[2]
         return None
 
@@ -110,7 +165,7 @@ class Mailbox:
                         raise RecvTimeout(
                             f"{what}(source={source}, ctx={ctx}, tag={tag}) timed "
                             f"out after {timeout}s; pending="
-                            f"{[i[:3] for i in self._items[:16]]}")
+                            f"{self._pending_locked(16)}")
                     self._cv.wait(remaining)
 
     def match(self, source: int, ctx, tag: int,
@@ -151,12 +206,16 @@ class Mailbox:
                                       "probe")
         return s, t, payload_nbytes(p)
 
+    def pending_summary(self) -> List[Tuple[int, Any, int]]:
+        with self._lock:
+            return self._pending_locked(16)
+
     def drain(self) -> List[Tuple[int, Any, int]]:
         """Return and clear all pending (src, ctx, tag) — the finalize
         'unexpected message' check."""
         with self._lock:
-            items = [i[:3] for i in self._items]
-            self._items.clear()
+            items = self._pending_locked()
+            self._by_ctx.clear()
             return items
 
 
@@ -188,6 +247,13 @@ class Transport(ABC):
         # None is the card, as for every entry point: no CPU fallback
         self.device = resolve_device(device)
         self.mailbox = Mailbox()
+        # Elastic-membership generation (membership.py): the monotone
+        # epoch this process believes its world is in, bumped by shrink()
+        # and survivor_transition(), stamped into the socket hello.
+        self.epoch = 0
+        # world rank -> least endpoint epoch acceptable when (re)connecting
+        # to it: the transition epoch of a REPLACED slot
+        self.min_peer_epoch: Dict[int, int] = {}
 
     @abstractmethod
     def send(self, dest: int, ctx, tag: int, payload: Any) -> None:
@@ -210,5 +276,28 @@ class Transport(ABC):
                     ) -> Optional[Tuple[int, int, Optional[int]]]:
         return self.mailbox.peek_nowait(source, ctx, tag)
 
+    def membership_invalidate(self, dead: Sequence[int]) -> None:
+        """Epoch-transition hook (``membership.survivor_transition``):
+        drop every cached endpoint to the given world ranks so the next
+        send re-handshakes.  Base: nothing is cached per peer."""
+
+    def progress_park(self, timeout: float) -> bool:
+        """Progress-engine park (``progress.py``): block until a delivery
+        or ``timeout``; True iff anything arrived.  Parks on the Mailbox
+        condition, which every delivery (socket reader threads,
+        local-world peer sends) rings.  Raises TransportError once the
+        transport closes, the engine's exit signal."""
+        seen = self.mailbox.deliveries
+        return self.mailbox.wait_activity(seen, timeout) != seen
+
     def close(self) -> None:
         self.mailbox.close()
+
+
+def bind_thread_device(device: torch.device) -> None:
+    """Make ``device`` current for the calling thread before its first
+    launch: every helper thread of the host layer (the progress engine,
+    the fold pool, a nonblocking collective's thread) launches clones and
+    folds, and a thread's current card is its own."""
+    if device is not None and device.type == "cuda":
+        torch.cuda.set_device(device)

@@ -1,6 +1,9 @@
 """In-process transport: rank = thread, channel = shared mailbox — the
 port's own copy of ``mpi_tpu/transport/local.py`` (``LocalWorld``,
-``LocalTransport``, ``run_local`` :61).
+``LocalTransport``, ``KILLED`` :58, ``run_local`` :61 with its
+``transport_wrapper``, ``fault_tolerance`` (the in-memory beat table,
+:159) and ``progress`` keywords, and the world comm's generation mark
+:88).
 
 Payloads are copied by default so ranks cannot share mutable state
 through a message: a tensor is cloned on its own device (on the card the
@@ -23,6 +26,9 @@ import torch
 
 from . import codec
 from .base import Mailbox, Transport
+
+
+KILLED = object()  # result-slot sentinel: this rank died by injection
 
 
 class LocalWorld:
@@ -58,36 +64,80 @@ class LocalTransport(Transport):
 def run_local(fn: Callable, nranks: int, args: Sequence = (),
               kwargs: Optional[dict] = None, timeout: float = 120.0,
               copy_payloads: bool = True, device=None,
-              recv_timeout: Optional[float] = None) -> List[Any]:
+              recv_timeout: Optional[float] = None,
+              transport_wrapper: Optional[Callable[[Transport], Transport]] = None,
+              fault_tolerance: bool = False,
+              progress: Optional[str] = None) -> List[Any]:
     """Run ``fn(comm, *args, **kwargs)`` on ``nranks`` in-process rank
     threads; return the per-rank results as a list indexed by rank.
     ``device`` is the device every rank's ``comm.device`` names: the card
     when None (raising where there is none), the CPU only when asked for.
     An error on one rank closes every mailbox (unblocking its peers) and
-    is re-raised as ``RuntimeError("rank r failed: ...")``."""
+    is re-raised as ``RuntimeError("rank r failed: ...")``.
+
+    ``transport_wrapper`` interposes at the plugin boundary (fault
+    injection: ``FaultyTransport.wrapper(...)``, recorders).
+    ``fault_tolerance=True`` enables ULFM (``ft.py``) on every rank over
+    one shared in-memory beat table: a rank killed by injection
+    (``KilledRankError``) records :data:`KILLED` in its slot and — unlike a
+    real error — closes no mailbox, so the survivors detect, revoke and
+    shrink as against a dead process.  A rank whose ``fn`` returns stops
+    beating, so long-running survivors eventually see it as failed.
+    ``progress="thread"`` starts one progress engine per rank
+    (``progress.py``); None defers to MPI_TPU_PROGRESS and the
+    ``progress`` cvar."""
+    from .. import progress as _progress
     from ..communicator import P2PCommunicator
     from ..gpu import primitives
     from ..gpu.runner import resolve_device
+    from .faulty import KilledRankError
 
     device = resolve_device(device)
+    progress_mode = _progress.resolve_mode(progress)
     kwargs = kwargs or {}
     world = LocalWorld(nranks, copy_payloads=copy_payloads, device=device)
     results: List[Any] = [None] * nranks
     errors: List[tuple] = []
     lock = threading.Lock()
+    liveness = None
+    if fault_tolerance:
+        from .. import ft as _ft
+
+        liveness = _ft.MemoryLiveness(nranks)
 
     def runner(r: int) -> None:
+        ft_state = engine = None
         try:
             if device.type == "cuda":
                 torch.cuda.set_device(device)  # the device is per thread
             primitives.bind_host_rank(r, device)
-            comm = P2PCommunicator(LocalTransport(world, r), range(nranks), recv_timeout=recv_timeout)
+            t: Transport = LocalTransport(world, r)
+            if transport_wrapper is not None:
+                t = transport_wrapper(t)
+            comm = P2PCommunicator(t, range(nranks), recv_timeout=recv_timeout)
+            comm._mark_generation()  # the world comm: its shrink bumps the epoch
+            if liveness is not None:
+                from .. import ft as _ft
+
+                ft_state = _ft.enable(comm, liveness=liveness)._ft
+            if progress_mode == "thread":
+                engine = _progress.enable(comm)._progress
             results[r] = fn(comm, *args, **kwargs)
         except BaseException as e:  # noqa: BLE001 - propagated to caller below
+            if isinstance(e, KilledRankError):
+                # simulated crash-stop: the rank is gone, the WORLD lives
+                # on and the survivors detect and recover on their own
+                results[r] = KILLED
+                return
             with lock:
                 errors.append((r, e, traceback.format_exc()))
             for mb in world.mailboxes:  # unblock peers waiting on this rank
                 mb.close()
+        finally:
+            if ft_state is not None:
+                ft_state.world.stop()
+            if engine is not None:
+                engine.stop()
 
     threads = [threading.Thread(target=runner, args=(r,),
                                 name=f"mpi-tpu-torch-rank-{r}", daemon=True)

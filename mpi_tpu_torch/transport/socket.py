@@ -1,6 +1,9 @@
 """TCP socket transport — the port's own copy of
 ``mpi_tpu/transport/socket.py``, with ``coll_segment_hint = 4 << 20``
-(:237) as it is.
+(:237) as it is, the epoch-stamped hello and ack (:63-90, :341-390,
+:794-900), the peer-fault verdict ``_suspect`` (:756), the idle-link
+keepalive ``_keepalive_probe`` (:653), the link-fault hooks of
+``transport/faulty.py`` and ``membership_invalidate``.
 
 Per-pair TCP connections on loopback.  Wire format per message: a fixed
 header ``!QQQ`` = (flags|payload_len, seq, ack) followed by the body —
@@ -26,6 +29,17 @@ from the tensors' own memory with no staging.
 Rank discovery is file-based rendezvous (``membership.py``): each rank
 binds an OS-assigned port and publishes it in the rendezvous directory
 the launcher (``launcher.py``) provides; peers poll for it.
+
+Membership epochs: the hello carries (rank, epoch) and the acceptor
+answers with its own epoch.  A connector that finds a peer at a NEWER
+epoch past ``epoch_grace_s`` was shrunk out of the world and raises
+``EpochSkewError``; an acceptor refuses a connector below the
+``min_peer_epoch`` of its slot (the dead incarnation of a replaced rank).
+With fault tolerance on, a send-path fault toward a peer the detector
+suspects (``ft.WorldFT.link_suspect``) is a PEER fault, raised at once
+instead of healed.  A process that died by ``os._exit`` drops its CUDA
+context with it; its survivors only see torn sockets, and no staging
+copy waits on the corpse (staging copies a sender's own tensor).
 """
 
 from __future__ import annotations
@@ -42,16 +56,18 @@ from .. import membership as _membership
 from .. import mpit as _mpit
 from .. import recvpool as _recvpool
 from .. import resilience as _resilience
+from ..errors import EpochSkewError
 from ..resilience import LinkState, backoff_delays
 from . import codec
 from .base import Transport, TransportError
 
-# Connection handshake: the connector sends its world rank, the acceptor
-# answers with the last sequence number it contiguously delivered from
-# this connector (a fresh world answers 0; a reconnect prunes the
-# retained window to that mark and replays the rest).
-_HELLO = struct.Struct("!i")        # rank
-_HELLO_ACK = struct.Struct("!Q")    # resume(last delivered)
+# Connection handshake: the connector sends (world rank, membership
+# epoch), the acceptor answers with ITS epoch and the last sequence number
+# it contiguously delivered from this connector (a fresh world answers 0;
+# a reconnect prunes the retained window to that mark and replays the
+# rest).
+_HELLO = struct.Struct("!iq")       # rank, epoch
+_HELLO_ACK = struct.Struct("!qQ")   # acceptor's epoch, resume(last delivered)
 _HEADER = struct.Struct("!QQQ")     # flags|payload_len, seq, cumulative ack
 # Header word bit 62: a standalone cumulative-ack control frame (no body,
 # seq 0, outside the sequenced stream).  codec.RAW_FLAG is bit 63, so body
@@ -59,6 +75,10 @@ _HEADER = struct.Struct("!QQQ")     # flags|payload_len, seq, cumulative ack
 _ACK_FLAG = 1 << 62
 _LEN_MASK = _ACK_FLAG - 1
 _HOST = "127.0.0.1"
+# Grace before a peer's newer epoch is declared a skew: an epoch
+# transition is broadcast, and a healthy member may see a peer's new epoch
+# a moment before applying its own bump (cvar epoch_grace_s).
+_EPOCH_GRACE_S = 2.0
 
 # Ack-flusher cadence: once woken by a pending ack, batch for this long
 # before flushing (one control frame for a burst of deliveries); the
@@ -170,8 +190,9 @@ class SocketTransport(Transport):
     coll_segment_hint = 4 << 20
 
     def __init__(self, rank: int, size: int, rdv_dir: str, device=None,
-                 connect_timeout: float = 60.0) -> None:
+                 connect_timeout: float = 60.0, epoch: int = 0) -> None:
         super().__init__(rank, size, device)
+        self.epoch = epoch  # a rejoiner is born into the current epoch
         self._rdv = rdv_dir
         self._connect_timeout = connect_timeout
         self._closing = False
@@ -182,8 +203,20 @@ class SocketTransport(Transport):
         # by close(): a reader must not be inside a torch call when the
         # interpreter finalizes
         self._readers: list = []
+        # inbound connections by source rank: membership_invalidate closes
+        # a replaced slot's readers, whose captured stream generation just
+        # went stale
+        self._reader_conns: Dict[int, list] = {}
         self._link = LinkState(size)
         self.recv_registry = _recvpool.PostedRecvRegistry()
+        # last data/probe write per destination: what the idle-link
+        # keepalive scans
+        self._last_send: Dict[int, float] = {}
+        # link-fault injection (transport/faulty.py): a callable (dest,
+        # stage) fired on the send path, and a countdown of incoming
+        # connections the acceptor drops after the hello
+        self._link_fault_hook = None
+        self._accept_drop_n = 0
 
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -229,14 +262,39 @@ class SocketTransport(Transport):
             if hello is None:
                 conn.close()
                 return
-            (src,) = _HELLO.unpack(hello)
-            conn.sendall(_HELLO_ACK.pack(self._link.delivered(src)))
+            src, peer_epoch = _HELLO.unpack(hello)
+            if self._accept_drop_n > 0:
+                # injected accept-side drop: vanish without an ack
+                self._accept_drop_n -= 1
+                conn.close()
+                return
+            # our epoch FIRST, so a refused stale connector can diagnose
+            conn.sendall(_HELLO_ACK.pack(self.epoch,
+                                         self._link.delivered(src)))
         except OSError:  # the connector vanished, or close() got here first
             conn.close()
             return
-        self._reader_loop(conn, src)
+        if peer_epoch < self.min_peer_epoch.get(src, 0):
+            # a replaced slot's OLD incarnation dialing in
+            _mpit.count(epoch_skews=1)
+            conn.close()
+            return
+        with self._conn_lock:
+            conns = self._reader_conns.setdefault(src, [])
+            conns[:] = [c for c in conns if c.fileno() >= 0]
+            conns.append(conn)
+        try:
+            # the stream generation, captured: a purge while we read turns
+            # every later ack/frame of this connection into a no-op
+            self._reader_loop(conn, src, self._link.peer_gen(src))
+        finally:
+            with self._conn_lock:
+                try:
+                    self._reader_conns.get(src, []).remove(conn)
+                except ValueError:
+                    pass
 
-    def _reader_loop(self, conn: socket.socket, src: int) -> None:
+    def _reader_loop(self, conn: socket.socket, src: int, gen: int) -> None:
         while True:
             head, torn = _recv_exact2(conn, _HEADER.size)
             if head is None:
@@ -248,18 +306,18 @@ class SocketTransport(Transport):
                 return
             word, seq, ack = _HEADER.unpack(head)
             if ack:
-                self._link.tx_ack(src, ack)
+                self._link.tx_ack(src, ack, gen)
             if word & _ACK_FLAG:
                 continue  # header-only control frame
             plen = word & _LEN_MASK
             if word & codec.RAW_FLAG:
-                ok, obj_ctx_tag = self._read_raw(conn, src, seq, plen)
+                ok, obj_ctx_tag = self._read_raw(conn, src, seq, gen, plen)
                 if not ok:
                     _mpit.count(link_torn_frames=1)
                     conn.close()
                     return
                 ctx, tag, out = obj_ctx_tag
-                self._deliver_seq(conn, src, seq, ctx, tag, out)
+                self._deliver_seq(conn, src, seq, gen, ctx, tag, out)
                 continue
             payload, _ = _recv_exact2(conn, plen)
             if payload is None:
@@ -267,13 +325,14 @@ class SocketTransport(Transport):
                 conn.close()
                 return
             ctx, tag, obj = pickle.loads(payload)
-            if tag < 0 and self._link.rx_fresh(src, seq):
+            if tag < 0 and self._link.rx_fresh(src, seq, gen):
                 # pickle frames on counted channels still count (never
                 # steerable) so the frame/consumer pairing stays aligned
-                self.recv_registry.note_frame(src, ctx, tag, seq, 0, None)
-            self._deliver_seq(conn, src, seq, ctx, tag, obj)
+                self.recv_registry.note_frame(src, ctx, tag, seq, gen, None)
+            self._deliver_seq(conn, src, seq, gen, ctx, tag, obj)
 
-    def _read_raw(self, conn: socket.socket, src: int, seq: int, plen: int):
+    def _read_raw(self, conn: socket.socket, src: int, seq: int, gen: int,
+                  plen: int):
         """Read one raw frame's meta and body: ``(ok, (ctx, tag, payload))``,
         ok False on a torn frame."""
         mhead, _ = _recv_exact2(conn, codec.META.size)
@@ -295,8 +354,8 @@ class SocketTransport(Transport):
         # Rendezvous steering: count a FRESH internal-tag frame on its
         # channel; a paired posted destination takes the body directly.
         out = None
-        if tag < 0 and self._link.rx_fresh(src, seq):
-            out = self.recv_registry.note_frame(src, ctx, tag, seq, 0, plan)
+        if tag < 0 and self._link.rx_fresh(src, seq, gen):
+            out = self.recv_registry.note_frame(src, ctx, tag, seq, gen, plan)
         if out is not None:
             # copy-on-write any retained frame still referencing the
             # destination region BEFORE writing it
@@ -322,14 +381,16 @@ class SocketTransport(Transport):
             return False, None
         return True, (ctx, tag, codec.finish_raw(plan, host, self.device))
 
-    def _deliver_seq(self, conn: socket.socket, src: int, seq: int,
+    def _deliver_seq(self, conn: socket.socket, src: int, seq: int, gen: int,
                      ctx, tag: int, obj: Any) -> None:
         """Sequenced delivery: contiguous frames reach the mailbox, replay
-        duplicates are dropped, a gap is a loud protocol error (the
-        channel is killed first so the sender sees a dead link)."""
+        duplicates and a purged incarnation's frames are dropped, a gap is
+        a loud protocol error (the channel is killed first so the sender
+        sees a dead link)."""
         try:
             self._link.rx_gate(
-                src, seq, lambda: self.mailbox.deliver(src, ctx, tag, obj))
+                src, seq, lambda: self.mailbox.deliver(src, ctx, tag, obj),
+                gen)
         except TransportError:
             conn.close()
             raise
@@ -349,6 +410,8 @@ class SocketTransport(Transport):
                 return
             if self._closing:
                 return
+            # idle-link keepalive: every wakeup, acks pending or not
+            self._keepalive_probe(next_try, fails)
             if not srcs:
                 continue
             time.sleep(_ACK_BATCH_S)  # coalesce a delivery burst
@@ -358,6 +421,11 @@ class SocketTransport(Transport):
                 value = link.peek_ack(src)
                 if value is None:
                     continue  # a piggyback beat us to it
+                if self._suspect(src):
+                    # dead peer: nobody waits on these acks, and redialing
+                    # its corpse every round would spin
+                    link.note_ack_sent(src, value)
+                    continue
                 if time.monotonic() < next_try.get(src, 0.0):
                     continue
                 try:
@@ -370,15 +438,73 @@ class SocketTransport(Transport):
                                 backoff_delays())
                         conn.sendall(_HEADER.pack(_ACK_FLAG, 0, value))
                     link.note_ack_sent(src, value)
-                    fails.pop(src, None)
-                    next_try.pop(src, None)
-                except (OSError, TransportError):
+                    self._dial_ok(src, fails, next_try)
+                except (OSError, TransportError, EpochSkewError):
                     # best-effort: drop a broken conn so a later round
-                    # re-dials; diagnosis belongs to the data path
+                    # re-dials; diagnosis belongs to the data path and
+                    # the membership layer
                     self._drop_conn(src)
-                    fails[src] = fails.get(src, 0) + 1
-                    next_try[src] = time.monotonic() + min(
-                        5.0, 0.25 * (2.0 ** fails[src]))
+                    self._dial_backoff(src, fails, next_try)
+
+    @staticmethod
+    def _dial_ok(dest: int, fails: Dict[int, int],
+                 next_try: Dict[int, float]) -> None:
+        fails.pop(dest, None)
+        next_try.pop(dest, None)
+
+    @staticmethod
+    def _dial_backoff(dest: int, fails: Dict[int, int],
+                      next_try: Dict[int, float]) -> None:
+        """Per-peer dial cool-down: consecutive failures back the peer off
+        exponentially (5 s cap)."""
+        fails[dest] = fails.get(dest, 0) + 1
+        next_try[dest] = time.monotonic() + min(
+            5.0, 0.25 * (2.0 ** fails[dest]))
+
+    def _keepalive_probe(self, next_try: Dict[int, float],
+                         fails: Dict[int, int]) -> None:
+        """Idle-link keepalive (cvar ``link_keepalive_s``): probe every
+        CACHED connection that sent nothing for the keepalive period with
+        a header-only ack frame.  A link torn while idle fails the probe
+        and heals HERE (reconnect + resume-replay on a short fuse), so the
+        next real send finds a live link.  A probe never waits behind an
+        in-flight send (a busy link is not idle)."""
+        ka = _resilience._KEEPALIVE_S
+        if ka <= 0:
+            return
+        now = time.monotonic()
+        with self._conn_lock:
+            idle = [d for d in self._conns
+                    if now - self._last_send.get(d, 0.0) >= ka]
+        for dest in idle:
+            if self._closing:
+                return
+            if self._suspect(dest) or now < next_try.get(dest, 0.0):
+                continue
+            lock = self._send_lock(dest)
+            if not lock.acquire(blocking=False):
+                continue  # a send is mid-frame: the link is not idle
+            try:
+                with self._conn_lock:
+                    conn = self._conns.get(dest)
+                if conn is None:
+                    continue
+                try:
+                    conn.sendall(_HEADER.pack(
+                        _ACK_FLAG, 0, self._link.piggyback_ack(dest)))
+                    self._last_send[dest] = time.monotonic()
+                    self._dial_ok(dest, fails, next_try)
+                except OSError:
+                    self._drop_conn(dest)
+                    try:
+                        self._establish_locked(
+                            dest, time.monotonic() + 2.0, backoff_delays())
+                        _mpit.count(link_faults_masked=1)
+                        self._dial_ok(dest, fails, next_try)
+                    except (OSError, TransportError, EpochSkewError):
+                        self._dial_backoff(dest, fails, next_try)
+            finally:
+                lock.release()
 
     # -- outgoing ----------------------------------------------------------
 
@@ -402,10 +528,24 @@ class SocketTransport(Transport):
             except OSError:
                 pass
 
-    def _abort_if_closing(self) -> None:
+    def _suspect(self, dest: int) -> bool:
+        """PEER-fault verdict for link classification: the detector's
+        failed set, or a heartbeat stale past the bound
+        (``ft.WorldFT.link_suspect``).  Without fault tolerance there is no
+        authority on peer death: every fault is a link fault."""
+        world = getattr(self, "_ft_world", None)
+        return world is not None and world.link_suspect(dest)
+
+    def _abort_if_closing(self, dest: int) -> None:
+        """The connect loops' abort: the transport is closing, or the
+        peer was declared failed mid-dial (a peer fault, raised now, not
+        after the connection deadline)."""
         if self._closing:
             raise _LinkAbort(f"rank {self.world_rank}: transport closed "
-                             f"while connecting")
+                             f"while connecting to rank {dest}")
+        if self._suspect(dest):
+            raise _LinkAbort(f"rank {self.world_rank}: peer {dest} declared "
+                             f"failed while connecting to it")
 
     def _get_conn_locked(self, dest: int) -> socket.socket:
         """The connection to ``dest``; caller holds the per-dest lock.
@@ -424,14 +564,21 @@ class SocketTransport(Transport):
             time.sleep(0.005)
         return self._establish_locked(dest, deadline,
                                       iter(lambda: 0.01, None),
-                                      abort=self._abort_if_closing)
+                                      abort=lambda: self._abort_if_closing(dest))
 
     def _establish_locked(self, dest: int, deadline: float, delays,
                           abort=None) -> socket.socket:
         """Dial + handshake + resume-replay loop; caller holds the per-dest
-        send lock.  The acceptor's answer is the last seq it delivered
-        from us: prune the retained window to it and REPLAY the frames
-        beyond it, then register the connection."""
+        send lock.  hello(rank, epoch) -> ack(peer epoch, last delivered):
+
+        * a peer epoch NEWER than ours past the grace: WE are the stale
+          straggler (shrunk out) — EpochSkewError;
+        * a peer epoch below ``min_peer_epoch[dest]``: a stale incarnation
+          still on the old endpoint of a replaced slot — retry against a
+          re-read port file until the replacement publishes;
+        * otherwise prune the retained window to the peer's mark, REPLAY
+          the frames beyond it and register the connection."""
+        skew_since = None
         while True:
             if abort is not None:
                 abort()
@@ -452,25 +599,49 @@ class SocketTransport(Transport):
                 conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 conn.settimeout(10.0)
                 try:
-                    conn.sendall(_HELLO.pack(self.world_rank))
+                    conn.sendall(_HELLO.pack(self.world_rank, self.epoch))
                     ack = _recv_exact(conn, _HELLO_ACK.size)
                 except OSError:
                     ack = None
                 if ack is not None:
-                    (resume_seq,) = _HELLO_ACK.unpack(ack)
-                    if self._replay_locked(dest, conn, resume_seq):
-                        conn.settimeout(None)
-                        with self._conn_lock:
-                            self._conns[dest] = conn
-                        if self._link.mark_connected(dest):
-                            _mpit.count(link_reconnects=1)
-                        return conn
-                else:
-                    conn.close()
+                    peer_epoch, resume_seq = _HELLO_ACK.unpack(ack)
+                    if peer_epoch > self.epoch:
+                        conn.close()
+                        # our own bump may lag a broadcast transition by a
+                        # moment (self.epoch is re-read each retry)
+                        if skew_since is None:
+                            skew_since = time.monotonic()
+                        if time.monotonic() - skew_since > _EPOCH_GRACE_S:
+                            _mpit.count(epoch_skews=1)
+                            raise EpochSkewError(
+                                f"rank {self.world_rank}: peer {dest} is at "
+                                f"membership epoch {peer_epoch}, this process "
+                                f"at {self.epoch} — this process was shrunk "
+                                f"out of the world (stale-epoch straggler)",
+                                local_epoch=self.epoch, peer_epoch=peer_epoch,
+                                peer=dest)
+                        time.sleep(0.01)
+                        continue
+                    skew_since = None
+                    if peer_epoch >= self.min_peer_epoch.get(dest, 0):
+                        if self._replay_locked(dest, conn, resume_seq):
+                            conn.settimeout(None)
+                            with self._conn_lock:
+                                self._conns[dest] = conn
+                            # a fresh connection needs no probe for a
+                            # keepalive period
+                            self._last_send[dest] = time.monotonic()
+                            if self._link.mark_connected(dest):
+                                _mpit.count(link_reconnects=1)
+                            return conn
+                        conn = None  # replay tripped: a miss
+                if conn is not None:
+                    conn.close()  # stale incarnation, or a torn handshake
             if time.monotonic() > deadline:
                 raise TransportError(
                     f"rank {self.world_rank}: cannot connect to rank "
-                    f"{dest} within the connection deadline")
+                    f"{dest} at epoch >= {self.min_peer_epoch.get(dest, 0)} "
+                    f"within the connection deadline")
             time.sleep(next(delays))
 
     def _replay_locked(self, dest: int, conn: socket.socket,
@@ -504,10 +675,17 @@ class SocketTransport(Transport):
         holds the per-dest send lock."""
         self._drop_conn(dest)
         retry_s = _resilience._RETRY_TIMEOUT_S
+        if self._suspect(dest):
+            raise TransportError(
+                f"rank {self.world_rank}: send to rank {dest} failed ({err}); "
+                f"the peer is failure-suspected — not retrying a dead peer's "
+                f"link") from err
         try:
             self._establish_locked(dest, time.monotonic() + retry_s,
                                    backoff_delays(),
-                                   abort=self._abort_if_closing)
+                                   abort=lambda: self._abort_if_closing(dest))
+        except EpochSkewError:
+            raise  # the membership diagnosis outranks link healing
         except (OSError, TransportError) as e:
             raise TransportError(
                 f"rank {self.world_rank}: link to rank {dest} not "
@@ -547,7 +725,8 @@ class SocketTransport(Transport):
         try:
             # outside the send lock: a window-full wait must not hold the
             # lock the ack flusher needs for this dest
-            link.wait_window(dest, nbytes, lambda: self._closing)
+            link.wait_window(dest, nbytes, self._suspect,
+                             lambda: self._closing)
             lock = self._send_lock(dest)
             lock.acquire()
             try:
@@ -566,14 +745,90 @@ class SocketTransport(Transport):
             pinned = body.pin()
             if pinned is None:
                 return  # ref released: window torn down (closing)
+            hook = self._link_fault_hook
             try:
-                _sendmsg_views(conn, [header, *pinned])
+                if hook is None:
+                    _sendmsg_views(conn, [header, *pinned])
+                else:
+                    # link-fault injection: the header/body split is the
+                    # point ('mid' = a reset between header and body)
+                    hook(dest, "pre")
+                    conn.sendall(header)
+                    _mpit.count(link_send_syscalls=1)
+                    hook(dest, "mid")
+                    _sendmsg_views(conn, pinned)
+                self._last_send[dest] = time.monotonic()
             except OSError as e:
                 self._heal_link_locked(dest, e)
             finally:
                 body.unpin()
         finally:
             lock.release()
+
+    # -- link-fault injection (transport/faulty.py) ---------------------------
+
+    def install_link_faults(self, injector) -> None:
+        """Attach a connection-level fault injector (``FaultyTransport``
+        link kwargs): its hook fires in this send path whatever handle
+        triggered the send, and its accept-drop budget is consumed by the
+        acceptor."""
+        self._link_fault_hook = injector._link_hook
+        self._accept_drop_n += int(getattr(injector, "link_accept_drop", 0))
+
+    def _inject_link_reset(self, dest: int) -> None:
+        """Tear down the cached connection to ``dest`` NOW (RST: SO_LINGER
+        0), so the in-flight send fails and the healing path takes over;
+        the retained window is untouched."""
+        with self._conn_lock:
+            conn = self._conns.pop(dest, None)
+        if conn is not None:
+            try:
+                conn.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                struct.pack("ii", 1, 0))
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    # -- membership (membership.py) --------------------------------------------
+
+    def membership_invalidate(self, dead) -> None:
+        """Drop cached connections to replaced slots so the next send
+        re-handshakes (port-file re-read, epoch-checked hello), under each
+        per-dest send lock (a frame streaming on the old connection
+        finishes or fails first).  The slot's resilience state goes too
+        (``purge_peer``), the steering registry resyncs to the bumped
+        generation, and the slot's INBOUND readers are closed: a
+        replacement whose hello raced the transition reconnects and
+        replays onto a reader of the fresh generation."""
+        for dest in dead:
+            with self._send_lock(dest):
+                with self._conn_lock:
+                    conn = self._conns.pop(dest, None)
+                if conn is not None:
+                    try:
+                        conn.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                    try:
+                        conn.close()
+                    except OSError:
+                        pass
+                self._link.purge_peer(dest)
+                self.recv_registry.purge_src(dest, self._link.peer_gen(dest))
+            with self._conn_lock:
+                readers = self._reader_conns.pop(dest, [])
+            for rc in readers:
+                try:
+                    rc.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                try:
+                    rc.close()
+                except OSError:
+                    pass
 
     # -- shutdown ----------------------------------------------------------
 

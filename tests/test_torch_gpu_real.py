@@ -10,6 +10,9 @@ Two families, as the reference's:
 * **P=1 degenerate semantics on the card** (``gpu`` marker; skip without
   a card): every collective by every algorithm runs on one rank and
   returns the degenerate result, exactly; ``entry.entry()`` runs there.
+  With them, the host layer's nonblocking engine and fault tolerance on
+  the card: an ``iallreduce`` of a side-stream producer's tensor, and a
+  local rank killed inside a ring allreduce, then shrink.
 * **Ahead-of-time traces of the P=8 programs** (``test_tpu_real.py:103-266``,
   the ``AbstractMesh`` lowerings), each for two targets.  For the card
   (``gpu`` marker) the program is traced by ``mpi_tpu_torch.aot`` on fake
@@ -373,3 +376,90 @@ def test_fake_cuda_world_takes_the_kernel_op(call):
             "allgather": {"ring_gather": 1}, "attention": {"attn_fwd": 1},
             "attention_bwd": {"attn_bwd_dq": 1, "attn_bwd_dkv": 1}}[call]
     assert aot.kernel_nodes(graph) == want
+
+
+# ---- the host layer's nonblocking engine and fault tolerance on the card -----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("numel", [1 << 10, 1 << 20], ids=["state-machine", "thread"])
+def test_iallreduce_after_a_side_stream_producer(numel):
+    """A payload produced on a side stream by a long kernel, handed to
+    ``iallreduce`` under that stream: the default stream the collective
+    works on waits for the producer at issue, and the caller's stream waits
+    for the result at ``wait()`` — the sum is right on both the
+    state-machine path (4 KiB) and the thread path (4 MiB, above
+    ``nbc_sm_max_bytes``)."""
+    _card()
+
+    def prog(comm):
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)  # a long producer on the side stream
+            x = torch.full((numel,), float(comm.rank + 1), device=comm.device)
+            req = comm.iallreduce(x)
+            out = req.wait()
+            got = out.clone()  # consumed on the side stream
+        side.synchronize()
+        return got
+
+    n = 4
+    res = mpi_tpu_torch.run(prog, backend="local", nranks=n, progress="thread")
+    want = float(n * (n + 1) // 2)
+    for got in res:
+        assert got.device.type == "cuda"
+        assert torch.equal(got, torch.full_like(got, want))
+
+
+@pytest.mark.gpu
+def test_kill_and_shrink_on_the_card():
+    """A local rank killed inside a ring allreduce on the card: every
+    survivor raises ProcFailedError naming it (with the collective and a
+    segment), shrinks, and the shrunk world's allreduce on the card equals
+    the float64 sum of the survivors' inputs, bitwise across ranks."""
+    _card()
+    from mpi_tpu_torch import mpit
+    from mpi_tpu_torch.errors import ProcFailedError
+    from mpi_tpu_torch.transport.faulty import FaultyTransport
+    from mpi_tpu_torch.transport.local import KILLED
+
+    old = {k: mpit.cvar_read(k) for k in ("fault_detect_timeout_s",
+                                          "fault_heartbeat_interval_s")}
+    mpit.cvar_write("fault_detect_timeout_s", 1.0)
+    mpit.cvar_write("fault_heartbeat_interval_s", 0.05)
+    n, dead, numel = 4, 2, 1 << 20
+
+    def inp(r, device):
+        g = torch.Generator(device=device).manual_seed(100 + r)
+        return torch.randn(numel, generator=g, device=device)
+
+    def prog(comm):
+        x = inp(comm.rank, comm.device)
+        try:
+            comm.allreduce(x, algorithm="ring")
+            return "completed"
+        except ProcFailedError as e:
+            diag = (e.failed, e.collective, e.segment is not None)
+        new = comm.shrink()
+        return diag, new.size, comm.membership_epoch, new.allreduce(x, algorithm="ring")
+
+    try:
+        res = mpi_tpu_torch.run(
+            prog, backend="local", nranks=n, fault_tolerance=True,
+            progress="thread",
+            transport_wrapper=lambda t: (FaultyTransport(t, kill_after_n=3)
+                                         if t.world_rank == dead else t))
+    finally:
+        for k, v in old.items():
+            mpit.cvar_write(k, v)
+    assert res[dead] is KILLED
+    survivors = [r for r in range(n) if r != dead]
+    want = sum(inp(r, "cuda").double() for r in survivors)
+    outs = []
+    for r in survivors:
+        diag, size, epoch, out = res[r]
+        assert diag == ((dead,), "allreduce", True) and size == n - 1 and epoch == 1
+        assert out.device.type == "cuda"
+        assert torch.allclose(out.double(), want, rtol=1e-5, atol=1e-5)
+        outs.append(out)
+    assert all(torch.equal(o, outs[0]) for o in outs)

@@ -486,22 +486,37 @@ def _rank_raises(fn, item):
 
 
 def test_unported_features_name_their_roadmap_items():
+    from mpi_tpu_torch import checkpoint, launcher, membership
+
     _rank_raises(lambda c: c.allreduce(torch.ones(2), algorithm="sm"), "16.4")
     _rank_raises(lambda c: c.bcast(torch.ones(2), algorithm="sm"), "16.4")
     _rank_raises(lambda c: c.allreduce(torch.ones(2),
                                        algorithm="compressed:bf16"), "16.3")
     _rank_raises(lambda c: c.reduce_scatter(torch.ones(2, 2),
                                             algorithm="compressed"), "16.3")
-    _rank_raises(lambda c: c.iallreduce(torch.ones(2)), "16.2")
+    # the nonblocking path reaches the same gate and raises at wait()
+    _rank_raises(lambda c: c.iallreduce(torch.ones(2),
+                                        algorithm="compressed:int8").wait(),
+                 "16.3")
     _rank_raises(lambda c: c.win_create(torch.ones(2)), "16.4")
+    _rank_raises(lambda c: checkpoint.save("unused", {}, c, agree=True),
+                 "16.5")
     with pytest.raises(NotImplementedError, match="16.4"):
         mpi_tpu_torch.run(lambda c: 0, backend="shm", nranks=2, device="cpu")
-    for kw, item in [("fault_tolerance", "16.2"), ("verify", "16.2"),
-                     ("progress", "16.2"), ("trace", "16.3"),
+    for kw, item in [("verify", "16.2b"), ("trace", "16.3"),
                      ("tuning_table", "16.3")]:
         with pytest.raises(NotImplementedError, match=item):
             mpi_tpu_torch.run(lambda c, **k: 0, backend="local", nranks=2,
                               device="cpu", **{kw: True})
+    with pytest.raises(NotImplementedError, match="16.2b"):
+        launcher.main(["-n", "2", "--verify", "prog.py"])
+    with pytest.raises(NotImplementedError, match="16.4"):
+        membership.make_transport("shm", 0, 2, "unused")
+    # the features of the slice that ported them now run
+    assert mpi_tpu_torch.run(
+        lambda c: float(c.iallreduce(torch.ones(2)).wait()[0]),
+        backend="local", nranks=2, device="cpu", progress="thread",
+        fault_tolerance=True) == [2.0, 2.0]
 
 
 def test_host_backends_never_fall_back_to_the_cpu():

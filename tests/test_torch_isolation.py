@@ -2,7 +2,8 @@
 package: proven in a subprocess whose import system refuses ``jax``,
 ``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``),
 which imports every module of the port and runs the multi-parallel dry
-run, its trace, a checkpoint and a profile on the CPU."""
+run, its trace, a checkpoint, a profile and a nonblocking collective on a
+fault-tolerant local world with the progress engine, on the CPU."""
 
 import ast
 import os
@@ -39,7 +40,10 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.examples.pipeline", "mpi_tpu_torch.examples.moe",
        "mpi_tpu_torch.examples.ulysses_attention",
        "mpi_tpu_torch.examples.data_parallel", "mpi_tpu_torch.entry",
-       "mpi_tpu_torch.aot", "mpi_tpu_torch.checkpoint", "mpi_tpu_torch.profiling"]
+       "mpi_tpu_torch.aot", "mpi_tpu_torch.checkpoint", "mpi_tpu_torch.profiling",
+       "mpi_tpu_torch.progress", "mpi_tpu_torch.nbc", "mpi_tpu_torch.ft",
+       "mpi_tpu_torch.membership", "mpi_tpu_torch.transport.faulty",
+       "mpi_tpu_torch.examples.host_ft"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
 from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")
@@ -55,6 +59,11 @@ with tempfile.TemporaryDirectory() as tmp:
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), \
     [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 
+# the nonblocking engine and fault tolerance on the host layer
+got = mpi_tpu_torch.run(lambda c: float(c.iallreduce(torch.ones(2)).wait()[0]),
+                        backend="local", nranks=3, device="cpu",
+                        progress="thread", fault_tolerance=True)
+assert got == [3.0, 3.0, 3.0], got
 x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
 out = mpi_tpu_torch.run(lambda c, d: c.allreduce(d[c.rank], algorithm="pallas_ring"),
                         x, nranks=8, device="cpu")
