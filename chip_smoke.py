@@ -177,7 +177,43 @@ ok line:
     full world's 256 MiB allreduce bitwise across ranks and against a
     float64 sum; detection, shrink and rejoin seconds and the launcher's
     per-rank exit summary;
-19. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+19. host-verify-local: the runtime verifier and the flight recorder on 8
+    local rank threads on the card.  (a) the off-mode contract: a 256 MiB
+    float32 ring allreduce per rank run off, with ``verify=True`` and with
+    ``trace=True`` in turns (1 warm-up and 2 timed calls each, the ms and
+    the two overhead factors printed), then 200 calls of a 1 KiB allreduce
+    by the default algorithm the same three ways; off, every ``verify_*`` pvar and ``trace_events`` read 0; in all
+    three ``bytes_pickled_sent`` is 0, ``payload_copies`` is the same, and
+    the results are bitwise equal.  (b) the seeded bugs of
+    ``tests/test_verify.py`` with tensors on the card, at
+    ``verify_stall_timeout_s`` = 1.0, each caught on every rank and timed
+    (under the reference test's 20 s): the head-to-head ``recv`` cycle and
+    a wait on an exited rank (``DeadlockError``), a 256 MiB ``allreduce``
+    against a ``bcast`` (``CollectiveMismatchError`` on all 8 ranks, with
+    ``bytes_sent`` moving by far less than one payload: only signatures
+    travel), float32 against bfloat16 reduce geometry, concurrent against
+    ordered wildcard senders (one race line, none), a leaked ``irecv`` and
+    overlapping ``irecv(buf=)`` slices of one CUDA tensor (report lines),
+    and an ``allreduce_init`` round result held across two starts
+    (``BufferPinnedError``).  (c) no false positive from device work: rank
+    0 runs more than 3 s of bfloat16 products before a 16 MiB ring
+    allreduce its peers already wait in; the sum is right and
+    ``verify_deadlocks_detected`` reads 0;
+20. host-verify-socket: ``python -m mpi_tpu_torch.launcher -n 4 --verify
+    mpi_tpu_torch/examples/host_verify.py``: a 256 MiB ring clean under the
+    verifier (no payload byte pickled), the wildcard race named across
+    processes, (c)'s products on socket ranks, and a receive cycle through
+    all 4 processes diagnosed on every side through the rendezvous
+    directory's pending files;
+21. host-trace: ``python -m mpi_tpu_torch.launcher -n 4 --trace-dir ...
+    mpi_tpu_torch/examples/host_trace.py``: a 256 MiB ring allreduce, then
+    each other host collective once at 1 MiB, exit through ``finalize``; one
+    Chrome trace per rank, merged by ``mpi_tpu_torch.tools.tracecat`` with
+    no negative-latency frame after alignment, every allreduce span
+    ``algorithm="ring"`` with 268435456 bytes; ``coll_latency_s`` p50/p99,
+    events, drops, ``profiling.comm_stats()``, and each span's host ms
+    beside the wall of the same call with a synchronize;
+22. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10), each read right after it ran (``launches_by_path``).  The host
     layer launches none of the kernels: its folds are in-place torch ops.
@@ -1150,14 +1186,14 @@ def examples_phase(torch, record):
 HOST_SEED = 7
 
 
-def _timed_program(torch, call):
-    """A rank program: 1 warm-up and 3 timed calls of ``call(comm, xs)`` (a
-    barrier and a synchronize before each, a synchronize before the clock
-    stops); returns the last result and the rank's seconds."""
+def _timed_program(torch, call, reps=3):
+    """A rank program: 1 warm-up and ``reps`` timed calls of ``call(comm,
+    xs)`` (a barrier and a synchronize before each, a synchronize before the
+    clock stops); returns the last result and the rank's seconds."""
     def prog(comm, xs):
         call(comm, xs)
         secs, out = [], None
-        for _ in range(3):
+        for _ in range(reps):
             comm.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1682,6 +1718,355 @@ def host_ft_socket_phase(torch, record):
         f"{recs['joiner']['full_err_vs_f64']:.3g}; {res['wall_s']:.1f} s wall [{card}]")
 
 
+VERIFY_STALL_S = 1.0            # verify_stall_timeout_s of phases 19b-c and 20
+
+
+def _ring_program(torch, reps):
+    """A rank program: 1 warm-up and ``reps`` timed 256 MiB ring allreduces
+    (a barrier and a synchronize before each, a synchronize before the
+    clock stops)."""
+    return _timed_program(torch, lambda c, xs: c.allreduce(xs[c.rank], algorithm="ring"),
+                          reps)
+
+
+def _seeded_bug(mpi_tpu_torch, prog, n, **kw):
+    """Run ``prog`` on ``n`` verified local ranks on the card; each rank
+    returns what it caught.  Returns (results, seconds, report)."""
+    import gc
+
+    from mpi_tpu_torch import verify
+
+    verify.finalize_report()
+    t0 = time.perf_counter()
+    res = mpi_tpu_torch.run(prog, backend="local", nranks=n, verify=True, **kw)
+    secs = time.perf_counter() - t0
+    report = verify.finalize_report()
+    gc.collect()
+    return res, secs, report + verify.take_report()
+
+
+def host_verify_local_phase(torch, record):
+    """Phase 19: the runtime verifier and the flight recorder on 8 local
+    rank threads on the card — the off-mode contract at 256 MiB and 1 KiB,
+    the seeded bugs, and device work that must not read as a deadlock."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch import mpit, telemetry
+    from mpi_tpu_torch.errors import (BufferPinnedError, CollectiveMismatchError,
+                                      DeadlockError)
+    from mpi_tpu_torch.examples.host_allreduce import rank_input
+    from mpi_tpu_torch.examples.host_verify import busy_products
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    n, numel = P, NORTH_STAR_ELEMS
+    info = {"card": card, "ranks": n}
+    events = [v for v in mpit.pvar_list() if v.startswith("verify_")] + ["trace_events"]
+    wire = ["bytes_pickled_sent", "payload_copies"]
+    ways = {"off": {}, "verify": {"verify": True}, "trace": {"trace": True}}
+
+    # (a) the off-mode contract, at the north-star size and at 1 KiB
+    def latency_program(comm, xs):
+        """1 warm-up call, then 200 timed allreduces of 1 KiB by the
+        default algorithm (``BASELINE.json``'s latency config)."""
+        comm.allreduce(xs[comm.rank])
+        comm.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            out = comm.allreduce(xs[comm.rank])
+        torch.cuda.synchronize()
+        return out, [time.perf_counter() - t0]
+
+    for label, count, prog in (("256MiB", numel, _ring_program(torch, 2)),
+                               ("1KiB", 256, latency_program)):
+        xs = [rank_input(r, count, HOST_SEED, dev) for r in range(n)]
+        got = {}
+        for way, kw in ways.items():
+            (outs, deltas) = _pvar_deltas(mpit, events + wire, lambda: mpi_tpu_torch.run(
+                prog, xs, backend="local", nranks=n, **kw))
+            telemetry.disable()
+            secs = [max(ts[i] for _, ts in outs) for i in range(len(outs[0][1]))]
+            got[way] = {"s": secs, "ms": statistics.median(secs) * 1e3,
+                        "pvars": deltas, "out": outs[0][0]}
+            if not all(torch.equal(o, outs[0][0]) for o, _ in outs):
+                raise RuntimeError(f"host-verify {label} {way}: ranks differ")
+        if any(got["off"]["pvars"][v] for v in events):
+            raise RuntimeError(f"host-verify {label}: events with everything off: "
+                               f"{got['off']['pvars']}")
+        if any(g["pvars"]["bytes_pickled_sent"] for g in got.values()) or len(
+                {g["pvars"]["payload_copies"] for g in got.values()}) != 1:
+            raise RuntimeError(f"host-verify {label}: wire accounting moved: "
+                               f"{ {w: g['pvars'] for w, g in got.items()} }")
+        if not all(torch.equal(g["out"], got["off"]["out"]) for g in got.values()):
+            raise RuntimeError(f"host-verify {label}: results differ between the ways")
+        per_call = 200 if label == "1KiB" else 1
+        entry = {w: {"s": g["s"], "ms_per_call": g["ms"] / per_call,
+                     "pvars": {k: v for k, v in g["pvars"].items() if v}}
+                 for w, g in got.items()}
+        entry["verify_overhead"] = got["verify"]["ms"] / got["off"]["ms"]
+        entry["trace_overhead"] = got["trace"]["ms"] / got["off"]["ms"]
+        info[f"ring_{label}"] = entry
+        log(f"host-verify-local allreduce {label} x {n} ranks, ms per call: off "
+            f"{entry['off']['ms_per_call']:.3f}, verify {entry['verify']['ms_per_call']:.3f} "
+            f"(x{entry['verify_overhead']:.3f}), trace {entry['trace']['ms_per_call']:.3f} "
+            f"(x{entry['trace_overhead']:.3f}); off: every verify_* and trace_events 0; "
+            f"0 pickled bytes and {got['off']['pvars']['payload_copies']} payload copies in all "
+            f"three, results bitwise equal [{card}]")
+        del xs, got
+    torch.cuda.empty_cache()
+
+    # (b) the seeded bugs, each caught on every implicated rank
+    old_stall = mpit.cvar_read("verify_stall_timeout_s")
+    mpit.cvar_write("verify_stall_timeout_s", VERIFY_STALL_S)
+    bugs = {}
+    try:
+        def cycle(comm):
+            try:
+                comm.recv(source=1 - comm.rank, tag=7)  # mpilint: ok (the bug)
+            except DeadlockError as e:
+                return type(e).__name__, e.ranks, str(e)
+            return "completed", (), ""
+
+        def exited(comm):
+            if comm.rank == 1:
+                return "exited", (), ""
+            return cycle(comm)
+
+        big = [torch.full((numel,), 1.0, device=dev) for _ in range(n)]
+
+        def order(comm):
+            try:
+                if comm.rank == 0:
+                    comm.bcast(big[0], root=0)  # mpilint: ok (the bug)
+                else:
+                    comm.allreduce(big[comm.rank])  # mpilint: ok
+            except CollectiveMismatchError as e:
+                return type(e).__name__, e.ranks, str(e)
+            return "completed", (), ""
+
+        def geometry(comm):
+            x = torch.ones(1 << 20, device=dev,
+                           dtype=torch.float32 if comm.rank == 0 else torch.bfloat16)
+            try:
+                comm.allreduce(x)
+            except CollectiveMismatchError as e:
+                return type(e).__name__, e.ranks, str(e)
+            return "completed", (), ""
+
+        def race(ordered):
+            def prog(comm):
+                if comm.rank == 0:
+                    if not ordered:
+                        while not (comm.iprobe(source=1, tag=7)
+                                   and comm.iprobe(source=2, tag=7)):
+                            time.sleep(0.001)
+                    got = sorted(float(comm.recv(source=-1, tag=7)[0])  # mpilint: ok
+                                 for _ in range(2))
+                    return "received", (), str(got)
+                if ordered and comm.rank == 2:
+                    comm.recv(source=1, tag=1)  # happens-before edge
+                comm.send(torch.full((4,), float(comm.rank), device=dev), 0, tag=7)
+                if ordered and comm.rank == 1:
+                    comm.send(None, 2, tag=1)
+                return "sent", (), ""
+            return prog
+
+        def lints(comm):
+            buf = torch.zeros(1 << 20, device=dev)
+            peer = 1 - comm.rank
+            comm.irecv(source=peer, tag=3)  # mpilint: ok (leaked, the bug)
+            r1 = comm.irecv(source=peer, tag=4, buf=buf[0:1 << 19])
+            r2 = comm.irecv(source=peer, tag=4, buf=buf[1 << 18:3 << 18])
+            comm.send(torch.ones(1 << 19, device=dev), peer, tag=4)
+            comm.send(torch.ones(1 << 19, device=dev), peer, tag=4)
+            r1.wait()
+            r2.wait()
+            return "completed", (), ""
+
+        def pinned(comm):
+            h = comm.allreduce_init(torch.ones(1 << 16, device=dev))  # engine path
+            r0 = h.start().wait()  # round 0 result, held
+            h.start().wait()
+            try:
+                h.start().wait()
+            except BufferPinnedError as e:
+                return type(e).__name__, (comm.rank,), f"{str(e)[:60]} r0[0]={float(r0[0])}"
+            return "missed", (), ""
+
+        cases = [("recv cycle", cycle, 2, {}, "DeadlockError", [0, 1]),
+                 ("wait on an exited rank", exited, 2, {}, "DeadlockError", [0, 1]),
+                 ("allreduce vs bcast 256 MiB", order, n, {}, "CollectiveMismatchError",
+                  [0, 1]),
+                 ("float32 vs bfloat16 geometry", geometry, 2, {},
+                  "CollectiveMismatchError", [0, 1]),
+                 ("concurrent wildcard senders", race(False), 3, {}, None, None),
+                 ("ordered wildcard senders", race(True), 3, {}, None, None),
+                 ("leaked irecv, overlapping irecv(buf=)", lints, 2, {}, None, None),
+                 ("allreduce_init result pinned", pinned, 2, {"progress": "thread"},
+                  "BufferPinnedError", None)]
+        for name, prog, nr, kw, cls, ranks in cases:
+            base_sent = mpit.pvar_read("bytes_sent")
+            res, secs, report = _seeded_bug(mpi_tpu_torch, prog, nr, **kw)
+            sent = mpit.pvar_read("bytes_sent") - base_sent
+            kinds = sorted({ln.split(":")[0].split(" (")[0] for ln in report})
+            races = [ln for ln in report if "wildcard race" in ln]
+            entry = {"s": secs, "ranks": nr, "outcomes": [r[0] for r in res],
+                     "report_kinds": kinds, "bytes_sent": sent}
+            if cls is not None:
+                implicated = [r for r in range(nr) if res[r][0] != "exited"]
+                if any(res[r][0] != cls for r in implicated):
+                    raise RuntimeError(f"host-verify {name}: {[r[0] for r in res]}")
+                if ranks is not None and any(sorted(res[r][1]) != ranks
+                                             for r in implicated):
+                    raise RuntimeError(f"host-verify {name}: ranks {[r[1] for r in res]}")
+                entry["message"] = res[implicated[0]][2]
+                if cls != "BufferPinnedError" and "chip_smoke.py" not in entry["message"]:
+                    raise RuntimeError(f"host-verify {name}: no call site: {entry['message']}")
+            if name.startswith("allreduce vs bcast") and sent >= numel * 4 // 16:
+                raise RuntimeError(f"host-verify {name}: {sent} bytes moved before the "
+                                   f"mismatch was raised")
+            if name == "concurrent wildcard senders" and (
+                    len(races) != 1 or "rank 1" not in races[0]
+                    or "rank 2" not in races[0]):
+                raise RuntimeError(f"host-verify {name}: {report}")
+            if name == "ordered wildcard senders" and races:
+                raise RuntimeError(f"host-verify {name}: a race on ordered senders: {races}")
+            if name.startswith("leaked") and (
+                    sum("leaked request" in ln for ln in report) != 2
+                    or sum("overlapping live buffers" in ln and f"on {dev}" in ln
+                           for ln in report) != 2):
+                raise RuntimeError(f"host-verify {name}: {report}")
+            if secs >= 20.0:
+                raise RuntimeError(f"host-verify {name}: diagnosed after {secs:.1f} s")
+            bugs[name] = entry
+            log(f"host-verify-local {name}: {[r[0] for r in res]} in {secs:.2f} s; report "
+                f"{kinds}; bytes_sent {sent} [{card}]")
+        del big
+        info["seeded_bugs"] = bugs
+
+        # (c) no false positive from device work
+        small = (16 << 20) // 4
+        xs = [torch.full((small,), float(r + 1), device=dev) for r in range(n)]
+
+        def products_first(comm):
+            spent = busy_products(dev, 3.5 * VERIFY_STALL_S) if comm.rank == 0 else None
+            return comm.allreduce(xs[comm.rank], algorithm="ring"), spent
+
+        (res, deltas) = _pvar_deltas(mpit, events, lambda: mpi_tpu_torch.run(
+            products_first, backend="local", nranks=n, verify=True))
+    finally:
+        mpit.cvar_write("verify_stall_timeout_s", old_stall)
+    want = float(n * (n + 1) // 2)
+    products, spent = res[0][1]
+    if spent <= 3 * VERIFY_STALL_S or any(
+            not torch.equal(o, torch.full_like(o, want)) for o, _ in res) or any(
+            deltas[v] for v in events if v != "verify_clock_bytes"):
+        raise RuntimeError(f"host-verify products first: {spent} s, {deltas}")
+    info["products_first"] = {"products": products, "products_s": spent,
+                              "allreduce_bytes_per_rank": small * 4}
+    log(f"host-verify-local: rank 0's {products} bf16 [8192, 8192] products "
+        f"({spent:.2f} s > 3 x {VERIFY_STALL_S} s) before a 16 MiB ring its peers wait in: "
+        f"completed with the right sum, verify_deadlocks_detected 0 [{card}]")
+    record["host_verify_local"] = info
+    del xs
+    torch.cuda.empty_cache()
+
+
+def host_verify_socket_phase(torch, record):
+    """Phase 20: 4 socket rank processes on the card under ``--verify``
+    (``examples/host_verify.py``)."""
+    card = card_line()
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "host_verify"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", "4", "--verify",
+         "--timeout", "300", os.path.join("mpi_tpu_torch", "examples", "host_verify.py"),
+         "--out", out_dir, "--mib", str(NORTH_STAR_ELEMS * 4 >> 20), "--small-mib", "16",
+         "--stall", str(VERIFY_STALL_S), "--seed", str(HOST_SEED)],
+        cwd=root, capture_output=True, text=True, timeout=360)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"host-verify-socket ranks failed (rc {res.returncode}):\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    recs = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    if not all(d["device"].startswith("cuda") for d in recs):
+        raise RuntimeError(f"host-verify-socket ranks not on the card: {recs}")
+    info = {"card": card, "ranks": 4, "launcher_wall_s": wall, "records": recs}
+    record["host_verify_socket"] = info
+    clean = [d["clean_ring"] for d in recs]
+    log(f"host-verify-socket 256 MiB ring under --verify: "
+        f"{max(c['s'] for c in clean) * 1e3:.1f} ms, pickled bytes "
+        f"{[c['wire']['bytes_pickled_sent'] for c in clean]} (1 KiB ring: "
+        f"{[c['wire_1KiB']['bytes_pickled_sent'] for c in clean]}), float64 error "
+        f"{clean[0]['max_abs_err_vs_f64']:.3g}; race named: {recs[0]['wildcard_race']['line'][:90]}; "
+        f"rank 0's products {recs[0]['products_s']:.2f} s then a 16 MiB ring: no deadlock; "
+        f"receive cycle diagnosed on ranks {[d['deadlock']['ranks'] == [0, 1, 2, 3] for d in recs]} "
+        f"in {', '.join(f'{d['deadlock']['s']:.2f}' for d in recs)} s; {wall:.1f} s wall [{card}]")
+
+
+def host_trace_phase(torch, record):
+    """Phase 21: 4 socket rank processes on the card under ``--trace-dir``
+    (``examples/host_trace.py``), their traces merged by the port's
+    ``tracecat``."""
+    from mpi_tpu_torch.tools import tracecat
+
+    card = card_line()
+    base = os.path.abspath(os.path.join("chiprun_out", "host_trace"))
+    traces = os.path.join(base, "traces")
+    for d in (base, traces):
+        if os.path.isdir(d):
+            for f in os.listdir(d):
+                if os.path.isfile(os.path.join(d, f)):
+                    os.remove(os.path.join(d, f))
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", "4", "--trace-dir", traces,
+         "--timeout", "300", os.path.join("mpi_tpu_torch", "examples", "host_trace.py"),
+         "--out", base, "--mib", str(NORTH_STAR_ELEMS * 4 >> 20), "--small-mib", "1",
+         "--seed", str(HOST_SEED)],
+        cwd=root, capture_output=True, text=True, timeout=360)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"host-trace ranks failed (rc {res.returncode}):\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    recs = []
+    for r in range(4):
+        with open(os.path.join(base, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    docs = tracecat.load_traces([traces])
+    if sorted(d["mpi_tpu"]["rank"] for d in docs) != [0, 1, 2, 3]:
+        raise RuntimeError(f"host-trace: traces of ranks {[d['mpi_tpu']['rank'] for d in docs]}")
+    offsets = tracecat.estimate_offsets(docs)
+    negative = tracecat.negative_latency_frames(docs, offsets)
+    spans = [e for d in docs for e in d["traceEvents"]
+             if e.get("cat") == "coll" and e["name"] == "allreduce"]
+    if negative or len(spans) != 4 or any(
+            e["args"] != {"algorithm": "ring", "nbytes": NORTH_STAR_ELEMS * 4} for e in spans):
+        raise RuntimeError(f"host-trace: {negative} negative-latency frames, allreduce "
+                           f"spans {[e['args'] for e in spans]}")
+    merged = tracecat.merge(tracecat.load_traces([traces]))
+    info = {"card": card, "ranks": 4, "launcher_wall_s": wall, "offsets_us": offsets,
+            "negative_latency_frames": negative,
+            "merged_events": len(merged["traceEvents"]), "records": recs}
+    record["host_trace"] = info
+    for d in recs:
+        small = ", ".join(f"{k} {v['span_ms']:.2f}/{v['wall_sync_ms']:.2f}"
+                          for k, v in d["small"]["calls"].items())
+        log(f"host-trace rank {d['rank']}: 256 MiB ring span {d['allreduce']['span_ms']:.1f} ms "
+            f"(wall with synchronize {d['allreduce']['wall_sync_ms']:.1f} ms); 1 MiB span/wall "
+            f"ms: {small}; coll_latency_s p50 {d['coll_latency_s']['p50'] * 1e3:.3f} ms p99 "
+            f"{d['coll_latency_s']['p99'] * 1e3:.3f} ms; {d['events']} events, {d['dropped']} "
+            f"dropped; comm_stats ops {d['comm_stats']['ops']} [{card}]")
+    log(f"host-trace: 4 traces merged ({len(merged['traceEvents'])} events), offsets "
+        f"{ {k: round(v, 1) for k, v in offsets.items()} } us, 0 negative-latency frames, "
+        f"every allreduce span ring with {NORTH_STAR_ELEMS * 4} bytes; {wall:.1f} s wall [{card}]")
+
+
 def main():
     import torch
 
@@ -1914,6 +2299,17 @@ def main():
     lap("host-ft-local")
     host_ft_socket_phase(torch, record)
     lap("host-ft-socket")
+
+    # 19-21. the host layer's correctness and observability tooling ---------------
+    t_tools = time.perf_counter()
+    host_verify_local_phase(torch, record)
+    lap("host-verify-local")
+    host_verify_socket_phase(torch, record)
+    lap("host-verify-socket")
+    host_trace_phase(torch, record)
+    lap("host-trace")
+    record["tooling_phases_s"] = time.perf_counter() - t_tools
+    log(f"phases 19-21: {record['tooling_phases_s']:.1f} s")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

@@ -29,7 +29,15 @@ progress="thread", fault_tolerance=True, transport_wrapper=...)`` (the
 launcher's ``--progress thread`` and ``MPI_TPU_FT=1``), the
 i-collectives and persistent collectives, ``revoke`` / ``shrink`` /
 ``agree`` (``ft``) and elastic membership (``membership.rejoin``,
-``comm.accept_rejoin``).
+``comm.accept_rejoin``).  The correctness and observability tooling:
+``run(..., backend="local", verify=True, trace=True)`` (the launcher's
+``--verify`` and ``--trace-dir``, ``MPI_TPU_VERIFY=1`` and
+``MPI_TPU_TRACE`` under ``init()``) runs the runtime verifier
+(``verify``: deadlocks, collective matching, request and buffer lints,
+wildcard races) and the flight recorder (``telemetry``, histogram pvars
+and sessions in ``mpit``, ``profiling.comm_stats``); the static linter is
+``python -m mpi_tpu_torch.tools.mpilint`` and the trace merger
+``python -m mpi_tpu_torch.tools.tracecat``.
 
 The package imports torch, numpy and the standard library only; the JAX
 package ``mpi_tpu`` is its reference and is never imported.
@@ -55,10 +63,10 @@ from .topology import (CartComm, GraphComm, cart_create, dims_create,
 from .membership import ENV_BACKEND, ENV_DEVICE, ENV_RANK, ENV_RDV, ENV_SIZE
 
 # run_local keywords of the reference whose features are not ported yet
-_UNPORTED_RUN_KWARGS = {"verify": "16.2b", "trace": "16.3",
-                        "tuning_table": "16.3"}
+_UNPORTED_RUN_KWARGS = {"tuning_table": "16.3b"}
 # the local backend's world options (transport/local.py run_local)
-_LOCAL_RUN_KWARGS = ("fault_tolerance", "progress", "transport_wrapper")
+_LOCAL_RUN_KWARGS = ("fault_tolerance", "progress", "transport_wrapper",
+                     "verify", "trace")
 
 _world = None
 _world_lock = threading.Lock()
@@ -96,7 +104,6 @@ def init(backend: Optional[str] = None, device=None):
             "socket" if ENV_RANK in os.environ else "self")
         if backend == "socket":
             from . import membership, progress
-            from .transport.socket import SocketTransport
 
             rank = int(os.environ[ENV_RANK])
             size = int(os.environ[ENV_SIZE])
@@ -104,7 +111,13 @@ def init(backend: Optional[str] = None, device=None):
             dev = _rank_device(rank, device)
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
-            t = SocketTransport(rank, size, rdv, device=dev)
+            t = membership.make_transport("socket", rank, size, rdv, device=dev)
+            # the flight recorder (MPI_TPU_TRACE / --trace-dir), enabled
+            # before the first collective so world-construction traffic is
+            # on the timeline too
+            from . import telemetry
+
+            telemetry.enable_from_env(rank=rank)
             primitives.bind_host_rank(rank, dev, process=True)
             # which incarnation holds this slot: accept_rejoin refuses an
             # ousted-but-live one until its failure is acknowledged
@@ -117,9 +130,12 @@ def init(backend: Optional[str] = None, device=None):
 
                 ft.enable(_world, rdv_dir=rdv)
             if os.environ.get("MPI_TPU_VERIFY", "") not in ("", "0"):
-                raise NotImplementedError(
-                    "MPI_TPU_VERIFY (the runtime verifier) is not ported "
-                    "yet: ROADMAP.md item 16.2b")
+                # the runtime verifier: pending-op files under the
+                # rendezvous dir — deadlocks surface as DeadlockError,
+                # divergent collectives as CollectiveMismatchError
+                from . import verify
+
+                verify.enable(_world, rdv_dir=rdv)
             if progress.resolve_mode() == "thread":
                 progress.enable(_world)  # MPI_TPU_PROGRESS / --progress
             # stop the detector and the engine and close the transport
@@ -131,6 +147,9 @@ def init(backend: Optional[str] = None, device=None):
             from .transport.local import LocalTransport, LocalWorld
 
             dev = resolve_device(device)
+            from . import telemetry
+
+            telemetry.enable_from_env(rank=0)
             primitives.bind_host_rank(0, dev, process=True)
             _world = P2PCommunicator(
                 LocalTransport(LocalWorld(1, device=dev), 0), range(1))
@@ -145,19 +164,39 @@ def init(backend: Optional[str] = None, device=None):
 
 def finalize() -> None:
     """MPI_Finalize: synchronize, close the transport, and warn about
-    unexpected pending messages."""
+    unexpected pending messages.  With the verifier on the rank publishes
+    'exited' and its finalize report (leaked requests, unfreed
+    communicators, recorded lints) comes as a warning; with a trace dir
+    the flight recorder exports this rank's trace."""
+    from . import telemetry
+
     global _world
     with _world_lock:
         if _world is None:
             return
         _world.barrier()
+        verified = _world._verify is not None
+        if verified:
+            _world._verify.world.mark_exited()
+        rec = telemetry.REC
+        if rec is not None and rec.trace_dir:
+            # the orderly exit's export (atexit covers sys.exit paths;
+            # same file name, atomic replace)
+            rec.export_to_dir()
         pending = _world.close_transport()
         _world = None
         primitives.unbind_host_process()
-    if pending:
-        import warnings
+    import warnings
 
+    if pending:
         warnings.warn(f"MPI_Finalize: {len(pending)} unreceived message(s): {pending[:8]}")
+    if verified:
+        from . import verify
+
+        problems = verify.finalize_report()
+        if problems:
+            warnings.warn("MPI_Finalize: verifier report:\n  "
+                          + "\n  ".join(problems))
 
 
 def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
@@ -168,8 +207,8 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
       virtual ranks on ``device`` (default: the CUDA card); returns the
       per-rank results stacked ``[P, ...]``;
     * ``backend="local"``: ``nranks`` rank threads; returns the list of
-      per-rank results.  ``fault_tolerance``, ``progress`` and
-      ``transport_wrapper`` configure the world
+      per-rank results.  ``fault_tolerance``, ``progress``,
+      ``transport_wrapper``, ``verify`` and ``trace`` configure the world
       (``transport.local.run_local``);
     * ``backend="socket"`` (the default under the launcher) or ``"self"``:
       ``fn`` on this process's world communicator; returns its result.
@@ -186,12 +225,13 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
                     f"run(..., {name}=) is not ported yet: ROADMAP.md item "
                     f"{item}")
     if backend in ("socket", "self"):
-        for name in ("fault_tolerance", "progress"):
+        for name in ("fault_tolerance", "progress", "verify", "trace"):
             if name in kwargs:
                 raise ValueError(
                     f"run(..., {name}=) configures the local backend; a "
                     f"process world takes it from the launcher "
-                    f"(MPI_TPU_FT=1, --progress thread)")
+                    f"(MPI_TPU_FT=1, --progress thread, --verify, "
+                    f"--trace-dir)")
         return fn(init(backend, device), *args, **kwargs)
     if backend == "local":
         from .transport.local import run_local

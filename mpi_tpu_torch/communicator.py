@@ -30,6 +30,15 @@ split — the port's own copy of ``mpi_tpu/communicator.py``.
   ``shrink``, ``agree``, ``get_failed``, ``failure_ack``,
   ``failure_get_acked``, ``membership_epoch`` and ``accept_rejoin``
   (:3032-3200) recover from a death.
+* The runtime verifier (``verify/``), behind ``_verify is None``: the
+  collective-signature check ``_verify_coll`` and ``_track_request``
+  (:1975-2005), the verify branch of the sliced waits (:1352-1560), the
+  request and buffer tracking of ``isend``, ``irecv(buf=)`` and
+  ``isendrecv_replace`` (:1690-1760), ``_inherit_verify`` on ``dup`` /
+  ``split`` / ``create`` and the free lint (:3227-3300, :3429).
+* The flight recorder (``telemetry/``), behind ``telemetry.REC is
+  None``: ``_traced_coll`` on the ten collectives, ``_trace_nbytes`` and
+  ``_note_alg`` (:242-300), and the blocked-wait spans.
 
 Payloads are ``torch.Tensor``s and stay on the device they live on: the
 engine's working buffers are made on the payload's device and every fold
@@ -54,13 +63,14 @@ current stream wait on the default stream.
 
 Not ported yet, each raising ``NotImplementedError`` where a program
 reaches it: the shared-memory arena ``algorithm="sm"`` (ROADMAP 16.4),
-the ``compressed*`` algorithms (16.3), RMA windows on host backends
-(16.4), and the runtime verifier's hooks (16.2b).
+the ``compressed*`` algorithms (16.3b) and RMA windows on host backends
+(16.4).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import pickle
 import threading
 import time
@@ -75,8 +85,9 @@ from . import mpit as _mpit
 from . import ops as _ops
 from . import recvpool as _recvpool
 from . import schedules
+from . import telemetry as _telemetry
 from .transport import codec as _codec
-from .errors import ProcFailedError
+from .errors import ProcFailedError, RevokedError
 from .transport.base import (ANY_SOURCE, ANY_TAG, RecvTimeout, Transport,
                              TransportError, bind_thread_device,
                              payload_nbytes)
@@ -189,14 +200,75 @@ def _resolve_algorithm(coll: str, algorithm: str, real: Tuple[str, ...],
     if algorithm in unported:
         raise NotImplementedError(
             f"{coll} algorithm {algorithm!r} (compressed wire dtypes) is not "
-            f"ported yet: ROADMAP.md item 16.3")
+            f"ported yet: ROADMAP.md item 16.3b")
     if algorithm in aliases:
-        return aliases[algorithm]
-    if algorithm in real:
-        return algorithm
-    accepted = sorted(set(real) | set(aliases) | set(unported))
-    raise ValueError(
-        f"unknown {coll} algorithm {algorithm!r}; accepted: {accepted}")
+        resolved = aliases[algorithm]
+    elif algorithm in real:
+        resolved = algorithm
+    else:
+        accepted = sorted(set(real) | set(aliases) | set(unported))
+        raise ValueError(
+            f"unknown {coll} algorithm {algorithm!r}; accepted: {accepted}")
+    rec = _telemetry.REC
+    if rec is not None:
+        # the one gate every host collective passes: stamp the RESOLVED
+        # algorithm into the open trace span
+        rec.note_algorithm(resolved)
+    return resolved
+
+
+def _trace_nbytes(obj: Any) -> Optional[int]:
+    """Cheap payload-size guess for a collective trace span (tracing-on
+    path only): tensors and arrays report nbytes, list payloads
+    (alltoall/scatter) sum their sized elements, opaque objects None."""
+    n = getattr(obj, "nbytes", None)
+    if n is not None:
+        return int(n)
+    if isinstance(obj, (bytes, bytearray)):
+        return len(obj)
+    if isinstance(obj, (list, tuple)):
+        total = 0
+        for item in obj:
+            total += getattr(item, "nbytes", 0) or 0
+        return total or None
+    return None
+
+
+def _note_alg(algorithm: str) -> str:
+    """Stamp the FINAL concrete algorithm into the open trace span (the
+    gate passes ``"auto"`` through; each dispatch point calls this once
+    the pick is real).  Returns its argument."""
+    rec = _telemetry.REC
+    if rec is not None:
+        rec.note_algorithm(algorithm)
+    return algorithm
+
+
+def _traced_coll(fn):
+    """Collective begin/end tracing (``telemetry/``).  Off: ONE module
+    attribute test before the undecorated call.  On: a span with the
+    collective's name, its requested then resolved algorithm, the payload
+    bytes, its duration (host time: on the card the device work it queued
+    may still run after the span ends) and the error class on a raising
+    exit; completed spans also feed the ``coll_latency_s`` histogram and
+    ``profiling.comm_stats()``."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        rec = _telemetry.REC
+        if rec is None:
+            return fn(self, *args, **kwargs)
+        cell = rec.coll_begin(
+            fn.__name__, kwargs.get("algorithm"),
+            _trace_nbytes(args[0]) if args else None)
+        try:
+            out = fn(self, *args, **kwargs)
+        except BaseException as e:
+            rec.coll_end(cell, error=type(e).__name__)
+            raise
+        rec.coll_end(cell)
+        return out
+
+    return wrapper
 
 
 def _unpost(reqs: Sequence["_RecvRequest"]) -> None:
@@ -396,6 +468,15 @@ class Request:
     until completion and returns the payload (None for sends); ``test()``
     returns (done, payload-or-None) without blocking."""
 
+    # Verifier tracking record (verify/state.py VInfo) — None when the
+    # request was created with the verifier off: one attribute test
+    _vinfo = None
+
+    def _vnote(self, completed: bool, blocking: bool = True) -> None:
+        vi = self._vinfo
+        if vi is not None:
+            vi.note(completed, blocking)
+
     def wait(self) -> Any:
         raise NotImplementedError
 
@@ -411,9 +492,11 @@ class _CompletedRequest(Request):
         self._value = value
 
     def wait(self) -> Any:
+        self._vnote(True)
         return self._value
 
     def test(self) -> Tuple[bool, Any]:
+        self._vnote(True, blocking=False)
         return True, self._value
 
 
@@ -485,6 +568,14 @@ class _RecvRequest(Request):
     def _poll_once(self):
         src_world = (ANY_SOURCE if self._source == ANY_SOURCE
                      else self._comm._world(self._source))
+        if src_world == ANY_SOURCE and self._tag >= -1 \
+                and self._comm._verify is not None:
+            # wildcard irecv: attribute any race the consume scan finds to
+            # the posting site (the consuming thread may be the engine)
+            vc = getattr(self._comm._t, "verify_clock", None)
+            if vc is not None:
+                vi = self._vinfo
+                vc.set_site(vi.site if vi is not None else "<irecv>")
         return self._comm._t.poll(src_world, self._comm._ctx, self._tag)
 
     def wait(self) -> Any:
@@ -493,6 +584,7 @@ class _RecvRequest(Request):
             # the engine already matched to an earlier sibling, so the
             # wait parks on the engine instead
             self._comm._progress_wait_request(self)
+            self._vnote(True)
             return self._value
         while not self._done:
             head = self._queue[0]  # earliest posted request gets the message
@@ -501,6 +593,7 @@ class _RecvRequest(Request):
             # check at completion time
             head._complete(self._comm._recv_internal(
                 head._source, head._tag, _posted=True))
+        self._vnote(True)
         return self._value
 
     def test(self) -> Tuple[bool, Any]:
@@ -514,6 +607,7 @@ class _RecvRequest(Request):
             if not self._done:
                 self._comm._empty_poll_check(self._source, self._tag)
                 return False, None
+            self._vnote(True, blocking=False)
             return True, self._value
         while not self._done:
             head = self._queue[0]
@@ -525,6 +619,11 @@ class _RecvRequest(Request):
                 self._comm._empty_poll_check(self._source, self._tag)
                 return False, None
             head._complete(hit[0])
+            if self._comm._verify is not None:
+                # a poll hit is real progress (this path bypasses
+                # _recv_internal): stamp it, retracting a published entry
+                self._comm._verify.world.note_progress()
+        self._vnote(True, blocking=False)
         return True, self._value
 
 
@@ -541,6 +640,7 @@ class PersistentRequest(Request):
         self._peer, self._tag = peer, tag
         self._inner: Optional[Request] = None
         self._last: Any = None
+        self._buf_key: Optional[int] = None  # verifier live-buffer handle
 
     @property
     def active(self) -> bool:
@@ -555,8 +655,21 @@ class PersistentRequest(Request):
             payload = snapshot_payload(self._comm._t, self._buf)
             self._inner = self._comm.isend(payload, self._peer, self._tag)
         else:
-            self._inner = self._comm.irecv(self._peer, self._tag,
-                                           buf=self._buf)
+            self._inner = self._comm.irecv(self._peer, self._tag)
+            if self._buf is not None:
+                # the bound buffer is filled at THIS operation's completion
+                self._inner._user_buf = self._buf
+            v = self._comm._verify
+            if v is not None and isinstance(self._buf, torch.Tensor):
+                # live receive buffer: overlapping another pending
+                # nonblocking op's buffer is the message-race lint
+                from .verify.state import user_site
+
+                self._buf_key = v.world.buffer_live(
+                    self._buf,
+                    f"rank {self._comm.rank}: recv_init(source="
+                    f"{self._peer}, tag={self._tag}).start() at "
+                    f"{user_site()}", writes=True)
         return self
 
     def wait(self) -> Any:
@@ -564,7 +677,7 @@ class PersistentRequest(Request):
         if self._inner is None:
             return self._last
         value = self._inner.wait()
-        self._inner, self._last = None, value
+        self._complete(value)
         return value
 
     def test(self) -> Tuple[bool, Any]:
@@ -572,8 +685,14 @@ class PersistentRequest(Request):
             return True, self._last
         done, value = self._inner.test()
         if done:
-            self._inner, self._last = None, value
+            self._complete(value)
         return done, value
+
+    def _complete(self, value: Any) -> None:
+        self._inner, self._last = None, value
+        if self._buf_key is not None:
+            self._comm._verify.world.buffer_release(self._buf_key)
+            self._buf_key = None
 
 
 def startall(requests: Sequence[PersistentRequest]) -> List[PersistentRequest]:
@@ -610,6 +729,7 @@ class _ThreadRequest(Request):
 
     def wait(self) -> Any:
         self._thread.join()
+        self._vnote(True)
         if self._error is not None:
             raise self._error
         _caller_waits(self._device)
@@ -618,6 +738,7 @@ class _ThreadRequest(Request):
     def test(self) -> Tuple[bool, Any]:
         if self._thread.is_alive():
             return False, None
+        self._vnote(True, blocking=False)
         if self._error is not None:
             raise self._error
         _caller_waits(self._device)
@@ -825,6 +946,7 @@ class Communicator(ABC):
         """MPI_Allgatherv: every rank's first ``counts[rank]`` rows, in
         rank order."""
         self._check_counts(counts)
+        self._verify_counts("allgatherv", counts)
         items = self.allgather(self._take_rows(obj, counts[self.rank]))
         return _concat_rows(items)
 
@@ -832,6 +954,7 @@ class Communicator(ABC):
                 root: int = 0) -> Optional[Any]:
         """MPI_Gatherv: like allgatherv, the result at root only."""
         self._check_counts(counts)
+        self._verify_counts("gatherv", counts)
         items = self.gather(self._take_rows(obj, counts[self.rank]), root)
         if items is None:
             return None
@@ -841,6 +964,7 @@ class Communicator(ABC):
         """MPI_Scatterv: root holds the ``[sum(counts), ...]``
         concatenation; rank r receives its ``counts[r]``-row slice."""
         self._check_counts(counts)
+        self._verify_counts("scatterv", counts)
         parts: Optional[List[Any]] = None
         if self.rank == root:
             offs = np.cumsum([0] + [int(c) for c in counts])
@@ -857,9 +981,23 @@ class Communicator(ABC):
         j; returns one entry per source rank j with ``counts[j][rank]``
         rows."""
         self._check_counts_matrix(counts)
+        self._verify_counts("alltoallv", counts)
         sendlist = [self._take_rows(blocks[d], counts[self.rank][d])
                     for d in range(self.size)]
         return self.alltoall(sendlist)
+
+    def _verify_counts(self, coll: str, counts) -> None:
+        """Vector-collective hook: with the runtime verifier on (host
+        backends only — the attribute is never set elsewhere), cross-check
+        the literal counts vector across ranks; divergence is the
+        truncating-recv case."""
+        v = getattr(self, "_verify", None)
+        if v is not None and self.size > 1:
+            from .verify import collcheck as _vcc
+
+            _vcc.check(self, coll, counts=tuple(
+                tuple(int(c) for c in row) if hasattr(row, "__len__")
+                else int(row) for row in counts))
 
     def _take_rows(self, obj: Any, count: int) -> torch.Tensor:
         arr = _as_tensor(obj, self.device)
@@ -989,6 +1127,10 @@ class P2PCommunicator(Communicator):
         # ULFM state (ft.CommFT), attached by ft.enable(); None = the
         # fault-tolerance machinery is one attribute test per operation
         self._ft = None
+        # runtime-verifier state (verify/state.py CommVerify), attached by
+        # verify.enable(); None = the whole verifier is one attribute test
+        # per operation and every verify_* pvar stays 0
+        self._verify = None
         # the world's progress engine (progress.py), inherited from the
         # transport so split/dup/nbc children share its thread
         self._progress = getattr(transport, "_progress_engine", None)
@@ -1045,8 +1187,12 @@ class P2PCommunicator(Communicator):
                     f"rank {self._rank}: send to rank {dest} failed ({e})",
                     failed=(dest,),
                     collective=self._coll_name if tag < 0 else None) from e
+            if self._verify is not None:
+                self._verify.world.note_progress()
             return
         self._t.send(dest_world, self._ctx, tag, obj)
+        if self._verify is not None:
+            self._verify.world.note_progress()
 
     def recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
              status: Optional[Status] = None) -> Any:
@@ -1064,102 +1210,218 @@ class P2PCommunicator(Communicator):
             # frame/consumer indices stay aligned (_posted marks the
             # queue-head servicing call of an already-counted irecv)
             self._recv_reg.note_consume(src_world, self._ctx, tag)
-        if self._ft is not None:
+        if self._verify is not None and src_world == ANY_SOURCE and tag >= -1:
+            # wildcard-race attribution: the consume scan runs under the
+            # mailbox lock, so the receive records its call site first
+            vc = getattr(self._t, "verify_clock", None)
+            if vc is not None:
+                from .verify.state import user_site
+
+                vc.set_site(user_site())
+        if self._ft is not None or self._verify is not None:
             obj, src, t = self._sliced_wait(src_world, tag)
         else:
-            obj, src, t = self._t.recv(src_world, self._ctx, tag,
-                                       timeout=self.recv_timeout)
+            obj, src, t = self._plain_recv(src_world, tag)
         _mpit.count(recvs=1)
         if status is not None:
             status._fill(self._from_world(src), t, obj)
         return obj
 
-    # -- sliced blocking waits (ft.py) and the engine-parked wait ----------
+    def _plain_recv(self, src_world: int, tag: int):
+        """The blocking receive without fault tolerance or the verifier,
+        with the same blocked-wait trace span ``_sliced_wait`` emits."""
+        rec = _telemetry.REC
+        if rec is None:
+            return self._t.recv(src_world, self._ctx, tag,
+                                timeout=self.recv_timeout)
+        t_trace = time.perf_counter_ns()
+        out = self._t.recv(src_world, self._ctx, tag,
+                           timeout=self.recv_timeout)
+        dur = time.perf_counter_ns() - t_trace
+        if dur >= _telemetry.WAIT_MIN_NS:
+            rec.emit("wait", "recv", dur_ns=dur,
+                     attrs={"src": src_world, "tag": tag,
+                            "coll": self._coll_name if tag < 0 else None})
+        return out
+
+    # -- sliced blocking waits (ft.py, verify/) and the engine-parked wait ---
 
     def _sliced_wait(self, src_world: int, tag: int, consume: bool = True):
-        """Every fault-tolerant blocking wait (recv, probe, and through
-        ``_RecvRequest.wait`` the segmented engine's receive drains): the
-        transport wait runs in _FT_POLL_S slices, and between slices a
-        queued revocation raises RevokedError and a detector hit on a
-        relevant peer raises ProcFailedError — a death is noticed within
-        the detection bound whatever ``recv_timeout`` is."""
+        """Every fault-tolerant or verified blocking wait (recv, probe, and
+        through ``_RecvRequest.wait`` the segmented engine's receive
+        drains): the transport wait runs in _FT_POLL_S slices, and between
+        slices
+
+        * (ft) a queued revocation raises RevokedError and a detector hit
+          on a relevant peer raises ProcFailedError — a death is noticed
+          within the detection bound whatever ``recv_timeout`` is;
+        * (verify) past ``verify_stall_timeout_s`` the rank publishes its
+          pending op on the out-of-band board and runs the wait-for
+          deadlock analysis — a proven cycle or knot raises DeadlockError
+          instead of hanging (``verify/deadlock.py``).
+
+        A rank whose host thread is inside device work is not in here,
+        so it publishes nothing and never reads as blocked."""
         ft = self._ft
+        vw = self._verify.world if self._verify is not None else None
+        rec = _telemetry.REC
+        t_trace = time.perf_counter_ns() if rec is not None else 0
         timeout = self.recv_timeout
-        deadline = None if timeout is None else time.monotonic() + timeout
-        while True:
-            ft.check(self)
-            remaining = (None if deadline is None
-                         else deadline - time.monotonic())
-            slice_s = (_FT_POLL_S if remaining is None
-                       else max(0.0, min(_FT_POLL_S, remaining)))
-            try:
-                if consume:
-                    return self._t.recv(src_world, self._ctx, tag,
-                                        timeout=slice_s)
-                return self._t.peek(src_world, self._ctx, tag,
-                                    timeout=slice_s)
-            except RecvTimeout:
-                suspects = self._ft_suspects(src_world, tag)
-                if suspects:
-                    what = (f"collective {self._coll_name!r}" if tag < 0
-                            else f"recv(tag={tag})")
-                    raise ProcFailedError(
-                        f"rank {self._rank}: peer death detected while "
-                        f"blocked in {what}", failed=suspects,
-                        collective=self._coll_name if tag < 0 else None)
-                if deadline is not None and time.monotonic() >= deadline:
-                    raise RecvTimeout(
-                        f"recv(source={src_world}, ctx={self._ctx}, "
-                        f"tag={tag}) timed out after {timeout}s; "
-                        f"pending={self._t.mailbox.pending_summary()}")
+        start = time.monotonic()
+        deadline = None if timeout is None else start + timeout
+        block_id = vw.begin_block() if vw is not None else 0
+        if vw is not None:
+            vw.wait_enter()  # board-entry ownership: the engine stands down
+        try:
+            while True:
+                if ft is not None:
+                    ft.check(self)
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                slice_s = (_FT_POLL_S if remaining is None
+                           else max(0.0, min(_FT_POLL_S, remaining)))
+                try:
+                    if consume:
+                        hit = self._t.recv(src_world, self._ctx, tag,
+                                           timeout=slice_s)
+                    else:
+                        hit = self._t.peek(src_world, self._ctx, tag,
+                                           timeout=slice_s)
+                except RecvTimeout:
+                    if ft is not None:
+                        suspects = self._ft_suspects(src_world, tag)
+                        if suspects:
+                            what = (f"collective {self._coll_name!r}"
+                                    if tag < 0 else f"recv(tag={tag})")
+                            raise ProcFailedError(
+                                f"rank {self._rank}: peer death detected "
+                                f"while blocked in {what}", failed=suspects,
+                                collective=self._coll_name if tag < 0
+                                else None)
+                    if (vw is not None and
+                            time.monotonic() - start >= vw.stall_timeout_s):
+                        # may raise DeadlockError; the published entry is
+                        # NOT cleared on that raise — peers confirming the
+                        # same diagnosis need it stable
+                        self._verify_stalled(vw, src_world, tag, block_id,
+                                             consume)
+                    if deadline is not None and time.monotonic() >= deadline:
+                        raise RecvTimeout(
+                            f"recv(source={src_world}, ctx={self._ctx}, "
+                            f"tag={tag}) timed out after {timeout}s; "
+                            f"pending={self._t.mailbox.pending_summary()}")
+                else:
+                    if vw is not None:
+                        vw.note_progress()  # clears the published entry
+                    return hit
+        except (RecvTimeout, ProcFailedError, RevokedError):
+            # the rank leaves this wait alive: retract a published
+            # 'blocked' entry so no peer's analysis keeps implicating it
+            if vw is not None:
+                vw.clear_published()
+            raise
+        finally:
+            if vw is not None:
+                vw.wait_exit()
+            if rec is not None:
+                # blocked waits past the noise floor become spans
+                dur = time.perf_counter_ns() - t_trace
+                if dur >= _telemetry.WAIT_MIN_NS:
+                    rec.emit("wait", "recv" if consume else "probe",
+                             dur_ns=dur,
+                             attrs={"src": src_world, "tag": tag,
+                                    "coll": self._coll_name
+                                    if tag < 0 else None})
+
+    def _verify_stalled(self, vw, src_world: int, tag: int, block_id: int,
+                        consume: bool) -> None:
+        from .verify import deadlock as _vdl
+        from .verify.state import user_site
+
+        if src_world == ANY_SOURCE:
+            targets = tuple(w for w in self._group
+                            if w != self._t.world_rank)
+            mode = "OR"
+        else:
+            targets, mode = (src_world,), "AND"
+        _vdl.check_stalled(
+            vw, self, targets, mode, tag, "recv" if consume else "probe",
+            self._coll_name if tag < 0 else None, user_site(), block_id)
 
     def _progress_wait_request(self, req: "_RecvRequest") -> None:
         """Blocking wait on a posted receive under the progress engine:
         completion is serialized with the engine through its lock, and
         the caller PARKS on the engine's condition between slices.  Each
-        slice keeps the fault-tolerance checks and ``recv_timeout``, and
-        retries completion itself, so liveness never depends on the
-        engine thread."""
+        slice keeps the fault-tolerance checks, the verifier's stall
+        publication and ``recv_timeout``, and retries completion itself,
+        so liveness never depends on the engine thread."""
         eng = self._progress
         ft = self._ft
+        vw = self._verify.world if self._verify is not None else None
         timeout = self.recv_timeout
-        deadline = None if timeout is None else time.monotonic() + timeout
+        start = time.monotonic()
+        deadline = None if timeout is None else start + timeout
+        block_id = vw.begin_block() if vw is not None else 0
         src_world = (ANY_SOURCE if req._source == ANY_SOURCE
                      else self._world(req._source))
-        while True:
-            if ft is not None:
-                ft.check(self)
-            if not req._done:
-                with eng.cv:
-                    cbs = eng.try_complete(req)
-                for cb in cbs:  # credit-window sends, lock released
-                    cb()
-            if req._done:
-                return
-            if ft is not None:
-                suspects = self._ft_suspects(src_world, req._tag)
-                if suspects:
-                    what = (f"collective {self._coll_name!r}"
-                            if req._tag < 0 else f"irecv(tag={req._tag})")
-                    raise ProcFailedError(
-                        f"rank {self._rank}: peer death detected while "
-                        f"waiting on {what}", failed=suspects,
-                        collective=self._coll_name if req._tag < 0 else None)
-            if deadline is not None and time.monotonic() >= deadline:
-                raise RecvTimeout(
-                    f"irecv wait(source={src_world}, ctx={self._ctx}, "
-                    f"tag={req._tag}) timed out after {timeout}s; "
-                    f"pending={self._t.mailbox.pending_summary()}")
-            with eng.cv:
-                # _done flips under eng.cv: this re-check loses no wakeup
+        if vw is not None:
+            vw.wait_enter()
+        try:
+            while True:
+                if ft is not None:
+                    ft.check(self)
                 if not req._done:
-                    eng.cv.wait(_FT_POLL_S)
+                    with eng.cv:
+                        cbs = eng.try_complete(req)
+                    for cb in cbs:  # credit-window sends, lock released
+                        cb()
+                if req._done:
+                    return
+                if ft is not None:
+                    suspects = self._ft_suspects(src_world, req._tag)
+                    if suspects:
+                        what = (f"collective {self._coll_name!r}"
+                                if req._tag < 0 else f"irecv(tag={req._tag})")
+                        raise ProcFailedError(
+                            f"rank {self._rank}: peer death detected while "
+                            f"waiting on {what}", failed=suspects,
+                            collective=self._coll_name if req._tag < 0
+                            else None)
+                now = time.monotonic()
+                if vw is not None and now - start >= vw.stall_timeout_s:
+                    self._verify_stalled(vw, src_world, req._tag,
+                                         block_id, True)
+                if deadline is not None and now >= deadline:
+                    raise RecvTimeout(
+                        f"irecv wait(source={src_world}, ctx={self._ctx}, "
+                        f"tag={req._tag}) timed out after {timeout}s; "
+                        f"pending={self._t.mailbox.pending_summary()}")
+                with eng.cv:
+                    # _done flips under eng.cv: this re-check loses no wakeup
+                    if not req._done:
+                        eng.cv.wait(_FT_POLL_S)
+        except (RecvTimeout, ProcFailedError, RevokedError):
+            if vw is not None:
+                vw.clear_published()
+            raise
+        finally:
+            if vw is not None:
+                vw.wait_exit()
 
-    def _empty_poll_check(self, source: int, tag: int) -> None:
+    def _empty_poll_check(self, source: int, tag: int, req=None) -> None:
         """Fault-tolerance gate of the NONBLOCKING completion paths
         (``Request.test``, ``iprobe``, ``improbe``) on their empty path:
         apply a queued revocation and turn a detector hit on a relevant
-        peer into ProcFailedError, as the sliced wait does."""
+        peer into ProcFailedError, as the sliced wait does.  An empty poll
+        is not a blocked state for the verifier, except under the
+        progress engine: it observes sustained empty polls, publishes an
+        OR-set entry on the rank's behalf and parks a proven
+        DeadlockError, re-raised here.  ``req`` (a state-machine
+        collective, ``nbc.py``) names the call being polled."""
+        eng = self._progress
+        if eng is not None:
+            eng.check_error()
+            eng.note_empty_poll(req)
         if self._ft is None:
             return
         self._ft.check(self)
@@ -1206,7 +1468,10 @@ class P2PCommunicator(Communicator):
         """MPI_Isend.  Sends are buffered (complete once enqueued on the
         transport), so the request is complete at once."""
         self.send(obj, dest, tag)
-        return _CompletedRequest()
+        req: Request = _CompletedRequest()
+        if self._verify is not None:
+            self._track_request(req, "isend", dest, tag)
+        return req
 
     def isendrecv(self, sendobj: Any, dest: int, source: int = ANY_SOURCE,
                   sendtag: int = 0, recvtag: int = ANY_TAG) -> Request:
@@ -1220,7 +1485,14 @@ class P2PCommunicator(Communicator):
         """MPI_Isendrecv_replace: the received payload overwrites ``buf`` in
         place at completion; the outgoing content is snapshotted now."""
         self.send(snapshot_payload(self._t, buf), dest, sendtag)
-        return _ReplaceRequest(self.irecv(source, recvtag), buf)
+        inner = self.irecv(source, recvtag)
+        if self._verify is not None and inner._vinfo is not None:
+            # the replace writes ``buf`` in place at completion: a live
+            # write buffer for the overlap (message-race) lint
+            inner._vinfo.kind = "isendrecv_replace"
+            self._verify.world.track_buffer(
+                inner._vinfo, buf, inner._vinfo.describe(), writes=True)
+        return _ReplaceRequest(inner, buf)
 
     def irecv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
               buf: Any = None) -> Request:
@@ -1231,6 +1503,15 @@ class P2PCommunicator(Communicator):
         req = self._irecv_internal(source, tag)
         if buf is not None:
             req._user_buf = buf
+        if self._verify is not None:
+            self._track_request(req, "irecv", source, tag)
+            if req._user_buf is not None and req._vinfo is not None:
+                # a live WRITE buffer until completion: overlapping any
+                # other pending op's buffer is the message-race lint
+                bufs = buf if isinstance(buf, list) else [buf]
+                for b in bufs:
+                    self._verify.world.track_buffer(
+                        req._vinfo, b, req._vinfo.describe(), writes=True)
         return req
 
     def _irecv_internal(self, source: int, tag: int) -> _RecvRequest:
@@ -1270,7 +1551,7 @@ class P2PCommunicator(Communicator):
         consuming it); fills ``status`` with its envelope and size."""
         _check_user_tag(tag)
         src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
-        if self._ft is not None:
+        if self._ft is not None or self._verify is not None:
             s, t, n = self._sliced_wait(src_world, tag, consume=False)
         else:
             s, t, n = self._t.peek(src_world, self._ctx, tag,
@@ -1284,11 +1565,10 @@ class P2PCommunicator(Communicator):
         matching; consume it later with ``message.recv()``."""
         _check_user_tag(tag)
         src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
-        if self._ft is not None:
+        if self._ft is not None or self._verify is not None:
             obj, src, t = self._sliced_wait(src_world, tag)
         else:
-            obj, src, t = self._t.recv(src_world, self._ctx, tag,
-                                       timeout=self.recv_timeout)
+            obj, src, t = self._plain_recv(src_world, tag)
         msg = Message(obj, self._from_world(src), t, comm=self)
         if status is not None:
             status._fill(msg.source, msg.tag, obj)
@@ -1303,6 +1583,8 @@ class P2PCommunicator(Communicator):
         if hit is None:
             self._empty_poll_check(source, tag)
             return None
+        if self._verify is not None:
+            self._verify.world.note_progress()
         obj, src, t = hit
         msg = Message(obj, self._from_world(src), t, comm=self)
         if status is not None:
@@ -1318,6 +1600,8 @@ class P2PCommunicator(Communicator):
         if hit is None:
             self._empty_poll_check(source, tag)
             return False
+        if self._verify is not None:
+            self._verify.world.note_progress()
         if status is not None:
             status._fill_envelope(self._from_world(hit[0]), hit[1], hit[2])
         return True
@@ -1357,6 +1641,35 @@ class P2PCommunicator(Communicator):
 
     # -- collectives -------------------------------------------------------
 
+    def _verify_coll(self, coll: str, root: Optional[int] = None,
+                     op: Any = None, payload: Any = None,
+                     algorithm: Optional[str] = None,
+                     counts: Optional[Tuple] = None) -> None:
+        """Collective-matching hook (``verify/collcheck.py``): with the
+        verifier on, circulate this entry's signature on the TAG_VERIFY
+        ring and raise CollectiveMismatchError on divergence BEFORE any
+        collective data moves."""
+        if self._verify is not None and self.size > 1:
+            if getattr(self, "_verify_sig_frozen", False):
+                # persistent collective (nbc.py): the signature was
+                # exchanged once at init, and the argument list is bound
+                return
+            from .verify import collcheck as _vcc
+
+            _vcc.check(self, coll, root=root, op=op, payload=payload,
+                       algorithm=algorithm, counts=counts)
+
+    def _track_request(self, req: Request, kind: str, peer: int,
+                       tag: int) -> Request:
+        """Register a user-level nonblocking request with the verifier
+        (leak / double-wait lints).  Caller checked ``self._verify``."""
+        from .verify.state import user_site
+
+        self._verify.world.track_request(req, kind, self._rank, peer, tag,
+                                         user_site())
+        return req
+
+    @_traced_coll
     def bcast(self, obj: Any, root: int = 0, algorithm: str = "auto") -> Any:
         """MPI_Bcast over the binomial tree (``"tree"``; ``"auto"`` and
         ``"fused"`` alias it).  Large tensors take the SEGMENTED pipelined
@@ -1364,11 +1677,13 @@ class P2PCommunicator(Communicator):
         rank forwards each segment to its children the moment it lands."""
         _mpit.count(collectives=1)
         self._coll_name = "bcast"
-        _resolve_algorithm("bcast", algorithm, ("auto", "tree"),
-                           {"fused": "tree"})
+        algorithm = _resolve_algorithm("bcast", algorithm, ("auto", "tree"),
+                                       {"fused": "tree"})
         self._world(root)  # validate
+        self._verify_coll("bcast", root=root, algorithm=algorithm)
         if self.size == 1:
             return obj
+        _note_alg("tree")
         parent, children = schedules.binomial_tree_links(
             self.size, self._rank, root)
         if self._rank == root:
@@ -1416,16 +1731,21 @@ class P2PCommunicator(Communicator):
             self._send_internal(got, c, _TAG_COLL)
         return got
 
+    @_traced_coll
     def reduce(self, obj: Any, op: _ops.ReduceOp = _ops.SUM, root: int = 0,
                algorithm: str = "auto") -> Any:
         """MPI_Reduce over the binomial tree with in-place folds
         (``"tree"``; ``"auto"`` and ``"fused"`` alias it)."""
         _mpit.count(collectives=1)
         self._coll_name = "reduce"
-        _resolve_algorithm("reduce", algorithm, ("auto", "tree"),
-                           {"fused": "tree"})
+        algorithm = _resolve_algorithm("reduce", algorithm, ("auto", "tree"),
+                                       {"fused": "tree"})
         self._world(root)  # validate
-        acc = _as_tensor(obj, self.device).detach().clone()
+        arr = _as_tensor(obj, self.device)
+        self._verify_coll("reduce", root=root, op=op, payload=arr,
+                          algorithm=algorithm)
+        _note_alg("tree")
+        acc = arr.detach().clone()
         for pairs in schedules.binomial_reduce_rounds(self.size, root):
             for s, d in pairs:
                 if self._rank == s:
@@ -1435,6 +1755,7 @@ class P2PCommunicator(Communicator):
                     op.combine_into(acc, self._recv_internal(s, _TAG_COLL))
         return acc if self._rank == root else None
 
+    @_traced_coll
     def allreduce(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
                   algorithm: str = "auto") -> Any:
         """MPI_Allreduce.  ``algorithm``: ``"ring"`` (reduce-scatter ring +
@@ -1450,8 +1771,11 @@ class P2PCommunicator(Communicator):
             "allreduce", algorithm,
             ("auto", "ring", "recursive_halving", "rabenseifner",
              "reduce_bcast"), {"fused": "auto"}, _COMPRESSED_ALLREDUCE)
+        self._verify_coll("allreduce", op=op, payload=arr,
+                          algorithm=algorithm)
         if algorithm == "auto":
             algorithm = seed_allreduce_algorithm(arr.nbytes, self.size)
+        _note_alg(algorithm)
         if self.size == 1:
             return arr.detach().clone()
         if algorithm == "ring":
@@ -1651,6 +1975,7 @@ class P2PCommunicator(Communicator):
                                (offs[ri], offs[ri + 1]), right, left)
         return work.view(arr.shape)
 
+    @_traced_coll
     def allgather(self, obj: Any, algorithm: str = "auto") -> Any:
         """MPI_Allgather.  ``algorithm``: ``"ring"`` (rotating row views of
         one ``[P, ...]`` buffer), ``"doubling"`` (recursive doubling,
@@ -1664,8 +1989,10 @@ class P2PCommunicator(Communicator):
         algorithm = _resolve_algorithm(
             "allgather", algorithm, ("auto", "ring", "doubling"),
             {"fused": "auto"})
+        self._verify_coll("allgather", algorithm=algorithm)
         if algorithm == "auto":
-            algorithm = "doubling" if schedules.is_pow2(p) else "ring"
+            algorithm = _note_alg("doubling" if schedules.is_pow2(p)
+                                  else "ring")
         items: List[Any] = [None] * p
         items[r] = obj
         if p == 1:
@@ -1736,6 +2063,7 @@ class P2PCommunicator(Communicator):
                 items[i] = v
         return _maybe_stack(obj, items)
 
+    @_traced_coll
     def alltoall(self, objs: Sequence[Any], algorithm: str = "auto") -> Any:
         """MPI_Alltoall by windowed nonblocking pairwise exchange
         (``"pairwise"``; ``"auto"`` and ``"fused"`` alias it): all P-1
@@ -1744,10 +2072,13 @@ class P2PCommunicator(Communicator):
         _mpit.count(collectives=1)
         self._coll_name = "alltoall"
         p, r = self.size, self._rank
-        _resolve_algorithm("alltoall", algorithm, ("auto", "pairwise"),
-                           {"fused": "pairwise"})
+        algorithm = _resolve_algorithm(
+            "alltoall", algorithm, ("auto", "pairwise"),
+            {"fused": "pairwise"})
         if len(objs) != p:
             raise ValueError(f"alltoall needs one payload per rank ({p}), got {len(objs)}")
+        self._verify_coll("alltoall", algorithm=algorithm)
+        _note_alg("pairwise")
         result: List[Any] = [None] * p
         result[r] = objs[r]
         rounds = schedules.alltoall_rounds(p)
@@ -1768,18 +2099,23 @@ class P2PCommunicator(Communicator):
             raise
         return _maybe_stack(objs, result)
 
+    @_traced_coll
     def barrier(self, algorithm: str = "auto") -> None:
         """MPI_Barrier by dissemination, ceil(log2 P) message rounds
         (``"dissemination"``; ``"auto"`` and ``"fused"`` alias it)."""
         _mpit.count(collectives=1)
         self._coll_name = "barrier"
-        _resolve_algorithm("barrier", algorithm, ("auto", "dissemination"),
-                           {"fused": "dissemination"})
+        algorithm = _resolve_algorithm(
+            "barrier", algorithm, ("auto", "dissemination"),
+            {"fused": "dissemination"})
+        self._verify_coll("barrier", algorithm=algorithm)
+        _note_alg("dissemination")
         p, r = self.size, self._rank
         for off in schedules.dissemination_offsets(p):
             self._send_internal(None, (r + off) % p, _TAG_BARRIER)
             self._recv_internal((r - off) % p, _TAG_BARRIER)
 
+    @_traced_coll
     def scan(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
              algorithm: str = "auto") -> Any:
         """MPI_Scan by Hillis-Steele distance doubling, log2(P) rounds
@@ -1787,8 +2123,10 @@ class P2PCommunicator(Communicator):
         _mpit.count(collectives=1)
         self._coll_name = "scan"
         arr = _as_tensor(obj, self.device)
-        _resolve_algorithm("scan", algorithm, ("auto", "doubling"),
-                           {"fused": "doubling"})
+        algorithm = _resolve_algorithm("scan", algorithm, ("auto", "doubling"),
+                                       {"fused": "doubling"})
+        self._verify_coll("scan", op=op, payload=arr, algorithm=algorithm)
+        _note_alg("doubling")
         acc = arr.detach().clone()
         p, r = self.size, self._rank
         d = 1
@@ -1832,6 +2170,7 @@ class P2PCommunicator(Communicator):
             return None
         return torch.stack(ts)
 
+    @_traced_coll
     def reduce_scatter(self, blocks: Any, op: _ops.ReduceOp = _ops.SUM,
                        algorithm: str = "auto") -> Any:
         """MPI_Reduce_scatter_block: ``blocks`` holds one block per rank;
@@ -1842,11 +2181,18 @@ class P2PCommunicator(Communicator):
         _mpit.count(collectives=1)
         self._coll_name = "reduce_scatter"
         p, r = self.size, self._rank
-        _resolve_algorithm("reduce_scatter", algorithm, ("auto", "ring"),
-                           {"fused": "ring"}, _COMPRESSED_REDUCE_SCATTER)
+        algorithm = _resolve_algorithm(
+            "reduce_scatter", algorithm, ("auto", "ring"), {"fused": "ring"},
+            _COMPRESSED_REDUCE_SCATTER)
         if len(blocks) != p:
             raise ValueError(
                 f"reduce_scatter needs one block per rank ({p}), got {len(blocks)}")
+        # geometry class of block 0 plus the block count: mismatched
+        # reduce geometry is flagged before the ring can misfold
+        self._verify_coll("reduce_scatter", op=op,
+                          payload=_as_tensor(blocks[0], self.device),
+                          algorithm=algorithm, counts=(p,))
+        _note_alg("ring")
         # size-gate BEFORE stacking: for list payloads eligibility stacks
         # the blocks, a copy the per-chunk path would throw away
         nbytes = self._blocks_nbytes(blocks)
@@ -1893,12 +2239,14 @@ class P2PCommunicator(Communicator):
                 chunks[ri] = torch.as_tensor(op.combine(mine, recvd))
         return chunks[r]
 
+    @_traced_coll
     def scatter(self, objs: Optional[Sequence[Any]], root: int = 0) -> Any:
         """MPI_Scatter: rank d receives ``objs[d]`` from ``root``; the
         root's fan-out is nonblocking (every payload enqueued first)."""
         _mpit.count(collectives=1)
         self._coll_name = "scatter"
         self._world(root)  # validate
+        self._verify_coll("scatter", root=root)
         if self._rank == root:
             if objs is None or len(objs) != self.size:
                 raise ValueError(f"scatter root needs one payload per rank ({self.size})")
@@ -1908,12 +2256,14 @@ class P2PCommunicator(Communicator):
             return objs[root]
         return self._recv_internal(root, _TAG_COLL)
 
+    @_traced_coll
     def gather(self, obj: Any, root: int = 0) -> Optional[List[Any]]:
         """MPI_Gather: root returns ``[payload_0, ..., payload_{P-1}]``,
         every receive posted up front (nonblocking fan-in)."""
         _mpit.count(collectives=1)
         self._coll_name = "gather"
         self._world(root)  # validate
+        self._verify_coll("gather", root=root)
         if self._rank == root:
             items: List[Any] = [None] * self.size
             items[root] = obj
@@ -2088,6 +2438,13 @@ class P2PCommunicator(Communicator):
         # SHARE the parent's fault-tolerance state: revoking the parent
         # must unblock its collectives in flight
         c._ft = self._ft
+        if self._verify is not None:
+            # fresh per-comm sequence (the clone's ctx isolates its
+            # TAG_VERIFY traffic); single-use machinery, so not in the
+            # unfreed-comm registry
+            from .verify.state import CommVerify
+
+            c._verify = CommVerify(self._verify.world)
         return c
 
     def _nbc_issue(self, kind: str, fn, *args: Any, **kwargs: Any) -> Request:
@@ -2096,16 +2453,23 @@ class P2PCommunicator(Communicator):
         (``nbc.py``), else the blocking algorithm ``fn(clone)`` on a
         thread.  Eligibility depends only on group-congruent facts (the
         world's engine and mode, the kind, root and reduction geometry),
-        so every rank takes the same path."""
+        so every rank takes the same path.  Verified worlds keep the
+        thread: the per-call signature exchange is a blocking ring the
+        state machine skips (persistent collectives hoist it to init)."""
         from . import nbc as _nbc
 
         with _on_default_stream(self.device):
-            if self._progress is not None and _nbc.mode() == "auto":
+            if (self._progress is not None and self._verify is None
+                    and _nbc.mode() == "auto"):
                 req = _nbc.try_state_machine(self, kind, *args, **kwargs)
                 if req is not None:
                     return req
             c = self._nbc_comm()
-            return _ThreadRequest(lambda: fn(c), self.device)
+            req = _ThreadRequest(lambda: fn(c), self.device)
+            if self._verify is not None:
+                self._track_request(req, kind, kwargs.get("root", -1),
+                                    _TAG_COLL)
+            return req
 
     def ibcast(self, obj: Any, root: int = 0) -> Request:
         return self._nbc_issue("ibcast", lambda c: c.bcast(obj, root),
@@ -2188,14 +2552,16 @@ class P2PCommunicator(Communicator):
         members = sorted(
             (k, cr) for cr, (c, k) in enumerate(infos) if c == color)
         group = [self._group[cr] for _, cr in members]
-        return self._inherit_errhandler(self._inherit_ft(P2PCommunicator(
-            self._t, group, ctx, recv_timeout=self.recv_timeout)))
+        return self._inherit_errhandler(self._inherit_ft(self._inherit_verify(
+            P2PCommunicator(self._t, group, ctx,
+                            recv_timeout=self.recv_timeout), "split")))
 
     def dup(self) -> "P2PCommunicator":
         self.barrier()  # collectiveness check + sync, like MPI_Comm_dup
         ctx = self._alloc_context()
-        return self._copy_attrs_to(self._inherit_ft(P2PCommunicator(
-            self._t, self._group, ctx, recv_timeout=self.recv_timeout)))
+        return self._copy_attrs_to(self._inherit_ft(self._inherit_verify(
+            P2PCommunicator(self._t, self._group, ctx,
+                            recv_timeout=self.recv_timeout), "dup")))
 
     def _inherit_ft(self, new: "P2PCommunicator") -> "P2PCommunicator":
         """A split/dup child of a fault-tolerant communicator is fault
@@ -2205,6 +2571,28 @@ class P2PCommunicator(Communicator):
 
             new._ft = _ftm.CommFT(self._ft.world, new._ctx)
         return new
+
+    def _inherit_verify(self, new: "P2PCommunicator",
+                        how: str) -> "P2PCommunicator":
+        """A split/dup/create child of a verified communicator is verified
+        too (same world board, fresh collective sequence) and joins the
+        unfreed-communicator registry: ``free()`` checks it out, the
+        finalize report lists the leftovers."""
+        if self._verify is not None:
+            from .verify.state import CommVerify, user_site
+
+            cv = CommVerify(self._verify.world)
+            cv.comm_key = self._verify.world.track_comm(new, how,
+                                                        user_site())
+            new._verify = cv
+        return new
+
+    def free(self) -> None:
+        """Sub-communicators share the world transport: nothing to
+        release, apart from the verifier's unfreed-comm checkout."""
+        if self._verify is not None and self._verify.comm_key is not None:
+            self._verify.world.free_comm(self._verify.comm_key)
+            self._verify.comm_key = None
 
     def close_transport(self) -> List[Tuple[int, Any, int]]:
         """Finalize-time shutdown: stops the detector and the progress

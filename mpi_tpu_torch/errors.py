@@ -8,7 +8,10 @@ through a communicator's error handler (``ERRORS_ARE_FATAL`` propagates,
 ``ERRORS_RETURN`` returns an :class:`ErrorCode`, a callable is called).
 The fault-tolerance layer (``ft.py``, ``membership.py``) raises
 ``ProcFailedError`` (:93), ``RevokedError`` (:120), ``EpochSkewError``
-(:127) and ``RejoinRefusedError`` (:145).
+(:127) and ``RejoinRefusedError`` (:145); the runtime verifier
+(``verify/``) ``DeadlockError`` (:188), ``CollectiveMismatchError`` (:204)
+and, at the persistent collectives' double-buffer fence,
+``BufferPinnedError`` (:178).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ __all__ = [
     "ERRORS_ARE_FATAL", "ERRORS_RETURN", "ErrorCode",
     "ProcFailedError", "RevokedError",
     "EpochSkewError", "RejoinRefusedError",
+    "BufferPinnedError", "DeadlockError", "CollectiveMismatchError",
     "error_class", "error_string", "invoke_handler",
 ]
 
@@ -139,6 +143,41 @@ class RejoinRefusedError(RuntimeError):
     protocol exists to prevent."""
 
 
+class BufferPinnedError(RuntimeError):
+    """Persistent-collective double-buffer fence (``nbc.py``, with the
+    runtime verifier on): ``start()`` of round k would overwrite the
+    working buffer that still backs round k-2's result while the caller
+    still holds that result (or a view of it).  Clone the result before
+    holding it across two later ``start()``s."""
+
+
+class DeadlockError(RuntimeError):
+    """The runtime verifier proved a wait-for cycle or knot: every rank in
+    ``ranks`` is blocked and none of their pending operations can be
+    satisfied by a rank outside the blocked set.  Raised instead of
+    hanging, on every deadlocked rank; ``table`` maps each world rank to
+    its published pending-op entry."""
+
+    def __init__(self, msg: str, ranks=(), table: Optional[dict] = None):
+        super().__init__(msg)
+        self.ranks = tuple(ranks)
+        self.table = dict(table or {})
+
+
+class CollectiveMismatchError(RuntimeError):
+    """The verifier's collective-matching check failed: two ranks of one
+    communicator entered collectives with divergent signatures (order,
+    root, reduce op, payload geometry or vector counts).  Carries both
+    ranks, both signatures and both call sites; raised on every rank of
+    the communicator before any collective data moves."""
+
+    def __init__(self, msg: str, ranks=(), signatures=(), sites=()):
+        super().__init__(msg)
+        self.ranks = tuple(ranks)
+        self.signatures = tuple(signatures)
+        self.sites = tuple(sites)
+
+
 class _FatalHandler:
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return "ERRORS_ARE_FATAL"
@@ -208,6 +247,12 @@ def error_class(exc: Any) -> int:
         return MPI_ERR_PROC_FAILED
     if isinstance(exc, RevokedError):
         return MPI_ERR_REVOKED
+    if isinstance(exc, DeadlockError):
+        return MPI_ERR_PENDING  # operations pending forever: the closest class
+    if isinstance(exc, CollectiveMismatchError):
+        return MPI_ERR_OTHER
+    if isinstance(exc, BufferPinnedError):
+        return MPI_ERR_BUFFER
     from .transport.base import RecvTimeout  # local import: no cycle at load
 
     if isinstance(exc, RecvTimeout):

@@ -154,23 +154,23 @@ def joiner_main(args) -> int:
 
     _configure(args)
     t = time.monotonic()
-    comm = membership.rejoin(timeout=args.timeout)
-    rec = {"rank": comm.rank, "device": str(comm.device),
+    world = membership.rejoin(timeout=args.timeout)
+    rec = {"rank": world.rank, "device": str(world.device),
            "rejoin_wait_s": time.monotonic() - t,
-           "epoch": comm.membership_epoch}
-    if (comm.rank, comm.membership_epoch) != (DEAD, 1):
-        raise RuntimeError(f"joiner took slot {comm.rank} at epoch "
-                           f"{comm.membership_epoch}")
+           "epoch": world.membership_epoch}
+    if (world.rank, world.membership_epoch) != (DEAD, 1):
+        raise RuntimeError(f"joiner took slot {world.rank} at epoch "
+                           f"{world.membership_epoch}")
     numel = (args.mib << 20) // 4
-    x = rank_input(comm.rank, numel, args.seed, comm.device)
-    out, rec["full_allreduce_s"] = _timed_allreduce(comm, x)
-    rec["full_err_vs_f64"] = check_allreduce(comm, out, numel, args.seed,
-                                             range(comm.size))
+    x = rank_input(world.rank, numel, args.seed, world.device)
+    out, rec["full_allreduce_s"] = _timed_allreduce(world, x)
+    rec["full_err_vs_f64"] = check_allreduce(world, out, numel, args.seed,
+                                             range(world.size))
     rec["rejoins_completed"] = mpit.pvar_read("rejoins_completed")
     _write(args, "joiner.json", rec)
-    comm.barrier()
-    _sync(comm.device)
-    comm.close_transport()
+    world.barrier()
+    _sync(world.device)
+    world.close_transport()
     return 0
 
 

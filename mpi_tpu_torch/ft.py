@@ -32,7 +32,9 @@ stalled past the bound) can split the group, the tradeoff every
 timeout-based detector has.
 
 The detector and the agreement move only control data (stamps, small
-tuples); no tensor is touched, so nothing here runs on the card.
+tuples); no tensor is touched, so nothing here runs on the card.  With
+the flight recorder on, each first suspicion is an ``ft suspect`` event
+naming the rank and why (:203).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from . import mpit as _mpit
+from . import telemetry as _telemetry
 from .errors import RevokedError
 from .transport.base import ANY_SOURCE, RecvTimeout, TransportError
 
@@ -165,6 +168,11 @@ class WorldFT:
                 return
             self.failed.add(world_rank)
         _mpit.count(proc_failed=1)
+        rec = _telemetry.REC
+        if rec is not None:
+            # WHEN did this rank first suspect whom, and why
+            rec.emit("ft", "suspect",
+                     attrs={"rank": world_rank, "why": why[:120]})
 
     def link_suspect(self, peer: int) -> bool:
         """PEER-fault verdict for the socket link layer: True when ``peer``

@@ -14,14 +14,20 @@ counterpart of the reference's CPU pin of its ranks' JAX.
 
 ``--progress thread`` starts a progress engine in every rank
 (``MPI_TPU_PROGRESS``); ``MPI_TPU_FT=1`` in the launcher's environment
-enables fault tolerance in every rank (``ft.py``).  ``--verify`` (the
-runtime verifier) is not ported yet (ROADMAP item 16.2b).
+enables fault tolerance in every rank (``ft.py``); ``--verify`` the
+runtime verifier (``MPI_TPU_VERIFY=1``, :212) and ``--trace-dir DIR`` the
+flight recorder, each rank exporting its Chrome trace into DIR at exit
+(``MPI_TPU_TRACE`` / ``MPI_TPU_TRACE_DIR``, :235).  The tuned-dispatch
+table (``--tuning-table``) is ROADMAP item 16.3b and the resident world
+server (``launcher serve``) 16.3c; both raise.
 
 Usage::
 
     python -m mpi_tpu_torch.launcher -n 4 prog.py [script args...]
     python -m mpi_tpu_torch.launcher -n 4 --device cpu prog.py
     MPI_TPU_FT=1 python -m mpi_tpu_torch.launcher -n 4 --progress thread prog.py
+    python -m mpi_tpu_torch.launcher -n 4 --verify --trace-dir traces prog.py
+    python -m mpi_tpu_torch.tools.tracecat traces -o merged.json
 """
 
 from __future__ import annotations
@@ -159,6 +165,10 @@ def _exit_summary(procs: List[subprocess.Popen]) -> str:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["serve"]:
+        raise NotImplementedError(
+            "launcher serve (the resident world server) is not ported yet: "
+            "ROADMAP.md item 16.3c")
     parser = argparse.ArgumentParser(
         prog="mpi_tpu_torch.launcher",
         description="mpirun-alike launcher for mpi_tpu_torch")
@@ -179,19 +189,35 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="progress mode of every rank (MPI_TPU_PROGRESS): "
                              "'thread' starts one progress engine per rank")
     parser.add_argument("--verify", action="store_true",
-                        help="the runtime verifier (not ported yet: ROADMAP "
-                             "item 16.2b)")
+                        help="enable the runtime correctness verifier "
+                             "(MPI_TPU_VERIFY=1 on every rank): deadlock "
+                             "detection, collective-matching signatures, "
+                             "request and buffer lints")
+    parser.add_argument("--trace-dir", default=None, metavar="DIR",
+                        help="enable the flight recorder on every rank "
+                             "(MPI_TPU_TRACE=1) and export one Chrome-trace "
+                             "JSON per rank into DIR at exit; merge them "
+                             "with python -m mpi_tpu_torch.tools.tracecat "
+                             "DIR -o merged.json")
+    parser.add_argument("--tuning-table", default=None, metavar="PATH",
+                        help="tuned-dispatch table (not ported yet: ROADMAP "
+                             "item 16.3b)")
     parser.add_argument("script", help="python script to run on every rank")
     parser.add_argument("script_args", nargs=argparse.REMAINDER,
                         help="arguments passed to the script")
     args = parser.parse_args(argv)
-    if args.verify:
+    if args.tuning_table is not None:
         raise NotImplementedError(
-            "launcher --verify (the runtime verifier) is not ported yet: "
-            "ROADMAP.md item 16.2b")
+            "launcher --tuning-table (tuned dispatch) is not ported yet: "
+            "ROADMAP.md item 16.3b")
     env_extra = {}
+    if args.verify:
+        env_extra["MPI_TPU_VERIFY"] = "1"
     if args.progress is not None:
         env_extra["MPI_TPU_PROGRESS"] = args.progress
+    if args.trace_dir is not None:
+        env_extra["MPI_TPU_TRACE"] = "1"
+        env_extra["MPI_TPU_TRACE_DIR"] = os.path.abspath(args.trace_dir)
     return launch(args.nranks, [args.script, *args.script_args],
                   timeout=args.timeout, backend=args.backend,
                   restarts=args.restarts, device=args.device,

@@ -6,7 +6,10 @@ the shm transport is ROADMAP item 16.4), ``survivor_transition`` (:362),
 ``rejoin_transport`` (:398), ``rejoin`` (:472) and ``accept_rejoin``
 (:510); the rendezvous directory (``new_rendezvous_dir`` :569, port
 publication, ``cleanup_rendezvous`` :575) the launcher and the socket
-bootstrap use.
+bootstrap use.  A verified world stays verified across a rejoin: the
+joiner enables the verifier under ``MPI_TPU_VERIFY`` and the survivors'
+full-world communicator shares their verifier world (:498-553); the
+flight recorder logs each transition as an ``epoch_bump`` (:382).
 
 Membership changes are EPOCH transitions.  Every world carries a
 monotone epoch (``Transport.epoch``, ``comm.membership_epoch``): 0 at
@@ -51,6 +54,7 @@ import uuid
 from typing import Dict, Optional, Sequence, Tuple
 
 from . import mpit as _mpit
+from . import telemetry as _telemetry
 from .errors import EpochSkewError, RejoinRefusedError  # noqa: F401 (re-export)
 from .transport.base import Transport, TransportError
 
@@ -315,11 +319,20 @@ def wait_ready(rdv_dir: str, epoch: int, slots: Dict[int, dict],
 def make_transport(backend: str, rank: int, size: int, rdv_dir: str,
                    epoch: int = 0, device=None) -> Transport:
     """A process-world transport for ``rank`` with fresh endpoints stamped
-    at ``epoch`` (shared by the launcher's init path and rejoin)."""
+    at ``epoch`` (shared by the launcher's init path and rejoin).  Under
+    ``MPI_TPU_VERIFY`` its vector clock exists before its readers start: a
+    peer that enabled the verifier first may already be sending stamped
+    frames."""
     if backend == "socket":
         from .transport.socket import SocketTransport
 
-        return SocketTransport(rank, size, rdv_dir, device=device, epoch=epoch)
+        vc = None
+        if os.environ.get("MPI_TPU_VERIFY", "") not in ("", "0"):
+            from .verify.vclock import VClock
+
+            vc = VClock(rank, size)
+        return SocketTransport(rank, size, rdv_dir, device=device, epoch=epoch,
+                               verify_clock=vc)
     if backend == "shm":
         raise NotImplementedError(
             "backend 'shm' (the shared-memory ring transport) is not ported "
@@ -335,6 +348,10 @@ def survivor_transition(transport: Transport, epoch: int,
     connections and link state to them (``membership_invalidate``).  The
     socket link's resume heals faults WITHIN one epoch; across the
     boundary a replaced slot's rejoiner starts fresh streams."""
+    rec = _telemetry.REC
+    if rec is not None:
+        rec.emit("ft", "epoch_bump",
+                 attrs={"epoch": int(epoch), "dead": list(map(int, dead))})
     transport.epoch = max(transport.epoch, int(epoch))
     for d in dead:
         transport.min_peer_epoch[int(d)] = int(epoch)
@@ -437,6 +454,10 @@ def rejoin(rdv_dir: Optional[str] = None, slot: Optional[int] = None,
     comm = P2PCommunicator(t, range(t.world_size), ("epoch", e),
                            recv_timeout=recv_timeout)._mark_generation()
     _ft.enable(comm, rdv_dir=rdv_dir)  # a fresh heartbeat over the corpse's
+    if os.environ.get("MPI_TPU_VERIFY", "") not in ("", "0"):
+        from . import verify as _verify
+
+        _verify.enable(comm, rdv_dir=rdv_dir)
     if _progress.resolve_mode() == "thread":
         _progress.enable(comm)
     # stop the helper threads and close the transport before the
@@ -489,6 +510,10 @@ def accept_rejoin(comm, timeout: Optional[float] = None):
     new = P2PCommunicator(t, full, ("epoch", epoch),
                           recv_timeout=comm.recv_timeout)._mark_generation()
     new._ft = _ftm.CommFT(ft.world, ("epoch", epoch))
+    if comm._verify is not None:
+        from .verify.state import CommVerify
+
+        new._verify = CommVerify(comm._verify.world)
     new = comm._inherit_errhandler(new)
     new.barrier()  # meets every joiner's rejoin() barrier
     _mpit.count(rejoins=1)

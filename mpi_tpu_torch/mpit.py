@@ -10,25 +10,33 @@
   ``proc_failures_detected``, ``revokes_delivered``,
   ``shrinks_completed``, ``rejoins_completed``, ``epoch_skews_detected``,
   ``faulty_dropped`` / ``faulty_duplicated``, ``progress_*``,
-  ``nbc_threads_spawned``, ``nbc_state_machines``, ``persistent_starts``).
+  ``nbc_threads_spawned``, ``nbc_state_machines``, ``persistent_starts``;
+  the runtime verifier's ``verify_*`` (:133-218, :274-300) and the
+  flight recorder's ``trace_events`` (:380)).
+* Histogram pvars (:451-600): log-bucketed distributions,
+  ``hist_record``, ``pvar_hist_list`` / ``pvar_hist_read`` /
+  ``pvar_hist_reset``, ``hist_quantile``, ``hist_cumulative``, pre-seeded
+  with ``coll_latency_s``, ``lease_acquire_s`` and ``link_heal_s``.
 * Control variables (cvars): ``cvar_read`` / ``cvar_write`` (:602-611)
   over the knobs the host layer reads — ``collective_segment_bytes``,
   the two allreduce crossovers, ``recv_steering``, and (:700-1000)
   ``progress``, ``nbc_mode``, ``nbc_fold_workers``, ``nbc_sm_max_bytes``,
   ``fault_detect_timeout_s``, ``fault_heartbeat_interval_s``,
-  ``epoch_grace_s`` and ``link_keepalive_s``, with the reference's
-  defaults and validation.
-
-Sessions and histogram pvars are not ported yet (ROADMAP item 16.3).
+  ``epoch_grace_s``, ``link_keepalive_s`` and ``verify_stall_timeout_s``
+  (:720, :804), with the reference's defaults and validation.
+* Sessions (:1056-1077): ``Session`` / ``session_create``, pvar reads
+  relative to the session's resets.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = ["count", "pvar_list", "pvar_read", "pvar_reset", "cvar_list",
-           "cvar_read", "cvar_write"]
+           "cvar_read", "cvar_write", "hist_record", "pvar_hist_list",
+           "pvar_hist_read", "pvar_hist_reset", "hist_quantile",
+           "hist_cumulative", "Session", "session_create"]
 
 _lock = threading.Lock()
 
@@ -68,6 +76,15 @@ _PVAR_OF = {
     "nbc_threads_spawned": "nbc_threads_spawned",
     "nbc_state_machines": "nbc_state_machines",
     "persistent_starts": "persistent_starts",
+    "verify_deadlocks": "verify_deadlocks_detected",
+    "verify_mismatches": "verify_collective_mismatches",
+    "verify_requests_leaked": "verify_requests_leaked",
+    "verify_double_waits": "verify_double_waits",
+    "verify_buffer_overlaps": "verify_buffer_overlaps",
+    "verify_comms_unfreed": "verify_comms_unfreed",
+    "verify_wildcard_races": "verify_wildcard_races",
+    "verify_clock_bytes": "verify_clock_bytes",
+    "trace_events": "trace_events",
 }
 
 _counters: Dict[str, int] = {name: 0 for name in _PVAR_OF.values()}
@@ -101,6 +118,126 @@ def pvar_reset(name: str) -> int:
     return pvar_read(name)
 
 
+# -- histogram pvars ---------------------------------------------------------
+#
+# Log-bucketed (base-2) histograms: bucket k holds values in
+# [2^(k-1), 2^k) nanoseconds, 64 buckets, O(1) record cost.  Quantiles are
+# the geometric midpoint 2^(k-0.5) of the bucket the rank falls in,
+# clamped to the observed min/max (at most ~41% relative error).
+# Recording sites: every traced collective (coll_latency_s, gated on the
+# flight recorder) and every socket link heal (link_heal_s, always on);
+# lease_acquire_s is the reference's serve lease grant (ROADMAP 16.3c) and
+# stays empty here.
+
+_HIST_BUCKETS = 64
+
+
+class _Hist:
+    __slots__ = ("counts", "n", "total_ns", "min_ns", "max_ns")
+
+    def __init__(self) -> None:
+        self.counts = [0] * _HIST_BUCKETS
+        self.n = 0
+        self.total_ns = 0
+        self.min_ns: Optional[int] = None
+        self.max_ns = 0
+
+    def add(self, ns: int) -> None:
+        self.counts[min(_HIST_BUCKETS - 1, ns.bit_length())] += 1
+        self.n += 1
+        self.total_ns += ns
+        if self.min_ns is None or ns < self.min_ns:
+            self.min_ns = ns
+        if ns > self.max_ns:
+            self.max_ns = ns
+
+
+# pre-seeded so pvar_hist_list() is stable before any event fires
+_HISTS: Dict[str, _Hist] = {
+    "coll_latency_s": _Hist(),
+    "lease_acquire_s": _Hist(),
+    "link_heal_s": _Hist(),
+}
+
+
+def hist_record(name: str, seconds: float) -> None:
+    """Record one sample (seconds; negative clamps to 0) into the named
+    histogram, creating it on first use."""
+    ns = max(0, int(seconds * 1e9))
+    with _lock:
+        h = _HISTS.get(name)
+        if h is None:
+            h = _HISTS[name] = _Hist()
+        h.add(ns)
+
+
+def pvar_hist_list() -> List[str]:
+    with _lock:
+        return sorted(_HISTS)
+
+
+def _hist(name: str) -> _Hist:
+    h = _HISTS.get(name)
+    if h is None:
+        raise KeyError(f"unknown histogram pvar {name!r}; have "
+                       f"{sorted(_HISTS)}")
+    return h
+
+
+def pvar_hist_read(name: str) -> Dict[str, Any]:
+    """Snapshot of a histogram pvar: count/sum/min/max plus the non-empty
+    buckets as ``{upper_bound_seconds: count}``."""
+    with _lock:
+        h = _hist(name)
+        return {
+            "count": h.n,
+            "sum_s": h.total_ns / 1e9,
+            "min_s": (h.min_ns or 0) / 1e9,
+            "max_s": h.max_ns / 1e9,
+            "buckets": {(1 << k) / 1e9: c
+                        for k, c in enumerate(h.counts) if c},
+        }
+
+
+def pvar_hist_reset(name: str) -> None:
+    with _lock:
+        if name in _HISTS:
+            _HISTS[name] = _Hist()
+
+
+def hist_cumulative(name: str) -> List[Tuple[float, int]]:
+    """Cumulative (upper_bound_seconds, count<=bound) pairs over the
+    non-empty prefix (the Prometheus ``le`` series)."""
+    with _lock:
+        h = _hist(name)
+        out: List[Tuple[float, int]] = []
+        cum = 0
+        top = max((k for k, c in enumerate(h.counts) if c), default=-1)
+        for k in range(top + 1):
+            cum += h.counts[k]
+            out.append(((1 << k) / 1e9, cum))
+        return out
+
+
+def hist_quantile(name: str, q: float) -> Optional[float]:
+    """Estimated q-quantile (seconds), or None for an empty histogram."""
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"quantile must be in [0, 1], got {q}")
+    with _lock:
+        h = _hist(name)
+        if h.n == 0:
+            return None
+        target = q * h.n
+        cum = 0
+        for k, c in enumerate(h.counts):
+            cum += c
+            if cum >= target and c:
+                est = 2.0 ** (k - 0.5)
+                return min(max(est, float(h.min_ns or 0)),
+                           float(h.max_ns)) / 1e9
+        return h.max_ns / 1e9  # pragma: no cover - cum == n at the top
+
+
 # -- control variables -------------------------------------------------------
 
 _CVARS: Dict[str, Tuple[Callable[[], Any], Callable[[Any], None], str]] = {}
@@ -118,6 +255,7 @@ def _builtin_cvars() -> None:
     from . import recvpool as _recvpool
     from . import resilience as _resilience
     from .transport import socket as _socket
+    from .verify import state as _vstate
 
     def _set_nonneg(attr: str, what: str):
         def write(v):
@@ -164,6 +302,11 @@ def _builtin_cvars() -> None:
         if int(v) < 0:
             raise ValueError("nbc_sm_max_bytes must be >= 0 (0 = no cap)")
         _nbc._SM_MAX_BYTES = int(v)
+
+    def _set_verify_stall(v):
+        if float(v) <= 0:
+            raise ValueError("verify_stall_timeout_s must be > 0")
+        _vstate._STALL_TIMEOUT_S = float(v)
 
     _CVARS.update({
         "collective_segment_bytes": (
@@ -236,6 +379,13 @@ def _builtin_cvars() -> None:
             "idle socket links that sent nothing for this long are probed "
             "with a header-only ack frame, so a link torn while idle heals "
             "before the next send; 0 disables probing"),
+        "verify_stall_timeout_s": (
+            lambda: _vstate._STALL_TIMEOUT_S, _set_verify_stall,
+            "runtime-verifier stall bound: a verified blocking wait stuck "
+            "this long publishes its pending op out of band and runs the "
+            "wait-for deadlock analysis; a proven cross-rank cycle or knot "
+            "raises DeadlockError naming every rank, its pending op and "
+            "its call site.  Read at verify.enable()"),
     })
 
 
@@ -262,3 +412,27 @@ def cvar_write(name: str, value: Any) -> None:
         raise KeyError(f"unknown cvar {name!r}; have "
                        f"{sorted(_CVARS)}") from None
     writer(value)
+
+
+# -- sessions ----------------------------------------------------------------
+
+class Session:
+    """MPI_T session: pvar reads are relative to the session's resets."""
+
+    def __init__(self) -> None:
+        self._base: Dict[str, int] = {}
+
+    def read(self, name: str) -> int:
+        return pvar_read(name) - self._base.get(name, 0)
+
+    def reset(self, name: str) -> None:
+        self._base[name] = pvar_read(name)
+
+    def reset_all(self) -> None:
+        for name in pvar_list():
+            self.reset(name)
+
+
+def session_create() -> Session:
+    """MPI_T_pvar_session_create."""
+    return Session()

@@ -4,7 +4,9 @@ compiled schedule: the port's own copy of ``mpi_tpu/nbc.py``
 (``FoldPool`` :157, ``pool_for`` :190, ``_SMColl`` :203,
 ``_resolve_allreduce_algorithm`` :520, ``_allreduce_steps`` :545,
 ``_build`` :557, ``_launch`` :767, ``try_state_machine`` :782,
-``PersistentColl`` :801, ``persistent_init`` :1061).
+``PersistentColl`` :801, ``persistent_init`` :1061), with the flight
+recorder's ``sm`` events (:260-430) and the runtime verifier's frozen
+signature and double-buffer fence (:842-990).
 
 With the progress engine attached (``progress="thread"``), a nonblocking
 collective compiles into a per-rank step plan — ``[(sends, recvs), ...]``
@@ -41,17 +43,23 @@ runs on one thread on the same hoisted context.
 
 Tensors: the working buffers live on the payload's device and every fold
 is an in-place torch op there.  The fold pool's workers bind the world's
-device before their first launch and work on its default stream.  The
-flight recorder's events (the reference's ``_telemetry.REC``) come with
-ROADMAP item 16.3, the runtime verifier's hooks with 16.2b.
+device before their first launch and work on its default stream.
+
+With the runtime verifier on, a persistent collective exchanges its
+signature once at init and freezes the per-round check, and the
+double-buffer contract is FENCED: a ``start()`` that would overwrite a
+round result the caller still holds (the tensor itself or any view of
+it, on the card as on the CPU) raises ``BufferPinnedError``.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -59,12 +67,13 @@ import torch
 from . import mpit as _mpit
 from . import ops as _ops
 from . import schedules
+from . import telemetry as _telemetry
 from .communicator import (P2PCommunicator, Request, _CompletedRequest,
                            _FT_POLL_S, _SEG_WINDOW, _TAG_COLL, _ThreadRequest,
                            _as_tensor, _caller_waits, _flat_copy, _maybe_stack,
                            _on_default_stream, _unpost, seed_allreduce_algorithm)
 from . import bufpool as _bufpool
-from .errors import ProcFailedError
+from .errors import BufferPinnedError, ProcFailedError
 from .transport.base import (ANY_SOURCE, RecvTimeout, bind_thread_device,
                              payload_nbytes)
 
@@ -184,7 +193,9 @@ class _SMColl(Request):
                  "_send_ahead", "_work", "_svals", "_rvals", "_op",
                  "_finish", "_actions", "_srem", "_ai", "_rdt", "_nss",
                  "_done", "_error", "_result", "_lock", "_qlock",
-                 "_queued", "_pool")
+                 "_queued", "_pool", "_t0")
+
+    _tag = _TAG_COLL
 
     def __init__(self, parent: P2PCommunicator, child: P2PCommunicator,
                  kind: str, plan_mode: str, steps: Tuple, send_ahead: int,
@@ -217,6 +228,8 @@ class _SMColl(Request):
         self._qlock = threading.Lock()
         self._queued = False
         self._pool = pool_for(child._t)
+        # flight-recorder span anchor (0 = tracing off at issue time)
+        self._t0 = time.perf_counter_ns() if _telemetry.REC is not None else 0
         child._coll_name = kind  # ProcFailedError diagnoses name the call
 
     def _arm(self) -> "_SMColl":
@@ -239,6 +252,11 @@ class _SMColl(Request):
                         reg.attach(req._steer_token, dest)
                     req._on_complete = self._kick
                     self._actions.append((req, step_i, spec, dest))
+        rec = _telemetry.REC
+        if rec is not None:
+            rec.emit("sm", "arm",
+                     attrs={"kind": self.kind, "steps": len(self._steps),
+                            "recvs": len(self._actions)})
         if self._first_window_bytes() <= _INLINE_FIRE_MAX:
             self._pump()
         else:
@@ -275,10 +293,16 @@ class _SMColl(Request):
                 self._error = e
                 _unpost([r for r, _, _, _ in self._actions[self._ai:]
                          if r is not None and not r._done])
+                rec = _telemetry.REC
+                if rec is not None:
+                    rec.emit("sm", "fail",
+                             attrs={"kind": self.kind,
+                                    "error": type(e).__name__})
                 self._notify()
 
     def _advance_locked(self) -> None:
         n = len(self._steps)
+        rdt0, nss0 = self._rdt, self._nss
         progressed = True
         while progressed:
             progressed = False
@@ -298,9 +322,21 @@ class _SMColl(Request):
                     self._emit(spec)
                 self._nss += 1
                 progressed = True
+        rec = _telemetry.REC
+        if rec is not None and (self._rdt, self._nss) != (rdt0, nss0):
+            # one step event per pump that moved the machine (the
+            # recv-done-through and next-send-step watermarks)
+            rec.emit("sm", "step",
+                     attrs={"kind": self.kind, "rdt": self._rdt,
+                            "nss": self._nss, "of": n})
         if self._rdt == n and self._nss == n and not self._done:
             self._result = self._finish(self)
             self._done = True
+            if rec is not None:
+                rec.emit("sm", "done",
+                         dur_ns=(time.perf_counter_ns() - self._t0
+                                 if self._t0 else 0),
+                         attrs={"kind": self.kind, "steps": n})
             self._notify()
 
     def _apply(self, spec: Tuple, got: Any, dest=None) -> None:
@@ -346,6 +382,10 @@ class _SMColl(Request):
             self._error = err
             _unpost([r for r, _, _, _ in self._actions[self._ai:]
                      if not r._done])
+        rec = _telemetry.REC
+        if rec is not None:
+            rec.emit("sm", "fail",
+                     attrs={"kind": self.kind, "error": type(err).__name__})
         self._notify()
 
     def _pending_world_srcs(self) -> Tuple[int, ...]:
@@ -386,8 +426,10 @@ class _SMColl(Request):
             if not self._done and self._error is None:
                 self._drive()
             if self._error is not None:
+                self._vnote(True)
                 raise self._error
             if self._done:
+                self._vnote(True)
                 return self._finished()
             if ft is not None:
                 ft.check(child)
@@ -414,10 +456,14 @@ class _SMColl(Request):
         if not self._done and self._error is None:
             self._drive()
         if self._error is not None:
+            self._vnote(True, blocking=False)
             raise self._error
         if self._done:
+            self._vnote(True, blocking=False)
             return True, self._finished()
-        self._comm._empty_poll_check(ANY_SOURCE, _TAG_COLL)
+        # empty path: fault-tolerance gate + this call's poll note (the
+        # engine publishes exactly the sources this machine waits on)
+        self._comm._empty_poll_check(ANY_SOURCE, _TAG_COLL, req=self)
         return False, None
 
 
@@ -711,7 +757,10 @@ class PersistentColl(Request):
 
     Engine-compiled allreduce and reduce_scatter rounds alternate two
     preallocated working buffers: round k's result is a view of one and
-    stays valid until round k+2 starts (copy it to hold it longer).
+    stays valid until round k+2 starts (copy it to hold it longer).  With
+    the runtime verifier on, the signature is checked once here (frozen
+    per round: the argument list is bound) and the contract is fenced
+    (``_fence_check``).
     """
 
     def __init__(self, parent: P2PCommunicator, kind: str, args: tuple,
@@ -726,6 +775,9 @@ class PersistentColl(Request):
         self._started = False
         self._dbl: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._round = 0
+        # verify-mode fence: weakref per working buffer to the round
+        # result handed out from it
+        self._pinned: List[Optional["weakref.ref"]] = [None, None]
         with _on_default_stream(parent.device):
             self._build0 = _build(parent, "i" + kind, args, kwargs)
         self._geometry = self._payload_geometry()
@@ -737,6 +789,17 @@ class PersistentColl(Request):
                 kwargs.get("algorithm", "auto"))
             if resolved is not None:
                 self._kwargs = {**kwargs, "algorithm": resolved}
+        if parent._verify is not None and parent.size > 1:
+            payload = None
+            if kind in ("allreduce", "reduce_scatter"):
+                # block 0 for reduce_scatter: the blocking path's exact
+                # signature geometry
+                payload = _as_tensor(args[0] if kind == "allreduce"
+                                     else args[0][0], parent.device)
+            self._child._verify_coll(
+                kind, root=kwargs.get("root"), op=kwargs.get("op"),
+                payload=payload, algorithm=kwargs.get("algorithm", "auto"))
+            self._child._verify_sig_frozen = True
 
     def _payload_geometry(self) -> Optional[Tuple]:
         if self._kind in ("allreduce", "reduce_scatter"):
@@ -794,7 +857,10 @@ class PersistentColl(Request):
             if self._dbl is None:
                 w = self._build0["work"]
                 self._dbl = (torch.empty_like(w), torch.empty_like(w))
-            buf = self._dbl[self._round & 1]
+            i = self._round & 1
+            if self._parent._verify is not None:
+                self._fence_check(i)
+            buf = self._dbl[i]
             self._round += 1
             _bufpool.touch(buf)
             src = (_bound_tensor(self._args[0]) if self._kind == "reduce_scatter"
@@ -809,6 +875,50 @@ class PersistentColl(Request):
         # start-time read of the bound buffer
         return _build(self._parent, "i" + self._kind, self._args, self._kwargs)
 
+    def _note_result(self, value: Any) -> None:
+        """Verify mode: remember (weakly) which working buffer this
+        round's result is a view of, so _fence_check can tell whether
+        the caller still holds it when the buffer comes back around.
+        A view is found by its bytes: same device, overlapping span of
+        the working buffer."""
+        if (self._parent._verify is None or self._dbl is None
+                or not isinstance(value, torch.Tensor)):
+            return
+        from .verify.state import buffer_span
+
+        dev, lo, hi = buffer_span(value)
+        for i in (0, 1):
+            # a value that IS the buffer cannot be told from our own ref
+            if value is self._dbl[i]:
+                continue
+            bdev, blo, bhi = buffer_span(self._dbl[i])
+            if dev == bdev and lo < bhi and blo < hi:
+                self._pinned[i] = weakref.ref(value)
+                return
+
+    def _fence_check(self, i: int) -> None:
+        """The double-buffer contract, fenced: if the caller still holds
+        the result that buffer ``i`` backs when start() would overwrite
+        it, raise BufferPinnedError instead of silently invalidating it.
+        The handle's own ``_last`` is no caller pin."""
+        ref = self._pinned[i]
+        if ref is None:
+            return
+        obj = ref()
+        if obj is not None and obj is not self._last:
+            # a dropped reference may merely await collection
+            obj = None
+            gc.collect()
+            obj = ref()
+        if obj is None or obj is self._last:
+            self._pinned[i] = None
+            return
+        raise BufferPinnedError(
+            f"persistent {self._kind}: start() would overwrite the "
+            f"round-{self._round - 2 if self._round >= 2 else 0} result "
+            f"the caller still references (double-buffer grace is one "
+            f"round); copy it first (result.clone())")
+
     def wait(self) -> Any:
         if self._req is None:
             if not self._started:
@@ -820,6 +930,7 @@ class PersistentColl(Request):
         self._last, self._req = value, None
         if isinstance(req, _SMColl):
             req._result = None  # the handle is the result's only consumer
+        self._note_result(value)
         return value
 
     def test(self) -> Tuple[bool, Any]:
@@ -831,6 +942,7 @@ class PersistentColl(Request):
             self._last, self._req = value, None
             if isinstance(req, _SMColl):
                 req._result = None
+            self._note_result(value)
         return done, value
 
 

@@ -6,10 +6,9 @@
 * :func:`timeit` — wall-clock timing of a callable with a device fence
   per call (``torch.cuda.synchronize`` where it returned CUDA tensors),
   warm-up, median and percentiles.
-* :class:`Timing` and :class:`CommStats`, copied as they are.
-
-The reference's ``comm_stats`` reads the flight recorder of its telemetry
-layer, which belongs to the host layer and is not ported yet.
+* :class:`Timing` and :class:`CommStats`, copied as they are, and
+  :func:`comm_stats` (:94): the per-op counters the flight recorder
+  (``telemetry/``) fills for every traced host collective.
 """
 
 from __future__ import annotations
@@ -141,3 +140,14 @@ class CommStats:
 
     def to_json(self) -> str:
         return json.dumps({"ops": self.ops, "bytes": self.bytes})
+
+
+def comm_stats() -> "CommStats | None":
+    """The per-op counters of the active (or last) traced run, filled by
+    every host collective while the flight recorder is enabled
+    (``MPI_TPU_TRACE=1`` / ``run(..., trace=True)`` /
+    ``telemetry.enable()``).  None when nothing was ever traced."""
+    from . import telemetry as _telemetry
+
+    rec = _telemetry.recorder()
+    return rec.stats if rec is not None else None

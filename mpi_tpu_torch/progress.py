@@ -23,7 +23,16 @@ thread per world (attached to the transport) that
 * runs each completed receive's ``_on_complete`` callback — the
   segmented engine's send-window credit (``communicator._SegSender``) and
   the nonblocking collectives' state machines (``nbc.py``) — outside the
-  lock.
+  lock;
+* is the runtime verifier's blocking waiter for pure-polling drain loops
+  (:262, :337, :453): a rank spinning on ``test()`` never enters a
+  blocking wait, so the engine observes the sustained empty polls,
+  publishes an OR-set entry over the pending sources on the rank's
+  behalf, runs the wait-for analysis, and parks the resulting
+  ``DeadlockError`` where the polling paths re-raise it.  (The
+  reference's explicit poll scope of ``MPI_Waitany`` belongs to
+  ``api.py``, ROADMAP item 16.6; without it the pending set is the
+  polled state machine's or the union over the tracked requests.)
 
 The engine thread binds its world's device before its first launch (a
 completion may refill a user buffer; a callback sends, which clones on
@@ -32,9 +41,7 @@ one stream: host order stays launch order.
 
 Off (``progress="none"``, the default) the whole feature is one
 ``_progress is None`` attribute test per operation and the
-``progress_*`` pvars stay 0.  The runtime verifier's stalled-poll
-publication (the reference's :262, :337, :453) is not ported yet
-(ROADMAP item 16.2b).
+``progress_*`` pvars stay 0.
 
 Enable: ``MPI_TPU_PROGRESS=thread`` (read by ``mpi_tpu_torch.init``),
 ``run(..., backend="local", progress="thread")``, the launcher's
@@ -45,10 +52,12 @@ from __future__ import annotations
 
 import os
 import threading
+import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 from . import mpit as _mpit
-from .transport.base import TransportError, bind_thread_device
+from .transport.base import ANY_SOURCE, TransportError, bind_thread_device
 
 # Accepted modes of the ``progress`` cvar / MPI_TPU_PROGRESS /
 # run(progress=...) / launcher --progress.
@@ -60,6 +69,11 @@ _DEFAULT_MODE = "none"
 # Longest idle park between passes: bounds how stale the engine's view of
 # newly posted requests can be even if the doorbell never rings.
 _PARK_SLICE_S = 0.25
+
+# A pure-polling episode is live while the newest empty poll is at most
+# this old: a caller that stopped polling stops being published within
+# one slice (an opportunistic poll between real work is no blocked rank).
+_POLL_FRESH_S = 1.0
 
 
 def resolve_mode(explicit: Optional[str] = None) -> str:
@@ -105,6 +119,16 @@ class ProgressEngine:
         self._fresh: Dict[int, object] = {}
         self._active_lock = threading.Lock()
         self._stop = threading.Event()
+        # sticky verifier verdict of a stalled-poll analysis, re-raised by
+        # the polling completion paths (a deadlock is permanent)
+        self.pending_error: Optional[BaseException] = None
+        # pure-polling episode state; _poll_req is the state-machine
+        # collective the freshest empty poll was for (weakly held)
+        self._last_empty_poll = 0.0
+        self._poll_req: Optional["weakref.ref"] = None
+        self._episode_start: Optional[float] = None
+        self._episode_block = 0
+        self._published = False
         self.thread = threading.Thread(
             target=self._loop, daemon=True,
             name=f"mpi-tpu-torch-progress-{transport.world_rank}")
@@ -118,6 +142,19 @@ class ProgressEngine:
         with self._active_lock:
             self._active.setdefault(comm._ctx, {})[id(comm)] = comm
             self._fresh[id(comm)] = comm
+
+    def note_empty_poll(self, req=None) -> None:
+        """A nonblocking completion path came up empty: the evidence a
+        pure-polling drain loop exists.  ``req`` (a state-machine
+        collective, ``nbc.py``) names which call is polled, so its exact
+        pending OR-set is published instead of the union over every
+        tracked request."""
+        self._last_empty_poll = time.monotonic()
+        self._poll_req = None if req is None else weakref.ref(req)
+
+    def check_error(self) -> None:
+        if self.pending_error is not None:
+            raise self.pending_error
 
     def stop(self, timeout: float = 5.0) -> None:
         """Stop the engine and its fold pool and join their threads
@@ -152,9 +189,18 @@ class ProgressEngine:
             if hit is None:
                 break
             head._complete(hit[0])
-            if head._on_complete is not None:
-                cbs.append(head._on_complete)
+            self._note_complete(head, cbs)
         return cbs
+
+    @staticmethod
+    def _note_complete(req, cbs: List) -> None:
+        vw = getattr(req._comm._t, "_verify_world", None)
+        if vw is not None:
+            # a background completion is real progress: a published
+            # 'blocked' or 'polling' entry retracts promptly
+            vw.note_progress()
+        if req._on_complete is not None:
+            cbs.append(req._on_complete)
 
     def _complete_pass(self) -> Tuple[List, int]:
         """One pass over the posted queues of the communicators that
@@ -183,8 +229,7 @@ class ProgressEngine:
                         if hit is None:
                             break
                         head._complete(hit[0])
-                        if head._on_complete is not None:
-                            cbs.append(head._on_complete)
+                        self._note_complete(head, cbs)
                         done += 1
             if done:
                 self.cv.notify_all()
@@ -213,6 +258,7 @@ class ProgressEngine:
                 cb()
             if done:
                 continue  # drained something: look again at once
+            self._maybe_publish_stalled(time.monotonic())
             if self._stop.is_set():
                 return
             try:
@@ -220,3 +266,106 @@ class ProgressEngine:
                     _mpit.count(progress_idle_parks=1)
             except TransportError:
                 return
+
+    # -- verifier publication on behalf of pure-polling drain loops --------
+
+    def _pending_tracked(self) -> List[Tuple[object, object]]:
+        """(comm, request) of every posted, incomplete USER-level request
+        (those with a verifier record): the wait set of a polling drain
+        loop.  Only communicators with posted receives can hold one.
+        Caller holds ``self.cv``."""
+        with self._active_lock:
+            comms = [c for same in self._active.values()
+                     for c in same.values()]
+        out = []
+        for comm in comms:
+            with comm._lock:
+                queues = [q for q in comm._irecv_queues.values() if q]
+            for q in queues:
+                for req in list(q):
+                    if req._vinfo is not None:
+                        out.append((comm, req))
+        return out
+
+    def _maybe_publish_stalled(self, now: float) -> None:
+        vw = getattr(self.t, "_verify_world", None)
+        if vw is None or self.pending_error is not None:
+            return
+        if vw.active_waiters > 0:
+            # a REAL blocking wait owns the rank's board entry: two
+            # publishers alternating entries would flap the stamps
+            self._end_episode(vw)
+            return
+        if now - self._last_empty_poll > _POLL_FRESH_S:
+            # nobody is polling (computing, or gave up): an idle posted
+            # irecv proves nothing about being stuck
+            self._end_episode(vw)
+            return
+        # the freshest poll's own state machine (its exact pending set)
+        # before the union over the tracked posted requests
+        sm = None
+        ref = self._poll_req
+        if ref is not None:
+            cand = ref()
+            if cand is not None and not cand._done and cand._error is None:
+                sm = cand
+            else:
+                self._poll_req = None
+        if sm is not None:
+            with self.cv:  # serialize the _done reads with completion
+                sm_targets = sm._pending_world_srcs()
+            if not sm_targets:
+                self._end_episode(vw)
+                return
+        else:
+            with self.cv:
+                pending = self._pending_tracked()
+            if not pending:
+                self._end_episode(vw)
+                return
+        if self._episode_start is None:
+            self._episode_start = now
+            self._episode_block = vw.begin_block()
+            return
+        if now - self._episode_start < vw.stall_timeout_s:
+            return
+        if sm is not None:
+            comm, tag, coll = sm._comm, sm._tag, sm.kind
+            site = f"<nbc:{sm.kind} state machine>"
+            targets = set(sm_targets)
+        else:
+            comm, first = pending[0]
+            tag, coll = first._tag, None
+            site = (first._vinfo.site if first._vinfo is not None
+                    else "<polling loop>")
+            targets = set()
+            for c, req in pending:
+                if req._source == ANY_SOURCE:
+                    targets.update(w for w in c._group
+                                   if w != c._t.world_rank)
+                else:
+                    targets.add(c._world(req._source))
+        if not targets:
+            return
+        if vw.published and not self._published:
+            # a real blocking wait owns the board entry and its cadence
+            return
+        from .verify import deadlock as _vdl
+
+        self._published = True
+        try:
+            # OR semantics: ANY pending source progressing releases the
+            # drain loop; the engine IS this rank's blocking waiter
+            _vdl.check_stalled(
+                vw, comm, tuple(sorted(targets)), "OR", tag,
+                "waitany-poll", coll, site, self._episode_block)
+        except _vdl.DeadlockError as e:
+            self.pending_error = e
+            with self.cv:
+                self.cv.notify_all()
+
+    def _end_episode(self, vw) -> None:
+        if self._published:
+            self._published = False
+            vw.clear_published()
+        self._episode_start = None

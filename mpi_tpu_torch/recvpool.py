@@ -27,7 +27,9 @@
   pairing only costs steering, never correctness.
 
 The ``recv_steering`` cvar disables claiming only; channel accounting
-stays on so toggling mid-run cannot desync the pairing.  Steering into user buffers (``irecv(buf=...)``) is not ported
+stays on so toggling mid-run cannot desync the pairing.  With the
+flight recorder on, a lost steering race is a ``recvpool fold_fallback``
+event (:474) and a steered frame a ``recvpool steer`` event.  Steering into user buffers (``irecv(buf=...)``) is not ported
 yet: a user buffer is filled at completion by a copy.
 """
 
@@ -40,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import mpit as _mpit
+from . import telemetry as _telemetry
 
 
 # Rendezvous claiming on/off (the ``recv_steering`` cvar reads/writes it).
@@ -222,6 +225,10 @@ class PostedRecvRegistry:
         finally:
             if fold_race:
                 _mpit.count(recv_pool_fold_fallbacks=1)
+                rec = _telemetry.REC
+                if rec is not None:
+                    rec.emit("recvpool", "fold_fallback",
+                             attrs={"src": src, "tag": tag})
 
     def purge_src(self, src, gen: int) -> None:
         """Membership removal of ``src``: its in-flight frames died with the

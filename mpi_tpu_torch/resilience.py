@@ -31,6 +31,8 @@ A membership transition (``membership.survivor_transition``) purges a
 replaced slot's streams: its retained replay window and seq/delivery
 marks belong to the dead incarnation, and the generation bump makes every
 reader still draining the old connection drop its acks and frames.
+With the flight recorder on, a window stall and a purge are ``link``
+events (:337, :496).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 from . import bufpool as _bufpool
 from . import mpit as _mpit
+from . import telemetry as _telemetry
 from .transport.base import TransportError
 
 # Reconnect budget for ONE link fault: total time the sender may spend
@@ -222,6 +225,11 @@ class LinkState:
                         f"window was full ({st.retained_bytes} unacked "
                         f"bytes)")
                 if time.monotonic() > deadline:
+                    rec = _telemetry.REC
+                    if rec is not None:
+                        rec.emit("link", "window_stall",
+                                 attrs={"peer": dest,
+                                        "retained_bytes": st.retained_bytes})
                     raise TransportError(
                         f"link to rank {dest}: no ack progress for "
                         f"{_RETRY_TIMEOUT_S}s with {st.retained_bytes} "
@@ -354,7 +362,11 @@ class LinkState:
             self._rx.pop(rank, None)
             self._ack_pending.discard(rank)
             self._gen[rank] = self._gen.get(rank, 0) + 1
+            gen = self._gen[rank]
             self._cv.notify_all()
+        rec = _telemetry.REC
+        if rec is not None:
+            rec.emit("link", "purge", attrs={"peer": rank, "gen": gen})
         if st is not None:
             for _, _, body in st.retained:
                 body.release()

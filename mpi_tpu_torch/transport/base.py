@@ -2,7 +2,10 @@
 port's own copy of ``mpi_tpu/transport/base.py``: ``ANY_SOURCE`` /
 ``ANY_TAG``, ``TransportError`` / ``RecvTimeout``, ``payload_nbytes``
 (:36), ``Mailbox`` (:47) with the progress engine's doorbell
-(``deliveries``, ``nudge``, ``wait_activity``, :59-87) and ``Transport``
+(``deliveries``, ``nudge``, ``wait_activity``, :59-87) and the verifier's
+vector-clock ``stamp`` and ``clock`` with the wildcard-race check in the
+consume scan (:47-131), and ``Transport`` (:234) with ``verify_clock``
+(:282-288)
 (:234) with its ``aliases_payloads`` (:252), ``coll_segment_hint``
 (:261), the membership ``epoch`` / ``min_peer_epoch`` (:295-305), the
 survivor-transition hook ``membership_invalidate`` (:340) and
@@ -54,7 +57,9 @@ def payload_nbytes(obj: Any) -> Optional[int]:
 
 
 class Mailbox:
-    """Thread-safe matching queue of (src, ctx, tag, payload) messages.
+    """Thread-safe matching queue of (src, ctx, tag, payload, stamp)
+    messages.  ``stamp`` is the sender's vector-clock stamp under verify
+    and None otherwise (``verify/vclock.py``).
 
     A match names its context exactly, so the queue is kept per context
     (in arrival order within each): a receive scans only its own
@@ -65,20 +70,26 @@ class Mailbox:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        # ctx -> [(src, ctx, tag, payload, arrival), ...]
-        self._by_ctx: Dict[Any, List[Tuple[int, Any, int, Any, int]]] = {}
+        # ctx -> [(src, ctx, tag, payload, arrival, stamp), ...]
+        self._by_ctx: Dict[Any, List[Tuple[int, Any, int, Any, int, Any]]] = {}
         self._closed = False
         # lifetime delivery count: the progress engine's doorbell
         self.deliveries = 0
         # contexts that received messages since the progress engine last
         # looked (take_dirty): a pass visits only their communicators
         self._dirty: set = set()
+        # receiver-side vector clock, attached by verify.enable(): the
+        # consume scan merges each consumed stamp and runs the wildcard
+        # race check against the pending alternates it sees under this
+        # lock.  None outside verify mode (one test per consume).
+        self.clock = None
 
-    def deliver(self, src: int, ctx, tag: int, payload: Any) -> None:
+    def deliver(self, src: int, ctx, tag: int, payload: Any,
+                stamp: Any = None) -> None:
         with self._cv:
             self.deliveries += 1
             self._by_ctx.setdefault(ctx, []).append(
-                (src, ctx, tag, payload, self.deliveries))
+                (src, ctx, tag, payload, self.deliveries, stamp))
             self._dirty.add(ctx)
             self._cv.notify_all()
 
@@ -142,6 +153,20 @@ class Mailbox:
                     queue.pop(i)
                     if not queue:
                         del self._by_ctx[ctx]
+                    stamp = item[5]
+                    if self.clock is not None and stamp is not None:
+                        # verify: merge the consumed stamp; for a USER
+                        # wildcard receive every other pending message
+                        # this scan could have matched is a race
+                        # candidate (internal negative tags never race)
+                        wild = (source == ANY_SOURCE
+                                and (tag >= 0 or tag == ANY_TAG))
+                        alts = ([(it[0], it[5]) for it in queue
+                                 if self._matches(it, ANY_SOURCE, ctx, tag)
+                                 and it[0] != item[0] and it[5] is not None]
+                                if wild else ())
+                        self.clock.note_consume(item[0], item[2], stamp,
+                                                alts, wild)
                 return item[3], item[0], item[2]
         return None
 
@@ -233,6 +258,13 @@ class Transport(ABC):
     # for this transport's data plane, used when the
     # ``collective_segment_bytes`` cvar is 0 (= auto).
     coll_segment_hint = 256 << 10
+
+    # Verify-mode vector clock (verify/vclock.py), attached by
+    # verify.enable() together with mailbox.clock.  Send paths test exactly
+    # ``verify_clock is None`` and under verify either wrap the wire ctx
+    # (socket framing) or pass tick_send()'s stamp to mailbox.deliver
+    # (same-process deliveries).
+    verify_clock = None
 
     # The registry of posted receives (recvpool.PostedRecvRegistry) of a
     # transport whose reader can land a frame's body directly in a posted

@@ -1,9 +1,10 @@
 """In-process transport: rank = thread, channel = shared mailbox — the
 port's own copy of ``mpi_tpu/transport/local.py`` (``LocalWorld``,
-``LocalTransport``, ``KILLED`` :58, ``run_local`` :61 with its
-``transport_wrapper``, ``fault_tolerance`` (the in-memory beat table,
-:159) and ``progress`` keywords, and the world comm's generation mark
-:88).
+``LocalTransport`` with the verifier's send stamp (:49), ``KILLED`` :58,
+``run_local`` :61 with its ``transport_wrapper``, ``fault_tolerance``
+(the in-memory beat table, :159), ``verify`` (one shared ``MemoryBoard``
+per world, :160-167), ``trace`` (the flight recorder, :125) and
+``progress`` keywords, and the world comm's generation mark :88).
 
 Payloads are copied by default so ranks cannot share mutable state
 through a message: a tensor is cloned on its own device (on the card the
@@ -55,7 +56,10 @@ class LocalTransport(Transport):
             raise ValueError(f"dest {dest} out of range for world size {self.world_size}")
         if self._world.copy_payloads:
             payload = codec.local_copy(payload)
-        self._world.mailboxes[dest].deliver(self.world_rank, ctx, tag, payload)
+        vc = self.verify_clock
+        stamp = vc.tick_send() if vc is not None else None
+        self._world.mailboxes[dest].deliver(self.world_rank, ctx, tag,
+                                            payload, stamp)
 
     def close(self) -> None:
         self.mailbox.close()
@@ -67,7 +71,8 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
               recv_timeout: Optional[float] = None,
               transport_wrapper: Optional[Callable[[Transport], Transport]] = None,
               fault_tolerance: bool = False,
-              progress: Optional[str] = None) -> List[Any]:
+              progress: Optional[str] = None, verify: bool = False,
+              trace: bool = False) -> List[Any]:
     """Run ``fn(comm, *args, **kwargs)`` on ``nranks`` in-process rank
     threads; return the per-rank results as a list indexed by rank.
     ``device`` is the device every rank's ``comm.device`` names: the card
@@ -85,7 +90,19 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
     beating, so long-running survivors eventually see it as failed.
     ``progress="thread"`` starts one progress engine per rank
     (``progress.py``); None defers to MPI_TPU_PROGRESS and the
-    ``progress`` cvar."""
+    ``progress`` cvar.
+
+    ``verify=True`` enables the runtime verifier (``verify/``) on every
+    rank over one shared in-memory pending-op board: deadlocks raise
+    DeadlockError instead of hanging, divergent collectives
+    CollectiveMismatchError, and the request/buffer lints land in
+    ``verify.take_report()`` and the ``verify_*`` pvars.  A rank whose
+    ``fn`` returns publishes 'exited', so a peer blocked on it is
+    diagnosed.  ``trace=True`` enables the flight recorder
+    (``telemetry/``): one process-wide ring (rank threads are told apart
+    by tid), left active afterwards for ``telemetry.recorder().dump()``
+    / ``telemetry.export_chrome(path)``; call ``telemetry.disable()``
+    when done."""
     from .. import progress as _progress
     from ..communicator import P2PCommunicator
     from ..gpu import primitives
@@ -93,6 +110,10 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
     from .faulty import KilledRankError
 
     device = resolve_device(device)
+    if trace:
+        from .. import telemetry as _telemetry
+
+        _telemetry.enable()
     progress_mode = _progress.resolve_mode(progress)
     kwargs = kwargs or {}
     world = LocalWorld(nranks, copy_payloads=copy_payloads, device=device)
@@ -104,9 +125,14 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
         from .. import ft as _ft
 
         liveness = _ft.MemoryLiveness(nranks)
+    board = None
+    if verify:
+        from ..verify import MemoryBoard
+
+        board = MemoryBoard(nranks)
 
     def runner(r: int) -> None:
-        ft_state = engine = None
+        ft_state = v_state = engine = None
         try:
             if device.type == "cuda":
                 torch.cuda.set_device(device)  # the device is per thread
@@ -120,9 +146,15 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
                 from .. import ft as _ft
 
                 ft_state = _ft.enable(comm, liveness=liveness)._ft
+            if board is not None:
+                from .. import verify as _verify
+
+                v_state = _verify.enable(comm, board=board)._verify
             if progress_mode == "thread":
                 engine = _progress.enable(comm)._progress
             results[r] = fn(comm, *args, **kwargs)
+            if v_state is not None:
+                v_state.world.mark_exited()
         except BaseException as e:  # noqa: BLE001 - propagated to caller below
             if isinstance(e, KilledRankError):
                 # simulated crash-stop: the rank is gone, the WORLD lives

@@ -3,7 +3,12 @@
 (:237) as it is, the epoch-stamped hello and ack (:63-90, :341-390,
 :794-900), the peer-fault verdict ``_suspect`` (:756), the idle-link
 keepalive ``_keepalive_probe`` (:653), the link-fault hooks of
-``transport/faulty.py`` and ``membership_invalidate``.
+``transport/faulty.py`` and ``membership_invalidate``; under the runtime
+verifier the vector-clock stamp wrapped around the wire ctx (:438, :538,
+:1023-1028), the clock attached before the readers start; with the flight
+recorder on the frame, torn-frame, reconnect, replay, heal and
+injected-reset events (:395-1187); the ``link_heal_s`` histogram is
+always fed.
 
 Per-pair TCP connections on loopback.  Wire format per message: a fixed
 header ``!QQQ`` = (flags|payload_len, seq, ack) followed by the body —
@@ -56,6 +61,7 @@ from .. import membership as _membership
 from .. import mpit as _mpit
 from .. import recvpool as _recvpool
 from .. import resilience as _resilience
+from .. import telemetry as _telemetry
 from ..errors import EpochSkewError
 from ..resilience import LinkState, backoff_delays
 from . import codec
@@ -190,9 +196,13 @@ class SocketTransport(Transport):
     coll_segment_hint = 4 << 20
 
     def __init__(self, rank: int, size: int, rdv_dir: str, device=None,
-                 connect_timeout: float = 60.0, epoch: int = 0) -> None:
+                 connect_timeout: float = 60.0, epoch: int = 0,
+                 verify_clock=None) -> None:
         super().__init__(rank, size, device)
         self.epoch = epoch  # a rejoiner is born into the current epoch
+        # a verified process world's clock, attached before any reader can
+        # see a peer's stamped frame (membership.make_transport)
+        self.verify_clock = self.mailbox.clock = verify_clock
         self._rdv = rdv_dir
         self._connect_timeout = connect_timeout
         self._closing = False
@@ -301,7 +311,7 @@ class SocketTransport(Transport):
                 # link fault or clean close: keep the rx stream state —
                 # the sender reconnects and replays unacked frames
                 if torn:
-                    _mpit.count(link_torn_frames=1)
+                    self._note_torn(src)
                 conn.close()
                 return
             word, seq, ack = _HEADER.unpack(head)
@@ -313,28 +323,42 @@ class SocketTransport(Transport):
             if word & codec.RAW_FLAG:
                 ok, obj_ctx_tag = self._read_raw(conn, src, seq, gen, plen)
                 if not ok:
-                    _mpit.count(link_torn_frames=1)
+                    self._note_torn(src)
                     conn.close()
                     return
-                ctx, tag, out = obj_ctx_tag
-                self._deliver_seq(conn, src, seq, gen, ctx, tag, out)
+                ctx, tag, out, stamp = obj_ctx_tag
+                self._deliver_seq(conn, src, seq, gen, ctx, tag, out, stamp)
                 continue
             payload, _ = _recv_exact2(conn, plen)
             if payload is None:
-                _mpit.count(link_torn_frames=1)  # past the header: torn
+                self._note_torn(src)  # past the header: torn
                 conn.close()
                 return
             ctx, tag, obj = pickle.loads(payload)
+            vc = self.verify_clock
+            stamp = None
+            if vc is not None:
+                ctx, stamp = vc.unwrap(ctx)
             if tag < 0 and self._link.rx_fresh(src, seq, gen):
                 # pickle frames on counted channels still count (never
                 # steerable) so the frame/consumer pairing stays aligned
                 self.recv_registry.note_frame(src, ctx, tag, seq, gen, None)
-            self._deliver_seq(conn, src, seq, gen, ctx, tag, obj)
+            self._deliver_seq(conn, src, seq, gen, ctx, tag, obj, stamp)
+
+    def _note_torn(self, src: int) -> None:
+        """A connection died MID-FRAME: counted (resilience heals it by
+        replay, but the class of fault must stay visible)."""
+        _mpit.count(link_torn_frames=1)
+        rec = _telemetry.REC
+        if rec is not None:
+            rec.emit("link", "torn_frame", attrs={"src": src})
 
     def _read_raw(self, conn: socket.socket, src: int, seq: int, gen: int,
                   plen: int):
-        """Read one raw frame's meta and body: ``(ok, (ctx, tag, payload))``,
-        ok False on a torn frame."""
+        """Read one raw frame's meta and body: ``(ok, (ctx, tag, payload,
+        stamp))``, ok False on a torn frame.  Under verify the meta's ctx
+        is the stamped wrapper, unwrapped before the steering consult
+        (the registry keys on the real ctx)."""
         mhead, _ = _recv_exact2(conn, codec.META.size)
         if mhead is None:
             return False, None
@@ -343,6 +367,10 @@ class SocketTransport(Transport):
         if meta is None:
             return False, None
         ctx, tag, plan = codec.parse_raw_meta(meta)
+        vc = self.verify_clock
+        stamp = None
+        if vc is not None:
+            ctx, stamp = vc.unwrap(ctx)
         total = codec.plan_nbytes(plan)
         if codec.META.size + mlen + total != plen:
             # a meta that disagrees with the length word would desync the
@@ -372,28 +400,38 @@ class SocketTransport(Transport):
                 _recvpool.RECV_POOL.give_back(host)
             if ok:
                 _mpit.count(recv_pool_rendezvous=1, recv_bytes_steered=total)
-            return ok, (ctx, tag, out)
+                rec = _telemetry.REC
+                if rec is not None:
+                    rec.emit("recvpool", "steer",
+                             attrs={"src": src, "seq": seq, "tag": tag,
+                                    "nbytes": total})
+            return ok, (ctx, tag, out, stamp)
         host = codec.alloc_raw(plan, self.device)
         ok = _recvmsg_into_views(conn, [_bufpool.byte_view(h) for h in host])
         if not ok:
             for h in host:
                 _recvpool.RECV_POOL.give_back(h)
             return False, None
-        return True, (ctx, tag, codec.finish_raw(plan, host, self.device))
+        return True, (ctx, tag, codec.finish_raw(plan, host, self.device),
+                      stamp)
 
     def _deliver_seq(self, conn: socket.socket, src: int, seq: int, gen: int,
-                     ctx, tag: int, obj: Any) -> None:
+                     ctx, tag: int, obj: Any, stamp: Any = None) -> None:
         """Sequenced delivery: contiguous frames reach the mailbox, replay
         duplicates and a purged incarnation's frames are dropped, a gap is
         a loud protocol error (the channel is killed first so the sender
         sees a dead link)."""
         try:
-            self._link.rx_gate(
-                src, seq, lambda: self.mailbox.deliver(src, ctx, tag, obj),
-                gen)
+            delivered = self._link.rx_gate(
+                src, seq,
+                lambda: self.mailbox.deliver(src, ctx, tag, obj, stamp), gen)
         except TransportError:
             conn.close()
             raise
+        rec = _telemetry.REC
+        if rec is not None and delivered:
+            rec.emit("frame", "recv",
+                     attrs={"src": src, "seq": seq, "tag": tag})
 
     # -- cumulative-ack flusher --------------------------------------------
 
@@ -633,6 +671,10 @@ class SocketTransport(Transport):
                             self._last_send[dest] = time.monotonic()
                             if self._link.mark_connected(dest):
                                 _mpit.count(link_reconnects=1)
+                                rec = _telemetry.REC
+                                if rec is not None:
+                                    rec.emit("link", "reconnect",
+                                             attrs={"peer": dest})
                             return conn
                         conn = None  # replay tripped: a miss
                 if conn is not None:
@@ -649,7 +691,13 @@ class SocketTransport(Transport):
         """Resume round of a fresh handshake: prune the retained window to
         the peer's delivery mark and replay every frame beyond it in seq
         order.  False on a mid-replay socket error (the caller redials)."""
-        for seq, word, body in self._link.resume(dest, resume_seq):
+        pending = self._link.resume(dest, resume_seq)
+        rec = _telemetry.REC
+        if rec is not None and pending:
+            rec.emit("link", "replay",
+                     attrs={"peer": dest, "frames": len(pending),
+                            "resume_seq": resume_seq})
+        for seq, word, body in pending:
             views = body.pin()
             if views is None:
                 continue  # released mid-replay: acked, the peer has it
@@ -680,6 +728,8 @@ class SocketTransport(Transport):
                 f"rank {self.world_rank}: send to rank {dest} failed ({err}); "
                 f"the peer is failure-suspected — not retrying a dead peer's "
                 f"link") from err
+        rec = _telemetry.REC
+        t_heal = time.perf_counter_ns()
         try:
             self._establish_locked(dest, time.monotonic() + retry_s,
                                    backoff_delays(),
@@ -687,10 +737,21 @@ class SocketTransport(Transport):
         except EpochSkewError:
             raise  # the membership diagnosis outranks link healing
         except (OSError, TransportError) as e:
+            if rec is not None:
+                rec.emit("link", "heal",
+                         dur_ns=time.perf_counter_ns() - t_heal,
+                         attrs={"peer": dest, "ok": False,
+                                "error": "retry_timeout"})
             raise TransportError(
                 f"rank {self.world_rank}: link to rank {dest} not "
                 f"re-established within {retry_s}s (original fault: "
                 f"{err}; {e})") from err
+        heal_s = (time.perf_counter_ns() - t_heal) / 1e9
+        # always recorded: a heal is already a multi-ms reconnect
+        _mpit.hist_record("link_heal_s", heal_s)
+        if rec is not None:
+            rec.emit("link", "heal", dur_ns=int(heal_s * 1e9),
+                     attrs={"peer": dest, "ok": True})
         _mpit.count(link_faults_masked=1)
 
     def send(self, dest: int, ctx, tag: int, payload: Any) -> None:
@@ -701,8 +762,18 @@ class SocketTransport(Transport):
             # (loopback traffic consumes posted slots like any arrival)
             if tag < 0:
                 self.recv_registry.note_local(dest, ctx, tag)
-            self.mailbox.deliver(dest, ctx, tag, codec.value_copy(payload))
+            vc = self.verify_clock
+            stamp = vc.tick_send() if vc is not None else None
+            self.mailbox.deliver(dest, ctx, tag, codec.value_copy(payload),
+                                 stamp)
             return
+        vc = self.verify_clock
+        if vc is not None:
+            # the stamp rides in the frame's pickled ctx slot (the raw
+            # meta or the pickle body), never in the tensor bytes; the
+            # reader unwraps right after parse, so a replay delivers it
+            # once through the rx_gate dedup
+            ctx = vc.wrap(ctx)
         frame = codec.pack_raw_frame(ctx, tag, payload)
         if frame is not None:
             head, bufs = frame
@@ -746,6 +817,9 @@ class SocketTransport(Transport):
             if pinned is None:
                 return  # ref released: window torn down (closing)
             hook = self._link_fault_hook
+            rec = _telemetry.REC
+            # stamped at send START: tracecat's matching needs send <= recv
+            t_send = time.perf_counter_ns() if rec is not None else 0
             try:
                 if hook is None:
                     _sendmsg_views(conn, [header, *pinned])
@@ -758,6 +832,11 @@ class SocketTransport(Transport):
                     hook(dest, "mid")
                     _sendmsg_views(conn, pinned)
                 self._last_send[dest] = time.monotonic()
+                if rec is not None:
+                    rec.emit("frame", "send",
+                             dur_ns=time.perf_counter_ns() - t_send,
+                             attrs={"dest": dest, "seq": seq,
+                                    "nbytes": nbytes})
             except OSError as e:
                 self._heal_link_locked(dest, e)
             finally:
@@ -791,6 +870,11 @@ class SocketTransport(Transport):
                 conn.close()
             except OSError:
                 pass
+            rec = _telemetry.REC
+            if rec is not None:
+                # the timeline's cause marker: the reset, then the heal,
+                # reconnect and replay events that answer it
+                rec.emit("link", "reset_injected", attrs={"peer": dest})
 
     # -- membership (membership.py) --------------------------------------------
 

@@ -463,3 +463,157 @@ def test_kill_and_shrink_on_the_card():
         assert torch.allclose(out.double(), want, rtol=1e-5, atol=1e-5)
         outs.append(out)
     assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+# ---- the runtime verifier on the card -----------------------------------------
+
+
+def _verified(prog, n=2, **kw):
+    """``prog`` on ``n`` verified local ranks on the card, at a 1 s stall
+    bound; returns (results, finalize report, verify_* pvar deltas)."""
+    import gc
+
+    from mpi_tpu_torch import mpit, verify
+
+    _card()
+    old = mpit.cvar_read("verify_stall_timeout_s")
+    mpit.cvar_write("verify_stall_timeout_s", 1.0)
+    ses = mpit.session_create()
+    ses.reset_all()
+    verify.finalize_report()
+    try:
+        res = mpi_tpu_torch.run(prog, backend="local", nranks=n, verify=True, **kw)
+    finally:
+        mpit.cvar_write("verify_stall_timeout_s", old)
+    report = verify.finalize_report()
+    gc.collect()
+    report += verify.take_report()
+    pvars = {p: ses.read(p) for p in mpit.pvar_list() if p.startswith("verify_")}
+    return res, report, pvars
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlapping", "disjoint"])
+def test_irecv_buf_slices_of_one_cuda_tensor(overlap):
+    """Two pending ``irecv(buf=)`` into slices of one CUDA tensor: one
+    overlap report line per rank where the slices overlap, none where they
+    are disjoint; the receives land either way."""
+    def prog(comm):
+        buf = torch.zeros(8, device=comm.device)
+        peer = 1 - comm.rank
+        r1 = comm.irecv(source=peer, tag=4, buf=buf[0:4])
+        r2 = comm.irecv(source=peer, tag=4, buf=buf[2:6] if overlap else buf[4:8])
+        comm.send(torch.arange(4.0, device=comm.device), peer, tag=4)
+        comm.send(torch.arange(4.0, device=comm.device) + 4, peer, tag=4)
+        r1.wait()
+        r2.wait()
+        return buf.cpu()
+
+    res, report, pvars = _verified(prog)
+    lines = [ln for ln in report if "overlapping live buffers" in ln]
+    assert len(lines) == (2 if overlap else 0), report
+    assert all("cuda" in ln for ln in lines)
+    assert pvars["verify_buffer_overlaps"] == len(lines)
+    if not overlap:
+        assert all(torch.equal(b, torch.arange(8.0)) for b in res)
+
+
+@pytest.mark.gpu
+def test_cpu_and_cuda_ranges_never_overlap():
+    """Ranges are keyed by device: a CPU tensor and a CUDA tensor are never
+    reported as overlapping, even where their addresses would meet."""
+    from types import SimpleNamespace
+
+    from mpi_tpu_torch.verify.state import MemoryBoard, WorldVerify, buffer_span
+
+    _card()
+    cpu = torch.zeros(1 << 20)
+    cuda = torch.zeros(1 << 20, device="cuda")
+    assert buffer_span(cpu)[0] == "cpu" and buffer_span(cuda)[0] == "cuda:0"
+    t = SimpleNamespace(world_rank=0, world_size=1)
+    w = WorldVerify(t, MemoryBoard(1), 1.0)
+    w._bufs[0] = ("cpu",) + buffer_span(cuda)[1:] + (True, "a cpu range at the "
+                                                    "card tensor's addresses")
+    from mpi_tpu_torch import mpit
+
+    base = mpit.pvar_read("verify_buffer_overlaps")
+    w.buffer_release(w.buffer_live(cuda, "the card tensor", writes=True))
+    assert mpit.pvar_read("verify_buffer_overlaps") == base
+    w.buffer_live(cuda[8:], "a view of it", writes=True)
+    w.buffer_live(cuda[:16], "another view", writes=True)
+    assert mpit.pvar_read("verify_buffer_overlaps") == base + 1
+
+
+@pytest.mark.gpu
+def test_persistent_fence_on_a_cuda_round_result():
+    """The double-buffer fence on the card: holding round 0's result (a
+    CUDA view of the working buffer) across two later starts raises
+    BufferPinnedError; the result is still intact."""
+    from mpi_tpu_torch.errors import BufferPinnedError
+
+    def prog(comm):
+        h = comm.allreduce_init(torch.ones(1 << 12, device=comm.device))
+        r0 = h.start().wait()
+        assert r0.device.type == "cuda"
+        h.start().wait()
+        try:
+            h.start().wait()
+        except BufferPinnedError as e:
+            return "fenced", "copy it first" in str(e), float(r0[0])
+        return "missed", False, float(r0[0])
+
+    res, _, _ = _verified(prog, progress="thread")
+    assert res == [("fenced", True, 2.0)] * 2
+
+
+@pytest.mark.gpu
+def test_long_products_are_no_deadlock_on_local_ranks():
+    """Rank 0 runs more than 3 x verify_stall_timeout_s of bfloat16
+    products (its host thread waiting on the card) before a ring
+    allreduce its peers are already blocked in: no DeadlockError, the
+    right sum, and no verify finding."""
+    from mpi_tpu_torch.examples.host_verify import busy_products
+
+    n, numel = 4, 1 << 22
+
+    def prog(comm):
+        x = torch.full((numel,), float(comm.rank + 1), device=comm.device)
+        spent = busy_products(comm.device, 3.5)[1] if comm.rank == 0 else 0.0
+        return comm.allreduce(x, algorithm="ring"), spent
+
+    res, report, pvars = _verified(prog, n=n)
+    assert res[0][1] > 3.0
+    want = float(n * (n + 1) // 2)
+    for out, _ in res:
+        assert out.device.type == "cuda" and torch.equal(out, torch.full_like(out, want))
+    assert report == [] and not any(v for k, v in pvars.items()
+                                    if k != "verify_clock_bytes")
+
+
+@pytest.mark.gpu
+def test_verify_pickles_no_payload_on_a_socket_world(tmp_path):
+    """Two socket ranks on the card under ``--verify``: a CUDA payload's
+    ring allreduce pickles only the signature tuples (as many bytes as a
+    1 KiB ring's, up to the shape's digits), and the clean ring, the race
+    and the deadlock of ``examples/host_verify.py`` behave on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", "3", "--verify",
+         "--timeout", "240", os.path.join(root, "mpi_tpu_torch", "examples",
+                                          "host_verify.py"),
+         "--out", str(out), "--mib", "64", "--small-mib", "4"],
+        capture_output=True, text=True, cwd=root, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for r in range(3):
+        rec = json.load(open(out / f"rank{r}.json"))
+        assert rec["device"].startswith("cuda")
+        wire, small = rec["clean_ring"]["wire"], rec["clean_ring"]["wire_1KiB"]
+        assert abs(wire["bytes_pickled_sent"] - small["bytes_pickled_sent"]) <= 64
+        assert wire["bytes_raw_sent"] >= 2 * (3 - 1) / 3 * (64 << 20) * 0.99

@@ -491,32 +491,42 @@ def test_unported_features_name_their_roadmap_items():
     _rank_raises(lambda c: c.allreduce(torch.ones(2), algorithm="sm"), "16.4")
     _rank_raises(lambda c: c.bcast(torch.ones(2), algorithm="sm"), "16.4")
     _rank_raises(lambda c: c.allreduce(torch.ones(2),
-                                       algorithm="compressed:bf16"), "16.3")
+                                       algorithm="compressed:bf16"), "16.3b")
     _rank_raises(lambda c: c.reduce_scatter(torch.ones(2, 2),
-                                            algorithm="compressed"), "16.3")
+                                            algorithm="compressed"), "16.3b")
     # the nonblocking path reaches the same gate and raises at wait()
     _rank_raises(lambda c: c.iallreduce(torch.ones(2),
                                         algorithm="compressed:int8").wait(),
-                 "16.3")
+                 "16.3b")
     _rank_raises(lambda c: c.win_create(torch.ones(2)), "16.4")
     _rank_raises(lambda c: checkpoint.save("unused", {}, c, agree=True),
                  "16.5")
     with pytest.raises(NotImplementedError, match="16.4"):
         mpi_tpu_torch.run(lambda c: 0, backend="shm", nranks=2, device="cpu")
-    for kw, item in [("verify", "16.2b"), ("trace", "16.3"),
-                     ("tuning_table", "16.3")]:
-        with pytest.raises(NotImplementedError, match=item):
-            mpi_tpu_torch.run(lambda c, **k: 0, backend="local", nranks=2,
-                              device="cpu", **{kw: True})
-    with pytest.raises(NotImplementedError, match="16.2b"):
-        launcher.main(["-n", "2", "--verify", "prog.py"])
+    with pytest.raises(NotImplementedError, match="16.3b"):
+        mpi_tpu_torch.run(lambda c, **k: 0, backend="local", nranks=2,
+                          device="cpu", tuning_table="unused.json")
+    with pytest.raises(NotImplementedError, match="16.3b"):
+        launcher.main(["-n", "2", "--tuning-table", "t.json", "prog.py"])
+    with pytest.raises(NotImplementedError, match="16.3c"):
+        launcher.main(["serve", "--help"])
     with pytest.raises(NotImplementedError, match="16.4"):
         membership.make_transport("shm", 0, 2, "unused")
-    # the features of the slice that ported them now run
+    # the features of the slices that ported them now run
     assert mpi_tpu_torch.run(
         lambda c: float(c.iallreduce(torch.ones(2)).wait()[0]),
         backend="local", nranks=2, device="cpu", progress="thread",
         fault_tolerance=True) == [2.0, 2.0]
+    from mpi_tpu_torch import telemetry
+
+    try:
+        assert mpi_tpu_torch.run(
+            lambda c: float(c.allreduce(torch.ones(2))[0]),
+            backend="local", nranks=2, device="cpu", verify=True,
+            trace=True) == [2.0, 2.0]
+        assert telemetry.recorder().find("coll", "allreduce")
+    finally:
+        telemetry.disable()
 
 
 def test_host_backends_never_fall_back_to_the_cpu():
