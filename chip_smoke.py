@@ -129,7 +129,7 @@ ok line:
     against the copies it must be), bitwise against the same program run
     by the same engine with ``device="cpu"`` in this process, and the
     reductions within rtol 1e-5, atol 1e-5 of a float64 sum; each
-    collective's median ms over 3 timed calls after 1 warm-up (a
+    collective's median ms over 2 timed calls after 1 warm-up (a
     synchronize before the clock stops, the slowest rank's time) and its
     bandwidth; one ring allreduce traced with ``profiling.trace`` for the
     card's busy share;
@@ -180,7 +180,7 @@ ok line:
 19. host-verify-local: the runtime verifier and the flight recorder on 8
     local rank threads on the card.  (a) the off-mode contract: a 256 MiB
     float32 ring allreduce per rank run off, with ``verify=True`` and with
-    ``trace=True`` in turns (1 warm-up and 2 timed calls each, the ms and
+    ``trace=True`` in turns (1 warm-up and 1 timed call each, the ms and
     the two overhead factors printed), then 200 calls of a 1 KiB allreduce
     by the default algorithm the same three ways; off, every ``verify_*`` pvar and ``trace_events`` read 0; in all
     three ``bytes_pickled_sent`` is 0, ``payload_copies`` is the same, and
@@ -213,7 +213,37 @@ ok line:
     ``algorithm="ring"`` with 268435456 bytes; ``coll_latency_s`` p50/p99,
     events, drops, ``profiling.comm_stats()``, and each span's host ms
     beside the wall of the same call with a synchronize;
-22. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+22. host-compress-tune, on 8 local rank threads on the card: (a)
+    ``compressed:bf16``, ``compressed:int8`` and ``compressed:topk``
+    allreduce and bf16 / int8 ``reduce_scatter`` at 64 MiB of float32 per
+    rank that differs by rank (top-k on inputs with distinct magnitudes),
+    each rank bitwise against the same program with ``device="cpu"``,
+    across ranks bf16 once rounded to bf16 (the reference's ring leaves
+    each chunk's owner its float32 fold and its peers the wire encoding,
+    and top-k folds in ring-hop order from each rank's own pair; the
+    largest difference between ranks is printed), each within the reference test's bound of a float64
+    sum (``tests/test_compress.py``), ``bytes_compressed_saved`` printed;
+    an int64 payload and a MAX top-k request decline on every rank
+    (``compress_fallbacks``); (b) 5 top-k steps with error feedback, after
+    each the cumulative output plus every rank's residual equals the
+    cumulative input within rtol 1e-6; (c) the int8 encode of 16 MiB on
+    the card byte for byte against the CPU's, with half the entries on a
+    rounding tie (x / scale = k + 0.5), a random segment and a non-finite
+    one; (d) ``python -m mpi_tpu_torch.tools.tune`` over local and shm, 2-4
+    ranks and three payload bands (under 20 s), its ``--check``, and
+    ``run(..., tuning_table=)`` serving from the table
+    (``tuned_table_hits``, ``last_decision()`` naming the row), within
+    rtol 1e-5 of the seed policy; each leg's ms per call;
+23. host-shm: ``python -m mpi_tpu_torch.launcher -n 4 --backend shm
+    mpi_tpu_torch/examples/host_shm.py``: a 256 MiB float32 ring allreduce
+    over the native rings (bitwise across ranks, float64-checked, no byte
+    pickled; its ms beside phase 14's socket ring), every arena collective
+    at 1 KiB, 32 KiB and 1 MiB, a 16 MiB decline on all ranks,
+    ``compressed:bf16`` through the arena, a ``SharedWindow`` and a
+    ``P2PWindow`` over a CUDA tensor; then the same example under
+    ``--verify`` at 64 MiB (clean: only signature bytes pickled); the
+    launcher's exit summary, and no ``mtt_*`` segment left in /dev/shm;
+24. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10), each read right after it ran (``launches_by_path``).  The host
     layer launches none of the kernels: its folds are in-place torch ops.
@@ -1184,6 +1214,10 @@ def examples_phase(torch, record):
 
 
 HOST_SEED = 7
+# timed calls of each phase-13 collective and of phase 19a's 256 MiB ring
+# (cut from 3 and 2 to keep the script under 600 s with phases 22-23)
+HOST_LOCAL_REPS = 2
+VERIFY_RING_REPS = 1
 
 
 def _timed_program(torch, call, reps=3):
@@ -1254,9 +1288,10 @@ def host_local_phase(torch, record):
 
     info = {"card": card, "ranks": n, "bytes_per_rank": nbytes}
     for name, (call, nb, factor) in colls.items():
-        outs = mpi_tpu_torch.run(_timed_program(torch, call), xs, backend="local", nranks=n)
+        outs = mpi_tpu_torch.run(_timed_program(torch, call, HOST_LOCAL_REPS), xs,
+                                 backend="local", nranks=n)
         results = [o for o, _ in outs]
-        secs = [max(ts[i] for _, ts in outs) for i in range(3)]
+        secs = [max(ts[i] for _, ts in outs) for i in range(HOST_LOCAL_REPS)]
         bad = [r for r, got in enumerate(results) if not expect(name, r, got)]
         if bad:
             raise RuntimeError(f"host-local {name}: ranks {bad} fail their check")
@@ -1777,7 +1812,7 @@ def host_verify_local_phase(torch, record):
         torch.cuda.synchronize()
         return out, [time.perf_counter() - t0]
 
-    for label, count, prog in (("256MiB", numel, _ring_program(torch, 2)),
+    for label, count, prog in (("256MiB", numel, _ring_program(torch, VERIFY_RING_REPS)),
                                ("1KiB", 256, latency_program)):
         xs = [rank_input(r, count, HOST_SEED, dev) for r in range(n)]
         got = {}
@@ -2067,6 +2102,381 @@ def host_trace_phase(torch, record):
         f"every allreduce span ring with {NORTH_STAR_ELEMS * 4} bytes; {wall:.1f} s wall [{card}]")
 
 
+# -- 22-23. the same-host data plane and its dispatch ----------------------------
+
+COMPRESS_ELEMS = (64 << 20) // 4    # phase 22a: 64 MiB of float32 per rank
+TOPK_STEPS = 5
+
+
+def _distinct_magnitudes(torch, rank, numel, device):
+    """A rank's input whose magnitudes are all distinct (a unique top-k set
+    on the card and on the CPU): a seeded permutation of 1..numel over 8,
+    with seeded signs, rank-varying."""
+    gen = torch.Generator(device=device).manual_seed(HOST_SEED * 1_000_003 + rank)
+    mags = (torch.randperm(numel, generator=gen, device=device) + 1).to(torch.float32) / 8.0
+    signs = torch.where(torch.rand(numel, generator=gen, device=device) < 0.5, -1.0, 1.0)
+    return mags * signs
+
+
+def _int8_ties(torch, n, gen):
+    """``n`` float32 inputs whose int8 encode puts every entry but the last
+    (the max-abs, 127 * 3.3) on a rounding tie.  The scale is 3.3 in
+    float32, whose reciprocal is inexact, so ``x * (1 / scale)`` (what a
+    CUDA divide by a CPU scalar computes) and ``x / scale`` round apart at
+    some ties; each ``x = (k + 0.5) * scale`` is kept only where
+    ``float32(x / scale)`` is exactly ``k + 0.5``."""
+    amax = torch.tensor([127 * 3.3], dtype=torch.float32)
+    scale = torch.tensor([float(amax) / 127.0], dtype=torch.float32)
+    parts, have = [], 0
+    while have < n - 1:
+        k = torch.randint(-126, 126, (n,), generator=gen).to(torch.float32) + 0.5
+        x = k * scale
+        parts.append(x[x / scale == k])
+        have += parts[-1].numel()
+    return torch.cat([torch.cat(parts)[:n - 1], amax])
+
+
+def host_compress_tune_phase(torch, record):
+    """Phase 22: compressed collectives on 8 local rank threads on the card
+    against the CPU and a float64 sum, top-k error feedback, the int8
+    encode's rounding ties card against CPU, and a tuned-dispatch sweep
+    whose table then serves ``run(..., tuning_table=)``."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch import compress, mpit, tuning
+    from mpi_tpu_torch.examples.host_allreduce import rank_input
+    from mpi_tpu_torch.tools import tune
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    n, numel = P, COMPRESS_ELEMS
+    info = {"card": card, "ranks": n, "bytes_per_rank": numel * 4}
+    xs = [rank_input(r, numel, HOST_SEED + 22, dev) for r in range(n)]
+    tops = [_distinct_magnitudes(torch, r, numel, dev) for r in range(n)]
+    x64 = [x.double() for x in xs]
+    want = sum(x64)
+    absmax = [float(x.abs().max()) for x in xs]
+    # the reference tests' bounds (tests/test_compress.py): one bf16
+    # rounding per ring hop; one int8 step of the partial sums' max-abs
+    prefix_amax = max(float(sum(x64[:i + 1]).abs().max()) for i in range(n))
+    bounds = {"bf16": (n + 1) * 2.0 ** -8 * float(want.abs().max()),
+              "int8": (n + 1) * prefix_amax / 127.0}
+    rs_bounds = {"bf16": (n + 1) * 2.0 ** -8 * sum(absmax),
+                 "int8": (n + 1) * sum(absmax) / 127.0}
+    legs = {
+        "allreduce compressed:bf16": (lambda c, v: c.allreduce(
+            v[c.rank], algorithm="compressed:bf16"), xs),
+        "allreduce compressed:int8": (lambda c, v: c.allreduce(
+            v[c.rank], algorithm="compressed:int8"), xs),
+        "allreduce compressed:topk": (lambda c, v: c.allreduce(
+            v[c.rank], algorithm="compressed:topk"), tops),
+        "reduce_scatter compressed:bf16": (lambda c, v: c.reduce_scatter(
+            v[c.rank].view(n, -1), algorithm="compressed:bf16"), xs),
+        "reduce_scatter compressed:int8": (lambda c, v: c.reduce_scatter(
+            v[c.rank].view(n, -1), algorithm="compressed:int8"), xs),
+    }
+
+    def timed_once(call):
+        def prog(comm, v):
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(comm, v)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        return prog
+
+    saved = mpit.pvar_read("bytes_compressed_saved")
+    for name, (call, inputs) in legs.items():
+        outs = mpi_tpu_torch.run(timed_once(call), inputs, backend="local", nranks=n)
+        got = [o for o, _ in outs]
+        secs = max(s for _, s in outs)
+        cpu_in = [v.cpu() for v in inputs]
+        t_cpu = time.perf_counter()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # 8 rank threads: one core each, no oversubscription
+        try:
+            cpu = mpi_tpu_torch.run(lambda c, v: call(c, v), cpu_in, backend="local",
+                                    nranks=n, device="cpu")
+        finally:
+            torch.set_num_threads(threads)
+        cpu_s = time.perf_counter() - t_cpu
+        if not all(torch.equal(got[r].cpu(), cpu[r]) for r in range(n)):
+            raise RuntimeError(f"host-compress {name}: the card differs from the CPU")
+        kind = name.split(":")[1]
+        # the reference's compressed ring leaves each chunk's owner with its
+        # float32 fold and its peers with the wire encoding of it (bf16
+        # results agree across ranks once rounded to bf16), and top-k folds
+        # the pairs in ring-hop order from each rank's own, so ranks differ
+        # where three or more contributions round; every rank is held
+        # bitwise against the CPU above
+        if name.startswith("allreduce"):
+            spread = max(float((g - got[0]).abs().max()) for g in got)
+            if kind == "bf16" and not all(torch.equal(g.to(torch.bfloat16),
+                                                      got[0].to(torch.bfloat16))
+                                          for g in got):
+                raise RuntimeError(f"host-compress {name}: ranks differ beyond the wire")
+        else:
+            spread = 0.0
+        if name.startswith("allreduce") and kind != "topk":
+            err = float((got[0].double() - want).abs().max())
+            ok = err <= bounds[kind]
+            bound = bounds[kind]
+        elif kind == "topk":
+            # the reference test's bound: every sent entry is exact, the
+            # rest is the unsent mass
+            top64 = [t.double() for t in tops]
+            diff = (got[0].double() - sum(top64)).abs()
+            slack = sum(t.abs() for t in top64)
+            ok = bool((diff <= slack * (1 + 1e-6) + 1e-6).all())
+            del top64, diff, slack
+            # and the output is the sum of each rank's k largest magnitudes
+            # (unique: the magnitudes are distinct), picked here by a full
+            # sort: zero where no rank sent, the sent value itself where one
+            # rank did, within a float32 fold of <= P terms elsewhere
+            k = compress.topk_k(numel)
+            senders = torch.zeros(numel, dtype=torch.int32, device=dev)
+            sent = torch.zeros(numel, dtype=torch.float64, device=dev)
+            mass = torch.zeros_like(sent)
+            for t in tops:
+                idx = torch.sort(t.abs(), descending=True, stable=True).indices[:k]
+                senders[idx] += 1
+                sent[idx] += t[idx].double()
+                mass[idx] += t[idx].abs().double()
+            fold = n * 2.0 ** -24 * mass
+            none, one = senders == 0, senders == 1
+            err = 0.0
+            for g in got:
+                d = (g.double() - sent).abs()
+                ok = ok and bool((g[none] == 0).all()) and torch.equal(
+                    g[one].double(), sent[one]) and bool((d <= fold).all())
+                err = max(err, float(d.max()))
+            bound = float(fold.max())
+            info["topk_senders"] = {"k": k, "entries_sent_by_one": int(one.sum()),
+                                    "by_several": int((senders > 1).sum())}
+            del senders, sent, mass, fold, none, one, d
+        else:
+            err = max(float((got[r].double() - want.view(n, -1)[r]).abs().max())
+                      for r in range(n))
+            ok = err <= rs_bounds[kind]
+            bound = rs_bounds[kind]
+        if not ok:
+            raise RuntimeError(f"host-compress {name}: error {err} beyond {bound}")
+        info[name] = {"ms": secs * 1e3, "cpu_ms": cpu_s * 1e3, "max_abs_err_vs_f64": err,
+                      "bound": bound, "cross_rank_max_diff": spread}
+        log(f"host-compress {name}: {secs * 1e3:.1f} ms per call (the CPU's "
+            f"{cpu_s * 1e3:.1f} ms), error vs float64 "
+            f"{err:.4g} (bound {bound:.4g}), largest difference between ranks {spread:.4g}; "
+            f"every rank bitwise equal to the CPU [{card}]")
+        del outs, got, cpu, cpu_in
+    info["bytes_compressed_saved"] = mpit.pvar_read("bytes_compressed_saved") - saved
+    log(f"host-compress: bytes_compressed_saved {info['bytes_compressed_saved']}")
+
+    # declines: a non-float payload and a MAX top-k request (a float64
+    # payload does not decline in either package: it folds in float64)
+    def declines(comm):
+        a = comm.allreduce(torch.arange(8, device=comm.device) * (comm.rank + 1),
+                           algorithm="compressed")
+        b = comm.allreduce(torch.full((8,), float(comm.rank), device=comm.device),
+                           mpi_tpu_torch.ops.MAX, algorithm="compressed:topk")
+        return a, b
+
+    f0 = mpit.pvar_read("compress_fallbacks")
+    outs = mpi_tpu_torch.run(declines, backend="local", nranks=n)
+    fb = mpit.pvar_read("compress_fallbacks") - f0
+    if fb != 2 * n or not all(
+            torch.equal(a, torch.arange(8, device=dev) * (n * (n + 1) // 2))
+            and torch.equal(b, torch.full((8,), n - 1.0, device=dev)) for a, b in outs):
+        raise RuntimeError(f"host-compress declines: {fb} fallbacks, {outs[0]}")
+    info["compress_fallbacks"] = fb
+    log(f"host-compress: an int64 payload and a MAX top-k request declined on every rank "
+        f"(compress_fallbacks {fb}) and reduced exactly")
+
+    # (b) top-k error feedback: cumulative outputs + the ranks' residuals
+    # equal the cumulative inputs
+    def feedback(comm, v):
+        outs = []
+        for _ in range(TOPK_STEPS):
+            outs.append(comm.allreduce(v[comm.rank], algorithm="compressed:topk"))
+            res = next(iter(comm.__dict__["_compress_residuals"].values()))
+            outs.append(res.clone())
+        return outs
+
+    t0 = time.perf_counter()
+    steps = mpi_tpu_torch.run(feedback, tops, backend="local", nranks=n)
+    fb_s = time.perf_counter() - t0
+    total_in = sum(t.double() for t in tops)
+    cum = torch.zeros_like(total_in)
+    worst = 0.0
+    for s in range(TOPK_STEPS):
+        cum += steps[0][2 * s].double()
+        resid = sum(steps[r][2 * s + 1].double() for r in range(n))
+        lhs, rhs = cum + resid, total_in * (s + 1)
+        rel = float(((lhs - rhs).abs() / rhs.abs().max()).max())
+        worst = max(worst, rel)
+        if not torch.allclose(lhs, rhs, rtol=1e-6, atol=1e-6 * float(rhs.abs().max())):
+            raise RuntimeError(f"top-k step {s}: outputs + residuals off the inputs by {rel}")
+    info["topk_feedback"] = {"steps": TOPK_STEPS, "worst_rel_err": worst,
+                             "ms_per_step": fb_s * 1e3 / TOPK_STEPS}
+    log(f"host-compress top-k error feedback, {TOPK_STEPS} steps: cumulative output + "
+        f"residuals = cumulative inputs within {worst:.3g} relative "
+        f"({fb_s * 1e3 / TOPK_STEPS:.1f} ms per step) [{card}]")
+    del steps, tops, total_in, cum, xs, x64, want
+
+    # (c) the int8 encode on the card against the CPU, rounding ties included
+    ne = (16 << 20) // 4
+    gen = torch.Generator(device="cpu").manual_seed(HOST_SEED + 23)
+    cases = {"ties": _int8_ties(torch, ne, gen),
+             "random": torch.randn(ne, generator=gen) * 3.0,
+             "non_finite": torch.tensor([1.0, float("inf"), float("nan"), -2.0])}
+    info["int8_encode"] = {}
+    for cname, x in cases.items():
+        t_cpu = compress.INT8.encode_segs(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_card = compress.INT8.encode_segs(x.to(dev))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        same = all(a.dtype == b.dtype and torch.equal(
+            a.cpu().view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(t_card, t_cpu))
+        if not same:
+            raise RuntimeError(f"int8 encode of {cname}: the card differs from the CPU")
+        n_ties, caught = 0, None
+        if cname == "ties":
+            n_ties = int(((x / t_cpu[0]) % 1.0 == 0.5).sum())
+            # the leg sees the fault it is there for: the same encode that
+            # divides by the scale as a Python float differs on the card
+            wrong = torch.round(x.to(dev) / float(t_cpu[0][0])).clamp_(-127, 127)
+            caught = int((wrong.to(torch.int8).cpu() != t_cpu[1]).sum())
+            if n_ties != x.numel() - 1 or caught == 0:
+                raise RuntimeError(f"int8 ties: {n_ties} ties of {x.numel()}, a divide by "
+                                   f"a Python float differs at {caught}")
+        info["int8_encode"][cname] = {"elems": x.numel(), "ms": ms, "ties": n_ties,
+                                      "scale": float(t_cpu[0][0]),
+                                      "python_float_divide_mismatches": caught}
+        log(f"host-compress int8 encode {cname} ({x.numel()} elements, {n_ties} rounding "
+            f"ties): the card's bytes equal the CPU's, {ms:.2f} ms"
+            + (f"; dividing by the scale as a Python float would differ at {caught}"
+               if caught is not None else "") + f" [{card}]")
+
+    # (d) a tuning sweep, then the table serving run(..., tuning_table=)
+    table = os.path.abspath(os.path.join("chiprun_out", "tuning", "table.json"))
+    t0 = time.perf_counter()
+    if tune.main(["--transports", "local,shm", "--ranks", "2,3,4", "--sizes",
+                  "1024,65536,1048576", "--iters", "3", "--out", table]) != 0:
+        raise RuntimeError("tune sweep failed")
+    sweep_s = time.perf_counter() - t0
+    if sweep_s > 20.0:
+        raise RuntimeError(f"tune sweep took {sweep_s:.1f} s (over 20 s)")
+    if tune.main(["--check", table]) != 0:
+        raise RuntimeError("tune --check refused the table")
+    with open(table) as f:
+        doc = json.load(f)
+
+    def served(comm, v):
+        return [comm.allreduce(v[comm.rank][:k]) for k in (256, 16384, 262144)]
+
+    ins = [rank_input(r, 262144, HOST_SEED + 24, dev) for r in range(4)]
+    h0 = mpit.pvar_read("tuned_table_hits")
+    tuned = mpi_tpu_torch.run(served, ins, backend="local", nranks=4, tuning_table=table)
+    hits = mpit.pvar_read("tuned_table_hits") - h0
+    last = tuning.last_decision()
+    seed = mpi_tpu_torch.run(served, ins, backend="local", nranks=4)
+    row = [r for r in doc["rows"] if r["transport"] == "local" and r["nranks"] == 4
+           and r["collective"] == "allreduce" and r["lo_bytes"] <= last["nbytes"]
+           and (r["hi_bytes"] is None or last["nbytes"] < r["hi_bytes"])]
+    if hits <= 0 or not last or not last["source"].startswith("table") or \
+            not row or row[0]["algorithm"] != last["algorithm"]:
+        raise RuntimeError(f"tuned dispatch: hits {hits}, last {last}, row {row}")
+    if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+               for t, s in zip(tuned, seed) for a, b in zip(t, s)):
+        raise RuntimeError("tuned dispatch disagrees with the seed policy")
+    info["tune"] = {"sweep_s": sweep_s, "rows": len(doc["rows"]),
+                    "trusted": sum(r["trusted"] for r in doc["rows"]),
+                    "tuned_table_hits": hits, "last_decision": last,
+                    "picked": sorted({(r["collective"], r["algorithm"]) for r in doc["rows"]})}
+    record["host_compress_tune"] = info
+    log(f"host-tune: sweep of local (rank threads) and shm (one launched world of 4 rank "
+        f"processes, 2 and 3 on its splits), 3 bands in {sweep_s:.1f} s "
+        f"({len(doc['rows'])} rows, {info['tune']['trusted']} trusted), --check OK; "
+        f"run(tuning_table=) served {hits} decisions (last: {last['algorithm']} from "
+        f"{last['source']}), within rtol 1e-5 of the seed policy [{card}]")
+
+
+def host_shm_phase(torch, record):
+    """Phase 23: 4 shm rank processes on the card through the launcher
+    (``examples/host_shm.py``), then the same example under --verify; no
+    segment of either world left in /dev/shm."""
+    from mpi_tpu_torch.transport.shm import shm_prefix
+
+    card = card_line()
+    root = os.path.dirname(os.path.abspath(__file__))
+    info = {"card": card, "ranks": 4}
+    for tag, extra, mib, iters in (("plain", [], NORTH_STAR_ELEMS * 4 >> 20, 2),
+                                   ("verify", ["--verify"], 64, 1)):
+        out_dir = os.path.abspath(os.path.join("chiprun_out", f"host_shm_{tag}"))
+        if os.path.isdir(out_dir):
+            for f in os.listdir(out_dir):
+                os.remove(os.path.join(out_dir, f))
+        t0 = time.perf_counter()
+        t0_wall = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", "4", "--backend", "shm",
+             "--timeout", "300", *extra, os.path.join("mpi_tpu_torch", "examples", "host_shm.py"),
+             "--out", out_dir, "--mib", str(mib), "--iters", str(iters),
+             "--seed", str(HOST_SEED)],
+            cwd=root, capture_output=True, text=True, timeout=360)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"host-shm ({tag}) failed (rc {res.returncode}):\n"
+                               f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+        ranks = []
+        for r in range(4):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        if not all(d["device"].startswith("cuda") and d["ring"]["device"].startswith("cuda")
+                   and d["windows"]["p2p_device"].startswith("cuda") for d in ranks):
+            raise RuntimeError(f"host-shm ({tag}) not on the card: {ranks[0]}")
+        ring = ranks[0]["ring"]
+        pickled = [d["ring"]["pickled_bytes"] for d in ranks]
+        if tag == "plain" and any(pickled):
+            raise RuntimeError(f"host-shm ring pickled {pickled} bytes")
+        if tag == "verify" and (any(p > 4096 for p in pickled)
+                                or any(d["verify_problems"] for d in ranks)):
+            raise RuntimeError(f"host-shm under --verify: pickled {pickled}, "
+                               f"{[d['verify_problems'] for d in ranks]}")
+        marks = {k: max(d["marks"][k] for d in ranks) - t0_wall
+                 for k in ranks[0]["marks"]}
+        info[tag] = {"launcher_wall_s": wall, "marks_s": marks, "ranks": ranks}
+        log(f"host-shm ({tag}) seconds after the launch, slowest rank: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in marks.items()))
+        socket_ms = record.get("host_socket", {}).get("allreduce ring", {}).get("median_ms")
+        log(f"host-shm ({tag}): {ring['bytes_per_rank'] >> 20} MiB ring allreduce median "
+            f"{ring['median_ms']:.1f} ms ({', '.join(f'{s * 1e3:.1f}' for s in ring['s'])}; "
+            f"phase 14's socket ring: {socket_ms if socket_ms is None else round(socket_ms, 1)} ms "
+            f"at 256 MiB), pickled bytes {pickled}, float64 error "
+            f"{ring['max_abs_err_vs_f64']:.3g}; launcher wall {wall:.1f} s [{card}]")
+        for size, d in ranks[0]["arena"].items():
+            log(f"host-shm ({tag}) arena {size} B, 8 collectives with algorithm='sm': "
+                f"coll_sm_hits {d['coll_sm_hits']}, coll_sm_bytes {d['coll_sm_bytes']}, "
+                f"fallbacks {d['coll_sm_fallbacks']}, {d['wall_ms']:.2f} ms")
+        log(f"host-shm ({tag}): 16 MiB declined on every rank "
+            f"({[d['decline_16MiB']['coll_sm_fallbacks'] for d in ranks]}), compressed:bf16 "
+            f"through the arena (hits {ranks[0]['compressed_bf16_arena']['coll_sm_hits']}), "
+            f"shared and device windows {ranks[0]['windows']}")
+        # this launch's segments only: another world's may live beside it
+        prefix = shm_prefix(ranks[0]["session"])
+        left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+        left += [d["windows"]["shared_path"] for d in ranks[:1]
+                 if os.path.exists(d["windows"]["shared_path"])]
+        if left:
+            raise RuntimeError(f"host-shm ({tag}) left segments in /dev/shm: {left}")
+        log(f"host-shm ({tag}): no {prefix}* segment and no shared window left "
+            f"in /dev/shm after exit")
+    info["segments_left"] = 0
+    record["host_shm"] = info
+
+
 def main():
     import torch
 
@@ -2310,6 +2720,15 @@ def main():
     lap("host-trace")
     record["tooling_phases_s"] = time.perf_counter() - t_tools
     log(f"phases 19-21: {record['tooling_phases_s']:.1f} s")
+
+    # 22-23. the same-host data plane and its dispatch -----------------------------
+    t_shm = time.perf_counter()
+    host_compress_tune_phase(torch, record)
+    lap("host-compress-tune")
+    host_shm_phase(torch, record)
+    lap("host-shm")
+    record["data_plane_phases_s"] = time.perf_counter() - t_shm
+    log(f"phases 22-23: {record['data_plane_phases_s']:.1f} s")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

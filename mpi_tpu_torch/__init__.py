@@ -37,7 +37,18 @@ i-collectives and persistent collectives, ``revoke`` / ``shrink`` /
 wildcard races) and the flight recorder (``telemetry``, histogram pvars
 and sessions in ``mpit``, ``profiling.comm_stats``); the static linter is
 ``python -m mpi_tpu_torch.tools.mpilint`` and the trace merger
-``python -m mpi_tpu_torch.tools.tracecat``.
+``python -m mpi_tpu_torch.tools.tracecat``.  The same-host data plane:
+``python -m mpi_tpu_torch.launcher -n P --backend shm prog.py`` runs the
+ranks over the native shared-memory rings (``transport.shm``, with
+``transport.shm.run_shm`` for rank threads in one process), where the
+collectives take the shared-memory arena (``coll_sm``, ``algorithm="sm"``
+and ``"auto"``); ``algorithm="compressed:bf16"`` / ``":int8"`` /
+``":topk"`` compress the wire (``compress``); ``run(...,
+tuning_table=path)`` and ``--tuning-table`` serve ``"auto"`` from a
+measured table (``tuning``, swept by ``python -m
+mpi_tpu_torch.tools.tune``); ``comm.win_create`` /
+``win_create_dynamic`` give one-sided windows on every host backend and
+``win_allocate_shared`` a shared-memory window.
 
 The package imports torch, numpy and the standard library only; the JAX
 package ``mpi_tpu`` is its reference and is never imported.
@@ -61,21 +72,14 @@ from .topology import (CartComm, GraphComm, cart_create, dims_create,
                        dist_graph_create_adjacent, graph_create)
 
 from .membership import ENV_BACKEND, ENV_DEVICE, ENV_RANK, ENV_RDV, ENV_SIZE
+from .shmwin import SharedWindow, win_allocate_shared
 
-# run_local keywords of the reference whose features are not ported yet
-_UNPORTED_RUN_KWARGS = {"tuning_table": "16.3b"}
 # the local backend's world options (transport/local.py run_local)
 _LOCAL_RUN_KWARGS = ("fault_tolerance", "progress", "transport_wrapper",
-                     "verify", "trace")
+                     "verify", "trace", "tuning_table")
 
 _world = None
 _world_lock = threading.Lock()
-
-
-def _shm_unported():
-    return NotImplementedError(
-        "backend 'shm' (the shared-memory ring transport) is not ported "
-        "yet: ROADMAP.md item 16.4")
 
 
 def _rank_device(rank: int, device=None) -> torch.device:
@@ -91,9 +95,9 @@ def _rank_device(rank: int, device=None) -> torch.device:
 
 def init(backend: Optional[str] = None, device=None):
     """Create (or return) the world communicator — MPI_Init +
-    MPI_COMM_WORLD.  Under the launcher this builds the socket transport
-    from the launcher's environment; standalone it is a one-rank world
-    (``"self"``)."""
+    MPI_COMM_WORLD.  Under the launcher this builds the socket (or, with
+    ``--backend shm``, the shared-memory) transport from the launcher's
+    environment; standalone it is a one-rank world (``"self"``)."""
     global _world
     with _world_lock:
         if _world is not None:
@@ -102,7 +106,7 @@ def init(backend: Optional[str] = None, device=None):
 
         backend = backend or os.environ.get(ENV_BACKEND) or (
             "socket" if ENV_RANK in os.environ else "self")
-        if backend == "socket":
+        if backend in ("socket", "shm"):
             from . import membership, progress
 
             rank = int(os.environ[ENV_RANK])
@@ -111,7 +115,8 @@ def init(backend: Optional[str] = None, device=None):
             dev = _rank_device(rank, device)
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
-            t = membership.make_transport("socket", rank, size, rdv, device=dev)
+            t = membership.make_transport(backend, rank, size, rdv,
+                                          device=dev)
             # the flight recorder (MPI_TPU_TRACE / --trace-dir), enabled
             # before the first collective so world-construction traffic is
             # on the timeline too
@@ -153,8 +158,6 @@ def init(backend: Optional[str] = None, device=None):
             primitives.bind_host_rank(0, dev, process=True)
             _world = P2PCommunicator(
                 LocalTransport(LocalWorld(1, device=dev), 0), range(1))
-        elif backend == "shm":
-            raise _shm_unported()
         else:
             raise ValueError(
                 f"unknown backend {backend!r} for process-world init; the "
@@ -208,30 +211,26 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
       per-rank results stacked ``[P, ...]``;
     * ``backend="local"``: ``nranks`` rank threads; returns the list of
       per-rank results.  ``fault_tolerance``, ``progress``,
-      ``transport_wrapper``, ``verify`` and ``trace`` configure the world
-      (``transport.local.run_local``);
-    * ``backend="socket"`` (the default under the launcher) or ``"self"``:
-      ``fn`` on this process's world communicator; returns its result.
+      ``transport_wrapper``, ``verify``, ``trace`` and ``tuning_table``
+      configure the world (``transport.local.run_local``);
+    * ``backend="socket"`` (the default under the launcher), ``"shm"``
+      (under the launcher's ``--backend shm``) or ``"self"``: ``fn`` on
+      this process's world communicator; returns its result.
 
     ``device`` defaults to the card for every backend and never falls back
     to the CPU on its own."""
     if backend is None:
         backend = os.environ.get(ENV_BACKEND) or (
             "socket" if ENV_RANK in os.environ else None)
-    if backend in ("local", "socket", "self"):
-        for name, item in _UNPORTED_RUN_KWARGS.items():
-            if name in kwargs:
-                raise NotImplementedError(
-                    f"run(..., {name}=) is not ported yet: ROADMAP.md item "
-                    f"{item}")
-    if backend in ("socket", "self"):
-        for name in ("fault_tolerance", "progress", "verify", "trace"):
+    if backend in ("socket", "shm", "self"):
+        for name in ("fault_tolerance", "progress", "verify", "trace",
+                     "tuning_table"):
             if name in kwargs:
                 raise ValueError(
                     f"run(..., {name}=) configures the local backend; a "
                     f"process world takes it from the launcher "
                     f"(MPI_TPU_FT=1, --progress thread, --verify, "
-                    f"--trace-dir)")
+                    f"--trace-dir, --tuning-table)")
         return fn(init(backend, device), *args, **kwargs)
     if backend == "local":
         from .transport.local import run_local
@@ -241,8 +240,6 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
         world = {k: kwargs.pop(k) for k in _LOCAL_RUN_KWARGS if k in kwargs}
         return run_local(fn, nranks, args=args, kwargs=kwargs, device=device,
                          **world)
-    if backend == "shm":
-        raise _shm_unported()
     if backend not in (None, "gpu"):
         raise ValueError(f"unknown backend {backend!r}")
     return run_spmd(fn, *args, nranks=nranks, device=device, **kwargs)
@@ -257,6 +254,7 @@ def __getattr__(name: str):
 __all__ = ["CartComm", "GraphComm", "SpmdContextError", "SpmdSemanticsError",
            "TorchCommunicator", "cart_create", "datatypes", "dims_create",
            "dist_graph_create_adjacent", "finalize", "graph_create", "init",
-           "ops", "params_from_numpy", "rank_normal",
+           "ops", "params_from_numpy", "rank_normal", "SharedWindow",
+           "win_allocate_shared",
            "rank_uniform", "resolve_device", "run", "run_spmd", "to_numpy",
            "world_from_numpy"]

@@ -61,10 +61,15 @@ caller's stream (its inputs were produced there) and is issued on the
 default stream; ``wait()``/``test()`` completion makes the caller's
 current stream wait on the default stream.
 
-Not ported yet, each raising ``NotImplementedError`` where a program
-reaches it: the shared-memory arena ``algorithm="sm"`` (ROADMAP 16.4),
-the ``compressed*`` algorithms (16.3b) and RMA windows on host backends
-(16.4).
+The same-host data plane and its dispatch: on an shm transport the
+collective arena (``coll_sm.py``, ``algorithm="sm"``, and the arena-first
+tier of ``"auto"``, :2009-2216); the compressed algorithms
+(``compress.py``, ``"compressed*"``, encoded segments through the
+segmented engine's wire seam, :2281-2447, and ``_SegSender``'s
+encode-on-send :342); tuned dispatch (``tuning/``, consulted by every
+``"auto"`` decision of allreduce, reduce_scatter and alltoall); and the
+one-sided windows ``win_create`` / ``win_create_dynamic`` (``window.py``
+``P2PWindow`` / ``DynamicWindow``, :1960-1971).
 """
 
 from __future__ import annotations
@@ -81,11 +86,14 @@ import numpy as np
 import torch
 
 from . import bufpool as _bufpool
+from . import coll_sm as _coll_sm
+from . import compress as _compress
 from . import mpit as _mpit
 from . import ops as _ops
 from . import recvpool as _recvpool
 from . import schedules
 from . import telemetry as _telemetry
+from . import tuning as _tuning
 from .transport import codec as _codec
 from .errors import ProcFailedError, RevokedError
 from .transport.base import (ANY_SOURCE, ANY_TAG, RecvTimeout, Transport,
@@ -122,13 +130,6 @@ _TAG_BARRIER = -4
 
 # Slice of the fault-tolerant and engine-parked blocking waits (ft.POLL_S).
 _FT_POLL_S = 0.05
-
-# The reference's algorithm names this slice accepts but does not run yet.
-_COMPRESSED_ALLREDUCE = ("compressed", "compressed:bf16", "compressed:int8",
-                         "compressed:topk")
-_COMPRESSED_REDUCE_SCATTER = ("compressed", "compressed:bf16",
-                              "compressed:int8")
-
 
 class _SegHeader:
     """Wire announcement of a segmented tree broadcast (the root's choice):
@@ -187,26 +188,17 @@ def seed_allreduce_algorithm(nbytes: int, size: int) -> str:
 
 
 def _resolve_algorithm(coll: str, algorithm: str, real: Tuple[str, ...],
-                       aliases: dict, unported: Tuple[str, ...] = ()) -> str:
+                       aliases: dict) -> str:
     """The ONE ``algorithm=`` gate of the host collectives: aliases are
     explicit, real names pass through, anything else raises the same
-    error everywhere, listing every accepted value (the reference's list
-    on these transports).  ``"sm"`` and the names in ``unported`` are
-    refused with the ROADMAP item that ports them."""
-    if algorithm == "sm":
-        raise NotImplementedError(
-            f"{coll} algorithm 'sm' (the shared-memory collective arena of "
-            f"the shm transport) is not ported yet: ROADMAP.md item 16.4")
-    if algorithm in unported:
-        raise NotImplementedError(
-            f"{coll} algorithm {algorithm!r} (compressed wire dtypes) is not "
-            f"ported yet: ROADMAP.md item 16.3b")
+    error everywhere, listing every accepted value (``"sm"`` is a real
+    name only on an arena-capable transport, ``coll_sm.gate``)."""
     if algorithm in aliases:
         resolved = aliases[algorithm]
     elif algorithm in real:
         resolved = algorithm
     else:
-        accepted = sorted(set(real) | set(aliases) | set(unported))
+        accepted = sorted(set(real) | set(aliases))
         raise ValueError(
             f"unknown {coll} algorithm {algorithm!r}; accepted: {accepted}")
     rec = _telemetry.REC
@@ -332,14 +324,16 @@ class _SegSender:
     failure on the engine thread is recorded, and re-raised at the
     caller's next fold/drain step (``check``)."""
 
-    __slots__ = ("_comm", "_work", "_spans", "_dest", "_si", "_lock", "error")
+    __slots__ = ("_comm", "_work", "_spans", "_dest", "_si", "_lock",
+                 "_wire", "error")
 
     def __init__(self, comm: "P2PCommunicator", work: torch.Tensor,
-                 spans, dest: int):
+                 spans, dest: int, wire=None):
         self._comm, self._work, self._spans = comm, work, spans
         self._dest = dest
         self._si = 0
         self._lock = threading.Lock()
+        self._wire = wire  # wire-dtype codec (compress.py), None = plain
         self.error: Optional[BaseException] = None
 
     def post(self, n: int) -> None:
@@ -349,8 +343,8 @@ class _SegSender:
                 self._si += 1
                 n -= 1
                 self._comm._send_internal(
-                    self._comm._coll_payload(self._work[lo:hi]), self._dest,
-                    _TAG_COLL)
+                    self._comm._seg_payload(self._work[lo:hi], self._wire),
+                    self._dest, _TAG_COLL)
 
     def advance(self) -> None:
         """One receive completed: extend the credit window by one span
@@ -1083,17 +1077,6 @@ class Communicator(ABC):
         """Release resources (no-op for sub-communicators)."""
 
 
-def _unported(name: str, what: str, item: str):
-    """A method of the reference's host communicator this slice does not
-    port: it raises, naming the ROADMAP item that ports it."""
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: {what} on the host backends are not ported yet: "
-            f"ROADMAP.md item {item}")
-    method.__name__ = name
-    return method
-
-
 def _concat_rows(items: List[Any]) -> torch.Tensor:
     dev = items[0].device if isinstance(items[0], torch.Tensor) else None
     return torch.cat([torch.as_tensor(it, device=dev) for it in items], dim=0)
@@ -1671,18 +1654,27 @@ class P2PCommunicator(Communicator):
 
     @_traced_coll
     def bcast(self, obj: Any, root: int = 0, algorithm: str = "auto") -> Any:
-        """MPI_Bcast over the binomial tree (``"tree"``; ``"auto"`` and
-        ``"fused"`` alias it).  Large tensors take the SEGMENTED pipelined
-        tree: the root announces the geometry with a _SegHeader, then every
-        rank forwards each segment to its children the moment it lands."""
+        """MPI_Bcast over the binomial tree (``"tree"``; ``"fused"``
+        aliases it); ``"sm"`` (shm transports) reads the root's arena slot
+        in place; ``"auto"`` tries the arena where the transport has one.
+        Large tensors take the SEGMENTED pipelined tree: the root
+        announces the geometry with a _SegHeader, then every rank forwards
+        each segment to its children the moment it lands."""
         _mpit.count(collectives=1)
         self._coll_name = "bcast"
-        algorithm = _resolve_algorithm("bcast", algorithm, ("auto", "tree"),
-                                       {"fused": "tree"})
+        algorithm = _resolve_algorithm(
+            "bcast", algorithm, ("auto", "tree") + _coll_sm.gate(self),
+            {"fused": "tree"})
         self._world(root)  # validate
         self._verify_coll("bcast", root=root, algorithm=algorithm)
         if self.size == 1:
             return obj
+        if algorithm in ("auto", "sm"):
+            # the arena decides eligibility inside (only the root knows
+            # the payload) and keeps the group in lockstep on a decline
+            got = _coll_sm.bcast(self, obj, root)
+            if got is not _coll_sm.FALLBACK:
+                return got
         _note_alg("tree")
         parent, children = schedules.binomial_tree_links(
             self.size, self._rank, root)
@@ -1735,15 +1727,23 @@ class P2PCommunicator(Communicator):
     def reduce(self, obj: Any, op: _ops.ReduceOp = _ops.SUM, root: int = 0,
                algorithm: str = "auto") -> Any:
         """MPI_Reduce over the binomial tree with in-place folds
-        (``"tree"``; ``"auto"`` and ``"fused"`` alias it)."""
+        (``"tree"``; ``"fused"`` aliases it); ``"sm"`` (shm transports):
+        ranks publish their payloads in the arena, the root folds them;
+        ``"auto"`` tries the arena at eager sizes."""
         _mpit.count(collectives=1)
         self._coll_name = "reduce"
-        algorithm = _resolve_algorithm("reduce", algorithm, ("auto", "tree"),
-                                       {"fused": "tree"})
+        algorithm = _resolve_algorithm(
+            "reduce", algorithm, ("auto", "tree") + _coll_sm.gate(self),
+            {"fused": "tree"})
         self._world(root)  # validate
         arr = _as_tensor(obj, self.device)
         self._verify_coll("reduce", root=root, op=op, payload=arr,
                           algorithm=algorithm)
+        if algorithm in ("auto", "sm") and self.size > 1:
+            got = _coll_sm.reduce(self, arr, op, root)
+            if got is not _coll_sm.FALLBACK:
+                (out,) = got
+                return out if self._rank == root else None
         _note_alg("tree")
         acc = arr.detach().clone()
         for pairs in schedules.binomial_reduce_rounds(self.size, root):
@@ -1757,22 +1757,70 @@ class P2PCommunicator(Communicator):
 
     @_traced_coll
     def allreduce(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
-                  algorithm: str = "auto") -> Any:
+                  algorithm: str = "auto",
+                  compress_key: Any = None) -> Any:
         """MPI_Allreduce.  ``algorithm``: ``"ring"`` (reduce-scatter ring +
         allgather ring), ``"recursive_halving"`` (power-of-two groups),
         ``"rabenseifner"`` (block-ring reduce_scatter + ring allgather,
-        any group size), ``"reduce_bcast"``, or ``"auto"`` (the reference's
-        size rule, ``seed_allreduce_algorithm``); ``"fused"`` aliases
-        ``"auto"``."""
+        any group size), ``"reduce_bcast"``, ``"sm"`` (shm transports:
+        the collective arena), or ``"auto"`` — a tuned table's row when
+        one matches, else the arena first on shm transports, else the
+        reference's size rule (``seed_allreduce_algorithm``); ``"fused"``
+        aliases ``"auto"``.
+
+        ``"compressed"`` / ``"compressed:bf16"`` / ``"compressed:int8"`` /
+        ``"compressed:topk"`` (``compress.py``) split the wire dtype from
+        the fold dtype; ineligible payloads decline group-coherently to
+        ``"auto"`` (``compress_fallbacks``).  ``compress_key`` names the
+        tensor a top-k error-feedback residual belongs to."""
         _mpit.count(collectives=1)
         self._coll_name = "allreduce"
         arr = _as_tensor(obj, self.device)
         algorithm = _resolve_algorithm(
             "allreduce", algorithm,
             ("auto", "ring", "recursive_halving", "rabenseifner",
-             "reduce_bcast"), {"fused": "auto"}, _COMPRESSED_ALLREDUCE)
+             "reduce_bcast") + _compress.ALLREDUCE_NAMES
+            + _coll_sm.gate(self), {"fused": "auto"})
+        wire = vcounts = None
+        if _compress.is_compressed(algorithm):
+            # resolve BEFORE the signature exchange: the ring carries
+            # "compressed:bf16" (and top-k's k), never the alias
+            wire, algorithm, vcounts = _compress.resolve(
+                self, "allreduce", arr, op, algorithm)
+            _note_alg(algorithm)
         self._verify_coll("allreduce", op=op, payload=arr,
-                          algorithm=algorithm)
+                          algorithm=algorithm, counts=vcounts)
+        if wire is not None:
+            if self.size == 1:
+                return arr.detach().clone()
+            if wire is _compress.TOPK:
+                return _compress.topk_allreduce(self, arr, op,
+                                                compress_key=compress_key)
+            # shm transports: the arena's compressed eager path first
+            got = _coll_sm.allreduce_wire(self, arr, op, wire)
+            if got is not _coll_sm.FALLBACK:
+                return got
+            fold = arr.detach().to(_compress.fold_dtype(arr.dtype))
+            return self._allreduce_ring(fold, op, wire=wire).to(arr.dtype)
+        if algorithm == "auto" and self.size > 1:
+            # tuned dispatch: a measured row for (transport, P, allreduce,
+            # payload band) overrides the seed policy below, into the
+            # arena or away from it
+            pick = _tuning.pick(
+                self, "allreduce", arr.nbytes,
+                ("ring", "rabenseifner", "reduce_bcast")
+                + (("recursive_halving",)
+                   if schedules.is_pow2(self.size) else ())
+                + _coll_sm.gate(self))
+            if pick is not None:
+                algorithm = pick
+        if algorithm in ("auto", "sm") and self.size > 1:
+            # shm transports: the collective arena first; on a decline the
+            # wire auto policy picks the classic schedule
+            got = _coll_sm.allreduce(self, arr, op)
+            if got is not _coll_sm.FALLBACK:
+                return got
+            algorithm = "auto"
         if algorithm == "auto":
             algorithm = seed_allreduce_algorithm(arr.nbytes, self.size)
         _note_alg(algorithm)
@@ -1800,6 +1848,12 @@ class P2PCommunicator(Communicator):
         into its working buffer in place: hand them a snapshot."""
         return view.clone() if self._t.aliases_payloads else view
 
+    def _seg_payload(self, view: torch.Tensor, wire) -> Any:
+        """One pipeline segment as sent: encoded by ``wire`` (fresh
+        tensors: no snapshot needed), else the plain view."""
+        return (wire.encode(view) if wire is not None
+                else self._coll_payload(view))
+
     def _seg_elems(self, itemsize: int) -> int:
         """Pipeline segment size in ELEMENTS: the collective_segment_bytes
         cvar when nonzero, else the transport's coll_segment_hint."""
@@ -1819,7 +1873,8 @@ class P2PCommunicator(Communicator):
 
     def _seg_exchange(self, work: torch.Tensor, sbounds: Tuple[int, int],
                       rbounds: Tuple[int, int], dest: int, src: int,
-                      op: Optional[_ops.ReduceOp] = None) -> None:
+                      op: Optional[_ops.ReduceOp] = None,
+                      wire=None) -> None:
         """One pipelined exchange step: send ``work[sbounds]`` to ``dest``
         while receiving the same-global-range ``rbounds`` from ``src``,
         folding (``op``) or copying (``op=None``) each segment into the
@@ -1827,8 +1882,14 @@ class P2PCommunicator(Communicator):
         complete in posted order, matching the sender's FIFO channel);
         sends run at most _SEG_WINDOW segments ahead of the receive
         pointer.  Both sides derive spans from the same global tables, so
-        message boundaries agree with no metadata traffic."""
+        message boundaries agree with no metadata traffic.
+
+        ``wire`` (``compress.py``) is the wire-dtype != fold-dtype seam:
+        each outgoing segment is ENCODED at send time and DECODED at its
+        fold or copy site, so compression composes with the pipeline and
+        the engine's credit callbacks unchanged."""
         seg = self._seg_elems(work.element_size())
+        decode = None if wire is None else wire.decode
         sspans = schedules.segment_spans(sbounds[0], sbounds[1], seg)
         rspans = schedules.segment_spans(rbounds[0], rbounds[1], seg)
         # Pure-copy spans may land DIRECTLY in the working buffer on a
@@ -1837,7 +1898,7 @@ class P2PCommunicator(Communicator):
         # accumulator before the fold reads it).  A steered segment is
         # recognised by identity (the delivered payload IS the view).
         dests = None
-        if op is None and self._recv_reg is not None:
+        if op is None and wire is None and self._recv_reg is not None:
             dests = [work[lo:hi] for lo, hi in rspans]
         eng = self._progress
         sender = None
@@ -1848,7 +1909,7 @@ class P2PCommunicator(Communicator):
             # folds.  Receives are posted and their callbacks attached
             # under the completion lock, or an early completion in the
             # gap would lose its send credit.
-            sender = _SegSender(self, work, sspans, dest)
+            sender = _SegSender(self, work, sspans, dest, wire)
         reqs = []
         with (eng.cv if sender is not None else contextlib.nullcontext()):
             for i in range(len(rspans)):
@@ -1865,8 +1926,8 @@ class P2PCommunicator(Communicator):
                 si = len(sspans)  # the sender owns every later send
             while si < min(len(sspans), _SEG_WINDOW):
                 lo, hi = sspans[si]
-                self._send_internal(self._coll_payload(work[lo:hi]), dest,
-                                    _TAG_COLL)
+                self._send_internal(self._seg_payload(work[lo:hi], wire),
+                                    dest, _TAG_COLL)
                 si += 1
             for seg_i, ((lo, hi), req) in enumerate(zip(rspans, reqs)):
                 if sender is not None:
@@ -1878,19 +1939,20 @@ class P2PCommunicator(Communicator):
                         # the working buffer's spans were just SENT:
                         # retained frames must snapshot before this write
                         _bufpool.touch(view)
-                        view.copy_(got)
+                        view.copy_(got if decode is None else decode(got))
                         self._count_recv_store(dests)
                 else:
-                    op.combine_into(view, got)
+                    op.combine_into(view, got, decode)
                 if si < len(sspans):
                     slo, shi = sspans[si]
-                    self._send_internal(self._coll_payload(work[slo:shi]),
-                                        dest, _TAG_COLL)
+                    self._send_internal(
+                        self._seg_payload(work[slo:shi], wire), dest,
+                        _TAG_COLL)
                     si += 1
             while si < len(sspans):  # recv range empty/shorter: drain tail
                 slo, shi = sspans[si]
-                self._send_internal(self._coll_payload(work[slo:shi]), dest,
-                                    _TAG_COLL)
+                self._send_internal(self._seg_payload(work[slo:shi], wire),
+                                    dest, _TAG_COLL)
                 si += 1
             if sender is not None:
                 sender.drain()
@@ -1905,9 +1967,12 @@ class P2PCommunicator(Communicator):
             _unpost(reqs)
             raise
 
-    def _allreduce_ring(self, arr: torch.Tensor, op: _ops.ReduceOp) -> torch.Tensor:
+    def _allreduce_ring(self, arr: torch.Tensor, op: _ops.ReduceOp,
+                        wire=None) -> torch.Tensor:
         # reduce-scatter ring + allgather ring, 2(P-1) steps, segmented
-        # and in place on one flat working copy of the input
+        # and in place on one flat working copy of the input; ``wire``
+        # encodes BOTH phases (partial sums and reduced chunks), so the
+        # quantization error compounds about linearly in P
         p, r = self.size, self._rank
         work = _flat_copy(arr)
         offs = schedules.chunk_offsets(work.numel(), p)
@@ -1916,12 +1981,14 @@ class P2PCommunicator(Communicator):
             si = schedules.ring_rs_send_chunk(r, step, p)
             ri = schedules.ring_rs_recv_chunk(r, step, p)
             self._seg_exchange(work, (offs[si], offs[si + 1]),
-                               (offs[ri], offs[ri + 1]), right, left, op)
+                               (offs[ri], offs[ri + 1]), right, left, op,
+                               wire=wire)
         for step in range(p - 1):
             si = schedules.ring_ag_send_chunk(r, step, p)
             ri = schedules.ring_ag_recv_chunk(r, step, p)
             self._seg_exchange(work, (offs[si], offs[si + 1]),
-                               (offs[ri], offs[ri + 1]), right, left)
+                               (offs[ri], offs[ri + 1]), right, left,
+                               wire=wire)
         return work.view(arr.shape)
 
     def _allreduce_halving(self, arr: torch.Tensor, op: _ops.ReduceOp) -> torch.Tensor:
@@ -1981,15 +2048,25 @@ class P2PCommunicator(Communicator):
         one ``[P, ...]`` buffer), ``"doubling"`` (recursive doubling,
         power-of-two groups), or ``"auto"`` — doubling on power-of-two
         groups, the ring otherwise (the pick depends only on the group
-        shape); ``"fused"`` aliases ``"auto"``.  Equal-geometry tensors
-        come back stacked ``[P, ...]``, anything else as a list."""
+        shape), after the arena on shm transports (``"sm"``: every rank
+        reads every slot in place; ragged or object payloads decline
+        inside the arena, on every rank together); ``"fused"`` aliases
+        ``"auto"``.  Equal-geometry tensors come back stacked ``[P,
+        ...]``, anything else as a list."""
         _mpit.count(collectives=1)
         self._coll_name = "allgather"
         p, r = self.size, self._rank
         algorithm = _resolve_algorithm(
-            "allgather", algorithm, ("auto", "ring", "doubling"),
+            "allgather", algorithm,
+            ("auto", "ring", "doubling") + _coll_sm.gate(self),
             {"fused": "auto"})
         self._verify_coll("allgather", algorithm=algorithm)
+        if algorithm in ("auto", "sm") and p > 1:
+            got = _coll_sm.allgather(self, obj)
+            if got is not _coll_sm.FALLBACK:
+                (got_items,) = got
+                return _maybe_stack(obj, got_items)
+            algorithm = "auto"
         if algorithm == "auto":
             algorithm = _note_alg("doubling" if schedules.is_pow2(p)
                                   else "ring")
@@ -2066,18 +2143,49 @@ class P2PCommunicator(Communicator):
     @_traced_coll
     def alltoall(self, objs: Sequence[Any], algorithm: str = "auto") -> Any:
         """MPI_Alltoall by windowed nonblocking pairwise exchange
-        (``"pairwise"``; ``"auto"`` and ``"fused"`` alias it): all P-1
-        receives are posted up front and the sends run at most
-        _SEG_WINDOW rounds ahead of the completed receives."""
+        (``"pairwise"``; ``"fused"`` aliases it): all P-1 receives are
+        posted up front and the sends run at most _SEG_WINDOW rounds ahead
+        of the completed receives.  ``"sm"`` (shm transports): each rank
+        writes its ``[P, ...]`` stack once and reads its column in place;
+        ``"auto"`` tries the arena where the transport has one."""
         _mpit.count(collectives=1)
         self._coll_name = "alltoall"
         p, r = self.size, self._rank
         algorithm = _resolve_algorithm(
-            "alltoall", algorithm, ("auto", "pairwise"),
+            "alltoall", algorithm, ("auto", "pairwise") + _coll_sm.gate(self),
             {"fused": "pairwise"})
         if len(objs) != p:
             raise ValueError(f"alltoall needs one payload per rank ({p}), got {len(objs)}")
         self._verify_coll("alltoall", algorithm=algorithm)
+        tuned_wire = False
+        if algorithm == "auto" and p > 1:
+            # tuned dispatch.  Alltoall payloads may be rank-varying, so a
+            # "pairwise" row never skips the arena's negotiation: this
+            # rank enters it with no payload, which lands the whole group
+            # on pairwise together
+            try:
+                nb = self._blocks_nbytes(objs)
+            except (ValueError, TypeError, RuntimeError):
+                nb = None
+            if nb is not None:
+                pick = _tuning.pick(self, "alltoall", nb,
+                                    ("pairwise",) + _coll_sm.gate(self))
+                tuned_wire = pick == "pairwise"
+        if algorithm in ("auto", "sm") and p > 1:
+            # the stacked view is built only when the payload fits a slot;
+            # ragged or object payloads decline inside the arena
+            arena = _coll_sm.arena_for(self)
+            arr_sm = None
+            if arena is not None and not tuned_wire:
+                try:
+                    if self._blocks_nbytes(objs) <= arena.capacity:
+                        arr_sm = self._blocks_as_array(objs)
+                except (ValueError, TypeError, RuntimeError):
+                    arr_sm = None
+            got = _coll_sm.alltoall(self, arr_sm)
+            if got is not _coll_sm.FALLBACK:
+                (items,) = got
+                return _maybe_stack(objs, items)
         _note_alg("pairwise")
         result: List[Any] = [None] * p
         result[r] = objs[r]
@@ -2102,15 +2210,21 @@ class P2PCommunicator(Communicator):
     @_traced_coll
     def barrier(self, algorithm: str = "auto") -> None:
         """MPI_Barrier by dissemination, ceil(log2 P) message rounds
-        (``"dissemination"``; ``"auto"`` and ``"fused"`` alias it)."""
+        (``"dissemination"``; ``"fused"`` aliases it); ``"sm"`` (shm
+        transports): one flag round in the arena, no messages; ``"auto"``
+        takes the arena where the transport has one."""
         _mpit.count(collectives=1)
         self._coll_name = "barrier"
         algorithm = _resolve_algorithm(
-            "barrier", algorithm, ("auto", "dissemination"),
+            "barrier", algorithm,
+            ("auto", "dissemination") + _coll_sm.gate(self),
             {"fused": "dissemination"})
         self._verify_coll("barrier", algorithm=algorithm)
-        _note_alg("dissemination")
         p, r = self.size, self._rank
+        if algorithm in ("auto", "sm") and p > 1:
+            if _coll_sm.barrier(self) is not _coll_sm.FALLBACK:
+                return
+        _note_alg("dissemination")
         for off in schedules.dissemination_offsets(p):
             self._send_internal(None, (r + off) % p, _TAG_BARRIER)
             self._recv_internal((r - off) % p, _TAG_BARRIER)
@@ -2119,13 +2233,21 @@ class P2PCommunicator(Communicator):
     def scan(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
              algorithm: str = "auto") -> Any:
         """MPI_Scan by Hillis-Steele distance doubling, log2(P) rounds
-        (``"doubling"``; ``"auto"`` and ``"fused"`` alias it)."""
+        (``"doubling"``; ``"fused"`` aliases it); ``"sm"`` (shm
+        transports): write own payload, one flag round, rank r folds slots
+        0..r in place; ``"auto"`` tries the arena where there is one."""
         _mpit.count(collectives=1)
         self._coll_name = "scan"
         arr = _as_tensor(obj, self.device)
-        algorithm = _resolve_algorithm("scan", algorithm, ("auto", "doubling"),
-                                       {"fused": "doubling"})
+        algorithm = _resolve_algorithm(
+            "scan", algorithm, ("auto", "doubling") + _coll_sm.gate(self),
+            {"fused": "doubling"})
         self._verify_coll("scan", op=op, payload=arr, algorithm=algorithm)
+        if algorithm in ("auto", "sm") and self.size > 1:
+            got = _coll_sm.scan(self, arr, op)
+            if got is not _coll_sm.FALLBACK:
+                (out,) = got
+                return out
         _note_alg("doubling")
         acc = arr.detach().clone()
         p, r = self.size, self._rank
@@ -2176,43 +2298,90 @@ class P2PCommunicator(Communicator):
         """MPI_Reduce_scatter_block: ``blocks`` holds one block per rank;
         rank r gets the reduction of everyone's block r.  ``"ring"`` (P-1
         steps — segmented on one flat working buffer when the blocks are
-        homogeneous and the payload large, per-chunk otherwise);
-        ``"auto"`` and ``"fused"`` alias it."""
+        homogeneous and the payload large, per-chunk otherwise;
+        ``"fused"`` aliases it); ``"sm"`` (shm transports): write the
+        whole input, fold block ``rank`` reading peers in place; ``"auto"``
+        — a tuned row, else the arena first on shm transports, else the
+        ring.  ``"compressed"`` / ``"compressed:bf16"`` /
+        ``"compressed:int8"`` run the block ring with encoded segments and
+        float32 folds (float64 for float64 payloads)."""
         _mpit.count(collectives=1)
         self._coll_name = "reduce_scatter"
         p, r = self.size, self._rank
         algorithm = _resolve_algorithm(
-            "reduce_scatter", algorithm, ("auto", "ring"), {"fused": "ring"},
-            _COMPRESSED_REDUCE_SCATTER)
+            "reduce_scatter", algorithm,
+            ("auto", "ring") + _compress.REDUCE_SCATTER_NAMES
+            + _coll_sm.gate(self), {"fused": "ring"})
         if len(blocks) != p:
             raise ValueError(
                 f"reduce_scatter needs one block per rank ({p}), got {len(blocks)}")
+        block0 = _as_tensor(blocks[0], self.device)
+        wire = None
+        if _compress.is_compressed(algorithm):
+            # the resolved wire dtype goes into the signature
+            wire, algorithm, _ = _compress.resolve(
+                self, "reduce_scatter", block0, op, algorithm)
         # geometry class of block 0 plus the block count: mismatched
         # reduce geometry is flagged before the ring can misfold
-        self._verify_coll("reduce_scatter", op=op,
-                          payload=_as_tensor(blocks[0], self.device),
+        self._verify_coll("reduce_scatter", op=op, payload=block0,
                           algorithm=algorithm, counts=(p,))
-        _note_alg("ring")
+        if algorithm == "auto" and p > 1:
+            # tuned dispatch: the measured arena-vs-wire-ring axis
+            pick = _tuning.pick(self, "reduce_scatter",
+                                self._blocks_nbytes(blocks),
+                                ("ring",) + _coll_sm.gate(self))
+            if pick is not None:
+                algorithm = pick
+        if algorithm in ("auto", "sm") and p > 1:
+            # the stacked view is built only when the payload fits a slot;
+            # an ineligible rank enters with no payload and the in-arena
+            # negotiation lands everyone on the ring together
+            arena = _coll_sm.arena_for(self)
+            arr_sm = (self._blocks_as_array(blocks)
+                      if arena is not None
+                      and self._blocks_nbytes(blocks) <= arena.capacity
+                      else None)
+            got = _coll_sm.reduce_scatter(self, arr_sm, op)
+            if got is not _coll_sm.FALLBACK:
+                (out,) = got
+                return out
         # size-gate BEFORE stacking: for list payloads eligibility stacks
         # the blocks, a copy the per-chunk path would throw away
         nbytes = self._blocks_nbytes(blocks)
-        use_seg = (nbytes >= _RS_SEGMENT_MIN_BYTES
+        use_seg = (wire is not None or nbytes >= _RS_SEGMENT_MIN_BYTES
                    or 0 < _SEGMENT_BYTES < nbytes)
         arr = self._blocks_as_array(blocks) if use_seg and p > 1 else None
+        if wire is not None and arr is None:
+            # heterogeneous blocks cannot ride the flat working buffer the
+            # encoded exchange needs; block geometry is congruent across
+            # ranks, so every rank declines together
+            _compress._decline()
+            wire = None
+        _note_alg(algorithm if wire is not None else "ring")
         if arr is not None:
-            # list payloads were just STACKED into a fresh buffer nobody
-            # else holds; a tensor payload aliases the caller's memory
-            work = (_flat_copy(arr) if isinstance(blocks, torch.Tensor)
-                    else arr.view(-1))
+            if wire is not None:
+                # the fold-dtype cast is itself the fresh working buffer
+                work = arr.detach().reshape(-1).to(
+                    _compress.fold_dtype(arr.dtype))
+                if work.data_ptr() == arr.data_ptr():
+                    work = work.clone()
+            else:
+                # list payloads were just STACKED into a fresh buffer nobody
+                # else holds; a tensor payload aliases the caller's memory
+                work = (_flat_copy(arr) if isinstance(blocks, torch.Tensor)
+                        else arr.view(-1))
             bn = work.numel() // p
             right, left = (r + 1) % p, (r - 1) % p
             for step in range(p - 1):
                 si = schedules.ring_rs_block_send_chunk(r, step, p)
                 ri = schedules.ring_rs_block_recv_chunk(r, step, p)
                 self._seg_exchange(work, (si * bn, (si + 1) * bn),
-                                   (ri * bn, (ri + 1) * bn), right, left, op)
+                                   (ri * bn, (ri + 1) * bn), right, left, op,
+                                   wire=wire)
             # own block copied out so the P·n working buffer is released
-            return work[r * bn:(r + 1) * bn].view(arr.shape[1:]).clone()
+            mine = work[r * bn:(r + 1) * bn].view(arr.shape[1:])
+            return (mine.to(arr.dtype) if mine.dtype != arr.dtype
+                    else mine.clone())
         # Generic path: only the chunks this rank folds INTO need a private
         # copy — chunk (r-1)%p is sent in step 0 and never touched again,
         # so it stays a view of the caller's data
@@ -2279,7 +2448,21 @@ class P2PCommunicator(Communicator):
         self._send_internal(obj, root, _TAG_COLL)
         return None
 
-    win_create = _unported("win_create", "one-sided RMA (P2PWindow)", "16.4")
+    def win_create(self, init: Any):
+        """MPI_Win_create: an RMA window over this communicator
+        (``window.P2PWindow``) — fence epochs, passive target, PSCW and
+        the MPI-3 atomics.  Collective."""
+        from .window import P2PWindow
+
+        return P2PWindow(self, init)
+
+    def win_create_dynamic(self):
+        """MPI_Win_create_dynamic: a window with no initial memory
+        (``window.DynamicWindow``; regions addressed by key in every op's
+        ``loc``).  Collective."""
+        from .window import DynamicWindow
+
+        return DynamicWindow(self)
 
     # -- fault tolerance (ULFM, ft.py) ----------------------------------------
 
@@ -2445,6 +2628,9 @@ class P2PCommunicator(Communicator):
             from .verify.state import CommVerify
 
             c._verify = CommVerify(self._verify.world)
+        # no collective arena on clones: each is single-use, and an arena
+        # per clone would map (and unlink) a segment per call
+        c._no_coll_sm = True
         return c
 
     def _nbc_issue(self, kind: str, fn, *args: Any, **kwargs: Any) -> Request:
@@ -2481,10 +2667,13 @@ class P2PCommunicator(Communicator):
                                obj, op=op, root=root)
 
     def iallreduce(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
-                   algorithm: str = "auto") -> Request:
+                   algorithm: str = "auto",
+                   compress_key: Any = None) -> Request:
         return self._nbc_issue(
-            "iallreduce", lambda c: c.allreduce(obj, op, algorithm),
-            obj, op=op, algorithm=algorithm)
+            "iallreduce",
+            lambda c: c.allreduce(obj, op, algorithm,
+                                  compress_key=compress_key),
+            obj, op=op, algorithm=algorithm, compress_key=compress_key)
 
     def iallgather(self, obj: Any) -> Request:
         return self._nbc_issue("iallgather", lambda c: c.allgather(obj), obj)
@@ -2506,14 +2695,15 @@ class P2PCommunicator(Communicator):
     # -- persistent collectives (MPI-4 MPI_Allreduce_init & co., nbc.py) -------
 
     def allreduce_init(self, obj: Any, op: _ops.ReduceOp = _ops.SUM,
-                       algorithm: str = "auto"):
+                       algorithm: str = "auto", compress_key: Any = None):
         """MPI_Allreduce_init: a ``PersistentColl`` handle that hoists the
         child context, the algorithm resolution, the schedule and the
         working buffers out of the loop; ``start()`` re-reads ``obj`` (the
         buffer-reuse idiom: refill it in place between rounds)."""
         from . import nbc as _nbc
 
-        return _nbc.persistent_init(self, "allreduce", obj, op, algorithm)
+        return _nbc.persistent_init(self, "allreduce", obj, op, algorithm,
+                                    compress_key)
 
     def bcast_init(self, obj: Any, root: int = 0, algorithm: str = "auto"):
         """MPI_Bcast_init: a planned binomial-tree broadcast."""

@@ -1,8 +1,10 @@
-"""A rank's death and the world's recovery on socket ranks: detect, revoke,
-shrink, agree, then a fresh process rejoins the vacant slot.
+"""A rank's death and the world's recovery on socket (or shm) ranks:
+detect, revoke, shrink, agree, then a fresh process rejoins the vacant
+slot.
 
     python -m mpi_tpu_torch.examples.host_ft --out DIR [--ranks 4] [--mib 256]
     python -m mpi_tpu_torch.examples.host_ft --out DIR --device cpu --mib 1
+    python -m mpi_tpu_torch.examples.host_ft --out DIR --backend shm
 
 The driver starts ``--ranks`` rank processes the way the launcher does
 (``MPI_TPU_RANK`` / ``SIZE`` / ``RDV``, ``MPI_TPU_FT=1`` and
@@ -46,6 +48,7 @@ def _args(argv=None):
     p.add_argument("--heartbeat", type=float, default=0.2,
                    help="fault_heartbeat_interval_s")
     p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument("--backend", choices=("socket", "shm"), default="socket")
     p.add_argument("--role", choices=("drive", "rank", "joiner"),
                    default="drive")
     return p.parse_args(argv)
@@ -176,7 +179,7 @@ def joiner_main(args) -> int:
 
 def drive(out: str, ranks: int = 4, mib: int = 256, seed: int = 0,
           device=None, detect: float = 2.0, heartbeat: float = 0.2,
-          timeout: float = 300.0) -> dict:
+          timeout: float = 300.0, backend: str = "socket") -> dict:
     """Run the story in ``ranks`` + 1 processes; returns the per-process
     records and the exit summary.  Raises on any failed check."""
     from mpi_tpu_torch import launcher, membership
@@ -191,12 +194,16 @@ def drive(out: str, ranks: int = 4, mib: int = 256, seed: int = 0,
             os.remove(os.path.join(out, f))
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    if backend == "shm":
+        from mpi_tpu_torch.native import ensure_built
+
+        ensure_built()  # once, before the ranks race to the build lock
     rdv = membership.new_rendezvous_dir()
     common = ["--out", out, "--ranks", str(ranks), "--mib", str(mib),
               "--seed", str(seed), "--detect", str(detect),
               "--heartbeat", str(heartbeat), "--timeout", str(timeout)]
     base = dict(os.environ)
-    base.update({ENV_RDV: rdv, ENV_BACKEND: "socket", "MPI_TPU_FT": "1",
+    base.update({ENV_RDV: rdv, ENV_BACKEND: backend, "MPI_TPU_FT": "1",
                  "MPI_TPU_PROGRESS": "thread",
                  "PYTHONPATH": os.pathsep.join(
                      p for p in (root, os.environ.get("PYTHONPATH")) if p)})
@@ -254,7 +261,7 @@ def main(argv=None) -> int:
     if args.role == "joiner":
         return joiner_main(args)
     res = drive(args.out, args.ranks, args.mib, args.seed, args.device,
-                args.detect, args.heartbeat, args.timeout)
+                args.detect, args.heartbeat, args.timeout, args.backend)
     sys.stdout.write(res["exit_summary"])
     print(json.dumps(res["records"]))
     return 0

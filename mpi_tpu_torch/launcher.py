@@ -17,13 +17,19 @@ counterpart of the reference's CPU pin of its ranks' JAX.
 enables fault tolerance in every rank (``ft.py``); ``--verify`` the
 runtime verifier (``MPI_TPU_VERIFY=1``, :212) and ``--trace-dir DIR`` the
 flight recorder, each rank exporting its Chrome trace into DIR at exit
-(``MPI_TPU_TRACE`` / ``MPI_TPU_TRACE_DIR``, :235).  The tuned-dispatch
-table (``--tuning-table``) is ROADMAP item 16.3b and the resident world
-server (``launcher serve``) 16.3c; both raise.
+(``MPI_TPU_TRACE`` / ``MPI_TPU_TRACE_DIR``, :235); ``--tuning-table PATH``
+activates a tuned-dispatch table in every rank (``MPI_TPU_TUNING_TABLE``,
+:264).  ``--backend shm`` runs the ranks over the native shared-memory
+rings (``transport/shm.py``): the ring is built once up front (:92), and
+the rendezvous teardown unlinks any segment a crashed rank left behind.
+The resident world server (``launcher serve``) is ROADMAP item 16.3c and
+raises.
 
 Usage::
 
     python -m mpi_tpu_torch.launcher -n 4 prog.py [script args...]
+    python -m mpi_tpu_torch.launcher -n 4 --backend shm prog.py
+    python -m mpi_tpu_torch.launcher -n 4 --tuning-table t.json prog.py
     python -m mpi_tpu_torch.launcher -n 4 --device cpu prog.py
     MPI_TPU_FT=1 python -m mpi_tpu_torch.launcher -n 4 --progress thread prog.py
     python -m mpi_tpu_torch.launcher -n 4 --verify --trace-dir traces prog.py
@@ -80,10 +86,15 @@ def _launch_once(nranks: int, argv: Sequence[str],
     if nranks < 1:
         raise ValueError(f"nranks must be >= 1, got {nranks}")
     backend = backend or os.environ.get(ENV_BACKEND, "socket")
-    if backend != "socket":
-        raise NotImplementedError(
-            f"launcher backend {backend!r} is not ported yet (the shm "
-            f"transport is ROADMAP.md item 16.4); use 'socket'")
+    if backend not in ("socket", "shm"):
+        raise ValueError(f"unknown launcher backend {backend!r} "
+                         f"(accepted: socket, shm)")
+    if backend == "shm":
+        # build the native ring once, up front, instead of N ranks racing
+        # to the build lock
+        from .native import ensure_built
+
+        ensure_built()
     rdv = membership.new_rendezvous_dir()
     procs: List[subprocess.Popen] = []
     try:
@@ -120,7 +131,8 @@ def _launch_once(nranks: int, argv: Sequence[str],
 
 def _kill_all(procs: List[subprocess.Popen]) -> None:
     """TERM → bounded wait → KILL → reap.  The escalation matters: a rank
-    wedged in native code (a stuck device call) ignores SIGTERM; the final
+    wedged in native code (a ring memcpy, a stuck device call) ignores
+    SIGTERM and keeps its /dev/shm segments mapped; the final
     wait reaps the KILLed zombies so the exit summary reports real wait
     statuses."""
     for p in procs:
@@ -178,7 +190,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="kill all ranks after this many seconds")
     parser.add_argument("--backend", choices=("socket", "shm"), default=None,
                         help="rank transport (default: MPI_TPU_BACKEND or "
-                             "socket; shm is not ported yet)")
+                             "socket): TCP sockets, or the native "
+                             "shared-memory rings")
     parser.add_argument("--restarts", type=int, default=0,
                         help="relaunch the world up to N times after a "
                              "crash/hang")
@@ -200,17 +213,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                              "with python -m mpi_tpu_torch.tools.tracecat "
                              "DIR -o merged.json")
     parser.add_argument("--tuning-table", default=None, metavar="PATH",
-                        help="tuned-dispatch table (not ported yet: ROADMAP "
-                             "item 16.3b)")
+                        help="activate a tuned-dispatch table in every "
+                             "rank (MPI_TPU_TUNING_TABLE): algorithm='auto' "
+                             "consults its rows before the built-in "
+                             "constants (mpi_tpu_torch/tuning)")
     parser.add_argument("script", help="python script to run on every rank")
     parser.add_argument("script_args", nargs=argparse.REMAINDER,
                         help="arguments passed to the script")
     args = parser.parse_args(argv)
-    if args.tuning_table is not None:
-        raise NotImplementedError(
-            "launcher --tuning-table (tuned dispatch) is not ported yet: "
-            "ROADMAP.md item 16.3b")
     env_extra = {}
+    if args.tuning_table is not None:
+        env_extra["MPI_TPU_TUNING_TABLE"] = os.path.abspath(args.tuning_table)
     if args.verify:
         env_extra["MPI_TPU_VERIFY"] = "1"
     if args.progress is not None:

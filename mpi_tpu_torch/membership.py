@@ -1,12 +1,13 @@
 """Elastic membership: epochs, the rendezvous service and rejoin — the
 port's own copy of ``mpi_tpu/membership.py``: incarnations and
 ``heartbeat_age`` (:80-152); the announce / claim / admit / ready files
-and ``process_claims`` (:154-343); ``make_transport`` (:345, socket only:
-the shm transport is ROADMAP item 16.4), ``survivor_transition`` (:362),
+and ``process_claims`` (:154-343); ``make_transport`` (:345, socket and
+shm), ``survivor_transition`` (:362, with the shm readiness republish),
 ``rejoin_transport`` (:398), ``rejoin`` (:472) and ``accept_rejoin``
 (:510); the rendezvous directory (``new_rendezvous_dir`` :569, port
-publication, ``cleanup_rendezvous`` :575) the launcher and the socket
-bootstrap use.  A verified world stays verified across a rejoin: the
+publication, ``cleanup_rendezvous`` :575 with its crash-path sweep of
+the session's /dev/shm segments) the launcher and the process bootstrap
+use.  A verified world stays verified across a rejoin: the
 joiner enables the verifier under ``MPI_TPU_VERIFY`` and the survivors'
 full-world communicator shares their verifier world (:498-553); the
 flight recorder logs each transition as an ``epoch_bump`` (:382).
@@ -334,11 +335,17 @@ def make_transport(backend: str, rank: int, size: int, rdv_dir: str,
         return SocketTransport(rank, size, rdv_dir, device=device, epoch=epoch,
                                verify_clock=vc)
     if backend == "shm":
-        raise NotImplementedError(
-            "backend 'shm' (the shared-memory ring transport) is not ported "
-            "yet: ROADMAP.md item 16.4")
+        from .transport.shm import ShmTransport
+
+        vc = None
+        if os.environ.get("MPI_TPU_VERIFY", "") not in ("", "0"):
+            from .verify.vclock import VClock
+
+            vc = VClock(rank, size)
+        return ShmTransport(rank, size, rdv_dir, device=device, epoch=epoch,
+                            verify_clock=vc)
     raise ValueError(f"unknown process-world backend {backend!r} "
-                     f"(accepted: socket)")
+                     f"(accepted: socket, shm)")
 
 
 def survivor_transition(transport: Transport, epoch: int,
@@ -356,6 +363,15 @@ def survivor_transition(transport: Transport, epoch: int,
     for d in dead:
         transport.min_peer_epoch[int(d)] = int(epoch)
     transport.membership_invalidate(list(dead))
+    republish = getattr(transport, "membership_republish", None)
+    if republish is not None:
+        republish()  # shm: re-stamp the readiness file with the new epoch
+
+
+def _backend_name(t: Transport) -> str:
+    name = type(t).__name__
+    return {"SocketTransport": "socket", "ShmTransport": "shm"}.get(
+        name, name.lower())
 
 
 # -- the joiner (fresh process) ----------------------------------------------
@@ -500,7 +516,7 @@ def accept_rejoin(comm, timeout: Optional[float] = None):
         acked = ft.world.acked_world
         slots = {s: {"ousted": read_incarnation(rdv, s), "acked": s in acked}
                  for s in dead}
-        announce_rejoin(rdv, epoch, slots, t.world_size, "socket")
+        announce_rejoin(rdv, epoch, slots, t.world_size, _backend_name(t))
         wait_ready(rdv, epoch, slots, deadline, validate=True)
     else:
         wait_ready(rdv, epoch, {s: {} for s in dead}, deadline)
@@ -547,5 +563,17 @@ def read_port(rdv_dir: str, rank: int) -> Optional[int]:
 
 
 def cleanup_rendezvous(rdv: str) -> None:
-    """Tear a rendezvous directory down."""
+    """Tear a rendezvous directory down, unlinking any /dev/shm segment a
+    crashed rank left behind (ranks unlink their own on a clean close;
+    this is the crash path)."""
+    import glob
+
+    from .transport.shm import shm_prefix
+
+    session = os.path.basename(rdv.rstrip("/"))
+    for path in glob.glob("/dev/shm/" + shm_prefix(session) + "*"):
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
     shutil.rmtree(rdv, ignore_errors=True)

@@ -11,8 +11,12 @@
   ``shrinks_completed``, ``rejoins_completed``, ``epoch_skews_detected``,
   ``faulty_dropped`` / ``faulty_duplicated``, ``progress_*``,
   ``nbc_threads_spawned``, ``nbc_state_machines``, ``persistent_starts``;
-  the runtime verifier's ``verify_*`` (:133-218, :274-300) and the
-  flight recorder's ``trace_events`` (:380)).
+  the runtime verifier's ``verify_*`` (:133-218, :274-300), the flight
+  recorder's ``trace_events`` (:380), the collective arena's
+  ``coll_sm_hits`` / ``coll_sm_bytes`` / ``coll_sm_fallbacks`` (:266),
+  compression's ``bytes_compressed_saved`` / ``compress_fallbacks``
+  (:311) and tuned dispatch's ``tuned_table_hits`` /
+  ``tuned_table_fallbacks`` (:320)).
 * Histogram pvars (:451-600): log-bucketed distributions,
   ``hist_record``, ``pvar_hist_list`` / ``pvar_hist_read`` /
   ``pvar_hist_reset``, ``hist_quantile``, ``hist_cumulative``, pre-seeded
@@ -23,7 +27,10 @@
   ``progress``, ``nbc_mode``, ``nbc_fold_workers``, ``nbc_sm_max_bytes``,
   ``fault_detect_timeout_s``, ``fault_heartbeat_interval_s``,
   ``epoch_grace_s``, ``link_keepalive_s`` and ``verify_stall_timeout_s``
-  (:720, :804), with the reference's defaults and validation.
+  (:720, :804), ``shm_write_timeout_s`` (:786), ``coll_sm_arena_bytes``
+  / ``coll_sm_eager_bytes`` (:857), ``compress_wire_dtype`` /
+  ``compress_topk_ratio`` (:884) and ``tuning_table_path`` (:1032), with
+  the reference's defaults and validation.
 * Sessions (:1056-1077): ``Session`` / ``session_create``, pvar reads
   relative to the session's resets.
 """
@@ -85,6 +92,13 @@ _PVAR_OF = {
     "verify_wildcard_races": "verify_wildcard_races",
     "verify_clock_bytes": "verify_clock_bytes",
     "trace_events": "trace_events",
+    "coll_sm_hits": "coll_sm_hits",
+    "coll_sm_bytes": "coll_sm_bytes",
+    "coll_sm_fallbacks": "coll_sm_fallbacks",
+    "bytes_compressed_saved": "bytes_compressed_saved",
+    "compress_fallbacks": "compress_fallbacks",
+    "tuned_table_hits": "tuned_table_hits",
+    "tuned_table_fallbacks": "tuned_table_fallbacks",
 }
 
 _counters: Dict[str, int] = {name: 0 for name in _PVAR_OF.values()}
@@ -248,12 +262,16 @@ def _builtin_cvars() -> None:
     this one, so their knobs are looked up at first use."""
     if _CVARS:
         return
+    from . import coll_sm as _sm
     from . import communicator as _c
+    from . import compress as _compress
     from . import ft as _ft
     from . import nbc as _nbc
     from . import progress as _prog
     from . import recvpool as _recvpool
     from . import resilience as _resilience
+    from . import tuning as _tuning
+    from .transport import shm as _shm
     from .transport import socket as _socket
     from .verify import state as _vstate
 
@@ -302,6 +320,36 @@ def _builtin_cvars() -> None:
         if int(v) < 0:
             raise ValueError("nbc_sm_max_bytes must be >= 0 (0 = no cap)")
         _nbc._SM_MAX_BYTES = int(v)
+
+    def _set_sm_arena(v):
+        if int(v) < 0:
+            raise ValueError("coll_sm_arena_bytes must be >= 0 (0 = off)")
+        _sm._ARENA_BYTES = int(v)
+
+    def _set_sm_eager(v):
+        if int(v) < 0:
+            raise ValueError("coll_sm_eager_bytes must be >= 0")
+        _sm._EAGER_BYTES = int(v)
+
+    def _set_wire_dtype(v):
+        if v not in _compress.FORMATS:
+            raise ValueError(
+                f"compress_wire_dtype must be one of "
+                f"{sorted(_compress.FORMATS)}, got {v!r}")
+        _compress._WIRE_DTYPE = v
+
+    def _set_topk_ratio(v):
+        if float(v) <= 0:
+            raise ValueError("compress_topk_ratio must be > 0")
+        _compress._TOPK_RATIO = float(v)
+
+    def _set_epoch_grace(v):
+        if float(v) < 0:
+            raise ValueError("epoch_grace_s must be >= 0")
+        # one knob, both byte-stream transports: socket hello acks and
+        # shm readiness stamps
+        _socket._EPOCH_GRACE_S = float(v)
+        _shm._EPOCH_GRACE_S = float(v)
 
     def _set_verify_stall(v):
         if float(v) <= 0:
@@ -367,11 +415,51 @@ def _builtin_cvars() -> None:
             "peers; keep well below fault_detect_timeout_s; read at "
             "ft.enable()"),
         "epoch_grace_s": (
-            lambda: _socket._EPOCH_GRACE_S,
-            _set_nonneg_s(_socket, "_EPOCH_GRACE_S", "epoch_grace_s"),
-            "how long a peer's newer membership epoch is tolerated in the "
-            "socket hello before this process is declared a stale "
-            "straggler (EpochSkewError)"),
+            lambda: _socket._EPOCH_GRACE_S, _set_epoch_grace,
+            "how long a peer's newer membership epoch is tolerated (socket "
+            "hello acks and shm readiness stamps) before this process is "
+            "declared a stale straggler (EpochSkewError)"),
+        "shm_write_timeout_s": (
+            lambda: _shm._WRITE_TIMEOUT,
+            _set_positive(_shm, "_WRITE_TIMEOUT", "shm_write_timeout_s"),
+            "shm transport no-progress stall bound: a ring write (full "
+            "ring, nobody draining) or mid-frame read with no progress for "
+            "this long declares the peer dead (TransportError); the "
+            "fault detector should fire far earlier"),
+        "coll_sm_arena_bytes": (
+            lambda: _sm._ARENA_BYTES, _set_sm_arena,
+            "size of each shm communicator's collective arena: P flag "
+            "lines + P data slots; a rank's slot is the P-th share, the "
+            "ceiling of the in-place block paths.  0 disables the arena.  "
+            "Read at arena creation"),
+        "coll_sm_eager_bytes": (
+            lambda: _sm._EAGER_BYTES, _set_sm_eager,
+            "flat-path gate of the arena reductions: payloads at or below "
+            "this are folded whole from every peer's slot; above it "
+            "allreduce folds per chunk in place and reduce takes the "
+            "binomial tree"),
+        "compress_wire_dtype": (
+            lambda: _compress._WIRE_DTYPE, _set_wire_dtype,
+            "wire encoding the plain algorithm='compressed' spelling "
+            "resolves to: 'bf16' (2 bytes/elem) or 'int8' (per-segment "
+            "max-abs scale + int8 mantissas).  Folds stay float32 "
+            "(float64 payloads float64).  Must agree across the group"),
+        "compress_topk_ratio": (
+            lambda: _compress._TOPK_RATIO, _set_topk_ratio,
+            "fraction of gradient entries algorithm='compressed:topk' "
+            "sends per rank (ceil(ratio*n), >= 1, clamped to n); the "
+            "unsent remainder accumulates in the error-feedback residual "
+            "(compress.reset_residuals clears).  Must agree across the "
+            "group"),
+        "tuning_table_path": (
+            _tuning.table_path,
+            lambda v: _tuning.set_table_path(str(v) if v else None),
+            "path of the active per-machine tuning table: measured "
+            "(transport, nranks, collective, payload band) -> algorithm "
+            "rows that algorithm='auto' consults before the seed "
+            "constants.  Empty = no table.  Writing loads and validates "
+            "at once; a table measured on another machine loads but never "
+            "serves"),
         "link_keepalive_s": (
             lambda: _resilience._KEEPALIVE_S,
             _set_nonneg_s(_resilience, "_KEEPALIVE_S",

@@ -64,10 +64,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from . import coll_sm as _coll_sm
 from . import mpit as _mpit
 from . import ops as _ops
 from . import schedules
 from . import telemetry as _telemetry
+from . import tuning as _tuning
 from .communicator import (P2PCommunicator, Request, _CompletedRequest,
                            _FT_POLL_S, _SEG_WINDOW, _TAG_COLL, _ThreadRequest,
                            _as_tensor, _caller_waits, _flat_copy, _maybe_stack,
@@ -472,11 +474,21 @@ class _SMColl(Request):
 
 def _resolve_allreduce_algorithm(comm: P2PCommunicator, arr: torch.Tensor,
                                  algorithm: str) -> Optional[str]:
-    """The algorithm a clone's blocking allreduce would run, from the
-    defaults (tuned tables are ROADMAP 16.3; the shared-memory arena is
-    16.4 and never serves here).  None = not a plannable wire algorithm
-    (compressed, or an unknown name: the thread path raises for those)."""
-    if algorithm in ("auto", "fused"):
+    """The algorithm a clone's blocking allreduce would run (its arena
+    always declines): tuned rows first, the seed constants otherwise.
+    None = not a plannable wire algorithm (compressed, or an unknown name:
+    the thread path raises for those)."""
+    if algorithm in ("auto", "sm", "fused"):
+        pick = None
+        if algorithm in ("auto", "fused") and comm.size > 1:
+            pick = _tuning.pick(
+                comm, "allreduce", arr.nbytes,
+                ("ring", "rabenseifner", "reduce_bcast")
+                + (("recursive_halving",)
+                   if schedules.is_pow2(comm.size) else ())
+                + _coll_sm.gate(comm))
+        if pick is not None and pick != "sm":
+            return pick
         return seed_allreduce_algorithm(arr.nbytes, comm.size)
     if algorithm in ("ring", "rabenseifner", "reduce_bcast"):
         return algorithm
@@ -517,6 +529,8 @@ def _build(parent: P2PCommunicator, kind: str, args: tuple,
     if kind == "iallreduce":
         obj, = args
         op = kwargs.get("op", _ops.SUM)
+        if kwargs.get("compress_key") is not None:
+            return None  # top-k residual state: the blocking path owns it
         arr = _reduction_tensor(parent, obj)
         if arr is None:
             return None
@@ -616,7 +630,8 @@ def _build(parent: P2PCommunicator, kind: str, args: tuple,
     if kind == "ireduce_scatter":
         blocks, = args
         op = kwargs.get("op", _ops.SUM)
-        if kwargs.get("algorithm", "auto") not in ("auto", "ring", "fused"):
+        if kwargs.get("algorithm", "auto") not in ("auto", "ring", "fused",
+                                                   "sm"):
             return None  # compressed / sm / unknown: the blocking path
         try:
             if len(blocks) != p:
@@ -950,7 +965,7 @@ class PersistentColl(Request):
 # blocking methods: persistent_init turns positionals into kwargs so
 # _build and the thread rounds read one form
 _PERSISTENT_SIG = {
-    "allreduce": ("op", "algorithm"),
+    "allreduce": ("op", "algorithm", "compress_key"),
     "bcast": ("root", "algorithm"),
     "alltoall": ("algorithm",),
     "reduce_scatter": ("op", "algorithm"),

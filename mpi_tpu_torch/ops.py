@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import operator
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -37,13 +37,21 @@ class ReduceOp:
     commutative: bool = True
     inplace: Any = None  # torch function taking out=, for host folds
 
-    def combine_into(self, acc: torch.Tensor, value: Any) -> torch.Tensor:
+    def combine_into(self, acc: torch.Tensor, value: Any,
+                     decode: Optional[Callable[[Any], Any]] = None
+                     ) -> torch.Tensor:
         """Accumulate ``value`` into tensor ``acc`` IN PLACE on ``acc``'s
         device: no result allocation for built-in ops, one temporary for
         user ops.  Always keeps ``acc``'s dtype (MPI reduces in the
         datatype, so a user combine that upcasts is cast back at every
         fold).  ``acc`` may still be retained by reference in a socket
-        link's replay window, so the ownership layer is told first."""
+        link's replay window, so the ownership layer is told first.
+
+        ``decode`` is the wire-dtype != fold-dtype seam (``compress.py``):
+        when set, ``value`` arrived in a wire encoding and is decoded to
+        the fold dtype here, the one point where the two dtypes meet."""
+        if decode is not None:
+            value = decode(value)
         if not isinstance(value, torch.Tensor) or value.device != acc.device:
             value = torch.as_tensor(value, device=acc.device)
         _bufpool.touch(acc)

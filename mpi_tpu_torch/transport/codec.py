@@ -1,8 +1,8 @@
 """Payload framing of the byte-stream transport (socket) — the port's own
 copy of ``mpi_tpu/transport/codec.py``: ``raw_eligible`` (:73),
-``as_raw_array`` / ``as_raw_segments`` (:91-112), the raw meta
-(:161-241), ``alloc_raw`` (:251), ``parse_raw_body`` (:283),
-``pack_pickle_body`` (:313) and ``value_copy`` (:319).
+``as_raw_array`` / ``as_raw_segments`` (:91-112), ``Encoded`` (:114),
+the raw meta (:161-241), ``alloc_raw`` (:251), ``parse_raw_body``
+(:283), ``pack_pickle_body`` (:313) and ``value_copy`` (:319).
 
 Two frame formats ride the same length-prefixed stream, told apart by the
 top bit of the u64 length word (``RAW_FLAG``):
@@ -11,7 +11,14 @@ top bit of the u64 length word (``RAW_FLAG``):
 * raw frames — a tensor ships as a tiny pickled meta ``(ctx, tag,
   dtype_name, shape)`` followed by its bytes, never pickled; a plain list
   of tensors ships as ONE multi-segment raw frame, meta ``(ctx, tag,
-  [(dtype_name, shape), ...])`` then every segment's bytes back to back.
+  [(dtype_name, shape), ...])`` then every segment's bytes back to back;
+* wire-tagged raw frames — an :class:`Encoded` payload (a compressed
+  collective's segment in its wire encoding, ``compress.py``) ships its
+  segments like the multi-segment frame, with the encoding's name as a
+  fourth meta field: ``(ctx, tag, [(dtype_name, shape), ...], wire)``,
+  told apart from the single-tensor 4-tuple by its third element being a
+  list.  The receiver rebuilds an ``Encoded`` with the same tag, so the
+  payload stays encoded up to the fold site.
 
 The meta carries torch dtype NAMES (``"float32"``, ``"bfloat16"``; numpy
 has no bfloat16, so the reference's ``dtype.str`` cannot describe one)
@@ -117,10 +124,38 @@ def stage(t: torch.Tensor):
     return byte_view(host)
 
 
+class Encoded:
+    """A payload in a WIRE encoding distinct from its fold dtype: ``segs``
+    are the contiguous tensors that ship back to back in one wire-tagged
+    raw frame, ``wire`` names the encoding (a ``compress.py`` format) so
+    the receiving fold site knows how to decode.  The codec only moves
+    it; ``compress.py`` owns what the bytes mean."""
+
+    __slots__ = ("wire", "segs")
+
+    def __init__(self, wire: str, segs: List[torch.Tensor]):
+        self.wire = wire
+        self.segs = segs
+
+    @property
+    def nbytes(self) -> int:
+        """Wire payload size (probe/Status sizing: ``payload_nbytes``
+        duck-types on this attribute)."""
+        return sum(_nbytes(s) for s in self.segs)
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (f"Encoded({self.wire!r}, "
+                f"{[(dtype_name(s.dtype), tuple(s.shape)) for s in self.segs]})")
+
+
 def pack_raw_frame(ctx, tag: int, payload: Any):
     """The raw-frame plan for ``payload``: ``(head, bufs)`` where ``head``
     is the length-prefixed meta and ``bufs`` the host buffers whose bytes
     follow it on the wire — or None → the payload must ride pickle."""
+    if type(payload) is Encoded:
+        segs = [_contiguous(s) for s in payload.segs]
+        return (pack_raw_wire_meta(ctx, tag, segs, payload.wire),
+                tuple(stage(s) for s in segs))
     arr = as_raw_array(payload)
     if arr is not None:
         return pack_raw_meta(ctx, tag, arr), (stage(arr),)
@@ -149,18 +184,34 @@ def pack_raw_segs_meta(ctx, tag: int, segs: List[torch.Tensor]) -> bytes:
     return META.pack(len(meta)) + meta
 
 
-RawPayload = Union[torch.Tensor, List[torch.Tensor]]
+def pack_raw_wire_meta(ctx, tag: int, segs: List[torch.Tensor],
+                       wire: str) -> bytes:
+    """Wire-tagged meta ``(ctx, tag, [(dtype_name, shape), ...], wire)``:
+    a 4-tuple whose third element is a LIST, told apart from the
+    single-tensor 4-tuple (third element a str) by type."""
+    meta = pickle.dumps(
+        (ctx, tag, [(dtype_name(a.dtype), tuple(a.shape)) for a in segs],
+         wire), protocol=_PROTO)
+    _mpit.count(bytes_raw=sum(_nbytes(a) for a in segs))
+    return META.pack(len(meta)) + meta
+
+
+RawPayload = Union[torch.Tensor, List[torch.Tensor], Encoded]
 
 
 def parse_raw_meta(meta: bytes) -> Tuple[Any, int, tuple]:
     """Decode a raw frame's meta WITHOUT allocating destinations: (ctx,
-    tag, plan), plan ``("arr", dtype_name, shape)`` for a single tensor or
-    ``("segs", descs)`` for a multi-segment frame.  The socket reader
-    consults the steering registry with the plan before any allocation."""
+    tag, plan), plan ``("arr", dtype_name, shape)`` for a single tensor,
+    ``("segs", descs)`` for a multi-segment frame and ``("wire", descs,
+    wire)`` for a wire-tagged one.  The socket reader consults the
+    steering registry with the plan before any allocation."""
     tup = pickle.loads(meta)
-    if len(tup) == 4:
+    if len(tup) == 4 and isinstance(tup[2], str):
         return tup[0], tup[1], ("arr", tup[2], tuple(tup[3]))
-    return tup[0], tup[1], ("segs", [(ds, tuple(sh)) for ds, sh in tup[2]])
+    descs = [(ds, tuple(sh)) for ds, sh in tup[2]]
+    if len(tup) == 4:
+        return tup[0], tup[1], ("wire", descs, tup[3])
+    return tup[0], tup[1], ("segs", descs)
 
 
 def _numel(shape) -> int:
@@ -192,17 +243,24 @@ def alloc_raw(plan: tuple, device) -> List[torch.Tensor]:
             for ds, shape in _descs(plan)]
 
 
+def _assemble(plan: tuple, out: List[torch.Tensor]) -> RawPayload:
+    if plan[0] == "arr":
+        return out[0]
+    return Encoded(plan[2], out) if plan[0] == "wire" else out
+
+
 def finish_raw(plan: tuple, host: List[torch.Tensor], device) -> RawPayload:
     """The delivered payload of a frame read into ``host``: on the CPU the
     host tensors themselves; on a card a copy there, after which the
-    pooled host buffers go back to the pool."""
+    pooled host buffers go back to the pool.  A wire-tagged plan comes
+    back as an :class:`Encoded` with the frame's tag."""
     if torch.device(device).type == "cpu":
         out = host
     else:
         out = [h.to(device) for h in host]
         for h in host:
             _recvpool.RECV_POOL.give_back(h)
-    return out[0] if plan[0] == "arr" else out
+    return _assemble(plan, out)
 
 
 def parse_raw_body(body: bytes, device="cpu") -> Tuple[Any, int, RawPayload]:
@@ -219,7 +277,7 @@ def parse_raw_body(body: bytes, device="cpu") -> Tuple[Any, int, RawPayload]:
             if n else torch.empty(0, dtype=torch.uint8)
         out.append(raw.view(dt).reshape(shape).to(device))
         off += n
-    return ctx, tag, (out[0] if plan[0] == "arr" else out)
+    return ctx, tag, _assemble(plan, out)
 
 
 def pack_pickle_body(ctx, tag: int, obj: Any) -> bytes:
@@ -236,6 +294,9 @@ def value_copy(payload: Any) -> Any:
     if raw_eligible(payload):
         _mpit.count(copies=1)
         return payload.detach().clone()
+    if type(payload) is Encoded:
+        _mpit.count(copies=len(payload.segs))
+        return Encoded(payload.wire, [s.clone() for s in payload.segs])
     if _is_plain_raw_list(payload):
         _mpit.count(copies=len(payload))
         return [item.detach().clone() for item in payload]
@@ -249,6 +310,8 @@ def local_copy(payload: Any) -> Any:
     transport does."""
     if raw_eligible(payload):
         return payload.detach().clone()
+    if type(payload) is Encoded:
+        return Encoded(payload.wire, [s.clone() for s in payload.segs])
     if _is_plain_raw_list(payload):
         return [item.detach().clone() for item in payload]
     return copy.deepcopy(payload)

@@ -1,7 +1,8 @@
 """In-process transport: rank = thread, channel = shared mailbox — the
 port's own copy of ``mpi_tpu/transport/local.py`` (``LocalWorld``,
-``LocalTransport`` with the verifier's send stamp (:49), ``KILLED`` :58,
-``run_local`` :61 with its ``transport_wrapper``, ``fault_tolerance``
+``LocalTransport`` with the verifier's send stamp (:49) and its tuning key
+(:36), ``KILLED`` :58, ``run_local`` :61 with its ``tuning_table``
+(:130), ``transport_wrapper``, ``fault_tolerance``
 (the in-memory beat table, :159), ``verify`` (one shared ``MemoryBoard``
 per world, :160-167), ``trace`` (the flight recorder, :125) and
 ``progress`` keywords, and the world comm's generation mark :88).
@@ -44,6 +45,8 @@ class LocalWorld:
 
 
 class LocalTransport(Transport):
+    # tuned-dispatch table key (tuning/)
+    tuning_transport = "local"
 
     def __init__(self, world: LocalWorld, rank: int) -> None:
         super().__init__(rank, world.size, world.device)
@@ -72,7 +75,8 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
               transport_wrapper: Optional[Callable[[Transport], Transport]] = None,
               fault_tolerance: bool = False,
               progress: Optional[str] = None, verify: bool = False,
-              trace: bool = False) -> List[Any]:
+              trace: bool = False,
+              tuning_table: Optional[str] = None) -> List[Any]:
     """Run ``fn(comm, *args, **kwargs)`` on ``nranks`` in-process rank
     threads; return the per-rank results as a list indexed by rank.
     ``device`` is the device every rank's ``comm.device`` names: the card
@@ -102,8 +106,10 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
     (``telemetry/``): one process-wide ring (rank threads are told apart
     by tid), left active afterwards for ``telemetry.recorder().dump()``
     / ``telemetry.export_chrome(path)``; call ``telemetry.disable()``
-    when done."""
+    when done.  ``tuning_table`` activates a tuned-dispatch table
+    (``tuning/``) for this world and restores the previous one after."""
     from .. import progress as _progress
+    from .. import tuning as _tuning
     from ..communicator import P2PCommunicator
     from ..gpu import primitives
     from ..gpu.runner import resolve_device
@@ -115,6 +121,10 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
 
         _telemetry.enable()
     progress_mode = _progress.resolve_mode(progress)
+    prev_table = None
+    if tuning_table is not None:
+        prev_table = _tuning.table_path()
+        _tuning.set_table_path(tuning_table)
     kwargs = kwargs or {}
     world = LocalWorld(nranks, copy_payloads=copy_payloads, device=device)
     results: List[Any] = [None] * nranks
@@ -174,10 +184,17 @@ def run_local(fn: Callable, nranks: int, args: Sequence = (),
     threads = [threading.Thread(target=runner, args=(r,),
                                 name=f"mpi-tpu-torch-rank-{r}", daemon=True)
                for r in range(nranks)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+    finally:
+        if prev_table is not None:
+            try:
+                _tuning.set_table_path(prev_table or None)
+            except _tuning.TuningTableError:
+                _tuning.set_table_path(None)  # the prior table went away
     stuck = [t for t in threads if t.is_alive()]
     if stuck:
         # where each stuck rank is blocked: the actionable part of a

@@ -194,6 +194,8 @@ class SocketTransport(Transport):
     # meta pickle, reader-thread delivery, and on the card one staging
     # copy each way), so it prefers few, large frames.
     coll_segment_hint = 4 << 20
+    # tuned-dispatch table key (tuning/)
+    tuning_transport = "socket"
 
     def __init__(self, rank: int, size: int, rdv_dir: str, device=None,
                  connect_timeout: float = 60.0, epoch: int = 0,

@@ -617,3 +617,62 @@ def test_verify_pickles_no_payload_on_a_socket_world(tmp_path):
         wire, small = rec["clean_ring"]["wire"], rec["clean_ring"]["wire_1KiB"]
         assert abs(wire["bytes_pickled_sent"] - small["bytes_pickled_sent"]) <= 64
         assert wire["bytes_raw_sent"] >= 2 * (3 - 1) / 3 * (64 << 20) * 0.99
+
+
+# ---- the same-host data plane on the card ------------------------------------
+
+
+@pytest.mark.gpu
+def test_int8_encode_rounding_ties_on_the_card():
+    """The int8 wire encode on the card equals the CPU's byte for byte,
+    with every entry but the max-abs on a rounding tie (x / scale = k +
+    0.5 exactly in float32; the divisor is a float32 tensor on the card,
+    so the card divides as numpy does).  The scale, 3.3, has an inexact
+    reciprocal, so the same encode dividing by a Python float (a CUDA
+    multiply by the reciprocal) differs at some of these ties."""
+    _card()
+    from mpi_tpu_torch import compress
+
+    amax = torch.tensor([127 * 3.3], dtype=torch.float32)
+    scale = torch.tensor([float(amax) / 127.0], dtype=torch.float32)
+    k = torch.randint(-126, 126, (1 << 16,),
+                      generator=torch.Generator().manual_seed(0)) + 0.5
+    x = k * scale
+    on_tie = x / scale == k
+    x = torch.cat([x[on_tie], amax])
+    assert on_tie.sum() > (1 << 15)
+    for data in (x, torch.randn(1 << 16) * 3.0):
+        cpu = compress.INT8.encode_segs(data)
+        card = compress.INT8.encode_segs(data.cuda())
+        for a, b in zip(card, cpu):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+    q = compress.INT8.encode_segs(x)[1]
+    wrong = torch.round(x.cuda() / float(scale)).clamp_(-127, 127).to(torch.int8)
+    assert (wrong.cpu() != q).any()
+
+
+@pytest.mark.gpu
+def test_arena_allreduce_of_cuda_tensors_on_two_shm_ranks():
+    """The collective arena with tensors on the card: 2 shm rank threads,
+    flat and block-in-place allreduce, served by the arena (hits counted),
+    results on the card and bitwise equal to the same world on the CPU."""
+    _card()
+    from mpi_tpu_torch import mpit
+    from mpi_tpu_torch.transport.shm import run_shm
+
+    xs = [torch.randn(1 << 18, generator=torch.Generator().manual_seed(r))
+          for r in range(2)]
+
+    def prog(comm, dev):
+        x = xs[comm.rank].to(dev)
+        return [comm.allreduce(x[:256], algorithm="sm"),
+                comm.allreduce(x, algorithm="sm")]
+
+    h0 = mpit.pvar_read("coll_sm_hits")
+    card = run_shm(lambda c: prog(c, "cuda"), 2)
+    assert mpit.pvar_read("coll_sm_hits") - h0 == 4
+    cpu = run_shm(lambda c: prog(c, "cpu"), 2, device="cpu")
+    for got, want in zip(card, cpu):
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

@@ -7,6 +7,7 @@ the same bits — and the diagnoses the same strings.  The segmented
 engine is also run with 64-byte segments in both packages, so that every
 exchange is a multi-segment pipeline."""
 
+import json
 import tempfile
 
 import ml_dtypes
@@ -485,33 +486,59 @@ def _rank_raises(fn, item):
     assert f"item {item}" in str(ei.value.__cause__)
 
 
-def test_unported_features_name_their_roadmap_items():
-    from mpi_tpu_torch import checkpoint, launcher, membership
+def test_unported_features_name_their_roadmap_items(tmp_path, monkeypatch):
+    from mpi_tpu_torch import checkpoint, launcher, membership, tuning
+    from mpi_tpu_torch.transport.shm import ShmTransport, run_shm
 
-    _rank_raises(lambda c: c.allreduce(torch.ones(2), algorithm="sm"), "16.4")
-    _rank_raises(lambda c: c.bcast(torch.ones(2), algorithm="sm"), "16.4")
-    _rank_raises(lambda c: c.allreduce(torch.ones(2),
-                                       algorithm="compressed:bf16"), "16.3b")
-    _rank_raises(lambda c: c.reduce_scatter(torch.ones(2, 2),
-                                            algorithm="compressed"), "16.3b")
-    # the nonblocking path reaches the same gate and raises at wait()
-    _rank_raises(lambda c: c.iallreduce(torch.ones(2),
-                                        algorithm="compressed:int8").wait(),
-                 "16.3b")
-    _rank_raises(lambda c: c.win_create(torch.ones(2)), "16.4")
+    # still unported: 16.5 (process checkpoints) and 16.3c (serve)
     _rank_raises(lambda c: checkpoint.save("unused", {}, c, agree=True),
                  "16.5")
-    with pytest.raises(NotImplementedError, match="16.4"):
-        mpi_tpu_torch.run(lambda c: 0, backend="shm", nranks=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="16.3b"):
-        mpi_tpu_torch.run(lambda c, **k: 0, backend="local", nranks=2,
-                          device="cpu", tuning_table="unused.json")
-    with pytest.raises(NotImplementedError, match="16.3b"):
-        launcher.main(["-n", "2", "--tuning-table", "t.json", "prog.py"])
     with pytest.raises(NotImplementedError, match="16.3c"):
         launcher.main(["serve", "--help"])
-    with pytest.raises(NotImplementedError, match="16.4"):
-        membership.make_transport("shm", 0, 2, "unused")
+    # 16.4: "sm" runs on an shm world, and off shm it is an unknown name,
+    # as in the reference's local and socket worlds
+    assert [float(v[0]) for v in run_shm(
+        lambda c: c.allreduce(torch.ones(2), algorithm="sm"), 2,
+        device="cpu", timeout=60)] == [2.0, 2.0]
+    with pytest.raises(RuntimeError) as ei:
+        port_run(lambda c: c.bcast(torch.ones(2), algorithm="sm"), 2)
+    assert isinstance(ei.value.__cause__, ValueError)
+    assert "unknown bcast algorithm 'sm'" in str(ei.value.__cause__)
+    t = membership.make_transport("shm", 0, 1, str(tmp_path), device="cpu")
+    try:
+        assert isinstance(t, ShmTransport)
+    finally:
+        t.close()
+    # 16.4: one-sided windows on the host backends
+    assert port_run(lambda c: float(c.win_create(torch.ones(2)).local[0]),
+                    2) == [1.0, 1.0]
+    # 16.3b: the compressed algorithms, blocking and nonblocking
+    assert [float(v[0]) for v in port_run(
+        lambda c: c.allreduce(torch.ones(2), algorithm="compressed:bf16"),
+        2)] == [2.0, 2.0]
+    assert [float(v[0]) for v in port_run(
+        lambda c: c.reduce_scatter(torch.ones(2, 2), algorithm="compressed"),
+        2)] == [2.0, 2.0]
+    assert [float(v[0]) for v in port_run(
+        lambda c: c.iallreduce(torch.ones(2),
+                               algorithm="compressed:int8").wait(),
+        2)] == [2.0, 2.0]
+    # 16.3b: run(tuning_table=) and the launcher's --tuning-table
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps(tuning.new_doc([tuning.Row(
+        "local", 2, "allreduce", 0, None, "ring", True)], ("local",))))
+    before = mpit.pvar_read("tuned_table_hits")
+    assert mpi_tpu_torch.run(
+        lambda c: float(c.allreduce(torch.ones(2))[0]), backend="local",
+        nranks=2, device="cpu", tuning_table=str(path)) == [2.0, 2.0]
+    assert mpit.pvar_read("tuned_table_hits") - before == 2
+    assert tuning.table_path() == ""  # restored after the world
+    seen = {}
+    monkeypatch.setattr(launcher, "launch",
+                        lambda n, argv, **kw: seen.update(kw) or 0)
+    assert launcher.main(["-n", "2", "--tuning-table", str(path),
+                          "prog.py"]) == 0
+    assert seen["env_extra"]["MPI_TPU_TUNING_TABLE"] == str(path)
     # the features of the slices that ported them now run
     assert mpi_tpu_torch.run(
         lambda c: float(c.iallreduce(torch.ones(2)).wait()[0]),

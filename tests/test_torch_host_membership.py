@@ -266,3 +266,24 @@ def test_rejoin_e2e_socket_processes(tmp_path):
         assert pv["nbc_threads_spawned"] == 0 and pv["progress_wakeups"] > 0
     assert recs["joiner"]["rank"] == 1 and recs["joiner"]["epoch"] == 1
     assert recs["joiner"]["rejoins_completed"] == 1
+
+
+def test_rejoin_e2e_shm_processes(tmp_path):
+    """The same story over the native shm rings (the reference's
+    ``test_rejoin_e2e[shm]`` and ``test_kill_mid_allreduce_detect_revoke_shrink[shm]``):
+    detection through the heartbeat files, not the ring's stall bound;
+    the survivors recreate their inbound rings from the dead slot and
+    re-stamp their readiness at epoch 1 before the joiner opens them."""
+    from mpi_tpu_torch.examples import host_ft
+
+    res = host_ft.drive(str(tmp_path / "out"), ranks=4, mib=1, device="cpu",
+                        detect=2.0, heartbeat=0.2, timeout=120.0,
+                        backend="shm")
+    recs = res["records"]
+    assert "rank 1: exit code 42" in res["exit_summary"]
+    assert recs[0]["outcome"] == "ProcFailedError" and recs[0]["failed"] == [1]
+    assert recs[2]["outcome"] == recs[3]["outcome"] == "RevokedError"
+    for r in (0, 2, 3):
+        assert recs[r]["detect_s"] < 3 * 2.0 + 8.0
+        assert recs[r]["pvars"]["rejoins_completed"] == 1
+    assert recs["joiner"]["rank"] == 1 and recs["joiner"]["epoch"] == 1

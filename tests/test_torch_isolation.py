@@ -2,8 +2,11 @@
 package: proven in a subprocess whose import system refuses ``jax``,
 ``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``),
 which imports every module of the port and runs the multi-parallel dry
-run, its trace, a checkpoint, a profile and a nonblocking collective on a
-fault-tolerant local world with the progress engine, on the CPU."""
+run, its trace, a checkpoint, a profile, a nonblocking collective on a
+fault-tolerant local world with the progress engine and an arena
+allreduce over the shared-memory rings (built from the port's own
+``native/shmring.cpp`` into ``mpi_tpu_torch/_build/``; no library of
+``mpi_tpu/native`` is mapped), on the CPU."""
 
 import ast
 import os
@@ -43,7 +46,11 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.aot", "mpi_tpu_torch.checkpoint", "mpi_tpu_torch.profiling",
        "mpi_tpu_torch.progress", "mpi_tpu_torch.nbc", "mpi_tpu_torch.ft",
        "mpi_tpu_torch.membership", "mpi_tpu_torch.transport.faulty",
-       "mpi_tpu_torch.examples.host_ft"]
+       "mpi_tpu_torch.examples.host_ft", "mpi_tpu_torch.compress",
+       "mpi_tpu_torch.tuning", "mpi_tpu_torch.native.build",
+       "mpi_tpu_torch.transport.shm", "mpi_tpu_torch.coll_sm",
+       "mpi_tpu_torch.shmwin", "mpi_tpu_torch.tools.tune",
+       "mpi_tpu_torch.examples.host_shm"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
 from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")
@@ -64,6 +71,18 @@ got = mpi_tpu_torch.run(lambda c: float(c.iallreduce(torch.ones(2)).wait()[0]),
                         backend="local", nranks=3, device="cpu",
                         progress="thread", fault_tolerance=True)
 assert got == [3.0, 3.0, 3.0], got
+# the same-host data plane: the port's own ring, built into its _build/
+from mpi_tpu_torch.native import build as native_build
+from mpi_tpu_torch.transport.shm import run_shm
+got = run_shm(lambda c: float(c.allreduce(torch.ones(2), algorithm="sm")[0]),
+              2, device="cpu")
+assert got == [2.0, 2.0], got
+so = native_build.ensure_built()
+assert so.startswith(str(native_build.BUILD_DIR)), so
+with open("/proc/self/maps") as f:
+    libs = {line.split()[-1] for line in f if line.strip().endswith(".so")}
+assert so in libs, so
+assert not [p for p in libs if "/mpi_tpu/native/" in p], libs
 x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
 out = mpi_tpu_torch.run(lambda c, d: c.allreduce(d[c.rank], algorithm="pallas_ring"),
                         x, nranks=8, device="cpu")

@@ -9,14 +9,14 @@ same exception class with equal ``.ranks`` and the same rendered
 diagnosis apart from call sites; each lint gives the same report-line
 kinds and ``verify_*`` pvar deltas; clean programs give equal results and
 empty reports.  The FileBoard tests drive both packages' boards in
-lockstep.  The process worlds (the cross-process deadlock and the
-wildcard race over the socket transport) run the port's launcher.
+lockstep.  The process worlds (the cross-process deadlock, and the
+wildcard race over the socket and shm transports, the sm arena clean
+under the verifier) run the port's launcher.  The compressed-signature
+tests (``tests/test_verify.py:1074-1150``) hold the resolved wire name and
+top-k's k in the signature.
 
-Not written (ROADMAP 16.3b / 16.4): the compressed-signature tests
-(``tests/test_verify.py:1074-1150``), the shm process worlds and the sm
-arena under verify (``:915`` shm case, ``:934``), and the
-``bench.py --verify-overhead`` leg (the benchmark folder is not
-ported)."""
+Not written: the ``bench.py --verify-overhead`` leg (the benchmark
+folder is not ported)."""
 
 import gc
 import os
@@ -1033,20 +1033,49 @@ mpi_tpu_torch.finalize()
 """
 
 
-def _launch(tmp_path, body, n):
+_E2E_CLEAN_SHM = """
+import torch
+import mpi_tpu_torch
+from mpi_tpu_torch import mpit, verify
+
+comm = mpi_tpu_torch.init()   # MPI_TPU_VERIFY=1 over the shm transport
+out = comm.allreduce(torch.ones(256))                 # the sm arena path
+assert float(out[0]) == comm.size
+comm.barrier(algorithm="sm")
+items = comm.allgather(torch.full((4,), comm.rank))
+assert float(items[1][0]) == 1.0
+comm.allreduce(torch.ones(1 << 20), algorithm="compressed:bf16")
+assert mpit.pvar_read("coll_sm_hits") >= 1, "arena did not serve"
+problems = verify.finalize_report()
+assert problems == [], problems
+for p in mpit.pvar_list():
+    if p.startswith("verify_") and p != "verify_clock_bytes":
+        assert mpit.pvar_read(p) == 0, (p, mpit.pvar_read(p))
+mpi_tpu_torch.finalize()
+print("clean shm verify OK", flush=True)
+"""
+
+
+def _launch(tmp_path, body, n, backend="socket"):
     prog = tmp_path / "prog.py"
     prog.write_text(body)
     return subprocess.run(
         [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", str(n),
-         "--device", "cpu", "--verify", "--timeout", "120", str(prog)],
+         "--device", "cpu", "--verify", "--backend", backend, "--timeout",
+         "120", str(prog)],
         capture_output=True, text=True, cwd=REPO, timeout=180)
 
 
-@pytest.mark.parametrize("body,n,marker", [
-    (_E2E_DEADLOCK, 2, "diagnosed"), (_E2E_RACE, 3, "race observed")],
-    ids=["socket_deadlock", "socket_wildcard_race"])
-def test_e2e_process_world_under_launcher_verify(tmp_path, body, n, marker):
-    proc = _launch(tmp_path, body, n)
+@pytest.mark.parametrize("body,n,marker,backend", [
+    (_E2E_DEADLOCK, 2, "diagnosed", "socket"),
+    (_E2E_RACE, 3, "race observed", "socket"),
+    (_E2E_RACE, 3, "race observed", "shm"),
+    (_E2E_CLEAN_SHM, 2, "clean shm verify OK", "shm")],
+    ids=["socket_deadlock", "socket_wildcard_race", "shm_wildcard_race",
+         "shm_arena_clean"])
+def test_e2e_process_world_under_launcher_verify(tmp_path, body, n, marker,
+                                                 backend):
+    proc = _launch(tmp_path, body, n, backend)
     assert proc.returncode == 0, proc.stderr[-1500:]
     assert marker in proc.stdout
 
@@ -1095,3 +1124,71 @@ def test_stamped_frame_before_the_receiver_enables_verify(tmp_path, monkeypatch)
     finally:
         for t in ts:
             t.close()
+
+
+# -- compressed collectives: the resolved wire name in the signature -----------
+
+
+def test_compressed_wire_dtype_divergence():
+    """A group mixing bf16 and int8 compressed entries raises
+    CollectiveMismatchError naming both RESOLVED signatures, before any
+    data moves."""
+    def prog(c, m):
+        algo = "compressed:bf16" if c.rank == 0 else "compressed:int8"
+        c.allreduce(m.arr(np.ones(64, np.float32)), algorithm=algo)  # mpilint: ok
+
+    ref, got = both(prog)
+    cause = assert_same_diagnosis(ref, got)
+    assert "compressed:bf16" in str(cause) and "compressed:int8" in str(cause)
+    assert got.pvars["verify_collective_mismatches"] >= 1
+
+
+def test_compressed_vs_uncompressed_divergence():
+    def prog(c, m):
+        algo = "compressed" if c.rank == 0 else "ring"
+        c.allreduce(m.arr(np.ones(64, np.float32)), algorithm=algo)  # mpilint: ok
+
+    ref, got = both(prog)
+    cause = assert_same_diagnosis(ref, got)
+    assert "compressed:bf16" in str(cause) and "ring" in str(cause)
+
+
+def test_compressed_topk_k_rides_signature_counts(monkeypatch):
+    """The resolved k rides the signature's counts in both packages; a
+    skew injected at the signature boundary is diagnosed alike."""
+    from mpi_tpu import compress as ref_compress
+    from mpi_tpu.verify import collcheck as ref_collcheck
+    from mpi_tpu_torch import compress
+    from mpi_tpu_torch.verify import collcheck
+
+    n = 64
+    k = compress.topk_k(n)
+    assert k == ref_compress.topk_k(n)
+    for mod in (ref_collcheck, collcheck):
+        seen = []
+        real = mod.check
+
+        def spy(comm, coll, _real=real, _seen=seen, **kw):
+            _seen.append((comm.rank, kw.get("counts")))
+            return _real(comm, coll, **kw)
+
+        monkeypatch.setattr(mod, "check", spy)
+    both(lambda c, m: c.allreduce(m.arr(np.ones(n, np.float32)),
+                                  algorithm="compressed:topk"))
+    reals = {}
+    for mod in (ref_collcheck, collcheck):
+        monkeypatch.undo()
+    for mod in (ref_collcheck, collcheck):
+        real = mod.check
+        reals[mod] = real
+
+        def skewed(comm, coll, _real=real, **kw):
+            if comm.rank == 1 and kw.get("counts") is not None:
+                kw["counts"] = (kw["counts"][0] + 1,)
+            return _real(comm, coll, **kw)
+
+        monkeypatch.setattr(mod, "check", skewed)
+    ref, got = both(lambda c, m: c.allreduce(m.arr(np.ones(n, np.float32)),
+                                             algorithm="compressed:topk"))
+    cause = assert_same_diagnosis(ref, got)
+    assert f"counts=[{k}]" in str(cause) and f"counts=[{k + 1}]" in str(cause)
