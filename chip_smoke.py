@@ -121,11 +121,12 @@ ok line:
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
     (``FLOOR_FLOPS_PER_ENTRY``);
 13. host-local: the host layer's local backend, 8 rank threads on the
-    card through ``run(..., backend="local", nranks=8)``, 256 MiB of seeded
-    normal float32 per rank: allreduce by ``ring``, ``recursive_halving``,
-    ``rabenseifner`` and ``reduce_bcast``, reduce_scatter, allgather
-    (``ring`` and ``doubling``, 32 MiB per rank in), bcast (the segmented
-    tree) and alltoall.  Each result is held bitwise across ranks (or
+    card through ``run(..., backend="local", nranks=8)``, seeded normal
+    float32: the north-star ``ring`` allreduce at 256 MiB per rank, and at
+    64 MiB per rank (``HOST_LOCAL_SMALL_ELEMS``) allreduce by
+    ``recursive_halving``, ``rabenseifner`` and ``reduce_bcast``,
+    reduce_scatter, allgather (``ring`` and ``doubling``, 8 MiB per rank
+    in), bcast (the segmented tree) and alltoall.  Each result is held bitwise across ranks (or
     against the copies it must be), bitwise against the same program run
     by the same engine with ``device="cpu"`` in this process, and the
     reductions within rtol 1e-5, atol 1e-5 of a float64 sum; each
@@ -243,10 +244,37 @@ ok line:
     ``P2PWindow`` over a CUDA tensor; then the same example under
     ``--verify`` at 64 MiB (clean: only signature bytes pickled); the
     launcher's exit summary, and no ``mtt_*`` segment left in /dev/shm;
-24. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+24. host-restart: ``python -m mpi_tpu_torch.launcher -n 2 --restarts 2
+    mpi_tpu_torch/examples/host_restart.py`` on shm and on socket (the two
+    launches side by side), each rank's state 256 MiB of float32 on its
+    card: rank 1 exits (41) on
+    attempt 0 right after the save of step 1, the launcher relaunches the
+    world, which loads generation 1 onto the card (``cuda:`` checked),
+    finishes step 4 and holds its state bitwise against the crash-free
+    replay; save and load seconds, bytes per rank and the committed
+    generation printed.  Then ``checkpoint.save(..., agree=True)`` on 3
+    local rank threads on the card (64 MiB each) with rank 1 killed
+    before the commit: every survivor raises and no manifest is swung;
+    after ``shrink`` the survivors' save commits and loads on the card;
+25. host-flat: ``python -m mpi_tpu_torch.launcher -n 4 --backend shm
+    --tuning-table T mpi_tpu_torch/examples/host_flat.py``, 64 MiB of
+    float32 per rank on the card: ``HierarchicalComm`` with 2 nodes of 2
+    (allreduce, bcast, reduce, allgather, each bitwise against the same
+    call on the inputs as CPU tensors, which travel to each receiving
+    rank's card as every payload does, the allreduce within rtol 1e-5,
+    atol 1e-5 of a float64 sum, ``tuned_table_hits`` / ``tuned_table_fallbacks`` per
+    tier and call; T pins the leaders' 2-rank allreduce, so each leader
+    hits once) and the three-level form; ``master_worker`` (40 tasks,
+    within atol 1e-12 of the serial computation); an intercommunicator
+    allreduce across the two halves; a partitioned send of 8 partitions
+    readied by 4 producer threads, each refilled right after its
+    ``pready``; 10 ``MPI_Allreduce_init`` rounds, each bitwise against the
+    same rounds on CPU inputs; each leg's slowest-rank ms;
+26. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10), each read right after it ran (``launches_by_path``).  The host
-    layer launches none of the kernels: its folds are in-place torch ops.
+    layer (phases 13-25) launches none of the kernels: its folds are
+    in-place torch ops.
 
 Every phase prints its wall time.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -256,9 +284,11 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet
@@ -1218,6 +1248,9 @@ HOST_SEED = 7
 # (cut from 3 and 2 to keep the script under 600 s with phases 22-23)
 HOST_LOCAL_REPS = 2
 VERIFY_RING_REPS = 1
+# phase 13's collectives other than the north-star ring allreduce run at
+# 64 MiB per rank (256 MiB until phases 24-25 needed the seconds)
+HOST_LOCAL_SMALL_ELEMS = NORTH_STAR_ELEMS // 4
 
 
 def _timed_program(torch, call, reps=3):
@@ -1239,8 +1272,9 @@ def _timed_program(torch, call, reps=3):
 
 
 def host_local_phase(torch, record):
-    """Phase 13: the local backend's collectives on the card at 256 MiB per
-    rank, against the CPU and a float64 sum, timed."""
+    """Phase 13: the local backend's collectives on the card, the ring
+    allreduce at 256 MiB per rank and the others at 64 MiB, against the
+    CPU and a float64 sum, timed."""
     import mpi_tpu_torch
     from mpi_tpu_torch import profiling
     from mpi_tpu_torch.examples.host_allreduce import rank_input
@@ -1254,24 +1288,26 @@ def host_local_phase(torch, record):
     want = torch.zeros(numel, dtype=torch.float64, device=dev)
     for x in xs:
         want += x.double()
-    shard = numel // n
-    # name -> (call, bytes the bandwidth counts, its bus factor)
+    small = HOST_LOCAL_SMALL_ELEMS
+    # name -> (call, elements per rank, its bus factor); the small ones
+    # read the first 64 MiB of each rank's input
     colls = {f"allreduce {a}": (lambda c, xs, a=a: c.allreduce(xs[c.rank], algorithm=a),
-                                nbytes, 2 * (n - 1) / n)
+                                numel if a == "ring" else small, 2 * (n - 1) / n)
              for a in ("ring", "recursive_halving", "rabenseifner", "reduce_bcast")}
     colls["reduce_scatter"] = (lambda c, xs: c.reduce_scatter(xs[c.rank].view(n, -1)),
-                               nbytes, (n - 1) / n)
+                               small, (n - 1) / n)
     for a in ("ring", "doubling"):
         colls[f"allgather {a}"] = (
-            lambda c, xs, a=a: c.allgather(xs[c.rank][:shard], algorithm=a),
-            nbytes, (n - 1) / n)
+            lambda c, xs, a=a: c.allgather(xs[c.rank][:xs[c.rank].numel() // n],
+                                           algorithm=a),
+            small, (n - 1) / n)
     colls["bcast tree"] = (lambda c, xs: c.bcast(xs[0] if c.rank == 0 else None, root=0),
-                           nbytes, 1.0)
+                           small, 1.0)
     # the blocks as one [P, N/P] tensor: the result comes back stacked
     colls["alltoall"] = (lambda c, xs: c.alltoall(xs[c.rank].view(n, -1)),
-                         nbytes, (n - 1) / n)
+                         small, (n - 1) / n)
 
-    def expect(name, r, got):
+    def expect(name, r, got, xs, want):
         """The check of rank r's result beyond card == CPU: copies must be
         the inputs exactly; reductions agree across ranks bitwise and with
         the float64 sum."""
@@ -1281,31 +1317,37 @@ def host_local_phase(torch, record):
         if name == "reduce_scatter":
             return torch.allclose(got.double(), want.view(n, -1)[r], rtol=1e-5, atol=1e-5)
         if name.startswith("allgather"):
+            shard = xs[0].numel() // n
             return torch.equal(got, torch.stack([x[:shard] for x in xs]))
         if name == "bcast tree":
             return torch.equal(got, xs[0])
         return torch.equal(got, torch.stack([x.view(n, -1)[r] for x in xs]))
 
-    info = {"card": card, "ranks": n, "bytes_per_rank": nbytes}
-    for name, (call, nb, factor) in colls.items():
-        outs = mpi_tpu_torch.run(_timed_program(torch, call, HOST_LOCAL_REPS), xs,
+    info = {"card": card, "ranks": n, "bytes_per_rank": nbytes,
+            "small_bytes_per_rank": small * 4}
+    for name, (call, m, factor) in colls.items():
+        nb = m * 4
+        ins, ins_cpu = [x[:m] for x in xs], [x[:m] for x in xs_cpu]
+        outs = mpi_tpu_torch.run(_timed_program(torch, call, HOST_LOCAL_REPS), ins,
                                  backend="local", nranks=n)
         results = [o for o, _ in outs]
         secs = [max(ts[i] for _, ts in outs) for i in range(HOST_LOCAL_REPS)]
-        bad = [r for r, got in enumerate(results) if not expect(name, r, got)]
+        bad = [r for r, got in enumerate(results)
+               if not expect(name, r, got, ins, want[:m])]
         if bad:
             raise RuntimeError(f"host-local {name}: ranks {bad} fail their check")
-        cpu = mpi_tpu_torch.run(lambda c, xs: call(c, xs), xs_cpu, backend="local",
+        cpu = mpi_tpu_torch.run(lambda c, xs: call(c, xs), ins_cpu, backend="local",
                                 nranks=n, device="cpu")
         if not all(torch.equal(results[r].cpu(), cpu[r]) for r in range(n)):
             raise RuntimeError(f"host-local {name}: the card differs from the CPU")
         med = statistics.median(secs)
-        err = (float((results[0].double() - want).abs().max())
+        err = (float((results[0].double() - want[:m]).abs().max())
                if name.startswith("allreduce") else 0.0)
-        info[name] = {"s": secs, "median_ms": med * 1e3,
+        info[name] = {"s": secs, "median_ms": med * 1e3, "bytes_per_rank": nb,
                       "algbw_GBps": nb / med / 1e9, "busbw_GBps": factor * nb / med / 1e9,
                       "bus_factor": factor, "max_abs_err_vs_f64": err}
-        log(f"host-local {name}: median {med * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in secs)}), "
+        log(f"host-local {name} ({nb >> 20} MiB per rank): median {med * 1e3:.1f} ms "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in secs)}), "
             f"bus bandwidth {factor:.3f} N/t = {factor * nb / med / 1e9:.2f} GB/s; "
             f"bitwise across ranks and vs the CPU [{card}]")
         del outs, results, cpu
@@ -2477,6 +2519,183 @@ def host_shm_phase(torch, record):
     record["host_shm"] = info
 
 
+RESTART_MIB = 256               # phase 24: each rank's state, the north-star size
+AGREE_ELEMS = (64 << 20) // 4   # phase 24's agree=True leg: 64 MiB per rank
+FLAT_MIB = 64                   # phase 25: each rank's input
+
+
+def host_restart_phase(torch, record):
+    """Phase 24: the launcher's ``--restarts`` resuming a world from its
+    last committed checkpoint on shm and on socket, with each rank's state
+    on the card; then an ``agree=True`` save withheld by a death."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch import checkpoint, mpit
+    from mpi_tpu_torch.errors import ProcFailedError
+    from mpi_tpu_torch.transport.faulty import FaultyTransport, KilledRankError
+
+    card = card_line()
+    root = os.path.dirname(os.path.abspath(__file__))
+    info = {"card": card, "ranks": 2, "mib_per_rank": RESTART_MIB}
+    # the two backends' worlds run side by side (independent launches: the
+    # rank start-ups, most of the wall, overlap)
+    outs = {b: tempfile.mkdtemp(prefix=f"mtt_restart_{b}_") for b in ("shm", "socket")}
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for backend, out in outs.items():
+            procs[backend] = subprocess.Popen(
+                [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", "2",
+                 "--restarts", "2", "--backend", backend, "--timeout", "240",
+                 os.path.join("mpi_tpu_torch", "examples", "host_restart.py"),
+                 "--out", out, "--mib", str(RESTART_MIB), "--steps", "4",
+                 "--crash-step", "1", "--seed", str(HOST_SEED)],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        done = {}
+        for backend, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            done[backend] = (proc.returncode, stdout, stderr, time.perf_counter() - t0)
+        for backend, (rc, stdout, stderr, wall) in done.items():
+            if rc != 0:
+                raise RuntimeError(f"host-restart ({backend}) failed (rc {rc}):\n"
+                                   f"{stdout[-3000:]}\n{stderr[-6000:]}")
+            if "exit code 41" not in stderr:
+                raise RuntimeError(f"host-restart ({backend}): attempt 0 did not crash:\n"
+                                   f"{stderr[-3000:]}")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(outs[backend], f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            for d in ranks:
+                if not (d["attempt"] == 1 and d["resumed_from_gen"] == 1
+                        and d["resumed_at_step"] == 2 and d["committed_gen"] == 3
+                        and d["bitwise_equal_to_crash_free"]
+                        and d["device"].startswith("cuda")
+                        and all(v.startswith("cuda") for v in d["loaded_devices"])):
+                    raise RuntimeError(f"host-restart ({backend}) rank {d['rank']}: {d}")
+            info[backend] = {"launcher_wall_s": wall, "ranks": ranks}
+            d = ranks[0]
+            saves = ", ".join(f"{max(x['save_s'][i] for x in ranks):.3f}"
+                              for i in range(len(d["save_s"])))
+            log(f"host-restart ({backend}): rank 1 exited 41 on attempt 0 after the save of "
+                f"step 1; attempt 1 resumed from generation {d['resumed_from_gen']} at step "
+                f"{d['resumed_at_step']} with the state on {d['loaded_devices']}, committed "
+                f"generation {d['committed_gen']}, bitwise equal to the crash-free run on both "
+                f"ranks; {d['bytes_per_rank'] >> 20} MiB per rank, save {saves} s, "
+                f"load {max(x['load_s'] for x in ranks):.3f} s (slowest rank); "
+                f"launcher wall {wall:.1f} s for both attempts, beside the other "
+                f"backend's [{card}]")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for out in outs.values():
+            shutil.rmtree(out, ignore_errors=True)
+
+    # agree=True: a member killed before the commit withholds it
+    path = tempfile.mkdtemp(prefix="mtt_agree_")
+    saved = {k: mpit.cvar_read(k) for k in ("fault_detect_timeout_s",
+                                             "fault_heartbeat_interval_s")}
+    mpit.cvar_write("fault_detect_timeout_s", 1.0)
+    mpit.cvar_write("fault_heartbeat_interval_s", 0.05)
+
+    def agree_prog(comm):
+        w = torch.full((AGREE_ELEMS,), float(comm.rank), device=comm.device)
+        raised = None
+        try:
+            checkpoint.save(path, {"w": w}, comm, agree=True)
+        except (ProcFailedError, KilledRankError) as e:
+            raised = e
+        if raised is None:
+            raise RuntimeError("agree=True save committed despite the death")
+        if comm.rank == 1:
+            return None
+        withheld = not checkpoint.exists(path)
+        new = comm.shrink()
+        checkpoint.save(path, {"w": w, "rank": new.rank}, new, agree=True)
+        back = checkpoint.load(path, new)
+        return {"withheld": withheld, "committed_after_shrink": checkpoint.exists(path),
+                "device": str(back["w"].device),
+                "bitwise": bool(torch.equal(back["w"], w)) and back["rank"] == new.rank}
+
+    try:
+        t0 = time.perf_counter()
+        res = mpi_tpu_torch.run(
+            agree_prog, backend="local", nranks=3, fault_tolerance=True,
+            transport_wrapper=lambda t: (FaultyTransport(t, crash_on_send_to=0)
+                                         if t.world_rank == 1 else t))
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            mpit.cvar_write(k, v)
+        shutil.rmtree(path, ignore_errors=True)
+    for r in (0, 2):
+        d = res[r]
+        if not (d["withheld"] and d["committed_after_shrink"] and d["bitwise"]
+                and d["device"].startswith("cuda")):
+            raise RuntimeError(f"agree=True checkpoint rank {r}: {d}")
+    info["agree"] = {"wall_s": wall, "bytes_per_rank": AGREE_ELEMS * 4, "survivors": res}
+    log(f"host-restart agree=True: rank 1 killed before the commit, both survivors "
+        f"raised and no manifest was swung; after shrink the survivors' save committed "
+        f"and loaded on {res[0]['device']}, bitwise ({AGREE_ELEMS * 4 >> 20} MiB per rank, "
+        f"{wall:.2f} s) [{card}]")
+    record["host_restart"] = info
+
+
+def host_flat_phase(torch, record):
+    """Phase 25: hierarchical dispatch and the flat MPI layer in one
+    launched shm world of 4 rank processes on the card."""
+    from mpi_tpu_torch.tuning.table import Row, new_doc
+
+    card = card_line()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "host_flat"))
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    table = os.path.join(out_dir, "table.json")
+    with open(table, "w") as f:  # pins the leaders' 2-rank allreduce
+        json.dump(new_doc([Row("shm", 2, "allreduce", 0, None, "ring", True)], ["shm"]), f)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mpi_tpu_torch.launcher", "-n", "4", "--backend", "shm",
+         "--timeout", "300", "--tuning-table", table,
+         os.path.join("mpi_tpu_torch", "examples", "host_flat.py"),
+         "--out", out_dir, "--mib", str(FLAT_MIB), "--seed", str(HOST_SEED)],
+        cwd=root, capture_output=True, text=True, timeout=360)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"host-flat failed (rc {res.returncode}):\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if not all(d["device"].startswith("cuda") for d in ranks):
+        raise RuntimeError(f"host-flat ranks not on the card: {[d['device'] for d in ranks]}")
+    legs = list(ranks[0]["legs"])
+    bad = [(d["rank"], k) for d in ranks for k in legs if not d["legs"][k]["ok"]]
+    if bad:
+        raise RuntimeError(f"host-flat legs failed: {bad}")
+    hits = [ranks[r]["legs"]["hier allreduce"]["consults"]["leaders"][0] for r in (0, 2)]
+    if hits != [1, 1]:
+        raise RuntimeError(f"host-flat: the leaders' allreduce did not hit the table: {hits}")
+    info = {"card": card, "ranks": 4, "bytes_per_rank": ranks[0]["bytes_per_rank"],
+            "launcher_wall_s": wall, "ranks_detail": ranks,
+            "slowest_ms": {k: max(d["legs"][k]["ms"] for d in ranks) for k in legs}}
+    for k in legs:
+        extra = ""
+        if k.startswith("hier ") and "consults" in ranks[0]["legs"][k]:
+            extra = "; [hits, fallbacks] by tier on ranks 0-3: " + ", ".join(
+                str(d["legs"][k]["consults"]) for d in ranks)
+        if "max_abs_err_vs_f64" in ranks[0]["legs"][k]:
+            extra += f"; float64 error {ranks[0]['legs'][k]['max_abs_err_vs_f64']:.3g}"
+        log(f"host-flat {k}: {info['slowest_ms'][k]:.1f} ms (slowest rank), check ok{extra}")
+    log(f"host-flat: {ranks[0]['bytes_per_rank'] >> 20} MiB per rank, 4 shm rank processes, "
+        f"launcher wall {wall:.1f} s [{card}]")
+    record["host_flat"] = info
+
+
 def main():
     import torch
 
@@ -2729,6 +2948,15 @@ def main():
     lap("host-shm")
     record["data_plane_phases_s"] = time.perf_counter() - t_shm
     log(f"phases 22-23: {record['data_plane_phases_s']:.1f} s")
+
+    # 24-25. process checkpoints, hierarchical dispatch and the flat layer ------
+    t_flat = time.perf_counter()
+    host_restart_phase(torch, record)
+    lap("host-restart")
+    host_flat_phase(torch, record)
+    lap("host-flat")
+    record["flat_layer_phases_s"] = time.perf_counter() - t_flat
+    log(f"phases 24-25: {record['flat_layer_phases_s']:.1f} s")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

@@ -48,7 +48,17 @@ tuning_table=path)`` and ``--tuning-table`` serve ``"auto"`` from a
 measured table (``tuning``, swept by ``python -m
 mpi_tpu_torch.tools.tune``); ``comm.win_create`` /
 ``win_create_dynamic`` give one-sided windows on every host backend and
-``win_allocate_shared`` a shared-memory window.
+``win_allocate_shared`` a shared-memory window.  Process checkpoints:
+``checkpoint.save`` / ``exists`` / ``load`` (the launcher's ``--restarts``
+resumes from the last committed generation).  Hierarchical dispatch:
+``HierarchicalComm`` / ``split_hierarchical`` (the arena inside a node,
+the wire between nodes).  The flat MPI layer: ``from mpi_tpu_torch.api
+import *`` (``MPI_Init`` ... ``MPI_Finalize``), with ``mpi4`` (sessions,
+partitioned point-to-point, generic persistent collectives),
+``InterComm`` / ``create_intercomm`` and ``COMM_SELF`` / ``comm_self``.
+The top level binds every name of the reference's ``__all__`` whose
+module is ported (``tests/test_torch_names.py`` holds the list of those
+still to come).
 
 The package imports torch, numpy and the standard library only; the JAX
 package ``mpi_tpu`` is its reference and is never imported.
@@ -64,6 +74,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from . import datatypes, ops
+from .ops import (BAND, BOR, BXOR, LAND, LOR, LXOR, MAX, MIN, PROD, SUM,
+                  ReduceOp)
 from .gpu import primitives
 from .gpu import (SpmdContextError, SpmdSemanticsError, TorchCommunicator,
                   rank_normal, rank_uniform, resolve_device, run_spmd)
@@ -71,8 +83,22 @@ from .interop import params_from_numpy, to_numpy, world_from_numpy
 from .topology import (CartComm, GraphComm, cart_create, dims_create,
                        dist_graph_create_adjacent, graph_create)
 
-from .membership import ENV_BACKEND, ENV_DEVICE, ENV_RANK, ENV_RDV, ENV_SIZE
+from .membership import (ENV_BACKEND, ENV_DEVICE, ENV_RANK, ENV_RDV,
+                         ENV_SIZE, rejoin)
 from .shmwin import SharedWindow, win_allocate_shared
+from .communicator import (Communicator, Message, P2PCommunicator, Request,
+                           Status)
+from .transport.base import ANY_SOURCE, ANY_TAG
+from .transport.local import run_local
+from .group import Group
+from .window import GetFuture, P2PWindow
+from .topology import HierarchicalComm, split_hierarchical
+from .intercomm import InterComm, create_intercomm
+from . import (api, checker, checkpoint, errors, ft, membership, mpi4,
+               profiling, progress, schedules, telemetry, trace, verify)
+
+# the port's version: the reference's (mpi_tpu/version.py) it tracks
+__version__ = "0.1.0"
 
 # the local backend's world options (transport/local.py run_local)
 _LOCAL_RUN_KWARGS = ("fault_tolerance", "progress", "transport_wrapper",
@@ -80,6 +106,12 @@ _LOCAL_RUN_KWARGS = ("fault_tolerance", "progress", "transport_wrapper",
 
 _world = None
 _world_lock = threading.Lock()
+
+
+def is_initialized() -> bool:
+    """MPI_Initialized: whether this process's world communicator exists
+    (``mpi_tpu/__init__.py:93``)."""
+    return _world is not None
 
 
 def _rank_device(rank: int, device=None) -> torch.device:
@@ -151,7 +183,10 @@ def init(backend: Optional[str] = None, device=None):
         elif backend in ("self", "local"):
             from .transport.local import LocalTransport, LocalWorld
 
-            dev = resolve_device(device)
+            # called from a host rank (a rank thread), the world lives on
+            # that rank's device; otherwise on the card unless told
+            dev = resolve_device(device if device is not None
+                                 else primitives.host_rank_device())
             from . import telemetry
 
             telemetry.enable_from_env(rank=0)
@@ -189,6 +224,7 @@ def finalize() -> None:
         pending = _world.close_transport()
         _world = None
         primitives.unbind_host_process()
+    mpi4._cfg_prune_all()  # session generation counters die with the world
     import warnings
 
     if pending:
@@ -245,16 +281,53 @@ def run(fn: Callable, *args: Any, nranks: Optional[int] = None, device=None,
     return run_spmd(fn, *args, nranks=nranks, device=device, **kwargs)
 
 
+_self_store = threading.local()
+
+
+def comm_self(device=None):
+    """MPI_COMM_SELF [S]: the size-1 communicator holding only this rank
+    (``mpi_tpu/__init__.py:243``), independent of any world backend; its
+    collectives are identities.  Per THREAD, not per process, as the
+    reference's: the local backend runs ranks as threads, and one SELF
+    per process would share one mailbox across them.  Its device is
+    ``device``, else the device bound to this rank (a host rank thread or
+    process), else the card; without a card it raises unless the caller
+    passes ``device="cpu"`` (never a fallback)."""
+    comm = getattr(_self_store, "comm", None)
+    if comm is None:
+        from .transport.local import LocalTransport, LocalWorld
+
+        if device is None:
+            device = primitives.host_rank_device()
+        dev = resolve_device(device)
+        comm = P2PCommunicator(LocalTransport(LocalWorld(1, device=dev), 0),
+                               range(1))
+        _self_store.comm = comm
+    return comm
+
+
 def __getattr__(name: str):
     if name == "COMM_WORLD":
         return init()
+    if name == "COMM_SELF":
+        return comm_self()
     raise AttributeError(f"module 'mpi_tpu_torch' has no attribute {name!r}")
 
 
-__all__ = ["CartComm", "GraphComm", "SpmdContextError", "SpmdSemanticsError",
-           "TorchCommunicator", "cart_create", "datatypes", "dims_create",
-           "dist_graph_create_adjacent", "finalize", "graph_create", "init",
-           "ops", "params_from_numpy", "rank_normal", "SharedWindow",
-           "win_allocate_shared",
-           "rank_uniform", "resolve_device", "run", "run_spmd", "to_numpy",
-           "world_from_numpy"]
+__all__ = [
+    "__version__", "ops", "ReduceOp",
+    "SUM", "PROD", "MAX", "MIN", "LAND", "LOR", "LXOR", "BAND", "BOR", "BXOR",
+    "Communicator", "Message", "P2PCommunicator", "Request", "Status",
+    "ANY_SOURCE", "ANY_TAG",
+    "init", "finalize", "is_initialized", "run", "run_local",
+    "schedules", "checker", "checkpoint", "ft", "membership", "profiling",
+    "progress", "telemetry", "trace", "verify", "COMM_WORLD", "COMM_SELF",
+    "comm_self", "mpi4", "api", "errors", "rejoin",
+    "CartComm", "GraphComm", "HierarchicalComm", "InterComm",
+    "create_intercomm", "cart_create", "graph_create", "split_hierarchical",
+    "dist_graph_create_adjacent", "dims_create", "Group",
+    "GetFuture", "P2PWindow", "SharedWindow", "win_allocate_shared",
+    "SpmdContextError", "SpmdSemanticsError", "TorchCommunicator",
+    "datatypes", "params_from_numpy", "rank_normal", "rank_uniform",
+    "resolve_device", "run_spmd", "to_numpy", "world_from_numpy",
+]

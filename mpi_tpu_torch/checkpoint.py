@@ -22,9 +22,24 @@ reference's process-backend ``save`` (:51) commits its generations: a save
 torn before the rename leaves the previous checkpoint loadable, and the
 orphaned directory is swept by the next save.  ``load_sharded`` restores
 onto the template's device, dtype and layout, shard by shard, and raises
-on any mismatch, naming the tensor.  The process backends' ``save`` /
-``load`` (:51, :138, the commit ``save(..., agree=True)``) are not ported
-yet: they raise naming ROADMAP item 16.5.
+on any mismatch, naming the tensor.
+
+The process backends' ``save`` / ``exists`` / ``load`` (:51, :133, :138)
+keep the reference's layout: ``gen{k}/rank{r}/state.pkl``, a manifest
+``{"nranks", "format": 2, "gen"}`` swung by an atomic ``os.replace`` once
+every rank's state is on disk, the sweep of everything else, and
+``agree=True`` deciding the commit by ULFM agreement.  ``state.pkl`` is a
+plain pickle of the state pytree, as the reference's, in which each
+tensor is a persistent reference carrying its dtype, shape and raw bytes
+but no device (``_TensorPickler``); ``load`` rebuilds it on the loading
+rank's device (``comm.device``: its card, or the CPU under ``--device
+cpu``).  Not ``torch.save`` / ``torch.load``: their pickle records each
+tensor's device (a rank would get its tensors back on the saver's card),
+``torch.load`` refuses a pytree of arbitrary Python objects under its
+default ``weights_only=True`` (torch >= 2.6), and a reference checkpoint,
+a plain pickle with numpy leaves, would not load.  With this spelling
+numpy arrays and Python objects round-trip as the reference's do, and a
+directory the reference's ``save`` wrote loads with the same leaves.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import pickle
 import re
 import shutil
 from dataclasses import dataclass
@@ -259,18 +275,141 @@ def load_sharded(path: str, template: Any) -> Any:
     return pytree.tree_unflatten(restored, spec)
 
 
+# ---- the process backends' collective checkpoint -------------------------
+
+_STATE = "state.pkl"
+_PROC_FORMAT = 2
+_TENSOR = "mpi_tpu_torch.Tensor"  # the persistent-reference tag of a tensor
+
+
+class _TensorPickler(pickle.Pickler):
+    """Pickles a state pytree with each tensor as a persistent reference
+    ``(tag, dtype, shape, raw bytes)``, written from one host copy of the
+    tensor (a card tensor is copied to the host once)."""
+
+    def persistent_id(self, obj: Any):
+        if not isinstance(obj, torch.Tensor):
+            return None
+        host = obj.detach().to("cpu").contiguous()
+        raw = host.reshape(-1).view(torch.uint8).numpy()
+        return (_TENSOR, str(host.dtype).replace("torch.", ""),
+                tuple(host.shape), raw)
+
+
+class _TensorUnpickler(pickle.Unpickler):
+    """Rebuilds each persistent tensor reference on ``device``."""
+
+    def __init__(self, f, device: torch.device):
+        super().__init__(f)
+        self._device = device
+
+    def persistent_load(self, pid: Any):
+        tag, dtype, shape, raw = pid
+        if tag != _TENSOR:
+            raise pickle.UnpicklingError(f"unknown persistent id {tag!r}")
+        host = torch.from_numpy(raw).view(_dtype(dtype)).reshape(shape)
+        return host.to(self._device)
+
+
 def save(path: str, state: Any, comm=None, agree: bool = False) -> None:
-    """The process backends' collective checkpoint (the reference's
-    ``save`` :51, with its ``agree=True`` commit): not ported yet."""
-    raise NotImplementedError(
-        "checkpoint.save (the process backends' collective checkpoint, "
-        "agree=True commits included) is not ported yet: ROADMAP.md item "
-        "16.5; SPMD state goes through save_sharded")
+    """Collective checkpoint on a process-backend communicator
+    (``mpi_tpu/checkpoint.py:51``).
+
+    Every rank writes its state pytree into a FRESH ``gen{k}/rank{r}/``
+    and only after all ranks have finished does rank 0 atomically swing
+    the manifest to generation k, so ``path`` holds the previous complete
+    checkpoint or the new one through every instant of the save.  A crash
+    before the manifest swap leaves the old generation committed, a crash
+    after it the new one (the orphaned directory is swept by the next
+    save).
+
+    ``agree=True`` (needs ULFM fault tolerance, ``ft.py``) replaces the
+    pre-commit barrier with fault-tolerant agreement: if any rank died
+    before its state reached disk, ``comm.agree`` raises ProcFailedError
+    on every survivor and the manifest is NOT swung.  An exception from
+    the post-commit agreement means the checkpoint IS committed
+    (``exists(path)`` tells)."""
+    from . import init
+
+    comm = comm or init()
+
+    def _sync(committed: bool):
+        if not agree:
+            comm.barrier()
+            return
+        # the agreed value is "no survivor knows of any dead member",
+        # whatever failure_ack says: a full-world checkpoint with a
+        # member's state missing must never commit (the sweep would
+        # destroy the last good generation)
+        if not comm.agree(not comm.get_failed()):
+            from .errors import ProcFailedError
+
+            raise ProcFailedError(
+                "checkpoint IS committed, but a member died before "
+                "every survivor returned from save (exists(path) "
+                "confirms the new generation)" if committed else
+                "checkpoint commit withheld: a member died before "
+                "every rank's state reached disk",
+                failed=tuple(comm.get_failed()), collective="agree")
+
+    if comm.rank == 0:
+        prev = _read_manifest(path)
+        next_gen = (-1 if prev is None else int(prev.get("gen", -1))) + 1
+    else:
+        next_gen = None
+    next_gen = comm.bcast(next_gen, root=0)
+    rank_dir = os.path.join(path, f"gen{next_gen}", f"rank{comm.rank}")
+    os.makedirs(rank_dir, exist_ok=True)
+    with open(os.path.join(rank_dir, _STATE), "wb") as f:
+        _TensorPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(state)
+    _sync(committed=False)  # every rank's state on disk, or NO commit
+    if comm.rank == 0:
+        tmp = os.path.join(path, "." + _MANIFEST)
+        with open(tmp, "w") as f:
+            json.dump({"nranks": comm.size, "format": _PROC_FORMAT,
+                       "gen": next_gen}, f)
+        os.replace(tmp, os.path.join(path, _MANIFEST))  # the commit point
+        # everything but the committed generation is unreferenced now:
+        # older generations, orphans of saves that crashed after their
+        # commit, and format-1 rank{r}/ directories
+        keep = f"gen{next_gen}"
+        for entry in os.listdir(path):
+            if entry == keep or not (entry.startswith("gen")
+                                     or entry.startswith("rank")):
+                continue
+            victim = os.path.join(path, entry)
+            if os.path.isdir(victim):
+                shutil.rmtree(victim, ignore_errors=True)
+    _sync(committed=True)  # nobody returns before the commit is visible
+
+
+def exists(path: str) -> bool:
+    """True iff ``path`` holds a COMPLETE checkpoint (manifest present;
+    ``mpi_tpu/checkpoint.py:133``)."""
+    return os.path.exists(os.path.join(path, _MANIFEST))
 
 
 def load(path: str, comm=None) -> Any:
-    """The process backends' restore (the reference's ``load`` :138): not
-    ported yet."""
-    raise NotImplementedError(
-        "checkpoint.load (the process backends' restore) is not ported yet: "
-        "ROADMAP.md item 16.5; SPMD state goes through load_sharded")
+    """Restore this rank's state from a complete checkpoint
+    (``mpi_tpu/checkpoint.py:138``), its tensors on the rank's device;
+    raises FileNotFoundError on a missing or partial one, ValueError on a
+    world-size mismatch (a resumed job must match the checkpoint's
+    geometry)."""
+    from . import init
+
+    comm = comm or init()
+    mpath = os.path.join(path, _MANIFEST)
+    if not os.path.exists(mpath):
+        raise FileNotFoundError(
+            f"no complete checkpoint at {path!r} (manifest missing — the "
+            f"save was interrupted before commit)")
+    with open(mpath) as f:
+        manifest = json.load(f)
+    if manifest["nranks"] != comm.size:
+        raise ValueError(
+            f"checkpoint was taken with {manifest['nranks']} ranks; this "
+            f"world has {comm.size}")
+    gen = manifest.get("gen")  # format 1: rank dirs directly under path
+    state_dir = path if gen is None else os.path.join(path, f"gen{gen}")
+    with open(os.path.join(state_dir, f"rank{comm.rank}", _STATE), "rb") as f:
+        return _TensorUnpickler(f, comm.device).load()

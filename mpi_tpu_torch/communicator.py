@@ -445,14 +445,20 @@ def snapshot_payload(transport: Transport, payload: Any) -> Any:
 
 
 def _refill(buf: Any, got: Any) -> None:
-    """Copy a received payload into a bound destination in place (a tensor
-    or a list of tensors), telling the ownership layer first; a geometry
-    mismatch leaves the buffer alone (the payload is still returned)."""
+    """Copy a received payload into a bound destination in place (a tensor,
+    an ndarray as the reference's ``np.copyto``, or a list of them),
+    telling the ownership layer first; a geometry mismatch leaves the
+    buffer alone (the payload is still returned)."""
     bufs, gots = (buf, got) if isinstance(buf, list) else ([buf], [got])
     try:
         for b, g in zip(bufs, gots):
             _bufpool.touch(b)
-            b.copy_(torch.as_tensor(g))
+            if isinstance(b, np.ndarray):
+                if isinstance(g, torch.Tensor):
+                    g = g.detach().cpu().numpy()
+                np.copyto(b, g)
+            else:
+                b.copy_(torch.as_tensor(g))
     except (TypeError, ValueError, RuntimeError):
         pass
 
@@ -508,6 +514,10 @@ class _ReplaceRequest(Request):
         if isinstance(self._buf, torch.Tensor):
             _bufpool.touch(self._buf)
             self._buf.copy_(got)
+        elif isinstance(self._buf, np.ndarray):  # the reference's buffers
+            _bufpool.touch(self._buf)
+            self._buf[...] = (got.detach().cpu().numpy()
+                              if isinstance(got, torch.Tensor) else got)
         self._done, self._value = True, got
         return got
 

@@ -26,11 +26,12 @@ from mpi_tpu_torch.topology import CartComm, dims_create
 def jacobi2d_step(cart: CartComm, local: torch.Tensor) -> torch.Tensor:
     """One 4-direction halo exchange + 5-point sweep on this rank's tile."""
     _, pc = cart.dims
-    row, col = cart.coords  # batched integer tensors
+    row, col = cart.coords  # ints on the host backends, batched under SPMD
     # dim 0 = rows of the process grid: my bottom row goes down (+1), the
     # neighbor's bottom row arrives from above; and vice versa.
     north = cart.exchange(local[-1], dim=0, disp=1, fill=0.0)
-    north = torch.where(row == 0, torch.ones_like(north), north)  # hot top edge
+    top = torch.as_tensor(row == 0, device=north.device)
+    north = torch.where(top, torch.ones_like(north), north)  # hot top edge
     south = cart.exchange(local[0], dim=0, disp=-1, fill=0.0)
     west = cart.exchange(local[:, -1], dim=1, disp=1, fill=0.0)
     east = cart.exchange(local[:, 0], dim=1, disp=-1, fill=0.0)

@@ -464,9 +464,20 @@ def unbind_host_process() -> None:
     _HOST_PROCESS.clear()
 
 
+def _bound_host_rank() -> Optional[Tuple[int, torch.device]]:
+    return getattr(_HOST, "rank", None) or (_HOST_PROCESS[0] if _HOST_PROCESS
+                                            else None)
+
+
+def host_rank_device() -> Optional[torch.device]:
+    """The device of the host rank bound to this thread or process (None
+    outside any host world)."""
+    bound = _bound_host_rank()
+    return None if bound is None else bound[1]
+
+
 def _host_draw(draw, name: str, shape: Sequence[int], seed: int) -> torch.Tensor:
-    bound = getattr(_HOST, "rank", None) or (_HOST_PROCESS[0] if _HOST_PROCESS
-                                             else None)
+    bound = _bound_host_rank()
     if bound is None:
         raise _outside(name)
     rank, device = bound

@@ -1,7 +1,8 @@
 """Reduction operators for the port's collectives.
 
-Own copy of ``mpi_tpu/ops.py:47-187`` (``ReduceOp``, ``make_op``, the ten
-built-ins and ``BY_NAME``) with torch combines.  ``combine_into`` (:62) is
+Own copy of ``mpi_tpu/ops.py:31-187`` (the user ops' ``_maximum`` /
+``_minimum``, ``ReduceOp``, ``make_op``, the ten built-ins and
+``BY_NAME``) with torch combines.  ``combine_into`` (:62) is
 the host engine's in-place fold: the reference's ``ufunc(acc, value,
 out=acc)`` becomes the op's torch function with ``out=acc``, on the
 accumulator's own device, after the same buffer-ownership hook
@@ -18,9 +19,26 @@ import operator
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from . import bufpool as _bufpool
+
+
+def _maximum(a, b):
+    """Elementwise max for user ops (``mpi_tpu/ops.py:31``): torch's when
+    either side is a tensor (on its device), numpy's otherwise."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return torch.maximum(torch.as_tensor(a), torch.as_tensor(b))
+    return np.maximum(a, b)
+
+
+def _minimum(a, b):
+    """Elementwise min for user ops (``mpi_tpu/ops.py:39``), as
+    :func:`_maximum`."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return torch.minimum(torch.as_tensor(a), torch.as_tensor(b))
+    return np.minimum(a, b)
 
 
 @dataclass(frozen=True)

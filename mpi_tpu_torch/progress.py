@@ -29,10 +29,10 @@ thread per world (attached to the transport) that
   blocking wait, so the engine observes the sustained empty polls,
   publishes an OR-set entry over the pending sources on the rank's
   behalf, runs the wait-for analysis, and parks the resulting
-  ``DeadlockError`` where the polling paths re-raise it.  (The
-  reference's explicit poll scope of ``MPI_Waitany`` belongs to
-  ``api.py``, ROADMAP item 16.6; without it the pending set is the
-  polled state machine's or the union over the tracked requests.)
+  ``DeadlockError`` where the polling paths re-raise it.  The pending
+  set is, most exact first, the poll scope ``api.MPI_Waitany`` installs
+  (``enter_poll_scope`` / ``exit_poll_scope``, :203, :214), the polled
+  state machine's, or the union over the tracked requests.
 
 The engine thread binds its world's device before its first launch (a
 completion may refill a user buffer; a callback sends, which clones on
@@ -126,6 +126,8 @@ class ProgressEngine:
         # collective the freshest empty poll was for (weakly held)
         self._last_empty_poll = 0.0
         self._poll_req: Optional["weakref.ref"] = None
+        # the request list of the MPI_Waitany / Waitsome call polling now
+        self._poll_scope: Optional[tuple] = None
         self._episode_start: Optional[float] = None
         self._episode_block = 0
         self._published = False
@@ -151,6 +153,19 @@ class ProgressEngine:
         tracked request."""
         self._last_empty_poll = time.monotonic()
         self._poll_req = None if req is None else weakref.ref(req)
+
+    def enter_poll_scope(self, requests):
+        """Scope stalled-poll publication to ONE drain call's request set
+        (``MPI_Waitany`` / ``Waitsome``): while it is installed, a
+        published 'waitany-poll' entry's OR-set is these requests'
+        pending sources only, not the union over every tracked request.
+        Returns the previous scope, for nested drains to restore."""
+        prev = self._poll_scope
+        self._poll_scope = tuple(requests)
+        return prev
+
+    def exit_poll_scope(self, prev) -> None:
+        self._poll_scope = prev
 
     def check_error(self) -> None:
         if self.pending_error is not None:
@@ -301,35 +316,75 @@ class ProgressEngine:
             # irecv proves nothing about being stuck
             self._end_episode(vw)
             return
-        # the freshest poll's own state machine (its exact pending set)
-        # before the union over the tracked posted requests
+        # pending-set evidence, most exact first: the installed poll scope
+        # (MPI_Waitany's own request list), the freshest poll's own state
+        # machine, the union over the tracked posted requests
         sm = None
-        ref = self._poll_req
-        if ref is not None:
-            cand = ref()
-            if cand is not None and not cand._done and cand._error is None:
-                sm = cand
-            else:
-                self._poll_req = None
-        if sm is not None:
+        scope_info = None
+        scope = self._poll_scope
+        if scope is not None:
             with self.cv:  # serialize the _done reads with completion
-                sm_targets = sm._pending_world_srcs()
-            if not sm_targets:
+                live = [r for r in scope
+                        if not getattr(r, "_retired", False)
+                        and not getattr(r, "_done", False)
+                        and getattr(r, "_error", None) is None]
+                scope_targets = set()
+                for r in live:
+                    if hasattr(r, "_pending_world_srcs"):
+                        scope_targets.update(r._pending_world_srcs())
+                    elif hasattr(r, "_source"):
+                        c = r._comm
+                        if r._source == ANY_SOURCE:
+                            scope_targets.update(
+                                w for w in c._group if w != c._t.world_rank)
+                        else:
+                            scope_targets.add(c._world(r._source))
+            if not scope_targets:
                 self._end_episode(vw)
                 return
-        else:
-            with self.cv:
-                pending = self._pending_tracked()
-            if not pending:
-                self._end_episode(vw)
-                return
+            scope_info = (live, scope_targets)
+        if scope_info is None:
+            ref = self._poll_req
+            if ref is not None:
+                cand = ref()
+                if (cand is not None and not cand._done
+                        and cand._error is None):
+                    sm = cand
+                else:
+                    self._poll_req = None
+            if sm is not None:
+                with self.cv:  # serialize the _done reads with completion
+                    sm_targets = sm._pending_world_srcs()
+                if not sm_targets:
+                    self._end_episode(vw)
+                    return
+            else:
+                with self.cv:
+                    pending = self._pending_tracked()
+                if not pending:
+                    self._end_episode(vw)
+                    return
         if self._episode_start is None:
             self._episode_start = now
             self._episode_block = vw.begin_block()
             return
         if now - self._episode_start < vw.stall_timeout_s:
             return
-        if sm is not None:
+        if scope_info is not None:
+            live, targets = scope_info
+            anchor = next((r for r in live if hasattr(r, "_comm")), None)
+            if anchor is None:
+                return
+            comm = anchor._comm
+            tag = getattr(anchor, "_tag", -1)  # ANY_TAG when unknowable
+            coll = getattr(anchor, "kind", None)
+            site = "<waitany drain>"
+            for r in live:
+                vi = getattr(r, "_vinfo", None)
+                if vi is not None and vi.site:
+                    site = vi.site
+                    break
+        elif sm is not None:
             comm, tag, coll = sm._comm, sm._tag, sm.kind
             site = f"<nbc:{sm.kind} state machine>"
             targets = set(sm_targets)

@@ -7,7 +7,8 @@ and the flat / block-in-place boundary; the group-coherent decline
 path; the copy contract (zero frames, zero pickled bytes, at most two
 copies per rank); and the arena's lifecycle, gate and fault tolerance.
 The checklist is ``tests/test_coll_sm.py``, without ``:414`` (pooled
-lease arenas, ROADMAP 16.3c) and ``:517`` (hierarchical splits, 16.5)."""
+lease arenas, ROADMAP 16.3c); ``:517`` (hierarchical splits) is held in
+``tests/test_torch_hierarchical.py``."""
 
 import glob
 import os

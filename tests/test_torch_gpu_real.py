@@ -676,3 +676,73 @@ def test_arena_allreduce_of_cuda_tensors_on_two_shm_ranks():
     for got, want in zip(card, cpu):
         for a, b in zip(got, want):
             assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_process_checkpoint_restores_onto_the_card(tmp_path):
+    """``checkpoint.save`` / ``load`` on 2 local ranks with tensors on the
+    card: the state comes back on ``cuda:``, bitwise, beside its numpy
+    and Python leaves; the same files load on a CPU world onto the CPU."""
+    _card()
+    import numpy as np
+
+    from mpi_tpu_torch import checkpoint
+
+    path = str(tmp_path / "ck")
+
+    def state(rank, dev):
+        g = torch.Generator().manual_seed(rank)
+        return {"w": torch.randn(64, 33, generator=g).to(dev),
+                "h": torch.randn(7, generator=g).to(torch.bfloat16).to(dev),
+                "np": np.arange(3) + rank, "step": rank}
+
+    def save_load(c):
+        checkpoint.save(path, state(c.rank, c.device), c)
+        return checkpoint.load(path, c)
+
+    card = mpi_tpu_torch.run(save_load, backend="local", nranks=2)
+    cpu = mpi_tpu_torch.run(lambda c: checkpoint.load(path, c),
+                            backend="local", nranks=2, device="cpu")
+    for r in range(2):
+        want = state(r, "cpu")
+        for got, dev in ((card[r], "cuda"), (cpu[r], "cpu")):
+            for k in ("w", "h"):
+                assert got[k].device.type == dev
+                assert torch.equal(got[k].cpu(), want[k])
+            assert (got["np"] == want["np"]).all() and got["step"] == r
+
+
+@pytest.mark.gpu
+def test_pready_snapshot_survives_a_refill_on_the_card():
+    """A card tensor's partition is snapshotted by ``pready`` (a clone on
+    the default stream): a producer working on a side stream, which
+    refills the partition right after readying it, never reaches the
+    receiver with the refill (``pready`` made the default stream wait on
+    the side stream, and the side stream wait on the clone)."""
+    _card()
+    from mpi_tpu_torch import mpi4
+
+    parts, numel = 8, 1 << 20
+
+    def prog(c):
+        if c.rank == 0:
+            buf = torch.arange(parts * numel, dtype=torch.float32,
+                               device=c.device).reshape(parts, numel)
+            req = mpi4.psend_init(c, buf, parts, dest=1, tag=2).start()
+            side = torch.cuda.Stream(c.device)
+            side.wait_stream(torch.cuda.current_stream(c.device))
+            with torch.cuda.stream(side):
+                for i in range(parts):
+                    buf[i].mul_(2.0).div_(2.0)  # the producer's last write
+                    req.pready(i)
+                    buf[i].fill_(-1.0)  # the refill, right after
+            req.wait()
+            torch.cuda.synchronize(c.device)
+            return None
+        got = mpi4.precv_init(c, parts, source=0, tag=2).start().wait()
+        assert all(t.device.type == "cuda" for t in got)
+        return torch.stack(got).cpu()
+
+    res = mpi_tpu_torch.run(prog, backend="local", nranks=2)
+    want = torch.arange(parts * numel, dtype=torch.float32).reshape(parts, numel)
+    assert torch.equal(res[1], want)

@@ -1,6 +1,7 @@
 """The port's fault tolerance (ULFM) against the reference's: the programs
-of ``tests/test_fault_tolerance.py`` (without its shm and
-``checkpoint.save`` cases, ROADMAP 16.4 and 16.5) on the same seeded
+of ``tests/test_fault_tolerance.py`` (without its shm cases, ROADMAP
+16.4; its ``checkpoint.save`` cases ``:221`` and ``:303`` are held in
+``tests/test_torch_checkpoint_process.py``) on the same seeded
 inputs through ``mpi_tpu.transport.local.run_local`` and the port's
 ``run_local`` with ``device="cpu"``, a rank killed by each package's
 ``FaultyTransport``.  The two must match on the results (bitwise), the

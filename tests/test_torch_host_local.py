@@ -477,22 +477,14 @@ def test_diagnoses_are_the_references(coll, call):
     assert ref == got
 
 
-def _rank_raises(fn, item):
-    """``fn`` raises NotImplementedError naming ROADMAP item ``item`` in a
-    rank (run_local re-raises it as the cause of a RuntimeError)."""
-    with pytest.raises(RuntimeError) as ei:
-        port_run(fn, 2)
-    assert isinstance(ei.value.__cause__, NotImplementedError), ei.value
-    assert f"item {item}" in str(ei.value.__cause__)
-
-
 def test_unported_features_name_their_roadmap_items(tmp_path, monkeypatch):
     from mpi_tpu_torch import checkpoint, launcher, membership, tuning
     from mpi_tpu_torch.transport.shm import ShmTransport, run_shm
 
-    # still unported: 16.5 (process checkpoints) and 16.3c (serve)
-    _rank_raises(lambda c: checkpoint.save("unused", {}, c, agree=True),
-                 "16.5")
+    # still unported: 16.3c (serve); 16.5's process checkpoints now run
+    ckpt = str(tmp_path / "ck")
+    assert port_run(lambda c: (checkpoint.save(ckpt, {"r": c.rank}, c),
+                               checkpoint.load(ckpt, c))[1]["r"], 2) == [0, 1]
     with pytest.raises(NotImplementedError, match="16.3c"):
         launcher.main(["serve", "--help"])
     # 16.4: "sm" runs on an shm world, and off shm it is an unknown name,

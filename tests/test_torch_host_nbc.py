@@ -9,8 +9,8 @@ wire frame sequence ``(dst, context kind, tag, nbytes)`` of each rank —
 recorded by a ``transport_wrapper`` in both packages — is the blocking
 algorithm's.  Not covered here: the SPMD i-collectives (``tests/
 test_nbc.py:82``, the port's since PR 1), the verifier's stalled-poll
-publication (``test_nbc_engine.py:332``, ROADMAP 16.2b) and the
-``mpi4`` wrappers (``:301``, 16.6)."""
+publication (``test_nbc_engine.py:332``, ROADMAP 16.2b); the ``mpi4``
+wrappers (``:301``) are held in ``tests/test_torch_mpi4.py``."""
 
 import threading
 import time
@@ -480,7 +480,7 @@ def test_persistent_geometry_bound_and_start_discipline():
 
 def test_persistent_handles_are_engine_owned():
     """``*_init`` returns the engine-owned handle in both packages (the
-    generic ``mpi4`` wrappers around them are ROADMAP 16.6)."""
+    generic ``mpi4`` wrappers around them: ``tests/test_torch_mpi4.py``)."""
     def prog(c, m):
         h = c.allreduce_init(m.arr(np.ones(4)))
         assert isinstance(h, m.nbc.PersistentColl), type(h)

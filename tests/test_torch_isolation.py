@@ -3,10 +3,12 @@ package: proven in a subprocess whose import system refuses ``jax``,
 ``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``),
 which imports every module of the port and runs the multi-parallel dry
 run, its trace, a checkpoint, a profile, a nonblocking collective on a
-fault-tolerant local world with the progress engine and an arena
+fault-tolerant local world with the progress engine, an arena
 allreduce over the shared-memory rings (built from the port's own
 ``native/shmring.cpp`` into ``mpi_tpu_torch/_build/``; no library of
-``mpi_tpu/native`` is mapped), on the CPU."""
+``mpi_tpu/native`` is mapped), and the host paths of the process
+checkpoints, graph topologies, hierarchical splits, intercommunicators,
+the flat ``api`` and the ``master_worker`` example, on the CPU."""
 
 import ast
 import os
@@ -50,7 +52,11 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.tuning", "mpi_tpu_torch.native.build",
        "mpi_tpu_torch.transport.shm", "mpi_tpu_torch.coll_sm",
        "mpi_tpu_torch.shmwin", "mpi_tpu_torch.tools.tune",
-       "mpi_tpu_torch.examples.host_shm"]
+       "mpi_tpu_torch.examples.host_shm", "mpi_tpu_torch.api",
+       "mpi_tpu_torch.mpi4", "mpi_tpu_torch.intercomm",
+       "mpi_tpu_torch.examples.master_worker",
+       "mpi_tpu_torch.examples.session_library",
+       "mpi_tpu_torch.examples.datatypes_demo"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
 from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")
@@ -83,6 +89,29 @@ with open("/proc/self/maps") as f:
     libs = {line.split()[-1] for line in f if line.strip().endswith(".so")}
 assert so in libs, so
 assert not [p for p in libs if "/mpi_tpu/native/" in p], libs
+# the process checkpoints, the host graph topologies, the hierarchical
+# splits and the flat layer, on rank threads
+from mpi_tpu_torch import api, topology
+from mpi_tpu_torch.examples import master_worker
+
+def host_prog(c):
+    g = topology.dist_graph_create_adjacent(c, [(c.rank - 1) %% 4],
+                                            [(c.rank + 1) %% 4])
+    h = topology.HierarchicalComm(c, node_key=lambda r: r // 2)
+    ic = mpi_tpu_torch.create_intercomm(c, [0, 1], [2, 3])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = c.bcast(tmp, root=0)
+        checkpoint.save(path, {"w": torch.full((2,), float(c.rank))}, c)
+        back = checkpoint.load(path, c)["w"]
+        c.barrier()
+    return (float(g.neighbor_allgather(torch.ones(1))[0][0]),
+            float(h.allreduce(torch.ones(1))[0]), float(ic.allreduce(torch.ones(1))[0]),
+            float(api.MPI_Allreduce(torch.ones(1), comm=c)[0]), float(back[0]))
+
+got = mpi_tpu_torch.run(host_prog, backend="local", nranks=4, device="cpu")
+assert got == [(1.0, 4.0, 2.0, 4.0, float(r)) for r in range(4)], got
+assert len(mpi_tpu_torch.run(lambda c: master_worker.run(c, 5), backend="local",
+                             nranks=3, device="cpu")[0]) == 5
 x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
 out = mpi_tpu_torch.run(lambda c, d: c.allreduce(d[c.rank], algorithm="pallas_ring"),
                         x, nranks=8, device="cpu")

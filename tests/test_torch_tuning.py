@@ -6,8 +6,9 @@ pvars move the same way on the same programs (the wire schedule a pinned
 row selects is visible in ``msgs_sent``), the arena's gates on shm rank
 threads, ``run(..., tuning_table=)``, ``MPI_TPU_TUNING_TABLE``, the
 launcher's ``--tuning-table`` and the sweep ``python -m
-mpi_tpu_torch.tools.tune``.  The checklist is ``tests/test_tuning.py``
-(without ``:374``, the hierarchical splits of ROADMAP 16.5)."""
+mpi_tpu_torch.tools.tune``.  The checklist is ``tests/test_tuning.py``;
+its hierarchical cases (``:370``, ``:412``, ``:431``, ``:441``) are held
+in ``tests/test_torch_hierarchical.py``."""
 
 import json
 import os
