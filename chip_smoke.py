@@ -241,7 +241,12 @@ ok line:
     pickled; its ms beside phase 14's socket ring), every arena collective
     at 1 KiB, 32 KiB and 1 MiB, a 16 MiB decline on all ranks,
     ``compressed:bf16`` through the arena, a ``SharedWindow`` and a
-    ``P2PWindow`` over a CUDA tensor; then the same example under
+    ``P2PWindow`` over a CUDA tensor, and a steered receive: rank 1 posts
+    ``irecv(source=0, buf=<a 256 MiB float32 card tensor>)`` before rank 0
+    sends, and the shm drain lands the frame in it through pinned staging
+    (bitwise, the same ``data_ptr``, ``recv_user_inplace`` +1,
+    ``recv_user_fallbacks`` +0; its ms beside the same receive with the
+    ``recv_steering`` cvar off); then the same example under
     ``--verify`` at 64 MiB (clean: only signature bytes pickled); the
     launcher's exit summary, and no ``mtt_*`` segment left in /dev/shm;
 24. host-restart: ``python -m mpi_tpu_torch.launcher -n 2 --restarts 2
@@ -256,6 +261,8 @@ ok line:
     local rank threads on the card (64 MiB each) with rank 1 killed
     before the commit: every survivor raises and no manifest is swung;
     after ``shrink`` the survivors' save commits and loads on the card;
+    phase 26's three launches start just before 24's two and run beside
+    them (all start-up bound); phase 26 is read after 24;
 25. host-flat: ``python -m mpi_tpu_torch.launcher -n 4 --backend shm
     --tuning-table T mpi_tpu_torch/examples/host_flat.py``, 64 MiB of
     float32 per rank on the card: ``HierarchicalComm`` with 2 nodes of 2
@@ -270,10 +277,27 @@ ok line:
     readied by 4 producer threads, each refilled right after its
     ``pready``; 10 ``MPI_Allreduce_init`` rounds, each bitwise against the
     same rounds on CPU inputs; each leg's slowest-rank ms;
-26. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+26. host-dynamic: ``python -m mpi_tpu_torch.launcher -n 4 --backend socket
+    mpi_tpu_torch/examples/host_dynamic.py --require cuda`` (every rank on
+    the card): (a) MPI-IO, 256 MiB of float32 a rank (1 GiB in all, the
+    independent branch) by ``write_at_all`` and ``read_at_all`` back to
+    the card, bitwise, write and read seconds per rank; ``parallel_io``'s
+    column-block subarray view at 1024 x 1024 float32 (4 MiB, the two-phase
+    aggregated branch) against a numpy oracle; shared-pointer appends and
+    ``write_ordered`` lines, order and content; an ``external32`` round
+    trip; (b) the steered socket receive of phase 23's leg, rank 0 to rank
+    1 through the socket reader's pinned staging, beside its copy path;
+    (c) the 4 ranks ``comm_spawn`` 2 children of
+    ``examples/spawn_workers.py``, which report ``cuda``, and the reduced
+    counts equal the float64 oracle; (d) beside it, two 1-rank launchers
+    of ``coupled_models.py ocean`` / ``atmosphere`` meet through a
+    name-service directory under ``chiprun_out/host_dynamic/`` and hold
+    their boundaries bitwise against the numpy replay on the card.  Any
+    non-zero exit, leg not ok or device not ``cuda`` raises;
+27. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10), each read right after it ran (``launches_by_path``).  The host
-    layer (phases 13-25) launches none of the kernels: its folds are
+    layer (phases 13-26) launches none of the kernels: its folds are
     in-place torch ops.
 
 Every phase prints its wall time.  The full record also goes to
@@ -2447,8 +2471,9 @@ def host_compress_tune_phase(torch, record):
 
 def host_shm_phase(torch, record):
     """Phase 23: 4 shm rank processes on the card through the launcher
-    (``examples/host_shm.py``), then the same example under --verify; no
-    segment of either world left in /dev/shm."""
+    (``examples/host_shm.py``, with its steered receive of a 256 MiB card
+    tensor), then the same example under --verify; no segment of either
+    world left in /dev/shm."""
     from mpi_tpu_torch.transport.shm import shm_prefix
 
     card = card_line()
@@ -2502,6 +2527,21 @@ def host_shm_phase(torch, record):
             log(f"host-shm ({tag}) arena {size} B, 8 collectives with algorithm='sm': "
                 f"coll_sm_hits {d['coll_sm_hits']}, coll_sm_bytes {d['coll_sm_bytes']}, "
                 f"fallbacks {d['coll_sm_fallbacks']}, {d['wall_ms']:.2f} ms")
+        steer = ranks[1]["steer"]
+        if not (steer["steered"]["ok"] and steer["steered"]["in_place"]
+                and all((t["recv_user_inplace"], t["recv_user_fallbacks"]) == (1, 0)
+                        for t in steer["steered"]["turns"])
+                and steer["copy_path"]["ok"]):
+            raise RuntimeError(f"host-shm steered receive: {steer}")
+        info["steer"] = steer
+        log(f"host-shm ({tag}) steered receive of {mib} MiB into rank 1's card "
+            f"tensor: {steer['steered']['ms']:.1f} ms (turns "
+            f"{', '.join(f'{v:.1f}' for v in steer['steered']['ms_turns'])}), bitwise, "
+            f"same data_ptr, recv_user_inplace +1, recv_user_fallbacks +0 each; the copy "
+            f"path (recv_steering off) {steer['copy_path']['ms']:.1f} ms (turns "
+            f"{', '.join(f'{v:.1f}' for v in steer['copy_path']['ms_turns'])}), after an "
+            f"untimed first steered receive (the staging's first use) of "
+            f"{steer['warmup']['ms']:.1f} ms [{card}]")
         log(f"host-shm ({tag}): 16 MiB declined on every rank "
             f"({[d['decline_16MiB']['coll_sm_fallbacks'] for d in ranks]}), compressed:bf16 "
             f"through the arena (hits {ranks[0]['compressed_bf16_arena']['coll_sm_hits']}), "
@@ -2520,6 +2560,7 @@ def host_shm_phase(torch, record):
 
 
 RESTART_MIB = 256               # phase 24: each rank's state, the north-star size
+DYNAMIC_MIB = 256               # phase 26: each rank's file block and steered receive
 AGREE_ELEMS = (64 << 20) // 4   # phase 24's agree=True leg: 64 MiB per rank
 FLAT_MIB = 64                   # phase 25: each rank's input
 
@@ -2694,6 +2735,118 @@ def host_flat_phase(torch, record):
     log(f"host-flat: {ranks[0]['bytes_per_rank'] >> 20} MiB per rank, 4 shm rank processes, "
         f"launcher wall {wall:.1f} s [{card}]")
     record["host_flat"] = info
+
+
+def host_dynamic_start():
+    """Phase 26, started beside phase 24's launches (both start-up bound):
+    one 4-rank socket world of ``examples/host_dynamic.py`` on the card and
+    the two 1-rank ``coupled_models.py`` jobs sharing a name-service
+    directory under ``chiprun_out/host_dynamic/``.  Returns the started
+    launches for :func:`host_dynamic_phase` to wait on."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "host_dynamic"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    names = os.path.join(out_dir, "names")
+    os.makedirs(names, mode=0o700)
+    env = dict(os.environ, MPI_TPU_NAMESERVICE=names)
+    script = lambda name: os.path.join("mpi_tpu_torch", "examples", name)
+    launcher = [sys.executable, "-m", "mpi_tpu_torch.launcher"]
+    cmds = {
+        "host_dynamic": launcher + [
+            "-n", "4", "--backend", "socket", "--timeout", "300",
+            script("host_dynamic.py"), "--out", out_dir, "--mib", str(DYNAMIC_MIB),
+            "--seed", str(HOST_SEED), "--require", "cuda"],
+        "ocean": launcher + ["-n", "1", "--timeout", "300", script("coupled_models.py"),
+                             "ocean", "--out", out_dir],
+        "atmosphere": launcher + ["-n", "1", "--timeout", "300",
+                                  script("coupled_models.py"), "atmosphere",
+                                  "--out", out_dir],
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=root, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+    return {"t0": t0, "procs": procs, "out_dir": out_dir}
+
+
+def host_dynamic_phase(torch, record, started):
+    """Phase 26: MPI-IO at 256 MiB a rank, the steered socket receive,
+    spawn and the coupled models (started by :func:`host_dynamic_start`);
+    every launch must exit 0, every rank and child be on the card and every
+    leg pass its check.  Nothing here is caught."""
+    card = card_line()
+    out_dir = started["out_dir"]
+    done = {}
+    try:
+        for k, proc in started["procs"].items():
+            stdout, stderr = proc.communicate(timeout=600)
+            done[k] = (proc.returncode, stdout, stderr,
+                       time.perf_counter() - started["t0"])
+    finally:
+        for proc in started["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, (rc, stdout, stderr, _) in done.items():
+        if rc != 0:
+            raise RuntimeError(f"host-dynamic {k} failed (rc {rc}):\n"
+                               f"{stdout[-3000:]}\n{stderr[-6000:]}")
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if not all(d["device"].startswith("cuda") for d in ranks):
+        raise RuntimeError(f"host-dynamic ranks not on the card: {[d['device'] for d in ranks]}")
+    legs = list(ranks[0]["legs"])
+    bad = [(d["rank"], k) for d in ranks for k in legs if not d["legs"][k]["ok"]]
+    if bad:
+        raise RuntimeError(f"host-dynamic legs failed: {bad}")
+    spawned = ranks[0]["legs"]["spawn"]
+    if spawned["devices"] != ["cuda"] * spawned["children"]:
+        raise RuntimeError(f"host-dynamic: spawned children not on the card: {spawned}")
+    steered, copied = ranks[1]["legs"]["steered recv"], ranks[1]["legs"]["copy-path recv"]
+    if not (steered["in_place"] and all(
+            (t["recv_user_inplace"], t["recv_user_fallbacks"]) == (1, 0)
+            for t in steered["turns"])):
+        raise RuntimeError(f"host-dynamic steered receive: {steered}")
+    coupled = {}
+    for role in ("ocean", "atmosphere"):
+        with open(os.path.join(out_dir, f"{role}_rank0.json")) as f:
+            coupled[role] = json.load(f)
+        if not (coupled[role]["ok"] and coupled[role]["device"].startswith("cuda")):
+            raise RuntimeError(f"host-dynamic coupled {role}: {coupled[role]}")
+    write_s = [d["legs"]["io write_at_all"]["seconds"] for d in ranks]
+    read_s = [d["legs"]["io read_at_all"]["seconds"] for d in ranks]
+    info = {"card": card, "ranks": 4, "bytes_per_rank": ranks[0]["bytes_per_rank"],
+            "launcher_wall_s": {k: v[3] for k, v in done.items()},
+            "io_write_s": write_s, "io_read_s": read_s,
+            "steered_ms": steered["ms"], "copy_path_ms": copied["ms"],
+            "steer_warmup_ms": ranks[1]["steer_warmup"]["ms"],
+            "spawn": spawned, "coupled": coupled, "ranks_detail": ranks,
+            "slowest_ms": {k: max(d["legs"][k]["ms"] for d in ranks) for k in legs}}
+    mib = ranks[0]["bytes_per_rank"] >> 20
+    log(f"host-dynamic io: write_at_all of {mib} MiB a rank ({4 * mib} MiB in all, "
+        f"{ranks[0]['legs']['io write_at_all']['branch']} branch) "
+        f"{', '.join(f'{v:.3f}' for v in write_s)} s, read_at_all back to the card "
+        f"{', '.join(f'{v:.3f}' for v in read_s)} s (ranks 0-3), bitwise; subarray view "
+        f"{info['slowest_ms']['io subarray view']:.1f} ms, shared and ordered "
+        f"{info['slowest_ms']['io shared and ordered']:.1f} ms, external32 "
+        f"{info['slowest_ms']['io external32']:.1f} ms (slowest rank), checks ok; "
+        f"beside phase 24's launches [{card}]")
+    log(f"host-dynamic steered socket receive of {mib} MiB into rank 1's card tensor: "
+        f"{steered['ms']:.1f} ms (turns {', '.join(f'{v:.1f}' for v in steered['ms_turns'])}), "
+        f"same data_ptr, recv_user_inplace +1, recv_user_fallbacks +0 each; the copy path "
+        f"{copied['ms']:.1f} ms (turns {', '.join(f'{v:.1f}' for v in copied['ms_turns'])}), "
+        f"after an untimed first steered receive of {ranks[1]['steer_warmup']['ms']:.1f} ms "
+        f"[{card}]")
+    log(f"host-dynamic spawn: {spawned['children']} children on {spawned['devices']}, "
+        f"pi ~= {spawned['pi']:.6f} equal to the float64 oracle, "
+        f"{info['slowest_ms']['spawn']:.1f} ms; coupled models: ocean "
+        f"{coupled['ocean']['final'][0]:.3f}, atmosphere "
+        f"{coupled['atmosphere']['final'][0]:.3f} on "
+        f"{coupled['ocean']['device']}, bitwise the numpy replay; launcher walls "
+        + ", ".join(f"{k} {v[3]:.1f} s" for k, v in done.items()) + f" [{card}]")
+    record["host_dynamic"] = info
 
 
 def main():
@@ -2949,14 +3102,18 @@ def main():
     record["data_plane_phases_s"] = time.perf_counter() - t_shm
     log(f"phases 22-23: {record['data_plane_phases_s']:.1f} s")
 
-    # 24-25. process checkpoints, hierarchical dispatch and the flat layer ------
+    # 24-26. process checkpoints, dynamic processes and files (26 started
+    # beside 24's launches), hierarchical dispatch and the flat layer -------
     t_flat = time.perf_counter()
+    dynamic = host_dynamic_start()
     host_restart_phase(torch, record)
     lap("host-restart")
+    host_dynamic_phase(torch, record, dynamic)
+    lap("host-dynamic")
     host_flat_phase(torch, record)
     lap("host-flat")
     record["flat_layer_phases_s"] = time.perf_counter() - t_flat
-    log(f"phases 24-25: {record['flat_layer_phases_s']:.1f} s")
+    log(f"phases 24-26: {record['flat_layer_phases_s']:.1f} s")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

@@ -56,6 +56,14 @@ the wire between nodes).  The flat MPI layer: ``from mpi_tpu_torch.api
 import *`` (``MPI_Init`` ... ``MPI_Finalize``), with ``mpi4`` (sessions,
 partitioned point-to-point, generic persistent collectives),
 ``InterComm`` / ``create_intercomm`` and ``COMM_SELF`` / ``comm_self``.
+Dynamic processes: ``comm_spawn`` / ``comm_spawn_multiple`` /
+``comm_get_parent``, ``open_port`` / ``comm_accept`` / ``comm_connect``
+and the name service (``spawn``; children run on the card unless
+``MPI_TPU_DEVICE`` says otherwise).  Parallel files: ``io.file_open``
+with views, datareps, shared pointers and collective buffering (reads
+return tensors on the communicator's device).  ``irecv(buf=...)`` and
+``recv_init(buf=...)`` on the socket and shm backends land a matched
+frame's bytes in the user's buffer itself.
 The top level binds every name of the reference's ``__all__`` whose
 module is ported (``tests/test_torch_names.py`` holds the list of those
 still to come).
@@ -94,8 +102,12 @@ from .group import Group
 from .window import GetFuture, P2PWindow
 from .topology import HierarchicalComm, split_hierarchical
 from .intercomm import InterComm, create_intercomm
-from . import (api, checker, checkpoint, errors, ft, membership, mpi4,
-               profiling, progress, schedules, telemetry, trace, verify)
+from . import (api, checker, checkpoint, errors, ft, io, membership, mpi4,
+               profiling, progress, schedules, spawn, telemetry, trace,
+               verify)
+from .spawn import (close_port, comm_accept, comm_connect, comm_get_parent,
+                    comm_spawn, comm_spawn_multiple, lookup_name, open_port,
+                    publish_name, unpublish_name)
 
 # the port's version: the reference's (mpi_tpu/version.py) it tracks
 __version__ = "0.1.0"
@@ -322,7 +334,10 @@ __all__ = [
     "init", "finalize", "is_initialized", "run", "run_local",
     "schedules", "checker", "checkpoint", "ft", "membership", "profiling",
     "progress", "telemetry", "trace", "verify", "COMM_WORLD", "COMM_SELF",
-    "comm_self", "mpi4", "api", "errors", "rejoin",
+    "comm_self", "mpi4", "api", "errors", "rejoin", "io", "spawn",
+    "comm_spawn", "comm_spawn_multiple", "comm_get_parent", "open_port",
+    "close_port", "comm_accept", "comm_connect", "publish_name",
+    "unpublish_name", "lookup_name",
     "CartComm", "GraphComm", "HierarchicalComm", "InterComm",
     "create_intercomm", "cart_create", "graph_create", "split_hierarchical",
     "dist_graph_create_adjacent", "dims_create", "Group",

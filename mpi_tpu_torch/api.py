@@ -18,12 +18,10 @@ prog.py`` (add ``--device cpu`` without a card).  Differences:
   (the reference's host path, ``Datatype.pack`` / ``unpack``) and tensors
   (``pack_torch``, and ``unpack_torch`` copied back into ``buf`` in place,
   on ``buf``'s device);
-* the MPI-IO wrappers (``MPI_File_*``, ``MPI_Register_datarep``) and the
-  dynamic-process ones (``MPI_Comm_spawn*``, ports and the name service)
-  raise ``NotImplementedError`` naming ROADMAP item 16.6b: the port has no
-  ``io`` or ``spawn`` module yet, and this module imports without them.
-  The ``MPI_MODE_*`` / ``MPI_SEEK_*`` constants keep the reference's
-  values (``mpi_tpu/io.py:51-59``).
+* the MPI-IO reads (``MPI_File_read*``) return tensors on the
+  communicator's device (``io.py``), and spawned children
+  (``MPI_Comm_spawn*``, ``spawn.py``) run on the card unless
+  ``MPI_TPU_DEVICE`` says otherwise.
 """
 
 from __future__ import annotations
@@ -730,8 +728,9 @@ def MPI_Get_version():
     handlers, attribute caching, COMM_SELF, RMA windows (fence, PSCW,
     passive target, atomics, shared and dynamic windows), nonblocking and
     neighborhood collectives, matched probes, ULFM and the MPI_T
-    interface, and the MPI-4 previews of ``mpi4.py``.  MPI-IO and the
-    dynamic-process functions are ROADMAP item 16.6b and raise."""
+    interface, MPI-IO with views, datareps and collective buffering, the
+    dynamic processes (spawn, ports, the name service), and the MPI-4
+    previews of ``mpi4.py``."""
     return (3, 0)
 
 
@@ -963,49 +962,185 @@ def MPI_Comm_delete_attr(keyval, comm: Optional[Communicator] = None) -> None:
     _world(comm).delete_attr(keyval)
 
 
-# -- dynamic process management and MPI-IO (ROADMAP 16.6b) -------------------
+# -- dynamic process management (MPI-2 ch.5; mpi_tpu_torch/spawn.py) --------------
 
 
-def _unported(name: str, module: str):
-    def wrapper(*args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md item 16.6b (the port has "
-            f"no {module} module)")
+def MPI_Comm_spawn(command: Sequence[str], maxprocs: int, root: int = 0,
+                   comm: Optional[Communicator] = None, info=None):
+    """Spawn ``maxprocs`` ranks of ``python command...`` as a new world;
+    returns the parent-child intercommunicator."""
+    from .spawn import comm_spawn
 
-    wrapper.__name__ = wrapper.__qualname__ = name
-    wrapper.__doc__ = (f"{name}: raises NotImplementedError naming ROADMAP "
-                       f"item 16.6b ({module}.py).")
-    return wrapper
+    return comm_spawn(command, maxprocs, comm, root, info=info)
 
 
-for _name in ("MPI_Comm_spawn", "MPI_Comm_spawn_multiple",
-              "MPI_Comm_get_parent", "MPI_Open_port", "MPI_Close_port",
-              "MPI_Comm_accept", "MPI_Comm_connect", "MPI_Publish_name",
-              "MPI_Unpublish_name", "MPI_Lookup_name"):
-    globals()[_name] = _unported(_name, "spawn")
-for _name in ("MPI_File_open", "MPI_File_close", "MPI_File_delete",
-              "MPI_File_read_at", "MPI_File_write_at",
-              "MPI_File_read_at_all", "MPI_File_write_at_all",
-              "MPI_File_seek", "MPI_File_get_position", "MPI_File_read",
-              "MPI_File_write", "MPI_File_read_shared",
-              "MPI_File_write_shared", "MPI_File_seek_shared",
-              "MPI_File_set_view", "MPI_Register_datarep",
-              "MPI_File_get_view", "MPI_File_get_size", "MPI_File_set_size",
-              "MPI_File_preallocate", "MPI_File_sync",
-              "MPI_File_write_ordered", "MPI_File_read_ordered"):
-    globals()[_name] = _unported(_name, "io")
-del _name
+def MPI_Comm_spawn_multiple(segments, root: int = 0,
+                            comm: Optional[Communicator] = None):
+    from .spawn import comm_spawn_multiple
 
-# the access modes and seek origins keep the reference's values
-# (mpi_tpu/io.py:51-59), so a program's flags mean the same once io lands
-MPI_MODE_RDONLY = 1
-MPI_MODE_WRONLY = 2
-MPI_MODE_RDWR = 4
-MPI_MODE_CREATE = 8
-MPI_MODE_EXCL = 16
-MPI_MODE_APPEND = 32
-MPI_MODE_DELETE_ON_CLOSE = 64
-MPI_SEEK_SET, MPI_SEEK_CUR, MPI_SEEK_END = 0, 1, 2
+    return comm_spawn_multiple(segments, comm, root)
+
+
+def MPI_Comm_get_parent():
+    from .spawn import comm_get_parent
+
+    return comm_get_parent()
+
+
+def MPI_Open_port() -> str:
+    from .spawn import open_port
+
+    return open_port()
+
+
+def MPI_Close_port(port_name: str) -> None:
+    from .spawn import close_port
+
+    close_port(port_name)
+
+
+def MPI_Comm_accept(port_name: str, root: int = 0,
+                    comm: Optional[Communicator] = None):
+    from .spawn import comm_accept
+
+    return comm_accept(port_name, comm, root)
+
+
+def MPI_Comm_connect(port_name: str, root: int = 0,
+                     comm: Optional[Communicator] = None):
+    from .spawn import comm_connect
+
+    return comm_connect(port_name, comm, root)
+
+
+def MPI_Publish_name(service_name: str, port_name: str) -> None:
+    from .spawn import publish_name
+
+    publish_name(service_name, port_name)
+
+
+def MPI_Unpublish_name(service_name: str) -> None:
+    from .spawn import unpublish_name
+
+    unpublish_name(service_name)
+
+
+def MPI_Lookup_name(service_name: str) -> str:
+    from .spawn import lookup_name
+
+    return lookup_name(service_name)
+
+
+# -- MPI-IO (MPI-2 ch.9; mpi_tpu_torch/io.py) -------------------------------------
+
+from . import io as _io  # noqa: E402 - grouped with its API block
+
+MPI_MODE_RDONLY = _io.MODE_RDONLY
+MPI_MODE_WRONLY = _io.MODE_WRONLY
+MPI_MODE_RDWR = _io.MODE_RDWR
+MPI_MODE_CREATE = _io.MODE_CREATE
+MPI_MODE_EXCL = _io.MODE_EXCL
+MPI_MODE_APPEND = _io.MODE_APPEND
+MPI_MODE_DELETE_ON_CLOSE = _io.MODE_DELETE_ON_CLOSE
+MPI_SEEK_SET, MPI_SEEK_CUR, MPI_SEEK_END = _io.SEEK_SET, _io.SEEK_CUR, _io.SEEK_END
+MPI_File_delete = _io.file_delete
+
+
+def MPI_File_open(path: str, amode: int = _io.MODE_RDWR,
+                  comm: Optional[Communicator] = None,
+                  shared: bool = False, info=None) -> "_io.File":
+    return _io.file_open(_world(comm), path, amode, shared, info)
+
+
+def MPI_File_close(fh: "_io.File") -> None:
+    fh.close()
+
+
+def MPI_File_read_at(fh, offset: int, count: int):
+    return fh.read_at(offset, count)
+
+
+def MPI_File_write_at(fh, offset: int, data: Any) -> int:
+    return fh.write_at(offset, data)
+
+
+def MPI_File_read_at_all(fh, offset: int, count: int):
+    return fh.read_at_all(offset, count)
+
+
+def MPI_File_write_at_all(fh, offset: int, data: Any) -> int:
+    return fh.write_at_all(offset, data)
+
+
+def MPI_File_seek(fh, offset: int, whence: int = _io.SEEK_SET) -> None:
+    fh.seek(offset, whence)
+
+
+def MPI_File_get_position(fh) -> int:
+    return fh.get_position()
+
+
+def MPI_File_read(fh, count: int):
+    return fh.read(count)
+
+
+def MPI_File_write(fh, data: Any) -> int:
+    return fh.write(data)
+
+
+def MPI_File_read_shared(fh, count: int):
+    return fh.read_shared(count)
+
+
+def MPI_File_write_shared(fh, data: Any) -> int:
+    return fh.write_shared(data)
+
+
+def MPI_File_seek_shared(fh, offset: int) -> None:
+    fh.seek_shared(offset)
+
+
+def MPI_File_set_view(fh, disp: int = 0, etype: Any = None,
+                      filetype=None, datarep: str = "native") -> None:
+    fh.set_view(disp, etype if etype is not None else np.uint8, filetype,
+                datarep)
+
+
+def MPI_Register_datarep(datarep: str, read_conversion_fn,
+                         write_conversion_fn, dtype_file_extent_fn=None,
+                         extra_state=None) -> None:
+    """Register a user file-data representation for MPI_File_set_view
+    (callback shapes: mpi_tpu_torch/io.py Datarep)."""
+    _io.register_datarep(datarep, read_conversion_fn, write_conversion_fn,
+                         dtype_file_extent_fn, extra_state)
+
+
+def MPI_File_get_view(fh):
+    return fh.get_view()
+
+
+def MPI_File_get_size(fh) -> int:
+    return fh.get_size()
+
+
+def MPI_File_set_size(fh, size: int) -> None:
+    fh.set_size(size)
+
+
+def MPI_File_preallocate(fh, size: int) -> None:
+    fh.preallocate(size)
+
+
+def MPI_File_sync(fh) -> None:
+    fh.sync()
+
+
+def MPI_File_write_ordered(fh, data: Any) -> int:
+    return fh.write_ordered(data)
+
+
+def MPI_File_read_ordered(fh, count: int):
+    return fh.read_ordered(count)
 
 
 # -- Info objects (MPI-2) ----------------------------------------------------

@@ -549,10 +549,15 @@ class _RecvRequest(Request):
     (``_SegSender.advance``, the state machines' kick)."""
 
     _on_complete = None
-    # recv-steering registry token of an internal posted irecv
+    # recv-steering registry token of a posted irecv (internal, or a user
+    # irecv on a steering channel)
     _steer_token = None
-    # irecv(buf=...) destination, filled at completion
+    # irecv(buf=...) / recv_init destination (a tensor, an ndarray or a
+    # list of them), filled at completion, and whether it was registered
+    # as a claimable steering entry: an armed completion whose payload is
+    # NOT the destination takes the counted fallback below
     _user_buf = None
+    _user_armed = False
 
     def __init__(self, comm: "P2PCommunicator", source: int, tag: int,
                  queue: List["_RecvRequest"]):
@@ -563,8 +568,28 @@ class _RecvRequest(Request):
         queue.append(self)
 
     def _complete(self, payload: Any) -> None:
-        if self._user_buf is not None:
-            _refill(self._user_buf, payload)
+        reg = self._comm._recv_reg
+        if reg is not None and reg.live_count and self._tag >= -1:
+            # a user-facing completion may pop a steered user destination
+            # still in the aliasing guard: the owner's pop is identity,
+            # any other consumer's a private copy (recvpool.sanitize)
+            payload = reg.sanitize(payload, self._user_buf)
+        ub = self._user_buf
+        if ub is not None:
+            if payload is ub:
+                # the reader landed the frame's bytes in the caller's
+                # buffer itself: the zero-copy user rendezvous
+                _mpit.count(recv_user_inplace=1)
+            else:
+                if self._user_armed:
+                    # the match raced the reader (a frame queued before
+                    # the post, a heal replay, a wildcard steal): rescue
+                    # an unpopped claim, retire the entry so no later
+                    # frame can claim the now user-owned buffer, count it
+                    reg.pre_overwrite(ub)
+                    reg.cancel(self._steer_token)
+                    _mpit.count(recv_user_fallbacks=1)
+                _refill(ub, payload)
         self._value, self._done = payload, True
         if self in self._queue:
             self._queue.remove(self)
@@ -661,8 +686,10 @@ class PersistentRequest(Request):
         else:
             self._inner = self._comm.irecv(self._peer, self._tag)
             if self._buf is not None:
-                # the bound buffer is filled at THIS operation's completion
-                self._inner._user_buf = self._buf
+                # the bound buffer is filled at THIS operation's
+                # completion, or steered into by the reader
+                self._comm._arm_user_recv(
+                    self._inner, self._peer, self._tag, self._buf)
             v = self._comm._verify
             if v is not None and isinstance(self._buf, torch.Tensor):
                 # live receive buffer: overlapping another pending
@@ -1196,13 +1223,19 @@ class P2PCommunicator(Communicator):
                        status: Optional[Status] = None,
                        _posted: bool = False) -> Any:
         src_world = ANY_SOURCE if source == ANY_SOURCE else self._world(source)
-        if (not _posted and tag < 0 and src_world != ANY_SOURCE
-                and self._recv_reg is not None):
-            # a BLOCKING recv on an internal channel consumes a frame on
-            # the channel the posted irecvs pair on: count it so the
+        reg = self._recv_reg
+        counted = False
+        if (not _posted and src_world != ANY_SOURCE and reg is not None
+                and (tag < 0 or (reg.user_count and reg.user_active(
+                    src_world, self._ctx, tag)))):
+            # a BLOCKING recv on a counted channel (internal, or a user
+            # channel activated by irecv(buf=)) consumes a frame on the
+            # channel the posted irecvs pair on: count it so the
             # frame/consumer indices stay aligned (_posted marks the
-            # queue-head servicing call of an already-counted irecv)
-            self._recv_reg.note_consume(src_world, self._ctx, tag)
+            # queue-head servicing call of an already-counted irecv,
+            # whose sanitize and refill run in _RecvRequest._complete)
+            reg.note_consume(src_world, self._ctx, tag)
+            counted = True
         if self._verify is not None and src_world == ANY_SOURCE and tag >= -1:
             # wildcard-race attribution: the consume scan runs under the
             # mailbox lock, so the receive records its call site first
@@ -1215,6 +1248,15 @@ class P2PCommunicator(Communicator):
             obj, src, t = self._sliced_wait(src_world, tag)
         else:
             obj, src, t = self._plain_recv(src_world, tag)
+        if reg is not None and not _posted and t >= 0:
+            if reg.live_count:
+                # this pop may have taken a steered user destination an
+                # armed irecv owns: a non-owner gets a private copy
+                obj = reg.sanitize(obj)
+            if not counted and reg.user_count:
+                # an uncounted pop (wildcard envelope) on an active user
+                # channel shifts every later consumer one message earlier
+                reg.note_steal(src, self._ctx, t)
         _mpit.count(recvs=1)
         if status is not None:
             status._fill(self._from_world(src), t, obj)
@@ -1490,12 +1532,15 @@ class P2PCommunicator(Communicator):
     def irecv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
               buf: Any = None) -> Request:
         """MPI_Irecv: ``test()`` polls, ``wait()`` blocks; requests on the
-        same (source, tag) complete in posted order.  ``buf`` (a tensor or
-        a list of tensors) is filled in place at completion."""
+        same (source, tag) complete in posted order.  ``buf`` (a tensor, an
+        ndarray or a list of them) is filled in place at completion; on a
+        steering transport (socket, shm) with a specific source and tag
+        the matched frame's bytes land in it directly (the user-buffer
+        rendezvous, ``recv_user_inplace`` / ``recv_user_fallbacks``)."""
         _check_user_tag(tag)
         req = self._irecv_internal(source, tag)
         if buf is not None:
-            req._user_buf = buf
+            self._arm_user_recv(req, source, tag, buf)
         if self._verify is not None:
             self._track_request(req, "irecv", source, tag)
             if req._user_buf is not None and req._vinfo is not None:
@@ -1507,17 +1552,55 @@ class P2PCommunicator(Communicator):
                         req._vinfo, b, req._vinfo.describe(), writes=True)
         return req
 
+    def _arm_user_recv(self, req: _RecvRequest, source: int, tag: int,
+                       buf: Any) -> None:
+        """Bind a user destination to a posted receive
+        (``mpi_tpu/communicator.py:1758``): it is filled at completion,
+        and — with a specific source, a user tag and an eligible
+        destination on a steering transport — registered with the
+        steering registry so the reader lands the matched frame's bytes
+        in it directly (shared by ``irecv(buf=)`` and started
+        ``recv_init`` handles)."""
+        req._user_buf = buf
+        reg = self._recv_reg
+        bufs = buf if isinstance(buf, list) else [buf]
+        if (reg is None or tag < 0 or source == ANY_SOURCE
+                or not (0 <= source < self.size) or not bufs
+                or not all(_recvpool.is_dest(b) for b in bufs)):
+            return
+        src_world = self._world(source)
+        tok = req._steer_token
+        if tok is None:
+            # messages delivered before the channel's FIRST posted user
+            # buffer were never counted: the mailbox backlog seeds the
+            # pairing lag (recvpool.note_post_user)
+            backlog = self._t.mailbox.count_matching(
+                src_world, self._ctx, tag)
+            tok = reg.note_post_user(src_world, self._ctx, tag, backlog)
+            req._steer_token = tok
+        reg.attach(tok, buf)
+        req._user_armed = True
+
     def _irecv_internal(self, source: int, tag: int) -> _RecvRequest:
         """irecv without the user-tag gate — the engine posts pipelined
         receives on the internal _TAG_COLL tag through here."""
         with self._lock:
             queue = self._irecv_queues.setdefault((source, tag), [])
         req = _RecvRequest(self, source, tag, queue)
-        if tag < 0 and source != ANY_SOURCE and self._recv_reg is not None:
+        reg = self._recv_reg
+        if tag < 0 and source != ANY_SOURCE and reg is not None:
             # count the posted consumer on its steering channel; the
             # collective may attach a destination view to the token
-            req._steer_token = self._recv_reg.note_post(
+            req._steer_token = reg.note_post(
                 self._world(source), self._ctx, tag)
+        elif (tag >= 0 and source != ANY_SOURCE and reg is not None
+              and reg.user_count and 0 <= source < self.size
+              and reg.user_active(self._world(source), self._ctx, tag)):
+            # a BUFFERLESS user irecv on an active user channel is still
+            # a counted consumer (pairing alignment); claimable only if
+            # irecv(buf=) attaches a destination right after
+            req._steer_token = reg.note_post_user(
+                self._world(source), self._ctx, tag, claimable=False)
         if self._progress is not None:
             # background completion: the engine scans this comm's posted
             # queues while it has any
@@ -1562,10 +1645,25 @@ class P2PCommunicator(Communicator):
             obj, src, t = self._sliced_wait(src_world, tag)
         else:
             obj, src, t = self._plain_recv(src_world, tag)
+        obj = self._note_probe_steal(obj, src, t)
         msg = Message(obj, self._from_world(src), t, comm=self)
         if status is not None:
             status._fill(msg.source, msg.tag, obj)
         return msg
+
+    def _note_probe_steal(self, obj: Any, src_world: int, t: int) -> Any:
+        """A matched probe REMOVED a message from matching: run it through
+        the aliasing guard (it may be a steered destination an armed irecv
+        owns) and shift the channel's pairing lag down
+        (``recvpool.note_steal``)."""
+        reg = self._recv_reg
+        if reg is None or t < 0:
+            return obj
+        if reg.live_count:
+            obj = reg.sanitize(obj)
+        if reg.user_count:
+            reg.note_steal(src_world, self._ctx, t)
+        return obj
 
     def improbe(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
                 status: Optional[Status] = None) -> Optional[Message]:
@@ -1579,6 +1677,7 @@ class P2PCommunicator(Communicator):
         if self._verify is not None:
             self._verify.world.note_progress()
         obj, src, t = hit
+        obj = self._note_probe_steal(obj, src, t)
         msg = Message(obj, self._from_world(src), t, comm=self)
         if status is not None:
             status._fill(msg.source, msg.tag, obj)
@@ -2789,10 +2888,16 @@ class P2PCommunicator(Communicator):
 
     def free(self) -> None:
         """Sub-communicators share the world transport: nothing to
-        release, apart from the verifier's unfreed-comm checkout."""
+        release, apart from the verifier's unfreed-comm checkout.  A comm
+        flagged as OWNING its transport (a spawn or accept/connect bridge,
+        a socket world of its own, ``spawn.py``) closes it, or every
+        bridge would leak a listener and its reader threads."""
         if self._verify is not None and self._verify.comm_key is not None:
             self._verify.world.free_comm(self._verify.comm_key)
             self._verify.comm_key = None
+        if getattr(self, "_owns_transport", False):
+            self._owns_transport = False
+            self.close_transport()
 
     def close_transport(self) -> List[Tuple[int, Any, int]]:
         """Finalize-time shutdown: stops the detector and the progress

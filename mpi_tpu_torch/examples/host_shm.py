@@ -29,7 +29,16 @@ Every rank draws its float32 inputs from ``(--seed, rank)`` on its device:
 6. a ``P2PWindow`` over a tensor on the rank's device: put, get and
    accumulate in one fence epoch, a passive-target ``lock`` / ``unlock``
    and ``fetch_and_op``, each against its oracle; the window's buffer stays
-   on the device.
+   on the device;
+7. a steered receive (``examples/host_dynamic.py steer_turns``): rank 1
+   posts ``irecv(source=0, buf=<a --mib MiB float32 tensor on its
+   device>)`` before rank 0 sends its input, and the shm drain lands the
+   frame in the buffer itself (on the card through pinned staging and one
+   host-to-device copy): bitwise, the same ``data_ptr``,
+   ``recv_user_inplace`` +1, ``recv_user_fallbacks`` +0; and the same
+   receive with the ``recv_steering`` cvar off (the completion's copy
+   path), the two in turns (steered, copy, copy, steered) after one
+   untimed steered receive.
 
 With ``--profile-dir DIR`` rank 0 runs one more ring call and the 1 KiB
 arena collectives (the arena's first use) under ``profiling.trace``
@@ -289,6 +298,22 @@ def window_leg(comm, args, rec) -> None:
                       "fetch_and_op_pre_images": olds}
 
 
+def steer_leg(comm, args, rec) -> None:
+    from mpi_tpu_torch.examples.host_dynamic import steer_turns
+
+    numel = (args.mib << 20) // 4
+    x = rank_input(comm.rank, numel, args.seed, comm.device)
+    want = rank_input(0, numel, args.seed, comm.device) \
+        if comm.rank == 1 else None
+    got = steer_turns(comm, x, want, 60)
+    if comm.rank == 1:
+        # the warm-up receive is held to the steered check too
+        bad = [side for side, g in got.items() if not g["ok"]]
+        if bad:
+            raise RuntimeError(f"{bad} receive failed its check: {got}")
+        rec["steer"] = got
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", required=True, help="directory for rank<r>.json")
@@ -312,6 +337,7 @@ def main(argv=None) -> None:
     ring_leg(comm, args, rec)
     arena_leg(comm, args, rec)
     window_leg(comm, args, rec)
+    steer_leg(comm, args, rec)
     rec["wall_s"] = time.perf_counter() - t0
     marks["work"] = time.time()
     if comm._verify is not None:

@@ -5,7 +5,9 @@
   (:126) takes the reference's keyword names; ``pvar_read`` /
   ``pvar_reset`` (:437-445) read them under the reference's pvar names
   (``msgs_sent``, ``bytes_raw_sent``, ``bytes_pickled_sent``,
-  ``payload_copies``, the ``link_*`` and ``recv_*`` families; the
+  ``payload_copies``, the ``link_*`` and ``recv_*`` families, the
+  user-buffer steering's ``recv_user_inplace`` / ``recv_user_fallbacks``
+  (:164-165, :407-408); the
   fault-tolerance, progress and nonblocking-collective counters
   ``proc_failures_detected``, ``revokes_delivered``,
   ``shrinks_completed``, ``rejoins_completed``, ``epoch_skews_detected``,
@@ -70,6 +72,8 @@ _PVAR_OF = {
     "recv_pool_rendezvous": "recv_pool_rendezvous",
     "recv_bytes_steered": "recv_bytes_steered",
     "recv_pool_fold_fallbacks": "recv_pool_fold_fallbacks",
+    "recv_user_inplace": "recv_user_inplace",
+    "recv_user_fallbacks": "recv_user_fallbacks",
     "proc_failed": "proc_failures_detected",
     "revokes": "revokes_delivered",
     "shrinks": "shrinks_completed",

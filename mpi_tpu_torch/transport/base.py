@@ -231,6 +231,15 @@ class Mailbox:
                                       "probe")
         return s, t, payload_nbytes(p)
 
+    def count_matching(self, source: int, ctx, tag: int) -> int:
+        """Number of queued messages matching (source, ctx, tag) now: the
+        steering registry's activation BACKLOG (a user channel's first
+        posted buffer seeds its pairing lag with it,
+        ``recvpool.note_post_user``)."""
+        with self._lock:
+            return sum(1 for item in self._by_ctx.get(ctx, ())
+                       if self._matches(item, source, ctx, tag))
+
     def pending_summary(self) -> List[Tuple[int, Any, int]]:
         with self._lock:
             return self._pending_locked(16)

@@ -242,18 +242,25 @@ class ShmTransport(Transport):
                     f"rank {self.world_rank}: truncated frame from {src} "
                     f"(no data for {_WRITE_TIMEOUT}s — is the sender alive?)")
 
-    def _read_into(self, ring: int, dests: Sequence[torch.Tensor],
-                   src: int) -> None:
+    def _read_into(self, ring: int, dests: Sequence[Any], src: int) -> None:
+        """Stream ring bytes into host destinations (tensors or ndarrays)."""
         for a in dests:
-            n = a.numel() * a.element_size()
+            if isinstance(a, torch.Tensor):
+                ptr, n = a.data_ptr(), a.numel() * a.element_size()
+            else:
+                ptr, n = a.ctypes.data, a.nbytes
             if n:
-                self._read_exact(ring, a.data_ptr(), n, src)
+                self._read_exact(ring, ptr, n, src)
 
     def _note_counted(self, src: int, ctx, tag: int, plan):
         """Count one in-order frame on its steering channel (internal tags
-        only); returns the posted destination to steer into, or None.
-        Caller holds the progress lock."""
-        if tag >= 0:
+        always, user tags once an ``irecv(buf=...)`` activated the
+        channel, ``mpi_tpu/transport/shm.py:293``); returns the posted
+        destination to steer into, or None.  Caller holds the progress
+        lock."""
+        reg = self.recv_registry
+        if tag >= 0 and not (reg.user_count
+                             and reg.user_active(src, ctx, tag)):
             return None
         seq = self._rx_seq.get(src, 0) + 1
         self._rx_seq[src] = seq
@@ -304,16 +311,27 @@ class ShmTransport(Transport):
                 if out is not None:
                     # copy-on-write any retained frame still referencing
                     # the destination BEFORE writing it
-                    _bufpool.touch(out)
-                    if out.device.type == "cpu":
-                        self._read_into(ring, [out], src)
-                    else:
-                        host = _recvpool.RECV_POOL.empty(out.shape, out.dtype)
+                    hosts, staged = _recvpool.steer_targets(out)
+                    for d in hosts:
+                        _bufpool.touch(d)
+                    ok = False
+                    try:
                         try:
-                            self._read_into(ring, [host], src)
-                            out.copy_(host)
+                            # host destinations take the ring bytes in
+                            # place, card ones through pinned staging
+                            self._read_into(ring, hosts, src)
+                            ok = True
                         finally:
-                            _recvpool.RECV_POOL.give_back(host)
+                            _recvpool.finish_steer(staged, ok)
+                    except BaseException:
+                        # torn mid-steer or a failed copy: the destination
+                        # never reaches the mailbox, the owner's fallback
+                        # refill overwrites the partial bytes
+                        if tag >= 0:
+                            self.recv_registry.steer_abort(out)
+                        raise
+                    if tag >= 0:
+                        self.recv_registry.steer_done(out)
                     _mpit.count(recv_pool_rendezvous=1,
                                 recv_bytes_steered=total)
                     if rec is not None:
@@ -604,8 +622,10 @@ class ShmTransport(Transport):
         if dest == self.world_rank:
             # counted on its steering channel first (loopback traffic
             # consumes posted slots like any arrival)
-            if tag < 0:
-                self.recv_registry.note_local(dest, ctx, tag)
+            reg = self.recv_registry
+            if tag < 0 or (reg.user_count
+                           and reg.user_active(dest, ctx, tag)):
+                reg.note_local(dest, ctx, tag)
             vc = self.verify_clock
             stamp = vc.tick_send() if vc is not None else None
             self.mailbox.deliver(dest, ctx, tag, codec.value_copy(payload),

@@ -341,10 +341,13 @@ class SocketTransport(Transport):
             stamp = None
             if vc is not None:
                 ctx, stamp = vc.unwrap(ctx)
-            if tag < 0 and self._link.rx_fresh(src, seq, gen):
+            reg = self.recv_registry
+            if (tag < 0 or (reg.user_count
+                            and reg.user_active(src, ctx, tag))) \
+                    and self._link.rx_fresh(src, seq, gen):
                 # pickle frames on counted channels still count (never
                 # steerable) so the frame/consumer pairing stays aligned
-                self.recv_registry.note_frame(src, ctx, tag, seq, gen, None)
+                reg.note_frame(src, ctx, tag, seq, gen, None)
             self._deliver_seq(conn, src, seq, gen, ctx, tag, obj, stamp)
 
     def _note_torn(self, src: int) -> None:
@@ -381,25 +384,37 @@ class SocketTransport(Transport):
             raise ValueError(
                 f"raw frame length mismatch from rank {src}: header says "
                 f"{plen}, meta implies {codec.META.size + mlen + total}")
-        # Rendezvous steering: count a FRESH internal-tag frame on its
-        # channel; a paired posted destination takes the body directly.
+        # Rendezvous steering: count a FRESH frame of a counted channel
+        # (an internal tag, or a user channel an irecv(buf=) activated);
+        # a paired posted destination takes the body directly.
         out = None
-        if tag < 0 and self._link.rx_fresh(src, seq, gen):
-            out = self.recv_registry.note_frame(src, ctx, tag, seq, gen, plan)
+        reg = self.recv_registry
+        if (tag < 0 or (reg.user_count and reg.user_active(src, ctx, tag))) \
+                and self._link.rx_fresh(src, seq, gen):
+            out = reg.note_frame(src, ctx, tag, seq, gen, plan)
         if out is not None:
             # copy-on-write any retained frame still referencing the
             # destination region BEFORE writing it
-            _bufpool.touch(out)
-            if out.device.type == "cpu":
+            hosts, staged = _recvpool.steer_targets(out)
+            for d in hosts:
+                _bufpool.touch(d)
+            try:
+                # host destinations are read into in place, card ones
+                # through pinned staging (one vectored read either way)
                 ok = not total or _recvmsg_into_views(
-                    conn, [_bufpool.byte_view(out)])
-            else:
-                host = _recvpool.RECV_POOL.empty(out.shape, out.dtype)
-                ok = not total or _recvmsg_into_views(
-                    conn, [_bufpool.byte_view(host)])
+                    conn, [_recvpool.host_view(h) for h in hosts])
+                _recvpool.finish_steer(staged, ok)
+            except BaseException:
+                if tag >= 0:
+                    reg.steer_abort(out)
+                raise
+            if tag >= 0:
                 if ok:
-                    out.copy_(host)
-                _recvpool.RECV_POOL.give_back(host)
+                    reg.steer_done(out)
+                else:
+                    # torn mid-steer: the destination never reaches the
+                    # mailbox; the owner's fallback refill overwrites it
+                    reg.steer_abort(out)
             if ok:
                 _mpit.count(recv_pool_rendezvous=1, recv_bytes_steered=total)
                 rec = _telemetry.REC
@@ -762,8 +777,10 @@ class SocketTransport(Transport):
         if dest == self.world_rank:
             # value-semantics copy, counted on its steering channel first
             # (loopback traffic consumes posted slots like any arrival)
-            if tag < 0:
-                self.recv_registry.note_local(dest, ctx, tag)
+            reg = self.recv_registry
+            if tag < 0 or (reg.user_count
+                           and reg.user_active(dest, ctx, tag)):
+                reg.note_local(dest, ctx, tag)
             vc = self.verify_clock
             stamp = vc.tick_send() if vc is not None else None
             self.mailbox.deliver(dest, ctx, tag, codec.value_copy(payload),

@@ -13,9 +13,9 @@ the verifier) and of ``tests/test_fault_tolerance.py`` (``:197``,
 their ``tests/test_torch_host_ref_*.py`` files.  ``MPI_Abort`` under the
 launcher (``tests/test_failure_story.py:68``) runs with the port's
 launcher on socket and shm.  The cases below hold a flat program and
-the typed tensor path through both packages, bitwise, and that
-``api`` imports without ``io`` or ``spawn`` and names ROADMAP 16.6b where
-a program reaches them.
+the typed tensor path through both packages, bitwise, and that the
+MPI-IO and dynamic-process wrappers reach the port's ``io`` and
+``spawn``.
 """
 
 import os
@@ -61,9 +61,14 @@ def test_api_names_are_the_references():
 
 
 def test_api_imports_without_io_or_spawn():
-    code = ("import sys, mpi_tpu_torch.api as a\n"
-            "assert 'mpi_tpu_torch.io' not in sys.modules\n"
-            "assert 'mpi_tpu_torch.spawn' not in sys.modules\n"
+    """Since ROADMAP 16.6b landed, ``api`` binds ``io`` as the reference's
+    does (``mpi_tpu/api.py:1024``) and imports ``spawn`` at each call; its
+    access modes and seek origins are ``io``'s own, with the reference's
+    values."""
+    code = ("import sys, mpi_tpu_torch.api as a, mpi_tpu_torch.io as io\n"
+            "assert a.MPI_MODE_RDWR == io.MODE_RDWR\n"
+            "assert a.MPI_SEEK_END == io.SEEK_END\n"
+            "assert a.MPI_File_delete is io.file_delete\n"
             "print(a.MPI_MODE_RDWR, a.MPI_SEEK_END)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
                          capture_output=True, timeout=120)
@@ -72,15 +77,76 @@ def test_api_imports_without_io_or_spawn():
                                   str(ref_api.MPI_SEEK_END)]
 
 
+class _Handle:
+    """A file handle that records the method a wrapper calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *a, **k: self.calls.append((name, a)) or name
+
+
+# wrapper -> (module, function it reaches, arguments)
+_WIRED = {
+    "MPI_Comm_spawn": ("spawn", "comm_spawn", (["w.py"], 2)),
+    "MPI_Comm_spawn_multiple": ("spawn", "comm_spawn_multiple",
+                                ([(["w.py"], 1)],)),
+    "MPI_Comm_get_parent": ("spawn", "comm_get_parent", ()),
+    "MPI_Open_port": ("spawn", "open_port", ()),
+    "MPI_Close_port": ("spawn", "close_port", ("p",)),
+    "MPI_Comm_accept": ("spawn", "comm_accept", ("p",)),
+    "MPI_Comm_connect": ("spawn", "comm_connect", ("p",)),
+    "MPI_Publish_name": ("spawn", "publish_name", ("svc", "p")),
+    "MPI_Unpublish_name": ("spawn", "unpublish_name", ("svc",)),
+    "MPI_Lookup_name": ("spawn", "lookup_name", ("svc",)),
+    "MPI_File_open": ("io", "file_open", ("f.bin",)),
+    "MPI_Register_datarep": ("io", "register_datarep",
+                             ("rep", None, None)),
+}
+
+
 @pytest.mark.parametrize("name", [
     "MPI_Comm_spawn", "MPI_Comm_spawn_multiple", "MPI_Comm_get_parent",
     "MPI_Open_port", "MPI_Close_port", "MPI_Comm_accept", "MPI_Comm_connect",
     "MPI_Publish_name", "MPI_Unpublish_name", "MPI_Lookup_name",
     "MPI_File_open", "MPI_File_delete", "MPI_File_read_at",
     "MPI_File_write_ordered", "MPI_Register_datarep"])
-def test_unported_wrappers_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="16.6b"):
-        getattr(api, name)("x")
+def test_unported_wrappers_name_their_roadmap_item(name, monkeypatch,
+                                                   tmp_path):
+    """These wrappers raised naming ROADMAP 16.6b until it landed; now each
+    reaches the port's ``spawn`` / ``io`` function (or the file handle's
+    method) the reference's wrapper reaches (``mpi_tpu/api.py:951-1140``)."""
+    from mpi_tpu_torch import io as mio
+    from mpi_tpu_torch import spawn
+
+    if name == "MPI_File_delete":
+        path = tmp_path / "gone.bin"
+        path.write_bytes(b"x")
+        api.MPI_File_delete(str(path))
+        assert not path.exists()
+        return
+    if name in ("MPI_File_read_at", "MPI_File_write_ordered"):
+        fh = _Handle()
+        args = (fh, 0, 4) if name == "MPI_File_read_at" else (fh, [1, 2])
+        getattr(api, name)(*args)
+        want = "read_at" if name == "MPI_File_read_at" else "write_ordered"
+        assert fh.calls == [(want, args[1:])]
+        return
+    module, fn, args = _WIRED[name]
+    calls = []
+    monkeypatch.setattr({"spawn": spawn, "io": mio}[module], fn,
+                        lambda *a, **k: calls.append(a) or "reached")
+    comm = mpi_tpu_torch.comm_self(device="cpu")
+    kwargs = {"comm": comm} if name in ("MPI_Comm_spawn",
+                                        "MPI_Comm_spawn_multiple",
+                                        "MPI_Comm_accept",
+                                        "MPI_Comm_connect",
+                                        "MPI_File_open") else {}
+    assert getattr(api, name)(*args, **kwargs) in ("reached", None)
+    # MPI_File_open passes the world communicator first (io.file_open)
+    got = calls[0][1:] if name == "MPI_File_open" else calls[0]
+    assert len(calls) == 1 and got[:len(args)] == args
 
 
 def _flat_prog(c, m, arr):

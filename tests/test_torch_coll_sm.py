@@ -439,5 +439,12 @@ def test_host_shm_example_on_shm_processes_with_its_profile(tmp_path):
         assert rec["wall_ms"] > 0 and rec["host_ops"]
         assert rec["kernel_launches"] == 0  # no card: host ops only
     assert ranks[1]["ring"]["profile"] is None  # rank 0 alone profiles
+    # the steered leg (1 MiB into rank 1's posted tensor, in turns with the
+    # copy path): in place and counted on every steered turn
+    steer = ranks[1]["steer"]
+    assert steer["steered"]["ok"] and steer["steered"]["in_place"]
+    assert [(t["recv_user_inplace"], t["recv_user_fallbacks"])
+            for t in steer["steered"]["turns"]] == [(1, 0), (1, 0)]
+    assert steer["copy_path"]["ok"] and not steer["copy_path"]["in_place"]
     assert (prof / "ring" / "trace.json").is_file()
     assert (prof / "arena_1024" / "trace.json").is_file()

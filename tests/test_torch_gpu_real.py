@@ -746,3 +746,98 @@ def test_pready_snapshot_survives_a_refill_on_the_card():
     res = mpi_tpu_torch.run(prog, backend="local", nranks=2)
     want = torch.arange(parts * numel, dtype=torch.float32).reshape(parts, numel)
     assert torch.equal(res[1], want)
+
+
+# ---- receives steered into user buffers, MPI-IO, on the card ---------------
+
+
+def _socket_world(fn, nranks):
+    """``fn(comm)`` on ``nranks`` socket transports in threads of this
+    process, on the card."""
+    import tempfile
+    import threading
+
+    from mpi_tpu_torch.communicator import P2PCommunicator
+    from mpi_tpu_torch.transport.socket import SocketTransport
+
+    rdv = tempfile.mkdtemp(prefix="mtt_gpu_sock_")
+    ts = [SocketTransport(r, nranks, rdv, device="cuda") for r in range(nranks)]
+    out, errs = [None] * nranks, []
+
+    def body(r):
+        try:
+            torch.cuda.set_device(0)
+            out[r] = fn(P2PCommunicator(ts[r], range(nranks)))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=body, args=(r,)) for r in range(nranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    for t in ts:
+        t.close()
+    if errs:
+        raise errs[0]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["socket", "shm"])
+def test_steered_receive_into_a_card_tensor(kind):
+    """``irecv(buf=<card tensor>)`` posted before the frame: the reader
+    lands the body in pinned staging and copies it into the tensor itself
+    (same ``data_ptr``), counted as one in-place landing, no fallback."""
+    _card()
+    from mpi_tpu_torch import mpit
+    from mpi_tpu_torch.transport.shm import run_shm
+
+    numel = 1 << 22
+    src = torch.randn(numel, generator=torch.Generator().manual_seed(3))
+
+    def prog(comm):
+        if comm.rank == 0:
+            comm.recv(1, 99)
+            comm.send(src.to(comm.device), dest=1, tag=21)
+            return None
+        buf = torch.zeros(numel, device=comm.device)
+        ptr = buf.data_ptr()
+        req = comm.irecv(0, 21, buf=buf)
+        comm.send(b"posted", dest=0, tag=99)
+        got = req.wait()
+        assert got is buf and buf.data_ptr() == ptr
+        return buf.cpu()
+
+    base = [mpit.pvar_read(n) for n in ("recv_user_inplace",
+                                        "recv_user_fallbacks")]
+    res = (_socket_world(prog, 2) if kind == "socket" else run_shm(prog, 2))
+    assert torch.equal(res[1], src)
+    assert [mpit.pvar_read(n) - b for n, b in zip(
+        ("recv_user_inplace", "recv_user_fallbacks"), base)] == [1, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("datarep", ["native", "external32"])
+def test_file_round_trip_of_a_card_tensor(tmp_path, datarep):
+    """A card tensor written through a strided view and read back: the
+    read is a tensor on the card, bitwise; the bytes on disk are the
+    host's numpy bytes in the datarep's byte order."""
+    _card()
+    import numpy as np
+
+    from mpi_tpu_torch import datatypes as dt
+    from mpi_tpu_torch import io as mio
+
+    path = str(tmp_path / "card.bin")
+    x = torch.randn(1 << 16, generator=torch.Generator().manual_seed(5))
+    comm = mpi_tpu_torch.comm_self(device="cuda")
+    with mio.file_open(comm, path, mio.MODE_CREATE | mio.MODE_RDWR) as f:
+        f.set_view(etype=torch.float32,
+                   filetype=dt.type_vector(1 << 16, 1, 2, np.float32),
+                   datarep=datarep)
+        f.write_at_all(0, x.cuda())
+        back = f.read_at_all(0, 1 << 16)
+    assert back.device.type == "cuda" and torch.equal(back.cpu(), x)
+    disk = np.fromfile(path, dtype=">f4" if datarep == "external32" else "<f4")
+    assert np.array_equal(disk[::2], x.numpy())

@@ -61,6 +61,10 @@ def _init(backend=None, device="cpu"):
     return mpi_tpu_torch.init(backend, device=device)
 
 
+def _comm_self(device="cpu"):
+    return mpi_tpu_torch.comm_self(device=device)
+
+
 def _verify_run(fn, nranks, *args, **kwargs):
     from mpi_tpu_torch.trace import verify_run
 
@@ -91,12 +95,20 @@ class ShmTransport(_shm.ShmTransport):
 class _Counters:
     """The reference's internal counter object (``mpi_tpu.mpit.counters``)
     read through the port's pvars: ``counters.<name>`` is the pvar the
-    port's ``mpit._PVAR_OF`` maps the reference's count name to."""
+    port's ``mpit._PVAR_OF`` maps the reference's count name to, or for
+    the receive pool's short attribute names (``mpi_tpu/mpit.py:219-225``)
+    the pvar of ``_RP``."""
+
+    _RP = {"rp_hits": "recv_pool_hits", "rp_misses": "recv_pool_misses",
+           "rp_rdv": "recv_pool_rendezvous", "rp_steered": "recv_bytes_steered",
+           "rp_fold": "recv_pool_fold_fallbacks",
+           "rp_user_in": "recv_user_inplace",
+           "rp_user_fb": "recv_user_fallbacks"}
 
     def __getattr__(self, name):
         from mpi_tpu_torch import mpit
 
-        return mpit.pvar_read(mpit._PVAR_OF[name])
+        return mpit.pvar_read(self._RP.get(name) or mpit._PVAR_OF[name])
 
 
 def _mpit() -> types.ModuleType:
@@ -118,6 +130,7 @@ def _shim() -> types.ModuleType:
         mod.run_local = _run_local
         mod.run = _run
         mod.init = _init
+        mod.comm_self = _comm_self
         mod.verify_run = _verify_run
         mod.run_shm_world = _run_shm_world
         mod.run_socket_world = _run_socket_world
@@ -134,7 +147,7 @@ def _shim() -> types.ModuleType:
 _SHIMMED = {"run_local", "verify_run", "run_shm_world", "run_socket_world",
             "SocketTransport", "ShmTransport", "mpit"}
 _FROM = re.compile(
-    r"^(?P<ind>[ \t]*)from (?P<mod>mpi_tpu(?:\.[\w.]+)?|tests\.test_\w+) "
+    r"^(?P<ind>[ \t]*)from (?P<mod>mpi_tpu(?:\.[\w.]+)?|(?:tests\.)?test_\w+) "
     r"import (?P<names>\([^)]*\)|[^\n]+)$", re.M)
 
 
@@ -151,7 +164,7 @@ def _rewrite_from(m: re.Match) -> str:
     if shimmed:
         lines.append(f"{ind}from {SHIM} import {', '.join(shimmed)}")
     if rest:
-        if mod.startswith("tests."):
+        if mod.startswith(("tests.", "test_")):
             lines.append(f"{ind}from {mod} import {', '.join(rest)}")
         else:
             port = "mpi_tpu_torch" + mod[len("mpi_tpu"):]
@@ -238,7 +251,7 @@ REFERENCE_FILES = (
     "local_backend", "socket_backend", "groups", "attributes", "errors",
     "mpit", "nonblocking", "ops_extended", "scan_reduce_scatter",
     "vector_collectives", "segmented_collectives2", "resilience", "codec",
-    "sanitize_native")
+    "sanitize_native", "zero_copy_user", "spawn", "io")
 
 
 @pytest.mark.parametrize("name", REFERENCE_FILES)

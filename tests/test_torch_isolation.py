@@ -56,7 +56,11 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.mpi4", "mpi_tpu_torch.intercomm",
        "mpi_tpu_torch.examples.master_worker",
        "mpi_tpu_torch.examples.session_library",
-       "mpi_tpu_torch.examples.datatypes_demo"]
+       "mpi_tpu_torch.examples.datatypes_demo", "mpi_tpu_torch.spawn",
+       "mpi_tpu_torch.io", "mpi_tpu_torch.examples.spawn_workers",
+       "mpi_tpu_torch.examples.coupled_models",
+       "mpi_tpu_torch.examples.parallel_io",
+       "mpi_tpu_torch.examples.host_dynamic"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
 from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")
@@ -112,6 +116,25 @@ got = mpi_tpu_torch.run(host_prog, backend="local", nranks=4, device="cpu")
 assert got == [(1.0, 4.0, 2.0, 4.0, float(r)) for r in range(4)], got
 assert len(mpi_tpu_torch.run(lambda c: master_worker.run(c, 5), backend="local",
                              nranks=3, device="cpu")[0]) == 5
+# MPI-IO, user-buffer steering and the port/name plumbing of spawn
+from mpi_tpu_torch import io as mio, spawn
+with tempfile.TemporaryDirectory() as tmp:
+    with mio.file_open(mpi_tpu_torch.comm_self(device="cpu"), tmp + "/f.bin",
+                       mio.MODE_CREATE | mio.MODE_RDWR) as f:
+        f.set_view(etype=torch.float32, datarep="external32")
+        f.write_at(0, torch.arange(4.0))
+        assert torch.equal(f.read_at(0, 4), torch.arange(4.0))
+
+def steered(c):
+    if c.rank == 0:
+        c.send(torch.ones(4096), dest=1, tag=3)
+        return True
+    buf = torch.zeros(4096)
+    return c.irecv(0, 3, buf=buf).wait() is buf or bool((buf == 1).all())
+
+assert all(run_shm(steered, 2, device="cpu"))
+port = spawn.open_port()
+spawn.close_port(port)
 x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
 out = mpi_tpu_torch.run(lambda c, d: c.allreduce(d[c.rank], algorithm="pallas_ring"),
                         x, nranks=8, device="cpu")

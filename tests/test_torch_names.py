@@ -14,10 +14,6 @@ import mpi_tpu
 import mpi_tpu_torch
 
 UNPORTED = {
-    "io": "16.6b", "comm_spawn": "16.6b", "comm_spawn_multiple": "16.6b",
-    "comm_get_parent": "16.6b", "open_port": "16.6b", "close_port": "16.6b",
-    "comm_accept": "16.6b", "comm_connect": "16.6b", "publish_name": "16.6b",
-    "unpublish_name": "16.6b", "lookup_name": "16.6b",
     "connect": "16.3c", "serve": "16.3c",
 }
 LAZY = ("COMM_WORLD", "COMM_SELF")
@@ -30,7 +26,7 @@ def test_every_reference_name_is_bound_or_listed_unported():
         f"missing and not listed: {sorted(set(missing) - set(UNPORTED))}; "
         f"listed but bound now (drop them): {sorted(set(UNPORTED) - set(missing))}")
     assert set(UNPORTED) <= set(mpi_tpu.__all__)
-    assert set(UNPORTED.values()) <= {"16.3c", "16.6b"}
+    assert set(UNPORTED.values()) <= {"16.3c"}
 
 
 def test_the_ports_all_holds_the_references_less_the_unported():
@@ -63,7 +59,7 @@ def test_names_are_the_port_modules_objects():
     assert mpi_tpu_torch.__version__ == mpi_tpu.__version__
     for sub in ("checkpoint", "ft", "progress", "trace", "verify", "mpi4",
                 "api", "membership", "profiling", "telemetry", "schedules",
-                "checker", "errors"):
+                "checker", "errors", "io", "spawn"):
         assert getattr(mpi_tpu_torch, sub).__name__ == f"mpi_tpu_torch.{sub}"
 
 
