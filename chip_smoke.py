@@ -123,9 +123,9 @@ ok line:
 13. host-local: the host layer's local backend, 8 rank threads on the
     card through ``run(..., backend="local", nranks=8)``, seeded normal
     float32: the north-star ``ring`` allreduce at 256 MiB per rank, and at
-    64 MiB per rank (``HOST_LOCAL_SMALL_ELEMS``) allreduce by
+    32 MiB per rank (``HOST_LOCAL_SMALL_ELEMS``) allreduce by
     ``recursive_halving``, ``rabenseifner`` and ``reduce_bcast``,
-    reduce_scatter, allgather (``ring`` and ``doubling``, 8 MiB per rank
+    reduce_scatter, allgather (``ring`` and ``doubling``, 4 MiB per rank
     in), bcast (the segmented tree) and alltoall.  Each result is held bitwise across ranks (or
     against the copies it must be), bitwise against the same program run
     by the same engine with ``device="cpu"`` in this process, and the
@@ -294,14 +294,36 @@ ok line:
     name-service directory under ``chiprun_out/host_dynamic/`` and hold
     their boundaries bitwise against the numpy replay on the card.  Any
     non-zero exit, leg not ok or device not ``cuda`` raises;
-27. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+27. host-serve, in a thread started beside phase 24's launches and
+    joined after phase 26: the resident world server with every worker on
+    the card.  (a) a socket pool of 4 (``serve.WorldServer``, detection
+    2.0 s) runs 200 sequential 2-rank leases of ``job_allreduce(comm,
+    256)``, each exactly 3.0: worlds/s, ``lease_acquire`` p50/p99 from
+    ``stats()`` and the same gauges from a scrape of the pool's
+    ``/metrics``; (b) one 4-rank lease of ``examples/host_serve.py``'s
+    ``job_allreduce_checked``, 256 MiB of float32 a rank, every element
+    exactly 10.0 on every worker, its ms, and rank 0's card tensor of the
+    first results handed to the client on the CPU; (c) a shm pool of 4 runs
+    ``job_allreduce_arena`` twice: ``coll_sm_hits`` above 0 both times on
+    the same single pooled arena; (d) ``job_kill_rank`` on the socket
+    pool surfaces ``ProcFailedError`` (``MPI_ERR_PROC_FAILED``) within 3 x
+    2.0 + 8 s, the pool heals (timed), the epoch grows, the workers (the
+    replacement too) report ``cuda`` and the next 4-rank allreduce is
+    right; (e) ``job_allreduce_link_chaos`` with 2 resets is right and
+    the workers' ``link_reconnects`` rises; (f) ``python -m
+    mpi_tpu_torch.launcher serve --pool-size 2 --backend shm --addr-file
+    ... --metrics-port 0``, reached by ``examples/host_serve.py`` through
+    the address file (one checked lease on the card, then ``--shutdown``):
+    the server exits 0.  The card's memory in use is printed with the
+    pools up and after the phase;
+28. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10), each read right after it ran (``launches_by_path``).  The host
-    layer (phases 13-26) launches none of the kernels: its folds are
+    layer (phases 13-27) launches none of the kernels: its folds are
     in-place torch ops.
 
-Every phase prints its wall time.  The full record also goes to
-``chiprun_out/chip_smoke.json``.
+Every phase prints its wall time, and their sum is printed after phase
+25.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
 import gc
@@ -407,6 +429,7 @@ def spread_data(torch, gen, shape, device):
 
 
 _LAP = [time.perf_counter()]
+_T_START = _LAP[0]
 
 
 def lap(name):
@@ -1273,8 +1296,9 @@ HOST_SEED = 7
 HOST_LOCAL_REPS = 2
 VERIFY_RING_REPS = 1
 # phase 13's collectives other than the north-star ring allreduce run at
-# 64 MiB per rank (256 MiB until phases 24-25 needed the seconds)
-HOST_LOCAL_SMALL_ELEMS = NORTH_STAR_ELEMS // 4
+# 32 MiB per rank (256 MiB until phases 24-25 needed the seconds, 64 MiB
+# until phase 27's worker start-ups slowed phase 24's launches)
+HOST_LOCAL_SMALL_ELEMS = NORTH_STAR_ELEMS // 8
 
 
 def _timed_program(torch, call, reps=3):
@@ -1297,7 +1321,7 @@ def _timed_program(torch, call, reps=3):
 
 def host_local_phase(torch, record):
     """Phase 13: the local backend's collectives on the card, the ring
-    allreduce at 256 MiB per rank and the others at 64 MiB, against the
+    allreduce at 256 MiB per rank and the others at 32 MiB, against the
     CPU and a float64 sum, timed."""
     import mpi_tpu_torch
     from mpi_tpu_torch import profiling
@@ -1314,7 +1338,7 @@ def host_local_phase(torch, record):
         want += x.double()
     small = HOST_LOCAL_SMALL_ELEMS
     # name -> (call, elements per rank, its bus factor); the small ones
-    # read the first 64 MiB of each rank's input
+    # read the first HOST_LOCAL_SMALL_ELEMS of each rank's input
     colls = {f"allreduce {a}": (lambda c, xs, a=a: c.allreduce(xs[c.rank], algorithm=a),
                                 numel if a == "ring" else small, 2 * (n - 1) / n)
              for a in ("ring", "recursive_halving", "rabenseifner", "reduce_bcast")}
@@ -2849,6 +2873,262 @@ def host_dynamic_phase(torch, record, started):
     record["host_dynamic"] = info
 
 
+SERVE_LEASES = 200      # phase 27 (a): sequential 2-rank leases
+SERVE_MIB = 256         # phase 27 (b): float32 MiB a rank of the checked lease
+SERVE_DETECT_S = 2.0    # phase 27: the pools' detection bound
+
+
+def _scrape(addr):
+    """The ``/metrics`` text of a server's endpoint, as a dict of the
+    unlabelled samples (``name -> float``)."""
+    import urllib.request
+
+    text = urllib.request.urlopen(f"http://{addr}/metrics", timeout=10).read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#") and "{" not in line:
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def _card_memory():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def _host_serve_legs(out_dir):
+    """Phase 27's legs (a)-(f); every failure raises.  Returns the record."""
+    import mpi_tpu_torch
+    from mpi_tpu_torch import serve
+    from mpi_tpu_torch.errors import MPI_ERR_PROC_FAILED, ProcFailedError, error_class
+    from mpi_tpu_torch.examples import host_serve
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    info = {"detect_timeout_s": SERVE_DETECT_S}
+    t0 = time.perf_counter()
+    # (f)'s server process starts first: its two workers come up beside the
+    # in-process pools' eight
+    addr_file = os.path.join(out_dir, "serve.addr")
+    with open(os.path.join(out_dir, "launcher_serve.out"), "w") as fo, \
+            open(os.path.join(out_dir, "launcher_serve.err"), "w") as fe:
+        launched = subprocess.Popen(
+            [sys.executable, "-m", "mpi_tpu_torch.launcher", "serve", "--pool-size", "2",
+             "--backend", "shm", "--addr-file", addr_file, "--metrics-port", "0",
+             "--detect-timeout", str(SERVE_DETECT_S)],
+            cwd=root, stdout=fo, stderr=fe)
+    kw = dict(pool_size=4, detect_timeout_s=SERVE_DETECT_S, heartbeat_s=0.25)
+    sock = serve.WorldServer(backend="socket", metrics_port=0, **kw)
+    shm = serve.WorldServer(backend="shm", **kw)
+    try:
+        for srv in (sock, shm):
+            srv.start(wait_ready=False)
+        for srv in (sock, shm):
+            srv._wait_ready(180.0)
+        info["pools_ready_s"] = time.perf_counter() - t0
+        client = mpi_tpu_torch.connect(sock)
+        try:
+            devices = client.run(host_serve.job_devices, nranks=4, timeout=120.0)
+            if [d.split(":")[0] for d in devices] != ["cuda"] * 4:
+                raise RuntimeError(f"host-serve socket pool not on the card: {devices}")
+            info["socket_devices"] = devices
+            # (a) sequential 2-rank leases
+            t1 = time.perf_counter()
+            for i in range(SERVE_LEASES):
+                got = client.run(serve.job_allreduce, 256, nranks=2, timeout=60.0)
+                if got != 3.0:
+                    raise RuntimeError(f"host-serve lease {i}: {got}, not 3.0")
+            wall = time.perf_counter() - t1
+            st = client.stats()
+            scraped = _scrape(sock.metrics_addr)
+            info["a"] = {"leases": SERVE_LEASES, "wall_s": wall,
+                         "worlds_per_s": SERVE_LEASES / wall,
+                         "stats_worlds_per_s": st["worlds_per_s"],
+                         "acquire_p50_ms": st["lease_acquire_p50_ms"],
+                         "acquire_p99_ms": st["lease_acquire_p99_ms"],
+                         "scrape": {k: scraped.get(f"mpi_tpu_serve_{k}") for k in (
+                             "worlds_per_s", "lease_acquire_p50_seconds",
+                             "lease_acquire_p99_seconds", "jobs_ok_total", "epoch")}}
+            if (st["jobs_ok"] != SERVE_LEASES + 1
+                    or info["a"]["scrape"]["jobs_ok_total"] != SERVE_LEASES + 1
+                    or info["a"]["scrape"]["lease_acquire_p99_seconds"] is None):
+                raise RuntimeError(f"host-serve (a) counts: {st}, scrape {scraped}")
+            # (b) the example's checked 256 MiB-a-rank lease on 4 workers
+            big = client.run(host_serve.job_allreduce_checked, SERVE_MIB, nranks=4,
+                             timeout=120.0)
+            head = big.pop("head")  # rank 0's card tensor, handed over on the CPU
+            big["head"] = head.tolist()
+            if not (all(big["ok"]) and head.device.type == "cpu"
+                    and big["head"] == [10.0] * 4
+                    and [d.split(":")[0] for d in big["devices"]] == ["cuda"] * 4):
+                raise RuntimeError(f"host-serve (b): {big}, head on {head.device}")
+            info["b"] = big
+            # (c) the shm pool's pooled arena, twice over the same workers
+            with mpi_tpu_torch.connect(shm) as sc:
+                devices = sc.run(host_serve.job_devices, nranks=4, timeout=120.0)
+                if [d.split(":")[0] for d in devices] != ["cuda"] * 4:
+                    raise RuntimeError(f"host-serve shm pool not on the card: {devices}")
+                runs = []
+                for _ in range(2):
+                    t1 = time.perf_counter()
+                    val, hits, names = sc.run(serve.job_allreduce_arena, 1024, nranks=4,
+                                              timeout=60.0)
+                    runs.append({"value": val, "coll_sm_hits": hits, "arenas": names,
+                                 "ms": (time.perf_counter() - t1) * 1e3})
+                if not (all(r["value"] == 10.0 and r["coll_sm_hits"] > 0 for r in runs)
+                        and len(runs[0]["arenas"]) == 1
+                        and runs[0]["arenas"] == runs[1]["arenas"]):
+                    raise RuntimeError(f"host-serve (c) pooled arena: {runs}")
+                info["c"] = {"devices": devices, "runs": runs}
+            # (d) a kill mid-lease on the socket pool, then the heal
+            epoch0 = client.stats()["epoch"]
+            bound = 3 * SERVE_DETECT_S + 8.0
+            lease = client.acquire(2, timeout=60.0)
+            t1 = time.perf_counter()
+            try:
+                lease.run(serve.job_kill_rank, 1, 4096, timeout=bound)
+            except ProcFailedError as e:
+                detect_s = time.perf_counter() - t1
+                if error_class(e) != MPI_ERR_PROC_FAILED:
+                    raise RuntimeError(f"host-serve (d): class {error_class(e)}") from e
+                diagnosis = str(e)
+            else:
+                raise RuntimeError("host-serve (d): the kill raised no ProcFailedError")
+            lease.release()
+            if detect_s >= bound:
+                raise RuntimeError(f"host-serve (d): diagnosed in {detect_s:.2f} s "
+                                   f"(bound {bound} s)")
+            t1 = time.perf_counter()
+            while True:
+                st = client.stats()
+                if st["idle"] == 4 and not st["healing"]:
+                    break
+                if time.perf_counter() - t1 > 120.0:
+                    raise RuntimeError(f"host-serve (d): no heal in 120 s: {st}")
+                time.sleep(0.05)
+            heal_s = time.perf_counter() - t1
+            devices = client.run(host_serve.job_devices, nranks=4, timeout=120.0)
+            after = client.run(serve.job_allreduce, 256, nranks=4, timeout=60.0)
+            if not (st["epoch"] > epoch0 and after == 10.0
+                    and [d.split(":")[0] for d in devices] == ["cuda"] * 4):
+                raise RuntimeError(f"host-serve (d) after the heal: epoch {st['epoch']} "
+                                   f"(was {epoch0}), devices {devices}, allreduce {after}")
+            info["d"] = {"detect_s": detect_s, "bound_s": bound, "heal_s": heal_s,
+                         "epoch": [epoch0, st["epoch"]], "devices": devices,
+                         "diagnosis": diagnosis, "workers_lost": st["workers_lost"],
+                         "heals_completed": st["heals_completed"]}
+            # (e) a lease riding healed links
+            before = client.stats()["worker_pvars"].get("link_reconnects", 0)
+            chaos = client.run(serve.job_allreduce_link_chaos, 1024, 2, nranks=2,
+                               timeout=60.0)
+            reconnects = client.stats()["worker_pvars"].get("link_reconnects", 0)
+            if chaos != 3.0 or reconnects <= before:
+                raise RuntimeError(f"host-serve (e): {chaos}, link_reconnects "
+                                   f"{before} -> {reconnects}")
+            info["e"] = {"value": chaos, "link_reconnects": [before, reconnects]}
+            info["socket_stats"] = client.stats()
+            info["memory_used_pools_up"] = _card_memory()
+        finally:
+            client.close()
+        # (f) the launched server, through its address file and the example
+        t1 = time.perf_counter()
+        while not os.path.exists(addr_file):
+            if launched.poll() is not None or time.perf_counter() - t1 > 180.0:
+                with open(os.path.join(out_dir, "launcher_serve.err")) as f:
+                    err = f.read()[-4000:]
+                raise RuntimeError(f"host-serve (f): the launched server published no "
+                                   f"address (rc {launched.poll()}):\n{err}")
+            time.sleep(0.1)
+        rc = host_serve.main(["--addr-file", addr_file, "--nranks", "2", "--mib", "16",
+                              "--require", "cuda", "--shutdown",
+                              "--out", os.path.join(out_dir, "host_serve.json")])
+        server_rc = launched.wait(timeout=60)
+        with open(os.path.join(out_dir, "host_serve.json")) as f:
+            info["f"] = json.load(f)
+        info["f"].update({"rc": rc, "server_rc": server_rc,
+                          "client_s": time.perf_counter() - t1})
+        if rc != 0 or server_rc != 0:
+            with open(os.path.join(out_dir, "launcher_serve.err")) as f:
+                err = f.read()[-4000:]
+            raise RuntimeError(f"host-serve (f): client rc {rc}, server rc {server_rc}:\n{err}")
+    finally:
+        sock.stop()
+        shm.stop()
+        if launched.poll() is None:
+            launched.kill()
+            launched.wait()
+    info["memory_used_after"] = _card_memory()
+    info["wall_s"] = time.perf_counter() - t0
+    return info
+
+
+def host_serve_start():
+    """Phase 27, started in a background thread beside phase 24's launches
+    (both start-up bound): the resident world server's legs (a)-(f).
+    Returns the handle :func:`host_serve_phase` joins."""
+    import threading
+
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "host_serve"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    started = {"t0": time.perf_counter()}
+
+    def body():
+        try:
+            started["info"] = _host_serve_legs(out_dir)
+        except BaseException as e:  # re-raised by host_serve_phase
+            started["error"] = e
+
+    th = threading.Thread(target=body, name="phase-27-host-serve", daemon=True)
+    th.start()
+    started["thread"] = th
+    return started
+
+
+def host_serve_phase(torch, record, started):
+    """Phase 27: join the legs started by :func:`host_serve_start`; a
+    failure in any leg raises here.  Prints each leg's numbers."""
+    card = card_line()
+    th = started["thread"]
+    th.join(timeout=600)
+    if th.is_alive():
+        raise RuntimeError("host-serve: the legs did not finish within 600 s")
+    if "error" in started:
+        raise RuntimeError(f"host-serve failed: {started['error']!r}") from started["error"]
+    info = started["info"]
+    info["card"] = card
+    a, b, d = info["a"], info["b"], info["d"]
+    log(f"host-serve (a): {a['leases']} sequential 2-rank leases of job_allreduce(256) on a "
+        f"socket pool of 4 card workers in {a['wall_s']:.3f} s: {a['worlds_per_s']:.1f} "
+        f"worlds/s (the stats gauge {a['stats_worlds_per_s']}), lease_acquire p50/p99 "
+        f"{a['acquire_p50_ms']}/{a['acquire_p99_ms']} ms; /metrics scrape: "
+        f"worlds_per_s {a['scrape']['worlds_per_s']}, p50/p99 "
+        f"{a['scrape']['lease_acquire_p50_seconds']}/{a['scrape']['lease_acquire_p99_seconds']} s, "
+        f"jobs_ok_total {a['scrape']['jobs_ok_total']}; pools ready "
+        f"{info['pools_ready_s']:.1f} s after the start [{card}]")
+    log(f"host-serve (b): one 4-rank lease, ring allreduce of {b['bytes_per_rank'] >> 20} MiB "
+        f"float32 a rank on {b['devices']}, every element {b['want']} on every worker; "
+        f"{max(b['ms']):.1f} ms (slowest rank; ranks {', '.join(f'{v:.1f}' for v in b['ms'])}); "
+        f"rank 0's card tensor {b['head']} reached the client on the CPU [{card}]")
+    log(f"host-serve (c): shm pool of 4 on {info['c']['devices']}: job_allreduce_arena "
+        + "; ".join(f"{r['value']} with coll_sm_hits {r['coll_sm_hits']} on {r['arenas']} "
+                    f"in {r['ms']:.1f} ms" for r in info["c"]["runs"]) + f" [{card}]")
+    log(f"host-serve (d): kill mid-lease diagnosed as ProcFailedError in {d['detect_s']:.3f} s "
+        f"(bound {d['bound_s']} s; {d['diagnosis'][:120]}), healed in {d['heal_s']:.2f} s, "
+        f"epoch {d['epoch'][0]} -> {d['epoch'][1]}, workers after {d['devices']}, next lease "
+        f"correct [{card}]")
+    log(f"host-serve (e): job_allreduce_link_chaos(resets=2) = {info['e']['value']}, "
+        f"link_reconnects {info['e']['link_reconnects'][0]} -> {info['e']['link_reconnects'][1]}")
+    f = info["f"]
+    log(f"host-serve (f): launcher serve --backend shm --pool-size 2, examples/host_serve.py "
+        f"through the address file: ok {f['ok']} on {f['allreduce']['devices']}, "
+        f"acquire {f['acquire_ms']:.2f} ms, server exit {f['server_rc']}; card memory in use "
+        f"(used, total) with the pools up {info['memory_used_pools_up']}, after phase 27 "
+        f"{info['memory_used_after']}; legs' wall {info['wall_s']:.1f} s [{card}]")
+    record["host_serve"] = info
+
+
 def main():
     import torch
 
@@ -3102,18 +3382,24 @@ def main():
     record["data_plane_phases_s"] = time.perf_counter() - t_shm
     log(f"phases 22-23: {record['data_plane_phases_s']:.1f} s")
 
-    # 24-26. process checkpoints, dynamic processes and files (26 started
-    # beside 24's launches), hierarchical dispatch and the flat layer -------
+    # 24-27. process checkpoints, dynamic processes and files and the
+    # resident world server (26 and 27 started beside 24's launches, 27 in
+    # a thread), hierarchical dispatch and the flat layer ------------------
     t_flat = time.perf_counter()
+    serving = host_serve_start()
     dynamic = host_dynamic_start()
     host_restart_phase(torch, record)
     lap("host-restart")
     host_dynamic_phase(torch, record, dynamic)
     lap("host-dynamic")
+    host_serve_phase(torch, record, serving)
+    lap("host-serve")
     host_flat_phase(torch, record)
     lap("host-flat")
     record["flat_layer_phases_s"] = time.perf_counter() - t_flat
-    log(f"phases 24-26: {record['flat_layer_phases_s']:.1f} s")
+    log(f"phases 24-27: {record['flat_layer_phases_s']:.1f} s")
+    record["phases_s"] = time.perf_counter() - _T_START
+    log(f"phases 1-27: {record['phases_s']:.2f} s (the sum of the phase walls)")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

@@ -63,7 +63,10 @@ and the name service (``spawn``; children run on the card unless
 with views, datareps, shared pointers and collective buffering (reads
 return tensors on the communicator's device).  ``irecv(buf=...)`` and
 ``recv_init(buf=...)`` on the socket and shm backends land a matched
-frame's bytes in the user's buffer itself.
+frame's bytes in the user's buffer itself.  The resident world server:
+``python -m mpi_tpu_torch.launcher serve`` (``serve.WorldServer``) keeps
+a pool of warm worker processes on the card and leases them as worlds;
+``connect(addr)`` -> ``acquire(n)`` -> ``lease.run(fn, *args)``.
 The top level binds every name of the reference's ``__all__`` whose
 module is ported (``tests/test_torch_names.py`` holds the list of those
 still to come).
@@ -318,11 +321,29 @@ def comm_self(device=None):
     return comm
 
 
+def connect(addr, timeout: float = 30.0, priority: int = 0):
+    """Connect to a resident world server (``serve.py``): returns a
+    :class:`~mpi_tpu_torch.serve.ServerClient` whose ``acquire(nranks)``
+    leases warm workers as a world.  ``addr`` is ``"host:port"``, a
+    ``WorldServer`` or the path of a ``serve --addr-file`` file (retried
+    within the ``connect_retry_timeout_s`` budget while it is missing).
+    The serve module is imported here, not with the package: it is also
+    the workers' ``-m`` entry point (``mpi_tpu/__init__.py:50``)."""
+    from . import serve as _serve
+
+    return _serve.connect(addr, timeout=timeout, priority=priority)
+
+
 def __getattr__(name: str):
     if name == "COMM_WORLD":
         return init()
     if name == "COMM_SELF":
         return comm_self()
+    if name == "serve":
+        # lazy, as connect: mpi_tpu_torch.serve is the workers' -m entry
+        import importlib
+
+        return importlib.import_module(".serve", __name__)
     raise AttributeError(f"module 'mpi_tpu_torch' has no attribute {name!r}")
 
 
@@ -335,6 +356,7 @@ __all__ = [
     "schedules", "checker", "checkpoint", "ft", "membership", "profiling",
     "progress", "telemetry", "trace", "verify", "COMM_WORLD", "COMM_SELF",
     "comm_self", "mpi4", "api", "errors", "rejoin", "io", "spawn",
+    "connect", "serve",
     "comm_spawn", "comm_spawn_multiple", "comm_get_parent", "open_port",
     "close_port", "comm_accept", "comm_connect", "publish_name",
     "unpublish_name", "lookup_name",

@@ -4,8 +4,10 @@
 waits, and the entry points ``barrier``, ``bcast``, ``allreduce`` (flat
 and block in place), ``allreduce_wire`` (compressed slot writes),
 ``reduce``, ``allgather``, ``alltoall``, ``scan`` and ``reduce_scatter``
-(:490-854).  The serve layer's pooled lease arenas (``_pooled_arena``,
-``retire_pooled``) belong to ROADMAP item 16.3c.
+(:490-854), and the serve layer's pooled lease arenas: a communicator
+stamped with ``_coll_sm_pool_ctx`` resolves through ``_pooled_arena``
+(:139), one epoch-stamped arena per worker set reused across leases,
+and ``retire_pooled`` (:442) unlinks them at pool shutdown.
 
 One POSIX shared-memory arena per shm communicator: P 64-byte flag lines
 (a monotone sequence counter per rank, posted with release and awaited
@@ -86,7 +88,10 @@ def gate(comm) -> Tuple[str, ...]:
 def arena_for(comm) -> Optional["Arena"]:
     """This communicator's arena, created collectively on first use; None
     when the arena cannot serve it (not shm, a one-rank group, a
-    nonblocking-collective clone, or the cvar kill switch)."""
+    nonblocking-collective clone, or the cvar kill switch).  A
+    communicator stamped with ``_coll_sm_pool_ctx`` (a serve lease's)
+    resolves through the transport's pool instead: one epoch-stamped
+    arena per worker set, reused across leases."""
     if _ARENA_BYTES <= 0 or comm.size < 2:
         return None
     if not getattr(comm._t, "supports_coll_sm", False):
@@ -95,8 +100,41 @@ def arena_for(comm) -> Optional["Arena"]:
         return None
     arena = comm.__dict__.get("_coll_sm_arena")
     if arena is None:
-        arena = comm._coll_sm_arena = Arena(comm)
+        pool_ctx = getattr(comm, "_coll_sm_pool_ctx", None)
+        if pool_ctx is not None:
+            arena = _pooled_arena(comm, pool_ctx)
+        else:
+            arena = Arena(comm)
+        comm._coll_sm_arena = arena
     return arena
+
+
+def _pooled_arena(comm, pool_ctx: Tuple) -> "Arena":
+    """The arena of a serve lease communicator.  Lease communicators get a
+    fresh context per job, so the per-communicator path would map and
+    unlink a multi-MiB segment per lease; instead the arena is keyed
+    ``(pool_ctx, worker set)`` in the transport's ``_coll_arenas``
+    registry (which the transport's close tears down) and outlives the
+    lease: the next lease over the same workers maps nothing.
+
+    ``pool_ctx`` carries the pool's membership epoch as the server
+    granted it with the lease (one value for the whole group).  An epoch
+    bump after a worker death retires the old segment: the first
+    same-group lease under the new epoch closes the stale arena, every
+    handle unlinking (its creator may be the dead worker), and builds a
+    fresh one the replacement can map.  Barrier sequences live in the
+    mapped flag lines, so a rank that re-attaches stays in lockstep."""
+    t = comm._t
+    pool = t._coll_arenas = getattr(t, "_coll_arenas", {})
+    key = (pool_ctx, comm._group)
+    arena = pool.get(key)
+    if arena is not None and not arena._closed:
+        return arena
+    for (ctx2, grp2) in list(pool):
+        if (grp2 == comm._group and ctx2 != pool_ctx
+                and isinstance(ctx2, tuple) and ctx2[:1] == pool_ctx[:1]):
+            pool.pop((ctx2, grp2)).close(force_unlink=True)
+    return Arena(comm, ctx=pool_ctx)
 
 
 def _arena_name(session: str, ctx, group) -> str:
@@ -114,7 +152,7 @@ class Arena:
     """One mapped collective arena: flag lines, data slots, and the sliced
     flag wait that turns a peer's death into ProcFailedError."""
 
-    def __init__(self, comm):
+    def __init__(self, comm, ctx=None):
         from .native import load_shmring
 
         t = comm._t
@@ -130,7 +168,13 @@ class Arena:
         self.slot_bytes = slot
         self.capacity = slot - _META_MAX  # payload bytes per slot
         nbytes = _LINE * p + slot * p
-        ctx = comm._ctx
+        # ``ctx`` overrides the naming and registration context: a pooled
+        # lease arena keeps one name across leases whose communicator
+        # contexts differ per job, and every one of its handles unlinks
+        # on close (its creator may be a dead worker)
+        self._pooled = ctx is not None
+        if ctx is None:
+            ctx = comm._ctx
         self.name = _arena_name(t._session, ctx, comm._group)
         self._creator = comm.rank == 0
         with _LIVE_LOCK:
@@ -296,7 +340,7 @@ class Arena:
     def _end(self) -> None:
         self._active -= 1
 
-    def close(self) -> None:
+    def close(self, force_unlink: bool = False) -> None:
         if self._closed:
             return
         self._closed = True
@@ -313,7 +357,10 @@ class Arena:
                 ent["refs"] -= 1
                 if ent["refs"] <= 0:
                     _LIVE.pop(self.name, None)
-        if self._creator:
+        # ``force_unlink``: a pooled arena retired by an epoch bump may
+        # have lost its creator with the dead worker, so every survivor
+        # unlinks (unlinking a name already gone is a harmless ENOENT)
+        if self._creator or force_unlink:
             self._lib.shmarena_unlink(self.name.encode())
             if self._flag_file is not None:
                 try:
@@ -326,6 +373,23 @@ def live_arenas() -> Dict[str, int]:
     """name -> live handle count."""
     with _LIVE_LOCK:
         return {k: v["refs"] for k, v in _LIVE.items()}
+
+
+def retire_pooled(transport) -> int:
+    """Close every pooled lease arena of ``transport``, each handle
+    unlinking: a pooled arena whose worker set never leases again is
+    retired by nothing else (the epoch sweep of :func:`_pooled_arena`
+    runs only when a new same-group lease arrives).  A serve worker calls
+    this when its job loop ends at pool shutdown.  Returns the number of
+    arenas retired."""
+    pool = getattr(transport, "_coll_arenas", None) or {}
+    retired = 0
+    for key, arena in list(pool.items()):
+        if getattr(arena, "_pooled", False):
+            pool.pop(key, None)
+            arena.close(force_unlink=True)
+            retired += 1
+    return retired
 
 
 # -- the collectives ---------------------------------------------------------

@@ -11,7 +11,9 @@ The fault-tolerance layer (``ft.py``, ``membership.py``) raises
 (:127) and ``RejoinRefusedError`` (:145); the runtime verifier
 (``verify/``) ``DeadlockError`` (:188), ``CollectiveMismatchError`` (:204)
 and, at the persistent collectives' double-buffer fence,
-``BufferPinnedError`` (:178).
+``BufferPinnedError`` (:178).  The resident world server (``serve.py``)
+raises ``ServerBusyError`` (:154) past its admission bound and ships
+``NoQuorumError`` (:165) by name.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ __all__ = [
     "MPI_ERR_PROC_FAILED", "MPI_ERR_REVOKED",
     "ERRORS_ARE_FATAL", "ERRORS_RETURN", "ErrorCode",
     "ProcFailedError", "RevokedError",
-    "EpochSkewError", "RejoinRefusedError",
-    "BufferPinnedError", "DeadlockError", "CollectiveMismatchError",
+    "EpochSkewError", "RejoinRefusedError", "ServerBusyError",
+    "NoQuorumError", "BufferPinnedError", "DeadlockError",
+    "CollectiveMismatchError",
     "error_class", "error_string", "invoke_handler",
 ]
 
@@ -143,6 +146,23 @@ class RejoinRefusedError(RuntimeError):
     protocol exists to prevent."""
 
 
+class ServerBusyError(RuntimeError):
+    """Admission-control rejection from a resident world server
+    (``serve.py``): its acquire queue is at its bound (``max_pending``),
+    so the request is rejected at once with this named error instead of
+    joining an unbounded wait; the client backs off, retries or goes to
+    another server."""
+
+
+class NoQuorumError(RuntimeError):
+    """The replicated namespace store of a server federation cannot
+    commit: this node is on the minority side of a partition, so a
+    federation server refuses new leases with this error instead of
+    serving on stale namespace state.  Federation is ROADMAP 16.3c's
+    second half; until it lands this error reaches a client only as a
+    shipped error (``serve._raise_error``)."""
+
+
 class BufferPinnedError(RuntimeError):
     """Persistent-collective double-buffer fence (``nbc.py``, with the
     runtime verifier on): ``start()`` of round k would overwrite the
@@ -247,9 +267,19 @@ def error_class(exc: Any) -> int:
         return MPI_ERR_PROC_FAILED
     if isinstance(exc, RevokedError):
         return MPI_ERR_REVOKED
+    if isinstance(exc, EpochSkewError):
+        # the stale side's world generation is dead to the survivors: the
+        # closest ULFM class is "your communicator was revoked"
+        return MPI_ERR_REVOKED
+    if isinstance(exc, RejoinRefusedError):
+        return MPI_ERR_PROC_FAILED  # refused because it is a declared corpse
     if isinstance(exc, DeadlockError):
         return MPI_ERR_PENDING  # operations pending forever: the closest class
     if isinstance(exc, CollectiveMismatchError):
+        return MPI_ERR_OTHER
+    if isinstance(exc, (ServerBusyError, NoQuorumError)):
+        # a transient resource condition, not an argument error: the
+        # request was well formed and may succeed on retry or failover
         return MPI_ERR_OTHER
     if isinstance(exc, BufferPinnedError):
         return MPI_ERR_BUFFER

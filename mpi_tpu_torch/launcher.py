@@ -22,8 +22,10 @@ activates a tuned-dispatch table in every rank (``MPI_TPU_TUNING_TABLE``,
 :264).  ``--backend shm`` runs the ranks over the native shared-memory
 rings (``transport/shm.py``): the ring is built once up front (:92), and
 the rendezvous teardown unlinks any segment a crashed rank left behind.
-The resident world server (``launcher serve``) is ROADMAP item 16.3c and
-raises.
+``--link-retry-timeout S`` sets every rank's socket link-healing budget
+(``MPI_TPU_LINK_RETRY_S``, the ``link_retry_timeout_s`` cvar, :228).
+``launcher serve ...`` runs the resident world server (``serve.main``,
+:190-197); its workers take ``--device`` as the ranks do.
 
 Usage::
 
@@ -34,6 +36,7 @@ Usage::
     MPI_TPU_FT=1 python -m mpi_tpu_torch.launcher -n 4 --progress thread prog.py
     python -m mpi_tpu_torch.launcher -n 4 --verify --trace-dir traces prog.py
     python -m mpi_tpu_torch.tools.tracecat traces -o merged.json
+    python -m mpi_tpu_torch.launcher serve --pool-size 4 --addr-file F
 """
 
 from __future__ import annotations
@@ -178,12 +181,15 @@ def _exit_summary(procs: List[subprocess.Popen]) -> str:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["serve"]:
-        raise NotImplementedError(
-            "launcher serve (the resident world server) is not ported yet: "
-            "ROADMAP.md item 16.3c")
+        # the resident world server: warm workers leased as worlds in one
+        # round trip, dead workers replaced under a new membership epoch
+        from . import serve
+
+        return serve.main(argv[1:])
     parser = argparse.ArgumentParser(
         prog="mpi_tpu_torch.launcher",
-        description="mpirun-alike launcher for mpi_tpu_torch")
+        description="mpirun-alike launcher for mpi_tpu_torch (or "
+                    "'... launcher serve' for the resident world server)")
     parser.add_argument("-n", "--np", type=int, required=True, dest="nranks",
                         help="number of rank processes")
     parser.add_argument("--timeout", type=float, default=None,
@@ -206,6 +212,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                              "(MPI_TPU_VERIFY=1 on every rank): deadlock "
                              "detection, collective-matching signatures, "
                              "request and buffer lints")
+    parser.add_argument("--link-retry-timeout", type=float, default=None,
+                        metavar="S",
+                        help="socket link-healing budget of every rank "
+                             "(MPI_TPU_LINK_RETRY_S, the "
+                             "link_retry_timeout_s cvar): a send-path "
+                             "OSError whose peer is not failure-suspected "
+                             "reconnects with backoff for up to this many "
+                             "seconds, replaying unacked frames; keep it "
+                             "below fault_detect_timeout_s")
     parser.add_argument("--trace-dir", default=None, metavar="DIR",
                         help="enable the flight recorder on every rank "
                              "(MPI_TPU_TRACE=1) and export one Chrome-trace "
@@ -228,6 +243,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         env_extra["MPI_TPU_VERIFY"] = "1"
     if args.progress is not None:
         env_extra["MPI_TPU_PROGRESS"] = args.progress
+    if args.link_retry_timeout is not None:
+        if args.link_retry_timeout <= 0:
+            parser.error("--link-retry-timeout must be > 0 (the "
+                         "reference's healing-off mode, 0, is not ported)")
+        env_extra["MPI_TPU_LINK_RETRY_S"] = str(args.link_retry_timeout)
     if args.trace_dir is not None:
         env_extra["MPI_TPU_TRACE"] = "1"
         env_extra["MPI_TPU_TRACE_DIR"] = os.path.abspath(args.trace_dir)

@@ -464,6 +464,27 @@ def _builtin_cvars() -> None:
             "constants.  Empty = no table.  Writing loads and validates "
             "at once; a table measured on another machine loads but never "
             "serves"),
+        "link_retry_timeout_s": (
+            lambda: _resilience._RETRY_TIMEOUT_S,
+            _set_positive(_resilience, "_RETRY_TIMEOUT_S",
+                          "link_retry_timeout_s"),
+            "socket link-healing budget: a send-path OSError whose peer is "
+            "not failure-suspected reconnects with backoff and replays the "
+            "unacked frames for up to this many seconds; also the "
+            "no-ack-progress bound of a full retained window.  Keep it "
+            "below fault_detect_timeout_s.  MPI_TPU_LINK_RETRY_S (the "
+            "launcher's --link-retry-timeout) seeds the default"),
+        "connect_retry_timeout_s": (
+            lambda: _resilience._CONNECT_RETRY_TIMEOUT_S,
+            _set_nonneg_s(_resilience, "_CONNECT_RETRY_TIMEOUT_S",
+                          "connect_retry_timeout_s (0 = first-failure "
+                          "raise)"),
+            "initial server-connect retry budget of connect() / "
+            "serve.ServerClient and the serve worker's control dial: a "
+            "refused or timed-out dial is retried with backoff and jitter "
+            "for this long (a serve --addr-file still being published is "
+            "waited for as long).  0 restores first-failure raise.  "
+            "MPI_TPU_CONNECT_RETRY_S seeds the default"),
         "link_keepalive_s": (
             lambda: _resilience._KEEPALIVE_S,
             _set_nonneg_s(_resilience, "_KEEPALIVE_S",

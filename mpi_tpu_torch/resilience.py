@@ -2,7 +2,13 @@
 the port's own copy of what ``transport/socket.py`` uses of
 ``mpi_tpu/resilience.py``: ``LinkState`` with its per-peer stream
 generation (``peer_gen`` :261, ``purge_peer`` :478, the ``gen`` argument
-of ``rx_fresh`` / ``tx_ack`` / ``rx_gate``) and ``backoff_delays`` (:131).
+of ``rx_fresh`` / ``tx_ack`` / ``rx_gate``) and ``backoff_delays`` (:131),
+and what the serve layer dials with: ``retry_connect`` (:160) and its
+``TRANSIENT_DIAL_ERRORS`` (:157).  The link's retry budget and the
+connect retry budget are the ``link_retry_timeout_s`` and
+``connect_retry_timeout_s`` cvars, seeded from ``MPI_TPU_LINK_RETRY_S``
+(:85; the launcher's ``--link-retry-timeout`` reaches its ranks this
+way) and ``MPI_TPU_CONNECT_RETRY_S`` (:119).
 
 A mid-send ``OSError`` on a socket is a LINK fault (a reset, a dropped
 connection) between two live processes; it is healed transparently by
@@ -37,6 +43,7 @@ events (:337, :496).
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
@@ -51,7 +58,8 @@ from .transport.base import TransportError
 # Reconnect budget for ONE link fault: total time the sender may spend
 # re-establishing a torn connection (and the no-ack-progress bound of a
 # full retained window) before the fault becomes a TransportError.
-_RETRY_TIMEOUT_S = 4.0
+# mpit cvar: link_retry_timeout_s; env default: MPI_TPU_LINK_RETRY_S.
+_RETRY_TIMEOUT_S = float(os.environ.get("MPI_TPU_LINK_RETRY_S", "4.0"))
 
 # Retained-window ceiling per destination: sends block (in slices) once
 # this many unacked bytes are outstanding, and a window that makes no ack
@@ -68,6 +76,14 @@ _BACKOFF_FACTOR = 2.0
 _BACKOFF_CAP_S = 0.5
 
 _WINDOW_POLL_S = 0.05  # slice of the window-full wait
+
+# Initial-connect retry budget of control-plane clients (the serve
+# worker's control dial, serve.ServerClient / connect): a refused or
+# timed-out dial is retried with the backoff schedule for this long, the
+# server may still be binding.  0 restores first-failure raise.
+# mpit cvar: connect_retry_timeout_s; env: MPI_TPU_CONNECT_RETRY_S.
+_CONNECT_RETRY_TIMEOUT_S = float(
+    os.environ.get("MPI_TPU_CONNECT_RETRY_S", "10.0"))
 
 # Idle-link keepalive cadence (cvar link_keepalive_s): cached connections
 # that sent nothing for this long are probed with a header-only ack frame
@@ -90,6 +106,33 @@ def backoff_delays(base: float = _BACKOFF_BASE_S,
     while True:
         yield rng.uniform(0.0, ceiling)
         ceiling = min(cap, ceiling * factor)
+
+
+# Dial failures retry_connect waits out: a refused connect (the server is
+# still binding) and a connect that timed out (a listener that absorbed
+# the handshake without completing it).  Anything else propagates at once.
+TRANSIENT_DIAL_ERRORS = (ConnectionRefusedError, TimeoutError)
+
+
+def retry_connect(dial: Callable[[], "object"],
+                  timeout_s: Optional[float] = None,
+                  rng: Optional[random.Random] = None,
+                  retry_on: Tuple[type, ...] = TRANSIENT_DIAL_ERRORS):
+    """Run ``dial()`` (a socket factory), retrying the failures in
+    ``retry_on`` with backoff and jitter for up to ``timeout_s`` (default:
+    the connect_retry_timeout_s cvar); any other failure propagates at
+    once."""
+    budget = _CONNECT_RETRY_TIMEOUT_S if timeout_s is None else timeout_s
+    deadline = time.monotonic() + budget
+    delays = backoff_delays(rng=rng)
+    while True:
+        try:
+            return dial()
+        except retry_on:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise
+            time.sleep(min(next(delays), remaining))
 
 
 class _TxState:

@@ -15,8 +15,9 @@
 None, so with tracing off the ``trace_events`` pvar stays 0.  Enable with
 ``run(..., backend="local", trace=True)``, ``MPI_TPU_TRACE=1`` (export at
 exit with ``MPI_TPU_TRACE_DIR``, the launcher's ``--trace-dir``) or
-:func:`enable`.  The serve Prometheus endpoint (``telemetry/metrics.py``)
-is ROADMAP item 16.3c.
+:func:`enable`.  ``telemetry/metrics.py`` renders a resident world
+server's ``stats()`` and the histogram pvars as Prometheus text (the
+``/metrics`` endpoint of ``serve.WorldServer``).
 """
 
 from __future__ import annotations

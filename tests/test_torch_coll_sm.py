@@ -6,9 +6,10 @@ and the flat / block-in-place boundary; the group-coherent decline
 (object, ragged, oversized and mismatched payloads); the compressed slot
 path; the copy contract (zero frames, zero pickled bytes, at most two
 copies per rank); and the arena's lifecycle, gate and fault tolerance.
-The checklist is ``tests/test_coll_sm.py``, without ``:414`` (pooled
-lease arenas, ROADMAP 16.3c); ``:517`` (hierarchical splits) is held in
-``tests/test_torch_hierarchical.py``."""
+The checklist is ``tests/test_coll_sm.py``; ``:517`` (hierarchical
+splits) is held in ``tests/test_torch_hierarchical.py``, and the pooled
+lease arenas (``:414``) here and through a serve pool in
+``tests/test_torch_host_ref_serve.py``."""
 
 import glob
 import os
@@ -343,6 +344,64 @@ def test_nonblocking_collectives_skip_the_arena():
     before = len(coll_sm.live_arenas())
     assert port_shm(prog, 2) == [3.0, 3.0]
     assert len(coll_sm.live_arenas()) == before
+
+
+def test_retire_pooled_sweeps_lease_arenas_at_finalize():
+    """``tests/test_coll_sm.py:414`` with tensors: a communicator stamped
+    with the serve lease's ``_coll_sm_pool_ctx`` rides a pooled arena;
+    ``retire_pooled`` retires exactly the pooled arenas (every handle
+    unlinks) and leaves the per-communicator one to its refcounted close;
+    a second sweep finds nothing."""
+    seen = {}
+
+    def prog(comm):
+        comm.allreduce(torch.ones(4), algorithm="sm")  # per-comm arena
+        lease = comm.split(0, key=comm.rank)
+        lease._coll_sm_pool_ctx = ("lease-pool", 0)  # the serve stamp
+        out = lease.allreduce(torch.full((2,), float(comm.rank)), algorithm="sm")
+        pooled = lease._coll_sm_arena
+        assert pooled._pooled and not comm._coll_sm_arena._pooled
+        if comm.rank == 0:
+            seen["file"] = glob.glob("/dev/shm" + pooled.name)
+        comm.barrier()
+        retired = coll_sm.retire_pooled(comm._t)
+        comm.barrier()  # every handle closed before the unlink check
+        if comm.rank == 0:
+            seen["gone"] = glob.glob("/dev/shm" + pooled.name)
+            seen["live"] = dict(coll_sm.live_arenas())
+            seen["names"] = (pooled.name, comm._coll_sm_arena.name)
+        return float(out[0]), retired, coll_sm.retire_pooled(comm._t)
+
+    res = port_shm(prog, 3)
+    assert [r[0] for r in res] == [3.0, 3.0, 3.0]
+    assert [r[1] for r in res] == [1, 1, 1], "sweep missed a pooled arena"
+    assert [r[2] for r in res] == [0, 0, 0]
+    pooled_name, world_name = seen["names"]
+    assert len(seen["file"]) == 1 and seen["gone"] == []
+    assert world_name in seen["live"] and pooled_name not in seen["live"]
+    assert world_name not in coll_sm.live_arenas()  # pruned at finalize
+
+
+def test_pooled_arena_is_reused_and_retired_by_an_epoch_bump():
+    """``coll_sm._pooled_arena``: two lease communicators of one worker set
+    under one epoch share one arena (no per-lease segment); a lease under a
+    bumped epoch closes and unlinks the stale one and maps a fresh one."""
+    def prog(comm):
+        names = []
+        for job, epoch in ((1, 0), (2, 0), (3, 1)):
+            lease = P2PCommunicator(comm._t, comm._group, ("lease", job))
+            lease._coll_sm_pool_ctx = ("lease-pool", epoch)
+            out = lease.allreduce(torch.ones(2), algorithm="sm")
+            names.append((lease._coll_sm_arena.name, float(out[0])))
+            comm.barrier()
+        stale = glob.glob("/dev/shm" + names[0][0])
+        comm.barrier()
+        return names, stale, coll_sm.retire_pooled(comm._t)
+
+    for names, stale, retired in port_shm(prog, 2):
+        assert names[0] == names[1] != names[2]
+        assert [v for _, v in names] == [2.0, 2.0, 2.0]
+        assert stale == [] and retired == 1
 
 
 def test_stale_arena_from_crashed_run_is_not_opened():

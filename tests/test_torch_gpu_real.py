@@ -841,3 +841,28 @@ def test_file_round_trip_of_a_card_tensor(tmp_path, datarep):
     assert back.device.type == "cuda" and torch.equal(back.cpu(), x)
     disk = np.fromfile(path, dtype=">f4" if datarep == "external32" else "<f4")
     assert np.array_equal(disk[::2], x.numpy())
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["socket", "shm"])
+def test_serve_leases_card_workers(monkeypatch, backend):
+    """A resident world server's workers on the card (no ``MPI_TPU_DEVICE``):
+    ``examples/host_serve.py``'s checked 4 MiB-a-rank allreduce on every
+    worker's card, and the card tensor lease rank 0 returns arrives on the
+    client's CPU."""
+    _card()
+    from mpi_tpu_torch import connect, serve
+    from mpi_tpu_torch.examples.host_serve import job_allreduce_checked
+
+    monkeypatch.delenv("MPI_TPU_DEVICE", raising=False)
+    with serve.WorldServer(pool_size=2, backend=backend) as srv:
+        client = connect(srv)
+        try:
+            res = client.run(job_allreduce_checked, 4, nranks=2, timeout=120.0)
+            assert all(res["ok"]) and res["want"] == 3.0, res
+            assert [d.split(":")[0] for d in res["devices"]] == ["cuda"] * 2
+            assert res["head"].device.type == "cpu"
+            assert res["head"].tolist() == [3.0] * 4
+        finally:
+            client.close()

@@ -481,12 +481,13 @@ def test_unported_features_name_their_roadmap_items(tmp_path, monkeypatch):
     from mpi_tpu_torch import checkpoint, launcher, membership, tuning
     from mpi_tpu_torch.transport.shm import ShmTransport, run_shm
 
-    # still unported: 16.3c (serve); 16.5's process checkpoints now run
+    # still unported: 16.3c's second half (federation); the server itself
+    # and 16.5's process checkpoints now run
     ckpt = str(tmp_path / "ck")
     assert port_run(lambda c: (checkpoint.save(ckpt, {"r": c.rank}, c),
                                checkpoint.load(ckpt, c))[1]["r"], 2) == [0, 1]
-    with pytest.raises(NotImplementedError, match="16.3c"):
-        launcher.main(["serve", "--help"])
+    with pytest.raises(NotImplementedError, match=r"16\.3c \(federation\)"):
+        launcher.main(["serve", "--federation", str(tmp_path)])
     # 16.4: "sm" runs on an shm world, and off shm it is an unknown name,
     # as in the reference's local and socket worlds
     assert [float(v[0]) for v in run_shm(

@@ -15,6 +15,9 @@ A rewritten module gets the port's world runners with ``device="cpu"``
 (``run_local``, ``run``, ``init``, ``verify_run``, the reference tests'
 in-process socket and shm worlds, and the transports they construct); no
 card is used and nothing falls back to the CPU behind a caller's back.
+Processes the port starts for a test (serve workers and their
+replacements) take ``MPI_TPU_DEVICE=cpu`` from the environment, which the
+``cpu_device_env`` fixture below sets for the test's duration only.
 Its ``mpit`` is the port's, with the reference's internal ``counters``
 object read through the port's pvars (``mpit._PVAR_OF``).
 
@@ -45,6 +48,17 @@ from mpi_tpu_torch.transport import socket as _socket
 
 TESTS = pathlib.Path(__file__).resolve().parent
 SHIM = "_mtt_ref_port"
+
+
+@pytest.fixture
+def cpu_device_env(monkeypatch):
+    """``MPI_TPU_DEVICE=cpu`` while one test runs: the device of every
+    process the port starts for it (serve workers, their replacements).
+    Scoped to the test, since ``tests/test_torch_host_ft.py`` and others
+    check that nothing runs on the CPU without being told."""
+    from mpi_tpu_torch.membership import ENV_DEVICE
+
+    monkeypatch.setenv(ENV_DEVICE, "cpu")
 
 
 def _run_local(fn, nranks, *args, **kwargs):
@@ -251,7 +265,7 @@ REFERENCE_FILES = (
     "local_backend", "socket_backend", "groups", "attributes", "errors",
     "mpit", "nonblocking", "ops_extended", "scan_reduce_scatter",
     "vector_collectives", "segmented_collectives2", "resilience", "codec",
-    "sanitize_native", "zero_copy_user", "spawn", "io")
+    "sanitize_native", "zero_copy_user", "spawn", "io", "serve")
 
 
 @pytest.mark.parametrize("name", REFERENCE_FILES)

@@ -23,20 +23,15 @@ that holds the behavior):
   internals (retained_bytes); membership_invalidate is held by
   tests/test_torch_host_membership.py.
 * ``test_healing_disabled_streams_unretained_and_faults_terminal``: writes
-  the link_retry_timeout_s cvar, which the port does not have (the link's
-  retry budget is a constant, ROADMAP 'Recorded differences of the host
-  layer').
+  0 to the link_retry_timeout_s cvar, the reference's healing-off mode
+  (frames streamed unretained, every link fault terminal), which the port
+  does not have: its cvar takes a positive budget (ROADMAP 'Recorded
+  differences of the host layer'); healing within the budget is held by
+  tests/test_torch_host_socket.py::test_socket_link_heals_and_replays_after_a_dropped_connection.
 * ``test_window_bound_one_way_flood_acked_by_flusher``: writes the
   link_window_bytes cvar, which the port does not have (the retained
   window is a constant); the bounded window is held by
   tests/test_torch_host_socket.py::test_socket_link_heals_and_replays_after_a_dropped_connection.
-* ``test_retry_connect_waits_out_refused_then_raises_others``:
-  resilience.retry_connect belongs to the serve layer, ROADMAP item 16.3c
-  (unported).
-* ``test_serve_lease_rides_healed_links``: the serve layer (WorldServer),
-  ROADMAP item 16.3c (unported).
-* ``test_server_client_connects_to_delayed_server``: the serve layer
-  (connect), ROADMAP item 16.3c (unported).
 * ``test_bufref_touch_snapshots_before_mutation``: drives bufpool.BufRef
   with a numpy array; the port's ownership layer tracks tensors, held by
   tests/test_torch_host_socket.py::test_retained_frame_is_copied_before_an_in_place_write.
@@ -54,7 +49,9 @@ that holds the behavior):
   epoch skew verdict is held by tests/test_torch_host_membership.py.
 """
 
-from tests.test_torch_host_ref import port_cases
+import pytest
+
+from tests.test_torch_host_ref import cpu_device_env, port_cases  # noqa: F401
 
 EXCLUDED = {
     'test_linkstate_seq_ack_prune': (
@@ -83,24 +80,16 @@ EXCLUDED = {
         'held by tests/test_torch_host_membership.py'
     ),
     'test_healing_disabled_streams_unretained_and_faults_terminal': (
-        'writes the link_retry_timeout_s cvar, which the port does not have '
-        "(the link's retry budget is a constant, ROADMAP 'Recorded "
-        "differences of the host layer')"
+        "writes 0 to the link_retry_timeout_s cvar, the reference's "
+        'healing-off mode, which the port does not have (its cvar takes a '
+        "positive budget, ROADMAP 'Recorded differences of the host "
+        "layer'); healing within the budget is held by "
+        'tests/test_torch_host_socket.py::test_socket_link_heals_and_replays_after_a_dropped_connection'
     ),
     'test_window_bound_one_way_flood_acked_by_flusher': (
         'writes the link_window_bytes cvar, which the port does not have '
         '(the retained window is a constant); the bounded window is held by '
         'tests/test_torch_host_socket.py::test_socket_link_heals_and_replays_after_a_dropped_connection'
-    ),
-    'test_retry_connect_waits_out_refused_then_raises_others': (
-        'resilience.retry_connect belongs to the serve layer, ROADMAP item '
-        '16.3c (unported)'
-    ),
-    'test_serve_lease_rides_healed_links': (
-        'the serve layer (WorldServer), ROADMAP item 16.3c (unported)'
-    ),
-    'test_server_client_connects_to_delayed_server': (
-        'the serve layer (connect), ROADMAP item 16.3c (unported)'
     ),
     'test_bufref_touch_snapshots_before_mutation': (
         "drives bufpool.BufRef with a numpy array; the port's ownership "
@@ -126,3 +115,9 @@ EXCLUDED = {
 }
 
 globals().update(port_cases("test_resilience", EXCLUDED))
+
+# the serve cases' workers run on the CPU (MPI_TPU_DEVICE=cpu for the test)
+for _name in ("test_server_client_connects_to_delayed_server",
+              "test_serve_lease_rides_healed_links"):
+    globals()[_name] = pytest.mark.usefixtures("cpu_device_env")(
+        globals()[_name])

@@ -8,7 +8,10 @@ allreduce over the shared-memory rings (built from the port's own
 ``native/shmring.cpp`` into ``mpi_tpu_torch/_build/``; no library of
 ``mpi_tpu/native`` is mapped), and the host paths of the process
 checkpoints, graph topologies, hierarchical splits, intercommunicators,
-the flat ``api`` and the ``master_worker`` example, on the CPU."""
+the flat ``api`` and the ``master_worker`` example, on the CPU, and a
+resident world server whose one ``-m mpi_tpu_torch.serve --worker``
+process starts under the same import block (a ``sitecustomize`` on its
+``PYTHONPATH``) and serves a lease."""
 
 import ast
 import os
@@ -22,8 +25,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "mpi_tpu")
 
-_CHILD = r"""
-import importlib, importlib.abc, pkgutil, sys
+_BLOCK = r"""
+import importlib.abc, sys
 
 BLOCKED = %r
 
@@ -34,6 +37,11 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+""" % (BLOCKED,)
+
+_CHILD = _BLOCK + r"""
+import importlib, os, pkgutil
+_BLOCK = %r
 import torch
 import mpi_tpu_torch
 names = ["mpi_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -60,7 +68,9 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.io", "mpi_tpu_torch.examples.spawn_workers",
        "mpi_tpu_torch.examples.coupled_models",
        "mpi_tpu_torch.examples.parallel_io",
-       "mpi_tpu_torch.examples.host_dynamic"]
+       "mpi_tpu_torch.examples.host_dynamic", "mpi_tpu_torch.serve",
+       "mpi_tpu_torch.telemetry.metrics",
+       "mpi_tpu_torch.examples.host_serve"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
 from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")
@@ -139,6 +149,19 @@ x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
 out = mpi_tpu_torch.run(lambda c, d: c.allreduce(d[c.rank], algorithm="pallas_ring"),
                         x, nranks=8, device="cpu")
 assert torch.equal(out[0], x.sum(0)), out
+# the resident world server: its worker process starts with the same
+# block installed by a sitecustomize, which leaves a mark that it ran
+from mpi_tpu_torch import serve
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/sitecustomize.py", "w") as f:
+        f.write(_BLOCK + "open(%%r + '/blocked.' + str(__import__('os').getpid()), 'w')"
+                "\n" %% tmp)
+    env = {"MPI_TPU_DEVICE": "cpu", "PYTHONPATH": tmp + ":" + %r}
+    with serve.WorldServer(pool_size=1, env_extra=env) as srv:
+        client = mpi_tpu_torch.connect(srv)
+        assert client.run(serve.job_allreduce, 8, nranks=1, timeout=60) == 1.0
+        client.close()
+    assert [n for n in os.listdir(tmp) if n.startswith("blocked.")], os.listdir(tmp)
 if not torch.cuda.is_available():
     try:
         mpi_tpu_torch.run(lambda c: c.rank, nranks=2)
@@ -157,7 +180,7 @@ def _env():
 
 
 def test_port_imports_no_jax():
-    res = subprocess.run([sys.executable, "-c", _CHILD % (BLOCKED,)], cwd=ROOT,
+    res = subprocess.run([sys.executable, "-c", _CHILD % (_BLOCK, str(ROOT))], cwd=ROOT,
                          env=_env(), capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "imported" in res.stdout

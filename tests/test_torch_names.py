@@ -3,9 +3,12 @@
 
 Every name of ``mpi_tpu.__all__`` is bound in ``mpi_tpu_torch`` except
 those of modules still to be ported, each listed with its ROADMAP item,
-so the list can only shrink.  ``COMM_WORLD`` and ``COMM_SELF`` are read
-lazily by both packages (reading ``COMM_WORLD`` builds the world, which
-needs a card without ``device=``), so they are checked as lazy names."""
+so the list can only shrink (it is empty since the serve layer landed).
+``COMM_WORLD`` and ``COMM_SELF`` are read lazily by both packages
+(reading ``COMM_WORLD`` builds the world, which needs a card without
+``device=``), and so is ``serve`` (the module is also the workers' ``-m``
+entry point, so neither package imports it with itself): they are
+checked as lazy names."""
 
 import pytest
 import torch
@@ -13,10 +16,8 @@ import torch
 import mpi_tpu
 import mpi_tpu_torch
 
-UNPORTED = {
-    "connect": "16.3c", "serve": "16.3c",
-}
-LAZY = ("COMM_WORLD", "COMM_SELF")
+UNPORTED: dict = {}
+LAZY = ("COMM_WORLD", "COMM_SELF", "serve")
 
 
 def test_every_reference_name_is_bound_or_listed_unported():
@@ -59,7 +60,7 @@ def test_names_are_the_port_modules_objects():
     assert mpi_tpu_torch.__version__ == mpi_tpu.__version__
     for sub in ("checkpoint", "ft", "progress", "trace", "verify", "mpi4",
                 "api", "membership", "profiling", "telemetry", "schedules",
-                "checker", "errors", "io", "spawn"):
+                "checker", "errors", "io", "spawn", "serve"):
         assert getattr(mpi_tpu_torch, sub).__name__ == f"mpi_tpu_torch.{sub}"
 
 

@@ -7,9 +7,14 @@ sequences are equal (timestamps aside; blocked-wait spans, which depend
 on timing, are compared by kind only), the Chrome exports carry the same
 keys, the histograms read back the same counts and quantiles for the same
 samples, and the port's ``tracecat`` finds the reference's offsets for
-the same documents.  Not written: the serve Prometheus endpoint and the
-kill-mid-lease scrape (ROADMAP 16.3c) and the ``bench.py
---verify-overhead`` leg (the benchmark folder is not ported)."""
+the same documents.  The reference's Prometheus renderer case
+(``tests/test_telemetry.py:336``) and its serve case, stats and the
+metrics scrape staying live while a pool heals a kill mid-lease
+(``:374``), run unchanged on the port (``tests/test_torch_host_ref.py``,
+the workers on the CPU); ``tests/test_torch_serve.py`` holds the
+renderer byte for byte against the reference's.  Not written: the
+``bench.py --verify-overhead`` leg (the benchmark folder is not
+ported)."""
 
 import json
 import os
@@ -30,6 +35,7 @@ from mpi_tpu_torch import mpit, profiling, telemetry
 from mpi_tpu_torch.telemetry import Recorder
 from mpi_tpu_torch.tools import tracecat
 from tests.test_torch_host_local import to_torch
+from tests.test_torch_host_ref import cpu_device_env  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -475,3 +481,20 @@ def test_launcher_trace_dir_writes_one_trace_per_rank(tmp_path):
         "bcast", "reduce", "allgather", "alltoall", "barrier", "scan",
         "reduce_scatter", "scatter", "gather"}
     assert rec["coll_latency_s"]["p50"] <= rec["coll_latency_s"]["p99"]
+
+
+# -- the reference's serve telemetry cases, unchanged on the port ------------
+
+def _reference_cases():
+    from tests.test_torch_host_ref import port_cases
+
+    return port_cases("test_telemetry", only=(
+        "test_prometheus_text_render",
+        "test_stats_and_scrape_survive_kill_mid_lease"))
+
+
+_REF = _reference_cases()
+test_prometheus_text_render = _REF["test_prometheus_text_render"]
+# its pool's workers run on the CPU (MPI_TPU_DEVICE=cpu for the test)
+test_stats_and_scrape_survive_kill_mid_lease = pytest.mark.usefixtures(
+    "cpu_device_env")(_REF["test_stats_and_scrape_survive_kill_mid_lease"])
