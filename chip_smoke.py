@@ -316,14 +316,43 @@ ok line:
     the address file (one checked lease on the card, then ``--shutdown``):
     the server exits 0.  The card's memory in use is printed with the
     pools up and after the phase;
-28. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+28. host-federation, in two threads started at the beginning of phase 25
+    and joined after it: server federation with every pool's workers on
+    the card.  (a)-(c), (e): ``examples/host_federation.py --kill-leader``
+    starts two ``python -m mpi_tpu_torch.launcher serve --pool-size 2
+    --backend socket --federation <dir> --server-id f<i>
+    --fed-lease-timeout 2.0 --detect-timeout 2.0 --addr-file ...
+    --metrics-port 0`` processes (no ``--device``), waits for both
+    endpoint records and a leader, and ``connect(<dir>)`` runs one 2-rank
+    ``job_allreduce_checked`` lease at 64 MiB of float32 a rank, exact on
+    the workers, which report ``cuda``; (b) the leader's server process is
+    SIGKILLed, the same ``FederatedClient`` leases on the survivor (the
+    seconds from the kill printed), the dead server's pool is owned by the
+    survivor, whose ``stats()`` shows ``pools_adopted`` 1 and
+    ``orphans_reregistered`` 2 (the seconds from the kill printed), the
+    orphans kept their pids and their card, a 2-rank lease on the adopted
+    pool is exact and ``assert_no_leader_overlap`` finds no overlap; (c)
+    the survivor's ``/metrics`` gives ``mpi_tpu_fed_*`` gauges equal to
+    its ``stats()["federation"]``; (e) the survivor's shutdown stops the
+    adopted workers too: no ``mtt_serve_*`` directory and no ``/mtt_*``
+    segment of the phase is left.  (d) Beside it, three in-process
+    ``serve.WorldServer(pool_size=1, federation="raft:<i>@a0,a1,a2")``
+    each embed a store node; a partition isolating the store leader's
+    node makes that server's ``acquire`` raise ``NoQuorumError``
+    (``no_quorum_rejected`` rises) while a ``FederatedClient`` over the
+    client spec leases on a majority server, its worker on the card;
+    healed, the isolated server admits again; ``store_partition_dropped``
+    is above 0 and ``store_elections`` at least 1.  The raft servers'
+    lease bound is 10 s, so the partition's few seconds test the fence,
+    not a takeover;
+29. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10), each read right after it ran (``launches_by_path``).  The host
-    layer (phases 13-27) launches none of the kernels: its folds are
+    layer (phases 13-28) launches none of the kernels: its folds are
     in-place torch ops.
 
 Every phase prints its wall time, and their sum is printed after phase
-25.  The full record also goes to ``chiprun_out/chip_smoke.json``.
+28.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 
 import gc
@@ -3129,6 +3158,190 @@ def host_serve_phase(torch, record, started):
     record["host_serve"] = info
 
 
+FED_MIB = 64            # phase 28 (a): float32 MiB a rank of the checked lease
+RAFT_LEASE_S = 10.0     # phase 28 (d): the raft servers' leader-lease bound
+
+
+def _until(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out ({timeout} s) waiting for {what}")
+        time.sleep(0.05)
+
+
+def _host_federation_file_legs(out_dir):
+    """Phase 28's legs (a)-(c) and (e): the example on a file namespace."""
+    from mpi_tpu_torch.examples import host_federation
+
+    out = os.path.join(out_dir, "host_federation.json")
+    t0 = time.perf_counter()
+    rc = host_federation.main([
+        "--ns", os.path.join(out_dir, "ns"), "--servers", "2", "--pool-size", "2",
+        "--nranks", "2", "--mib", str(FED_MIB), "--require", "cuda", "--kill-leader",
+        "--out", out])
+    if rc != 0:
+        raise RuntimeError(f"host-federation (a)-(c), (e): examples/host_federation.py "
+                           f"exited {rc} (its stderr above)")
+    with open(out) as f:
+        info = json.load(f)
+    info["wall_s"] = time.perf_counter() - t0
+    return info
+
+
+def _host_federation_raft_leg():
+    """Phase 28's leg (d): three in-process servers on a raft namespace, a
+    partition that isolates the store leader's node, and the heal."""
+    import socket
+
+    from mpi_tpu_torch import connect, federation, federation_store, mpit, serve
+    from mpi_tpu_torch.errors import NoQuorumError
+    from mpi_tpu_torch.examples import host_serve
+
+    t0 = time.perf_counter()
+    socks = [socket.socket() for _ in range(3)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    addrs = ["127.0.0.1:%d" % sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    spec = "raft:" + ",".join(addrs)
+    servers = [serve.WorldServer(pool_size=1, federation=f"raft:{i}@{','.join(addrs)}",
+                                 server_id=f"r{i}", detect_timeout_s=SERVE_DETECT_S,
+                                 fed_lease_timeout_s=RAFT_LEASE_S) for i in range(3)]
+    info = {"addrs": addrs}
+    try:
+        for srv in servers:
+            srv.start(wait_ready=False)
+        for srv in servers:
+            srv._wait_ready(180.0)
+        _until(lambda: all(srv._fed.healthy() for srv in servers)
+               and federation.read_leader(spec), 60.0, "a healthy raft namespace's leader")
+        info["up_s"] = time.perf_counter() - t0
+        iso = next(i for i, srv in enumerate(servers)
+                   if srv._fed.store.node.role == "leader")
+        minority = servers[iso]
+        t1 = time.perf_counter()
+        federation_store.install_store_partition({i: int(i == iso) for i in range(3)})
+        _until(lambda: not minority._fed.healthy(), 30.0, "the isolated node's verdict")
+        info["unhealthy_after_s"] = time.perf_counter() - t1
+        rejected0 = minority.stats()["no_quorum_rejected"]
+        with connect(minority) as c:
+            try:
+                c.acquire(1, timeout=30.0)
+            except NoQuorumError as e:
+                info["refusal"] = str(e)
+            else:
+                raise RuntimeError("host-federation (d): the minority server granted a lease")
+        info["no_quorum_rejected"] = [rejected0, minority.stats()["no_quorum_rejected"]]
+        if info["no_quorum_rejected"][1] <= rejected0:
+            raise RuntimeError(f"host-federation (d): no_quorum_rejected "
+                               f"{info['no_quorum_rejected']}")
+        with connect(spec) as fc:
+            if not isinstance(fc, federation.FederatedClient):
+                raise RuntimeError(f"host-federation (d): connect({spec!r}) gave {fc!r}")
+            devices = fc.run(host_serve.job_devices, nranks=1, timeout=120.0)
+            info["majority_server"], info["majority_devices"] = fc.addr, devices
+            info["failovers"] = fc.failovers
+        if info["majority_server"] == minority.addr or devices[0].split(":")[0] != "cuda":
+            raise RuntimeError(f"host-federation (d): the federated lease ran on "
+                               f"{info['majority_server']} ({devices}); the minority is "
+                               f"{minority.addr}")
+        info["partitioned_s"] = time.perf_counter() - t1
+        federation_store.install_store_partition(None)
+        t2 = time.perf_counter()
+        _until(minority._fed.healthy, 30.0, "the healed node's quorum")
+        info["healthy_after_heal_s"] = time.perf_counter() - t2
+        with connect(minority) as c:
+            healed = c.run(serve.job_allreduce, 256, nranks=1, timeout=60.0)
+        if healed != 1.0:
+            raise RuntimeError(f"host-federation (d): the healed server's lease gave {healed}")
+        info["pvars"] = {p: mpit.pvar_read(p) for p in (
+            "store_elections", "store_entries_truncated", "store_partition_dropped",
+            "store_term", "store_commit_index")}
+        if not (info["pvars"]["store_partition_dropped"] > 0
+                and info["pvars"]["store_elections"] >= 1):
+            raise RuntimeError(f"host-federation (d): store pvars {info['pvars']}")
+        federation.assert_no_leader_overlap(spec)
+    finally:
+        for srv in servers:
+            srv.stop()
+    left = [srv.rdv for srv in servers if os.path.exists(srv.rdv)]
+    if left:
+        raise RuntimeError(f"host-federation (d): rendezvous dirs left {left}")
+    info["wall_s"] = time.perf_counter() - t0
+    return info
+
+
+def host_federation_start():
+    """Phase 28, started in two background threads at the beginning of phase
+    25: the file-namespace legs (a)-(c), (e) and the raft leg (d).  Returns
+    the handle :func:`host_federation_phase` joins."""
+    import threading
+
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "host_federation"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    started = {"t0": time.perf_counter(), "threads": []}
+
+    def leg(name, fn, *args):
+        def body():
+            try:
+                started[name] = fn(*args)
+            except BaseException as e:  # re-raised by host_federation_phase
+                started.setdefault("errors", []).append((name, e))
+        th = threading.Thread(target=body, name=f"phase-28-{name}", daemon=True)
+        th.start()
+        started["threads"].append(th)
+
+    leg("file", _host_federation_file_legs, out_dir)
+    leg("raft", _host_federation_raft_leg)
+    return started
+
+
+def host_federation_phase(torch, record, started):
+    """Phase 28: join the legs started by :func:`host_federation_start`; a
+    failure in any leg raises here.  Prints each leg's numbers."""
+    card = card_line()
+    for th in started["threads"]:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise RuntimeError(f"host-federation: {th.name} did not finish within 600 s")
+    if started.get("errors"):
+        name, e = started["errors"][0]
+        raise RuntimeError(f"host-federation {name} leg failed: {e!r}") from e
+    f, r = started["file"], started["raft"]
+    k = f["kill"]
+    log(f"host-federation (a): 2 federated launcher serve processes, 2 card workers each, "
+        f"up in {f['fabric_up_s']:.2f} s; connect(<dir>) leased 2 ranks on "
+        f"{f['lease']['devices']}: {f['lease']['bytes_per_rank'] >> 20} MiB float32 a rank, "
+        f"every element {f['lease']['want']}, {max(f['lease']['ms']):.1f} ms (slowest rank) "
+        f"[{card}]")
+    log(f"host-federation (b): SIGKILL of leader {k['leader']}: the same client leased on "
+        f"{k['survivor']} {k['kill_to_lease_s']:.3f} s after the kill ({k['failovers']} "
+        f"failover(s)); pool {k['adopted_pools']} adopted {k['kill_to_adoption_s']:.3f} s "
+        f"after it (pools_adopted {k['pools_adopted']}, orphans_reregistered "
+        f"{k['orphans_reregistered']}); orphans {k['orphans_after']} kept their pids "
+        f"(before {k['orphans_before']}); the adopted pool's lease exact "
+        f"{all(k['adopted_lease']['ok'])}; {k['authority_intervals']} authority "
+        f"intervals, no overlap; leader term {k['leader_term']} [{card}]")
+    log(f"host-federation (c): the survivor's /metrics mpi_tpu_fed_* = stats()['federation'] "
+        f"= {k['metrics']['federation']}")
+    log(f"host-federation (d): 3 raft-namespace servers up in {r['up_s']:.2f} s; the store "
+        f"leader's node isolated: unhealthy after {r['unhealthy_after_s']:.3f} s, acquire "
+        f"refused with NoQuorumError (no_quorum_rejected {r['no_quorum_rejected'][0]} -> "
+        f"{r['no_quorum_rejected'][1]}), the FederatedClient leased on "
+        f"{r['majority_server']} ({r['majority_devices']}, {r['failovers']} failover(s)); "
+        f"healed: quorum back after {r['healthy_after_heal_s']:.3f} s and the server admits "
+        f"again; store pvars {r['pvars']}; leg wall {r['wall_s']:.1f} s [{card}]")
+    log(f"host-federation (e): server exit codes {f['server_rcs']} (the killed leader -9), "
+        f"rendezvous dirs and segments left {f['rdv_left']}; legs' wall {f['wall_s']:.1f} s")
+    record["host_federation"] = {"file": f, "raft": r, "card": card}
+
+
 def main():
     import torch
 
@@ -3382,9 +3595,10 @@ def main():
     record["data_plane_phases_s"] = time.perf_counter() - t_shm
     log(f"phases 22-23: {record['data_plane_phases_s']:.1f} s")
 
-    # 24-27. process checkpoints, dynamic processes and files and the
-    # resident world server (26 and 27 started beside 24's launches, 27 in
-    # a thread), hierarchical dispatch and the flat layer ------------------
+    # 24-28. process checkpoints, dynamic processes and files, the resident
+    # world server (26 and 27 started beside 24's launches, 27 in a thread),
+    # hierarchical dispatch and the flat layer, and server federation (28,
+    # in threads beside 25) ------------------------------------------------
     t_flat = time.perf_counter()
     serving = host_serve_start()
     dynamic = host_dynamic_start()
@@ -3394,12 +3608,15 @@ def main():
     lap("host-dynamic")
     host_serve_phase(torch, record, serving)
     lap("host-serve")
+    federating = host_federation_start()
     host_flat_phase(torch, record)
     lap("host-flat")
+    host_federation_phase(torch, record, federating)
+    lap("host-federation")
     record["flat_layer_phases_s"] = time.perf_counter() - t_flat
-    log(f"phases 24-27: {record['flat_layer_phases_s']:.1f} s")
+    log(f"phases 24-28: {record['flat_layer_phases_s']:.1f} s")
     record["phases_s"] = time.perf_counter() - _T_START
-    log(f"phases 1-27: {record['phases_s']:.2f} s (the sum of the phase walls)")
+    log(f"phases 1-28: {record['phases_s']:.2f} s (the sum of the phase walls)")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

@@ -327,7 +327,11 @@ def connect(addr, timeout: float = 30.0, priority: int = 0):
     leases warm workers as a world.  ``addr`` is ``"host:port"``, a
     ``WorldServer`` or the path of a ``serve --addr-file`` file (retried
     within the ``connect_retry_timeout_s`` budget while it is missing).
-    The serve module is imported here, not with the package: it is also
+    A ``serve --federation`` namespace (a directory or a ``raft:`` spec)
+    or a list of ``"host:port"`` strings returns a
+    :class:`~mpi_tpu_torch.federation.FederatedClient` instead, which
+    resolves live servers and fails over on a server's death
+    (``mpi_tpu/__init__.py:57-58``).  The serve module is imported here, not with the package: it is also
     the workers' ``-m`` entry point (``mpi_tpu/__init__.py:50``)."""
     from . import serve as _serve
 

@@ -158,9 +158,9 @@ class NoQuorumError(RuntimeError):
     """The replicated namespace store of a server federation cannot
     commit: this node is on the minority side of a partition, so a
     federation server refuses new leases with this error instead of
-    serving on stale namespace state.  Federation is ROADMAP 16.3c's
-    second half; until it lands this error reaches a client only as a
-    shipped error (``serve._raise_error``)."""
+    serving on stale namespace state (``federation_store.py``; a client
+    receives it as a shipped error, ``serve._raise_error``, and a
+    ``FederatedClient`` fails over on it)."""
 
 
 class BufferPinnedError(RuntimeError):

@@ -25,7 +25,10 @@ the rendezvous teardown unlinks any segment a crashed rank left behind.
 ``--link-retry-timeout S`` sets every rank's socket link-healing budget
 (``MPI_TPU_LINK_RETRY_S``, the ``link_retry_timeout_s`` cvar, :228).
 ``launcher serve ...`` runs the resident world server (``serve.main``,
-:190-197); its workers take ``--device`` as the ranks do.
+:190-197), every option passed through, the federation's
+``--federation``, ``--server-id``, ``--fed-lease-timeout`` and
+``--orphan-timeout`` included; its workers take ``--device`` as the
+ranks do.
 
 Usage::
 
@@ -37,6 +40,7 @@ Usage::
     python -m mpi_tpu_torch.launcher -n 4 --verify --trace-dir traces prog.py
     python -m mpi_tpu_torch.tools.tracecat traces -o merged.json
     python -m mpi_tpu_torch.launcher serve --pool-size 4 --addr-file F
+    python -m mpi_tpu_torch.launcher serve --pool-size 2 --federation NS --server-id a
 """
 
 from __future__ import annotations

@@ -17,8 +17,11 @@
   recorder's ``trace_events`` (:380), the collective arena's
   ``coll_sm_hits`` / ``coll_sm_bytes`` / ``coll_sm_fallbacks`` (:266),
   compression's ``bytes_compressed_saved`` / ``compress_fallbacks``
-  (:311) and tuned dispatch's ``tuned_table_hits`` /
-  ``tuned_table_fallbacks`` (:320)).
+  (:311), tuned dispatch's ``tuned_table_hits`` /
+  ``tuned_table_fallbacks`` (:320) and the namespace store's
+  ``store_elections``, ``store_entries_truncated``,
+  ``store_partition_dropped`` counters and ``store_term`` /
+  ``store_commit_index`` gauges (:409-428)).
 * Histogram pvars (:451-600): log-bucketed distributions,
   ``hist_record``, ``pvar_hist_list`` / ``pvar_hist_read`` /
   ``pvar_hist_reset``, ``hist_quantile``, ``hist_cumulative``, pre-seeded
@@ -39,6 +42,7 @@
 
 from __future__ import annotations
 
+import sys
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -103,9 +107,30 @@ _PVAR_OF = {
     "compress_fallbacks": "compress_fallbacks",
     "tuned_table_hits": "tuned_table_hits",
     "tuned_table_fallbacks": "tuned_table_fallbacks",
+    # the replicated namespace store (federation_store.py): elections a
+    # node of this process started, uncommitted entries a new leader's
+    # conflict check truncated, and node frames an installed partition
+    # map dropped; all 0 in runs without a raft store
+    "store_elections": "store_elections",
+    "store_entries_truncated": "store_entries_truncated",
+    "store_partition_dropped": "store_partition_dropped",
 }
 
 _counters: Dict[str, int] = {name: 0 for name in _PVAR_OF.values()}
+
+
+def _store_gauge(field: str) -> int:
+    # a lazy lookup: reading a pvar must not import the federation tier
+    mod = sys.modules.get("mpi_tpu_torch.federation_store")
+    return 0 if mod is None else int(mod.store_gauge(field))
+
+
+# gauges, not counters: the current max term / commit index over this
+# process's live store nodes (0 with none)
+_GAUGES: Dict[str, Callable[[], int]] = {
+    "store_term": lambda: _store_gauge("term"),
+    "store_commit_index": lambda: _store_gauge("commit_index"),
+}
 
 
 def count(**deltas: int) -> None:
@@ -119,11 +144,14 @@ def count(**deltas: int) -> None:
 
 def pvar_list() -> List[str]:
     """MPI_T_pvar_get_info over all indices: the variable names."""
-    return sorted(_counters)
+    return sorted([*_counters, *_GAUGES])
 
 
 def pvar_read(name: str) -> int:
     """Absolute (process-lifetime) value of a performance variable."""
+    gauge = _GAUGES.get(name)
+    if gauge is not None:
+        return gauge()
     try:
         return _counters[name]
     except KeyError:
@@ -143,9 +171,8 @@ def pvar_reset(name: str) -> int:
 # the geometric midpoint 2^(k-0.5) of the bucket the rank falls in,
 # clamped to the observed min/max (at most ~41% relative error).
 # Recording sites: every traced collective (coll_latency_s, gated on the
-# flight recorder) and every socket link heal (link_heal_s, always on);
-# lease_acquire_s is the reference's serve lease grant (ROADMAP 16.3c) and
-# stays empty here.
+# flight recorder), every socket link heal (link_heal_s, always on) and
+# every serve lease grant (lease_acquire_s).
 
 _HIST_BUCKETS = 64
 

@@ -3,7 +3,7 @@ port's own copy of ``mpi_tpu/serve.py`` (framing :123-160,
 ``_admission_order`` :161, error shipping :175-200, the job payloads
 :202-270, the worker :273-584, ``_Worker`` / ``_Pool`` :590-632,
 ``WorldServer`` :635-1912, ``WorldLease`` :1918, ``ServerClient`` :1965,
-``connect`` :2123, ``main`` :2178).
+``connect`` :2123, ``main`` :2178), federation seams included.
 
 Many small worlds churned at a high rate are the shape this serves: the
 cold path (start N interpreters, import torch, bind ports, handshake
@@ -28,6 +28,16 @@ rings) costs seconds per world, so it is kept warm:
   epoch, the survivors drop the corpse's endpoints
   (``survivor_transition``), and a replacement worker rejoins the world
   under the new epoch through the claim / admit / ready protocol.
+* Federation (``federation.py``, ``federation_store.py``): servers given
+  one namespace (``federation=``, ``launcher serve --federation``; a
+  directory or a ``raft:`` spec) renew endpoint records, elect a leader
+  and adopt a dead server's pool, whose orphaned workers re-register with
+  the survivor (``MPI_TPU_SERVE_FED`` in their environment, within
+  ``orphan_timeout_s``); ``connect`` of a namespace or a server list
+  returns a :class:`~mpi_tpu_torch.federation.FederatedClient` that fails
+  over.  A server on the minority side of a store partition refuses new
+  leases with ``NoQuorumError`` (``MPI_TPU_SERVE_STORE_FENCE``, default
+  on).
 
 Wire protocol: length-prefixed pickle frames on a local TCP socket.  The
 server alone coordinates membership, so the workers run no agreement
@@ -46,13 +56,10 @@ What differs from the reference (ROADMAP "Recorded differences"):
   it is pickled to the server, so a client without a card can read it.
 * The pool's rendezvous directory is ``mtt_serve_*`` (the reference's
   ``mpi_tpu_serve_*``) and its pooled arenas are ``/mtt_<session>_*``.
-* Federation (``federation=``, the CLI's ``--federation``,
-  ``--server-id``, ``--fed-lease-timeout`` and ``--orphan-timeout``, a
-  namespace or server list given to :func:`connect`) is ROADMAP 16.3c's
-  second half and raises ``NotImplementedError``; a worker whose server
-  dies exits loudly.  The pool bookkeeping federation will call
-  (``owned_pool_records``, ``fed_summary``, ``adopt_pool``,
-  ``relinquish_pool``, ``is_leader``) is here.
+* An orphaned worker keeps its process, its CUDA context and its device
+  through a takeover: a lease on the adopted pool runs on the same card
+  as before.  A port server and a reference server never share a
+  namespace (their workers run different packages).
 """
 
 from __future__ import annotations
@@ -101,8 +108,11 @@ _WORKER_PVARS = ("msgs_sent", "collectives_started", "link_reconnects",
 # Sliding window of the worlds/s gauge (per-second completion buckets).
 _RATE_WINDOW_S = 60.0
 
-# Idle-worker pvar push cadence.
+# Idle-worker pvar push cadence, and the orphaned-worker budget: a worker
+# whose server died polls the federation namespace this long for the
+# survivor that adopted its pool before it gives up and exits.
 _PVAR_PUSH_S = 1.0
+_ORPHAN_TIMEOUT_S = 60.0
 
 # How long a fresh pool member waits for every slot's incarnation before
 # it starts its fault detector anyway (see _worker_main).
@@ -117,7 +127,9 @@ _RPC_GRACE_S = 15.0
 # rejected at once with ServerBusyError.
 _MAX_PENDING = 64
 
-_FEDERATION = "ROADMAP 16.3c (federation)"
+# Federation leader-lease bound (federation.py): authority self-expires at
+# half this, takeover fires past it.
+_FED_LEASE_TIMEOUT_S = 3.0
 
 
 class ServerLostError(TransportError):
@@ -132,11 +144,6 @@ class WorkerStartError(RuntimeError):
     ``WorldServer.start()`` — most often a worker with no device: no card
     and no ``MPI_TPU_DEVICE``.  Its traceback is on the server's
     stderr."""
-
-
-def _federation_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: server federation is not ported yet ({_FEDERATION})")
 
 
 # -- framing ------------------------------------------------------------------
@@ -311,9 +318,14 @@ def _worker_main() -> int:
     fresh pool member through ``init()``, or a replacement rejoining under
     ``MPI_TPU_SERVE_REJOIN=epoch:slot``), then serve jobs from the control
     connection.  A control reader thread applies membership transitions at
-    once (even mid-job), while the main thread runs one job at a time.  A
-    worker whose server goes away exits (non-zero, with a line on
-    stderr): without federation there is nothing to fail over to."""
+    once (even mid-job), while the main thread runs one job at a time.
+
+    Under a federation namespace (``MPI_TPU_SERVE_FED``) the worker
+    survives its server: on control-channel EOF it polls the namespace
+    for the survivor that adopted its pool and re-registers there,
+    keeping its warm transport, arenas, fault detector and device.
+    Without a namespace a worker whose server goes away exits (non-zero,
+    with a line on stderr): there is nothing to fail over to."""
     import atexit
     import faulthandler
     import signal as _signal
@@ -386,17 +398,51 @@ def _worker_main() -> int:
 
     pool_id = (os.environ.get("MPI_TPU_SERVE_POOL")
                or os.path.basename(rdv.rstrip("/")))
+    fed_ns = os.environ.get("MPI_TPU_SERVE_FED") or None
+    orphan_timeout = float(os.environ.get(
+        "MPI_TPU_SERVE_ORPHAN_TIMEOUT_S", str(_ORPHAN_TIMEOUT_S)))
     ctrl_addr = os.environ["MPI_TPU_SERVE_CTRL"]
+    dead_addr: Optional[str] = None
+    orphan_deadline: Optional[float] = None
     rc = 0
-    outcome = _worker_serve_one(ctrl_addr, t, world_ft, slot, pool_id)
-    if outcome != "shutdown":
-        # loudly: a dial failure while the server lives would otherwise
-        # crash-loop heal and respawn without a line of diagnosis
-        sys.stderr.write(
-            f"mpi_tpu_torch.serve: worker slot {slot} (pool {pool_id}) "
-            f"control channel {outcome} (server {ctrl_addr}); no "
-            f"federation to fail over to ({_FEDERATION}) - exiting\n")
-        rc = 1
+    while True:
+        outcome = _worker_serve_one(ctrl_addr, t, world_ft, slot, pool_id)
+        if outcome == "shutdown":
+            break
+        if fed_ns is None:
+            # loudly: a dial failure while the server lives would
+            # otherwise crash-loop heal and respawn without a line of
+            # diagnosis
+            sys.stderr.write(
+                f"mpi_tpu_torch.serve: worker slot {slot} (pool {pool_id}) "
+                f"control channel {outcome} (server {ctrl_addr}); no "
+                f"federation namespace to fail over to - exiting\n")
+            rc = 1
+            break
+        # the pool outlives its server: resolve the survivor that adopted
+        # it and re-register there, everything warm staying warm.  Only an
+        # established registration dying ("lost") excludes its address
+        # and renews the orphan budget; a failed dial ("unreachable") must
+        # not, since the current owner may be live but briefly swamped
+        from . import federation as _federation
+
+        now = time.monotonic()
+        if outcome == "lost":
+            dead_addr = ctrl_addr
+            orphan_deadline = now + orphan_timeout
+        elif orphan_deadline is None:
+            orphan_deadline = now + orphan_timeout
+        remaining = orphan_deadline - now
+        new_ctrl = _federation.wait_pool_owner(
+            fed_ns, pool_id, not_ctrl=dead_addr,
+            timeout=remaining) if remaining > 0 else None
+        if new_ctrl is None:
+            sys.stderr.write(
+                f"mpi_tpu_torch.serve: worker slot {slot} (pool {pool_id}) "
+                f"orphaned: no reachable pool owner within "
+                f"{orphan_timeout}s - exiting\n")
+            break
+        ctrl_addr = new_ctrl
     # orderly pool shutdown: a worker set that never leased again after
     # its last job has nobody else to unlink its pooled arena
     _coll_sm.retire_pooled(t)
@@ -480,6 +526,8 @@ def _worker_serve_one(ctrl_addr: str, t, world_ft, slot: int,
     threading.Thread(target=reader, daemon=True,
                      name=f"serve-ctrl-{slot}").start()
 
+    fed_ns = os.environ.get("MPI_TPU_SERVE_FED") or None
+
     def pvar_push() -> None:
         # the snapshot also rides job_done; pushing it at a fixed cadence
         # lets stats() see idle and wedged workers too
@@ -491,6 +539,39 @@ def _worker_serve_one(ctrl_addr: str, t, world_ft, slot: int,
                               for n in _WORKER_PVARS}})
             except OSError:
                 return
+            if fed_ns is None:
+                continue
+            # the frozen-master escape: a SIGSTOP'd server keeps this
+            # connection established, so EOF alone never frees us.  If the
+            # namespace names a live owner other than the server we serve,
+            # our master was deposed while frozen: defect by closing the
+            # connection, which drops us into the re-resolve.  Read here,
+            # never on the job thread, so a running job is not held up
+            from . import federation as _federation
+
+            rec = _federation.read_pool_owner(fed_ns, pool_id)
+            if rec is not None and rec.get("ctrl") \
+                    and rec["ctrl"] != ctrl_addr:
+                srv = _federation.read_server_record(
+                    fed_ns, str(rec.get("owner")))
+                if srv is None or _federation.record_live(srv):
+                    sys.stderr.write(
+                        f"mpi_tpu_torch.serve: worker slot {slot} (pool "
+                        f"{pool_id}): ownership moved to "
+                        f"{rec.get('owner')} while our master "
+                        f"{ctrl_addr} held the connection - defecting\n")
+                    gone.set()
+                    try:
+                        # shutdown first: a bare close() does not wake the
+                        # reader blocked in recv()
+                        ctrl.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                    try:
+                        ctrl.close()
+                    except OSError:
+                        pass
+                    return
 
     threading.Thread(target=pvar_push, daemon=True,
                      name=f"serve-pvars-{slot}").start()
@@ -602,7 +683,10 @@ class WorldServer:
     ``python -m mpi_tpu_torch.launcher serve``.  ``addr`` is the
     ``host:port`` clients pass to :func:`connect`; ``env_extra`` is added
     to every worker's environment (``{"MPI_TPU_DEVICE": "cpu"}`` puts the
-    workers on the CPU)."""
+    workers on the CPU).  ``federation`` joins a namespace (a directory,
+    ``raft:<idx>@host:port,...`` or a store) as ``server_id``, with the
+    leader-lease bound ``fed_lease_timeout_s``; ``orphan_timeout_s`` is
+    how long this server's workers look for a new owner if it dies."""
 
     def __init__(self, pool_size: int = _POOL_SIZE, backend: str = "socket",
                  host: str = _HOST, port: int = 0,
@@ -614,9 +698,9 @@ class WorldServer:
                  metrics_port: Optional[int] = None,
                  federation: Optional[str] = None,
                  server_id: Optional[str] = None,
-                 max_pending: int = _MAX_PENDING) -> None:
-        if federation is not None:
-            raise _federation_unported("WorldServer(federation=...)")
+                 fed_lease_timeout_s: float = _FED_LEASE_TIMEOUT_S,
+                 max_pending: int = _MAX_PENDING,
+                 orphan_timeout_s: float = _ORPHAN_TIMEOUT_S) -> None:
         if pool_size < 1:
             raise ValueError("pool_size must be >= 1")
         if max_pending < 1:
@@ -632,6 +716,7 @@ class WorldServer:
         self.world_lease_timeout_s = float(world_lease_timeout_s)
         self.rejoin_timeout_s = float(rejoin_timeout_s)
         self.max_pending = int(max_pending)
+        self.orphan_timeout_s = float(orphan_timeout_s)
         self._env_extra = dict(env_extra or {})
         self.rdv = membership.new_rendezvous_dir(prefix="mtt_serve_")
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -669,7 +754,17 @@ class WorldServer:
                                "pools_adopted": 0,
                                "pools_relinquished": 0}
         self._threads: List[threading.Thread] = []
+        # federation membership: the namespace spec and identity; the
+        # member thread starts in start()
+        self._fed_ns = federation
         self.server_id = server_id or ("srv-" + uuid.uuid4().hex[:8])
+        self._fed_lease_timeout_s = float(fed_lease_timeout_s)
+        self._fed = None
+        # refuse new leases while the namespace store has no quorum (the
+        # minority side of a partition); "0" turns the fence off to show
+        # the failure mode it closes
+        self._store_fence = os.environ.get(
+            "MPI_TPU_SERVE_STORE_FENCE", "1") != "0"
         # observability: the uptime anchor of the worlds/s gauge,
         # per-second completed-job buckets (a sliding window bounded by
         # its length whatever the rate), the latest per-slot worker pvar
@@ -711,6 +806,14 @@ class WorldServer:
             self._threads.append(th)
         if self._metrics_port is not None:
             self._start_metrics(self._metrics_port)
+        if self._fed_ns is not None:
+            # join the namespace: endpoint record, leader lease, pool
+            # ownership, takeover duties
+            from . import federation as _federation
+
+            self._fed = _federation.FederationMember(
+                self, self._fed_ns, server_id=self.server_id,
+                lease_timeout_s=self._fed_lease_timeout_s).start()
         if wait_ready:
             self._wait_ready(timeout)
         return self
@@ -790,6 +893,11 @@ class WorldServer:
             self._stopped.set()
 
     def _teardown(self, conns, procs, adopted_pids, pools) -> None:
+        if self._fed is not None:
+            # leave the namespace first: the records retract before the
+            # pools die, so no leader assigns a takeover of a pool whose
+            # workers are about to receive shutdown
+            self._fed.stop()
         for conn, lk in conns:
             try:
                 _send_msg(conn, lk, {"op": "shutdown"})
@@ -902,9 +1010,18 @@ class WorldServer:
             "MPI_TPU_SERVE_POOL": pool_id,
             "MPI_TPU_SERVE_DETECT_S": str(self.detect_timeout_s),
             "MPI_TPU_SERVE_HEARTBEAT_S": str(self.heartbeat_s),
+            "MPI_TPU_SERVE_ORPHAN_TIMEOUT_S": str(self.orphan_timeout_s),
         })
         # the worker starts its own fault detector (see _worker_main)
         env.pop("MPI_TPU_FT", None)
+        env.pop("MPI_TPU_SERVE_FED", None)
+        if self._fed_ns is not None:
+            # the client spec: a raft:<idx>@... member spec must not reach
+            # the workers, which resolve pool owners over the store's RPC
+            # port and never embed a node
+            from . import federation_store as _fstore
+
+            env["MPI_TPU_SERVE_FED"] = _fstore.client_spec(self._fed_ns)
         env.pop("MPI_TPU_SERVE_REJOIN", None)
         if rejoin_epoch is not None:
             env["MPI_TPU_SERVE_REJOIN"] = f"{rejoin_epoch}:{slot}"
@@ -1023,6 +1140,13 @@ class WorldServer:
         while True:
             msg = _recv_msg(conn)
             if msg is None:
+                new_owner = self._pool_moved(pool_id)
+                if new_owner is not None:
+                    # the worker defected to the server that took its pool
+                    # over while this one was frozen: hand the pool over,
+                    # never kill a process that now serves the new owner
+                    self.relinquish_pool(pool_id, new_owner)
+                    return
                 with self._cond:
                     if not self._closing \
                             and self._workers.get(key) is w \
@@ -1400,9 +1524,29 @@ class WorldServer:
             f"mpi_tpu_torch.serve: server {self.server_id} relinquished "
             f"pool {pool_id} to {new_owner}\n")
 
+    def _pool_moved(self, pool_id: str) -> Optional[str]:
+        """The server the namespace names as ``pool_id``'s owner when it
+        took the pool over after this server began owning it (the
+        condition on which the federation member relinquishes), else
+        None; always None standalone."""
+        if self._fed is None:
+            return None
+        from . import federation as _federation
+
+        rec = _federation.read_pool_owner(self._fed.store, pool_id)
+        with self._lock:
+            pool = self._pools.get(pool_id)
+            since = None if pool is None else pool.owned_since
+        if rec is None or since is None \
+                or rec.get("owner") == self.server_id \
+                or float(rec.get("since", 0)) < since:
+            return None
+        return rec.get("owner")
+
     def is_leader(self) -> bool:
-        """Whether this server leads a federation: never, standalone."""
-        return False
+        """Whether this server holds valid federation leader authority
+        (never, standalone)."""
+        return self._fed is not None and self._fed.is_leader()
 
     # -- client side -------------------------------------------------------
 
@@ -1483,6 +1627,20 @@ class WorldServer:
         t_req = time.monotonic()
         deadline = t_req + timeout
         with self._cond:
+            if self._fed is not None and self._store_fence \
+                    and not self._fed.healthy():
+                # the admission fence: this server is on the minority side
+                # of a namespace-store partition (or the store group has no
+                # leader).  A lease here could double-serve a pool the
+                # majority is about to reassign, so refuse by name; a
+                # federated client fails over to a majority-side server.
+                # Leases in flight run on: only new authority is refused
+                self.stats_counters["leases_denied"] += 1
+                self.stats_counters["no_quorum_rejected"] += 1
+                raise NoQuorumError(
+                    f"server {self.server_id} has no namespace-store "
+                    f"quorum (minority side of a partition): refusing "
+                    f"new leases - fail over to a majority-side server")
             cap = max((p.size for p in self._pools.values()), default=0)
             if cap == 0:
                 # every pool relinquished: this endpoint serves no lease
@@ -1760,7 +1918,19 @@ class WorldServer:
             }
         # None, not False: a standalone server must not scrape as a
         # non-leader federation member (and it has no "federation" key)
-        out["is_leader"] = None
+        out["is_leader"] = (self.is_leader() if self._fed is not None
+                            else None)
+        if self._fed_ns is not None:
+            # the namespace roll-up (store reads, outside the server lock)
+            # through the member's own store handle: a raft member serves
+            # its local applied state instead of dialing itself
+            from . import federation as _federation
+
+            out["federation"] = _federation.federation_stats(
+                self._fed.store if self._fed is not None
+                else self._fed_ns)
+            if self._fed is not None:
+                out["store_healthy"] = self._fed.healthy()
         # lease-acquire quantiles from the histogram pvar (log-bucket
         # estimates, mpit.hist_quantile documents the error bound)
         for q, label in ((0.5, "p50"), (0.99, "p99")):
@@ -1965,29 +2135,35 @@ def _resolve_addr_file(path: str) -> Tuple[str, int]:
 
 
 def connect(addr: Any, timeout: float = 30.0, priority: int = 0):
-    """Connect to a resident world server; returns a :class:`ServerClient`.
+    """Connect to a resident world server, or a federation of them.
 
     ``addr`` is ``"host:port"``, a ``(host, port)`` tuple, an in-process
     :class:`WorldServer`, or the path of a file holding ``host:port`` (the
     launcher's ``serve --addr-file``; a missing or partially written file
-    is retried within the ``connect_retry_timeout_s`` budget).  A
-    federation namespace (a directory, a ``raft:`` spec) or a list of
-    ``"host:port"`` strings raises ``NotImplementedError``: federation is
-    ROADMAP 16.3c's second half."""
+    is retried within the ``connect_retry_timeout_s`` budget): a
+    :class:`ServerClient`.  A federation namespace (a directory, a
+    ``raft:`` spec) or a list of ``"host:port"`` strings: a
+    :class:`~mpi_tpu_torch.federation.FederatedClient`, which resolves
+    live servers and fails acquire and stats over on a server's death."""
     if isinstance(addr, WorldServer):
         addr = addr.addr
     if isinstance(addr, (tuple, list)):
         # a server list only when every element is a "host:port" string;
         # anything else keeps the single-server (host, port) meaning
         if addr and all(isinstance(a, str) and ":" in a for a in addr):
-            raise _federation_unported("connect() to a list of servers")
+            from . import federation as _federation
+
+            return _federation.FederatedClient(
+                addrs=list(addr), timeout=timeout, priority=priority)
         host, port = addr[0], int(addr[1])
         return ServerClient(host, port, timeout=timeout,
                             priority=priority)
     text = str(addr)
     if os.path.isdir(text) or text.startswith("raft:"):
-        raise _federation_unported(
-            f"connect({text!r}) to a federation namespace")
+        from . import federation as _federation
+
+        return _federation.FederatedClient(
+            namespace=text, timeout=timeout, priority=priority)
     direct = None if os.path.exists(text) else _parse_hostport(text)
     if direct is not None:
         host, port = direct
@@ -2000,7 +2176,7 @@ def connect(addr: Any, timeout: float = 30.0, priority: int = 0):
         # diagnosis, not a silent poll of the whole budget
         raise ValueError(
             f"connect: {text!r} is neither a host:port address nor a "
-            f"path to an addr file")
+            f"path to an addr file / federation namespace")
     return ServerClient(host, port, timeout=timeout, priority=priority)
 
 
@@ -2046,32 +2222,37 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "this HTTP port; 0 binds an ephemeral port "
                          "(printed at startup)")
     ap.add_argument("--federation", default=None, metavar="SPEC",
-                    help="join a federation namespace (not ported yet: "
-                         f"{_FEDERATION})")
+                    help="join a federation namespace "
+                         "(mpi_tpu_torch/federation.py): a shared DIR "
+                         "(FileStore: one host or NFS), or "
+                         "raft:<idx>@h0:p0,h1:p1,... to embed store node "
+                         "<idx> of a replicated quorum group "
+                         "(mpi_tpu_torch/federation_store.py: N hosts, no "
+                         "shared FS; a partitioned minority refuses "
+                         "leases with NoQuorumError).  N servers share "
+                         "endpoint records and a CAS leader lease; a dead "
+                         "server's pool is adopted by a survivor and its "
+                         "workers re-register there; clients "
+                         "connect(DIR | raft:h0:p0,...) and fail over")
     ap.add_argument("--server-id", default=None,
-                    help=f"federation identity (not ported yet: "
-                         f"{_FEDERATION})")
-    ap.add_argument("--fed-lease-timeout", type=float, default=None,
-                    metavar="S",
-                    help=f"federation leader-lease bound (not ported yet: "
-                         f"{_FEDERATION})")
+                    help="federation identity (default: random "
+                         "srv-<hex8>)")
+    ap.add_argument("--fed-lease-timeout", type=float,
+                    default=_FED_LEASE_TIMEOUT_S, metavar="S",
+                    help="leader-lease takeover bound; authority "
+                         "self-expires at half this (the split-brain "
+                         "safety margin)")
     ap.add_argument("--max-pending", type=int, default=_MAX_PENDING,
                     help="bounded admission queue depth: acquires "
                          "beyond this many waiters are rejected with "
                          "ServerBusyError instead of queueing "
                          "unboundedly")
-    ap.add_argument("--orphan-timeout", type=float, default=None,
-                    metavar="S",
-                    help=f"how long an orphaned worker looks for its "
-                         f"pool's new owner in the federation namespace "
-                         f"(not ported yet: {_FEDERATION})")
+    ap.add_argument("--orphan-timeout", type=float,
+                    default=_ORPHAN_TIMEOUT_S, metavar="S",
+                    help="how long an orphaned worker polls the "
+                         "federation namespace for its pool's new owner "
+                         "before exiting")
     args = ap.parse_args(argv)
-    for flag, value in (("--federation", args.federation),
-                        ("--server-id", args.server_id),
-                        ("--fed-lease-timeout", args.fed_lease_timeout),
-                        ("--orphan-timeout", args.orphan_timeout)):
-        if value is not None:
-            raise _federation_unported(f"launcher serve {flag}")
     env_extra = {} if args.device is None else {ENV_DEVICE: args.device}
     server = WorldServer(
         pool_size=args.pool_size, backend=args.backend, host=args.host,
@@ -2079,10 +2260,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         heartbeat_s=args.heartbeat,
         world_lease_timeout_s=args.lease_timeout,
         rejoin_timeout_s=args.rejoin_timeout, env_extra=env_extra,
-        metrics_port=args.metrics_port, max_pending=args.max_pending)
+        metrics_port=args.metrics_port,
+        federation=args.federation, server_id=args.server_id,
+        fed_lease_timeout_s=args.fed_lease_timeout,
+        max_pending=args.max_pending,
+        orphan_timeout_s=args.orphan_timeout)
     server.start()
     print(f"mpi_tpu_torch serve: listening on {server.addr} "
           f"(pool {args.pool_size} x {args.backend})", flush=True)
+    if args.federation:
+        print(f"mpi_tpu_torch serve: federation member {server.server_id} "
+              f"in {args.federation}", flush=True)
     if server.metrics_addr:
         print(f"mpi_tpu_torch serve: metrics on "
               f"http://{server.metrics_addr}/metrics", flush=True)

@@ -866,3 +866,30 @@ def test_serve_leases_card_workers(monkeypatch, backend):
             assert res["head"].tolist() == [3.0] * 4
         finally:
             client.close()
+
+
+@pytest.mark.gpu
+def test_federation_takeover_keeps_orphans_on_the_card(monkeypatch, tmp_path):
+    """A two-server file namespace with every worker on the card
+    (``examples/host_federation.py``): a checked lease through the
+    namespace, the leader SIGKILLed, the same client leasing on the
+    survivor, and a lease on the adopted pool runs on the orphans, which
+    kept their pids and their card."""
+    _card()
+    import json
+
+    from mpi_tpu_torch.examples import host_federation
+
+    monkeypatch.delenv("MPI_TPU_DEVICE", raising=False)
+    out = tmp_path / "fed.json"
+    assert host_federation.main([
+        "--ns", str(tmp_path / "ns"), "--servers", "2", "--pool-size", "2",
+        "--mib", "4", "--require", "cuda", "--kill-leader",
+        "--out", str(out)]) == 0
+    kill = json.loads(out.read_text())["kill"]
+    assert (kill["pools_adopted"], kill["orphans_reregistered"]) == (1, 2)
+    assert kill["orphans_after"] and all(
+        d.startswith("cuda") for _, d in kill["orphans_after"])
+    assert {tuple(p) for p in kill["orphans_after"]} <= {
+        tuple(p) for p in kill["orphans_before"]}
+    assert all(kill["adopted_lease"]["ok"])

@@ -478,16 +478,32 @@ def test_diagnoses_are_the_references(coll, call):
 
 
 def test_unported_features_name_their_roadmap_items(tmp_path, monkeypatch):
-    from mpi_tpu_torch import checkpoint, launcher, membership, tuning
+    from mpi_tpu_torch import checkpoint, launcher, membership, serve, tuning
     from mpi_tpu_torch.transport.shm import ShmTransport, run_shm
 
-    # still unported: 16.3c's second half (federation); the server itself
-    # and 16.5's process checkpoints now run
+    # 16.5's process checkpoints run, and 16.3c's second half: launcher
+    # serve hands the federation flags to the server
     ckpt = str(tmp_path / "ck")
     assert port_run(lambda c: (checkpoint.save(ckpt, {"r": c.rank}, c),
                                checkpoint.load(ckpt, c))[1]["r"], 2) == [0, 1]
-    with pytest.raises(NotImplementedError, match=r"16\.3c \(federation\)"):
-        launcher.main(["serve", "--federation", str(tmp_path)])
+    made = {}
+
+    class Parsed:
+        addr, metrics_addr, _closing, server_id = "127.0.0.1:1", None, True, "a"
+
+        def __init__(self, **kw):
+            made.update(kw)
+
+        def start(self):
+            return self
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(serve, "WorldServer", Parsed)
+    assert launcher.main(["serve", "--federation", str(tmp_path),
+                          "--server-id", "a"]) == 0
+    assert (made["federation"], made["server_id"]) == (str(tmp_path), "a")
     # 16.4: "sm" runs on an shm world, and off shm it is an unknown name,
     # as in the reference's local and socket worlds
     assert [float(v[0]) for v in run_shm(

@@ -265,7 +265,8 @@ REFERENCE_FILES = (
     "local_backend", "socket_backend", "groups", "attributes", "errors",
     "mpit", "nonblocking", "ops_extended", "scan_reduce_scatter",
     "vector_collectives", "segmented_collectives2", "resilience", "codec",
-    "sanitize_native", "zero_copy_user", "spawn", "io", "serve")
+    "sanitize_native", "zero_copy_user", "spawn", "io", "serve",
+    "federation_store", "federation")
 
 
 @pytest.mark.parametrize("name", REFERENCE_FILES)

@@ -70,7 +70,9 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.examples.parallel_io",
        "mpi_tpu_torch.examples.host_dynamic", "mpi_tpu_torch.serve",
        "mpi_tpu_torch.telemetry.metrics",
-       "mpi_tpu_torch.examples.host_serve"]
+       "mpi_tpu_torch.examples.host_serve", "mpi_tpu_torch.federation",
+       "mpi_tpu_torch.federation_store",
+       "mpi_tpu_torch.examples.host_federation"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
 from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")

@@ -10,8 +10,9 @@ reference's (``mpi_tpu/serve.py``), side by side on the CPU.
   ``_pack_error`` -> ``_raise_error`` round trip of every named error
   (class, MPI error class, message, failed ranks).
 * The port's own contract: ``ServerBusyError`` past ``max_pending``, the
-  federation entry points raising ``NotImplementedError`` naming ROADMAP
-  16.3c, a worker with no device failing ``start()`` with a named error,
+  federation entry points (a server joining a namespace, the CLI's four
+  federation flags, ``connect`` of a namespace or a server list), a
+  worker with no device failing ``start()`` with a named error,
   results moved to the CPU, ``launcher serve`` (the reference's
   ``test_launcher_serve_subcommand`` on the port), ``--link-retry-timeout``
   and the two cvars' environment seeds.
@@ -213,23 +214,61 @@ def test_error_round_trip_matches_reference(kind):
 
 def test_server_busy_past_max_pending_and_federation_entry_points(
         monkeypatch, tmp_path):
-    from mpi_tpu_torch import connect, serve
+    from mpi_tpu_torch import connect, federation, serve
     from mpi_tpu_torch.errors import MPI_ERR_OTHER, ServerBusyError, error_class
 
-    with pytest.raises(NotImplementedError, match=r"16\.3c \(federation\)"):
-        serve.WorldServer(federation=str(tmp_path))
-    for argv in (["--federation", str(tmp_path)], ["--server-id", "a"],
-                 ["--fed-lease-timeout", "3"], ["--orphan-timeout", "9"]):
-        with pytest.raises(NotImplementedError, match=r"16\.3c \(federation\)"):
-            serve.main(argv)
     for addr in (str(tmp_path), "raft:127.0.0.1:1,127.0.0.1:2",
                  ["127.0.0.1:1", "127.0.0.1:2"]):
-        with pytest.raises(NotImplementedError, match=r"16\.3c \(federation\)"):
-            connect(addr)
+        client = connect(addr)  # resolves lazily: nothing is dialed yet
+        assert isinstance(client, federation.FederatedClient)
+        client.close()
     with pytest.raises(ValueError, match="neither a host:port"):
         connect("no-such-server")
 
+    # the CLI's federation flags reach the server
+    made = {}
+
+    class Parsed:
+        addr, metrics_addr, _closing = "127.0.0.1:1", None, True
+
+        def __init__(self, **kw):
+            made.update(kw)
+            self.server_id = kw["server_id"]
+
+        def start(self):
+            return self
+
+        def stop(self):
+            made["stopped"] = True
+
+    monkeypatch.setattr(serve, "WorldServer", Parsed)
+    assert serve.main(["--federation", str(tmp_path), "--server-id", "a",
+                       "--fed-lease-timeout", "3", "--orphan-timeout",
+                       "9"]) == 0
+    assert (made["federation"], made["server_id"], made["fed_lease_timeout_s"],
+            made["orphan_timeout_s"], made["stopped"]) == (
+                str(tmp_path), "a", 3.0, 9.0, True)
+    monkeypatch.undo()
+
     monkeypatch.setenv("MPI_TPU_DEVICE", "cpu")  # the worker's device
+    ns = str(tmp_path / "ns")
+    with serve.WorldServer(pool_size=1, federation=ns, server_id="fed-a",
+                           detect_timeout_s=DETECT_S, heartbeat_s=0.2) as fed:
+        # the server joined: its endpoint record, its pool's ownership
+        # record, and the leader lease (the only member takes it)
+        assert federation.read_server_records(ns)["fed-a"]["ctrl"] == fed.addr
+        assert federation.read_pool_owners(ns)[fed._home]["owner"] == "fed-a"
+        deadline = time.monotonic() + 10.0
+        while not fed.is_leader():
+            assert time.monotonic() < deadline, "the only member never led"
+            time.sleep(0.05)
+        st = fed.stats()
+        assert st["is_leader"] is True and st["store_healthy"] is True
+        assert st["federation"]["servers_live"] == 1
+        assert st["federation"]["leader"] == "fed-a"
+    # a clean stop retracts the records and releases the lease
+    assert federation.read_server_records(ns) == {}
+    assert federation.read_leader(ns) is None
     with serve.WorldServer(pool_size=1, max_pending=1, detect_timeout_s=DETECT_S,
                            heartbeat_s=0.2) as srv:
         hog_client, waiter_client, late = (connect(srv) for _ in range(3))
