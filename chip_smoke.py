@@ -345,14 +345,47 @@ ok line:
     is above 0 and ``store_elections`` at least 1.  The raft servers'
     lease bound is 10 s, so the partition's few seconds test the fence,
     not a takeover;
-29. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+29. worlds across processes, in a thread started at the beginning of
+    phase 19 and joined after phase 21: ``mpi_tpu_torch.gpu.multihost
+    .launch_sim_hosts(2, [examples/multihost_world.py ...],
+    devices_per_host=4)``, two processes on ``cuda:0``, each holding 4 of
+    one world's 8 ranks.  In each: (a) the reference's multi-host program
+    (``tests/test_multihost.py:17-64``) on ``global_mesh()``: the fused
+    allreduce of the rank is 28, the ring allreduce of ``zeros(8) + r``
+    sums to 224, the wrapped ``shift`` and the even/odd ``split_by`` are
+    exact, every result on ``cuda``; (b) the ring kernel across processes
+    at the north-star size (256 MiB of float32 a rank; every process makes
+    all 8 ranks' inputs from the seed on the card): allreduce,
+    reduce_scatter and allgather (SUM) and a 64 MiB bfloat16 MAX
+    allreduce through ``run_spmd(..., comm=mesh.comm("world"))`` with
+    ``algorithm="pallas_ring"``, launch counters zeroed just before and
+    read just after (every peer-pointer mode must launch); each process's
+    rows equal, bitwise, the one-process ``run_spmd`` over the 8 ranks on
+    the card and the plain version (the gathered world through the plain
+    ring); then per mode (median of 5) the call's wall with its barriers,
+    the kernel alone by CUDA events (both processes launching), the
+    staging copy's bytes, the plain version, the bytes bound, and on
+    process 0 the one-process kernel over the whole world; (c)
+    ``hybrid_mesh((1, 4), (2, 1), ("dcn", "ici"))``: placement as
+    ``tests/test_multihost.py:114-120`` asserts it, and a fused allreduce
+    over ``dcn`` equal to the column sums; (d) a host world of 8 socket
+    ranks (4 rank threads a process): ``multihost_node_key`` gives
+    ``[0]*4 + [1]*4`` and ``split_hierarchical`` intra groups of 4 and a
+    leaders communicator of 2; a fused SUM's gradient and a ring-attention
+    forward across the processes equal to one process; (e) after
+    ``multihost.shutdown()`` no IPC mapping is open, and no child process
+    of the phase is left.  The ``kernels`` line gains the peer-pointer
+    entry points as K1 rows (``ring_*_ptrs``) with their launches on this
+    path;
+30. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
-    10), each read right after it ran (``launches_by_path``).  The host
-    layer (phases 13-28) launches none of the kernels: its folds are
+    10, 29), each read right after it ran (``launches_by_path``).  The
+    host layer (phases 13-28) launches none of the kernels: its folds are
     in-place torch ops.
 
 Every phase prints its wall time, and their sum is printed after phase
-28.  The full record also goes to ``chiprun_out/chip_smoke.json``.
+28 (phase 29 runs beside 19-21).  The full record also goes to
+``chiprun_out/chip_smoke.json``.
 """
 
 import gc
@@ -3342,6 +3375,122 @@ def host_federation_phase(torch, record, started):
     record["host_federation"] = {"file": f, "raft": r, "card": card}
 
 
+def host_multihost_start():
+    """Phase 29, started in a background thread at the beginning of phase
+    19: two simulated hosts of 4 ranks on the card.  Returns the handle
+    :func:`host_multihost_phase` joins."""
+    import threading
+
+    from mpi_tpu_torch.gpu import multihost
+
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "multihost"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rdv = tempfile.mkdtemp(prefix="mpi_tpu_torch_mh_rdv_")
+    argv = [os.path.join(os.path.dirname(os.path.abspath(__file__)), "mpi_tpu_torch",
+                         "examples", "multihost_world.py"),
+            "--out", out_dir, "--mib", str(NORTH_STAR_ELEMS * 4 / (1 << 20)),
+            "--half-mib", "64", "--rdv", rdv, "--reps", "5"]
+    started = {"t0": time.perf_counter(), "out": out_dir, "rdv": rdv}
+
+    def body():
+        try:
+            started["rc"] = multihost.launch_sim_hosts(2, argv, devices_per_host=4,
+                                                       timeout=600)
+        except BaseException as e:  # re-raised by host_multihost_phase
+            started["error"] = e
+        started["wall_s"] = time.perf_counter() - started["t0"]
+
+    started["thread"] = threading.Thread(target=body, name="phase-29", daemon=True)
+    started["thread"].start()
+    return started
+
+
+def _children_running(marker):
+    """Processes whose parent is this one and whose command line holds
+    ``marker``."""
+    left = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if ppid == os.getpid() and marker in cmd:
+            left.append(int(pid))
+    return left
+
+
+def host_multihost_phase(torch, record, started, paths):
+    """Phase 29: join the two simulated hosts started by
+    :func:`host_multihost_start`, check what each wrote and return the
+    ``kernels`` rows of the peer-pointer entry points."""
+    card = card_line()
+    started["thread"].join(timeout=700)
+    if started["thread"].is_alive():
+        raise RuntimeError("worlds across processes: the hosts did not finish in 700 s")
+    shutil.rmtree(started["rdv"], ignore_errors=True)
+    if "error" in started:
+        raise RuntimeError(f"worlds across processes: {started['error']!r}") from \
+            started["error"]
+    if started["rc"] != 0:
+        raise RuntimeError(f"worlds across processes: a host exited {started['rc']}")
+    left = _children_running("multihost_world.py")
+    if left:
+        raise RuntimeError(f"worlds across processes left processes {left}")
+    recs = [json.load(open(os.path.join(started["out"], f"proc{q}.json")))
+            for q in range(2)]
+    for q, r in enumerate(recs):
+        w = r["worker"]
+        ok = (r["device"].startswith("cuda") and r["first"] == 4 * q
+              and w["total"] == [28] * 4 and w["ring_sum"] == [224.0] * 4
+              and r["node_key"] == [0] * 4 + [1] * 4
+              and r["hybrid"]["process_index"] == [[0] * 4, [1] * 4]
+              and r["open_mappings_after"] == 0)
+        if not ok:
+            raise RuntimeError(f"worlds across processes: process {q}'s record {r}")
+    launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+    if not all(launches.values()):
+        raise RuntimeError(f"the cross-process path never launched {launches}")
+    paths["worlds across processes"] = launches
+    rows = []
+    for mode in ("allreduce", "reduce_scatter", "allgather"):
+        k0, k1 = (r["k1"][mode] for r in recs)
+        rows.append({
+            "name": f"ring_{mode}_ptrs", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES,
+            "max_abs_err": max(k0["max_abs_err"], k1["max_abs_err"]),
+            "ms": k0["kernel_ms"], "plain_ms": k0["plain_ms"],
+            "bound_ms": k0["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "pct_of_bound": k0["pct_of_bound"], "bytes": k0["bytes"],
+            "ms_by_process": [k0["kernel_ms"], k1["kernel_ms"]],
+            "wall_ms": [k0["wall_ms"], k1["wall_ms"]],
+            "staging_bytes": k0["staging_bytes"],
+            "one_process_ms": k0["one_process_ms"]})
+    for mode in ("allreduce", "reduce_scatter", "allgather", "allreduce_bf16_max"):
+        k0, k1 = (r["k1"][mode] for r in recs)
+        log(f"worlds across processes, {mode} {k0['shape']} {k0['dtype']} a process: "
+            f"kernel {k0['kernel_ms']:.3f}/{k1['kernel_ms']:.3f} ms (process 0/1, CUDA "
+            f"events), wall with barriers {k0['wall_ms']:.3f}/{k1['wall_ms']:.3f} ms, "
+            f"staging {k0['staging_bytes'] >> 20} MiB a process, bound "
+            f"{k0['bound_ms']:.3f} ms ({k0['pct_of_bound']:.1f}%), plain "
+            f"{k0['plain_ms']:.1f} ms, one process over 8 ranks {k0['one_process_ms']:.3f} "
+            f"ms; bitwise the one-process kernel and the plain version [{card}]")
+    r0 = recs[0]
+    log(f"worlds across processes: 2 processes x 4 ranks on cuda:0 in "
+        f"{started['wall_s']:.1f} s (process 0: init {r0['init_s']:.1f} s, inputs "
+        f"{r0['inputs_s']:.1f} s, main path {r0['main_path_s']:.2f} s, all "
+        f"{r0['seconds']:.1f} s); launches {launches}; the reference's program exact; "
+        f"hybrid {r0['hybrid']['ranks']}, dcn allreduce {r0['hybrid']['dcn_allreduce']}; "
+        f"node key {r0['node_key']}; exchange {r0['stats']}; no IPC mapping or child "
+        f"process left")
+    record["multihost"] = {"processes": recs, "wall_s": started["wall_s"],
+                           "launches": launches, "card": card}
+    return rows
+
+
 def main():
     import torch
 
@@ -3575,16 +3724,20 @@ def main():
     host_ft_socket_phase(torch, record)
     lap("host-ft-socket")
 
-    # 19-21. the host layer's correctness and observability tooling ---------------
+    # 19-21. the host layer's correctness and observability tooling, with
+    # 29 (worlds across processes) in a thread beside them ------------------------
     t_tools = time.perf_counter()
+    multihost = host_multihost_start()
     host_verify_local_phase(torch, record)
     lap("host-verify-local")
     host_verify_socket_phase(torch, record)
     lap("host-verify-socket")
     host_trace_phase(torch, record)
     lap("host-trace")
+    kernels += host_multihost_phase(torch, record, multihost, paths)
+    lap("worlds across processes")
     record["tooling_phases_s"] = time.perf_counter() - t_tools
-    log(f"phases 19-21: {record['tooling_phases_s']:.1f} s")
+    log(f"phases 19-21 and 29: {record['tooling_phases_s']:.1f} s")
 
     # 22-23. the same-host data plane and its dispatch -----------------------------
     t_shm = time.perf_counter()
@@ -3616,7 +3769,7 @@ def main():
     record["flat_layer_phases_s"] = time.perf_counter() - t_flat
     log(f"phases 24-28: {record['flat_layer_phases_s']:.1f} s")
     record["phases_s"] = time.perf_counter() - _T_START
-    log(f"phases 1-28: {record['phases_s']:.2f} s (the sum of the phase walls)")
+    log(f"phases 1-29: {record['phases_s']:.2f} s (the sum of the phase walls)")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}

@@ -42,6 +42,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                       _c_ptr],
         "ring_gather": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ll, _c_int,
                         _c_int, _c_ptr],
+        # the same with a [P] table of per-rank row pointers for x and the
+        # span (first, count) of the ranks whose outputs are written
+        "ring_fold_ptrs": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ll,
+                           _c_ll, _c_ll] + [_c_int] * 8 + [_c_ptr],
+        "ring_gather_ptrs": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ll]
+                            + [_c_int] * 4 + [_c_ptr],
+    },
+    "peers": {
+        "peers_handle_bytes": [],
+        "peers_alloc": [_c_ptr, _c_ll],
+        "peers_free": [_c_ptr],
+        "peers_export": [_c_ptr, _c_ptr],
+        "peers_open": [_c_ptr, _c_ptr],
+        "peers_close": [_c_ptr],
+        "peers_error": [_c_int, ctypes.c_char_p, _c_int],
     },
     "attention": {
         "attn_fwd": [_c_ptr] * 5 + _ATTN_TAIL,

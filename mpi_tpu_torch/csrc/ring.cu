@@ -31,6 +31,22 @@
 // landing slots, credits and barriers of the TPU design exist to move
 // chunks between chips and have no counterpart here; a pipelined
 // peer-to-peer ring over NVLink belongs to the multi-card port.
+//
+// Worlds that span processes (ring_fold_ptrs, ring_gather_ptrs).  When
+// the ranks of one world live in several processes, each process keeps
+// its ranks' rows in its own memory and exports a staging copy over CUDA
+// IPC (mpi_tpu_torch/gpu/peers.py).  The same fold then reads rank w's row
+// through a device table of per-rank base pointers (this process's rows
+// for its own ranks, a peer's mapped staging buffer for the others) in
+// place of x + w * n_inner, in the same order, and writes only the
+// outputs of this process's ranks [first, first + count): allreduce rows,
+// reduce_scatter chunks owned by local ranks, allgather rows.  The least
+// work per process is to read g inputs for every element it writes and
+// write each once.  Ordering with the peers is the host's: the staging
+// copy is synchronised and every process passes a barrier before the
+// launch, and again after it before staging is written anew.  No kernel
+// waits on a flag that another process writes (two processes on one card
+// are time-sliced, not co-resident).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,22 +81,57 @@ __device__ __forceinline__ float combine(float own, float acc) {
 
 constexpr int kThreads = 256;
 
-// x: [P, n_inner] per-rank inputs; groups: [ngroups, g] world ranks in ring
-// order.  Element i of a rank lies in chunk a = i / chunk_len at offset
+// Where a launch reads rank w's row: one [P, n] array (Dense), or a table
+// of per-rank base pointers (Peers), each row wherever its process keeps it.
+template <typename T>
+struct Dense {
+  const T* x;
+  long long n;
+  __device__ __forceinline__ const T* operator()(int w) const { return x + (long long)w * n; }
+};
+
+template <typename T>
+struct Peers {
+  const unsigned long long* ptrs;
+  __device__ __forceinline__ const T* operator()(int w) const {
+    return reinterpret_cast<const T*>(ptrs[w]);
+  }
+};
+
+// Which ranks' outputs a launch writes, and each one's row of out: every
+// rank (All, one process holds the world), or this process's span of
+// ranks [first, first + count) (Span).
+struct All {
+  __device__ __forceinline__ bool has(int) const { return true; }
+  __device__ __forceinline__ long long row(int w) const { return w; }
+};
+
+struct Span {
+  int first, count;
+  __device__ __forceinline__ bool has(int w) const {
+    return (unsigned)(w - first) < (unsigned)count;
+  }
+  __device__ __forceinline__ long long row(int w) const { return w - first; }
+};
+
+// x(w): rank w's [n_inner] input row; groups: [ngroups, g] world ranks in
+// ring order.  Element i of a rank lies in chunk a = i / chunk_len at offset
 // inner = i % chunk_len; its fold walks right (s = +1) when inner lies in
 // the chunk's first tA tiles (inner < split = tA * tile_elems), else left.
 // The grid is (vectors of a chunk, chunk a, group): a block knows its
 // chunk, and no thread divides.  scatter == 0 (allreduce): the folded value
-// goes to every member at offset i of an [P, n_inner] output.  scatter == 1
+// goes to every member at offset i of an [*, n_inner] output.  scatter == 1
 // (reduce_scatter): it goes to member a at offset inner of an
-// [P, chunk_len] output.  A thread issues the loads of its vector's ranks
-// in batches of kBatch before it folds them: the order of the folds is the
-// ring's, the order of the loads is free.
+// [*, chunk_len] output.  Only members that outs holds are written (and a
+// reduce_scatter chunk whose owner it does not hold is not folded).  A
+// thread issues the loads of its vector's ranks in batches of kBatch
+// before it folds them: the order of the folds is the ring's, the order of
+// the loads is free.
 constexpr int kBatch = 8;
 
-template <typename T, int OP, int VEC>
+template <typename T, int OP, int VEC, typename Rows, typename Outs>
 __global__ void __launch_bounds__(kThreads)
-fold_kernel(const T* __restrict__ x, T* __restrict__ out, const int* __restrict__ groups,
+fold_kernel(Rows x, T* __restrict__ out, Outs outs, const int* __restrict__ groups,
             int g, long long n_inner, long long chunk_len, long long split, int rot,
             int scatter) {
   using V = Pack<T, VEC>;
@@ -89,6 +140,7 @@ fold_kernel(const T* __restrict__ x, T* __restrict__ out, const int* __restrict_
   const long long inner = ((long long)blockIdx.x * kThreads + threadIdx.x) * VEC;
   const long long i = a * chunk_len + inner;
   if (inner >= chunk_len || i >= n_inner) return;
+  if (scatter && !outs.has(G[a])) return;
   const int s = inner < split ? 1 : -1;
   int p = ((a - s * rot) % g + g) % g;
   V acc;
@@ -96,7 +148,7 @@ fold_kernel(const T* __restrict__ x, T* __restrict__ out, const int* __restrict_
     V own[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      if (k0 + b < g) own[b] = *reinterpret_cast<const V*>(x + G[p] * n_inner + i);
+      if (k0 + b < g) own[b] = *reinterpret_cast<const V*>(x(G[p]) + i);
       p += s;
       if (p == g) p = 0;
       if (p < 0) p = g - 1;
@@ -114,18 +166,18 @@ fold_kernel(const T* __restrict__ x, T* __restrict__ out, const int* __restrict_
     }
   }
   if (scatter) {
-    *reinterpret_cast<V*>(out + G[a] * chunk_len + inner) = acc;
+    *reinterpret_cast<V*>(out + outs.row(G[a]) * chunk_len + inner) = acc;
   } else {
-    for (int q = 0; q < g; ++q) *reinterpret_cast<V*>(out + G[q] * n_inner + i) = acc;
+    for (int q = 0; q < g; ++q)
+      if (outs.has(G[q])) *reinterpret_cast<V*>(out + outs.row(G[q]) * n_inner + i) = acc;
   }
 }
 
-// x: [P, block_n]; out: [P, g, block_n].  Member q of a group receives
-// member b's block at out[G[q], b].
-template <typename T, int VEC>
-__global__ void gather_kernel(const T* __restrict__ x, T* __restrict__ out,
-                              const int* __restrict__ groups, int g,
-                              long long block_n) {
+// x(w): rank w's [block_n] block; out: [*, g, block_n].  Member q of a
+// group that outs holds receives member b's block at out[row(G[q]), b].
+template <typename T, int VEC, typename Rows, typename Outs>
+__global__ void gather_kernel(Rows x, T* __restrict__ out, Outs outs,
+                              const int* __restrict__ groups, int g, long long block_n) {
   const int* G = groups + (long long)blockIdx.y * g;
   const long long nvec = (long long)g * block_n / VEC;
   for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
@@ -133,10 +185,10 @@ __global__ void gather_kernel(const T* __restrict__ x, T* __restrict__ out,
     const long long i = v * VEC;
     const long long b = i / block_n;
     const long long j = i - b * block_n;
-    const Pack<T, VEC> val =
-        *reinterpret_cast<const Pack<T, VEC>*>(x + G[b] * block_n + j);
+    const Pack<T, VEC> val = *reinterpret_cast<const Pack<T, VEC>*>(x(G[b]) + j);
     for (int q = 0; q < g; ++q)
-      *reinterpret_cast<Pack<T, VEC>*>(out + ((long long)G[q] * g + b) * block_n + j) = val;
+      if (outs.has(G[q]))
+        *reinterpret_cast<Pack<T, VEC>*>(out + (outs.row(G[q]) * g + b) * block_n + j) = val;
   }
 }
 
@@ -148,65 +200,96 @@ dim3 grid_for(long long nvec, int ngroups) {
   return dim3((unsigned)blocks, (unsigned)ngroups, 1);
 }
 
+// The geometry of one fold launch.
+struct FoldArgs {
+  const int* groups;
+  int ngroups, g;
+  long long n_inner, chunk_len, tile_elems;
+  int tA, rot, scatter;
+};
+
 // a grid of (vectors of a chunk, chunks, groups)
-template <typename T, int OP, int VEC>
-void launch_fold(const void* x, void* out, const int* groups, int ngroups, int g,
-                 long long n_inner, long long chunk_len, long long tile_elems, int tA,
-                 int rot, int scatter, cudaStream_t stream) {
-  const long long chunks = (n_inner + chunk_len - 1) / chunk_len;
-  const long long blocks = (chunk_len / VEC + kThreads - 1) / kThreads;
-  dim3 grid((unsigned)blocks, (unsigned)chunks, (unsigned)ngroups);
-  fold_kernel<T, OP, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), groups, g, n_inner, chunk_len,
-      tA * tile_elems, rot, scatter);
+template <typename T, int OP, int VEC, typename Rows, typename Outs>
+void launch_fold(Rows x, void* out, Outs outs, const FoldArgs& f, cudaStream_t stream) {
+  const long long chunks = (f.n_inner + f.chunk_len - 1) / f.chunk_len;
+  const long long blocks = (f.chunk_len / VEC + kThreads - 1) / kThreads;
+  dim3 grid((unsigned)blocks, (unsigned)chunks, (unsigned)f.ngroups);
+  fold_kernel<T, OP, VEC, Rows, Outs><<<grid, kThreads, 0, stream>>>(
+      x, static_cast<T*>(out), outs, f.groups, f.g, f.n_inner, f.chunk_len,
+      f.tA * f.tile_elems, f.rot, f.scatter);
 }
 
-template <typename T, int OP>
-void dispatch_vec(int vec, const void* x, void* out, const int* groups, int ngroups,
-                  int g, long long n_inner, long long chunk_len, long long tile_elems,
-                  int tA, int rot, int scatter, cudaStream_t stream) {
+template <typename T, int OP, typename Rows, typename Outs>
+void fold_vec(int vec, Rows x, void* out, Outs outs, const FoldArgs& f, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec == kVec)
-    launch_fold<T, OP, kVec>(x, out, groups, ngroups, g, n_inner, chunk_len, tile_elems, tA,
-                             rot, scatter, stream);
+    launch_fold<T, OP, kVec>(x, out, outs, f, stream);
   else
-    launch_fold<T, OP, 1>(x, out, groups, ngroups, g, n_inner, chunk_len, tile_elems, tA,
-                          rot, scatter, stream);
+    launch_fold<T, OP, 1>(x, out, outs, f, stream);
 }
 
-template <typename T>
-void dispatch_op(int op, int vec, const void* x, void* out, const int* groups,
-                 int ngroups, int g, long long n_inner, long long chunk_len,
-                 long long tile_elems, int tA, int rot, int scatter,
-                 cudaStream_t stream) {
+template <typename T, typename Rows, typename Outs>
+void fold(int op, int vec, Rows x, void* out, Outs outs, const FoldArgs& f,
+          cudaStream_t stream) {
   if (op == 0)
-    dispatch_vec<T, 0>(vec, x, out, groups, ngroups, g, n_inner, chunk_len,
-                       tile_elems, tA, rot, scatter, stream);
+    fold_vec<T, 0>(vec, x, out, outs, f, stream);
   else if (op == 1)
-    dispatch_vec<T, 1>(vec, x, out, groups, ngroups, g, n_inner, chunk_len,
-                       tile_elems, tA, rot, scatter, stream);
+    fold_vec<T, 1>(vec, x, out, outs, f, stream);
   else
-    dispatch_vec<T, 2>(vec, x, out, groups, ngroups, g, n_inner, chunk_len,
-                       tile_elems, tA, rot, scatter, stream);
+    fold_vec<T, 2>(vec, x, out, outs, f, stream);
+}
+
+template <typename T, typename Rows, typename Outs>
+void gather(int vec, Rows x, void* out, Outs outs, const int* groups, int ngroups, int g,
+            long long block_n, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long total = (long long)g * block_n;
+  if (vec == kVec)
+    gather_kernel<T, kVec, Rows, Outs><<<grid_for(total / kVec, ngroups), kThreads, 0, stream>>>(
+        x, static_cast<T*>(out), outs, groups, g, block_n);
+  else
+    gather_kernel<T, 1, Rows, Outs><<<grid_for(total, ngroups), kThreads, 0, stream>>>(
+        x, static_cast<T*>(out), outs, groups, g, block_n);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  op: 0 sum, 1 max, 2 min.  vec: 16/itemsize
 // when every rank's row, chunk and pointer is 16-byte aligned, else 1.
-// Returns cudaGetLastError() after the launch.
+// Every entry point returns cudaGetLastError() after its launch.
 extern "C" int ring_fold(const void* x, void* out, const void* groups, int ngroups,
                          int g, long long n_inner, long long chunk_len,
                          long long tile_elems, int tA, int rot, int scatter,
                          int dtype, int op, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* gr = static_cast<const int*>(groups);
+  const FoldArgs f{static_cast<const int*>(groups), ngroups, g, n_inner, chunk_len,
+                   tile_elems, tA, rot, scatter};
   if (dtype == 0)
-    dispatch_op<float>(op, vec, x, out, gr, ngroups, g, n_inner, chunk_len,
-                       tile_elems, tA, rot, scatter, s);
+    fold<float>(op, vec, Dense<float>{static_cast<const float*>(x), n_inner}, out, All{},
+                f, s);
   else
-    dispatch_op<__nv_bfloat16>(op, vec, x, out, gr, ngroups, g, n_inner,
-                               chunk_len, tile_elems, tA, rot, scatter, s);
+    fold<__nv_bfloat16>(op, vec,
+                        Dense<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), n_inner},
+                        out, All{}, f, s);
+  return (int)cudaGetLastError();
+}
+
+// ptrs: [P] device table of each world rank's row base (uint64).  out holds
+// the rows of ranks [first, first + count) only.
+extern "C" int ring_fold_ptrs(const void* ptrs, void* out, const void* groups, int ngroups,
+                              int g, long long n_inner, long long chunk_len,
+                              long long tile_elems, int tA, int rot, int scatter,
+                              int first, int count, int dtype, int op, int vec,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
+  const FoldArgs f{static_cast<const int*>(groups), ngroups, g, n_inner, chunk_len,
+                   tile_elems, tA, rot, scatter};
+  const Span outs{first, count};
+  if (dtype == 0)
+    fold<float>(op, vec, Peers<float>{p}, out, outs, f, s);
+  else
+    fold<__nv_bfloat16>(op, vec, Peers<__nv_bfloat16>{p}, out, outs, f, s);
   return (int)cudaGetLastError();
 }
 
@@ -215,23 +298,27 @@ extern "C" int ring_gather(const void* x, void* out, const void* groups, int ngr
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gr = static_cast<const int*>(groups);
-  const long long total = (long long)g * block_n;
-  if (dtype == 0) {
-    if (vec == 4)
-      gather_kernel<float, 4><<<grid_for(total / 4, ngroups), kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<float*>(out), gr, g, block_n);
-    else
-      gather_kernel<float, 1><<<grid_for(total, ngroups), kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<float*>(out), gr, g, block_n);
-  } else {
-    if (vec == 8)
-      gather_kernel<__nv_bfloat16, 8><<<grid_for(total / 8, ngroups), kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), gr, g,
-          block_n);
-    else
-      gather_kernel<__nv_bfloat16, 1><<<grid_for(total, ngroups), kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), gr, g,
-          block_n);
-  }
+  if (dtype == 0)
+    gather<float>(vec, Dense<float>{static_cast<const float*>(x), block_n}, out, All{}, gr,
+                  ngroups, g, block_n, s);
+  else
+    gather<__nv_bfloat16>(
+        vec, Dense<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), block_n}, out,
+        All{}, gr, ngroups, g, block_n, s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ring_gather_ptrs(const void* ptrs, void* out, const void* groups,
+                                int ngroups, int g, long long block_n, int first,
+                                int count, int dtype, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned long long* p = static_cast<const unsigned long long*>(ptrs);
+  const int* gr = static_cast<const int*>(groups);
+  const Span outs{first, count};
+  if (dtype == 0)
+    gather<float>(vec, Peers<float>{p}, out, outs, gr, ngroups, g, block_n, s);
+  else
+    gather<__nv_bfloat16>(vec, Peers<__nv_bfloat16>{p}, out, outs, gr, ngroups, g, block_n,
+                          s);
   return (int)cudaGetLastError();
 }

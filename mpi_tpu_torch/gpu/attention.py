@@ -529,6 +529,7 @@ class _RingAttentionBwd(torch.autograd.Function):
             "reference's custom_vjp)")
 
     @staticmethod
+    @primitives.spanning
     def vmap(info, in_dims, q, k, v, out, lse, dout, rank, groups, size,
              scale, causal):
         n = info.batch_size
@@ -563,6 +564,7 @@ class _RingAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
     @staticmethod
+    @primitives.spanning
     def vmap(info, in_dims, q, k, v, rank, groups, size, scale, causal):
         n = info.batch_size
         world = [primitives.as_world(t, dim, n)

@@ -78,7 +78,8 @@ class TorchCommunicator(Communicator):
     # reference's ``gather_replicated_warn_bytes`` mpit cvar default)
     gather_replicated_warn_bytes = 64 << 20
 
-    def __init__(self, nranks: int, groups: Optional[List[List[int]]] = None):
+    def __init__(self, nranks: int, groups: Optional[List[List[int]]] = None,
+                 span: Optional[primitives.Span] = None):
         if nranks < 1:
             raise ValueError(f"need at least one rank, got {nranks}")
         self._axis_size = int(nranks)
@@ -104,6 +105,9 @@ class TorchCommunicator(Communicator):
                 group_of[world] = gi
         self._rank_table = rank_of
         self._group_table = group_of
+        # this process's ranks where the world spans processes (a mesh's
+        # communicator, gpu/multihost.py); None: one process holds them all
+        self.span = span
 
     @classmethod
     def from_groups(cls, groups: Sequence[Sequence[int]]) -> "TorchCommunicator":
@@ -614,7 +618,7 @@ class TorchCommunicator(Communicator):
                 buckets.setdefault(colors[world], []).append((keys[world], pos, world))
             for c in sorted(buckets):
                 new_groups.append([w for _, _, w in sorted(buckets[c])])
-        return TorchCommunicator(self._axis_size, new_groups)
+        return TorchCommunicator(self._axis_size, new_groups, self.span)
 
     def split_by(self, color_fn, key_fn=None) -> "TorchCommunicator":
         """split_all with functions of the world rank."""
@@ -659,7 +663,7 @@ class TorchCommunicator(Communicator):
         return self.split_by_rank(color, key)
 
     def dup(self) -> "TorchCommunicator":
-        return TorchCommunicator(self._axis_size, self._groups)
+        return TorchCommunicator(self._axis_size, self._groups, self.span)
 
     def free(self) -> None:
         pass

@@ -14,13 +14,20 @@ so that its SUM is differentiable inside the rank vmap.
 Every primitive takes the batched world index as an argument, so its vmap rule always runs — even for a payload that is the
 same on every rank — and the op's own implementation is reached only by
 calling it outside ``run_spmd``, which raises.
+
+A world may span processes (``gpu/multihost.py``): each process then maps
+over its own ranks only, and every world-level rule goes through
+``spanning``, which gathers the whole ``[P, ...]`` world from every process
+(``gpu/peers.py``), runs the one-process rule unchanged and keeps this
+process's rows.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch._guards import detect_fake_mode
@@ -38,22 +45,38 @@ def _outside(name: str) -> SpmdContextError:
         f"mpi_tpu_torch.run / run_spmd, where the rank dimension exists")
 
 
-class _World:
-    __slots__ = ("idx", "nranks", "device")
+class Span(NamedTuple):
+    """The ranks ``[first, first + count)`` of a world that this process
+    holds, where the world spans processes."""
+    first: int
+    count: int
 
-    def __init__(self, idx: torch.Tensor, nranks: int, device: torch.device):
+
+class _World:
+    """One running SPMD call: the batched world index, the world's size,
+    its device and, where the world spans processes, this process's ranks
+    (``first``, ``count``) and the exchange that gathers the rest."""
+
+    __slots__ = ("idx", "nranks", "device", "first", "count", "exchange")
+
+    def __init__(self, idx: torch.Tensor, nranks: int, device: torch.device,
+                 span: Optional[Span] = None, exchange: Any = None):
         self.idx = idx
         self.nranks = nranks
         self.device = device
+        self.first, self.count = span if span is not None else (0, nranks)
+        self.exchange = exchange
 
 
 _STACK: List[_World] = []
 
 
 @contextlib.contextmanager
-def world(idx: torch.Tensor, nranks: int, device: torch.device):
-    """Bind the batched world index for the duration of one SPMD call."""
-    _STACK.append(_World(idx, nranks, device))
+def world(idx: torch.Tensor, nranks: int, device: torch.device,
+          span: Optional[Span] = None, exchange: Any = None):
+    """Bind the batched world index for the duration of one SPMD call
+    (with ``span`` and ``exchange`` where the world spans processes)."""
+    _STACK.append(_World(idx, nranks, device, span, exchange))
     try:
         yield
     finally:
@@ -107,6 +130,41 @@ def as_world(x: torch.Tensor, dim: Optional[int], nranks: int) -> torch.Tensor:
     return x.movedim(dim, 0).contiguous()
 
 
+def _keep(out, dims, first: int, count: int):
+    """This process's rows of a rule's result (a tensor, or a tuple of
+    them, with its out_dims)."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_keep(o, d, first, count) for o, d in zip(out, dims))
+    if dims is None or out is None:
+        return out
+    return out.narrow(dims, first, count)
+
+
+def spanning(rule):
+    """A world-level vmap rule ``rule(info, in_dims, *args)`` for worlds
+    that span processes.  In a world of one process it is the rule itself.
+    Otherwise every batched tensor operand (``[count, ...]`` here) is
+    gathered into the whole ``[P, ...]`` world from every process, the
+    one-process rule runs unchanged on it, and each batched result keeps
+    this process's rows.  Each process gathers the whole world: P/count
+    times the bytes its own ranks need."""
+    @functools.wraps(rule)
+    def vmap(info, in_dims, *args):
+        w = current(rule.__name__)
+        if w.exchange is None:
+            return rule(info, in_dims, *args)
+        args, dims = list(args), list(in_dims)
+        for i, (a, d) in enumerate(zip(args, in_dims)):
+            if isinstance(a, torch.Tensor) and d is not None:
+                args[i] = w.exchange.gather(as_world(a, d, info.batch_size))
+                dims[i] = 0
+        out, out_dims = rule(info._replace(batch_size=w.nranks), tuple(dims),
+                             *args)
+        return _keep(out, out_dims, w.first, w.count), out_dims
+
+    return vmap
+
+
 def _members(groups: Sequence[int], size: int) -> List[List[int]]:
     """``[P, size]`` table: row w lists the world ranks of w's group."""
     n = len(groups)
@@ -143,7 +201,7 @@ def _ppermute_vmap(info, in_dims, x, rank, src, dst):
     return out, 0
 
 
-_ppermute.register_vmap(_ppermute_vmap)
+_ppermute.register_vmap(spanning(_ppermute_vmap))
 
 
 def ppermute(x, pairs: Sequence[Pair]) -> torch.Tensor:
@@ -200,6 +258,7 @@ class _GroupReduce(torch.autograd.Function):
                 None, None, None, None)
 
     @staticmethod
+    @spanning
     def vmap(info, in_dims, x, rank, groups, size, op):
         w = as_world(x, in_dims[0], info.batch_size)
         stacked = w[host_table(_members(groups, size), w.device)]  # [P, size, ...]
@@ -282,6 +341,7 @@ class _GroupCotangent(torch.autograd.Function):
             "the fused allreduce has no second derivative in the port")
 
     @staticmethod
+    @spanning
     def vmap(info, in_dims, grad, mask, rank, groups, size):
         w = as_world(grad, in_dims[0], info.batch_size)
         if mask is not None:
@@ -329,6 +389,7 @@ class _Localize(torch.autograd.Function):
                 None, None, None)
 
     @staticmethod
+    @spanning
     def vmap(info, in_dims, x, rank, groups, size):
         n = info.batch_size
         if in_dims[0] is None:  # the same value on every rank
@@ -368,7 +429,7 @@ def _all_gather_vmap(info, in_dims, x, rank, groups, size):
     return w[host_table(_members(groups, size), w.device)], 0
 
 
-_all_gather.register_vmap(_all_gather_vmap)
+_all_gather.register_vmap(spanning(_all_gather_vmap))
 
 
 def all_gather(x, groups: Sequence[int], size: int) -> torch.Tensor:
@@ -391,7 +452,7 @@ def _all_to_all_vmap(info, in_dims, x, rank, groups, size):
     return w[members, pos[:, None]], 0
 
 
-_all_to_all.register_vmap(_all_to_all_vmap)
+_all_to_all.register_vmap(spanning(_all_to_all_vmap))
 
 
 def all_to_all(x, groups: Sequence[int], size: int) -> torch.Tensor:

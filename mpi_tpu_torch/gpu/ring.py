@@ -26,6 +26,16 @@ Three layers:
   ``pallas_ring_allreduce`` :526, ``pallas_ring_allgather`` :576 and
   ``pallas_ring_reduce_scatter`` :615); a custom op hands the world to the
   layer above.
+
+Worlds that span processes (``gpu/multihost.py``): each process holds the
+``[count, ...]`` rows of its ranks ``[first, first + count)``.
+``peers_world`` takes those rows and the process's exchange
+(``gpu/peers.py``).  On the card it launches ``ring_fold_ptrs`` /
+``ring_gather_ptrs``, which fold in the same order over a table of
+per-rank row pointers into the peers' staging buffers and write this
+process's rows only (counted in ``PEER_LAUNCHES``); on the CPU it runs
+the plain version (``peers_plain``): the gather of the whole world, the
+plain version above, and this process's rows.
 """
 
 from __future__ import annotations
@@ -50,9 +60,15 @@ Groups = Optional[Sequence[Sequence[int]]]
 LAUNCHES: Dict[str, int] = {"allreduce": 0, "reduce_scatter": 0, "allgather": 0}
 
 
+# launches of the peer-pointer entry points (worlds that span processes)
+PEER_LAUNCHES: Dict[str, int] = {"allreduce": 0, "reduce_scatter": 0,
+                                 "allgather": 0}
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PEER_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # -- geometry: copies of mpi_tpu/tpu/pallas_ring.py:93-121, 312-317 ---------
@@ -399,6 +415,100 @@ def allgather_world(world: torch.Tensor, groups: Groups = None,
     return ring_gather(world, _flat(gl), len(gl[0]))
 
 
+# -- worlds that span processes ----------------------------------------------------
+
+
+def _local_groups(gl: List[List[int]], first: int, count: int) -> List[List[int]]:
+    """The groups with a member among this process's ranks."""
+    return [g for g in gl if any(first <= w < first + count for w in g)]
+
+
+def launch_peers(ptrs: torch.Tensor, local: torch.Tensor, first: int,
+                 groups: Groups, mode: str, op: str = "sum", tile_rows: int = 256,
+                 bidirectional: bool = True) -> torch.Tensor:
+    """Launch the peer-pointer kernel of ``mode`` over ``ptrs``, the
+    ``[P]`` device table of row bases that ``CardExchange.peer_rows(local)``
+    yields (call it inside that block), and return this process's rows."""
+    from .. import _build
+
+    _require_cuda(local)
+    count = local.shape[0]
+    gl = _group_list(groups, ptrs.shape[0])
+    g = len(gl[0])
+    scatter = mode == "reduce_scatter"
+    if mode == "allgather":
+        out_shape = (count, g) + tuple(local.shape[1:])
+    else:
+        out_shape = _fold_shape(local, scatter)
+    out = torch.empty(out_shape, dtype=local.dtype, device=local.device)
+    n_inner = local[0].numel() if count else 0
+    mine = _local_groups(gl, first, count)
+    if n_inner == 0 or not mine:
+        return out
+    lib = _build.load("ring")
+    table = _group_table(mine, local.device)
+    # a peer's rows start at its cudaMalloc base (256-byte aligned) plus
+    # whole rows, so they are aligned where this process's rows are
+    with torch.cuda.device(local.device):
+        if mode == "allgather":
+            err = lib.ring_gather_ptrs(
+                ptrs.data_ptr(), out.data_ptr(), table.data_ptr(), len(mine), g,
+                n_inner, first, count, _DTYPE_CODE[local.dtype],
+                _vec(local, out, n_inner), _stream(local))
+        else:
+            rows, _ = _geometry(n_inner, g, tile_rows)
+            chunk_len = n_inner // g if scatter else rows * _LANES
+            err = lib.ring_fold_ptrs(
+                ptrs.data_ptr(), out.data_ptr(), table.data_ptr(), len(mine), g,
+                n_inner, chunk_len, tile_rows * _LANES,
+                _right_tiles(rows, tile_rows, bidirectional),
+                -1 if scatter else 0, int(scatter), first, count,
+                _DTYPE_CODE[local.dtype], _OP_CODE[op],
+                _vec(local, out, n_inner, chunk_len), _stream(local))
+    _raise_on(err, f"{mode} (peer pointers)")
+    PEER_LAUNCHES[mode] += 1
+    return out
+
+
+def peers_world(local: torch.Tensor, exchange, first: int, mode: str,
+                groups: Groups = None, op: str = "sum", tile_rows: int = 256,
+                bidirectional: bool = True) -> torch.Tensor:
+    """``mode`` (allreduce, reduce_scatter or allgather) over a world that
+    spans processes: ``local`` is this process's ``[count, ...]`` rows of
+    ranks ``[first, first + count)`` (``[count, g, *block]`` for
+    reduce_scatter); returns their rows of the result.  The peer-pointer
+    kernel on CUDA, the plain version on the CPU."""
+    _check_args(local.dtype, tile_rows, op)
+    if local.dim() == 0 or not local.is_contiguous():
+        raise ValueError("ring kernels take a contiguous local world with a "
+                         "leading rank dimension")
+    gl = _group_list(groups, exchange.nprocs * local.shape[0])
+    if mode == "reduce_scatter":
+        _check_leading(local.shape[1:], len(gl[0]))
+    if local.device.type == "cpu":
+        return peers_plain(local, exchange, first, mode, gl, op, tile_rows,
+                           bidirectional)
+    _require_cuda(local)
+    with exchange.peer_rows(local) as ptrs:
+        return launch_peers(ptrs, local, first, gl, mode, op, tile_rows,
+                            bidirectional)
+
+
+def peers_plain(local: torch.Tensor, exchange, first: int, mode: str,
+                groups: Groups = None, op: str = "sum", tile_rows: int = 256,
+                bidirectional: bool = True) -> torch.Tensor:
+    """The plain version of the peer modes on any device: the gather of the
+    whole world, the plain version of ``mode``, this process's rows."""
+    world = exchange.gather(local.contiguous())
+    if mode == "allreduce":
+        out = allreduce_plain(world, groups, op, tile_rows, bidirectional)
+    elif mode == "reduce_scatter":
+        out = reduce_scatter_plain(world, groups, op, tile_rows, bidirectional)
+    else:
+        out = allgather_plain(world, groups, tile_rows, bidirectional)
+    return out[first:first + local.shape[0]]
+
+
 # -- per-rank entry points (inside run_spmd) -----------------------------------
 
 
@@ -412,6 +522,10 @@ def _ring_vmap(info, in_dims, x, rank, groups, size, mode, op, tile_rows,
                bidirectional):
     world = primitives.as_world(x, in_dims[0], info.batch_size)
     gl = [list(groups[i:i + size]) for i in range(0, len(groups), size)]
+    w = primitives.current(f"ring_{mode}")
+    if w.exchange is not None:  # a world that spans processes
+        return peers_world(world, w.exchange, w.first, mode, gl, op,
+                           tile_rows, bidirectional), 0
     if mode == "allreduce":
         return allreduce_world(world, gl, op, tile_rows, bidirectional), 0
     if mode == "reduce_scatter":

@@ -6,16 +6,23 @@ Counterpart of ``mpi_tpu/tpu/runner.py`` (``default_mesh`` :98,
 ``jax.shard_map``; here ``fn`` runs under ``torch.vmap`` over a leading
 rank dimension.  Arguments are replicated to every rank (``in_specs=P()``)
 and each rank's results come back stacked ``[P, ...]`` in rank order.
+
+A communicator of a mesh that spans processes (``gpu/multihost.py``)
+carries this process's span of ranks: ``run_spmd`` then maps over those
+ranks only, by their global numbers, and returns their ``[count, ...]``
+rows; the world-level rules exchange the rest (``primitives.spanning``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Optional
 
 import torch
 from torch._guards import detect_fake_mode
 from torch.utils import _pytree as pytree
 
+from ..membership import ENV_DEVICE
 from . import primitives
 from .communicator import TorchCommunicator
 
@@ -65,7 +72,11 @@ def run_spmd(fn: Callable, *args: Any, nranks: Optional[int] = None,
     ``args`` (tensors, numpy arrays or Python values) are replicated to
     every rank; every leaf of ``fn``'s result comes back with a leading
     ``[nranks]`` dimension.  ``comm`` defaults to the world over
-    ``nranks`` ranks; ``device`` defaults to the CUDA card."""
+    ``nranks`` ranks; ``device`` defaults to the CUDA card.  With a
+    communicator whose world spans processes (``comm.span``), this process
+    runs its own ranks and gets their ``[count, ...]`` rows (on the
+    launcher's ``MPI_TPU_DEVICE`` unless ``device`` is given); a replicated
+    result is equal on every rank of every process."""
     if comm is None:
         if nranks is None:
             raise ValueError("run_spmd needs nranks (ranks are virtual on one "
@@ -73,16 +84,30 @@ def run_spmd(fn: Callable, *args: Any, nranks: Optional[int] = None,
         comm = TorchCommunicator(nranks)
     elif nranks is not None and nranks != comm._axis_size:
         raise ValueError(f"nranks={nranks} but comm spans {comm._axis_size} ranks")
+    if device is None and comm.span is not None:
+        # the simulated-host launcher's choice for this process
+        device = os.environ.get(ENV_DEVICE) or None
     dev = resolve_device(device, trace=_tracing(args, kwargs))
     n = comm._axis_size
     args = tuple(_to_device(a, dev) for a in args)
     kwargs = {k: _to_device(v, dev) for k, v in kwargs.items()}
 
+    span, exchange = comm.span, None
+    if span is not None:
+        from . import peers
+
+        exchange = peers.exchange(dev)
+        if span.count * exchange.nprocs != n:
+            raise ValueError(
+                f"comm spans {n} ranks but {exchange.nprocs} processes hold "
+                f"{span.count} each")
+
     def per_rank(idx):
-        with primitives.world(idx, n, dev):
+        with primitives.world(idx, n, dev, span, exchange):
             res = fn(comm, *args, **kwargs)
         return pytree.tree_map(
             lambda r: r if r is None or isinstance(r, torch.Tensor)
             else primitives.host_table(r, dev), res)
 
-    return torch.vmap(per_rank)(torch.arange(n, device=dev))
+    first, count = span if span is not None else (0, n)
+    return torch.vmap(per_rank)(torch.arange(first, first + count, device=dev))

@@ -424,23 +424,19 @@ def graph_create(comm: Communicator, edges: Sequence[Pair]) -> GraphComm:
 
 def multihost_node_key(comm: Communicator):
     """Per-rank node ids of a multi-host world (``mpi_tpu/topology.py:423``):
-    each rank contributes its host's index and the allgathered list
-    becomes the pure ``node_key`` function the hierarchical splits need.
-    The reference reads ``jax.process_index``; here the index is this
-    process's host among the hosts of an initialized ``torch.distributed``
-    world (its hostnames in first-appearance order of their ranks).  A
-    world without an initialized ``torch.distributed`` of more than one
-    process is one node, the reference's fallback and the truth for the
+    each rank contributes its process's index in the multi-process world
+    (``gpu/multihost.py init_distributed``; the reference reads
+    ``jax.process_index``, the DCN granule: one node per host, simulated
+    hosts on one machine included) and the allgathered list becomes the
+    pure ``node_key`` function the hierarchical splits need.  A world
+    without an initialized ``torch.distributed`` of more than one process
+    is one node, the reference's fallback and the truth for the
     single-host worlds the launcher starts; tests inject synthetic keys."""
     dom = 0
     dist = torch.distributed
     if (dist.is_available() and dist.is_initialized()
             and dist.get_world_size() > 1):
-        import socket
-
-        hosts: List[Any] = [None] * dist.get_world_size()
-        dist.all_gather_object(hosts, socket.gethostname())
-        dom = _dense(hosts)[dist.get_rank()]
+        dom = dist.get_rank()
     table = [int(d) for d in comm.allgather(dom)]
     return lambda r: table[r]
 

@@ -3,6 +3,8 @@ named by the hash of its source, of every csrc/ header the source includes
 (directly or through another header) and of the flags, so an edited header
 never loads a stale library."""
 
+import re
+
 from mpi_tpu_torch import _build
 
 
@@ -30,12 +32,18 @@ def test_every_source_has_its_signatures_and_headers():
     """Each library of SIGNATURES is a csrc/ source; the backward kernels
     are their own source, built beside the forward.  Both include the
     ring-attention header they share, and through it the Hopper header:
-    both are in their keys."""
-    assert set(_build.SIGNATURES) == {"ring", "attention", "attention_bwd"}
+    both are in their keys.  The peer-memory source of worlds that span
+    processes has no header.  Every ``extern "C"`` function of a source
+    has its signature, and no signature lacks its function."""
+    assert set(_build.SIGNATURES) == {"ring", "attention", "attention_bwd", "peers"}
     for name in _build.SIGNATURES:
-        assert (_build.SRC_DIR / f"{name}.cu").exists(), name
+        src = _build.SRC_DIR / f"{name}.cu"
+        assert src.exists(), name
+        exported = set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+        assert exported == set(_build.SIGNATURES[name]), name
     assert set(_build.SIGNATURES["attention_bwd"]) == {"attn_bwd_dq", "attn_bwd_dkv"}
     for name in ("attention", "attention_bwd"):
         assert [p.name for p in _build._sources(name)] == [f"{name}.cu", "ring_attention.cuh",
                                                            "hopper.cuh"]
     assert [p.name for p in _build._sources("ring")] == ["ring.cu"]
+    assert [p.name for p in _build._sources("peers")] == ["peers.cu"]

@@ -23,6 +23,10 @@ Two families, as the reference's:
   itself, so these skip elsewhere.  For the CPU (unmarked, run anywhere)
   the trace holds the plain versions and no kernel node, and the traced
   graph runs bitwise equal to the eager program on seeded inputs.
+
+Beside them (``gpu`` marker), a world that spans two processes on the one
+card: the ring kernel across processes over CUDA IPC
+(``examples/multihost_world.py``), bitwise equal to one process.
 """
 
 import math
@@ -893,3 +897,34 @@ def test_federation_takeover_keeps_orphans_on_the_card(monkeypatch, tmp_path):
     assert {tuple(p) for p in kill["orphans_after"]} <= {
         tuple(p) for p in kill["orphans_before"]}
     assert all(kill["adopted_lease"]["ok"])
+
+
+@pytest.mark.gpu
+def test_k1_across_two_processes_on_one_card(monkeypatch, tmp_path):
+    """Two simulated hosts of two ranks each on ``cuda:0``
+    (``examples/multihost_world.py``): the ring kernel reads the other
+    process's rows over CUDA IPC; every process's rows equal, bitwise, the
+    one-process kernel over all four ranks and the plain version, every
+    peer-pointer mode launched, and no IPC mapping stays open."""
+    _card()
+    import json
+    import os
+
+    from mpi_tpu_torch.gpu import multihost
+
+    monkeypatch.delenv("MPI_TPU_DEVICE", raising=False)
+    rdv = tmp_path / "rdv"
+    rdv.mkdir()
+    script = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "mpi_tpu_torch", "examples", "multihost_world.py")
+    assert multihost.launch_sim_hosts(
+        2, [script, "--out", str(tmp_path / "out"), "--mib", "1", "--half-mib",
+            "0.5", "--rdv", str(rdv), "--reps", "1"],
+        devices_per_host=2, timeout=300) == 0
+    for q in range(2):
+        rec = json.loads((tmp_path / "out" / f"proc{q}.json").read_text())
+        assert rec["device"].startswith("cuda") and rec["first"] == 2 * q
+        assert all(rec["launches"].values()), rec["launches"]
+        assert all(k["max_abs_err"] == 0.0 for k in rec["k1"].values())
+        assert rec["node_key"] == [0, 0, 1, 1]
+        assert rec["open_mappings_after"] == 0

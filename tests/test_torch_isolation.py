@@ -3,7 +3,9 @@ package: proven in a subprocess whose import system refuses ``jax``,
 ``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``),
 which imports every module of the port and runs the multi-parallel dry
 run, its trace, a checkpoint, a profile, a nonblocking collective on a
-fault-tolerant local world with the progress engine, an arena
+fault-tolerant local world with the progress engine, the one-process
+meshes of ``gpu/multihost.py`` (whose peer exchange, ``gpu/peers.py``, is
+imported with the rest), an arena
 allreduce over the shared-memory rings (built from the port's own
 ``native/shmring.cpp`` into ``mpi_tpu_torch/_build/``; no library of
 ``mpi_tpu/native`` is mapped), and the host paths of the process
@@ -72,8 +74,13 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.telemetry.metrics",
        "mpi_tpu_torch.examples.host_serve", "mpi_tpu_torch.federation",
        "mpi_tpu_torch.federation_store",
-       "mpi_tpu_torch.examples.host_federation"]
+       "mpi_tpu_torch.examples.host_federation", "mpi_tpu_torch.gpu.multihost",
+       "mpi_tpu_torch.gpu.peers", "mpi_tpu_torch.examples.multihost_world"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
+# worlds that span processes: the meshes of one process need no process group
+from mpi_tpu_torch.gpu import multihost
+assert multihost.global_mesh().comm().span is None
+assert multihost.hybrid_mesh((1, 1), (1, 1), ("dcn", "ici")).shape == {"dcn": 1, "ici": 1}
 from mpi_tpu_torch.entry import dryrun_multichip, lower_multichip
 dryrun_multichip(8, device="cpu")
 assert len(lower_multichip(8, "pallas_ring", device="cpu").graph.nodes) > 100
