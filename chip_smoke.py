@@ -377,14 +377,30 @@ ok line:
     of the phase is left.  The ``kernels`` line gains the peer-pointer
     entry points as K1 rows (``ring_*_ptrs``) with their launches on this
     path;
-30. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
+30. evidence: the evidence writer (``mpi_tpu_torch/tools/gpu_evidence.py``,
+    the counterpart of ``tools/tpu_evidence.py``) called with this run's
+    record, after phase 29 is joined and the launches are summed: the
+    card read in process (its ``nvidia-smi`` line must be phase 1's),
+    ``mpi_tpu_torch.entry.entry()`` run on the card (its result on
+    ``cuda`` and finite), the traces for the card of the reference's
+    export cases on fake tensors, (a) the 1-D ``pallas_ring`` allreduce
+    (a ``ring_fold`` node), (b) the ring-attention forward at 64 and 8192
+    rows a rank (``attn_fwd`` nodes) and (c) the value and gradient of a
+    causal attention loss at 32 and 2048 rows a rank (``attn_fwd``,
+    ``attn_bwd_dq`` and ``attn_bwd_dkv`` nodes, no matrix product of the
+    plain version), (d) phase 6b's record, and the ``kernels`` and
+    ``launches_by_path`` records copied; nothing runs at full size.  The
+    card tier reads ``skipped`` (it runs after this script; the tool run
+    alone with ``--tier-log`` fills it in).  Every other section must be
+    ok.  The record goes to ``chiprun_out/gpu_evidence.json``;
+31. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10, 29), each read right after it ran (``launches_by_path``).  The
     host layer (phases 13-28) launches none of the kernels: its folds are
     in-place torch ops.
 
 Every phase prints its wall time, and their sum is printed after phase
-28 (phase 29 runs beside 19-21).  The full record also goes to
+30 (phase 29 runs beside 19-21).  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -3491,6 +3507,35 @@ def host_multihost_phase(torch, record, started, paths):
     return rows
 
 
+def evidence_phase(torch, record):
+    """The evidence writer on this run's record (phase 30 of the module
+    docstring): every section but the card tier must be ok."""
+    from mpi_tpu_torch.tools import gpu_evidence
+
+    ev = gpu_evidence.collect(record, tier_skip="the card tier runs after chip_smoke.py",
+                              in_process=True, command="python3 chip_smoke.py (phase 30)")
+    path = gpu_evidence.write(ev, os.path.join("chiprun_out", "gpu_evidence.json"))
+    sections = gpu_evidence.summary(ev)
+    failed = [k for k, ok in sections.items() if k != "gpu_tests" and ok is False]
+    if failed:
+        raise RuntimeError(f"evidence sections failed: {failed}: "
+                           f"{json.dumps({k: ev[k] for k in failed})[:4000]}")
+    if ev["card"].get("nvidia_smi") != record["card"]:
+        raise RuntimeError(f"the evidence's card {ev['card']} is not phase 1's")
+    entry_rec = ev["entry_on_card"]  # ok: its result on cuda and finite
+    export = {k: v.get("kernel_nodes") for k, v in ev["export"].items()
+              if isinstance(v, dict)}
+    record["evidence"] = {
+        "path": path, "sections": sections, "entry_on_card": entry_rec,
+        "export_kernel_nodes": export,
+        "export_seconds": {k: v.get("seconds") for k, v in ev["export"].items()
+                           if isinstance(v, dict)},
+        "section_seconds": {k: ev[k]["seconds"] for k in
+                            ("gpu_tests", "entry_on_card", "export")}}
+    log(f"evidence: {path}, sections {sections}, entry() {entry_rec}, "
+        f"kernel nodes {export}")
+
+
 def main():
     import torch
 
@@ -3768,14 +3813,20 @@ def main():
     lap("host-federation")
     record["flat_layer_phases_s"] = time.perf_counter() - t_flat
     log(f"phases 24-28: {record['flat_layer_phases_s']:.1f} s")
-    record["phases_s"] = time.perf_counter() - _T_START
-    log(f"phases 1-29: {record['phases_s']:.2f} s (the sum of the phase walls)")
     for k in kernels:  # launches: every main path's, summed
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
                                  if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())
     record["launches_by_path"] = paths
     record["kernels"] = kernels
+
+    # 30. the evidence writer, on this run's record -------------------------------
+    t_ev = time.perf_counter()
+    evidence_phase(torch, record)
+    record["evidence"]["phase_s"] = time.perf_counter() - t_ev
+    lap("evidence")
+    record["phases_s"] = time.perf_counter() - _T_START
+    log(f"phases 1-30: {record['phases_s']:.2f} s (the sum of the phase walls)")
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

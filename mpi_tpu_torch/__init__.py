@@ -177,9 +177,11 @@ def init(backend: Optional[str] = None, device=None):
             _world = P2PCommunicator(t, range(size))._mark_generation()
             if os.environ.get("MPI_TPU_FT", "") not in ("", "0"):
                 # ULFM (ft.py): heartbeat files under the rendezvous dir
-                # and a detector thread
+                # and a detector thread, started once every slot has
+                # published its incarnation (the bounded start barrier)
                 from . import ft
 
+                membership.await_incarnations(rdv, size)
                 ft.enable(_world, rdv_dir=rdv)
             if os.environ.get("MPI_TPU_VERIFY", "") not in ("", "0"):
                 # the runtime verifier: pending-op files under the

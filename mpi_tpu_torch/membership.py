@@ -12,6 +12,14 @@ joiner enables the verifier under ``MPI_TPU_VERIFY`` and the survivors'
 full-world communicator shares their verifier world (:498-553); the
 flight recorder logs each transition as an ``epoch_bump`` (:382).
 
+The port adds a start barrier the reference lacks,
+``await_incarnations``: a fresh fault-tolerant rank (``init()`` under
+``MPI_TPU_FT``, a serve pool's worker) starts its fault detector once
+every slot has published its incarnation, at most ``START_BARRIER_S``
+later.  The reference starts its detector at once (``mpi_tpu/ft.py:149``
+via ``init``); its ranks' start-ups (a numpy import) fall within the
+detection bound, the port's (a torch import) need not.
+
 Membership changes are EPOCH transitions.  Every world carries a
 monotone epoch (``Transport.epoch``, ``comm.membership_epoch``): 0 at
 start, bumped by ``shrink()`` in survivor lockstep (the bump rides the
@@ -52,7 +60,7 @@ import shutil
 import tempfile
 import time
 import uuid
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from . import mpit as _mpit
 from . import telemetry as _telemetry
@@ -72,6 +80,11 @@ ENV_DEVICE = "MPI_TPU_DEVICE"
 _REJOIN_TIMEOUT_S = 30.0
 
 _POLL_S = 0.01  # rendezvous-file poll cadence
+
+# Bound on the start barrier of a fault-tolerant world
+# (``await_incarnations``): how long a fresh rank waits for every slot's
+# incarnation before it starts its fault detector anyway.
+START_BARRIER_S = 120.0
 
 # Per-process incarnation id: the identity a claim presents.  ONE per
 # process: an ousted live rank re-claiming its slot presents the identity
@@ -130,6 +143,25 @@ def publish_incarnation(rdv_dir: str, rank: int,
 def read_incarnation(rdv_dir: str, rank: int) -> Optional[str]:
     rec = _read_json(os.path.join(rdv_dir, f"inc.{rank}"))
     return rec.get("incarnation") if rec else None
+
+
+def await_incarnations(rdv_dir: str, size: int,
+                       timeout: float = START_BARRIER_S) -> List[int]:
+    """The start barrier of a fault-tolerant world: wait until every slot
+    of ``size`` has published its incarnation, or until ``timeout`` runs
+    out, and return the slots still missing.  A fresh rank starts its
+    fault detector after it: a detector started before a slower peer's
+    first heartbeat names that peer dead for good, and a torch import
+    spreads the ranks' start-ups over seconds.  A slot that never
+    publishes is still named, ``detect_timeout_s`` after the bound ends.
+    A rejoining rank finds every slot published and does not wait."""
+    deadline = time.monotonic() + timeout
+    while True:
+        missing = [p for p in range(size)
+                   if read_incarnation(rdv_dir, p) is None]
+        if not missing or time.monotonic() >= deadline:
+            return missing
+        time.sleep(_POLL_S)
 
 
 def heartbeat_age(rdv_dir: str, rank: int,

@@ -114,10 +114,6 @@ _RATE_WINDOW_S = 60.0
 _PVAR_PUSH_S = 1.0
 _ORPHAN_TIMEOUT_S = 60.0
 
-# How long a fresh pool member waits for every slot's incarnation before
-# it starts its fault detector anyway (see _worker_main).
-_START_BARRIER_S = 120.0
-
 # Slack added to a timeout-bearing request's client-side reply bound: it
 # only turns an infinite wedge (a frozen server whose connection stays
 # established) into a finite ServerLostError.
@@ -379,19 +375,12 @@ def _worker_main() -> int:
         membership.publish_ready(rdv, epoch, t.world_rank)
         _mpit.count(rejoins=1)
     else:
-        # a fresh pool member.  The torch import spreads the workers'
-        # start-ups over seconds, past the detection bound, and a detector
-        # started before a slower peer published its heartbeat declares
-        # that peer dead for good; so the detector starts once every slot
-        # has published its incarnation, which init() does right after
-        # its transport is up (the server sets no MPI_TPU_FT)
+        # a fresh pool member: the detector starts after the start
+        # barrier, as init() starts it under MPI_TPU_FT (the server sets
+        # no MPI_TPU_FT)
         home = _init()
         t = home._t
-        deadline = time.monotonic() + _START_BARRIER_S
-        while (time.monotonic() < deadline
-               and any(membership.read_incarnation(rdv, p) is None
-                       for p in range(t.world_size))):
-            time.sleep(0.01)
+        membership.await_incarnations(rdv, t.world_size)
         _ft.enable(home, rdv_dir=rdv)
     world_ft = t._ft_world
     slot = t.world_rank

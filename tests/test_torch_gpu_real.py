@@ -9,7 +9,8 @@ Two families, as the reference's:
 
 * **P=1 degenerate semantics on the card** (``gpu`` marker; skip without
   a card): every collective by every algorithm runs on one rank and
-  returns the degenerate result, exactly; ``entry.entry()`` runs there.
+  returns the degenerate result, exactly; ``entry.entry()`` runs there,
+  also as the evidence writer runs it (``tools/gpu_evidence.py``).
   With them, the host layer's nonblocking engine and fault tolerance on
   the card: an ``iallreduce`` of a side-stream producer's tensor, and a
   local rank killed inside a ring allreduce, then shrink.
@@ -121,6 +122,29 @@ def test_entry_runs_on_the_card():
     torch.cuda.synchronize()
     assert new.shape == grid.shape and new.device.type == "cuda"
     assert bool(torch.isfinite(residual))
+
+
+@pytest.mark.gpu
+def test_evidence_entry_and_traces_on_the_card():
+    """The evidence writer's card sections (``tools/gpu_evidence.py``):
+    ``entry()`` on the card, finite; the traces for the card of export
+    (a)-(c) hold K1, K2 and K3 nodes and no plain attention product."""
+    _card()
+    from mpi_tpu_torch.tools import gpu_evidence
+
+    got = gpu_evidence.entry_on_card()
+    assert got["ok"] and got["device"].startswith("cuda") and got["finite"], got
+    for name, want in (("pallas_ring_1d", ("ring_fold",)),
+                       ("ring_attention", ("attn_fwd",)),
+                       ("ring_attention_tiled", ("attn_fwd",)),
+                       ("attention_value_and_grad", ("attn_fwd", "attn_bwd_dq",
+                                                     "attn_bwd_dkv")),
+                       ("attention_value_and_grad_tiled", ("attn_fwd", "attn_bwd_dq",
+                                                           "attn_bwd_dkv"))):
+        rec = gpu_evidence.trace(name)
+        assert rec["ok"], (name, rec)
+        assert all(rec["kernel_nodes"].get(k, 0) >= 1 for k in want), (name, rec)
+        assert name == "pallas_ring_1d" or rec["plain_products"] == 0, (name, rec)
 
 
 # ---- ahead-of-time traces of the P=8 programs ---------------------------------

@@ -20,6 +20,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -562,6 +563,98 @@ def test_freeze_past_bound_named_proc_failed(tmp_path):
                 os.kill(p.pid, signal.SIGCONT)
                 p.kill()
                 p.wait(5.0)
+
+
+_LATE_PROG = """
+import os, time
+if os.environ["MPI_TPU_RANK"] == "2":
+    time.sleep(4.0)  # a slow start: past the 2.5 s detection bound
+import torch
+import mpi_tpu_torch
+from mpi_tpu_torch import mpit
+
+mpit.cvar_write("fault_detect_timeout_s", 2.5)
+mpit.cvar_write("fault_heartbeat_interval_s", 0.2)
+comm = mpi_tpu_torch.init()
+for i in range(3):
+    comm.barrier()
+    out = comm.allreduce(torch.full((64,), 1.0), algorithm="ring")
+    assert float(out[0]) == float(comm.size), out[0]
+    time.sleep(0.5)
+comm.barrier()
+print(f"OUTCOME rank={comm.rank} failed={sorted(comm.get_failed())}", flush=True)
+mpi_tpu_torch.finalize()
+"""
+
+
+def test_late_starting_rank_is_not_named_failed(tmp_path):
+    """One of three fault-tolerant socket rank processes starts 4 s late,
+    past the 2.5 s detection bound: every barrier and allreduce completes
+    and no rank names another failed, since ``init()`` starts the
+    detector after the start barrier (``membership.await_incarnations``)."""
+    script = tmp_path / "late.py"
+    script.write_text(_LATE_PROG)
+    rdv = tmp_path / "rdv"
+    rdv.mkdir()
+    procs = []
+    for r in range(3):
+        env = dict(os.environ, MPI_TPU_RANK=str(r), MPI_TPU_SIZE="3",
+                   MPI_TPU_RDV=str(rdv), MPI_TPU_BACKEND="socket",
+                   MPI_TPU_FT="1", MPI_TPU_DEVICE="cpu", PYTHONPATH=str(ROOT))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script)], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=90.0)
+            assert p.returncode == 0, err[-2000:]
+            assert f"OUTCOME rank={r} failed=[]" in out, (out, err[-1000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(5.0)
+
+
+def test_start_barrier_returns_the_missing_slot_and_the_detector_names_it(tmp_path):
+    """``await_incarnations`` returns at once when every slot has
+    published (a rejoin); a slot that never publishes is returned as
+    missing when the bound ends, and a detector started then names it
+    within the detection bound while the live peer stays unnamed."""
+    from mpi_tpu_torch import membership
+
+    rdv = str(tmp_path)
+    for r in (0, 1):
+        membership.publish_incarnation(rdv, r)
+    t0 = time.monotonic()
+    assert membership.await_incarnations(rdv, 3, timeout=0.3) == [2]
+    assert time.monotonic() - t0 >= 0.3
+    assert membership.await_incarnations(rdv, 2, timeout=30.0) == []
+    assert time.monotonic() - t0 < 5.0
+
+    peer = ft.FileLiveness(rdv, 1)
+    stop = threading.Event()
+
+    def beat():
+        while not stop.is_set():
+            peer.beat(1)
+            time.sleep(0.05)
+
+    beater = threading.Thread(target=beat, daemon=True)
+    beater.start()
+    me = types.SimpleNamespace(world_size=3, world_rank=0)
+    world = ft.WorldFT(me, ft.FileLiveness(rdv, 0), DETECT_S, 0.05)
+    try:
+        t0 = time.monotonic()
+        while 2 not in world.failed:
+            assert time.monotonic() - t0 < 6 * DETECT_S, world.failed
+            time.sleep(0.02)
+        assert world.failed == {2}
+    finally:
+        world.stop()
+        stop.set()
+        beater.join(5.0)
+    assert not beater.is_alive()
 
 
 def test_no_fallback_to_the_cpu(tmp_path):

@@ -5,7 +5,9 @@ which imports every module of the port and runs the multi-parallel dry
 run, its trace, a checkpoint, a profile, a nonblocking collective on a
 fault-tolerant local world with the progress engine, the one-process
 meshes of ``gpu/multihost.py`` (whose peer exchange, ``gpu/peers.py``, is
-imported with the rest), an arena
+imported with the rest), an exploration of the protocol model
+(``gpu/ring_model.py``) and a parse of the evidence writer
+(``tools/gpu_evidence.py``), an arena
 allreduce over the shared-memory rings (built from the port's own
 ``native/shmring.cpp`` into ``mpi_tpu_torch/_build/``; no library of
 ``mpi_tpu/native`` is mapped), and the host paths of the process
@@ -75,8 +77,14 @@ NEW = ["mpi_tpu_torch.window", "mpi_tpu_torch.gpu.window", "mpi_tpu_torch.dataty
        "mpi_tpu_torch.examples.host_serve", "mpi_tpu_torch.federation",
        "mpi_tpu_torch.federation_store",
        "mpi_tpu_torch.examples.host_federation", "mpi_tpu_torch.gpu.multihost",
-       "mpi_tpu_torch.gpu.peers", "mpi_tpu_torch.examples.multihost_world"]
+       "mpi_tpu_torch.gpu.peers", "mpi_tpu_torch.examples.multihost_world",
+       "mpi_tpu_torch.gpu.ring_model", "mpi_tpu_torch.tools.gpu_evidence"]
 assert not set(NEW) - set(names), set(NEW) - set(names)
+# the protocol model (the standard library only) and the evidence writer
+from mpi_tpu_torch.gpu import ring_model
+assert ring_model.explore_all(2, 1, rot=0, allgather=True) > 10
+from mpi_tpu_torch.tools import gpu_evidence
+assert gpu_evidence.parse_tier("1 passed in 0.10s")["summary"] == {"passed": 1}
 # worlds that span processes: the meshes of one process need no process group
 from mpi_tpu_torch.gpu import multihost
 assert multihost.global_mesh().comm().span is None
