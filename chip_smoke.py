@@ -103,23 +103,53 @@ ok line:
 11. attention kernels vs plain versions on the card: {float32, bfloat16} x
     {full, causal} x {MHA 4/4, GQA 4/2, MQA 4/1} x {world of 8, 2 groups of
     4} x Sb in {16, 48, 112, 128} (and 8, the dry run's block, in float32)
-    x d in {128, 256}, forward (out and lse) and backward (dq, dk, dv),
-    with the tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in
-    a partial tile);
+    x d in {128, 256}, and the forms above d = 256 at d in {384, 512, 1024}
+    x {GQA 4/2, MQA 4/1} x Sb in {16, 112} x the same dtypes, masks and
+    groupings, forward (out and lse) and backward (dq, dk, dv), with the
+    tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in a partial
+    tile);
 12. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
     float32 (the record): the forward (out and lse) and the backward
     kernels against the plain version (see ``check_close``), the backward
     against itself (two launches must be bitwise equal: no atomics, a
-    fixed order of sums); then timing with CUDA events: forward, backward
-    (both kernels and each alone), the plain versions (3 runs), and as a
+    fixed order of sums); then timing with CUDA events (medians of 3:
+    forward and backward count the checks' launches, which were their
+    warm-up; each backward kernel alone 3 launches after them): forward,
+    backward (both kernels and each alone), the plain versions (the
+    checks' runs, once), and as a
     yardstick only ``scaled_dot_product_attention`` on the whole sequence
-    (forward, backward alone from the forward's saved outputs, and both),
+    (forward, backward alone from the forward's saved outputs, and both;
+    1 warm-up before the first two),
     beside the least time the card could take (operations over the
     datasheet peak: 989 TFLOP/s for bfloat16 inputs; for float32, 495/3
     TFLOP/s, the rate of a float32-accurate product split into three TF32
     tensor-core products, as every attention kernel multiplies; bytes over
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
     (``FLOOR_FLOPS_PER_ENTRY``);
+12a. the forms above d = 256 (``csrc/attention_wide.cu``,
+    ``csrc/attention_bwd_wide.cu``) on their main paths: the wide-head
+    serving leg, ``serving_program`` through ``run(..., nranks=8)`` at
+    ``WIDE_SERVE`` (8 query heads, 2 K/V heads, d = 512: Llama-3-8B's
+    attention width 4096 and GQA group of 4, over the serving leg's causal
+    sequence of 32 768), bfloat16 and float32, counters zeroed before and
+    read after (the wide forward must have launched, no d <= 256 form),
+    against the plain version (timed once); at that shape the forward once
+    and each backward kernel once, in bfloat16 twice (CUDA events, the
+    median of the launches; the two bfloat16 launches must be bitwise
+    equal; the float32 forms' are the training step's below), the
+    backward against the plain version (timed once, ``check_close``
+    normwise), and as a yardstick only SDPA's memory-efficient backend
+    (flash and cuDNN stop at d = 256; K/V heads repeated, since it takes
+    no GQA; forward and backward alone, once each after a warm-up forward;
+    its error kept if it refuses), beside the operations bound and the
+    design floor
+    (``WIDE_FLOOR_FLOPS_PER_ENTRY``: every 128-column output chunk
+    recomputes Q K^T and dO V^T); then one step of
+    ``long_context_training``'s ``sharded_program`` at d = 512
+    (``init_params(512, 1024)``, 8 x 4096 rows, float32) through ``run``:
+    all three wide forms launched under autograd, a second step on the same
+    inputs bitwise equal, loss and gradients against the dense step (phase
+    10's tolerances);
 13. host-local: the host layer's local backend, 8 rank threads on the
     card through ``run(..., backend="local", nranks=8)``, seeded normal
     float32: the north-star ``ring`` allreduce at 256 MiB per rank, and at
@@ -393,9 +423,11 @@ ok line:
     card tier reads ``skipped`` (it runs after this script; the tool run
     alone with ``--tier-log`` fills it in).  Every other section must be
     ok.  The record goes to ``chiprun_out/gpu_evidence.json``;
-31. one ``{"kernels": [...]}`` JSON line, then the ok line.  Each kernel's
-    ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
-    10, 29), each read right after it ran (``launches_by_path``).  The
+31. one ``{"kernels": [...]}`` JSON line, then the ok line; the forms
+    above d = 256 are entries of their own (``attention_*_wide``, bfloat16
+    at the wide serving shape).  Each kernel's ``launches`` is the sum over
+    the main paths (phases 3, 5, 6, 6b, 9, 10, 12a, 29), each read right
+    after it ran (``launches_by_path``).  The
     host layer (phases 13-28) launches none of the kernels: its folds are
     in-place torch ops.
 
@@ -430,10 +462,18 @@ ATTN_SOURCE = {"fwd": "mpi_tpu_torch/csrc/attention.cu",
 ATTN_REPLACES = {"fwd": "mpi_tpu/tpu/pallas_attention.py:1059",
                  "bwd_dq": "mpi_tpu/tpu/pallas_attention.py:1130",
                  "bwd_dkv": "mpi_tpu/tpu/pallas_attention.py:1130"}
+WIDE_SOURCE = {"fwd": "mpi_tpu_torch/csrc/attention_wide.cu",
+               "bwd_dq": "mpi_tpu_torch/csrc/attention_bwd_wide.cu",
+               "bwd_dkv": "mpi_tpu_torch/csrc/attention_bwd_wide.cu"}
 # the serving leg: Llama-3-8B attention (meta-llama/Meta-Llama-3-8B config.json:
 # num_attention_heads 32, num_key_value_heads 8, head dim 4096/32 = 128),
 # 8 ranks x 4096 rows = a causal sequence of 32 768
 SERVE = dict(seq_per_rank=4096, d=128, heads=32, kv_heads=8)
+# the wide-head serving leg: Llama-3-8B's attention width (Hq d = 4096, GQA
+# groups of 4) at d = 512, the same causal sequence: the operations bounds
+# are the serving leg's
+WIDE_SERVE = dict(seq_per_rank=4096, d=512, heads=8, kv_heads=2)
+WIDE_TRAIN_D = 512              # the wide training step: d = 512, 8 x 4096 rows
 TRAIN_SEQ_PER_RANK = 4096       # the training leg: 8 x 4096 rows, d = 128
 # flops per unmasked score entry and head dim (bench.py:198-233): forward
 # QK^T and PV; backward QK^T, dO V^T, dS K, dS^T Q, P^T dO (dq alone needs
@@ -448,6 +488,13 @@ FLOPS_PER_ENTRY = {"fwd": 4, "bwd": 10, "bwd_dq": 6, "bwd_dkv": 8}
 FLOOR_FLOPS_PER_ENTRY = {
     "bf16": {"fwd": 6, "bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
     "f32": {"fwd": 12, "bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
+# the forms above d = 256 (csrc/attention_wide.cu, attention_bwd_wide.cu)
+# recompute Q K^T (and dO V^T) once per 128-column output chunk: per entry
+# and head dim, a d/128 + b flops for (a, b) below; at d = 128 they are the
+# products above
+WIDE_FLOOR_FLOPS_PER_ENTRY = {
+    "bf16": {"fwd": (2, 4), "bwd_dq": (4, 4), "bwd_dkv": (4, 8)},
+    "f32": {"fwd": (6, 6), "bwd_dq": (12, 6), "bwd_dkv": (12, 12)}}
 TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor cores
 # K1's parity groupings: the whole world, two contiguous groups of four, and
 # the dp groups of the 2 x 4 layout of the multi-parallel step (stride 4)
@@ -478,6 +525,10 @@ def ptxas_table(reports):
                 if k:
                     cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f' else 'bf16'}, "
                                      f"{k.group(3)}>")
+                k = re.search(r"\d(attn_[a-z_]+_wide)_(bf16|f32)E", m.group(1))
+                if k:
+                    cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f32' else 'bf16'}, "
+                                     f"d > 256>")
                 rows.append(cur)
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -531,6 +582,17 @@ def time_ms(torch, fn, reps=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_once(torch, fn):
+    """(fn's result, its ms by CUDA events): one call, whose result the
+    caller checks"""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
 
 
 def time_b2b(torch, fn, launches=20, reps=5):
@@ -618,21 +680,25 @@ def check_close(torch, name, got, want, dtype, normwise=False):
     return err
 
 
-def serving_program(comm, dtype):
-    """One rank of the serving leg: Q/K/V from the rank's own generator,
-    then causal ring attention at Llama-3-8B's head geometry."""
+def serving_program(comm, dtype, geometry=SERVE):
+    """One rank of a serving leg: Q/K/V from the rank's own generator,
+    then causal ring attention at the geometry's heads (Llama-3-8B's by
+    default, ``WIDE_SERVE`` for the wide-head leg)."""
     import mpi_tpu_torch
     from mpi_tpu_torch.gpu.attention import ring_attention
 
-    sb, d = SERVE["seq_per_rank"], SERVE["d"]
-    q = mpi_tpu_torch.rank_normal((SERVE["heads"], sb, d), 7).to(dtype)
-    k, v = (mpi_tpu_torch.rank_normal((SERVE["kv_heads"], sb, d), seed).to(dtype)
+    sb, d = geometry["seq_per_rank"], geometry["d"]
+    q = mpi_tpu_torch.rank_normal((geometry["heads"], sb, d), 7).to(dtype)
+    k, v = (mpi_tpu_torch.rank_normal((geometry["kv_heads"], sb, d), seed).to(dtype)
             for seed in (8, 9))
     return ring_attention(q, k, v, comm, causal=True), q, k, v
 
 
 def attention_launches(attention):
-    return {f"attention_{k}": c for k, c in attention.LAUNCHES.items()}
+    """The launches of every attention form, the wide ones (d above 256)
+    named ``attention_<kind>_wide``."""
+    return {**{f"attention_{k}": c for k, c in attention.LAUNCHES.items()},
+            **{f"attention_{k}_wide": c for k, c in attention.WIDE_LAUNCHES.items()}}
 
 
 def ring_launches(ring):
@@ -640,7 +706,7 @@ def ring_launches(ring):
 
 
 def attention_phases(torch, dev, gen, record, paths):
-    """Phases 9-12; returns the three attention entries of the kernels line
+    """Phases 9-12a; returns the six attention entries of the kernels line
     and adds the serving and training legs' launches to ``paths``."""
     import numpy as np
     import torch.nn.functional as F
@@ -728,13 +794,19 @@ def attention_phases(torch, dev, gen, record, paths):
     lap("attention training leg")
 
     # 11. kernel vs plain grid --------------------------------------------------
-    n_cases = 0
+    n_cases, n_wide = 0, 0
+    t_wide = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for dh in (128, 256):
+        for dh in (128, 256, 384, 512, 1024):
+            wide = dh > 256  # csrc/attention_wide.cu, attention_bwd_wide.cu
+            t_dh = time.perf_counter()
             # Sb = 8 (float32 only: bf16 blocks are multiples of 16) is the
             # dry run's [8, 128] block
-            for sb in (8, 16, 48, 112, 128) if dtype == torch.float32 else (16, 48, 112, 128):
-                for hq, hkv in ((4, 4), (4, 2), (4, 1)):
+            sbs = ((16, 112) if wide else
+                   (8, 16, 48, 112, 128) if dtype == torch.float32 else (16, 48, 112, 128))
+            heads = ((4, 2), (4, 1)) if wide else ((4, 4), (4, 2), (4, 1))
+            for sb in sbs:
+                for hq, hkv in heads:
                     for causal in (False, True):
                         for groups in (None, [[0, 1, 2, 3], [4, 5, 6, 7]]):
                             q, k, v, do = (torch.randn(
@@ -755,6 +827,9 @@ def attention_phases(torch, dev, gen, record, paths):
                             for nm, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
                                 check_close(torch, f"{case} {nm}", a, b, dtype)
                             n_cases += 2
+                            n_wide += 2 * wide
+            if wide:
+                t_wide += time.perf_counter() - t_dh
     # contiguous bf16 views 8 bytes past a 16-byte boundary: the kernels stage
     # 16-byte chunks, so the wrapper must hand them an aligned copy
     views = [torch.randn(P * 4 * 48 * 128 + 4, device=dev, generator=gen)
@@ -771,7 +846,9 @@ def attention_phases(torch, dev, gen, record, paths):
                 attention.ring_attention_plain(*views, causal=True), torch.bfloat16)
     record["attention_misaligned_view_forward"] = "bitwise equal to the aligned copies"
     record["attention_parity_cases"] = n_cases
-    log(f"attention parity: {n_cases} cases (forward and backward) within tolerance")
+    record["attention_parity_wide"] = {"cases": n_wide, "s": t_wide}
+    log(f"attention parity: {n_cases} cases (forward and backward) within tolerance, "
+        f"{n_wide} of them at d in (384, 512, 1024) in {t_wide:.2f} s")
     lap("attention parity")
 
     # 12. timing at the serving shape --------------------------------------------
@@ -785,8 +862,10 @@ def attention_phases(torch, dev, gen, record, paths):
         esz = q.element_size()
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_SPLIT_TF32_FLOPS
         do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
-        out, lse = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
-        pout, plse = attention.ring_attention_plain(q, k, v, causal=True, with_lse=True)
+        fwd = lambda: attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+        (out, lse), fwd_ms = time_once(torch, fwd)
+        (pout, plse), plain_fwd_ms = time_once(torch, lambda: attention.ring_attention_plain(
+            q, k, v, causal=True, with_lse=True))
         errs[("fwd", dtype)] = max(errs[("fwd", dtype)], check_close(
             torch, f"{tag} forward at the serving shape: out", out, pout, dtype))
         lse_err = check_close(torch, f"{tag} forward at the serving shape: lse", lse, plse,
@@ -797,8 +876,10 @@ def attention_phases(torch, dev, gen, record, paths):
             f"{errs[('fwd', dtype)]:.3g}, lse {lse_err:.3g}")
         del pout, plse
         ops = attention.bwd_operands(q, k, v, out, lse, do, causal=True)
-        got = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
-        want = attention.ring_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+        bwd = lambda: attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+        got, bwd_ms = time_once(torch, bwd)
+        want, plain_bwd_ms = time_once(torch, lambda: attention.ring_attention_bwd_plain(
+            q, k, v, out, lse, do, causal=True))
         errs[("bwd_dq", dtype)] = check_close(torch, f"{tag} dq", got[0], want[0],
                                               dtype, normwise=True)
         errs[("bwd_dkv", dtype)] = max(
@@ -809,25 +890,22 @@ def attention_phases(torch, dev, gen, record, paths):
             f"max |plain| dq {float(want[0].float().abs().max()):.4g}, dk "
             f"{float(want[1].float().abs().max()):.4g}, dv "
             f"{float(want[2].float().abs().max()):.4g}")
-        again = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+        again, bwd2_ms = time_once(torch, bwd)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"{tag} backward: two launches differ (not deterministic)")
         log(f"{tag} backward at the serving shape: two launches bitwise equal")
         record.setdefault("deterministic", {})[tag] = True
         del got, want, again
+        # medians of 3 launches, the checks' launches among them (they were
+        # the warm-up); the plain versions once, the checks' runs
         t = {
-            "fwd": time_ms(torch, lambda: attention.ring_attention_world(
-                q, k, v, causal=True, with_lse=True), reps=5, warmup=1),
-            "bwd": time_ms(torch, lambda: attention.ring_attention_bwd_world(
-                q, k, v, out, lse, do, causal=True), reps=5, warmup=1),
+            "fwd": statistics.median([fwd_ms] + [time_once(torch, fwd)[1] for _ in range(2)]),
+            "bwd": statistics.median([bwd_ms, bwd2_ms, time_once(torch, bwd)[1]]),
             "bwd_dq": time_ms(torch, lambda: attention.launch_bwd("bwd_dq", ops),
-                              reps=5, warmup=1),
+                              reps=3, warmup=0),
             "bwd_dkv": time_ms(torch, lambda: attention.launch_bwd("bwd_dkv", ops),
-                               reps=5, warmup=1),
-            "plain_fwd": time_ms(torch, lambda: attention.ring_attention_plain(
-                q, k, v, causal=True, with_lse=True), reps=3, warmup=0),
-            "plain_bwd": time_ms(torch, lambda: attention.ring_attention_bwd_plain(
-                q, k, v, out, lse, do, causal=True), reps=3, warmup=0),
+                               reps=3, warmup=0),
+            "plain_fwd": plain_fwd_ms, "plain_bwd": plain_bwd_ms,
         }
         # the yardstick: one library call over the whole sequence
         ql, kl, vl, dol = (world_to_sequence(a) for a in (q, k, v, do))
@@ -849,11 +927,11 @@ def attention_phases(torch, dev, gen, record, paths):
             return torch.autograd.grad(o, (ql, kl, vl), dol)
 
         with torch.no_grad():
-            t["library_fwd"] = time_ms(torch, sdpa, reps=5, warmup=1)
-        t["library_fwd_bwd"] = time_ms(torch, sdpa_fwd_bwd, reps=5, warmup=1)
+            t["library_fwd"] = time_ms(torch, sdpa, reps=3, warmup=1)
         o_lib = sdpa()  # the backward alone, from this forward's saved outputs
         t["library_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
-            o_lib, (ql, kl, vl), dol, retain_graph=True), reps=5, warmup=1)
+            o_lib, (ql, kl, vl), dol, retain_graph=True), reps=3, warmup=1)
+        t["library_fwd_bwd"] = time_ms(torch, sdpa_fwd_bwd, reps=3, warmup=0)
         t["library_variant"] = "enable_gqa" if gqa else "K/V heads repeated"
         del o_lib, ql, kl, vl, dol
         io = {"fwd": ({"q": 1, "kv": 2}, {"q": 1, "rows": 1}),
@@ -897,7 +975,193 @@ def attention_phases(torch, dev, gen, record, paths):
             "pct_of_bound": bt[f"{kind}_pct_of_bound"], "tflops": bt[f"{kind}_tflops"],
             "design_floor_ms": bt[f"{kind}_design_floor_ms"], "dtype": "bfloat16",
         })
+    entries += wide_attention_phase(torch, dev, gen, record, paths)
     return entries
+
+
+def wide_attention_phase(torch, dev, gen, record, paths):
+    """Phase 12a: the forms above d = 256 on their main paths and at the
+    wide serving shape; returns their three entries of the kernels line
+    (bf16) and adds the paths' launches to ``paths``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    import mpi_tpu_torch
+    from mpi_tpu_torch.examples import long_context_training as lct
+    from mpi_tpu_torch.gpu import attention
+
+    g = WIDE_SERVE
+    shape = (P, g["heads"], g["kv_heads"], g["seq_per_rank"], g["d"])
+    rep = g["heads"] // g["kv_heads"]
+    kinds = ("fwd", "bwd_dq", "bwd_dkv")
+    info = {"shape": list(shape)}
+    errs, timing = {}, {}
+
+    def only_wide(name, launches):
+        """the launches of a path, which must have run the wide forms only"""
+        narrow = {k: c for k, c in launches.items() if c and not k.endswith("_wide")}
+        if narrow:
+            raise RuntimeError(f"{name} launched a d <= 256 form: {narrow}")
+        return launches
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        key, rate = ("bf16", BF16_FLOPS) if dtype == torch.bfloat16 else ("f32", TF32_FLOPS)
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_SPLIT_TF32_FLOPS
+        # the wide-head serving leg through run(), then the plain version once
+        attention.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, q, k, v = mpi_tpu_torch.run(serving_program, dtype, g, nranks=P)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = only_wide(f"wide serving leg {tag}", attention_launches(attention))
+        if not launches["attention_fwd_wide"]:
+            raise RuntimeError(f"wide serving leg ({tag}) never launched the wide forward")
+        paths[f"wide serving leg {tag}"] = launches
+        if tuple(out.shape) != (P, g["heads"], g["seq_per_rank"], g["d"]) or out.dtype != dtype:
+            raise RuntimeError(f"wide serving leg output {tuple(out.shape)} {out.dtype}")
+        (pout, plse), plain_fwd = time_once(torch, lambda: attention.ring_attention_plain(
+            q, k, v, causal=True, with_lse=True))
+        errs[("fwd", dtype)] = check_close(torch, f"wide serving {tag} out", out, pout, dtype)
+        del out, pout, plse
+        # the forward with its lse (timed), and the backward's kernels (timed),
+        # against the plain version; in bf16 twice each, bitwise equal (the
+        # float32 forms' two launches are the training step's two steps)
+        (o1, lse), f1 = time_once(torch, lambda: attention.ring_attention_world(
+            q, k, v, causal=True, with_lse=True))
+        do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+        ops = attention.bwd_operands(q, k, v, o1, lse, do, causal=True)
+        (dq1,), b1 = time_once(torch, lambda: attention.launch_bwd("bwd_dq", ops))
+        (dk1, dv1), c1 = time_once(torch, lambda: attention.launch_bwd("bwd_dkv", ops))
+        bs, cs_ = [b1], [c1]
+        if dtype == torch.bfloat16:
+            (dq2,), b2 = time_once(torch, lambda: attention.launch_bwd("bwd_dq", ops))
+            (dk2, dv2), c2 = time_once(torch, lambda: attention.launch_bwd("bwd_dkv", ops))
+            if not (torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)):
+                raise RuntimeError(f"wide {tag} backward: two launches differ "
+                                   f"(not deterministic)")
+            bs.append(b2)
+            cs_.append(c2)
+            del dq2, dk2, dv2
+        want, plain_bwd = time_once(torch, lambda: attention.ring_attention_bwd_plain(
+            q, k, v, o1, lse, do, causal=True))
+        errs[("bwd_dq", dtype)] = check_close(torch, f"wide {tag} dq", dq1, want[0], dtype,
+                                              normwise=True)
+        errs[("bwd_dkv", dtype)] = max(
+            check_close(torch, f"wide {tag} dk", dk1, want[1], dtype, normwise=True),
+            check_close(torch, f"wide {tag} dv", dv1, want[2], dtype, normwise=True))
+        log(f"wide serving leg {tag}: run {run_s:.3f} s, launches {launches}; max abs err "
+            f"vs plain out {errs[('fwd', dtype)]:.3g}, dq {errs[('bwd_dq', dtype)]:.3g}, "
+            f"dk/dv {errs[('bwd_dkv', dtype)]:.3g}"
+            + ("; the backward's two launches bitwise equal" if len(bs) == 2 else ""))
+        del want, dq1, dk1, dv1, ops
+        t = {"fwd": f1, "bwd_dq": statistics.median(bs), "bwd_dkv": statistics.median(cs_),
+             "bwd_dq_ms_runs": bs, "bwd_dkv_ms_runs": cs_,
+             "plain_fwd": plain_fwd, "plain_bwd": plain_bwd, "run_s": run_s}
+        # the yardstick: SDPA's memory-efficient backend (flash and cuDNN stop
+        # at d = 256; it takes no GQA, so K/V heads are repeated)
+        ql, kl, vl, dol = (world_to_sequence(a) for a in (q, k, v, do))
+        kl, vl = kl.repeat_interleave(rep, 1), vl.repeat_interleave(rep, 1)
+        for a in (ql, kl, vl):
+            a.requires_grad_(True)
+
+        def sdpa():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+        t["library_backend"] = "EFFICIENT_ATTENTION, K/V heads repeated"
+        try:
+            with torch.no_grad():
+                t["library_fwd"] = time_ms(torch, sdpa, reps=1, warmup=1)
+            o_lib = sdpa()
+            t["library_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (ql, kl, vl), dol, retain_graph=True), reps=1, warmup=0)
+            del o_lib
+        except RuntimeError as e:  # the backend refuses: no time, its error kept
+            t["library_fwd"] = t["library_bwd"] = None
+            t["library_error"] = f"{type(e).__name__}: {e}"
+        del ql, kl, vl, dol
+        for kind in kinds:
+            io = {"fwd": ({"q": 1, "kv": 2}, {"q": 1, "rows": 1}),
+                  "bwd_dq": ({"q": 2, "kv": 2, "rows": 2}, {"q": 1}),
+                  "bwd_dkv": ({"q": 2, "kv": 2, "rows": 2}, {"kv": 2})}[kind]
+            bound, by, nbytes = attention_bound(kind, q.element_size(), peak, shape, *io)
+            a, b = WIDE_FLOOR_FLOPS_PER_ENTRY[key][kind]
+            entries = causal_entries(shape)
+            t.update({f"{kind}_bound_ms": bound, f"{kind}_bound_by": by,
+                      f"{kind}_bytes": nbytes, f"{kind}_pct_of_bound": 100.0 * bound / t[kind],
+                      f"{kind}_tflops": FLOPS_PER_ENTRY[kind] * g["d"] * entries
+                      / (t[kind] * 1e-3) / 1e12,
+                      f"{kind}_design_floor_ms": (a * g["d"] // 128 + b) * g["d"] * entries
+                      / rate * 1e3})
+        timing[tag] = t
+        log(f"wide attention timing {tag}: " + ", ".join(
+            f"{k_} {v_:.3f}" if isinstance(v_, float) else f"{k_} {v_}"
+            for k_, v_ in t.items() if not k_.endswith("_bytes")))
+        del q, k, v, do, o1, lse
+        torch.cuda.empty_cache()
+    info["timing"] = timing
+    lap("wide attention serving leg and timing")
+
+    # the training step at d = 512: K2 and K3's wide forms under autograd
+    d, S = WIDE_TRAIN_D, P * TRAIN_SEQ_PER_RANK
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(S, d).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randn(S, d).astype(np.float32)).to(dev)
+    block = lct.block_from_numpy(lct.init_params(d, 2 * d), dev)
+    params = {n: p.detach() for n, p in block.named_parameters()}
+    attention.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_s, grads_s = mpi_tpu_torch.run(lct.sharded_program, block, params, x, y, nranks=P)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = only_wide("wide training step", attention_launches(attention))
+    missing = [k for k in (f"attention_{kind}_wide" for kind in kinds) if not launches[k]]
+    if missing:
+        raise RuntimeError(f"wide training step never launched {missing}")
+    paths[f"training step d={d}"] = launches
+    loss2, grads2 = mpi_tpu_torch.run(lct.sharded_program, block, params, x, y, nranks=P)
+    if not (torch.equal(loss_s, loss2) and
+            all(torch.equal(grads_s[n], grads2[n]) for n in grads_s)):
+        raise RuntimeError("wide training step: two steps on the same inputs differ")
+    del loss2, grads2
+    loss_d, grads_d = lct.dense_train_step(block)(params, x, y)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(loss_s).all() and
+            torch.allclose(loss_s[0], loss_d, rtol=1e-5, atol=1e-6)):
+        raise RuntimeError(f"wide training loss {float(loss_s[0])} != dense {float(loss_d)}")
+    grad_err = {}
+    for name, gd in grads_d.items():
+        if not torch.allclose(grads_s[name][0], gd, rtol=5e-4, atol=5e-5):
+            raise RuntimeError(f"wide training gradient {name} disagrees with the dense step")
+        grad_err[name] = float((grads_s[name][0] - gd).abs().max())
+    info["training"] = {"step_s": step_s, "launches": launches, "loss": float(loss_s[0]),
+                        "dense_loss": float(loss_d), "grad_max_abs_err_vs_dense": grad_err,
+                        "seq": S, "d": d, "nranks": P, "deterministic": True}
+    log(f"wide training step (d = {d}): {step_s:.3f} s, launches {launches}, loss "
+        f"{float(loss_s[0]):.6f} vs dense {float(loss_d):.6f}; a second step bitwise equal")
+    del x, y, block, params, loss_s, grads_s, loss_d, grads_d
+    torch.cuda.empty_cache()
+    record["wide_attention"] = info
+    record["allowance_used"] = dict(ALLOWANCE_USED)
+    lap("wide attention training step")
+
+    bt = timing["bfloat16"]
+    return [{
+        "name": f"attention_{kind}_wide", "route": "cuda", "source": WIDE_SOURCE[kind],
+        "replaces": ATTN_REPLACES[kind],
+        "max_abs_err": errs[(kind, torch.bfloat16)], "ms": bt[kind],
+        "plain_ms": bt["plain_fwd"] if kind == "fwd" else bt["plain_bwd"],
+        "bound_ms": bt[f"{kind}_bound_ms"], "bound_by": bt[f"{kind}_bound_by"],
+        "library_ms": bt["library_fwd"] if kind == "fwd" else bt["library_bwd"],
+        "library_call": ("SDPA forward" if kind == "fwd" else
+                         "SDPA backward (dq, dk and dv together)") + ", " + bt["library_backend"],
+        "pct_of_bound": bt[f"{kind}_pct_of_bound"], "tflops": bt[f"{kind}_tflops"],
+        "design_floor_ms": bt[f"{kind}_design_floor_ms"], "dtype": "bfloat16",
+        "head_dim": WIDE_SERVE["d"]} for kind in kinds]
 
 
 def agree(torch, name, got, want, rtol, atol, record):
@@ -3751,7 +4015,7 @@ def main():
     del x, out, xs, xb
     lap("ring timing")
 
-    # 9-12. ring attention -----------------------------------------------------
+    # 9-12a. ring attention ----------------------------------------------------
     kernels += attention_phases(torch, dev, gen, record, paths)
     torch.cuda.empty_cache()
 

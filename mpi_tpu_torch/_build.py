@@ -65,6 +65,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "attn_bwd_dq": [_c_ptr] * 7 + _ATTN_TAIL,
         "attn_bwd_dkv": [_c_ptr] * 8 + _ATTN_TAIL,
     },
+    # the same entry points for head dims above 256
+    "attention_wide": {
+        "attn_fwd_wide": [_c_ptr] * 5 + _ATTN_TAIL,
+    },
+    "attention_bwd_wide": {
+        "attn_bwd_dq_wide": [_c_ptr] * 7 + _ATTN_TAIL,
+        "attn_bwd_dkv_wide": [_c_ptr] * 8 + _ATTN_TAIL,
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -77,10 +77,6 @@
 
 namespace {
 
-constexpr float kMasked = -1e30f;  // pallas_attention.py:109
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
 // W warpgroups (four warps each), each with its own 64 Q rows, share every
 // staged K/V tile.  bf16: two stages of K and three of V (V of a tile is
 // read one iteration after its K); float32: two stages of both.
@@ -95,55 +91,8 @@ template <int D> struct FwdF32Plan {
   static constexpr int SMEM = (W * T + 4 * TS) * LD * 4;
 };
 
-// One tile's scores (NC groups of 8 columns in the m16n8 accumulator layout:
-// s[n][2i + c] = S[row g + 8i][8n + 2t + c]) folded into the online-softmax
-// state of the thread's two rows, in place: s becomes P = 2^(x - m'), where
-// x = S scale log2(e), or -1e30 where the diagonal block masks it, or -inf
-// past the block's rows; m (log2 units) and l are updated and alpha =
-// 2^(m - m') is what the O accumulator must be rescaled by.
-template <int NC>
-__device__ __forceinline__ void fold_scores(float (&s)[NC][4], float (&m)[2], float (&l)[2],
-                                            float (&alpha)[2], int qi0, int kj0, int sb,
-                                            bool diag, float scale2) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qi = qi0 + 8 * (e >> 1), kj = kj0 + 8 * n + (e & 1);
-      float x = s[n][e] * scale2;
-      if (kj >= sb) x = -INFINITY;            // past the block's rows
-      else if (diag && kj > qi) x = kMasked;  // _causal_mask
-      s[n][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(m[i], mx[i]);
-    alpha[i] = exp2f(m[i] - m_new);  // 0 on the first tile (m = -inf)
-    m[i] = m_new;
-  }
-#pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(s[n][e] - m[e >> 1]);
-      s[n][e] = p;
-      sum[e >> 1] += p;
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-    l[i] = l[i] * alpha[i] + sum[i];
-  }
-}
-
 // out = o / l for the thread's two rows (o: NC groups of 8 columns from
-// column 0, layout as above), lse = m ln 2 + log l; rows past Sb are
+// column 0, layout as fold_scores'), lse = m ln 2 + log l; rows past Sb are
 // never written
 template <int NC, typename E>
 __device__ __forceinline__ void write_rows(const float (&o)[NC][4], const float (&m)[2],

@@ -90,52 +90,6 @@ template <int D> struct F32Plan {
   static constexpr int SMEM = (2 * T + 2 * TS) * LD * 4 + 2 * TS * 4;
 };
 
-// -- the walks: which streamed tiles a block visits, in ring order -------------
-
-// attn_bwd_dkv, block of owner j and k-tile k0: arrivals a = 0, 1, ... (rank
-// (j + a) mod g; under causal only ranks >= j), the GQA heads in increasing
-// order, then q-tiles of `rows` rows (on the diagonal from the first that
-// reaches k0)
-struct DkvWalk {
-  int nq, qs, first, per, total;
-  __device__ DkvWalk(const Geo& geo, int j, int k0, int rows) {
-    const int rep = geo.hq / geo.hkv;
-    nq = (geo.sb + rows - 1) / rows;
-    qs = geo.causal ? k0 / rows : 0;
-    first = rep * (nq - qs);
-    per = rep * nq;
-    total = first + ((geo.causal ? geo.g - j : geo.g) - 1) * per;
-  }
-  __device__ void at(int i, int& arr, int& t, int& qt) const {
-    if (i < first) {
-      arr = 0; t = i / (nq - qs); qt = qs + i % (nq - qs);
-      return;
-    }
-    i -= first;
-    arr = 1 + i / per; i %= per;
-    t = i / nq; qt = i % nq;
-  }
-};
-
-// -- staging ------------------------------------------------------------------
-// N float32 values (lse or delta of a tile's rows), zeros beyond `valid`
-// (a multiple of 8)
-template <int N>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int valid) {
-  for (int idx = threadIdx.x; idx < N / 4; idx += kThreads) {
-    const bool ok = 4 * idx < valid;
-    cp_async16(dst + 4 * idx, ok ? src + 4 * idx : src, ok);
-  }
-}
-
-// P and dS of one score entry, in place (s: the raw product, dp: dO.V)
-__device__ __forceinline__ void grad_entry(float& s, float& dp, float lse, float delta,
-                                           float scale, bool masked) {
-  const float p = masked ? 0.f : expf(s * scale - lse);
-  s = p;
-  dp = p * (dp - delta) * scale;
-}
-
 // ----------------------------------------------------------- bf16: dK, dV
 template <int D>
 __device__ __forceinline__ void dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -11,20 +11,24 @@ one card all P ranks' blocks share one memory, so ``csrc/attention.cu``
 (forward) and ``csrc/attention_bwd.cu`` (backward), both on the tensor
 cores, read, for each rank, the blocks its ring would have delivered, in
 the order it would have delivered them (the design notes are in the
-sources).
+sources).  They are built for d = 128 and 256; every other head dim the
+reference takes (any multiple of 128) runs their forms in
+``csrc/attention_wide.cu`` and ``csrc/attention_bwd_wide.cu``, which cut d
+into 128-column chunks, inside the same ops.
 No slot, credit, barrier or VMEM plan carries over: ``interpret`` and
 ``vmem_limit_bytes`` have no counterpart and are dropped, and there is no
-fallback.  A head dim the kernels are not built for raises
-``NotImplementedError`` with the byte arithmetic of their shared memory.
+fallback.  A kernel whose shared-memory plan would not fit a block raises
+``NotImplementedError`` with the byte arithmetic (no plan does).
 
 Three layers:
 
 * ``ring_attention_world`` / ``ring_attention_bwd_world`` take the physical
   ``[P, ...]`` world.  On a CUDA tensor they launch the kernels (and count
-  each launch in ``LAUNCHES``) or raise; on a CPU tensor they run the plain
-  versions.
+  each launch in ``LAUNCHES``, or in ``WIDE_LAUNCHES`` for d above 256) or
+  raise; on a CPU tensor they run the plain versions.
 * ``ring_attention_plain`` / ``ring_attention_bwd_plain``: the TPU schedule
-  step by step in torch ops, all state in float32.
+  step by step in torch ops, all state in float32 (the head-dim products
+  summed in float64).
 * ``ring_attention`` is the per-rank call made inside ``run_spmd`` (the
   counterpart of ``pallas_ring_attention`` :925).  It is a
   ``torch.autograd.Function`` whose ``vmap`` rule hands the world to the
@@ -46,20 +50,27 @@ from .ring import (_DTYPE_CODE, _LANES, _SUBLANES, Groups, _group_list,
                    _group_table, _stream)
 
 _MASKED = -1e30  # large-negative finite, as pallas_attention.py:109
-# the head dims every kernel is built for (the dispatch of csrc/attention.cu
-# and csrc/attention_bwd.cu)
+# the head dims of csrc/attention.cu and csrc/attention_bwd.cu; any other
+# multiple of 128 takes csrc/attention_wide.cu and csrc/attention_bwd_wide.cu
 _HEAD_DIMS = (128, 256)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # score-block elements per plain-version step: bounds its peak memory
 _PLAIN_SCORES = 1 << 26
 
-# kernel launches per entry point: a wrapper adds one exactly where it launches
+# kernel launches per entry point: a wrapper adds one exactly where it
+# launches, in LAUNCHES for d in _HEAD_DIMS, in WIDE_LAUNCHES above
 LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+WIDE_LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, WIDE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def _wide(d: int) -> bool:
+    return d not in _HEAD_DIMS
 
 
 # -- diagnoses: copy of mpi_tpu/tpu/pallas_attention.py:955-989 ----------------
@@ -134,11 +145,22 @@ def _head_chunk(hq: int, sb: int) -> int:
 # -- plain versions: the TPU schedule step by step -----------------------------
 
 
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a b^T`` over the head dim (Q K^T, dO V^T), summed in float64 and
+    rounded to float32 once.  The plain versions are the yardstick of
+    kernels that sum these d products in another order; a float32 sum's
+    own error grows with d, and at the widest head dims it would take much
+    of the float32 allowance of that comparison, so the yardstick's is
+    kept at one rounding."""
+    return torch.matmul(a.double(), b.double().transpose(-1, -2)).float()
+
+
 def _fold(q, k, v, m, l, o, scale, mask):
     """One arrival's online-softmax fold for a chunk of heads, all float32
-    (copy of ``_online_fold``, pallas_attention.py:116).  q/k/v/o
-    ``[H, Sb, d]``, m/l ``[H, Sb, 1]``; ``mask`` ``[Sb, Sb]`` True = attend."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    (copy of ``_online_fold``, pallas_attention.py:116; the scores as
+    ``_dots``).  q/k/v/o ``[H, Sb, d]``, m/l ``[H, Sb, 1]``; ``mask``
+    ``[Sb, Sb]`` True = attend."""
+    s = _dots(q, k) * scale
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, _MASKED))
     m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -206,7 +228,8 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
     in float32 (:1142); dQ accumulates in arrival order; the dK/dV of block
     j accumulate as the block circulates (owner j, then j+1, ..., j+g-1),
     query heads in increasing order within one arrival (``pair_grads``,
-    :700-715); all sums in float32, cast at the end (:1200-1202)."""
+    :700-715); all sums in float32 (Q K^T and dO V^T as ``_dots``), cast
+    at the end (:1200-1202)."""
     q4, k4, v4, (multihead, hq, hkv, sb, d) = _world_blocks(q, k, v)
     nranks = q.shape[0]
     gl = _group_list(groups, nranks)
@@ -236,11 +259,11 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
                     kb = k4[kw][heads[hs]].float()
                     vb = v4[kw][heads[hs]].float()
                     # _pair_grad_tile (pallas_attention.py:217)
-                    s = torch.matmul(qh, kb.transpose(-1, -2)) * scale
+                    s = _dots(qh, kb) * scale
                     p = torch.exp(s - lse4[w, hs])
                     if causal and j == r:
                         p = torch.where(mask, p, torch.zeros_like(p))
-                    dp = torch.matmul(doh, vb.transpose(-1, -2))
+                    dp = _dots(doh, vb)
                     ds = p * (dp - delta[w, hs]) * scale
                     dq[w, hs] += torch.matmul(ds, kb)
                     dk_c = torch.matmul(ds.transpose(-1, -2), qh)
@@ -256,12 +279,19 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
 
 # -- the CUDA kernels --------------------------------------------------------------
 
-# the shared-memory plan of each kernel per input dtype: a ``template <int D>
-# struct`` in its source whose ``SMEM`` is the bytes a block uses
+# the shared-memory plan of each kernel per input dtype: a ``struct`` in its
+# source (a ``template <int D>`` one for d in _HEAD_DIMS) whose ``SMEM`` is
+# the bytes a block uses
+_BWD = ("attention_bwd.cu", {torch.bfloat16: "Bf16Plan", torch.float32: "F32Plan"})
 _PLANS = {"fwd": ("attention.cu", {torch.bfloat16: "FwdBf16Plan",
                                    torch.float32: "FwdF32Plan"}),
-          "bwd": ("attention_bwd.cu", {torch.bfloat16: "Bf16Plan",
-                                       torch.float32: "F32Plan"})}
+          "bwd_dq": _BWD, "bwd_dkv": _BWD}
+_WIDE_PLANS = {"fwd": ("attention_wide.cu", {torch.bfloat16: "WideFwdBf16Plan",
+                                             torch.float32: "WideFwdF32Plan"}),
+               "bwd_dq": ("attention_bwd_wide.cu", {torch.bfloat16: "WideDqBf16Plan",
+                                                    torch.float32: "WideDqF32Plan"}),
+               "bwd_dkv": ("attention_bwd_wide.cu", {torch.bfloat16: "WideDkvBf16Plan",
+                                                     torch.float32: "WideDkvF32Plan"})}
 
 
 @functools.lru_cache(maxsize=None)
@@ -285,32 +315,35 @@ def _plan_smem(source: str, plan: str, d: int) -> int:
 
 def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """Shared memory per block of each kernel at head dim ``d``, from the
-    plans in the sources.  bf16 tiles are 64 x d in the 128-byte swizzle
-    after 1 KB of alignment: the forward (csrc/attention.cu
-    ``FwdBf16Plan``) holds W resident Q tiles, two stages of K and three of
-    V; the backward (csrc/attention_bwd.cu ``Bf16Plan``, both kernels
-    alike) two resident tiles, two stages of two streamed ones and 1 KB of
-    lse/delta rows.  float32 tiles have a row stride of d + 4: the forward
-    (``FwdF32Plan``) holds 64 W Q rows and two stages of 32-row K and V
-    tiles, the backward (``F32Plan``) two resident 64-row and two streamed
-    32-row tiles and 256 bytes of lse/delta rows."""
-    fwd, bwd = (_plan_smem(src, plans[dtype], d) for src, plans in _PLANS.values())
-    return {"fwd": fwd, "bwd_dq": bwd, "bwd_dkv": bwd}
+    plans in the sources.  For d in ``_HEAD_DIMS``: bf16 tiles are 64 x d in
+    the 128-byte swizzle after 1 KB of alignment: the forward
+    (csrc/attention.cu ``FwdBf16Plan``) holds W resident Q tiles, two
+    stages of K and three of V; the backward (csrc/attention_bwd.cu
+    ``Bf16Plan``, both kernels alike) two resident tiles, two stages of two
+    streamed ones and 1 KB of lse/delta rows.  float32 tiles have a row
+    stride of d + 4: the forward (``FwdF32Plan``) holds 64 W Q rows and two
+    stages of 32-row K and V tiles, the backward (``F32Plan``) two resident
+    64-row and two streamed 32-row tiles and 256 bytes of lse/delta rows.
+    Above, the forms of csrc/attention_wide.cu and attention_bwd_wide.cu
+    stream 64- or 128-column (bf16) or 32-column (float32) chunks of d
+    through a ring of stages beside one or two buffers of each 128-column
+    operand of the output product, so their bytes do not depend on d."""
+    plans = _WIDE_PLANS if _wide(d) else _PLANS
+    return {name: _plan_smem(src, names[dtype], d) for name, (src, names) in plans.items()}
 
 
-def _kernel_plan(d: int) -> None:
-    """The kernels are compiled for the head dims ``_HEAD_DIMS``; any other
-    head dim raises, with the shared memory their largest block (the
-    float32 backward) would need there."""
-    if d not in _HEAD_DIMS:
-        need = kernel_smem_bytes(d)["bwd_dkv"]
-        verdict = "within" if need <= _SMEM_LIMIT else "beyond"
-        raise NotImplementedError(
-            f"the ring-attention kernels are compiled for head dims "
-            f"{list(_HEAD_DIMS)}, got {d}: the float32 backward block "
-            f"(F32Plan in csrc/attention_bwd.cu) would need {need} bytes "
-            f"of shared memory, {verdict} the {_SMEM_LIMIT} bytes a "
-            f"block may use")
+def _kernel_plan(d: int, dtype: torch.dtype = torch.float32) -> None:
+    """Raise where a kernel's block at head dim ``d`` would need more shared
+    memory than a block may use, with the arithmetic (the plans in the
+    sources; none does at any d)."""
+    for name, need in kernel_smem_bytes(d, dtype).items():
+        if need > _SMEM_LIMIT:
+            source = (_WIDE_PLANS if _wide(d) else _PLANS)[name][0]
+            raise NotImplementedError(
+                f"the ring-attention {name} kernel (csrc/{source}) at head "
+                f"dim {d}, {dtype}, would need {need} bytes of shared "
+                f"memory a block, beyond the {_SMEM_LIMIT} bytes a block "
+                f"may use")
 
 
 def _require_cuda(*tensors: torch.Tensor) -> None:
@@ -340,8 +373,9 @@ def _geometry(q4, k4, groups, size, d):
 
 # Each C entry point of csrc/attention.cu and csrc/attention_bwd.cu is a
 # world-level ``torch.library`` op on 4-D ``[P, H, Sb, d]`` operands
-# (``mpi_tpu_torch::attn_fwd``, ``::attn_bwd_dq``, ``::attn_bwd_dkv``): its
-# CUDA implementation launches the kernel and counts the launch; its fake
+# (``mpi_tpu_torch::attn_fwd``, ``::attn_bwd_dq``, ``::attn_bwd_dkv``), whose
+# CUDA implementation launches the kernel for its head dim (the ``_wide``
+# entry point of the wide source above d = 256) and counts the launch; its fake
 # implementation only states the outputs, so a trace on fake CUDA tensors
 # records each launch as one graph node and never builds or launches.
 
@@ -355,22 +389,25 @@ def _lse_shape(q4: torch.Tensor) -> Tuple[int, int, int]:
 def attn_fwd(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
              groups: List[int], size: int, scale: float,
              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``attn_fwd`` of csrc/attention.cu: (out like q4, lse ``[P, Hq, Sb]``
+    """``attn_fwd`` of csrc/attention.cu (``attn_fwd_wide`` of
+    csrc/attention_wide.cu above d = 256): (out like q4, lse ``[P, Hq, Sb]``
     float32) for each group of ``size`` consecutive entries of ``groups``."""
     from .. import _build
 
     q4, k4, v4 = _aligned(q4), _aligned(k4), _aligned(v4)
     out = torch.empty_like(q4)
     lse = torch.empty(_lse_shape(q4), dtype=torch.float32, device=q4.device)
-    lib = _build.load("attention")
+    wide = _wide(q4.shape[3])
+    fn = (_build.load("attention_wide").attn_fwd_wide if wide
+          else _build.load("attention").attn_fwd)
     table = _group_table(_split(groups, size), q4.device)
     with torch.cuda.device(q4.device):
-        err = lib.attn_fwd(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                           out.data_ptr(), lse.data_ptr(), table.data_ptr(),
-                           *_geometry(q4, k4, groups, size, q4.shape[3]),
-                           scale, int(causal), _DTYPE_CODE[q4.dtype], _stream(q4))
+        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), table.data_ptr(),
+                 *_geometry(q4, k4, groups, size, q4.shape[3]), scale,
+                 int(causal), _DTYPE_CODE[q4.dtype], _stream(q4))
     _raise_on(err, "forward")
-    LAUNCHES["fwd"] += 1
+    (WIDE_LAUNCHES if wide else LAUNCHES)["fwd"] += 1
     return out, lse
 
 
@@ -384,9 +421,10 @@ def _launch_bwd(name: str, q4, k4, v4, dout4, lse, delta, groups, size, scale,
                 causal, outs) -> None:
     from .. import _build
 
-    lib = _build.load("attention_bwd")
+    wide = _wide(q4.shape[3])
+    lib = _build.load("attention_bwd_wide" if wide else "attention_bwd")
     q4, k4, v4, dout4, lse = (_aligned(t) for t in (q4, k4, v4, dout4, lse))
-    fn = lib.attn_bwd_dq if name == "bwd_dq" else lib.attn_bwd_dkv
+    fn = getattr(lib, f"attn_{name}_wide" if wide else f"attn_{name}")
     table = _group_table(_split(groups, size), q4.device)
     with torch.cuda.device(q4.device):
         err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), dout4.data_ptr(),
@@ -394,7 +432,7 @@ def _launch_bwd(name: str, q4, k4, v4, dout4, lse, delta, groups, size, scale,
                  table.data_ptr(), *_geometry(q4, k4, groups, size, q4.shape[3]),
                  scale, int(causal), _DTYPE_CODE[q4.dtype], _stream(q4))
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    (WIDE_LAUNCHES if wide else LAUNCHES)[name] += 1
 
 
 @torch.library.custom_op("mpi_tpu_torch::attn_bwd_dq", mutates_args=(),
@@ -403,7 +441,8 @@ def attn_bwd_dq(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
                 dout4: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                 groups: List[int], size: int, scale: float,
                 causal: bool) -> torch.Tensor:
-    """``attn_bwd_dq`` of csrc/attention_bwd.cu: dq like q4."""
+    """``attn_bwd_dq`` of csrc/attention_bwd.cu (``attn_bwd_dq_wide`` of
+    csrc/attention_bwd_wide.cu above d = 256): dq like q4."""
     dq = torch.empty(q4.shape, dtype=q4.dtype, device=q4.device)
     _launch_bwd("bwd_dq", q4, k4, v4, dout4, lse, delta, groups, size, scale,
                 causal, (dq,))
@@ -421,7 +460,8 @@ def attn_bwd_dkv(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
                  dout4: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  groups: List[int], size: int, scale: float,
                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``attn_bwd_dkv`` of csrc/attention_bwd.cu: (dk, dv) like k4."""
+    """``attn_bwd_dkv`` of csrc/attention_bwd.cu (``attn_bwd_dkv_wide``
+    above d = 256): (dk, dv) like k4."""
     dk, dv = (torch.empty(k4.shape, dtype=k4.dtype, device=k4.device)
               for _ in range(2))
     _launch_bwd("bwd_dkv", q4, k4, v4, dout4, lse, delta, groups, size, scale,
@@ -444,7 +484,7 @@ def ring_attention_world(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     causal=causal, with_lse=with_lse)
     _require_cuda(q, k, v)
     q4, k4, v4, (multihead, hq, hkv, sb, d) = _world_blocks(q, k, v)
-    _kernel_plan(d)
+    _kernel_plan(d, q.dtype)
     gl = _group_list(groups, q.shape[0])
     out, lse = attn_fwd(q4, k4, v4, [w for g in gl for w in g], len(gl[0]),
                         _default_scale(scale, d), bool(causal))
@@ -480,7 +520,7 @@ def bwd_operands(q, k, v, out, lse, dout, groups: Groups = None, *,
     each kernel can also be timed alone)."""
     _require_cuda(q, k, v, out, lse, dout)
     q4, k4, v4, (multihead, hq, hkv, sb, d) = _world_blocks(q, k, v)
-    _kernel_plan(d)
+    _kernel_plan(d, q.dtype)
     nranks = q.shape[0]
     gl = _group_list(groups, nranks)
     do4 = (dout if multihead else dout.unsqueeze(1)).to(q.dtype)

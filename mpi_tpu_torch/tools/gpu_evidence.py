@@ -243,7 +243,7 @@ def _smem_plan() -> dict:
 
     from ..gpu import attention
 
-    attention._kernel_plan(128)  # raises for a head dim the kernels lack
+    attention._kernel_plan(128)  # raises where a kernel's block would not fit
     return {"head_dims": list(attention._HEAD_DIMS),
             "smem_bytes": attention.kernel_smem_bytes(128, torch.float32),
             "smem_limit": attention._SMEM_LIMIT}

@@ -70,6 +70,12 @@ def port_forward(q, k, v, dt, groups=None, **kw):
     (2, 2, 1, 8, 256, "f32", True),
     (4, 4, 2, 16, 128, "bf16", True),
     (4, 2, 2, 16, 128, "bf16", False),
+    # head dims above 256, which the card runs on csrc/attention_wide.cu
+    (2, 4, 2, 8, 384, "f32", True),      # GQA
+    (2, 2, 1, 8, 512, "f32", True),      # MQA
+    (2, 2, 2, 8, 512, "f32", False),
+    (4, 4, 2, 16, 512, "bf16", True),    # GQA
+    (2, 2, 1, 16, 384, "bf16", False),
 ])
 def test_forward_plain_matches_pallas(P, hq, hkv, sb, d, dt, causal):
     q, k, v = blocks(P, hq, hkv, sb, d, seed=P * 100 + hq * 10 + hkv)
@@ -78,6 +84,7 @@ def test_forward_plain_matches_pallas(P, hq, hkv, sb, d, dt, causal):
     got = port_forward(q, k, v, dt, causal=causal)
     np.testing.assert_allclose(got, want, **TOL[dt])
     assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -204,15 +211,18 @@ def test_diagnoses_match_reference():
           NotImplementedError, "multiple of 16")
 
 
-def test_kernel_plan_gives_the_byte_arithmetic():
-    """Head dims the kernels are not built for raise with the numbers of
-    the largest block (the float32 backward); d = 128 and 256 fit a block
-    in both dtypes.  The bytes are read from the plans of csrc/attention.cu
-    (``FwdBf16Plan``, ``FwdF32Plan``) and csrc/attention_bwd.cu, so these
-    numbers pin the kernels' layout."""
-    for d in (128, 256):
-        attention._kernel_plan(d)
+def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
+    """Every head dim the reference takes fits a block in both dtypes: d =
+    128 and 256 on the plans of csrc/attention.cu (``FwdBf16Plan``,
+    ``FwdF32Plan``) and csrc/attention_bwd.cu, every larger multiple of 128
+    on those of csrc/attention_wide.cu and attention_bwd_wide.cu, which
+    stream chunks of d and so do not grow with it.  The bytes are read from
+    the sources, so these numbers pin the kernels' layout; where a plan
+    would not fit, the diagnosis names the kernel, its source and the
+    bytes."""
+    for d in (128, 256, 384, 512, 1024):
         for dt in (torch.float32, torch.bfloat16):
+            attention._kernel_plan(d, dt)
             assert max(attention.kernel_smem_bytes(d, dt).values()) <= attention._SMEM_LIMIT
     # the forward: Q tiles of three warpgroups at d = 128 (two for bf16 at
     # d = 256, one for float32), sharing the staged K/V tiles
@@ -224,10 +234,25 @@ def test_kernel_plan_gives_the_byte_arithmetic():
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 198656
     assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
     assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
-    with pytest.raises(NotImplementedError, match="298240 bytes .* beyond"):
-        attention._kernel_plan(384)
-    with pytest.raises(NotImplementedError, match="beyond"):
-        attention._kernel_plan(512)
+    # above d = 256: the same bytes at every d (bf16: 64 x 64 or 64 x 128
+    # tiles; float32: 32-column chunks of row stride 36 and 128-column
+    # operands of row stride 132)
+    for d in (384, 512, 1024):
+        assert attention.kernel_smem_bytes(d, torch.bfloat16) == {
+            "fwd": 99328, "bwd_dq": 99328, "bwd_dkv": 198656}
+        assert attention.kernel_smem_bytes(d) == {
+            "fwd": 104448, "bwd_dq": 89088, "bwd_dkv": 89344}
+    # the diagnosis, where a block would need more than it may use
+    monkeypatch.setattr(attention, "_SMEM_LIMIT", 150_000)
+    with pytest.raises(NotImplementedError,
+                       match=r"bwd_dkv kernel \(csrc/attention_bwd_wide.cu\) at head dim "
+                             r"512, torch.bfloat16, would need 198656 bytes .* beyond the "
+                             r"150000"):
+        attention._kernel_plan(512, torch.bfloat16)
+    with pytest.raises(NotImplementedError,
+                       match=r"fwd kernel \(csrc/attention.cu\) .* 168960 bytes"):
+        attention._kernel_plan(128)
+    attention._kernel_plan(1024)  # float32: 104448 bytes at most
 
 
 def test_smem_bytes_follow_the_plans_in_the_sources(tmp_path, monkeypatch):

@@ -77,6 +77,7 @@ def port_grads(q, k, v, ct, dt, causal, comm=None):
     g = mpi_tpu_torch.run(prog, *world, torch.from_numpy(ct), nranks=P,
                           device="cpu")
     assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
     return [to_numpy(x) for x in g]
 
 
@@ -89,6 +90,24 @@ def port_grads(q, k, v, ct, dt, causal, comm=None):
 ])
 def test_grads_match_pallas_fused_backward(P, hq, hkv, sb, dt, causal):
     q, k, v, ct = inputs(P, hq, hkv, sb, 128, seed=P + 10 * hq + hkv)
+    want = jax_grads(q, k, v, ct, dt, causal)
+    got = port_grads(q, k, v, ct, dt, causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **TOL[dt])
+    assert all(np.abs(g).max() > 0 for g in got)
+
+
+@pytest.mark.parametrize("P,hq,hkv,sb,d,dt,causal", [
+    (2, 2, 1, 8, 384, "f32", True),      # MQA
+    (2, 4, 2, 8, 512, "f32", False),     # GQA
+    (2, 2, 2, 8, 512, "f32", True),
+    (2, 2, 1, 16, 512, "bf16", True),
+])
+def test_wide_grads_match_pallas_fused_backward(P, hq, hkv, sb, d, dt, causal):
+    """Head dims above 256 (on the card: csrc/attention_bwd_wide.cu), with
+    the tolerances above."""
+    q, k, v, ct = inputs(P, hq, hkv, sb, d, seed=d + 10 * hq + hkv)
     want = jax_grads(q, k, v, ct, dt, causal)
     got = port_grads(q, k, v, ct, dt, causal)
     for name, g, w in zip("qkv", got, want):

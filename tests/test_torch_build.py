@@ -30,19 +30,28 @@ def test_editing_an_included_header_changes_the_target(tmp_path, monkeypatch):
 
 def test_every_source_has_its_signatures_and_headers():
     """Each library of SIGNATURES is a csrc/ source; the backward kernels
-    are their own source, built beside the forward.  Both include the
+    are their own source, built beside the forward, and the forms above
+    d = 256 are two more sources, built beside them.  All four include the
     ring-attention header they share, and through it the Hopper header:
     both are in their keys.  The peer-memory source of worlds that span
     processes has no header.  Every ``extern "C"`` function of a source
     has its signature, and no signature lacks its function."""
-    assert set(_build.SIGNATURES) == {"ring", "attention", "attention_bwd", "peers"}
+    assert set(_build.SIGNATURES) == {"ring", "attention", "attention_bwd", "peers",
+                                      "attention_wide", "attention_bwd_wide"}
     for name in _build.SIGNATURES:
         src = _build.SRC_DIR / f"{name}.cu"
         assert src.exists(), name
         exported = set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
         assert exported == set(_build.SIGNATURES[name]), name
     assert set(_build.SIGNATURES["attention_bwd"]) == {"attn_bwd_dq", "attn_bwd_dkv"}
-    for name in ("attention", "attention_bwd"):
+    assert set(_build.SIGNATURES["attention_bwd_wide"]) == {"attn_bwd_dq_wide",
+                                                            "attn_bwd_dkv_wide"}
+    # a wide entry point takes the arguments of its d <= 256 counterpart
+    for name in ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkv"):
+        src = "attention" if name == "attn_fwd" else "attention_bwd"
+        assert (_build.SIGNATURES[src + "_wide"][name + "_wide"]
+                == _build.SIGNATURES[src][name]), name
+    for name in ("attention", "attention_bwd", "attention_wide", "attention_bwd_wide"):
         assert [p.name for p in _build._sources(name)] == [f"{name}.cu", "ring_attention.cuh",
                                                            "hopper.cuh"]
     assert [p.name for p in _build._sources("ring")] == ["ring.cu"]

@@ -27,7 +27,8 @@ Two families, as the reference's:
 
 Beside them (``gpu`` marker), a world that spans two processes on the one
 card: the ring kernel across processes over CUDA IPC
-(``examples/multihost_world.py``), bitwise equal to one process.
+(``examples/multihost_world.py``), bitwise equal to one process; and the
+attention kernels' forms above d = 256 against their plain versions.
 """
 
 import math
@@ -111,6 +112,38 @@ def test_attention_size1_runs_on_the_card():
     s = (q.double() @ q.double().T) / math.sqrt(128)
     want = torch.softmax(s, dim=-1) @ q.double()
     torch.testing.assert_close(out[0].cpu().double(), want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [384, 512])
+def test_wide_head_attention_kernels_match_plain_on_the_card(d, dtype):
+    """Head dims above 256 take the forms of csrc/attention_wide.cu and
+    attention_bwd_wide.cu (counted in ``WIDE_LAUNCHES``, never in
+    ``LAUNCHES``): forward and backward, causal GQA 4/2 over 8 ranks of 48
+    rows, against the plain versions on the card with chip_smoke.py's
+    gradient rule (float32 ``rtol=1e-4, atol=1e-5``; bfloat16 the same
+    plus 2^-7 of |plain|, one bfloat16 rounding on each side)."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, do = (torch.randn(P, 4, 48, d, device="cuda", generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(P, 2, 48, d, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    attention.reset_launches()
+    out, lse = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+    want, wlse = attention.ring_attention_plain(q, k, v, causal=True, with_lse=True)
+    got = attention.ring_attention_bwd_world(q, k, v, want, wlse, do, causal=True)
+    ref = attention.ring_attention_bwd_plain(q, k, v, want, wlse, do, causal=True)
+    torch.cuda.synchronize()
+    assert attention.WIDE_LAUNCHES == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    rtol = 1e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=1e-5)
+    for a, b in zip((out, *got), (want, *ref)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -2,7 +2,9 @@
 package: proven in a subprocess whose import system refuses ``jax``,
 ``jaxlib``, ``mpi_tpu`` and ``mpi_tpu.*`` (but not ``mpi_tpu_torch``),
 which imports every module of the port and runs the multi-parallel dry
-run, its trace, a checkpoint, a profile, a nonblocking collective on a
+run, its trace, a checkpoint, a profile, the ring-attention plans of
+every head dim (``kernel_smem_bytes`` reads the CUDA sources, the forms
+above d = 256 too) and a d = 512 world, a nonblocking collective on a
 fault-tolerant local world with the progress engine, the one-process
 meshes of ``gpu/multihost.py`` (whose peer exchange, ``gpu/peers.py``, is
 imported with the rest), an exploration of the protocol model
@@ -166,6 +168,15 @@ x = torch.arange(24, dtype=torch.float32).reshape(8, 3)
 out = mpi_tpu_torch.run(lambda c, d: c.allreduce(d[c.rank], algorithm="pallas_ring"),
                         x, nranks=8, device="cpu")
 assert torch.equal(out[0], x.sum(0)), out
+# the attention forms above d = 256: their plans are read from
+# csrc/attention_wide.cu and attention_bwd_wide.cu, and a d = 512 world runs
+# the plain version on the CPU
+from mpi_tpu_torch.gpu import attention
+for dt in (torch.float32, torch.bfloat16):
+    assert max(attention.kernel_smem_bytes(512, dt).values()) <= attention._SMEM_LIMIT
+w = torch.randn(2, 2, 8, 512)
+assert attention.ring_attention_world(w, w, w, causal=True).shape == w.shape
+assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 # the resident world server: its worker process starts with the same
 # block installed by a sitecustomize, which leaves a mark that it ran
 from mpi_tpu_torch import serve
