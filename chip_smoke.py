@@ -105,7 +105,9 @@ ok line:
     4} x Sb in {16, 48, 112, 128} (and 8, the dry run's block, in float32)
     x d in {128, 256}, and the forms above d = 256 at d in {384, 512, 1024}
     x {GQA 4/2, MQA 4/1} x Sb in {16, 112} x the same dtypes, masks and
-    groupings, forward (out and lse) and backward (dq, dk, dv), with the
+    groupings (float32 also at d = 640 and 1152, Sb = 112: the backward's
+    clusters of 5 blocks, and of 3 blocks of 3 passes each), forward (out
+    and lse) and backward (dq, dk, dv), with the
     tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in a partial
     tile);
 12. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
@@ -143,8 +145,10 @@ ok line:
     no GQA; forward and backward alone, once each after a warm-up forward;
     its error kept if it refuses), beside the operations bound and the
     design floor
-    (``WIDE_FLOOR_FLOPS_PER_ENTRY``: every 128-column output chunk
-    recomputes Q K^T and dO V^T); then one step of
+    (``wide_floor_flops``: in bf16 and the float32 forward every
+    128-column output chunk recomputes Q K^T and dO V^T, the float32
+    backward's clusters form them once a pass), each float32 backward
+    kernel's cluster size, passes, registers and spills; then one step of
     ``long_context_training``'s ``sharded_program`` at d = 512
     (``init_params(512, 1024)``, 8 x 4096 rows, float32) through ``run``:
     all three wide forms launched under autograd, a second step on the same
@@ -489,12 +493,27 @@ FLOOR_FLOPS_PER_ENTRY = {
     "bf16": {"fwd": 6, "bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
     "f32": {"fwd": 12, "bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
 # the forms above d = 256 (csrc/attention_wide.cu, attention_bwd_wide.cu)
-# recompute Q K^T (and dO V^T) once per 128-column output chunk: per entry
-# and head dim, a d/128 + b flops for (a, b) below; at d = 128 they are the
-# products above
+# in bf16 and the float32 forward recompute Q K^T (and dO V^T) once per
+# 128-column output chunk: per entry and head dim, a d/128 + b flops for
+# (a, b) below; at d = 128 they are the products above
 WIDE_FLOOR_FLOPS_PER_ENTRY = {
     "bf16": {"fwd": (2, 4), "bwd_dq": (4, 4), "bwd_dkv": (4, 8)},
-    "f32": {"fwd": (6, 6), "bwd_dq": (12, 6), "bwd_dkv": (12, 12)}}
+    "f32": {"fwd": (6, 6)}}
+# the float32 backward forms them once a pass of its clusters (m passes,
+# ``attention.wide_f32_cluster``): 3 (4m + 2) and 3 (4m + 4), three TF32
+# products each
+WIDE_F32_BWD_FLOOR = {"bwd_dq": (12, 6), "bwd_dkv": (12, 12)}
+
+
+def wide_floor_flops(key, kind, d):
+    """Flops per unmasked entry and head dim of a form above d = 256."""
+    from mpi_tpu_torch.gpu import attention
+
+    if key == "f32" and kind in WIDE_F32_BWD_FLOOR:
+        a, b = WIDE_F32_BWD_FLOOR[kind]
+        return a * attention.wide_f32_cluster(d)[1] + b
+    a, b = WIDE_FLOOR_FLOPS_PER_ENTRY[key][kind]
+    return a * d // 128 + b
 TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor cores
 # K1's parity groupings: the whole world, two contiguous groups of four, and
 # the dp groups of the 2 x 4 layout of the multi-parallel step (stride 4)
@@ -797,12 +816,16 @@ def attention_phases(torch, dev, gen, record, paths):
     n_cases, n_wide = 0, 0
     t_wide = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for dh in (128, 256, 384, 512, 1024):
+        dims = (128, 256, 384, 512, 1024) + ((640, 1152) if dtype == torch.float32 else ())
+        for dh in dims:
             wide = dh > 256  # csrc/attention_wide.cu, attention_bwd_wide.cu
             t_dh = time.perf_counter()
             # Sb = 8 (float32 only: bf16 blocks are multiples of 16) is the
             # dry run's [8, 128] block
-            sbs = ((16, 112) if wide else
+            # the float32 backward's clusters of 5 (d = 640) and of 3 blocks
+            # of 3 passes (1152) at Sb = 112, several streamed tiles ending
+            # in a partial one
+            sbs = ((112,) if dh in (640, 1152) else (16, 112) if wide else
                    (8, 16, 48, 112, 128) if dtype == torch.float32 else (16, 48, 112, 128))
             heads = ((4, 2), (4, 1)) if wide else ((4, 4), (4, 2), (4, 1))
             for sb in sbs:
@@ -848,7 +871,7 @@ def attention_phases(torch, dev, gen, record, paths):
     record["attention_parity_cases"] = n_cases
     record["attention_parity_wide"] = {"cases": n_wide, "s": t_wide}
     log(f"attention parity: {n_cases} cases (forward and backward) within tolerance, "
-        f"{n_wide} of them at d in (384, 512, 1024) in {t_wide:.2f} s")
+        f"{n_wide} of them at d in (384, 512, 1024; float32 640, 1152) in {t_wide:.2f} s")
     lap("attention parity")
 
     # 12. timing at the serving shape --------------------------------------------
@@ -997,6 +1020,19 @@ def wide_attention_phase(torch, dev, gen, record, paths):
     kinds = ("fwd", "bwd_dq", "bwd_dkv")
     info = {"shape": list(shape)}
     errs, timing = {}, {}
+    # the float32 backward's clusters at this d, and its kernels' registers
+    from mpi_tpu_torch import _build
+    clusters, passes = attention.wide_f32_cluster(g["d"])
+    built = {row.get("kernel"): row for row in ptxas_table(_build.PTXAS_REPORT)}
+    info["f32_backward_kernels"] = {}
+    for kind in ("bwd_dq", "bwd_dkv"):
+        row = built.get(f"attn_{kind}_wide<float32, d > 256>", {})
+        info["f32_backward_kernels"][kind] = {
+            "cluster": clusters, "passes": passes, "registers": row.get("registers"),
+            "spill_stores": row.get("spill_stores"), "spill_loads": row.get("spill_loads")}
+        log(f"wide float32 {kind} at d = {g['d']}: clusters of {clusters} blocks, {passes} "
+            f"pass(es); {row.get('registers')} registers, spill stores "
+            f"{row.get('spill_stores')} / loads {row.get('spill_loads')} bytes")
 
     def only_wide(name, launches):
         """the launches of a path, which must have run the wide forms only"""
@@ -1088,14 +1124,13 @@ def wide_attention_phase(torch, dev, gen, record, paths):
                   "bwd_dq": ({"q": 2, "kv": 2, "rows": 2}, {"q": 1}),
                   "bwd_dkv": ({"q": 2, "kv": 2, "rows": 2}, {"kv": 2})}[kind]
             bound, by, nbytes = attention_bound(kind, q.element_size(), peak, shape, *io)
-            a, b = WIDE_FLOOR_FLOPS_PER_ENTRY[key][kind]
             entries = causal_entries(shape)
             t.update({f"{kind}_bound_ms": bound, f"{kind}_bound_by": by,
                       f"{kind}_bytes": nbytes, f"{kind}_pct_of_bound": 100.0 * bound / t[kind],
                       f"{kind}_tflops": FLOPS_PER_ENTRY[kind] * g["d"] * entries
                       / (t[kind] * 1e-3) / 1e12,
-                      f"{kind}_design_floor_ms": (a * g["d"] // 128 + b) * g["d"] * entries
-                      / rate * 1e3})
+                      f"{kind}_design_floor_ms": wide_floor_flops(key, kind, g["d"]) * g["d"]
+                      * entries / rate * 1e3})
         timing[tag] = t
         log(f"wide attention timing {tag}: " + ", ".join(
             f"{k_} {v_:.3f}" if isinstance(v_, float) else f"{k_} {v_}"

@@ -72,6 +72,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention_bwd_wide": {
         "attn_bwd_dq_wide": [_c_ptr] * 7 + _ATTN_TAIL,
         "attn_bwd_dkv_wide": [_c_ptr] * 8 + _ATTN_TAIL,
+        # b, out, stream: how TF32 wgmma reads a raw float32 word (a test's probe)
+        "wgmma_tf32_probe": [_c_ptr] * 3,
     },
 }
 

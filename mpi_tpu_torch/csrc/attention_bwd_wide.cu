@@ -5,59 +5,92 @@
 // Replaces the Pallas TPU kernel _bwd_kernel (mpi_tpu/tpu/pallas_attention.py
 // :617, algebra _pair_grad_tile :217), launched by _bwd_kernel_call (:1130),
 // at the head dims attention_bwd.cu's plans do not fit: what it computes,
-// and the walks, are written there.
+// and the walks, are written there.  Every block owns its outputs: no
+// atomics, and every sum is in a fixed order.
 //
-// Design: the chunks and the unit pipeline of attention_wide.cu.  A block
+// bf16: the chunks and the unit pipeline of attention_wide.cu.  A block
 // owns one 128-column chunk c of its outputs (dQ, or dK and dV), so every
-// accumulator is one m64n128 (bf16) or 16 m16n8 fragments (float32), 64
-// registers a thread each, at every d.  S = Q K^T and dP = dO V^T sum over
-// the d-chunks, streamed a chunk of each of their four operands a unit
-// through a ring of NS stages; at a tile's last unit the block forms P and
-// dS (grad_entry) and adds its output products with the tile's chunk-c
-// operands (OB below says how they are buffered): K_c for dQ += dS K_c;
-// Q_c and dO_c (and the tile's lse and delta rows) for dV_c += P^T dO_c and
-// dK_c += dS^T Q_c.  Every block owns its outputs: no atomics, and the sums
-// are in a fixed order.
+// accumulator is one m64n128, 64 registers a thread, at every d.  S = Q K^T
+// and dP = dO V^T sum over the d-chunks, streamed a chunk of each of their
+// four operands a unit through a ring of NS stages; at a tile's last unit
+// the block forms P and dS (grad_entry) and adds its output products with
+// the tile's chunk-c operands (OB below says how they are buffered): K_c
+// for dQ += dS K_c; Q_c and dO_c (and the tile's lse and delta rows) for
+// dV_c += P^T dO_c and dK_c += dS^T Q_c.
 //   attn_bwd_dq: one block per (rank, query head, 64-row Q tile, chunk c),
 //   walking the K/V tiles of the arrivals in ring order (DqWalk).
 //   attn_bwd_dkv: one block per (owner block j, K/V head, 64-row K tile,
 //   chunk c), walking the visiting ranks, the GQA heads and the Q/dO tiles
 //   (DkvWalk).
-//   The plans (below) keep a block under half of an SM's shared memory
-//   where that was faster on the card at d = 512, so that two blocks share
-//   an SM and each hides the other's waits; the bf16 attn_bwd_dkv, whose
-//   two m64n128 accumulators leave no registers to spare, spilled more and
-//   ran longer in such a plan, and keeps one block an SM.
-//   bf16 (one warpgroup; NS = 2): a stage holds four 64 x KC tiles in the
+//   One warpgroup, NS = 2: a stage holds four 64 x KC tiles in the
 //   128-byte swizzle (KC 64 in attn_bwd_dq, 128 in attn_bwd_dkv); S and dP
 //   (or S^T and dP^T) are m64n64k16 wgmmas over the chunks (chunk_product,
 //   ring_attention.cuh), P and dS are split hi/lo into the A operands of
-//   m64n128k16 wgmmas with B the chunk-c tile read MN-major.  Shared memory
-//   1 KB alignment + 8 chunk tiles + the chunk-c tiles (+ 1 KB of lse/delta
-//   rows): 99 328 bytes (dq), 198 656 (dkv).
-//   float32 (four warps of 16 rows of the block's own side, 64 rows; the
-//   other side in 32-row tiles; 32-column product chunks of row stride 36;
-//   chunk-c tiles of 32 rows at row stride 132; NS = 2): attn_bwd_dq
-//   2 x 2 x (64 + 32) x 36 x 4 + 2 x 32 x 132 x 4 = 89 088 bytes,
-//   attn_bwd_dkv with one buffer of its two chunk-c operands and rows
-//   2 x 2 x (64 + 32) x 36 x 4 + 2 x 32 x 132 x 4 + 2 x 32 x 4 = 89 344.
+//   m64n128k16 wgmmas with B the chunk-c tile read MN-major.  The dq plan
+//   keeps a block under half of an SM's shared memory, so that two blocks
+//   share an SM and each hides the other's waits; dkv, whose two m64n128
+//   accumulators leave no registers to spare, keeps one block an SM.
+//   Shared memory 1 KB alignment + 8 chunk tiles + the chunk-c tiles (+ 1
+//   KB of lse/delta rows): 99 328 bytes (dq), 198 656 (dkv).
+//   Bound: against the reference's 6d (dq) and 8d (dkv) flops an unmasked
+//   score entry, every block recomputes S and dP: dq 4d (d / 128) + 2 x 2d
+//   (dS K_c split), dkv 4d (d / 128) + 2 x 4d, the design floors
+//   chip_smoke.py counts.
 //
-// What bounds them.  Against the reference's 6d (dq) and 8d (dkv) flops an
-// unmasked score entry, every block recomputes S and dP: dq 4d (d / 128) +
-// 2 x 2d (dS K_c split), dkv 4d (d / 128) + 2 x 4d in bf16 products; in
-// float32 3 x (4d (d / 128) + 2d) and 3 x (4d (d / 128) + 4d) at the TF32
-// rate: the design floors chip_smoke.py counts.
+// float32: a thread-block cluster forms S and dP once a tile.  The C blocks
+// of a cluster (WideF32Cluster: C the largest divisor of d / 128 that is at
+// most 8) are the chunks of one (rank, head, own 64-row tile); block c owns
+// output chunks c m .. c m + m - 1 (m = d / 128 / C: 1 at every d <= 1024),
+// one a pass over its walk.  For each streamed 32-row tile of the other
+// side, block c forms the partials S_c = Q_c K_c^T and dP_c = dO_c V_c^T
+// (attn_bwd_dkv: S^T_c = K_c Q_c^T, dP^T_c = V_c dO_c^T) over its own m
+// chunks only, writes them to its shared memory, and after one cluster
+// barrier every block sums the C partials over distributed shared memory
+// in rank order 0..C-1, so all blocks form bit-identical P and dS; the
+// partials are double-buffered by tile parity, so one barrier a tile
+// suffices.  The chunk-c operands of the output products are the tile
+// the partials read, so a block loads each byte of its columns once a pass.
+//   Products: TF32 wgmma (sm_90a), each product three of them (a_lo b_hi +
+//   a_hi b_lo + a_hi b_hi, hi = x with the low 13 bits cleared, lo = x - hi:
+//   hopper.cuh's split).  A 32-bit operand is read from shared memory
+//   K-major only, so the streamed tiles are B of the partials (read raw as
+//   their hi, their lo written once a tile beside them) and the own tile is
+//   A, split in registers; the outputs are formed transposed, dQ_c^T =
+//   K_c^T dS^T, dV_c^T = dO_c^T P, dK_c^T = Q_c^T dS, with the chunk operand
+//   as A (split in registers) and B the block's own P / dS tile, written
+//   K-major as hi and lo tiles after the reduction.  Every chain of tensor-
+//   core sums is four k steps long (32 columns of a partial, a tile of an
+//   output), the hi x hi products in one and the small ones in another,
+//   added by round-to-nearest float32 adds (mma_3xtf32's reason).
+//   Copies: one thread of a producer warpgroup keeps TMA loads (3-D tensor
+//   maps, rows past the block read as zeros, 128-byte swizzle) of the next
+//   stage in flight, completing on mbarriers; two consumer warpgroups take
+//   the partials S and dP, and then the outputs (dQ: 64 columns of the
+//   chunk each; dK/dV: dV_c and dK_c, one accumulator each); setmaxnreg
+//   gives the producers' registers to the consumers.  No __syncthreads()
+//   after the set-up.
+//   Shared memory (WideDqF32Plan, WideDkvF32Plan): 1 KB alignment, the own
+//   tiles (2 x 64 x 128), NS = 2 stages of two 32 x 128 streamed tiles, their
+//   lo tiles, the partials (2 parities x 2 x 64 x 32), the B tiles (dq: dS
+//   hi and lo; dkv: P and dS, hi and lo), the mbarriers: 214 080 bytes (dq),
+//   230 464 (dkv); one block of 384 threads an SM.
+//   Bound: the reference's 6d (dq) and 8d (dkv) flops an entry, three TF32
+//   products each: a design floor of 3 (4m + 2) d and 3 (4m + 4) d, the
+//   bound at m = 1.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <math.h>
 
 #include "ring_attention.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 // KC: the product chunk's columns; NS: stages of the unit ring; OB: buffers
-// of the tile's chunk-c operands (2: by the tile's parity, staged with its
-// first unit; 1: staged with its second unit, once the tile before has
-// used them, which needs NS <= 2)
+// of the tile's chunk-c operands, by the tile's parity, staged with its
+// first unit
 struct WideDqBf16Plan {
   static constexpr int T = 64, KC = 64, CT = T * KC * 2, TILE = T * 128 * 2, NS = 2, OB = 2;
   static constexpr int SMEM = 1024 + 4 * NS * CT + OB * TILE;
@@ -66,20 +99,41 @@ struct WideDkvBf16Plan {
   static constexpr int T = 64, KC = 128, CT = T * KC * 2, TILE = T * 128 * 2, NS = 2, OB = 2;
   static constexpr int SMEM = 1024 + 4 * NS * CT + 2 * OB * TILE + 2 * OB * T * 4;
 };
+// float32: T own rows, TS streamed rows a tile, NS stages; the regions of
+// the shared memory in bytes, in order (OWN: two T x 128 tiles; STAGE: two
+// TS x 128 tiles; LO: their lo tiles; PART: the S and dP partials of two
+// tile parities; BT: the B tiles of the outputs; BARS: the mbarriers)
 struct WideDqF32Plan {
-  static constexpr int T = 64, TS = 32, KC = 32, LDC = KC + 4, LDO = 128 + 4, NS = 2, OB = 2;
-  static constexpr int SMEM = (NS * 2 * (T + TS) * LDC + OB * TS * LDO) * 4;
+  static constexpr int T = 64, TS = 32, NS = 2, OWN = 2 * T * 128 * 4, STAGE = 2 * TS * 128 * 4,
+      LO = 2 * TS * 128 * 4, PART = 2 * 2 * T * TS * 4, BT = 2 * T * TS * 4, BARS = 64;
+  static constexpr int SMEM = 1024 + OWN + NS * STAGE + LO + PART + BT + BARS;
 };
 struct WideDkvF32Plan {
-  static constexpr int T = 64, TS = 32, KC = 32, LDC = KC + 4, LDO = 128 + 4, NS = 2, OB = 1;
-  static constexpr int SMEM = (NS * 2 * (T + TS) * LDC + 2 * OB * TS * LDO + 2 * OB * TS) * 4;
+  static constexpr int T = 64, TS = 32, NS = 2, OWN = 2 * T * 128 * 4, STAGE = 2 * TS * 128 * 4,
+      LO = 2 * TS * 128 * 4, PART = 2 * 2 * T * TS * 4, BT = 4 * T * TS * 4, BARS = 64;
+  static constexpr int SMEM = 1024 + OWN + NS * STAGE + LO + PART + BT + BARS;
 };
-
-// the unit of a tile that stages its chunk-c operands, by buffering
-template <typename Plan> __host__ __device__ constexpr int operand_unit() {
-  static_assert(Plan::OB == 2 || Plan::NS <= 2, "one operand buffer needs NS <= 2");
-  return Plan::OB == 2 ? 0 : 1;
+// The float32 forms' cluster at head dim D: C blocks, the largest divisor
+// of D / 128 that is at most 8 (the portable cluster size), each taking M
+// passes over its walk, one output chunk a pass
+template <int D> struct WideF32Cluster {
+  static constexpr int ND = D / 128, C = ND % 8 == 0 ? 8 : ND % 7 == 0 ? 7 : ND % 6 == 0 ? 6 : ND % 5 == 0 ? 5 : ND % 4 == 0 ? 4 : ND % 3 == 0 ? 3 : ND % 2 == 0 ? 2 : 1, M = ND / C;
+};
+// its C at run time (nd = d / 128)
+__host__ __device__ constexpr int cluster_blocks(int nd) {
+  return nd % 8 == 0 ? 8 : nd % 7 == 0 ? 7 : nd % 6 == 0 ? 6 : nd % 5 == 0 ? 5 : nd % 4 == 0 ? 4
+       : nd % 3 == 0 ? 3 : nd % 2 == 0 ? 2 : 1;
 }
+template <int ND = 3> constexpr bool clusters_agree() {
+  if constexpr (ND > 64) {
+    return true;
+  } else {
+    using Cluster = WideF32Cluster<ND * 128>;
+    return Cluster::C == cluster_blocks(ND) && Cluster::C * Cluster::M == ND &&
+           clusters_agree<ND + 1>();
+  }
+}
+static_assert(clusters_agree(), "WideF32Cluster and cluster_blocks disagree");
 
 // ----------------------------------------------------------- bf16: dQ
 __global__ void __launch_bounds__(kThreads)
@@ -110,7 +164,7 @@ attn_bwd_dq_wide_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage_bf16_cols<T, KC, kThreads>(s + CT, dout + qrow * d + dc * KC, d, sb - q0);
     stage_bf16_cols<T, KC, kThreads>(s + 2 * CT, k + kv * d + dc * KC, d, sb - kt * T);
     stage_bf16_cols<T, KC, kThreads>(s + 3 * CT, v + kv * d + dc * KC, d, sb - kt * T);
-    if (dc == operand_unit<Plan>())
+    if (dc == 0)
       stage_bf16_cols<T, kChunk, kThreads>(Kc + (i % OB) * TILE, k + kv * d + b.c * kChunk, d,
                                            sb - kt * T);
   };
@@ -223,7 +277,7 @@ attn_bwd_dkv_wide_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage_bf16_cols<T, KC, kThreads>(s + CT, v + kvrow * d + dc * KC, d, sb - k0);
     stage_bf16_cols<T, KC, kThreads>(s + 2 * CT, q + row0 * d + dc * KC, d, sb - q0);
     stage_bf16_cols<T, KC, kThreads>(s + 3 * CT, dout + row0 * d + dc * KC, d, sb - q0);
-    if (dc == operand_unit<Plan>()) {
+    if (dc == 0) {
       uint8_t* o = Oc + 2 * (i % OB) * TILE;
       stage_bf16_cols<T, kChunk, kThreads>(o, q + row0 * d + b.c * kChunk, d, sb - q0);
       stage_bf16_cols<T, kChunk, kThreads>(o + TILE, dout + row0 * d + b.c * kChunk, d, sb - q0);
@@ -309,256 +363,586 @@ attn_bwd_dkv_wide_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
+// ------------------------------------------------------------ float32
+constexpr int kF32Consumers = 256;               // two consumer warpgroups
+constexpr int kF32Threads = kF32Consumers + 128;  // and a producer warpgroup
+// registers a thread after setmaxnreg (an SM sub-partition holds one warp
+// of each warpgroup: 40 + 2 x 232 of its 512 a lane)
+constexpr int kF32ProducerRegs = 40, kF32ConsumerRegs = 232;
+constexpr int kNoCluster = 1001;   // cudaOccupancyMaxActiveClusters found no room for a cluster
+constexpr int kNoEncoder = 1002;   // the CUDA driver's cuTensorMapEncodeTiled was not found
+constexpr int kBadMap = 1003;      // cuTensorMapEncodeTiled refused a tensor
+
+// the regions of a float32 block's shared memory (the plan's order)
+template <typename Plan>
+struct F32Smem {
+  uint8_t* own;    // [2][T x 128]: own[wg] is warpgroup wg's A operand of the partials
+  uint8_t* stage;  // NS x [2][TS x 128]: the streamed tiles of a unit
+  uint8_t* lo;     // [2][TS x 128]: lo[wg], the lo of stage operand wg, written by warpgroup wg
+  float* part;     // [tile parity][S, dP][q 4][thread 128][4]: a warpgroup's m64n32 partial
+  uint8_t* bt;     // [T x TS] B tiles of the outputs, 128-byte rows: hi, lo (x2 in dK/dV)
+  uint64_t* full;  // [NS]: a stage's TMA loads landed
+  uint64_t* empty;     // [NS]: the consumers are done with a stage
+  uint64_t* own_full;  // the own tiles landed
+  uint64_t* own_empty;  // the consumers are done with them (m > 1: reloaded every unit)
+  __device__ explicit F32Smem(uint8_t* raw) {
+    own = align1024(raw);
+    stage = own + Plan::OWN;
+    lo = stage + Plan::NS * Plan::STAGE;
+    part = reinterpret_cast<float*>(lo + Plan::LO);
+    bt = lo + Plan::LO + Plan::PART;
+    full = reinterpret_cast<uint64_t*>(bt + Plan::BT);
+    empty = full + Plan::NS;
+    own_full = empty + Plan::NS;
+    own_empty = own_full + 1;
+  }
+  // one thread, before anything else
+  __device__ void init() const {
+    for (int s = 0; s < Plan::NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kF32Consumers);
+    }
+    mbar_init(own_full, 1);
+    mbar_init(own_empty, kF32Consumers);
+    fence_mbar_init();
+  }
+};
+
+__device__ __forceinline__ float ld_f32(const uint8_t* tile, int row, int col, int rows) {
+  return *reinterpret_cast<const float*>(tile + sw128_f32(row, col, rows));
+}
+
+// The producer warpgroup: one thread issues the loads.  Unit n = (tile nt,
+// chunk u of the block's m) goes to stage n % NS; `own(n)` loads the own
+// tiles of unit n (once at m = 1, every unit above), `unit(n, s)` the
+// streamed tiles into stage s.  Every thread takes part in every cluster
+// barrier, as late as the stages allow: before it fills a stage for tile
+// nt it has passed barrier nt - 1 - lag (lag 1 at m = 1: tile nt's stage
+// was freed by tile nt - 2's outputs; 0 above, where a tile's later units
+// reuse stages of its own earlier ones).
+template <int NS, typename Own, typename Unit>
+__device__ __forceinline__ void produce(int tiles, int m, uint64_t* full, uint64_t* empty,
+                                        uint64_t* own_full, uint64_t* own_empty, Own own,
+                                        Unit unit) {
+  const bool lead = threadIdx.x == kF32Consumers;
+  const int lag = m == 1 ? 1 : 0;
+  int done = 0;
+  if (lead && m == 1) own(0);
+  for (int nt = 0; nt < tiles; ++nt) {
+    for (; done < nt - lag; ++done) cluster_sync();
+    if (lead) {
+      for (int u = 0; u < m; ++u) {
+        const int n = nt * m + u, s = n % NS;
+        if (m > 1) {
+          if (n > 0) mbar_wait(own_empty, (n - 1) & 1);
+          own(n);
+        }
+        if (n >= NS) mbar_wait(empty + s, (n / NS - 1) & 1);
+        unit(n, s);
+      }
+    }
+    __syncwarp();
+  }
+  for (; done < tiles; ++done) cluster_sync();
+  cluster_sync();  // the consumers' last one
+}
+
+// lo = x - hi of a streamed TS x 128 tile into a tile of the same layout
+// (hi is x itself, as the tensor core reads it); one warpgroup
+template <int TS>
+__device__ __forceinline__ void write_lo(uint8_t* dst, const uint8_t* src, int t) {
+  for (int i = t; i < TS * 128 / 4; i += 128) {
+    float4 x = reinterpret_cast<const float4*>(src)[i];
+    x.x -= __uint_as_float(__float_as_uint(x.x) & 0xFFFFE000u);
+    x.y -= __uint_as_float(__float_as_uint(x.y) & 0xFFFFE000u);
+    x.z -= __uint_as_float(__float_as_uint(x.z) & 0xFFFFE000u);
+    x.w -= __uint_as_float(__float_as_uint(x.w) & 0xFFFFE000u);
+    reinterpret_cast<float4*>(dst)[i] = x;
+  }
+}
+
+// The tensor core's TF32 sums lose bits with every product a chain adds
+// (measured on an H100: chains over a whole 128-column chunk used 1.5 times
+// the float32 allowance where chains of four k steps use 0.48): every chain
+// below is four k steps of the hi x hi products, and beside it one of the
+// small ones (a_lo b_hi, a_hi b_lo), added by round-to-nearest float32
+// adds.
+
+// f (m64n32: the T own rows by the tile's TS streamed rows) = A B^T over one
+// 128-column chunk: A the own tile at `a` (T x 128, split in registers), B
+// the streamed tile (raw words at `b`, its lo tile at `blo`); 32 columns
+// (one swizzle block) a chain.  The loop over them stays rolled: unrolled,
+// the compiler hoists every block's operand loads and spills the output
+// accumulators instead (1.1-1.4 KB; 45% longer on an H100)
+template <int T, int TS>
+__device__ __forceinline__ void partial_chunk(float (&f)[16], const uint8_t* a, uint32_t b,
+                                              uint32_t blo, int w, int g4, int t4) {
+  const int r0 = 16 * w + g4;
+#pragma unroll 1
+  for (int cb = 0; cb < 4; ++cb) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int col = 32 * cb + 8 * kk + t4;
+      const float x[4] = {ld_f32(a, r0, col, T), ld_f32(a, r0 + 8, col, T),
+                          ld_f32(a, r0, col + 4, T), ld_f32(a, r0 + 8, col + 4, T)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const Tf32x2 sp = split(x[e]);
+        ah[kk][e] = sp.hi;
+        al[kk][e] = sp.lo;
+      }
+    }
+    float big[16], small[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) big[e] = small[e] = 0.f;
+    reg_fence(big);
+    reg_fence(small);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t off = cb * TS * 128 + kk * 32;
+      const uint64_t bh = desc_kmajor(b + off), bl = desc_kmajor(blo + off);
+      wgmma_m64n32k8_tf32(small, al[kk], bh, kk > 0);
+      wgmma_m64n32k8_tf32(small, ah[kk], bl, 1);
+      wgmma_m64n32k8_tf32(big, ah[kk], bh, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(big);
+    reg_fence(small);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) f[e] = cb == 0 ? big[e] + small[e] : f[e] + (big[e] + small[e]);
+  }
+}
+
+// f (m64n64: 64 columns of a chunk from m0, by the T own rows) = A B^T over
+// the tile's TS streamed rows: A = columns m0.. of the streamed tile at `s`
+// transposed (split in registers), B the block's own T x TS tile (hi at
+// bh, lo at bl); one chain of each kind
+template <int TS>
+__device__ __forceinline__ void output_half(float (&f)[32], const uint8_t* s, int m0, uint32_t bh,
+                                            uint32_t bl, int w, int g4, int t4) {
+  const int c0 = m0 + 16 * w + g4;
+  uint32_t ah[TS / 8][4], al[TS / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const int r = 8 * kk + t4;
+    const float x[4] = {ld_f32(s, r, c0, TS), ld_f32(s, r, c0 + 8, TS), ld_f32(s, r + 4, c0, TS),
+                        ld_f32(s, r + 4, c0 + 8, TS)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const Tf32x2 sp = split(x[e]);
+      ah[kk][e] = sp.hi;
+      al[kk][e] = sp.lo;
+    }
+  }
+  float small[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) f[e] = small[e] = 0.f;
+  reg_fence(f);
+  reg_fence(small);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const uint64_t h = desc_kmajor(bh + kk * 32), l = desc_kmajor(bl + kk * 32);
+    wgmma_m64n64k8_tf32(small, al[kk], h, kk > 0);
+    wgmma_m64n64k8_tf32(small, ah[kk], l, 1);
+    wgmma_m64n64k8_tf32(f, ah[kk], h, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(f);
+  reg_fence(small);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) f[e] += small[e];
+}
+
+// this warpgroup's partial (m64n32 accumulator) into its slot of the
+// tile's parity, float4 q of thread t at [q][t]
+__device__ __forceinline__ void put_partial(float* slot, const float (&f)[16], int t) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    reinterpret_cast<float4*>(slot)[q * 128 + t] =
+        make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+}
+
+// The tile's S and dP entries of consumer thread (wg, t): float4s 2 wg and
+// 2 wg + 1 of accumulator thread t (entry 4 h + l: row 16 w + g + 8 (l / 2),
+// column 8 (2 wg + h) + 2 t4 + l % 2), summed over the cluster's C
+// partials in rank order
+__device__ __forceinline__ void cluster_sum(float (&s8)[8], float (&p8)[8], const float* part,
+                                            int C, int wg, int t) {
+  cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int at = (2 * wg + h) * 128 + t;
+    float4 s, p;
+    for (int r = 0; r < C; ++r) {
+      const float4* peer = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(const_cast<float*>(part), r));
+      const float4 a = peer[at], b = peer[512 + at];
+      if (r == 0) {
+        s = a;
+        p = b;
+      } else {
+        s.x += a.x; s.y += a.y; s.z += a.z; s.w += a.w;
+        p.x += b.x; p.y += b.y; p.z += b.z; p.w += b.w;
+      }
+    }
+    s8[4 * h] = s.x; s8[4 * h + 1] = s.y; s8[4 * h + 2] = s.z; s8[4 * h + 3] = s.w;
+    p8[4 * h] = p.x; p8[4 * h + 1] = p.y; p8[4 * h + 2] = p.z; p8[4 * h + 3] = p.w;
+  }
+}
+
+// entries (row, col) and (row, col + 1) of a T x TS B tile as hi and lo
+template <int T>
+__device__ __forceinline__ void put_split2(uint8_t* hi, uint8_t* lo, int row, int col, float x,
+                                           float y) {
+  const uint32_t off = sw128_f32(row, col, T);
+  const Tf32x2 a = split(x), b = split(y);
+  *reinterpret_cast<float2*>(hi + off) = make_float2(__uint_as_float(a.hi), __uint_as_float(b.hi));
+  *reinterpret_cast<float2*>(lo + off) = make_float2(__uint_as_float(a.lo), __uint_as_float(b.lo));
+}
+
 // ------------------------------------------------------------ float32: dQ
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
+// A cluster per (rank, query head, 64-row Q tile); own Q and dO, streamed
+// K and V in 32-row tiles (DqWalk).  Partials: warpgroup 0 S, warpgroup 1
+// dP; output: dQ_c^T = K_c^T dS^T, warpgroup wg the chunk's columns
+// 64 wg .. 64 wg + 63.
+__global__ void __launch_bounds__(kF32Threads, 1)
+attn_bwd_dq_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                     const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dq, Geo geo, int d) {
   using Plan = WideDqF32Plan;
-  constexpr int T = Plan::T, TS = Plan::TS, KC = Plan::KC, LDC = Plan::LDC, LDO = Plan::LDO;
-  constexpr int NS = Plan::NS, OB = Plan::OB, STAGE = 2 * (T + TS) * LDC;
+  constexpr int T = Plan::T, TS = Plan::TS, NS = Plan::NS, HALF = Plan::STAGE / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* St = reinterpret_cast<float*>(smem_raw);  // unit u: Q, dO (T rows), K, V (TS rows)
-  float* Kc = St + NS * STAGE;                     // tile i's K_c at Kc + (i % OB) TS LDO
-  const int nd = d / kChunk, nk = d / KC;
-  const QueryBlock b(geo, nd);
-  const int warp = threadIdx.x / 32, g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  const F32Smem<Plan> sm(smem_raw);
+  const int C = cluster_blocks(d / kChunk), m = d / kChunk / C;
+  const QueryBlock b(geo, C);  // b.c: the block's rank in the cluster
   const int sb = geo.sb, q0 = b.qt * T;
   const DqWalk walk(geo, b.r, q0, T, TS);
-  const int units = walk.total * nk;
+  const int tiles = m * walk.total;
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
 
-  auto fetch = [&](int u) {
-    const int i = u / nk, dc = u % nk;
-    int arr, kt;
-    walk.at(i, arr, kt);
-    const long long kv = b.kv_row(geo, arr, kt, TS), qrow = b.row0 + q0;
-    float* s = St + (u % NS) * STAGE;
-    stage_f32_cols<T, KC, kThreads>(s, q + qrow * d + dc * KC, d, sb - q0);
-    stage_f32_cols<T, KC, kThreads>(s + T * LDC, dout + qrow * d + dc * KC, d, sb - q0);
-    stage_f32_cols<TS, KC, kThreads>(s + 2 * T * LDC, k + kv * d + dc * KC, d, sb - kt * TS);
-    stage_f32_cols<TS, KC, kThreads>(s + (2 * T + TS) * LDC, v + kv * d + dc * KC, d,
-                                     sb - kt * TS);
-    if (dc == operand_unit<Plan>())
-      stage_f32_cols<TS, kChunk, kThreads>(Kc + (i % OB) * TS * LDO, k + kv * d + b.c * kChunk,
-                                           d, sb - kt * TS);
+  // unit n's chunk: the pass's output chunk comes last, so its stage holds
+  // the output product's operand
+  auto chunk_of = [&](int n) {
+    const int nt = n / m, pass = nt / walk.total;
+    return b.c * m + (pass + 1 + n % m) % m;
   };
-  for (int u = 0; u < NS - 1; ++u) {
-    if (u < units) fetch(u);
-    cp_async_commit();
-  }
-
-  float L[2], Dl[2];
+  if (threadIdx.x >= kF32Consumers) {
+    setmaxnreg_dec<kF32ProducerRegs>();
+    const int zq = (int)(b.row0 / sb);
+    produce<NS>(tiles, m, sm.full, sm.empty, sm.own_full, sm.own_empty,
+                [&](int n) {
+                  const int col = chunk_of(n) * kChunk;
+                  mbar_expect_tx(sm.own_full, Plan::OWN);
+                  for (int cb = 0; cb < 4; ++cb) {
+                    tma_load_3d(sm.own + cb * T * 128, &mq, sm.own_full, col + 32 * cb, q0, zq);
+                    tma_load_3d(sm.own + (4 + cb) * T * 128, &mo, sm.own_full, col + 32 * cb, q0, zq);
+                  }
+                },
+                [&](int n, int s) {
+                  int arr, kt;
+                  walk.at(n / m % walk.total, arr, kt);
+                  const long long row = b.kv_row(geo, arr, kt, TS);
+                  const int col = chunk_of(n) * kChunk, z = (int)(row / sb), y = (int)(row % sb);
+                  uint8_t* st = sm.stage + s * Plan::STAGE;
+                  mbar_expect_tx(sm.full + s, Plan::STAGE);
+                  for (int cb = 0; cb < 4; ++cb) {
+                    tma_load_3d(st + cb * TS * 128, &mk, sm.full + s, col + 32 * cb, y, z);
+                    tma_load_3d(st + HALF + cb * TS * 128, &mv, sm.full + s, col + 32 * cb, y, z);
+                  }
+                });
+  } else {
+    setmaxnreg_inc<kF32ConsumerRegs>();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4,
+              t4 = t % 4;
+    float L[2], Dl[2];
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int qi = q0 + 16 * warp + g4 + 8 * ii;
-    L[ii] = qi < sb ? lse[b.row0 + qi] : 0.f;
-    Dl[ii] = qi < sb ? delta[b.row0 + qi] : 0.f;
-  }
-  float adq[16][4], s[TS / 8][4], dp[TS / 8][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adq[n][e] = 0.f;
-  for (int u = 0; u < units; ++u) {
-    cp_async_wait<NS - 2>();
-    __syncthreads();
-    if (u + NS - 1 < units) fetch(u + NS - 1);
-    cp_async_commit();
-    const int i = u / nk, dc = u % nk;
-    const float* Qw = St + (u % NS) * STAGE + 16 * warp * LDC;
-    const float* Ow = Qw + T * LDC;
-    const float* Ks = St + (u % NS) * STAGE + 2 * T * LDC;
-    const float* Vs = Ks + TS * LDC;
-
-    // S += Q_dc K_dc^T, dP += dO_dc V_dc^T (rows: this warp's 16 q, columns: 32 k)
-    if (dc == 0) {
-#pragma unroll
-      for (int n = 0; n < TS / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + 16 * w + g4 + 8 * i;
+      L[i] = qi < sb ? lse[b.row0 + qi] : 0.f;
+      Dl[i] = qi < sb ? delta[b.row0 + qi] : 0.f;
     }
-#pragma unroll 2
-    for (int ks = 0; ks < KC / 8; ++ks) {
-      const int c0 = 8 * ks + t4;
-      Tf32x2 qa[4], oa[4];
-      frag_rows(Qw, LDC, g4, c0, qa);
-      frag_rows(Ow, LDC, g4, c0, oa);
+    const uint32_t bh = smem_addr(sm.bt), bl = bh + T * TS * 4;
+    for (int pass = 0; pass < m; ++pass) {
+      float acc[32];
 #pragma unroll
-      for (int n = 0; n < TS / 8; ++n) {
-        const float* kr = Ks + (8 * n + g4) * LDC + c0;
-        const float* vr = Vs + (8 * n + g4) * LDC + c0;
-        mma_3xtf32(s[n], qa, split(kr[0]), split(kr[4]));
-        mma_3xtf32(dp[n], oa, split(vr[0]), split(vr[4]));
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      for (int i = 0; i < walk.total; ++i) {
+        const int nt = pass * walk.total + i;
+        float part[16];
+        int s = 0;
+        for (int u = 0; u < m; ++u) {
+          const int n = nt * m + u;
+          s = n % NS;
+          if (m > 1 || n == 0) mbar_wait(sm.own_full, m > 1 ? n & 1 : 0);
+          mbar_wait(sm.full + s, (n / NS) & 1);
+          const uint8_t* st = sm.stage + s * Plan::STAGE + wg * HALF;
+          uint8_t* lo = sm.lo + wg * HALF;
+          named_sync(2 + wg, 128);  // the warpgroup's last reads of lo are done
+          write_lo<TS>(lo, st, t);
+          fence_async_shared();
+          named_sync(2 + wg, 128);
+          float f[16];
+          partial_chunk<T, TS>(f, sm.own + wg * (Plan::OWN / 2), smem_addr(st), smem_addr(lo), w,
+                               g4, t4);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) part[e] = u == 0 ? f[e] : part[e] + f[e];
+          if (m > 1) mbar_arrive(sm.own_empty);
+          if (u < m - 1) mbar_arrive(sm.empty + s);
+        }
+        float* slot = sm.part + (nt & 1) * (2 * T * TS);
+        put_partial(slot + wg * T * TS, part, t);
+        cluster_sync();
+
+        // P and dS of this thread's 8 entries, from the summed partials
+        int arr, kt;
+        walk.at(i, arr, kt);
+        const int k0 = kt * TS;
+        const bool diag = geo.causal && arr == 0;
+        float s8[8], p8[8];
+        cluster_sum(s8, p8, slot, C, wg, t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i2 = 0; i2 < 2; ++i2) {
+            const int row = 16 * w + g4 + 8 * i2, col = 8 * (2 * wg + h) + 2 * t4;
+            const int qi = q0 + row;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * h + 2 * i2 + c, kj = k0 + col + c;
+              grad_entry(s8[e], p8[e], L[i2], Dl[i2], geo.scale,
+                         kj >= sb || qi >= sb || (diag && kj > qi));
+            }
+            put_split2<T>(sm.bt, sm.bt + T * TS * 4, row, col, p8[4 * h + 2 * i2],
+                          p8[4 * h + 2 * i2 + 1]);
+          }
+        fence_async_shared();
+        named_sync(1, kF32Consumers);
+
+        // dQ_c^T (this warpgroup's 64 columns) += K_c^T dS^T
+        float f[32];
+        output_half<TS>(f, sm.stage + s * Plan::STAGE, 64 * wg, bh, bl, w, g4, t4);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[e] += f[e];
+        mbar_arrive(sm.empty + s);
       }
+      // acc[4j + 2i + c] = dQ[q0 + 8j + 2 t4 + c][chunk column 64 wg + 16 w + g4 + 8i]
+      const int col0 = (b.c * m + pass) * kChunk + 64 * wg + 16 * w + g4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = q0 + 8 * j + 2 * t4 + c;
+          if (qi >= sb) continue;
+          float* out = dq + (b.row0 + qi) * d + col0;
+          out[0] = acc[4 * j + c];
+          out[8] = acc[4 * j + 2 + c];
+        }
     }
-    if (dc < nk - 1) continue;
-
-    int arr, kt;
-    walk.at(i, arr, kt);
-    const int k0 = kt * TS;
-    const bool diag = geo.causal && arr == 0;
-#pragma unroll
-    for (int n = 0; n < TS / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = q0 + 16 * warp + g4 + 8 * (e >> 1);
-        const int kj = k0 + 8 * n + 2 * t4 + (e & 1);
-        grad_entry(s[n][e], dp[n][e], L[e >> 1], Dl[e >> 1], geo.scale,
-                   kj >= sb || qi >= sb || (diag && kj > qi));
-      }
-
-    // dQ_c += dS K_c over the tile's 32 k rows
-    const float* Kt = Kc + (i % OB) * TS * LDO;
-#pragma unroll
-    for (int kk = 0; kk < TS / 8; ++kk) {
-      Tf32x2 da[4];
-      frag_acc(dp[kk], da);
-      const float* kr = Kt + (8 * kk + 2 * t4) * LDO + g4;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) mma_3xtf32(adq[n], da, split(kr[8 * n]), split(kr[LDO + 8 * n]));
-    }
-  }
-#pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int qi = q0 + 16 * warp + g4 + 8 * ii;
-    if (qi >= sb) continue;
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-      store2(dq + (b.row0 + qi) * d + b.c * kChunk + 8 * n + 2 * t4, adq[n][2 * ii],
-             adq[n][2 * ii + 1]);
+    cluster_sync();  // no block leaves while a peer may read its partials
   }
 }
 
 // -------------------------------------------------------- float32: dK, dV
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
+// A cluster per (owner j, K/V head, 64-row K tile); own K and V, streamed
+// Q and dO in 32-row tiles with their lse and delta (DkvWalk).  Partials:
+// warpgroup 0 S^T, warpgroup 1 dP^T; outputs: warpgroup 0 dV_c^T = dO_c^T P,
+// warpgroup 1 dK_c^T = Q_c^T dS, each the chunk's 128 columns in two halves.
+__global__ void __launch_bounds__(kF32Threads, 1)
+attn_bwd_dkv_wide_f32(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, Geo geo, int d) {
   using Plan = WideDkvF32Plan;
-  constexpr int T = Plan::T, TS = Plan::TS, KC = Plan::KC, LDC = Plan::LDC, LDO = Plan::LDO;
-  constexpr int NS = Plan::NS, OB = Plan::OB, STAGE = 2 * (T + TS) * LDC;
+  constexpr int T = Plan::T, TS = Plan::TS, NS = Plan::NS, HALF = Plan::STAGE / 2;
+  constexpr int BTILE = T * TS * 4;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* St = reinterpret_cast<float*>(smem_raw);  // unit u: K, V (T rows), Q, dO (TS rows)
-  float* Oc = St + NS * STAGE;                     // tile i's Q_c, dO_c at Oc + 2 (i % OB) TS LDO
-  float* Rows = Oc + 2 * OB * TS * LDO;            // tile i's lse, delta at Rows + 2 (i % OB) TS
-  const int nd = d / kChunk, nk = d / KC;
-  const KvBlock b(geo, nd);
-  const int warp = threadIdx.x / 32, g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  const F32Smem<Plan> sm(smem_raw);
+  const int C = cluster_blocks(d / kChunk), m = d / kChunk / C;
+  const KvBlock b(geo, C);  // b.c: the block's rank in the cluster
   const int sb = geo.sb, k0 = b.kt * T;
   const DkvWalk walk(geo, b.j, k0, TS);
-  const int units = walk.total * nk;
+  const int tiles = m * walk.total;
   const long long kvrow = b.kv_row0 + k0;
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
 
-  auto fetch = [&](int u) {
-    const int i = u / nk, dc = u % nk;
-    int arr, t, qt;
-    walk.at(i, arr, t, qt);
-    const int q0 = qt * TS;
-    const long long row0 = b.q_row(geo, arr, t) + q0;
-    float* s = St + (u % NS) * STAGE;
-    stage_f32_cols<T, KC, kThreads>(s, k + kvrow * d + dc * KC, d, sb - k0);
-    stage_f32_cols<T, KC, kThreads>(s + T * LDC, v + kvrow * d + dc * KC, d, sb - k0);
-    stage_f32_cols<TS, KC, kThreads>(s + 2 * T * LDC, q + row0 * d + dc * KC, d, sb - q0);
-    stage_f32_cols<TS, KC, kThreads>(s + (2 * T + TS) * LDC, dout + row0 * d + dc * KC, d,
-                                     sb - q0);
-    if (dc == operand_unit<Plan>()) {
-      float* o = Oc + 2 * (i % OB) * TS * LDO;
-      stage_f32_cols<TS, kChunk, kThreads>(o, q + row0 * d + b.c * kChunk, d, sb - q0);
-      stage_f32_cols<TS, kChunk, kThreads>(o + TS * LDO, dout + row0 * d + b.c * kChunk, d,
-                                           sb - q0);
-      stage_rows<TS>(Rows + 2 * (i % OB) * TS, lse + row0, sb - q0);
-      stage_rows<TS>(Rows + (2 * (i % OB) + 1) * TS, delta + row0, sb - q0);
-    }
+  auto chunk_of = [&](int n) {
+    const int nt = n / m, pass = nt / walk.total;
+    return b.c * m + (pass + 1 + n % m) % m;
   };
-  for (int u = 0; u < NS - 1; ++u) {
-    if (u < units) fetch(u);
-    cp_async_commit();
+  if (threadIdx.x >= kF32Consumers) {
+    setmaxnreg_dec<kF32ProducerRegs>();
+    const int zk = (int)(b.kv_row0 / sb);
+    produce<NS>(tiles, m, sm.full, sm.empty, sm.own_full, sm.own_empty,
+                [&](int n) {
+                  const int col = chunk_of(n) * kChunk;
+                  mbar_expect_tx(sm.own_full, Plan::OWN);
+                  for (int cb = 0; cb < 4; ++cb) {
+                    tma_load_3d(sm.own + cb * T * 128, &mk, sm.own_full, col + 32 * cb, k0, zk);
+                    tma_load_3d(sm.own + (4 + cb) * T * 128, &mv, sm.own_full, col + 32 * cb, k0, zk);
+                  }
+                },
+                [&](int n, int s) {
+                  int arr, ht, qt;
+                  walk.at(n / m % walk.total, arr, ht, qt);
+                  const int z = (int)(b.q_row(geo, arr, ht) / sb), y = qt * TS;
+                  const int col = chunk_of(n) * kChunk;
+                  uint8_t* st = sm.stage + s * Plan::STAGE;
+                  mbar_expect_tx(sm.full + s, Plan::STAGE);
+                  for (int cb = 0; cb < 4; ++cb) {
+                    tma_load_3d(st + cb * TS * 128, &mq, sm.full + s, col + 32 * cb, y, z);
+                    tma_load_3d(st + HALF + cb * TS * 128, &mo, sm.full + s, col + 32 * cb, y, z);
+                  }
+                });
+  } else {
+    setmaxnreg_inc<kF32ConsumerRegs>();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4,
+              t4 = t % 4;
+    // warpgroup 0: P (B of dV), A = dO (stage operand 1); warpgroup 1: dS, A = Q (operand 0)
+    const uint32_t bh = smem_addr(sm.bt) + 2 * wg * BTILE, bl = bh + BTILE;
+    for (int pass = 0; pass < m; ++pass) {
+      float acc[2][32];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[h][e] = 0.f;
+      for (int i = 0; i < walk.total; ++i) {
+        const int nt = pass * walk.total + i;
+        int arr, ht, qt;
+        walk.at(i, arr, ht, qt);
+        const int q0 = qt * TS;
+        const long long qrow = b.q_row(geo, arr, ht) + q0;
+        // lse and delta of this thread's columns (q rows), fetched early
+        float L[2][2], Dl[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = 8 * (2 * wg + h) + 2 * t4 + c;
+            const bool ok = q0 + col < sb;
+            L[h][c] = ok ? lse[qrow + col] : 0.f;
+            Dl[h][c] = ok ? delta[qrow + col] : 0.f;
+          }
+        float part[16];
+        int s = 0;
+        for (int u = 0; u < m; ++u) {
+          const int n = nt * m + u;
+          s = n % NS;
+          if (m > 1 || n == 0) mbar_wait(sm.own_full, m > 1 ? n & 1 : 0);
+          mbar_wait(sm.full + s, (n / NS) & 1);
+          const uint8_t* st = sm.stage + s * Plan::STAGE + wg * HALF;
+          uint8_t* lo = sm.lo + wg * HALF;
+          named_sync(2 + wg, 128);  // the warpgroup's last reads of lo are done
+          write_lo<TS>(lo, st, t);
+          fence_async_shared();
+          named_sync(2 + wg, 128);
+          float f[16];
+          partial_chunk<T, TS>(f, sm.own + wg * (Plan::OWN / 2), smem_addr(st), smem_addr(lo), w,
+                               g4, t4);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) part[e] = u == 0 ? f[e] : part[e] + f[e];
+          if (m > 1) mbar_arrive(sm.own_empty);
+          if (u < m - 1) mbar_arrive(sm.empty + s);
+        }
+        float* slot = sm.part + (nt & 1) * (2 * T * TS);
+        put_partial(slot + wg * T * TS, part, t);
+        cluster_sync();
+
+        // P and dS (rows: k, columns: q) of this thread's 8 entries
+        const bool diag = geo.causal && arr == 0;
+        float s8[8], p8[8];
+        cluster_sum(s8, p8, slot, C, wg, t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i2 = 0; i2 < 2; ++i2) {
+            const int row = 16 * w + g4 + 8 * i2, col = 8 * (2 * wg + h) + 2 * t4;
+            const int kj = k0 + row;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * h + 2 * i2 + c, qi = q0 + col + c;
+              grad_entry(s8[e], p8[e], L[h][c], Dl[h][c], geo.scale,
+                         qi >= sb || (diag && kj > qi));
+            }
+            const int e = 4 * h + 2 * i2;
+            put_split2<T>(sm.bt, sm.bt + BTILE, row, col, s8[e], s8[e + 1]);
+            put_split2<T>(sm.bt + 2 * BTILE, sm.bt + 3 * BTILE, row, col, p8[e], p8[e + 1]);
+          }
+        fence_async_shared();
+        named_sync(1, kF32Consumers);
+
+        // warpgroup 0: dV_c^T += dO_c^T P; warpgroup 1: dK_c^T += Q_c^T dS
+        const uint8_t* a = sm.stage + s * Plan::STAGE + (1 - wg) * HALF;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float f[32];
+          output_half<TS>(f, a, 64 * h, bh, bl, w, g4, t4);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[h][e] += f[e];
+        }
+        mbar_arrive(sm.empty + s);
+      }
+      // acc[h][4j + 2i + c] = dX[k0 + 8j + 2 t4 + c][chunk column 64 h + 16 w + g4 + 8i]
+      float* out = wg == 0 ? dv : dk;
+      const int col0 = (b.c * m + pass) * kChunk + 16 * w + g4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = 8 * j + 2 * t4 + c;
+          if (k0 + row >= sb) continue;
+          float* o = out + (kvrow + row) * d + col0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            o[64 * h] = acc[h][4 * j + c];
+            o[64 * h + 8] = acc[h][4 * j + 2 + c];
+          }
+        }
+    }
+    cluster_sync();  // no block leaves while a peer may read its partials
   }
+}
 
-  float adk[16][4], adv[16][4], st[TS / 8][4], dpt[TS / 8][4];
+// ------------------------------------------- wgmma's reading of a raw word
+// D = A B^T with A the 64 x 8 matrix whose first 8 rows are the identity
+// (exact in TF32) and B = b, 32 x 8 raw float32 words in shared memory: out
+// (64 x 32) holds in out[k][n] (k < 8) the value b[n][k] as the tensor core
+// read it, and zeros below
+__global__ void __launch_bounds__(128) wgmma_tf32_probe_kernel(const float* __restrict__ b,
+                                                               float* __restrict__ out) {
+  __shared__ __align__(16) uint8_t raw[32 * 128 + 1024];
+  uint8_t* tile = align1024(raw);
+  const int t = threadIdx.x, w = t / 32, g4 = (t % 32) / 4, t4 = t % 4;
+  for (int i = t; i < 32 * 32; i += 128)
+    *reinterpret_cast<float*>(tile + sw128_f32(i / 32, i % 32, 32)) = i % 32 < 8 ? b[i / 32 * 8 + i % 32] : 0.f;
+  fence_async_shared();
+  __syncthreads();
+  const int r = 16 * w + g4;
+  const uint32_t one = __float_as_uint(1.f);
+  const uint32_t a[4] = {r == t4 ? one : 0u, r + 8 == t4 ? one : 0u, r == t4 + 4 ? one : 0u,
+                         r + 8 == t4 + 4 ? one : 0u};
+  float f[16];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int e = 0; e < 16; ++e) f[e] = 0.f;
+  reg_fence(f);
+  wgmma_fence();
+  wgmma_m64n32k8_tf32(f, a, desc_kmajor(smem_addr(tile)), 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(f);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
-  for (int u = 0; u < units; ++u) {
-    cp_async_wait<NS - 2>();
-    __syncthreads();
-    if (u + NS - 1 < units) fetch(u + NS - 1);
-    cp_async_commit();
-    const int i = u / nk, dc = u % nk;
-    const float* Kw = St + (u % NS) * STAGE + 16 * warp * LDC;
-    const float* Vw = Kw + T * LDC;
-    const float* Qs = St + (u % NS) * STAGE + 2 * T * LDC;
-    const float* Os = Qs + TS * LDC;
-
-    // S^T += K_dc Q_dc^T, dP^T += V_dc dO_dc^T (rows: this warp's 16 k, columns: 32 q)
-    if (dc == 0) {
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int n = 0; n < TS / 8; ++n)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    }
-#pragma unroll 2
-    for (int ks = 0; ks < KC / 8; ++ks) {
-      const int c0 = 8 * ks + t4;
-      Tf32x2 ka[4], va[4];
-      frag_rows(Kw, LDC, g4, c0, ka);
-      frag_rows(Vw, LDC, g4, c0, va);
-#pragma unroll
-      for (int n = 0; n < TS / 8; ++n) {
-        const float* qr = Qs + (8 * n + g4) * LDC + c0;
-        const float* orow = Os + (8 * n + g4) * LDC + c0;
-        mma_3xtf32(st[n], ka, split(qr[0]), split(qr[4]));
-        mma_3xtf32(dpt[n], va, split(orow[0]), split(orow[4]));
-      }
-    }
-    if (dc < nk - 1) continue;
-
-    int arr, t, qt;
-    walk.at(i, arr, t, qt);
-    const int q0 = qt * TS;
-    const bool diag = geo.causal && arr == 0;
-    const float* L = Rows + 2 * (i % OB) * TS;
-    const float* Dl = L + TS;
-#pragma unroll
-    for (int n = 0; n < TS / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * t4 + (e & 1), qi = q0 + col;
-        const int kj = k0 + 16 * warp + g4 + 8 * (e >> 1);
-        grad_entry(st[n][e], dpt[n][e], L[col], Dl[col], geo.scale,
-                   qi >= sb || (diag && kj > qi));
-      }
-
-    // dV_c += P^T dO_c, dK_c += dS^T Q_c over the tile's 32 q rows
-    const float* Qt = Oc + 2 * (i % OB) * TS * LDO;
-    const float* Ot = Qt + TS * LDO;
-#pragma unroll
-    for (int kq = 0; kq < TS / 8; ++kq) {
-      Tf32x2 pa[4], da[4];
-      frag_acc(st[kq], pa);
-      frag_acc(dpt[kq], da);
-      const float* o0 = Ot + (8 * kq + 2 * t4) * LDO + g4;
-      const float* qq0 = Qt + (8 * kq + 2 * t4) * LDO + g4;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        mma_3xtf32(adv[n], pa, split(o0[8 * n]), split(o0[LDO + 8 * n]));
-        mma_3xtf32(adk[n], da, split(qq0[8 * n]), split(qq0[LDO + 8 * n]));
-      }
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int row = 16 * warp + g4 + 8 * ii;
-      if (k0 + row >= sb) continue;
-      const long long at = (kvrow + row) * d + b.c * kChunk + 8 * n + 2 * t4;
-      store2(dk + at, adk[n][2 * ii], adk[n][2 * ii + 1]);
-      store2(dv + at, adv[n][2 * ii], adv[n][2 * ii + 1]);
-    }
+      for (int c = 0; c < 2; ++c) out[(r + 8 * i) * 32 + 8 * j + 2 * t4 + c] = f[4 * j + 2 * i + c];
 }
 
 // ----------------------------------------------------------------- launches
@@ -589,6 +973,84 @@ int launch_dkv(K kernel, const void* q, const void* k, const void* v, const void
   return (int)cudaGetLastError();
 }
 
+// The CUDA driver's cuTensorMapEncodeTiled, reached through the runtime (so
+// nothing links libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [planes, sb, d] float32 tensor as a 3-D tensor map whose box is 32
+// columns x `rows` rows of one plane, 128-byte swizzle: rows past sb (the
+// ragged tile of a block) read as zeros
+int f32_map(CUtensorMap* map, const void* base, int d, int sb, int planes, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)sb, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)sb * d * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadMap;
+}
+
+// a float32 kernel in clusters of C blocks along x: refused (kNoCluster)
+// where no such cluster fits the card, else launched with its error
+template <typename Plan, typename... Args>
+int launch_cluster(void (*kernel)(Args...), dim3 grid, int C, cudaStream_t s, Args... args) {
+  int err = set_smem(kernel, Plan::SMEM);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = Plan::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = (int)cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err) return err;
+  if (clusters == 0) return kNoCluster;
+  void* argv[] = {static_cast<void*>(&args)...};
+  err = (int)cudaLaunchKernelExC(&cfg, (const void*)kernel, argv);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// the float32 forms' four tensor maps: own operands in boxes of T rows,
+// streamed ones in boxes of TS
+template <typename Plan>
+int f32_maps(CUtensorMap (&maps)[4], const void* own0, const void* own1, int own_heads,
+             const void* str0, const void* str1, int str_heads, int nranks, int sb, int d) {
+  int err = f32_map(&maps[0], own0, d, sb, nranks * own_heads, Plan::T);
+  if (!err) err = f32_map(&maps[1], own1, d, sb, nranks * own_heads, Plan::T);
+  if (!err) err = f32_map(&maps[2], str0, d, sb, nranks * str_heads, Plan::TS);
+  if (!err) err = f32_map(&maps[3], str1, d, sb, nranks * str_heads, Plan::TS);
+  return err;
+}
+
 }  // namespace
 
 // The arguments of attn_bwd_dq / attn_bwd_dkv (csrc/attention_bwd.cu), d a
@@ -603,9 +1065,16 @@ extern "C" int attn_bwd_dq_wide(const void* q, const void* k, const void* v,
   Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0)
-    return launch_dq<float, WideDqF32Plan>(attn_bwd_dq_wide_f32, q, k, v, dout, L, Dl, dq, geo,
-                                           ngroups, d, s);
+  if (dtype == 0) {
+    using Plan = WideDqF32Plan;
+    CUtensorMap maps[4];
+    const int err = f32_maps<Plan>(maps, q, dout, hq, k, v, hkv, ngroups * g, sb, d);
+    if (err) return err;
+    const int C = cluster_blocks(d / kChunk);
+    const dim3 grid((sb + Plan::T - 1) / Plan::T * C, hq, ngroups * g);
+    return launch_cluster<Plan>(attn_bwd_dq_wide_f32, grid, C, s, maps[0], maps[1], maps[2],
+                                maps[3], L, Dl, static_cast<float*>(dq), geo, d);
+  }
   if (dtype == 1)
     return launch_dq<bf16, WideDqBf16Plan>(attn_bwd_dq_wide_bf16, q, k, v, dout, L, Dl, dq,
                                             geo, ngroups, d, s);
@@ -622,11 +1091,27 @@ extern "C" int attn_bwd_dkv_wide(const void* q, const void* k, const void* v,
   Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0)
-    return launch_dkv<float, WideDkvF32Plan>(attn_bwd_dkv_wide_f32, q, k, v, dout, L, Dl, dk,
-                                             dv, geo, ngroups, d, s);
+  if (dtype == 0) {
+    using Plan = WideDkvF32Plan;
+    CUtensorMap maps[4];
+    const int err = f32_maps<Plan>(maps, k, v, hkv, q, dout, hq, ngroups * g, sb, d);
+    if (err) return err;
+    const int C = cluster_blocks(d / kChunk);
+    const dim3 grid((sb + Plan::T - 1) / Plan::T * C, hkv, ngroups * g);
+    return launch_cluster<Plan>(attn_bwd_dkv_wide_f32, grid, C, s, maps[0], maps[1], maps[2],
+                                maps[3], L, Dl, static_cast<float*>(dk), static_cast<float*>(dv),
+                                geo, d);
+  }
   if (dtype == 1)
     return launch_dkv<bf16, WideDkvBf16Plan>(attn_bwd_dkv_wide_bf16, q, k, v, dout, L, Dl, dk,
                                              dv, geo, ngroups, d, s);
   return kBadShape;
+}
+
+// out (64 x 32 float32) = the probe's product of b (32 x 8 float32): rows 0-7
+// hold b transposed as TF32 wgmma read its raw words
+extern "C" int wgmma_tf32_probe(const void* b, void* out, void* stream) {
+  wgmma_tf32_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b), static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }

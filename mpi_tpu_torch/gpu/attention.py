@@ -294,12 +294,19 @@ _WIDE_PLANS = {"fwd": ("attention_wide.cu", {torch.bfloat16: "WideFwdBf16Plan",
                                                      torch.float32: "WideDkvF32Plan"})}
 
 
-@functools.lru_cache(maxsize=None)
-def _plan_smem(source: str, plan: str, d: int) -> int:
-    """``SMEM`` of ``struct <plan>`` in ``csrc/<source>`` at D = ``d``: its
-    ``static constexpr int`` members evaluated in order (a C ternary
-    ``c ? a : b`` becomes Python's), so the sources stay the one place the
-    plans are written."""
+def _c_ternary(expr: str) -> str:
+    """A C expression's ``c ? a : b`` chains (right-associative) as
+    Python conditional expressions."""
+    m = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr.strip(), re.S)
+    if m is None:
+        return expr
+    return f"({_c_ternary(m.group(2))} if {m.group(1)} else {_c_ternary(m.group(3))})"
+
+
+def _plan_consts(source: str, plan: str, d: int) -> Dict[str, int]:
+    """The ``static constexpr int`` members of ``struct <plan>`` in
+    ``csrc/<source>`` at D = ``d``, evaluated in order, so the sources stay
+    the one place the plans are written."""
     from .. import _build
 
     text = (_build.SRC_DIR / source).read_text()
@@ -308,9 +315,25 @@ def _plan_smem(source: str, plan: str, d: int) -> int:
     for decl in re.findall(r"static constexpr int ([^;]+);", body):
         for item in decl.split(","):
             name, expr = (part.strip() for part in item.split("=", 1))
-            expr = re.sub(r"(.+?) \? (.+?) : (.+)", r"(\2 if \1 else \3)", expr)
-            env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
-    return env["SMEM"]
+            env[name] = eval(_c_ternary(expr).replace("/", "//"),
+                             {"__builtins__": {}}, env)
+    return env
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_smem(source: str, plan: str, d: int) -> int:
+    """``SMEM`` of ``struct <plan>`` in ``csrc/<source>`` at D = ``d``."""
+    return _plan_consts(source, plan, d)["SMEM"]
+
+
+@functools.lru_cache(maxsize=None)
+def wide_f32_cluster(d: int) -> Tuple[int, int]:
+    """(C, m) of the float32 backward kernels above d = 256
+    (``WideF32Cluster`` in csrc/attention_bwd_wide.cu): clusters of C
+    blocks, the largest divisor of d / 128 that is at most 8, each block
+    taking m = d / 128 / C passes over its walk, one output chunk a pass."""
+    consts = _plan_consts("attention_bwd_wide.cu", "WideF32Cluster", d)
+    return consts["C"], consts["M"]
 
 
 def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
@@ -324,10 +347,15 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     stride of d + 4: the forward (``FwdF32Plan``) holds 64 W Q rows and two
     stages of 32-row K and V tiles, the backward (``F32Plan``) two resident
     64-row and two streamed 32-row tiles and 256 bytes of lse/delta rows.
-    Above, the forms of csrc/attention_wide.cu and attention_bwd_wide.cu
-    stream 64- or 128-column (bf16) or 32-column (float32) chunks of d
-    through a ring of stages beside one or two buffers of each 128-column
-    operand of the output product, so their bytes do not depend on d."""
+    Above, the forms of csrc/attention_wide.cu and the bf16 ones of
+    attention_bwd_wide.cu stream 64- or 128-column (bf16) or 32-column
+    (float32 forward) chunks of d through a ring of stages beside one or
+    two buffers of each 128-column operand of the output product; the
+    float32 backward (``WideDqF32Plan``, ``WideDkvF32Plan``) holds one
+    128-column chunk of its own two 64-row tiles, two stages of two
+    streamed 32-row tiles and their lo tiles, two parities of the S and dP
+    partials its cluster sums, and its output products' B tiles.  No plan's
+    bytes depend on d."""
     plans = _WIDE_PLANS if _wide(d) else _PLANS
     return {name: _plan_smem(src, names[dtype], d) for name, (src, names) in plans.items()}
 
@@ -354,10 +382,23 @@ def _require_cuda(*tensors: torch.Tensor) -> None:
                 f"take the plain version); got a tensor on {t.device}")
 
 
+# the attention sources' own refusals (csrc/ring_attention.cuh kBadShape,
+# csrc/attention_bwd_wide.cu kNoCluster, kNoEncoder, kBadMap)
+_REFUSALS = {
+    1000: "a head dim or dtype the kernels were not built for",
+    1001: "the cluster launch was refused: cudaOccupancyMaxActiveClusters "
+          "finds no room on the card for one cluster of the plan's blocks",
+    1002: "the CUDA driver's cuTensorMapEncodeTiled was not found",
+    1003: "cuTensorMapEncodeTiled refused an operand's tensor map",
+}
+
+
 def _raise_on(err: int, name: str) -> None:
     if err:
+        why = _REFUSALS.get(err, f"CUDA error {err}")
         raise RuntimeError(
-            f"ring attention {name} kernel launch failed: CUDA error {err}")
+            f"ring attention {name} kernel launch failed: {why}"
+            + (f" (code {err})" if err in _REFUSALS else ""))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

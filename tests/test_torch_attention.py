@@ -235,13 +235,18 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
     assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
     # above d = 256: the same bytes at every d (bf16: 64 x 64 or 64 x 128
-    # tiles; float32: 32-column chunks of row stride 36 and 128-column
-    # operands of row stride 132)
-    for d in (384, 512, 1024):
+    # tiles; the float32 forward: 32-column chunks of row stride 36 and
+    # 128-column operands of row stride 132; the float32 backward's
+    # clusters: 1 KB of alignment, the own 64 x 128 tiles 65 536, two
+    # stages of two 32 x 128 tiles 65 536, their lo tiles 32 768, two
+    # parities of the S and dP partials 32 768, the 64 x 32 B tiles (dq: dS
+    # hi and lo 16 384; dkv: P and dS 32 768), 64 of mbarriers)
+    for d in (384, 512, 640, 1024, 1152, 2048):
         assert attention.kernel_smem_bytes(d, torch.bfloat16) == {
             "fwd": 99328, "bwd_dq": 99328, "bwd_dkv": 198656}
         assert attention.kernel_smem_bytes(d) == {
-            "fwd": 104448, "bwd_dq": 89088, "bwd_dkv": 89344}
+            "fwd": 104448, "bwd_dq": 214080, "bwd_dkv": 230464}
+        assert attention.kernel_smem_bytes(d)["bwd_dkv"] <= 232_448
     # the diagnosis, where a block would need more than it may use
     monkeypatch.setattr(attention, "_SMEM_LIMIT", 150_000)
     with pytest.raises(NotImplementedError,
@@ -252,7 +257,28 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     with pytest.raises(NotImplementedError,
                        match=r"fwd kernel \(csrc/attention.cu\) .* 168960 bytes"):
         attention._kernel_plan(128)
-    attention._kernel_plan(1024)  # float32: 104448 bytes at most
+    with pytest.raises(NotImplementedError,
+                       match=r"bwd_dq kernel \(csrc/attention_bwd_wide.cu\) at head dim "
+                             r"1024, torch.float32, would need 214080 bytes"):
+        attention._kernel_plan(1024)
+    monkeypatch.setattr(attention, "_SMEM_LIMIT", 230_463)
+    with pytest.raises(NotImplementedError, match=r"bwd_dkv kernel .* 230464 bytes"):
+        attention._kernel_plan(640)
+    attention._kernel_plan(640, torch.bfloat16)  # bf16: 198656 bytes at most
+
+
+@pytest.mark.parametrize("d,clusters,passes", [
+    (384, 3, 1), (512, 4, 1), (640, 5, 1), (1024, 8, 1), (1152, 3, 3), (2048, 8, 2)])
+def test_wide_f32_backward_cluster_arithmetic(d, clusters, passes):
+    """The float32 backward above d = 256 runs clusters of C blocks, C the
+    largest divisor of d / 128 that is at most 8 (the portable cluster
+    size), each block m = d / 128 / C passes over its walk, one output
+    chunk a pass (``WideF32Cluster`` in csrc/attention_bwd_wide.cu, read
+    from the source)."""
+    assert attention.wide_f32_cluster(d) == (clusters, passes)
+    nd = d // 128
+    assert clusters == max(c for c in range(1, 9) if nd % c == 0)
+    assert clusters * passes == nd
 
 
 def test_smem_bytes_follow_the_plans_in_the_sources(tmp_path, monkeypatch):

@@ -103,6 +103,8 @@ def test_grads_match_pallas_fused_backward(P, hq, hkv, sb, dt, causal):
     (2, 4, 2, 8, 512, "f32", False),     # GQA
     (2, 2, 2, 8, 512, "f32", True),
     (2, 2, 1, 16, 512, "bf16", True),
+    (2, 2, 1, 8, 640, "f32", True),      # the float32 backward's cluster of 5
+    (2, 4, 2, 8, 1152, "f32", False),    # clusters of 3 blocks, 3 passes each
 ])
 def test_wide_grads_match_pallas_fused_backward(P, hq, hkv, sb, d, dt, causal):
     """Head dims above 256 (on the card: csrc/attention_bwd_wide.cu), with

@@ -117,3 +117,42 @@ def test_wide_world_off_cpu_raises_and_never_falls_back():
         attention.ring_attention_world(m, m, m)
     with pytest.raises(RuntimeError, match="CUDA"):
         attention.bwd_operands(m, m, m, m, torch.zeros(2, 2, 8, device="meta"), m)
+
+
+@pytest.mark.parametrize("name", ["bwd_dq", "bwd_dkv"])
+def test_wide_f32_refused_cluster_launch_raises_and_never_falls_back(name, monkeypatch):
+    """A float32 backward launch above d = 256 that the card refuses (no
+    room for one cluster: the source's kNoCluster) or whose source does not
+    build raises with the reason; it is not counted, and neither the plain
+    version nor another form runs in its place."""
+    from mpi_tpu_torch import _build
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a launch path")
+
+    class Refusing:
+        def __getattr__(self, fn):
+            assert fn == f"attn_{name}_wide", fn
+            return lambda *args: 1001
+
+    monkeypatch.setattr(attention, "ring_attention_bwd_plain", plain)
+    monkeypatch.setattr(attention.torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(attention, "_stream", lambda t: 0)
+    q, k, v = (torch.from_numpy(a) for a in blocks(2, 2, 1, 8, 512, seed=5))
+    lse, delta = torch.zeros(2, 2, 8), torch.zeros(2, 2, 8)
+    outs = (torch.empty_like(q),) if name == "bwd_dq" else (torch.empty_like(k), torch.empty_like(k))
+    args = (q, k, v, q, lse, delta, [0, 1], 2, 0.5, True, outs)
+    attention.reset_launches()
+    monkeypatch.setattr(_build, "load", lambda source: Refusing())
+    with pytest.raises(RuntimeError, match=r"cluster launch was refused: "
+                                           r"cudaOccupancyMaxActiveClusters .* \(code 1001\)"):
+        attention._launch_bwd(name, *args)
+
+    def unbuilt(source):
+        raise RuntimeError(f"nvcc failed for csrc/{source}.cu (exit 1)")
+
+    monkeypatch.setattr(_build, "load", unbuilt)
+    with pytest.raises(RuntimeError, match=r"nvcc failed for csrc/attention_bwd_wide.cu"):
+        attention._launch_bwd(name, *args)
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}

@@ -44,8 +44,10 @@ def test_every_source_has_its_signatures_and_headers():
         exported = set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
         assert exported == set(_build.SIGNATURES[name]), name
     assert set(_build.SIGNATURES["attention_bwd"]) == {"attn_bwd_dq", "attn_bwd_dkv"}
+    # and the probe of how TF32 wgmma reads a raw float32 word (a card test's)
     assert set(_build.SIGNATURES["attention_bwd_wide"]) == {"attn_bwd_dq_wide",
-                                                            "attn_bwd_dkv_wide"}
+                                                            "attn_bwd_dkv_wide",
+                                                            "wgmma_tf32_probe"}
     # a wide entry point takes the arguments of its d <= 256 counterpart
     for name in ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkv"):
         src = "attention" if name == "attn_fwd" else "attention_bwd"

@@ -124,6 +124,65 @@ def test_wide_head_attention_kernels_match_plain_on_the_card(d, dtype):
     rows, against the plain versions on the card with chip_smoke.py's
     gradient rule (float32 ``rtol=1e-4, atol=1e-5``; bfloat16 the same
     plus 2^-7 of |plain|, one bfloat16 rounding on each side)."""
+    _wide_head_case(d, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [640, 1152])
+def test_wide_head_f32_backward_clusters_match_plain_on_the_card(d):
+    """The float32 backward's clusters at d = 640 (5 blocks, 1 pass) and
+    1152 (3 blocks, 3 passes each), as the test above."""
+    _wide_head_case(d, torch.float32)
+
+
+@pytest.mark.gpu
+def test_wide_head_f32_backward_is_bitwise_deterministic_on_the_card():
+    """Two runs of the float32 backward above d = 256 are bitwise equal:
+    every block of a cluster sums the partials of S and dP in rank order,
+    and no output is summed with atomics."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn(P, 4, 112, 640, device="cuda", generator=gen) for _ in range(2))
+    k, v = (torch.randn(P, 2, 112, 640, device="cuda", generator=gen) for _ in range(2))
+    out, lse = attention.ring_attention_plain(q, k, v, causal=True, with_lse=True)
+    attention.reset_launches()
+    first = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+    second = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_wgmma_reads_a_raw_float32_word_as_truncated_tf32():
+    """TF32 ``wgmma`` reads a raw float32 word in shared memory as that
+    word with its low 13 mantissa bits cleared (truncation, as
+    ``mma.sync``), which the float32 backward above d = 256 relies on for
+    the hi of its streamed tiles: the probe multiplies 32 x 8 random words
+    by an identity and gets them back truncated, not rounded."""
+    _card()
+    from mpi_tpu_torch import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b = torch.randn(32, 8, device="cuda", generator=gen) * 3
+    out = torch.full((64, 32), float("nan"), device="cuda")
+    lib = _build.load("attention_bwd_wide")
+    assert lib.wgmma_tf32_probe(b.data_ptr(), out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    trunc = (b.view(torch.int32) & -8192).view(torch.float32)
+    nearest = ((b.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+    assert not torch.equal(trunc, nearest)
+    assert torch.equal(out[:8].T, trunc)
+    assert bool((out[8:] == 0).all())
+
+
+def _wide_head_case(d, dtype):
+    """Forward and backward at head dim ``d`` against the plain versions
+    on the card, by the rule of the first wide-head test."""
     _card()
     from mpi_tpu_torch.gpu import attention
 

@@ -42,3 +42,38 @@ def test_sass_compare_names_instances_apart_from_their_file_hash():
     assert a == b and a != c
     assert next(iter(a.values())) == ["LDC R1, c[0x0][0x28]", "EXIT"]
     assert sass_compare.main([]) == 2
+
+
+def test_sass_compare_leaves_instances_meant_to_change_out_of_its_verdict(monkeypatch, capsys):
+    """``--changed REGEX`` names the instances an edit rewrote (the float32
+    backward above d = 256 and a new probe): they are listed apart, and
+    the verdict is on the others alone; without it the same pair fails."""
+    from mpi_tpu_torch.tools import sass_compare
+
+    def dump(file_hash, body):
+        out = []
+        for name, op in body:
+            space = f"_GLOBAL__N__{file_hash}_21_attention_bwd_wide_cu_{file_hash}"
+            out.append(f"\t\tFunction : _ZN{len(space)}{space}{len(name)}{name}E\n"
+                       f"        /*0000*/                   {op} ;"
+                       "                                   /* 0x000fe20000000f00 */\n")
+        return "".join(out)
+
+    dumps = {"old.so": dump("c5f705b1", [("attn_bwd_dq_wide_bf16", "EXIT"),
+                                         ("attn_bwd_dq_wide_f32", "BRA 0x10")]),
+             "new.so": dump("9a0b7c3d", [("attn_bwd_dq_wide_bf16", "EXIT"),
+                                         ("attn_bwd_dq_wide_f32", "EXIT"),
+                                         ("wgmma_tf32_probe_kernel", "EXIT")])}
+
+    class Done:
+        def __init__(self, path):
+            self.stdout = dumps[path]
+
+    monkeypatch.setattr(sass_compare.subprocess, "run", lambda cmd, **kw: Done(cmd[-1]))
+    r = sass_compare.compare("old.so", "new.so", r"_f32E|probe")
+    assert (r["old"], r["new"], r["identical"]) == (1, 1, 1)
+    assert [n.split(">")[-1] for n in r["changed"]] == ["20attn_bwd_dq_wide_f32E",
+                                                         "23wgmma_tf32_probe_kernelE"]
+    assert sass_compare.main(["--changed", r"_f32E|probe", "old.so", "new.so"]) == 0
+    assert "2 meant to change" in capsys.readouterr().out
+    assert sass_compare.main(["old.so", "new.so"]) == 1
