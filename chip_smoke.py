@@ -105,11 +105,15 @@ ok line:
     4} x Sb in {16, 48, 112, 128} (and 8, the dry run's block, in float32)
     x d in {128, 256}, and the forms above d = 256 at d in {384, 512, 1024}
     x {GQA 4/2, MQA 4/1} x Sb in {16, 112} x the same dtypes, masks and
-    groupings (float32 also at d = 640 and 1152, Sb = 112: the backward's
-    clusters of 5 blocks, and of 3 blocks of 3 passes each), forward (out
-    and lse) and backward (dq, dk, dv), with the
-    tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in a partial
-    tile);
+    groupings (and at d = 640 and 1152, Sb = 112: the clusters of 5
+    blocks, and of 3 blocks of 3 passes each, of the forward and of the
+    float32 backward), forward (out and lse) and backward (dq, dk, dv),
+    with the tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in
+    a partial tile; the grid is ``parity_grid``).  The bf16 backward above
+    d = 256 is a known fault (ROADMAP Queue 3 item 1): held at d = 384,
+    512 and 1024, measured and recorded but not held at d = 640 and 1152,
+    and its share of the allowance at both goes into the record
+    (``KNOWN_FAULTS``) and the kernels line;
 12. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
     float32 (the record): the forward (out and lse) and the backward
     kernels against the plain version (see ``check_close``), the backward
@@ -136,19 +140,20 @@ ok line:
     sequence of 32 768), bfloat16 and float32, counters zeroed before and
     read after (the wide forward must have launched, no d <= 256 form),
     against the plain version (timed once); at that shape the forward once
-    and each backward kernel once, in bfloat16 twice (CUDA events, the
-    median of the launches; the two bfloat16 launches must be bitwise
-    equal; the float32 forms' are the training step's below), the
+    (bitwise the serving leg's) and each backward kernel once, in bfloat16
+    twice (CUDA events, the median of the launches; the two bfloat16
+    launches must be bitwise equal; the float32 forms' are the training
+    step's below), the
     backward against the plain version (timed once, ``check_close``
     normwise), and as a yardstick only SDPA's memory-efficient backend
     (flash and cuDNN stop at d = 256; K/V heads repeated, since it takes
     no GQA; forward and backward alone, once each after a warm-up forward;
     its error kept if it refuses), beside the operations bound and the
     design floor
-    (``wide_floor_flops``: in bf16 and the float32 forward every
-    128-column output chunk recomputes Q K^T and dO V^T, the float32
-    backward's clusters form them once a pass), each float32 backward
-    kernel's cluster size, passes, registers and spills; then one step of
+    (``wide_floor_flops``: in the bf16 backward every 128-column output
+    chunk recomputes Q K^T and dO V^T, the forward's and the float32
+    backward's clusters form them once a pass), each cluster kernel's
+    cluster size, passes, registers and spills; then one step of
     ``long_context_training``'s ``sharded_program`` at d = 512
     (``init_params(512, 1024)``, 8 x 4096 rows, float32) through ``run``:
     all three wide forms launched under autograd, a second step on the same
@@ -429,9 +434,10 @@ ok line:
     ok.  The record goes to ``chiprun_out/gpu_evidence.json``;
 31. one ``{"kernels": [...]}`` JSON line, then the ok line; the forms
     above d = 256 are entries of their own (``attention_*_wide``, bfloat16
-    at the wide serving shape).  Each kernel's ``launches`` is the sum over
-    the main paths (phases 3, 5, 6, 6b, 9, 10, 12a, 29), each read right
-    after it ran (``launches_by_path``).  The
+    at the wide serving shape; the backward's two carry ``known_fault``,
+    phase 11's record of ROADMAP Queue 3 item 1).  Each kernel's
+    ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
+    10, 12a, 29), each read right after it ran (``launches_by_path``).  The
     host layer (phases 13-28) launches none of the kernels: its folds are
     in-place torch ops.
 
@@ -492,26 +498,26 @@ FLOPS_PER_ENTRY = {"fwd": 4, "bwd": 10, "bwd_dq": 6, "bwd_dkv": 8}
 FLOOR_FLOPS_PER_ENTRY = {
     "bf16": {"fwd": 6, "bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
     "f32": {"fwd": 12, "bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
-# the forms above d = 256 (csrc/attention_wide.cu, attention_bwd_wide.cu)
-# in bf16 and the float32 forward recompute Q K^T (and dO V^T) once per
-# 128-column output chunk: per entry and head dim, a d/128 + b flops for
-# (a, b) below; at d = 128 they are the products above
-WIDE_FLOOR_FLOPS_PER_ENTRY = {
-    "bf16": {"fwd": (2, 4), "bwd_dq": (4, 4), "bwd_dkv": (4, 8)},
-    "f32": {"fwd": (6, 6)}}
-# the float32 backward forms them once a pass of its clusters (m passes,
-# ``attention.wide_f32_cluster``): 3 (4m + 2) and 3 (4m + 4), three TF32
-# products each
-WIDE_F32_BWD_FLOOR = {"bwd_dq": (12, 6), "bwd_dkv": (12, 12)}
+# the bf16 backward above d = 256 (csrc/attention_bwd_wide.cu) recomputes
+# Q K^T and dO V^T once per 128-column output chunk: per entry and head dim,
+# a d/128 + b flops for (a, b) below; at d = 128 they are the products above
+WIDE_FLOOR_FLOPS_PER_ENTRY = {"bf16": {"bwd_dq": (4, 4), "bwd_dkv": (4, 8)}}
+# the forms that run in clusters (the forward, csrc/attention_wide.cu, and the
+# float32 backward) form them once a pass of their clusters (m passes,
+# ``attention.wide_cluster``): a m + b flops for (a, b) below, the forward's
+# (2m + 4) in bf16 (P V split hi/lo) and 3 (2m + 2) in float32, the float32
+# backward's 3 (4m + 2) and 3 (4m + 4), three TF32 products a product
+WIDE_CLUSTER_FLOOR = {("bf16", "fwd"): (2, 4), ("f32", "fwd"): (6, 6),
+                      ("f32", "bwd_dq"): (12, 6), ("f32", "bwd_dkv"): (12, 12)}
 
 
 def wide_floor_flops(key, kind, d):
     """Flops per unmasked entry and head dim of a form above d = 256."""
     from mpi_tpu_torch.gpu import attention
 
-    if key == "f32" and kind in WIDE_F32_BWD_FLOOR:
-        a, b = WIDE_F32_BWD_FLOOR[kind]
-        return a * attention.wide_f32_cluster(d)[1] + b
+    if (key, kind) in WIDE_CLUSTER_FLOOR:
+        a, b = WIDE_CLUSTER_FLOOR[(key, kind)]
+        return a * attention.wide_cluster(d)[1] + b
     a, b = WIDE_FLOOR_FLOPS_PER_ENTRY[key][kind]
     return a * d // 128 + b
 TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor cores
@@ -666,18 +672,28 @@ def attention_bound(kind, dtype_bytes, peak, shape, reads, writes):
 ALLOWANCE_USED = {}
 
 
-def check_close(torch, name, got, want, dtype, normwise=False):
-    """Hold a kernel's result against its plain version's; both are float32
-    sums in different orders, rounded once to their output type.
+def parity_grid(f32):
+    """Phase 11's cases of one dtype (float32 if ``f32``, else bf16), in the
+    order they draw their inputs: (d, Sb, query heads, K/V heads, causal,
+    groups).  Sb = 8 (float32 only: bf16 blocks are multiples of 16) is the
+    dry run's [8, 128] block; above d = 256, Sb 16 and 112, and at d = 640
+    (clusters of 5) and 1152 (3 blocks of 3 passes) 112 alone, several
+    streamed tiles ending in a partial one.  d = 640 and 1152 come last, so
+    the cases held before they were added draw the inputs they drew then."""
+    for dh in (128, 256, 384, 512, 1024, 640, 1152):
+        wide = dh > 256
+        sbs = ((112,) if dh in (640, 1152) else (16, 112) if wide else
+               (8, 16, 48, 112, 128) if f32 else (16, 48, 112, 128))
+        for sb in sbs:
+            for hq, hkv in ((4, 2), (4, 1)) if wide else ((4, 4), (4, 2), (4, 1)):
+                for causal in (False, True):
+                    for groups in (None, [[0, 1, 2, 3], [4, 5, 6, 7]]):
+                        yield dh, sb, hq, hkv, causal, groups
 
-    float32 allowance per element: out and lse 1e-5; gradients
-    1e-5 + 1e-4 |plain|, or with ``normwise`` (the serving shape, where
-    one dK/dV element sums up to 131 072 products in another order than
-    the plain version) 1e-4 * max |plain|.  bfloat16: the float32
-    allowance plus 2^-7 |plain|, since each side rounds a float32 value to
-    bfloat16 once and two such roundings of values that agree within the
-    float32 allowance differ by at most that allowance and one bfloat16
-    ulp.  Returns the max abs error."""
+
+def allowance_share(torch, name, got, want, dtype, normwise=False):
+    """``check_close``'s measure: (max abs error, largest share of the
+    allowance used, its key in ``ALLOWANCE_USED``)."""
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise RuntimeError(f"{name}: non-finite values")
@@ -690,8 +706,48 @@ def check_close(torch, name, got, want, dtype, normwise=False):
     if dtype == torch.bfloat16:
         allow = allow + BF16_ROUNDING * w.abs()
     diff = (g - w).abs()
-    err, used = float(diff.max()), float((diff / allow).max())
-    key = f"{str(dtype).split('.')[-1]} {kind}"
+    return float(diff.max()), float((diff / allow).max()), f"{str(dtype).split('.')[-1]} {kind}"
+
+
+# ROADMAP Queue 3 item 1: the bf16 backward above d = 256 can land past its
+# allowance (its dK/dV went to 1.06 of it at d = 640).  Phase 11 holds it at
+# d = 384, 512 and 1024 as before and records its share of the allowance
+# there and at d = 640 and 1152, where it is measured and not held; the
+# record goes into the kernels line beside both kernels' entries.
+KNOWN_FAULTS = {}
+
+
+def note_bf16_wide_backward(torch, name, got, want, held):
+    """Record a bf16 wide backward check's share of the allowance."""
+    _, used, _ = allowance_share(torch, name, got, want, torch.bfloat16)
+    kernel = "attention_bwd_dq_wide" if name.endswith("dq") else "attention_bwd_dkv_wide"
+    f = KNOWN_FAULTS.setdefault(kernel, {
+        "fault": "ROADMAP Queue 3 item 1",
+        "held": {"checks": 0, "max_allowance_share": 0.0},
+        "recorded": {"checks": 0, "over_allowance": 0, "max_allowance_share": 0.0,
+                     "worst": None}})
+    side = f["held" if held else "recorded"]
+    side["checks"] += 1
+    if not held:
+        side["over_allowance"] += used > 1.0
+        if used > side["max_allowance_share"]:
+            side["worst"] = name
+    side["max_allowance_share"] = max(side["max_allowance_share"], used)
+
+
+def check_close(torch, name, got, want, dtype, normwise=False):
+    """Hold a kernel's result against its plain version's; both are float32
+    sums in different orders, rounded once to their output type.
+
+    float32 allowance per element: out and lse 1e-5; gradients
+    1e-5 + 1e-4 |plain|, or with ``normwise`` (the serving shape, where
+    one dK/dV element sums up to 131 072 products in another order than
+    the plain version) 1e-4 * max |plain|.  bfloat16: the float32
+    allowance plus 2^-7 |plain|, since each side rounds a float32 value to
+    bfloat16 once and two such roundings of values that agree within the
+    float32 allowance differ by at most that allowance and one bfloat16
+    ulp.  Returns the max abs error."""
+    err, used, key = allowance_share(torch, name, got, want, dtype, normwise)
     ALLOWANCE_USED[key] = max(ALLOWANCE_USED.get(key, 0.0), used)
     if used > 1.0:
         raise RuntimeError(f"{name}: kernel disagrees with the plain version "
@@ -816,43 +872,36 @@ def attention_phases(torch, dev, gen, record, paths):
     n_cases, n_wide = 0, 0
     t_wide = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        dims = (128, 256, 384, 512, 1024) + ((640, 1152) if dtype == torch.float32 else ())
-        for dh in dims:
+        for dh, sb, hq, hkv, causal, groups in parity_grid(dtype == torch.float32):
             wide = dh > 256  # csrc/attention_wide.cu, attention_bwd_wide.cu
-            t_dh = time.perf_counter()
-            # Sb = 8 (float32 only: bf16 blocks are multiples of 16) is the
-            # dry run's [8, 128] block
-            # the float32 backward's clusters of 5 (d = 640) and of 3 blocks
-            # of 3 passes (1152) at Sb = 112, several streamed tiles ending
-            # in a partial one
-            sbs = ((112,) if dh in (640, 1152) else (16, 112) if wide else
-                   (8, 16, 48, 112, 128) if dtype == torch.float32 else (16, 48, 112, 128))
-            heads = ((4, 2), (4, 1)) if wide else ((4, 4), (4, 2), (4, 1))
-            for sb in sbs:
-                for hq, hkv in heads:
-                    for causal in (False, True):
-                        for groups in (None, [[0, 1, 2, 3], [4, 5, 6, 7]]):
-                            q, k, v, do = (torch.randn(
-                                (P, h, sb, dh), device=dev, generator=gen).to(dtype)
-                                for h in (hq, hkv, hkv, hq))
-                            out, lse = attention.ring_attention_world(
-                                q, k, v, groups, causal=causal, with_lse=True)
-                            pout, plse = attention.ring_attention_plain(
-                                q, k, v, groups, causal=causal, with_lse=True)
-                            grads = attention.ring_attention_bwd_world(
-                                q, k, v, pout, plse, do, groups, causal=causal)
-                            pgrads = attention.ring_attention_bwd_plain(
-                                q, k, v, pout, plse, do, groups, causal=causal)
-                            torch.cuda.synchronize()
-                            case = f"{dtype} d={dh} sb={sb} {hq}/{hkv} causal={causal} groups={groups is not None}"
-                            check_close(torch, f"{case} out", out, pout, dtype)
-                            check_close(torch, f"{case} lse", lse, plse, torch.float32)
-                            for nm, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
-                                check_close(torch, f"{case} {nm}", a, b, dtype)
-                            n_cases += 2
-                            n_wide += 2 * wide
+            # the bf16 backward above d = 256 at the head dims it was not
+            # held at before (ROADMAP Queue 3 item 1): measured, recorded
+            fault = dtype == torch.bfloat16 and dh in (640, 1152)
+            t_case = time.perf_counter()
+            q, k, v, do = (torch.randn(
+                (P, h, sb, dh), device=dev, generator=gen).to(dtype)
+                for h in (hq, hkv, hkv, hq))
+            out, lse = attention.ring_attention_world(
+                q, k, v, groups, causal=causal, with_lse=True)
+            pout, plse = attention.ring_attention_plain(
+                q, k, v, groups, causal=causal, with_lse=True)
+            grads = attention.ring_attention_bwd_world(
+                q, k, v, pout, plse, do, groups, causal=causal)
+            pgrads = attention.ring_attention_bwd_plain(
+                q, k, v, pout, plse, do, groups, causal=causal)
+            torch.cuda.synchronize()
+            case = f"{dtype} d={dh} sb={sb} {hq}/{hkv} causal={causal} groups={groups is not None}"
+            check_close(torch, f"{case} out", out, pout, dtype)
+            check_close(torch, f"{case} lse", lse, plse, torch.float32)
+            for nm, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
+                if wide and dtype == torch.bfloat16:
+                    note_bf16_wide_backward(torch, f"{case} {nm}", a, b, held=not fault)
+                if not fault:
+                    check_close(torch, f"{case} {nm}", a, b, dtype)
+            n_cases += 1 if fault else 2
+            n_wide += (1 if fault else 2) * wide
             if wide:
-                t_wide += time.perf_counter() - t_dh
+                t_wide += time.perf_counter() - t_case
     # contiguous bf16 views 8 bytes past a 16-byte boundary: the kernels stage
     # 16-byte chunks, so the wrapper must hand them an aligned copy
     views = [torch.randn(P * 4 * 48 * 128 + 4, device=dev, generator=gen)
@@ -870,8 +919,15 @@ def attention_phases(torch, dev, gen, record, paths):
     record["attention_misaligned_view_forward"] = "bitwise equal to the aligned copies"
     record["attention_parity_cases"] = n_cases
     record["attention_parity_wide"] = {"cases": n_wide, "s": t_wide}
+    record["known_faults"] = KNOWN_FAULTS
     log(f"attention parity: {n_cases} cases (forward and backward) within tolerance, "
-        f"{n_wide} of them at d in (384, 512, 1024; float32 640, 1152) in {t_wide:.2f} s")
+        f"{n_wide} of them at d in (384, 512, 640, 1024, 1152) in {t_wide:.2f} s")
+    for name, f in KNOWN_FAULTS.items():
+        log(f"known fault, {f['fault']}: {name} in bf16 above d = 256, largest share of the "
+            f"bf16 allowance {f['held']['max_allowance_share']:.4g} where held (d = 384, 512, "
+            f"1024), {f['recorded']['max_allowance_share']:.4g} where recorded (d = 640, 1152; "
+            f"{f['recorded']['over_allowance']} of {f['recorded']['checks']} checks past it, "
+            f"worst {f['recorded']['worst']})")
     lap("attention parity")
 
     # 12. timing at the serving shape --------------------------------------------
@@ -1020,17 +1076,18 @@ def wide_attention_phase(torch, dev, gen, record, paths):
     kinds = ("fwd", "bwd_dq", "bwd_dkv")
     info = {"shape": list(shape)}
     errs, timing = {}, {}
-    # the float32 backward's clusters at this d, and its kernels' registers
+    # the cluster forms' clusters at this d, and their kernels' registers
     from mpi_tpu_torch import _build
-    clusters, passes = attention.wide_f32_cluster(g["d"])
+    clusters, passes = attention.wide_cluster(g["d"])
     built = {row.get("kernel"): row for row in ptxas_table(_build.PTXAS_REPORT)}
-    info["f32_backward_kernels"] = {}
-    for kind in ("bwd_dq", "bwd_dkv"):
-        row = built.get(f"attn_{kind}_wide<float32, d > 256>", {})
-        info["f32_backward_kernels"][kind] = {
+    info["cluster_kernels"] = {}
+    for kind, tag in (("fwd", "bf16"), ("fwd", "float32"), ("bwd_dq", "float32"),
+                      ("bwd_dkv", "float32")):
+        row = built.get(f"attn_{kind}_wide<{tag}, d > 256>", {})
+        info["cluster_kernels"][f"{kind} {tag}"] = {
             "cluster": clusters, "passes": passes, "registers": row.get("registers"),
             "spill_stores": row.get("spill_stores"), "spill_loads": row.get("spill_loads")}
-        log(f"wide float32 {kind} at d = {g['d']}: clusters of {clusters} blocks, {passes} "
+        log(f"wide {tag} {kind} at d = {g['d']}: clusters of {clusters} blocks, {passes} "
             f"pass(es); {row.get('registers')} registers, spill stores "
             f"{row.get('spill_stores')} / loads {row.get('spill_loads')} bytes")
 
@@ -1061,12 +1118,16 @@ def wide_attention_phase(torch, dev, gen, record, paths):
         (pout, plse), plain_fwd = time_once(torch, lambda: attention.ring_attention_plain(
             q, k, v, causal=True, with_lse=True))
         errs[("fwd", dtype)] = check_close(torch, f"wide serving {tag} out", out, pout, dtype)
-        del out, pout, plse
-        # the forward with its lse (timed), and the backward's kernels (timed),
-        # against the plain version; in bf16 twice each, bitwise equal (the
-        # float32 forms' two launches are the training step's two steps)
+        del pout, plse
+        # the forward with its lse (timed), bitwise the serving leg's, and the
+        # backward's kernels (timed), against the plain version; in bf16 twice
+        # each, bitwise equal (the float32 forms' two launches are the
+        # training step's two steps)
         (o1, lse), f1 = time_once(torch, lambda: attention.ring_attention_world(
             q, k, v, causal=True, with_lse=True))
+        if not torch.equal(o1, out):
+            raise RuntimeError(f"wide {tag} forward: two launches differ (not deterministic)")
+        del out
         do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
         ops = attention.bwd_operands(q, k, v, o1, lse, do, causal=True)
         (dq1,), b1 = time_once(torch, lambda: attention.launch_bwd("bwd_dq", ops))
@@ -1090,8 +1151,8 @@ def wide_attention_phase(torch, dev, gen, record, paths):
             check_close(torch, f"wide {tag} dv", dv1, want[2], dtype, normwise=True))
         log(f"wide serving leg {tag}: run {run_s:.3f} s, launches {launches}; max abs err "
             f"vs plain out {errs[('fwd', dtype)]:.3g}, dq {errs[('bwd_dq', dtype)]:.3g}, "
-            f"dk/dv {errs[('bwd_dkv', dtype)]:.3g}"
-            + ("; the backward's two launches bitwise equal" if len(bs) == 2 else ""))
+            f"dk/dv {errs[('bwd_dkv', dtype)]:.3g}; the forward's two launches bitwise equal"
+            + ("; the backward's too" if len(bs) == 2 else ""))
         del want, dq1, dk1, dv1, ops
         t = {"fwd": f1, "bwd_dq": statistics.median(bs), "bwd_dkv": statistics.median(cs_),
              "bwd_dq_ms_runs": bs, "bwd_dkv_ms_runs": cs_,
@@ -1196,7 +1257,9 @@ def wide_attention_phase(torch, dev, gen, record, paths):
                          "SDPA backward (dq, dk and dv together)") + ", " + bt["library_backend"],
         "pct_of_bound": bt[f"{kind}_pct_of_bound"], "tflops": bt[f"{kind}_tflops"],
         "design_floor_ms": bt[f"{kind}_design_floor_ms"], "dtype": "bfloat16",
-        "head_dim": WIDE_SERVE["d"]} for kind in kinds]
+        "head_dim": WIDE_SERVE["d"],
+        **({"known_fault": KNOWN_FAULTS[f"attention_{kind}_wide"]}
+           if f"attention_{kind}_wide" in KNOWN_FAULTS else {})} for kind in kinds]
 
 
 def agree(torch, name, got, want, rtol, atol, record):

@@ -38,17 +38,17 @@
 //   chip_smoke.py counts.
 //
 // float32: a thread-block cluster forms S and dP once a tile.  The C blocks
-// of a cluster (WideF32Cluster: C the largest divisor of d / 128 that is at
-// most 8) are the chunks of one (rank, head, own 64-row tile); block c owns
-// output chunks c m .. c m + m - 1 (m = d / 128 / C: 1 at every d <= 1024),
-// one a pass over its walk.  For each streamed 32-row tile of the other
-// side, block c forms the partials S_c = Q_c K_c^T and dP_c = dO_c V_c^T
-// (attn_bwd_dkv: S^T_c = K_c Q_c^T, dP^T_c = V_c dO_c^T) over its own m
-// chunks only, writes them to its shared memory, and after one cluster
-// barrier every block sums the C partials over distributed shared memory
-// in rank order 0..C-1, so all blocks form bit-identical P and dS; the
-// partials are double-buffered by tile parity, so one barrier a tile
-// suffices.  The chunk-c operands of the output products are the tile
+// of a cluster (WideCluster, ring_attention.cuh: C the largest divisor of
+// d / 128 that is at most 8) are the chunks of one (rank, head, own 64-row
+// tile); block c owns output chunks c m .. c m + m - 1 (m = d / 128 / C: 1
+// at every d <= 1024), one a pass over its walk.  For each streamed 32-row
+// tile of the other side, block c forms the partials S_c = Q_c K_c^T and
+// dP_c = dO_c V_c^T (attn_bwd_dkv: S^T_c = K_c Q_c^T, dP^T_c = V_c dO_c^T)
+// over its own m chunks only, writes them to its shared memory, and after
+// one cluster barrier every block sums the C partials over distributed
+// shared memory in rank order 0..C-1, so all blocks form bit-identical P
+// and dS; the partials are double-buffered by tile parity, so one barrier a
+// tile suffices.  The chunk-c operands of the output products are the tile
 // the partials read, so a block loads each byte of its columns once a pass.
 //   Products: TF32 wgmma (sm_90a), each product three of them (a_lo b_hi +
 //   a_hi b_lo + a_hi b_hi, hi = x with the low 13 bits cleared, lo = x - hi:
@@ -79,7 +79,6 @@
 //   bound at m = 1.
 
 #include <cooperative_groups.h>
-#include <cuda.h>
 #include <math.h>
 
 #include "ring_attention.cuh"
@@ -113,27 +112,6 @@ struct WideDkvF32Plan {
       LO = 2 * TS * 128 * 4, PART = 2 * 2 * T * TS * 4, BT = 4 * T * TS * 4, BARS = 64;
   static constexpr int SMEM = 1024 + OWN + NS * STAGE + LO + PART + BT + BARS;
 };
-// The float32 forms' cluster at head dim D: C blocks, the largest divisor
-// of D / 128 that is at most 8 (the portable cluster size), each taking M
-// passes over its walk, one output chunk a pass
-template <int D> struct WideF32Cluster {
-  static constexpr int ND = D / 128, C = ND % 8 == 0 ? 8 : ND % 7 == 0 ? 7 : ND % 6 == 0 ? 6 : ND % 5 == 0 ? 5 : ND % 4 == 0 ? 4 : ND % 3 == 0 ? 3 : ND % 2 == 0 ? 2 : 1, M = ND / C;
-};
-// its C at run time (nd = d / 128)
-__host__ __device__ constexpr int cluster_blocks(int nd) {
-  return nd % 8 == 0 ? 8 : nd % 7 == 0 ? 7 : nd % 6 == 0 ? 6 : nd % 5 == 0 ? 5 : nd % 4 == 0 ? 4
-       : nd % 3 == 0 ? 3 : nd % 2 == 0 ? 2 : 1;
-}
-template <int ND = 3> constexpr bool clusters_agree() {
-  if constexpr (ND > 64) {
-    return true;
-  } else {
-    using Cluster = WideF32Cluster<ND * 128>;
-    return Cluster::C == cluster_blocks(ND) && Cluster::C * Cluster::M == ND &&
-           clusters_agree<ND + 1>();
-  }
-}
-static_assert(clusters_agree(), "WideF32Cluster and cluster_blocks disagree");
 
 // ----------------------------------------------------------- bf16: dQ
 __global__ void __launch_bounds__(kThreads)
@@ -364,15 +342,6 @@ attn_bwd_dkv_wide_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------------ float32
-constexpr int kF32Consumers = 256;               // two consumer warpgroups
-constexpr int kF32Threads = kF32Consumers + 128;  // and a producer warpgroup
-// registers a thread after setmaxnreg (an SM sub-partition holds one warp
-// of each warpgroup: 40 + 2 x 232 of its 512 a lane)
-constexpr int kF32ProducerRegs = 40, kF32ConsumerRegs = 232;
-constexpr int kNoCluster = 1001;   // cudaOccupancyMaxActiveClusters found no room for a cluster
-constexpr int kNoEncoder = 1002;   // the CUDA driver's cuTensorMapEncodeTiled was not found
-constexpr int kBadMap = 1003;      // cuTensorMapEncodeTiled refused a tensor
-
 // the regions of a float32 block's shared memory (the plan's order)
 template <typename Plan>
 struct F32Smem {
@@ -408,155 +377,6 @@ struct F32Smem {
   }
 };
 
-__device__ __forceinline__ float ld_f32(const uint8_t* tile, int row, int col, int rows) {
-  return *reinterpret_cast<const float*>(tile + sw128_f32(row, col, rows));
-}
-
-// The producer warpgroup: one thread issues the loads.  Unit n = (tile nt,
-// chunk u of the block's m) goes to stage n % NS; `own(n)` loads the own
-// tiles of unit n (once at m = 1, every unit above), `unit(n, s)` the
-// streamed tiles into stage s.  Every thread takes part in every cluster
-// barrier, as late as the stages allow: before it fills a stage for tile
-// nt it has passed barrier nt - 1 - lag (lag 1 at m = 1: tile nt's stage
-// was freed by tile nt - 2's outputs; 0 above, where a tile's later units
-// reuse stages of its own earlier ones).
-template <int NS, typename Own, typename Unit>
-__device__ __forceinline__ void produce(int tiles, int m, uint64_t* full, uint64_t* empty,
-                                        uint64_t* own_full, uint64_t* own_empty, Own own,
-                                        Unit unit) {
-  const bool lead = threadIdx.x == kF32Consumers;
-  const int lag = m == 1 ? 1 : 0;
-  int done = 0;
-  if (lead && m == 1) own(0);
-  for (int nt = 0; nt < tiles; ++nt) {
-    for (; done < nt - lag; ++done) cluster_sync();
-    if (lead) {
-      for (int u = 0; u < m; ++u) {
-        const int n = nt * m + u, s = n % NS;
-        if (m > 1) {
-          if (n > 0) mbar_wait(own_empty, (n - 1) & 1);
-          own(n);
-        }
-        if (n >= NS) mbar_wait(empty + s, (n / NS - 1) & 1);
-        unit(n, s);
-      }
-    }
-    __syncwarp();
-  }
-  for (; done < tiles; ++done) cluster_sync();
-  cluster_sync();  // the consumers' last one
-}
-
-// lo = x - hi of a streamed TS x 128 tile into a tile of the same layout
-// (hi is x itself, as the tensor core reads it); one warpgroup
-template <int TS>
-__device__ __forceinline__ void write_lo(uint8_t* dst, const uint8_t* src, int t) {
-  for (int i = t; i < TS * 128 / 4; i += 128) {
-    float4 x = reinterpret_cast<const float4*>(src)[i];
-    x.x -= __uint_as_float(__float_as_uint(x.x) & 0xFFFFE000u);
-    x.y -= __uint_as_float(__float_as_uint(x.y) & 0xFFFFE000u);
-    x.z -= __uint_as_float(__float_as_uint(x.z) & 0xFFFFE000u);
-    x.w -= __uint_as_float(__float_as_uint(x.w) & 0xFFFFE000u);
-    reinterpret_cast<float4*>(dst)[i] = x;
-  }
-}
-
-// The tensor core's TF32 sums lose bits with every product a chain adds
-// (measured on an H100: chains over a whole 128-column chunk used 1.5 times
-// the float32 allowance where chains of four k steps use 0.48): every chain
-// below is four k steps of the hi x hi products, and beside it one of the
-// small ones (a_lo b_hi, a_hi b_lo), added by round-to-nearest float32
-// adds.
-
-// f (m64n32: the T own rows by the tile's TS streamed rows) = A B^T over one
-// 128-column chunk: A the own tile at `a` (T x 128, split in registers), B
-// the streamed tile (raw words at `b`, its lo tile at `blo`); 32 columns
-// (one swizzle block) a chain.  The loop over them stays rolled: unrolled,
-// the compiler hoists every block's operand loads and spills the output
-// accumulators instead (1.1-1.4 KB; 45% longer on an H100)
-template <int T, int TS>
-__device__ __forceinline__ void partial_chunk(float (&f)[16], const uint8_t* a, uint32_t b,
-                                              uint32_t blo, int w, int g4, int t4) {
-  const int r0 = 16 * w + g4;
-#pragma unroll 1
-  for (int cb = 0; cb < 4; ++cb) {
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int col = 32 * cb + 8 * kk + t4;
-      const float x[4] = {ld_f32(a, r0, col, T), ld_f32(a, r0 + 8, col, T),
-                          ld_f32(a, r0, col + 4, T), ld_f32(a, r0 + 8, col + 4, T)};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const Tf32x2 sp = split(x[e]);
-        ah[kk][e] = sp.hi;
-        al[kk][e] = sp.lo;
-      }
-    }
-    float big[16], small[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) big[e] = small[e] = 0.f;
-    reg_fence(big);
-    reg_fence(small);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t off = cb * TS * 128 + kk * 32;
-      const uint64_t bh = desc_kmajor(b + off), bl = desc_kmajor(blo + off);
-      wgmma_m64n32k8_tf32(small, al[kk], bh, kk > 0);
-      wgmma_m64n32k8_tf32(small, ah[kk], bl, 1);
-      wgmma_m64n32k8_tf32(big, ah[kk], bh, kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    reg_fence(big);
-    reg_fence(small);
-#pragma unroll
-    for (int e = 0; e < 16; ++e) f[e] = cb == 0 ? big[e] + small[e] : f[e] + (big[e] + small[e]);
-  }
-}
-
-// f (m64n64: 64 columns of a chunk from m0, by the T own rows) = A B^T over
-// the tile's TS streamed rows: A = columns m0.. of the streamed tile at `s`
-// transposed (split in registers), B the block's own T x TS tile (hi at
-// bh, lo at bl); one chain of each kind
-template <int TS>
-__device__ __forceinline__ void output_half(float (&f)[32], const uint8_t* s, int m0, uint32_t bh,
-                                            uint32_t bl, int w, int g4, int t4) {
-  const int c0 = m0 + 16 * w + g4;
-  uint32_t ah[TS / 8][4], al[TS / 8][4];
-#pragma unroll
-  for (int kk = 0; kk < TS / 8; ++kk) {
-    const int r = 8 * kk + t4;
-    const float x[4] = {ld_f32(s, r, c0, TS), ld_f32(s, r, c0 + 8, TS), ld_f32(s, r + 4, c0, TS),
-                        ld_f32(s, r + 4, c0 + 8, TS)};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const Tf32x2 sp = split(x[e]);
-      ah[kk][e] = sp.hi;
-      al[kk][e] = sp.lo;
-    }
-  }
-  float small[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) f[e] = small[e] = 0.f;
-  reg_fence(f);
-  reg_fence(small);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < TS / 8; ++kk) {
-    const uint64_t h = desc_kmajor(bh + kk * 32), l = desc_kmajor(bl + kk * 32);
-    wgmma_m64n64k8_tf32(small, al[kk], h, kk > 0);
-    wgmma_m64n64k8_tf32(small, ah[kk], l, 1);
-    wgmma_m64n64k8_tf32(f, ah[kk], h, kk > 0);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  reg_fence(f);
-  reg_fence(small);
-#pragma unroll
-  for (int e = 0; e < 32; ++e) f[e] += small[e];
-}
 
 // this warpgroup's partial (m64n32 accumulator) into its slot of the
 // tile's parity, float4 q of thread t at [q][t]
@@ -595,16 +415,6 @@ __device__ __forceinline__ void cluster_sum(float (&s8)[8], float (&p8)[8], cons
   }
 }
 
-// entries (row, col) and (row, col + 1) of a T x TS B tile as hi and lo
-template <int T>
-__device__ __forceinline__ void put_split2(uint8_t* hi, uint8_t* lo, int row, int col, float x,
-                                           float y) {
-  const uint32_t off = sw128_f32(row, col, T);
-  const Tf32x2 a = split(x), b = split(y);
-  *reinterpret_cast<float2*>(hi + off) = make_float2(__uint_as_float(a.hi), __uint_as_float(b.hi));
-  *reinterpret_cast<float2*>(lo + off) = make_float2(__uint_as_float(a.lo), __uint_as_float(b.lo));
-}
-
 // ------------------------------------------------------------ float32: dQ
 // A cluster per (rank, query head, 64-row Q tile); own Q and dO, streamed
 // K and V in 32-row tiles (DqWalk).  Partials: warpgroup 0 S, warpgroup 1
@@ -636,7 +446,7 @@ attn_bwd_dq_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_consta
   if (threadIdx.x >= kF32Consumers) {
     setmaxnreg_dec<kF32ProducerRegs>();
     const int zq = (int)(b.row0 / sb);
-    produce<NS>(tiles, m, sm.full, sm.empty, sm.own_full, sm.own_empty,
+    produce<NS, 1>(tiles, m, sm.full, sm.empty, sm.own_full, sm.own_empty,
                 [&](int n) {
                   const int col = chunk_of(n) * kChunk;
                   mbar_expect_tx(sm.own_full, Plan::OWN);
@@ -685,11 +495,11 @@ attn_bwd_dq_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_consta
           const uint8_t* st = sm.stage + s * Plan::STAGE + wg * HALF;
           uint8_t* lo = sm.lo + wg * HALF;
           named_sync(2 + wg, 128);  // the warpgroup's last reads of lo are done
-          write_lo<TS>(lo, st, t);
+          write_lo<TS, 4>(lo, st, 0, t);
           fence_async_shared();
           named_sync(2 + wg, 128);
           float f[16];
-          partial_chunk<T, TS>(f, sm.own + wg * (Plan::OWN / 2), smem_addr(st), smem_addr(lo), w,
+          partial_blocks<T, TS, 4>(f, sm.own + wg * (Plan::OWN / 2), smem_addr(st), smem_addr(lo), 0, w,
                                g4, t4);
 #pragma unroll
           for (int e = 0; e < 16; ++e) part[e] = u == 0 ? f[e] : part[e] + f[e];
@@ -780,7 +590,7 @@ attn_bwd_dkv_wide_f32(const __grid_constant__ CUtensorMap mk, const __grid_const
   if (threadIdx.x >= kF32Consumers) {
     setmaxnreg_dec<kF32ProducerRegs>();
     const int zk = (int)(b.kv_row0 / sb);
-    produce<NS>(tiles, m, sm.full, sm.empty, sm.own_full, sm.own_empty,
+    produce<NS, 1>(tiles, m, sm.full, sm.empty, sm.own_full, sm.own_empty,
                 [&](int n) {
                   const int col = chunk_of(n) * kChunk;
                   mbar_expect_tx(sm.own_full, Plan::OWN);
@@ -840,11 +650,11 @@ attn_bwd_dkv_wide_f32(const __grid_constant__ CUtensorMap mk, const __grid_const
           const uint8_t* st = sm.stage + s * Plan::STAGE + wg * HALF;
           uint8_t* lo = sm.lo + wg * HALF;
           named_sync(2 + wg, 128);  // the warpgroup's last reads of lo are done
-          write_lo<TS>(lo, st, t);
+          write_lo<TS, 4>(lo, st, 0, t);
           fence_async_shared();
           named_sync(2 + wg, 128);
           float f[16];
-          partial_chunk<T, TS>(f, sm.own + wg * (Plan::OWN / 2), smem_addr(st), smem_addr(lo), w,
+          partial_blocks<T, TS, 4>(f, sm.own + wg * (Plan::OWN / 2), smem_addr(st), smem_addr(lo), 0, w,
                                g4, t4);
 #pragma unroll
           for (int e = 0; e < 16; ++e) part[e] = u == 0 ? f[e] : part[e] + f[e];
@@ -973,72 +783,6 @@ int launch_dkv(K kernel, const void* q, const void* k, const void* v, const void
   return (int)cudaGetLastError();
 }
 
-// The CUDA driver's cuTensorMapEncodeTiled, reached through the runtime (so
-// nothing links libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [planes, sb, d] float32 tensor as a 3-D tensor map whose box is 32
-// columns x `rows` rows of one plane, 128-byte swizzle: rows past sb (the
-// ragged tile of a block) read as zeros
-int f32_map(CUtensorMap* map, const void* base, int d, int sb, int planes, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kNoEncoder;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)sb, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)sb * d * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1}, unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kBadMap;
-}
-
-// a float32 kernel in clusters of C blocks along x: refused (kNoCluster)
-// where no such cluster fits the card, else launched with its error
-template <typename Plan, typename... Args>
-int launch_cluster(void (*kernel)(Args...), dim3 grid, int C, cudaStream_t s, Args... args) {
-  int err = set_smem(kernel, Plan::SMEM);
-  if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kF32Threads);
-  cfg.dynamicSmemBytes = Plan::SMEM;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = (int)cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
-  if (err) return err;
-  if (clusters == 0) return kNoCluster;
-  void* argv[] = {static_cast<void*>(&args)...};
-  err = (int)cudaLaunchKernelExC(&cfg, (const void*)kernel, argv);
-  if (err) return err;
-  return (int)cudaGetLastError();
-}
-
 // the float32 forms' four tensor maps: own operands in boxes of T rows,
 // streamed ones in boxes of TS
 template <typename Plan>
@@ -1072,7 +816,7 @@ extern "C" int attn_bwd_dq_wide(const void* q, const void* k, const void* v,
     if (err) return err;
     const int C = cluster_blocks(d / kChunk);
     const dim3 grid((sb + Plan::T - 1) / Plan::T * C, hq, ngroups * g);
-    return launch_cluster<Plan>(attn_bwd_dq_wide_f32, grid, C, s, maps[0], maps[1], maps[2],
+    return launch_cluster<Plan>(attn_bwd_dq_wide_f32, grid, kF32Threads, C, s, maps[0], maps[1], maps[2],
                                 maps[3], L, Dl, static_cast<float*>(dq), geo, d);
   }
   if (dtype == 1)
@@ -1098,7 +842,7 @@ extern "C" int attn_bwd_dkv_wide(const void* q, const void* k, const void* v,
     if (err) return err;
     const int C = cluster_blocks(d / kChunk);
     const dim3 grid((sb + Plan::T - 1) / Plan::T * C, hkv, ngroups * g);
-    return launch_cluster<Plan>(attn_bwd_dkv_wide_f32, grid, C, s, maps[0], maps[1], maps[2],
+    return launch_cluster<Plan>(attn_bwd_dkv_wide_f32, grid, kF32Threads, C, s, maps[0], maps[1], maps[2],
                                 maps[3], L, Dl, static_cast<float*>(dk), static_cast<float*>(dv),
                                 geo, d);
   }

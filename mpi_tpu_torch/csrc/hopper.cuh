@@ -238,6 +238,9 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\n" ::: "memory");
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
+// the two halves of cluster_sync, with work between them
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait;\n" ::: "memory"); }
 // a warpgroup's registers a thread, lowered (producers) or raised
 // (consumers) to N, all its threads together; the code after it is
 // allocated for N (the branches must not rejoin)

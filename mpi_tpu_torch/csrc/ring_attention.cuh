@@ -4,12 +4,14 @@
 // the ring-order walks of a query tile over the K/V tiles and of a K/V
 // tile over the query tiles, cp.async staging of bf16 (swizzled) and
 // float32 (padded) tiles, the online-softmax fold of a tile's scores, the
-// backward's P and dS of a score entry, and the float32 fragment helpers of
-// the TF32 products.  The backward runs one warpgroup (or four warps) per
-// block, the forward several; the staging loops take the block's thread
-// count.
+// backward's P and dS of a score entry, the float32 fragment helpers of
+// the TF32 products, and what the forms that run in thread-block clusters
+// share (the cluster's size, its launch, the float32 tensor maps and output
+// products).  The backward runs one warpgroup (or four warps) per block,
+// the forward several; the staging loops take the block's thread count.
 #pragma once
 
+#include <cuda.h>
 #include <math.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -130,6 +132,11 @@ struct QueryBlock {
   __device__ long long kv_row(const Geo& geo, int arr, int kt, int rows) const {
     const int jb = (r - arr + geo.g) % geo.g;
     return ((long long)G[jb] * geo.hkv + kvh) * geo.sb + (long long)kt * rows;
+  }
+  // the [P Hkv] plane of arrival arr's K/V head (a tensor map's third
+  // coordinate)
+  __device__ int kv_plane(const Geo& geo, int arr) const {
+    return G[(r - arr + geo.g) % geo.g] * geo.hkv + kvh;
   }
 };
 
@@ -310,5 +317,289 @@ Geo make_geo(const void* groups, int g, int hq, int hkv, int sb, float scale, in
 }
 
 constexpr int kBadShape = 1000;  // a head dim or dtype the kernels were not built for
+
+// -- the thread-block cluster forms above d = 256 --------------------------------
+// The float32 backward (attention_bwd_wide.cu) and both forward forms
+// (attention_wide.cu) run the C blocks of one (rank, head, own tile) as a
+// cluster: each block forms the partial products of its own chunks of d,
+// and every block sums the cluster's partials over distributed shared
+// memory in rank order 0..C-1.
+// The cluster at head dim D: C blocks, the largest divisor of D / 128 that
+// is at most 8 (the portable cluster size), each taking M passes over its
+// walk, one output chunk a pass
+template <int D> struct WideCluster {
+  static constexpr int ND = D / 128, C = ND % 8 == 0 ? 8 : ND % 7 == 0 ? 7 : ND % 6 == 0 ? 6 : ND % 5 == 0 ? 5 : ND % 4 == 0 ? 4 : ND % 3 == 0 ? 3 : ND % 2 == 0 ? 2 : 1, M = ND / C;
+};
+// its C at run time (nd = d / 128)
+__host__ __device__ constexpr int cluster_blocks(int nd) {
+  return nd % 8 == 0 ? 8 : nd % 7 == 0 ? 7 : nd % 6 == 0 ? 6 : nd % 5 == 0 ? 5 : nd % 4 == 0 ? 4
+       : nd % 3 == 0 ? 3 : nd % 2 == 0 ? 2 : 1;
+}
+template <int ND = 3> constexpr bool clusters_agree() {
+  if constexpr (ND > 64) {
+    return true;
+  } else {
+    using Cluster = WideCluster<ND * 128>;
+    return Cluster::C == cluster_blocks(ND) && Cluster::C * Cluster::M == ND &&
+           clusters_agree<ND + 1>();
+  }
+}
+static_assert(clusters_agree(), "WideCluster and cluster_blocks disagree");
+
+// the float32 forms' threads: consumer warpgroups and a producer warpgroup
+// that keeps their TMA loads in flight
+constexpr int kF32Consumers = 256;               // two consumer warpgroups
+constexpr int kF32Threads = kF32Consumers + 128;  // and a producer warpgroup
+// registers a thread after setmaxnreg (an SM sub-partition holds one warp
+// of each warpgroup: 40 + 2 x 232 of its 512 a lane)
+constexpr int kF32ProducerRegs = 40, kF32ConsumerRegs = 232;
+constexpr int kNoCluster = 1001;   // cudaOccupancyMaxActiveClusters found no room for a cluster
+constexpr int kNoEncoder = 1002;   // the CUDA driver's cuTensorMapEncodeTiled was not found
+constexpr int kBadMap = 1003;      // cuTensorMapEncodeTiled refused a tensor
+
+// word (row, col) of a float32 tile in the 128-byte swizzle (sw128_f32)
+__device__ __forceinline__ float ld_f32(const uint8_t* tile, int row, int col, int rows) {
+  return *reinterpret_cast<const float*>(tile + sw128_f32(row, col, rows));
+}
+
+// f (m64n64: 64 columns of a chunk from m0, by the T own rows) = A B^T over
+// the tile's TS streamed rows: A = columns m0.. of the streamed tile at `s`
+// transposed (split in registers), B the block's own T x TS tile (hi at
+// bh, lo at bl); one chain of each kind
+template <int TS>
+__device__ __forceinline__ void output_half(float (&f)[32], const uint8_t* s, int m0, uint32_t bh,
+                                            uint32_t bl, int w, int g4, int t4) {
+  const int c0 = m0 + 16 * w + g4;
+  uint32_t ah[TS / 8][4], al[TS / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const int r = 8 * kk + t4;
+    const float x[4] = {ld_f32(s, r, c0, TS), ld_f32(s, r, c0 + 8, TS), ld_f32(s, r + 4, c0, TS),
+                        ld_f32(s, r + 4, c0 + 8, TS)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const Tf32x2 sp = split(x[e]);
+      ah[kk][e] = sp.hi;
+      al[kk][e] = sp.lo;
+    }
+  }
+  float small[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) f[e] = small[e] = 0.f;
+  reg_fence(f);
+  reg_fence(small);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const uint64_t h = desc_kmajor(bh + kk * 32), l = desc_kmajor(bl + kk * 32);
+    wgmma_m64n64k8_tf32(small, al[kk], h, kk > 0);
+    wgmma_m64n64k8_tf32(small, ah[kk], l, 1);
+    wgmma_m64n64k8_tf32(f, ah[kk], h, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(f);
+  reg_fence(small);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) f[e] += small[e];
+}
+
+// entries (row, col) and (row, col + 1) of a T x TS B tile as hi and lo
+template <int T>
+__device__ __forceinline__ void put_split2(uint8_t* hi, uint8_t* lo, int row, int col, float x,
+                                           float y) {
+  const uint32_t off = sw128_f32(row, col, T);
+  const Tf32x2 a = split(x), b = split(y);
+  *reinterpret_cast<float2*>(hi + off) = make_float2(__uint_as_float(a.hi), __uint_as_float(b.hi));
+  *reinterpret_cast<float2*>(lo + off) = make_float2(__uint_as_float(a.lo), __uint_as_float(b.lo));
+}
+
+// The producer warpgroup: one thread issues the loads.  Unit n = (tile nt,
+// chunk u of the block's m) goes to stage n % NS; `own(n)` loads the own
+// tiles of unit n (once at m = 1, every unit above), `unit(n, s)` the
+// streamed tiles into stage s.  Every thread takes part in every cluster
+// barrier, as late as the stages allow: before it fills a stage for tile
+// nt it has passed barrier nt - 1 - lag.  At m = 1 the lag is LAG1, the
+// tiles between the one whose outputs free tile nt's stage and tile nt:
+// the backward's 1 (tile nt - 2's outputs); the forward's NS - 2 (tile
+// nt - NS's output runs after its consumers arrive at the barrier of tile
+// nt - NS + 1 and before they wait there, so a producer that arrived only
+// after filling that stage would wait on the output run beside it).  Above
+// m = 1, where a tile's later units reuse stages of its own earlier ones,
+// 0.
+template <int NS, int LAG1, typename Own, typename Unit>
+__device__ __forceinline__ void produce(int tiles, int m, uint64_t* full, uint64_t* empty,
+                                        uint64_t* own_full, uint64_t* own_empty, Own own,
+                                        Unit unit) {
+  const bool lead = threadIdx.x == kF32Consumers;
+  const int lag = m == 1 ? LAG1 : 0;
+  int done = 0;
+  if (lead && m == 1) own(0);
+  for (int nt = 0; nt < tiles; ++nt) {
+    for (; done < nt - lag; ++done) cluster_sync();
+    if (lead) {
+      for (int u = 0; u < m; ++u) {
+        const int n = nt * m + u, s = n % NS;
+        if (m > 1) {
+          if (n > 0) mbar_wait(own_empty, (n - 1) & 1);
+          own(n);
+        }
+        if (n >= NS) mbar_wait(empty + s, (n / NS - 1) & 1);
+        unit(n, s);
+      }
+    }
+    __syncwarp();
+  }
+  for (; done < tiles; ++done) cluster_sync();
+  cluster_sync();  // the consumers' last one
+}
+
+// lo = x - hi of the BLOCKS 32-column blocks from `first` of a streamed TS
+// x 128 tile into a tile of the same layout (hi is x itself, as the tensor
+// core reads it); one warpgroup
+template <int TS, int BLOCKS>
+__device__ __forceinline__ void write_lo(uint8_t* dst, const uint8_t* src, int first, int t) {
+  const int base = first * TS * 8;  // the float4s of the blocks before `first`
+  for (int i = t; i < BLOCKS * TS * 8; i += 128) {
+    float4 x = reinterpret_cast<const float4*>(src)[base + i];
+    x.x -= __uint_as_float(__float_as_uint(x.x) & 0xFFFFE000u);
+    x.y -= __uint_as_float(__float_as_uint(x.y) & 0xFFFFE000u);
+    x.z -= __uint_as_float(__float_as_uint(x.z) & 0xFFFFE000u);
+    x.w -= __uint_as_float(__float_as_uint(x.w) & 0xFFFFE000u);
+    reinterpret_cast<float4*>(dst)[base + i] = x;
+  }
+}
+
+// The tensor core's TF32 sums lose bits with every product a chain adds
+// (measured on an H100: chains over a whole 128-column chunk used 1.5 times
+// the float32 allowance where chains of four k steps use 0.48): every chain
+// below is four k steps of the hi x hi products, and beside it one of the
+// small ones (a_lo b_hi, a_hi b_lo), added by round-to-nearest float32
+// adds.
+
+// f (m64n32: the T own rows by the tile's TS streamed rows) = A B^T over the
+// BLOCKS 32-column blocks from `first` of a 128-column chunk (the backward
+// all 4, each of the forward's warpgroups 2): A the own tile at `a` (T x
+// 128, split in registers), B the streamed tile (raw words at `b`, its lo
+// tile at `blo`); one swizzle block a chain.  The loop over them stays rolled: unrolled,
+// the compiler hoists every block's operand loads and spills the output
+// accumulators instead (1.1-1.4 KB; 45% longer on an H100)
+template <int T, int TS, int BLOCKS>
+__device__ __forceinline__ void partial_blocks(float (&f)[16], const uint8_t* a, uint32_t b,
+                                               uint32_t blo, int first, int w, int g4, int t4) {
+  const int r0 = 16 * w + g4;
+#pragma unroll 1
+  for (int h = 0; h < BLOCKS; ++h) {
+    const int cb = first + h;
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int col = 32 * cb + 8 * kk + t4;
+      const float x[4] = {ld_f32(a, r0, col, T), ld_f32(a, r0 + 8, col, T),
+                          ld_f32(a, r0, col + 4, T), ld_f32(a, r0 + 8, col + 4, T)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const Tf32x2 sp = split(x[e]);
+        ah[kk][e] = sp.hi;
+        al[kk][e] = sp.lo;
+      }
+    }
+    float big[16], small[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) big[e] = small[e] = 0.f;
+    reg_fence(big);
+    reg_fence(small);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t off = cb * TS * 128 + kk * 32;
+      const uint64_t bh = desc_kmajor(b + off), bl = desc_kmajor(blo + off);
+      wgmma_m64n32k8_tf32(small, al[kk], bh, kk > 0);
+      wgmma_m64n32k8_tf32(small, ah[kk], bl, 1);
+      wgmma_m64n32k8_tf32(big, ah[kk], bh, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(big);
+    reg_fence(small);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) f[e] = h == 0 ? big[e] + small[e] : f[e] + (big[e] + small[e]);
+  }
+}
+
+// The CUDA driver's cuTensorMapEncodeTiled, reached through the runtime (so
+// nothing links libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [planes, sb, d] tensor of `bytes`-byte elements as a 3-D tensor map
+// whose box is 128 bytes of columns x `rows` rows of one plane, 128-byte
+// swizzle: rows past sb (the ragged tile of a block) read as zeros
+int tile_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base, int d,
+             int sb, int planes, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)sb, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * bytes, (cuuint64_t)sb * d * bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / bytes), (cuuint32_t)rows, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadMap;
+}
+// float32 in boxes of 32 columns, bf16 in boxes of 64
+int f32_map(CUtensorMap* map, const void* base, int d, int sb, int planes, int rows) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, d, sb, planes, rows);
+}
+int bf16_map(CUtensorMap* map, const void* base, int d, int sb, int planes, int rows) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d, sb, planes, rows);
+}
+
+// a kernel in clusters of C blocks of `threads` along x: refused
+// (kNoCluster) where no such cluster fits the card, else launched with its
+// error
+template <typename Plan, typename... Args>
+int launch_cluster(void (*kernel)(Args...), dim3 grid, int threads, int C, cudaStream_t s,
+                   Args... args) {
+  int err = set_smem(kernel, Plan::SMEM);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = Plan::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = (int)cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err) return err;
+  if (clusters == 0) return kNoCluster;
+  void* argv[] = {static_cast<void*>(&args)...};
+  err = (int)cudaLaunchKernelExC(&cfg, (const void*)kernel, argv);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace

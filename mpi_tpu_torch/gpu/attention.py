@@ -327,12 +327,12 @@ def _plan_smem(source: str, plan: str, d: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def wide_f32_cluster(d: int) -> Tuple[int, int]:
-    """(C, m) of the float32 backward kernels above d = 256
-    (``WideF32Cluster`` in csrc/attention_bwd_wide.cu): clusters of C
-    blocks, the largest divisor of d / 128 that is at most 8, each block
-    taking m = d / 128 / C passes over its walk, one output chunk a pass."""
-    consts = _plan_consts("attention_bwd_wide.cu", "WideF32Cluster", d)
+def wide_cluster(d: int) -> Tuple[int, int]:
+    """(C, m) of the forward and the float32 backward above d = 256
+    (``WideCluster`` in csrc/ring_attention.cuh): clusters of C blocks, the
+    largest divisor of d / 128 that is at most 8, each block taking m =
+    d / 128 / C passes over its walk, one output chunk a pass."""
+    consts = _plan_consts("ring_attention.cuh", "WideCluster", d)
     return consts["C"], consts["M"]
 
 
@@ -347,15 +347,17 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     stride of d + 4: the forward (``FwdF32Plan``) holds 64 W Q rows and two
     stages of 32-row K and V tiles, the backward (``F32Plan``) two resident
     64-row and two streamed 32-row tiles and 256 bytes of lse/delta rows.
-    Above, the forms of csrc/attention_wide.cu and the bf16 ones of
-    attention_bwd_wide.cu stream 64- or 128-column (bf16) or 32-column
-    (float32 forward) chunks of d through a ring of stages beside one or
-    two buffers of each 128-column operand of the output product; the
-    float32 backward (``WideDqF32Plan``, ``WideDkvF32Plan``) holds one
-    128-column chunk of its own two 64-row tiles, two stages of two
-    streamed 32-row tiles and their lo tiles, two parities of the S and dP
-    partials its cluster sums, and its output products' B tiles.  No plan's
-    bytes depend on d."""
+    Above, the bf16 backward of attention_bwd_wide.cu streams 64- or
+    128-column chunks of d through a ring of stages beside buffers of each
+    128-column operand of its output product; the forward of
+    csrc/attention_wide.cu and the float32 backward run in clusters: the
+    bf16 forward (``WideFwdBf16Plan``) holds its own 64 x 128 Q chunk, two
+    stages of a K chunk and a V (or Q) chunk, and two parities of the S
+    partial its cluster sums; the float32 forms (``WideFwdF32Plan``,
+    ``WideDqF32Plan``, ``WideDkvF32Plan``) one 128-column chunk of their
+    own 64-row tiles, two stages of two streamed 32-row tiles and their lo
+    tiles, two parities of the partials, and their output products' B
+    tiles.  No plan's bytes depend on d."""
     plans = _WIDE_PLANS if _wide(d) else _PLANS
     return {name: _plan_smem(src, names[dtype], d) for name, (src, names) in plans.items()}
 
@@ -383,7 +385,7 @@ def _require_cuda(*tensors: torch.Tensor) -> None:
 
 
 # the attention sources' own refusals (csrc/ring_attention.cuh kBadShape,
-# csrc/attention_bwd_wide.cu kNoCluster, kNoEncoder, kBadMap)
+# kNoCluster, kNoEncoder, kBadMap)
 _REFUSALS = {
     1000: "a head dim or dtype the kernels were not built for",
     1001: "the cluster launch was refused: cudaOccupancyMaxActiveClusters "
@@ -433,6 +435,10 @@ def attn_fwd(q4: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor,
     """``attn_fwd`` of csrc/attention.cu (``attn_fwd_wide`` of
     csrc/attention_wide.cu above d = 256): (out like q4, lse ``[P, Hq, Sb]``
     float32) for each group of ``size`` consecutive entries of ``groups``."""
+    return _launch_fwd(q4, k4, v4, groups, size, scale, causal)
+
+
+def _launch_fwd(q4, k4, v4, groups, size, scale, causal):
     from .. import _build
 
     q4, k4, v4 = _aligned(q4), _aligned(k4), _aligned(v4)

@@ -1,0 +1,132 @@
+"""Hold this tree's ring-attention forward above d = 256
+(``csrc/attention_wide.cu``) against a parent tree's, on one card, in one
+process.
+
+    python -m mpi_tpu_torch.tools.wide_ab --parent PARENT [--out chiprun_out/wide_ab.json]
+
+Builds both trees' ``attention_wide.cu`` (each beside its own headers,
+with ``_build.NVCC_FLAGS``, both at once) and prints each build's
+registers and spills; then swaps each into ``_build._LIBS["attention_wide"]``
+and
+
+* compares their bf16 out and lse bit for bit on ``chip_smoke.py`` phase
+  11's bf16 cases (``chip_smoke.parity_grid``) at d = 384, 512 and 1024,
+  where the clusters make one pass and sum in the parent's order;
+* times the forward of both at the wide serving shape
+  (``chip_smoke.WIDE_SERVE``, causal, bf16 and float32) with CUDA events,
+  in turns: parent, this tree, this tree, parent.
+
+Writes ``--out`` and prints one line a result; exits 1 unless every case
+is bitwise equal.  It needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+BITWISE_DIMS = (384, 512, 1024)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, help="root of the parent tree")
+    ap.add_argument("--out", default="chiprun_out/wide_ab.json")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("wide_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from mpi_tpu_torch import _build
+    from mpi_tpu_torch.gpu import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_dir = os.path.join(os.path.dirname(os.path.abspath(args.out)), "wide_ab_build")
+    os.makedirs(lib_dir, exist_ok=True)
+    sources = {"parent": os.path.join(args.parent, "mpi_tpu_torch", "csrc", "attention_wide.cu"),
+               "cur": str(_build.SRC_DIR / "attention_wide.cu")}
+    procs = {}
+    for name, src in sources.items():
+        dst = os.path.join(lib_dir, f"{name}.so")
+        procs[name] = dst, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", dst, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    res = {"card": chip_smoke.card_line(), "builds": {}}
+    print(res["card"], flush=True)
+    libs = {}
+    for name, (dst, proc) in procs.items():
+        log, _ = proc.communicate()
+        rows = [(r.get("kernel"), r.get("registers"), r.get("spill_stores"), r.get("spill_loads"))
+                for r in chip_smoke.ptxas_table({name: log})]
+        res["builds"][name] = {"rc": proc.returncode, "kernels": rows}
+        print(f"build {name}: rc {proc.returncode}, (kernel, registers, spill stores, loads) "
+              f"{rows}", flush=True)
+        if proc.returncode:
+            print(log[-4000:], flush=True)
+            continue
+        lib = ctypes.CDLL(dst)
+        for fn, argtypes in _build.SIGNATURES["attention_wide"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    if len(libs) < 2:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+        return 1
+
+    def fwd(name, q, k, v, groups, causal):
+        _build._LIBS["attention_wide"] = libs[name]
+        return attention.ring_attention_world(q, k, v, groups, causal=causal, with_lse=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    same, differ = 0, []
+    for dh, sb, hq, hkv, causal, groups in chip_smoke.parity_grid(False):
+        if dh not in BITWISE_DIMS:
+            continue
+        q, k, v = (torch.randn((chip_smoke.P, h, sb, dh), device="cuda", generator=gen)
+                   .to(torch.bfloat16) for h in (hq, hkv, hkv))
+        a, b = fwd("parent", q, k, v, groups, causal), fwd("cur", q, k, v, groups, causal)
+        torch.cuda.synchronize()
+        if torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]):
+            same += 1
+        else:
+            differ.append(f"d={dh} sb={sb} {hq}/{hkv} causal={causal} "
+                          f"groups={groups is not None}")
+    res["bf16_bitwise_vs_parent"] = {"equal": same, "differ": differ}
+    print(f"bf16 out and lse bitwise the parent's in {same} of {same + len(differ)} cases "
+          f"(d = {', '.join(map(str, BITWISE_DIMS))}); differ: {differ[:4]}", flush=True)
+
+    g = chip_smoke.WIDE_SERVE
+    for dtype, reps in ((torch.bfloat16, 3), (torch.float32, 2)):
+        q = torch.randn(chip_smoke.P, g["heads"], g["seq_per_rank"], g["d"], device="cuda",
+                        generator=gen).to(dtype)
+        k, v = (torch.randn(chip_smoke.P, g["kv_heads"], g["seq_per_rank"], g["d"], device="cuda",
+                            generator=gen).to(dtype) for _ in range(2))
+        tag = str(dtype).split(".")[-1]
+        for name in ("parent", "cur", "cur", "parent"):
+            fwd(name, q, k, v, None, True)  # warm-up
+            ms = []
+            for _ in range(reps):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fwd(name, q, k, v, None, True)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            res.setdefault("serving_ms", {}).setdefault(tag, {}).setdefault(name, []).extend(ms)
+            print(f"time {tag} {name}: {[round(x, 3) for x in ms]} ms", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    with open(args.out, "w") as f:
+        json.dump(res, f, indent=1)
+    return 0 if not differ else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,7 @@ from jax.sharding import Mesh, PartitionSpec as PS
 
 from mpi_tpu.tpu import default_mesh
 from mpi_tpu.tpu.pallas_attention import pallas_ring_attention
+import chip_smoke
 import mpi_tpu_torch
 from mpi_tpu_torch import TorchCommunicator
 from mpi_tpu_torch.gpu import attention
@@ -234,18 +235,24 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 198656
     assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
     assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
-    # above d = 256: the same bytes at every d (bf16: 64 x 64 or 64 x 128
-    # tiles; the float32 forward: 32-column chunks of row stride 36 and
-    # 128-column operands of row stride 132; the float32 backward's
-    # clusters: 1 KB of alignment, the own 64 x 128 tiles 65 536, two
-    # stages of two 32 x 128 tiles 65 536, their lo tiles 32 768, two
-    # parities of the S and dP partials 32 768, the 64 x 32 B tiles (dq: dS
-    # hi and lo 16 384; dkv: P and dS 32 768), 64 of mbarriers)
+    # above d = 256: the same bytes at every d (the bf16 backward: 64 x 64 or
+    # 64 x 128 tiles; the forward's clusters in bf16: 1 KB of alignment, the
+    # own 64 x 128 Q chunk 16 384, two stages of a K chunk and a V (or Q)
+    # chunk 65 536, two parities of the 64 x 64 float32 partial 32 768: two
+    # blocks an SM; the float32 clusters: 1 KB of alignment, the own 64 x
+    # 128 tiles (forward: Q 32 768; backward: two, 65 536), two stages of
+    # two 32 x 128 tiles 65 536, their lo tiles (forward: K's 16 384;
+    # backward 32 768), two parities of the partials (forward: S 16 384;
+    # backward: S and dP 32 768), the 64 x 32 B tiles (forward: P hi and lo
+    # 16 384; dq: dS 16 384; dkv: P and dS 32 768), the forward's second
+    # warpgroup's half of a partial 8 192 and 1 280 of row maxima, sums and
+    # rescales, and the mbarriers)
     for d in (384, 512, 640, 1024, 1152, 2048):
         assert attention.kernel_smem_bytes(d, torch.bfloat16) == {
-            "fwd": 99328, "bwd_dq": 99328, "bwd_dkv": 198656}
+            "fwd": 115712, "bwd_dq": 99328, "bwd_dkv": 198656}
+        assert 2 * (attention.kernel_smem_bytes(d, torch.bfloat16)["fwd"] + 1024) <= 228 * 1024
         assert attention.kernel_smem_bytes(d) == {
-            "fwd": 104448, "bwd_dq": 214080, "bwd_dkv": 230464}
+            "fwd": 158000, "bwd_dq": 214080, "bwd_dkv": 230464}
         assert attention.kernel_smem_bytes(d)["bwd_dkv"] <= 232_448
     # the diagnosis, where a block would need more than it may use
     monkeypatch.setattr(attention, "_SMEM_LIMIT", 150_000)
@@ -257,6 +264,12 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     with pytest.raises(NotImplementedError,
                        match=r"fwd kernel \(csrc/attention.cu\) .* 168960 bytes"):
         attention._kernel_plan(128)
+    with pytest.raises(NotImplementedError,
+                       match=r"fwd kernel \(csrc/attention_wide.cu\) at head dim "
+                             r"1024, torch.float32, would need 158000 bytes"):
+        attention._kernel_plan(1024)
+    # above the forward's 158 000 bytes, the float32 dQ kernel's 214 080
+    monkeypatch.setattr(attention, "_SMEM_LIMIT", 200_000)
     with pytest.raises(NotImplementedError,
                        match=r"bwd_dq kernel \(csrc/attention_bwd_wide.cu\) at head dim "
                              r"1024, torch.float32, would need 214080 bytes"):
@@ -273,12 +286,37 @@ def test_wide_f32_backward_cluster_arithmetic(d, clusters, passes):
     """The float32 backward above d = 256 runs clusters of C blocks, C the
     largest divisor of d / 128 that is at most 8 (the portable cluster
     size), each block m = d / 128 / C passes over its walk, one output
-    chunk a pass (``WideF32Cluster`` in csrc/attention_bwd_wide.cu, read
-    from the source)."""
-    assert attention.wide_f32_cluster(d) == (clusters, passes)
+    chunk a pass (``WideCluster`` in csrc/ring_attention.cuh, read from
+    the source)."""
+    assert attention.wide_cluster(d) == (clusters, passes)
     nd = d // 128
     assert clusters == max(c for c in range(1, 9) if nd % c == 0)
     assert clusters * passes == nd
+
+
+@pytest.mark.parametrize("d", [384, 512, 640, 768, 896, 1024, 1152, 1280, 1408, 1536,
+                               1792, 2048])
+def test_wide_forward_cluster_arithmetic(d):
+    """The forward above d = 256 (csrc/attention_wide.cu) runs in both
+    dtypes the clusters of the float32 backward, read from the source: C
+    the largest divisor of d / 128 that is at most 8, m = d / 128 / C
+    passes (m = 1 at every d <= 1024: one pass, S formed once a tile).
+    chip_smoke.py counts its design floor as (2m + 4) d flops an entry in
+    bf16 and 3 (2m + 2) d in float32: at the wide serving shape (P = 8,
+    8/2 heads, d = 512, causal S = 32 768) 13.341 and 53.311 ms, the
+    narrow forward's floors."""
+    C, m = attention.wide_cluster(d)
+    nd = d // 128
+    assert C == max(c for c in range(1, 9) if nd % c == 0) and C * m == nd
+    assert (m == 1) == (d <= 1024)
+    assert chip_smoke.wide_floor_flops("bf16", "fwd", d) == 2 * m + 4
+    assert chip_smoke.wide_floor_flops("f32", "fwd", d) == 3 * (2 * m + 2)
+    if d == 512:
+        entries = chip_smoke.causal_entries((8, 8, 2, 4096, 512))
+        floor = {key: chip_smoke.wide_floor_flops(key, "fwd", d) * d * entries / rate * 1e3
+                 for key, rate in (("bf16", chip_smoke.BF16_FLOPS),
+                                   ("f32", chip_smoke.TF32_FLOPS))}
+        assert (round(floor["bf16"], 3), round(floor["f32"], 3)) == (13.341, 53.311)
 
 
 def test_smem_bytes_follow_the_plans_in_the_sources(tmp_path, monkeypatch):

@@ -316,3 +316,126 @@ def test_3xtf32_product_within_three_2_to_minus_20(a, b):
     got = float(al.double() * bh.double() + ah.double() * bh.double()
                 + ah.double() * bl.double())
     assert abs(got - a * b) <= (3 + 2.0 ** -10) * 2.0 ** -20 * abs(a * b)
+
+
+# -- the forward above d = 256 in thread-block clusters (csrc/attention_wide.cu)
+#
+# A cluster of C blocks (``attention.wide_cluster``) forms S once a K/V tile:
+# block c's partial over its own m chunks of 128 columns of d (m = 1 at
+# d <= 1024), the partials summed in rank order 0..C-1 by float32 adds; at
+# m > 1 a block takes m passes, pass p's units in chunk order c m + (p + 1 +
+# u) % m (the pass's own output chunk last), and each pass forms its own S
+# for its own output chunk.  float32: a chunk's partial is four chains of
+# four TF32 k steps (32 columns), the hi x hi products in one chain and the
+# two small products in another; warpgroup w adds the chains of the blocks
+# 2 w and 2 w + 1 (over the block's m chunks, in unit order), and the block's
+# partial is warpgroup 0's sum plus warpgroup 1's; the output is formed
+# transposed, O^T = V^T P^T, one chain of each kind over a 32-row tile,
+# then O = O alpha + (big + small).  bf16: a chunk's partial is one bf16
+# product (exact products summed in float32), P enters P V as hi and lo;
+# 64-row tiles.
+
+
+def wide_partial_f32(a, bt, chunk):
+    """One chunk's parts of A B^T (a [.., n, d], bt [.., d, k]) as the
+    float32 kernel forms them: 32-column chains, each big + small, the
+    first two blocks' added (warpgroup 0's part), the last two's
+    (warpgroup 1's)."""
+    def chain(cb):
+        cols = slice(128 * chunk + 32 * cb, 128 * chunk + 32 * cb + 32)
+        (ah, al), (bh, bl) = split_tf32(a[..., cols]), split_tf32(bt[..., cols, :])
+        return ah @ bh + (al @ bh + ah @ bl)
+    return chain(0) + chain(1), chain(2) + chain(3)
+
+
+def wide_partial_bf16(a, bt, chunk):
+    cols = slice(128 * chunk, 128 * chunk + 128)
+    return (a[..., cols] @ bt[..., cols, :],)
+
+
+def wide_pv_f32(p, v):
+    """O^T = V^T P^T over one tile: big + small, both operands split."""
+    (ph, pl), (vh, vl) = split_tf32(p), split_tf32(v)
+    return ph @ vh + (pl @ vh + ph @ vl)
+
+
+def cluster_qk(d, pass_, partial):
+    """Q K^T as pass ``pass_`` of the clusters at head dim d sums it."""
+    C, m = attention.wide_cluster(d)
+
+    def qk(a, bt):
+        s = None
+        for c in range(C):
+            parts = None
+            for u in range(m):
+                f = partial(a, bt, c * m + (pass_ + 1 + u) % m)
+                parts = f if parts is None else tuple(x + y for x, y in zip(parts, f))
+            pc = parts[0]
+            for x in parts[1:]:
+                pc = pc + x
+            s = pc if s is None else s + pc
+        return s
+    return qk
+
+
+def emulated_wide_fwd(q, k, v, groups=None, *, causal=False):
+    """The cluster forward's arithmetic on the CPU: pass p of the clusters
+    gives output chunks c m + p (c < C) and, at p = 0, the lse."""
+    d = q.shape[-1]
+    C, m = attention.wide_cluster(d)
+    f32 = q.dtype == torch.float32
+    partial, pv, tile = ((wide_partial_f32, wide_pv_f32, 32) if f32 else
+                         (wide_partial_bf16, mm_split_bf16, 64))
+    out = torch.empty(q.shape)
+    for pass_ in range(m):
+        o, lse_p = emulated_fwd(q, k, v, groups, causal=causal, cast=False,
+                                products=(cluster_qk(d, pass_, partial), pv, tile))
+        for c in range(C):
+            cols = slice((c * m + pass_) * 128, (c * m + pass_ + 1) * 128)
+            out[..., cols] = o[..., cols]
+        if pass_ == 0:
+            lse = lse_p
+    return out.to(q.dtype), lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [512, 640, 1152])
+def test_cluster_forward_within_check_close_of_plain(d, causal, dtype):
+    """d = 512 (clusters of 4), 640 (5) and 1152 (3 blocks of 3 passes),
+    GQA 4/2 in two groups of 2 on a world of 4, Sb = 48 (float32: a full
+    and a partial 32-row tile) or 80 (bf16: 64 and 16 rows): the cluster
+    forward's order of sums against the plain forward, out and lse."""
+    sb = 48 if dtype == torch.float32 else 80
+    q, k, v, _, _, _ = world(4, 4, 2, sb, d, dtype, causal, [[0, 1], [2, 3]], seed=d + causal)
+    out, lse = emulated_wide_fwd(q, k, v, [[0, 1], [2, 3]], causal=causal)
+    want, want_lse = attention.ring_attention_plain(q, k, v, [[0, 1], [2, 3]], causal=causal,
+                                                    with_lse=True)
+    assert out.dtype == want.dtype == dtype and out.shape == want.shape
+    chip_smoke.check_close(torch, "cluster forward out", out, want, dtype)
+    chip_smoke.check_close(torch, "cluster forward lse", lse, want_lse, torch.float32)
+
+
+def test_cluster_forward_passes_differ_only_in_the_order_of_sums():
+    """At m > 1 (d = 1152: 3 blocks of 3 passes) each pass sums S in its own
+    order, so the passes' S differ in their last bits, and by no more than
+    the float32 rounding of a sum over d."""
+    rs = np.random.RandomState(3)
+    a = torch.from_numpy(rs.randn(2, 16, 1152).astype(np.float32))
+    bt = torch.from_numpy(rs.randn(2, 1152, 32).astype(np.float32))
+    s = [cluster_qk(1152, p, wide_partial_f32)(a, bt) for p in range(3)]
+    exact = a.double() @ bt.double()
+    assert not torch.equal(s[0], s[1])
+    for x in s:
+        assert float((x.double() - exact).abs().max()) < 1e-4 * float(exact.abs().max())
+
+
+def test_cluster_forward_matches_the_reference():
+    """At d = 512 (GQA, causal, Sb = 48) the float32 cluster forward's
+    order of sums against the reference's Pallas forward in interpret
+    mode, with tests/test_torch_attention.py's float32 tolerance."""
+    rs = np.random.RandomState(23)
+    q, k, v = (rs.randn(4, h, 48, 512).astype(np.float32) for h in (4, 2, 2))
+    want = jax_forward(q, k, v, "f32", causal=True)
+    got, _ = emulated_wide_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

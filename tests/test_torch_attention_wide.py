@@ -119,40 +119,63 @@ def test_wide_world_off_cpu_raises_and_never_falls_back():
         attention.bwd_operands(m, m, m, m, torch.zeros(2, 2, 8, device="meta"), m)
 
 
-@pytest.mark.parametrize("name", ["bwd_dq", "bwd_dkv"])
-def test_wide_f32_refused_cluster_launch_raises_and_never_falls_back(name, monkeypatch):
-    """A float32 backward launch above d = 256 that the card refuses (no
-    room for one cluster: the source's kNoCluster) or whose source does not
-    build raises with the reason; it is not counted, and neither the plain
-    version nor another form runs in its place."""
+@pytest.mark.parametrize("name,dtype", [
+    pytest.param("bwd_dq", torch.float32, id="bwd_dq"),
+    pytest.param("bwd_dkv", torch.float32, id="bwd_dkv"),
+    pytest.param("fwd", torch.float32, id="fwd-float32")])
+def test_wide_f32_refused_cluster_launch_raises_and_never_falls_back(name, dtype, monkeypatch):
+    """A float32 launch above d = 256 (the forward and both backward
+    kernels run in thread-block clusters) that the card refuses (no room
+    for one cluster: ring_attention.cuh's kNoCluster) or whose source does
+    not build raises with the reason; it is not counted, and neither the
+    plain version nor another form runs in its place."""
+    _refused_cluster_launch(name, dtype, monkeypatch)
+
+
+def test_wide_bf16_forward_refused_cluster_launch_raises_and_never_falls_back(monkeypatch):
+    """The same for the bf16 forward above d = 256, which runs in clusters
+    too (the bf16 backward does not)."""
+    _refused_cluster_launch("fwd", torch.bfloat16, monkeypatch)
+
+
+def _refused_cluster_launch(name, dtype, monkeypatch):
     from mpi_tpu_torch import _build
+
+    entry = "attn_fwd_wide" if name == "fwd" else f"attn_{name}_wide"
+    source = "attention_wide" if name == "fwd" else "attention_bwd_wide"
 
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran on a launch path")
 
     class Refusing:
         def __getattr__(self, fn):
-            assert fn == f"attn_{name}_wide", fn
+            assert fn == entry, fn
             return lambda *args: 1001
 
+    monkeypatch.setattr(attention, "ring_attention_plain", plain)
     monkeypatch.setattr(attention, "ring_attention_bwd_plain", plain)
     monkeypatch.setattr(attention.torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
     monkeypatch.setattr(attention, "_stream", lambda t: 0)
-    q, k, v = (torch.from_numpy(a) for a in blocks(2, 2, 1, 8, 512, seed=5))
-    lse, delta = torch.zeros(2, 2, 8), torch.zeros(2, 2, 8)
-    outs = (torch.empty_like(q),) if name == "bwd_dq" else (torch.empty_like(k), torch.empty_like(k))
-    args = (q, k, v, q, lse, delta, [0, 1], 2, 0.5, True, outs)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in blocks(2, 2, 1, 8, 512, seed=5))
+    if name == "fwd":
+        launch = lambda: attention._launch_fwd(q, k, v, [0, 1], 2, 0.5, True)  # noqa: E731
+    else:
+        lse, delta = torch.zeros(2, 2, 8), torch.zeros(2, 2, 8)
+        outs = ((torch.empty_like(q),) if name == "bwd_dq" else
+                (torch.empty_like(k), torch.empty_like(k)))
+        launch = lambda: attention._launch_bwd(  # noqa: E731
+            name, q, k, v, q, lse, delta, [0, 1], 2, 0.5, True, outs)
     attention.reset_launches()
     monkeypatch.setattr(_build, "load", lambda source: Refusing())
     with pytest.raises(RuntimeError, match=r"cluster launch was refused: "
                                            r"cudaOccupancyMaxActiveClusters .* \(code 1001\)"):
-        attention._launch_bwd(name, *args)
+        launch()
 
     def unbuilt(source):
         raise RuntimeError(f"nvcc failed for csrc/{source}.cu (exit 1)")
 
     monkeypatch.setattr(_build, "load", unbuilt)
-    with pytest.raises(RuntimeError, match=r"nvcc failed for csrc/attention_bwd_wide.cu"):
-        attention._launch_bwd(name, *args)
+    with pytest.raises(RuntimeError, match=rf"nvcc failed for csrc/{source}.cu"):
+        launch()
     assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
     assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}

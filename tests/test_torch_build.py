@@ -58,3 +58,58 @@ def test_every_source_has_its_signatures_and_headers():
                                                            "hopper.cuh"]
     assert [p.name for p in _build._sources("ring")] == ["ring.cu"]
     assert [p.name for p in _build._sources("peers")] == ["peers.cu"]
+
+
+def test_the_cluster_helpers_live_in_the_shared_header():
+    """The forms that run in thread-block clusters (the forward of
+    csrc/attention_wide.cu in both dtypes, the float32 backward of
+    attention_bwd_wide.cu) share, from csrc/ring_attention.cuh, the cluster
+    rule (``WideCluster``, ``cluster_blocks``), ``launch_cluster`` (with the
+    block's thread count), the tensor-map encoder (``encode_tiled``,
+    ``tile_map``, ``f32_map``, ``bf16_map``), the float32 forms' producer
+    (``produce``, its lag at m = 1 a template argument), lo-tile writer
+    (``write_lo``) and partial (``partial_blocks``, over a range of 32-column
+    blocks) and the refusal codes: each is
+    defined there once and in neither source, both sources use them, and
+    the wrapper's refusals are the codes the header returns."""
+    from mpi_tpu_torch.gpu import attention
+
+    header = (_build.SRC_DIR / "ring_attention.cuh").read_text()
+    defined = {
+        "WideCluster": r"template <int D> struct WideCluster \{",
+        "cluster_blocks": r"__host__ __device__ constexpr int cluster_blocks\(int nd\)",
+        "launch_cluster": r"int launch_cluster\(void \(\*kernel\)\(Args\.\.\.\), dim3 grid, "
+                          r"int threads, int C,",
+        "encode_tiled": r"EncodeTiled encode_tiled\(\)",
+        "tile_map": r"int tile_map\(CUtensorMap\* map, CUtensorMapDataType type,",
+        "f32_map": r"int f32_map\(CUtensorMap\* map, const void\* base,",
+        "bf16_map": r"int bf16_map\(CUtensorMap\* map, const void\* base,",
+        "produce": r"template <int NS, int LAG1, typename Own, typename Unit>\n"
+                   r"__device__ __forceinline__ void produce\(",
+        "write_lo": r"template <int TS, int BLOCKS>\n__device__ __forceinline__ void write_lo\(",
+        "partial_blocks": r"template <int T, int TS, int BLOCKS>\n"
+                          r"__device__ __forceinline__ void partial_blocks\(",
+    }
+    for name, pattern in defined.items():
+        assert len(re.findall(pattern, header)) == 1, name
+    codes = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (100\d);", header)}
+    assert codes == {"kBadShape": 1000, "kNoCluster": 1001, "kNoEncoder": 1002, "kBadMap": 1003}
+    # the float32 forms' producer, lo tiles and partials: the forward's at
+    # lag NS - 2 over half a chunk's 32-column blocks a warpgroup, the
+    # backward's at lag 1 over all four
+    f32_uses = {"attention_wide.cu": ("produce<NS, NS - 2>(", "write_lo<TS, 2>(lo, st, 2 * wg, t)",
+                                      "partial_blocks<T, TS, 2>("),
+                "attention_bwd_wide.cu": ("produce<NS, 1>(", "write_lo<TS, 4>(lo, st, 0, t)",
+                                          "partial_blocks<T, TS, 4>(")}
+    for source, uses in (("attention_wide.cu", ("launch_cluster<", "cluster_blocks(",
+                                                "f32_map(", "bf16_map(")),
+                         ("attention_bwd_wide.cu", ("launch_cluster<", "cluster_blocks(",
+                                                    "f32_map("))):
+        uses += f32_uses[source]
+        text = (_build.SRC_DIR / source).read_text()
+        for name, pattern in defined.items():
+            assert not re.search(pattern, text), (source, name)
+        assert not re.search(r"constexpr int k\w+ = 100\d;", text), source
+        for use in uses:
+            assert use in text, (source, use)
+    assert set(attention._REFUSALS) == set(codes.values())

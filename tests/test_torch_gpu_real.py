@@ -157,6 +157,51 @@ def test_wide_head_f32_backward_is_bitwise_deterministic_on_the_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [640, 1152])
+def test_wide_head_forward_clusters_match_plain_on_the_card(d, dtype):
+    """The forward's clusters (csrc/attention_wide.cu) at d = 640 (5 blocks,
+    1 pass) and 1152 (3 blocks, 3 passes each), in both dtypes, against the
+    plain forward, by the rule of the first wide-head test."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    q = torch.randn(P, 4, 48, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(P, 2, 48, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    attention.reset_launches()
+    out, lse = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+    want, wlse = attention.ring_attention_plain(q, k, v, causal=True, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.WIDE_LAUNCHES == {"fwd": 1, "bwd_dq": 0, "bwd_dkv": 0}
+    assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    rtol = 1e-4 + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_head_forward_is_bitwise_deterministic_on_the_card(dtype):
+    """Two launches of the forward above d = 256 are bitwise equal in both
+    dtypes: every block of a cluster sums the partials of S in rank order,
+    at d = 640 (one pass) and 1152 (three)."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for d in (640, 1152):
+        q = torch.randn(P, 4, 112, d, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(P, 2, 112, d, device="cuda", generator=gen).to(dtype)
+                for _ in range(2))
+        first = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+        second = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), d
+
+
+@pytest.mark.gpu
 def test_wgmma_reads_a_raw_float32_word_as_truncated_tf32():
     """TF32 ``wgmma`` reads a raw float32 word in shared memory as that
     word with its low 13 mantissa bits cleared (truncation, as
