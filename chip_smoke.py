@@ -107,13 +107,9 @@ ok line:
     x {GQA 4/2, MQA 4/1} x Sb in {16, 112} x the same dtypes, masks and
     groupings (and at d = 640 and 1152, Sb = 112: the clusters of 5
     blocks, and of 3 blocks of 3 passes each, of the forward and of the
-    float32 backward), forward (out and lse) and backward (dq, dk, dv),
-    with the tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in
-    a partial tile; the grid is ``parity_grid``).  The bf16 backward above
-    d = 256 is a known fault (ROADMAP Queue 3 item 1): held at d = 384,
-    512 and 1024, measured and recorded but not held at d = 640 and 1152,
-    and its share of the allowance at both goes into the record
-    (``KNOWN_FAULTS``) and the kernels line;
+    backward), forward (out and lse) and backward (dq, dk, dv), with the
+    tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in a partial
+    tile; the grid is ``parity_grid``);
 12. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
     float32 (the record): the forward (out and lse) and the backward
     kernels against the plain version (see ``check_close``), the backward
@@ -150,9 +146,8 @@ ok line:
     no GQA; forward and backward alone, once each after a warm-up forward;
     its error kept if it refuses), beside the operations bound and the
     design floor
-    (``wide_floor_flops``: in the bf16 backward every 128-column output
-    chunk recomputes Q K^T and dO V^T, the forward's and the float32
-    backward's clusters form them once a pass), each cluster kernel's
+    (``wide_floor_flops``: the clusters form Q K^T and dO V^T once a
+    pass), each cluster kernel's
     cluster size, passes, registers and spills; then one step of
     ``long_context_training``'s ``sharded_program`` at d = 512
     (``init_params(512, 1024)``, 8 x 4096 rows, float32) through ``run``:
@@ -270,7 +265,10 @@ ok line:
     the card byte for byte against the CPU's, with half the entries on a
     rounding tie (x / scale = k + 0.5), a random segment and a non-finite
     one; (d) ``python -m mpi_tpu_torch.tools.tune`` over local and shm, 2-4
-    ranks and three payload bands (under 20 s), its ``--check``, and
+    ranks and three payload bands (under 20 s; its parts printed first:
+    each local leg, the shm world's import, which runs beside the local
+    leg, each rank's fork, CUDA context and ``init()``, each band, the
+    teardown), its ``--check``, and
     ``run(..., tuning_table=)`` serving from the table
     (``tuned_table_hits``, ``last_decision()`` naming the row), within
     rtol 1e-5 of the seed policy; each leg's ms per call;
@@ -434,8 +432,7 @@ ok line:
     ok.  The record goes to ``chiprun_out/gpu_evidence.json``;
 31. one ``{"kernels": [...]}`` JSON line, then the ok line; the forms
     above d = 256 are entries of their own (``attention_*_wide``, bfloat16
-    at the wide serving shape; the backward's two carry ``known_fault``,
-    phase 11's record of ROADMAP Queue 3 item 1).  Each kernel's
+    at the wide serving shape).  Each kernel's
     ``launches`` is the sum over the main paths (phases 3, 5, 6, 6b, 9,
     10, 12a, 29), each read right after it ran (``launches_by_path``).  The
     host layer (phases 13-28) launches none of the kernels: its folds are
@@ -498,16 +495,15 @@ FLOPS_PER_ENTRY = {"fwd": 4, "bwd": 10, "bwd_dq": 6, "bwd_dkv": 8}
 FLOOR_FLOPS_PER_ENTRY = {
     "bf16": {"fwd": 6, "bwd": 20, "bwd_dq": 8, "bwd_dkv": 12},
     "f32": {"fwd": 12, "bwd": 42, "bwd_dq": 18, "bwd_dkv": 24}}
-# the bf16 backward above d = 256 (csrc/attention_bwd_wide.cu) recomputes
-# Q K^T and dO V^T once per 128-column output chunk: per entry and head dim,
-# a d/128 + b flops for (a, b) below; at d = 128 they are the products above
-WIDE_FLOOR_FLOPS_PER_ENTRY = {"bf16": {"bwd_dq": (4, 4), "bwd_dkv": (4, 8)}}
-# the forms that run in clusters (the forward, csrc/attention_wide.cu, and the
-# float32 backward) form them once a pass of their clusters (m passes,
-# ``attention.wide_cluster``): a m + b flops for (a, b) below, the forward's
-# (2m + 4) in bf16 (P V split hi/lo) and 3 (2m + 2) in float32, the float32
-# backward's 3 (4m + 2) and 3 (4m + 4), three TF32 products a product
+# the forms above d = 256 (csrc/attention_wide.cu, attention_bwd_wide.cu)
+# run in clusters and form Q K^T (and dO V^T) once a pass of their clusters
+# (m passes, ``attention.wide_cluster``): a m + b flops per entry and head
+# dim for (a, b) below, the forward's (2m + 4) in bf16 (P V split hi/lo)
+# and 3 (2m + 2) in float32, the backward's (4m + 6) and (4m + 12) in bf16
+# (the products with P and dS split in three bf16 terms) and 3 (4m + 2)
+# and 3 (4m + 4) in float32, three TF32 products a product
 WIDE_CLUSTER_FLOOR = {("bf16", "fwd"): (2, 4), ("f32", "fwd"): (6, 6),
+                      ("bf16", "bwd_dq"): (4, 6), ("bf16", "bwd_dkv"): (4, 12),
                       ("f32", "bwd_dq"): (12, 6), ("f32", "bwd_dkv"): (12, 12)}
 
 
@@ -515,11 +511,10 @@ def wide_floor_flops(key, kind, d):
     """Flops per unmasked entry and head dim of a form above d = 256."""
     from mpi_tpu_torch.gpu import attention
 
-    if (key, kind) in WIDE_CLUSTER_FLOOR:
-        a, b = WIDE_CLUSTER_FLOOR[(key, kind)]
-        return a * attention.wide_cluster(d)[1] + b
-    a, b = WIDE_FLOOR_FLOPS_PER_ENTRY[key][kind]
-    return a * d // 128 + b
+    a, b = WIDE_CLUSTER_FLOOR[(key, kind)]
+    return a * attention.wide_cluster(d)[1] + b
+
+
 TF32_FLOPS = 495e12             # H100 SXM dense TF32 tensor cores
 # K1's parity groupings: the whole world, two contiguous groups of four, and
 # the dp groups of the 2 x 4 layout of the multi-parallel step (stride 4)
@@ -709,32 +704,6 @@ def allowance_share(torch, name, got, want, dtype, normwise=False):
     return float(diff.max()), float((diff / allow).max()), f"{str(dtype).split('.')[-1]} {kind}"
 
 
-# ROADMAP Queue 3 item 1: the bf16 backward above d = 256 can land past its
-# allowance (its dK/dV went to 1.06 of it at d = 640).  Phase 11 holds it at
-# d = 384, 512 and 1024 as before and records its share of the allowance
-# there and at d = 640 and 1152, where it is measured and not held; the
-# record goes into the kernels line beside both kernels' entries.
-KNOWN_FAULTS = {}
-
-
-def note_bf16_wide_backward(torch, name, got, want, held):
-    """Record a bf16 wide backward check's share of the allowance."""
-    _, used, _ = allowance_share(torch, name, got, want, torch.bfloat16)
-    kernel = "attention_bwd_dq_wide" if name.endswith("dq") else "attention_bwd_dkv_wide"
-    f = KNOWN_FAULTS.setdefault(kernel, {
-        "fault": "ROADMAP Queue 3 item 1",
-        "held": {"checks": 0, "max_allowance_share": 0.0},
-        "recorded": {"checks": 0, "over_allowance": 0, "max_allowance_share": 0.0,
-                     "worst": None}})
-    side = f["held" if held else "recorded"]
-    side["checks"] += 1
-    if not held:
-        side["over_allowance"] += used > 1.0
-        if used > side["max_allowance_share"]:
-            side["worst"] = name
-    side["max_allowance_share"] = max(side["max_allowance_share"], used)
-
-
 def check_close(torch, name, got, want, dtype, normwise=False):
     """Hold a kernel's result against its plain version's; both are float32
     sums in different orders, rounded once to their output type.
@@ -874,9 +843,6 @@ def attention_phases(torch, dev, gen, record, paths):
     for dtype in (torch.float32, torch.bfloat16):
         for dh, sb, hq, hkv, causal, groups in parity_grid(dtype == torch.float32):
             wide = dh > 256  # csrc/attention_wide.cu, attention_bwd_wide.cu
-            # the bf16 backward above d = 256 at the head dims it was not
-            # held at before (ROADMAP Queue 3 item 1): measured, recorded
-            fault = dtype == torch.bfloat16 and dh in (640, 1152)
             t_case = time.perf_counter()
             q, k, v, do = (torch.randn(
                 (P, h, sb, dh), device=dev, generator=gen).to(dtype)
@@ -894,12 +860,9 @@ def attention_phases(torch, dev, gen, record, paths):
             check_close(torch, f"{case} out", out, pout, dtype)
             check_close(torch, f"{case} lse", lse, plse, torch.float32)
             for nm, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
-                if wide and dtype == torch.bfloat16:
-                    note_bf16_wide_backward(torch, f"{case} {nm}", a, b, held=not fault)
-                if not fault:
-                    check_close(torch, f"{case} {nm}", a, b, dtype)
-            n_cases += 1 if fault else 2
-            n_wide += (1 if fault else 2) * wide
+                check_close(torch, f"{case} {nm}", a, b, dtype)
+            n_cases += 2
+            n_wide += 2 * wide
             if wide:
                 t_wide += time.perf_counter() - t_case
     # contiguous bf16 views 8 bytes past a 16-byte boundary: the kernels stage
@@ -919,15 +882,8 @@ def attention_phases(torch, dev, gen, record, paths):
     record["attention_misaligned_view_forward"] = "bitwise equal to the aligned copies"
     record["attention_parity_cases"] = n_cases
     record["attention_parity_wide"] = {"cases": n_wide, "s": t_wide}
-    record["known_faults"] = KNOWN_FAULTS
     log(f"attention parity: {n_cases} cases (forward and backward) within tolerance, "
         f"{n_wide} of them at d in (384, 512, 640, 1024, 1152) in {t_wide:.2f} s")
-    for name, f in KNOWN_FAULTS.items():
-        log(f"known fault, {f['fault']}: {name} in bf16 above d = 256, largest share of the "
-            f"bf16 allowance {f['held']['max_allowance_share']:.4g} where held (d = 384, 512, "
-            f"1024), {f['recorded']['max_allowance_share']:.4g} where recorded (d = 640, 1152; "
-            f"{f['recorded']['over_allowance']} of {f['recorded']['checks']} checks past it, "
-            f"worst {f['recorded']['worst']})")
     lap("attention parity")
 
     # 12. timing at the serving shape --------------------------------------------
@@ -1081,15 +1037,15 @@ def wide_attention_phase(torch, dev, gen, record, paths):
     clusters, passes = attention.wide_cluster(g["d"])
     built = {row.get("kernel"): row for row in ptxas_table(_build.PTXAS_REPORT)}
     info["cluster_kernels"] = {}
-    for kind, tag in (("fwd", "bf16"), ("fwd", "float32"), ("bwd_dq", "float32"),
-                      ("bwd_dkv", "float32")):
-        row = built.get(f"attn_{kind}_wide<{tag}, d > 256>", {})
-        info["cluster_kernels"][f"{kind} {tag}"] = {
-            "cluster": clusters, "passes": passes, "registers": row.get("registers"),
-            "spill_stores": row.get("spill_stores"), "spill_loads": row.get("spill_loads")}
-        log(f"wide {tag} {kind} at d = {g['d']}: clusters of {clusters} blocks, {passes} "
-            f"pass(es); {row.get('registers')} registers, spill stores "
-            f"{row.get('spill_stores')} / loads {row.get('spill_loads')} bytes")
+    for kind in kinds:
+        for tag in ("bf16", "float32"):
+            row = built.get(f"attn_{kind}_wide<{tag}, d > 256>", {})
+            info["cluster_kernels"][f"{kind} {tag}"] = {
+                "cluster": clusters, "passes": passes, "registers": row.get("registers"),
+                "spill_stores": row.get("spill_stores"), "spill_loads": row.get("spill_loads")}
+            log(f"wide {tag} {kind} at d = {g['d']}: clusters of {clusters} blocks, {passes} "
+                f"pass(es); {row.get('registers')} registers, spill stores "
+                f"{row.get('spill_stores')} / loads {row.get('spill_loads')} bytes")
 
     def only_wide(name, launches):
         """the launches of a path, which must have run the wide forms only"""
@@ -1257,9 +1213,7 @@ def wide_attention_phase(torch, dev, gen, record, paths):
                          "SDPA backward (dq, dk and dv together)") + ", " + bt["library_backend"],
         "pct_of_bound": bt[f"{kind}_pct_of_bound"], "tflops": bt[f"{kind}_tflops"],
         "design_floor_ms": bt[f"{kind}_design_floor_ms"], "dtype": "bfloat16",
-        "head_dim": WIDE_SERVE["d"],
-        **({"known_fault": KNOWN_FAULTS[f"attention_{kind}_wide"]}
-           if f"attention_{kind}_wide" in KNOWN_FAULTS else {})} for kind in kinds]
+        "head_dim": WIDE_SERVE["d"]} for kind in kinds]
 
 
 def agree(torch, name, got, want, rtol, atol, record):
@@ -2896,12 +2850,22 @@ def host_compress_tune_phase(torch, record):
                   "1024,65536,1048576", "--iters", "3", "--out", table]) != 0:
         raise RuntimeError("tune sweep failed")
     sweep_s = time.perf_counter() - t0
+    with open(table) as f:
+        doc = json.load(f)
+    parts = doc["generated"]["parts_s"]
+    shm = parts["shm"]
+    log(f"host-tune sweep parts: local leg (rank threads) " + ", ".join(
+        f"{p} ranks {s:.3f} s" for p, s in parts["local"].items()) + f" [{card}]")
+    log(f"host-tune sweep parts: shm world (one launched process that imports torch while "
+        f"the local leg runs, then forks the 4 ranks) launch to imports {shm['imports']:.3f} "
+        f"s, let go at {shm['go']:.3f} s; per rank fork / CUDA context / init() " + ", ".join(
+            f"{r['fork']:.3f} / {r['cuda']:.3f} / {r['init']:.3f}" for r in shm["ranks"])
+        + " s; bands " + ", ".join(f"{p} ranks {s:.3f} s" for p, s in shm["bands"].items())
+        + f"; teardown {shm['teardown']:.3f} s [{card}]")
     if sweep_s > 20.0:
         raise RuntimeError(f"tune sweep took {sweep_s:.1f} s (over 20 s)")
     if tune.main(["--check", table]) != 0:
         raise RuntimeError("tune --check refused the table")
-    with open(table) as f:
-        doc = json.load(f)
 
     def served(comm, v):
         return [comm.allreduce(v[comm.rank][:k]) for k in (256, 16384, 262144)]
@@ -2921,7 +2885,7 @@ def host_compress_tune_phase(torch, record):
     if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
                for t, s in zip(tuned, seed) for a, b in zip(t, s)):
         raise RuntimeError("tuned dispatch disagrees with the seed policy")
-    info["tune"] = {"sweep_s": sweep_s, "rows": len(doc["rows"]),
+    info["tune"] = {"sweep_s": sweep_s, "parts_s": parts, "rows": len(doc["rows"]),
                     "trusted": sum(r["trusted"] for r in doc["rows"]),
                     "tuned_table_hits": hits, "last_decision": last,
                     "picked": sorted({(r["collective"], r["algorithm"]) for r in doc["rows"]})}

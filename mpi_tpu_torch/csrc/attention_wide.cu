@@ -142,17 +142,9 @@ __device__ __forceinline__ void write_chunk(const float (&o)[16][4], const float
 }
 
 // -- the cluster's sum of a tile's partials ------------------------------------------
-// A partial is the float32 accumulator of a block's S_c, NV float4s a
-// reducing thread, float4 j of the thread at `at + 128 j` of the slot.  Every
-// element is summed in rank order 0..C-1 (v = p_0, v += p_1, ...).
-
-template <int NV>
-__device__ __forceinline__ void store_partial(float* slot, const float (&f)[4 * NV], int at) {
-#pragma unroll
-  for (int j = 0; j < NV; ++j)
-    reinterpret_cast<float4*>(slot)[at + 128 * j] =
-        make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
-}
+// A partial (store_partial, ring_attention.cuh) is the float32 accumulator of
+// a block's S_c.  Every element is summed in rank order 0..C-1 (v = p_0,
+// v += p_1, ...).
 
 __device__ __forceinline__ const float4* peer_slot(const float* slot, int r) {
   return reinterpret_cast<const float4*>(
@@ -377,7 +369,7 @@ attn_fwd_wide_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant
 // V_c^T P^T, warpgroup wg the chunk's columns 64 wg .. 64 wg + 63.  At m = 1
 // a tile's output product runs after the next tile's partial, between the
 // cluster barrier's arrive and wait.
-__global__ void __launch_bounds__(kF32Threads, 1)
+__global__ void __launch_bounds__(kClusterThreads, 1)
 attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv, float* __restrict__ out,
                   float* __restrict__ lse, Geo geo, int d) {
@@ -404,10 +396,10 @@ attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
   if (threadIdx.x == 0) {
     for (int s = 0; s < NS; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, kF32Consumers);
+      mbar_init(empty + s, kConsumers);
     }
     mbar_init(own_full, 1);
-    mbar_init(own_empty, kF32Consumers);
+    mbar_init(own_empty, kConsumers);
     fence_mbar_init();
   }
   __syncthreads();
@@ -417,8 +409,8 @@ attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     const int nt = n / m, pass = nt / walk.total;
     return b.c * m + (pass + 1 + n % m) % m;
   };
-  if (threadIdx.x >= kF32Consumers) {
-    setmaxnreg_dec<kF32ProducerRegs>();
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
     const int zq = (int)(b.row0 / sb);
     produce<NS, NS - 2>(tiles, m, full, empty, own_full, own_empty,
                     [&](int n) {
@@ -442,7 +434,7 @@ attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
                       }
                     });
   } else {
-    setmaxnreg_inc<kF32ConsumerRegs>();
+    setmaxnreg_inc<kConsumerRegs>();
     const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4,
               t4 = t % 4;
     const uint32_t bh = smem_addr(bt), bl = bh + T * TS * 4;
@@ -503,7 +495,7 @@ attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
         // partials
         float* slot = part + (nt & 1) * (T * TS);
         if (wg == 1) store_partial<4>(xbuf, hv, t);
-        named_sync(1, kF32Consumers);
+        named_sync(1, kConsumers);
         if (wg == 0) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -543,7 +535,7 @@ attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
           mx[ii] = fmaxf(mx[ii], __shfl_xor_sync(0xffffffffu, mx[ii], 2));
           if (t4 == 0) mx_of[wg * T + 16 * w + g4 + 8 * ii] = mx[ii];
         }
-        named_sync(1, kF32Consumers);
+        named_sync(1, kConsumers);
         float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
         for (int ii = 0; ii < 2; ++ii) {
@@ -573,7 +565,7 @@ attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
                           sv[4 * j + 2 * ii + 1]);
         }
         fence_async_shared();
-        named_sync(1, kF32Consumers);
+        named_sync(1, kConsumers);
 #pragma unroll
         for (int ii = 0; ii < 2; ++ii) {
           const int row = 16 * w + g4 + 8 * ii;
@@ -592,7 +584,7 @@ attn_fwd_wide_f32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
         mx_of[16 * w + g4] = l[0];
         mx_of[16 * w + g4 + 8] = l[1];
       }
-      named_sync(1, kF32Consumers);
+      named_sync(1, kConsumers);
       const int chunk = b.c * m + pass;
       if (chunk == 0 && wg == 0 && t4 == 0) {
 #pragma unroll
@@ -653,7 +645,7 @@ extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* 
     if (!err) err = f32_map(&maps[2], v, d, sb, planes * hkv, Plan::TS);
     if (err) return err;
     const dim3 grid((sb + Plan::T - 1) / Plan::T * C, hq, planes);
-    return launch_cluster<Plan>(attn_fwd_wide_f32, grid, kF32Threads, C, s, maps[0], maps[1],
+    return launch_cluster<Plan>(attn_fwd_wide_f32, grid, kClusterThreads, C, s, maps[0], maps[1],
                                 maps[2], static_cast<float*>(out), L, geo, d);
   }
   return kBadShape;

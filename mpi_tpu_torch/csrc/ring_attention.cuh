@@ -85,14 +85,13 @@ struct DkvWalk {
 // -- the forms above d = 256 (attention_wide.cu, attention_bwd_wide.cu) -----------
 constexpr int kChunk = 128;  // the output chunk: columns of an output a block owns
 
-// acc (an m64n64 accumulator) += A B^T over one KC-column d-chunk (KC 64 or
-// 128): KC / 16 m64n64k16 wgmmas with A and B swizzled 64 x KC bf16 tiles
-// read K-major (at a and b), summed on the tensor core into a fresh
-// accumulator, which is then added to acc (or, for the first chunk, is acc)
-// by round-to-nearest float32 adds.  The tensor core's sums round toward
-// zero (mma_3xtf32, hopper.cuh): one chain over the whole of a wide d would
-// drift, a chunk's chain is no longer than the d = 128 kernels' one.
-template <int KC = kChunk>
+// acc (an m64n64 accumulator) += A B^T over one 128-column d-chunk: eight
+// m64n64k16 wgmmas with A and B swizzled 64 x 128 bf16 tiles read K-major
+// (at a and b), summed on the tensor core into a fresh accumulator, which is
+// then added to acc (or, for the first chunk, is acc) by round-to-nearest
+// float32 adds.  The tensor core's sums round toward zero (mma_3xtf32,
+// hopper.cuh): one chain over the whole of a wide d would drift, a chunk's
+// chain is no longer than the d = 128 kernels' one.
 __device__ __forceinline__ void chunk_product(float (&acc)[32], uint32_t a, uint32_t b,
                                               bool first) {
   float p[32];
@@ -101,7 +100,7 @@ __device__ __forceinline__ void chunk_product(float (&acc)[32], uint32_t a, uint
   reg_fence(p);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < KC / 16; ++ks) {
+  for (int ks = 0; ks < kChunk / 16; ++ks) {
     const uint32_t off = (ks / 4) * (64 * 128) + (ks % 4) * 32;
     wgmma_m64n64k16_ss(p, desc_kmajor(a + off), desc_kmajor(b + off));
   }
@@ -186,31 +185,6 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, int vali
   }
 }
 
-// The forms above d = 256 stage column chunks of a row-major [*, ld] block,
-// ld the head dim at run time (the d <= 256 kernels keep the two above,
-// whose row stride is their compile-time D): rows [0, R) of the C columns
-// that start at src into a swizzled [R x C] bf16 tile, or into a float32
-// tile of row stride C + 4, zeros beyond `valid` rows (NT threads copy)
-template <int R, int C, int NT>
-__device__ __forceinline__ void stage_bf16_cols(uint8_t* dst, const bf16* src, long long ld,
-                                                int valid) {
-  constexpr int CC = C / 8;
-  for (int idx = threadIdx.x; idx < R * CC; idx += NT) {
-    const int r = idx / CC, c = (idx % CC) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + sw128_offset(r, c, R), ok ? src + r * ld + c : src, ok);
-  }
-}
-template <int R, int C, int NT>
-__device__ __forceinline__ void stage_f32_cols(float* dst, const float* src, long long ld,
-                                               int valid) {
-  constexpr int CC = C / 4;
-  for (int idx = threadIdx.x; idx < R * CC; idx += NT) {
-    const int r = idx / CC, c = (idx % CC) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * (C + 4) + c, ok ? src + r * ld + c : src, ok);
-  }
-}
 // N float32 values (lse or delta of a tile's rows), zeros beyond `valid`
 // (a multiple of 8)
 template <int N>
@@ -319,8 +293,8 @@ Geo make_geo(const void* groups, int g, int hq, int hkv, int sb, float scale, in
 constexpr int kBadShape = 1000;  // a head dim or dtype the kernels were not built for
 
 // -- the thread-block cluster forms above d = 256 --------------------------------
-// The float32 backward (attention_bwd_wide.cu) and both forward forms
-// (attention_wide.cu) run the C blocks of one (rank, head, own tile) as a
+// The forward (attention_wide.cu) and the backward (attention_bwd_wide.cu)
+// in both dtypes run the C blocks of one (rank, head, own tile) as a
 // cluster: each block forms the partial products of its own chunks of d,
 // and every block sums the cluster's partials over distributed shared
 // memory in rank order 0..C-1.
@@ -346,13 +320,13 @@ template <int ND = 3> constexpr bool clusters_agree() {
 }
 static_assert(clusters_agree(), "WideCluster and cluster_blocks disagree");
 
-// the float32 forms' threads: consumer warpgroups and a producer warpgroup
-// that keeps their TMA loads in flight
-constexpr int kF32Consumers = 256;               // two consumer warpgroups
-constexpr int kF32Threads = kF32Consumers + 128;  // and a producer warpgroup
+// the threads of the float32 forms and of the bf16 backward: consumer
+// warpgroups and a producer warpgroup that keeps their TMA loads in flight
+constexpr int kConsumers = 256;                   // two consumer warpgroups
+constexpr int kClusterThreads = kConsumers + 128;  // and a producer warpgroup
 // registers a thread after setmaxnreg (an SM sub-partition holds one warp
 // of each warpgroup: 40 + 2 x 232 of its 512 a lane)
-constexpr int kF32ProducerRegs = 40, kF32ConsumerRegs = 232;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kNoCluster = 1001;   // cudaOccupancyMaxActiveClusters found no room for a cluster
 constexpr int kNoEncoder = 1002;   // the CUDA driver's cuTensorMapEncodeTiled was not found
 constexpr int kBadMap = 1003;      // cuTensorMapEncodeTiled refused a tensor
@@ -404,6 +378,16 @@ __device__ __forceinline__ void output_half(float (&f)[32], const uint8_t* s, in
   for (int e = 0; e < 32; ++e) f[e] += small[e];
 }
 
+// A partial is the float32 accumulator of a block's product, NV float4s a
+// thread, float4 j of the thread at `at + 128 j` of its slot
+template <int NV>
+__device__ __forceinline__ void store_partial(float* slot, const float (&f)[4 * NV], int at) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    reinterpret_cast<float4*>(slot)[at + 128 * j] =
+        make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2], f[4 * j + 3]);
+}
+
 // entries (row, col) and (row, col + 1) of a T x TS B tile as hi and lo
 template <int T>
 __device__ __forceinline__ void put_split2(uint8_t* hi, uint8_t* lo, int row, int col, float x,
@@ -431,7 +415,7 @@ template <int NS, int LAG1, typename Own, typename Unit>
 __device__ __forceinline__ void produce(int tiles, int m, uint64_t* full, uint64_t* empty,
                                         uint64_t* own_full, uint64_t* own_empty, Own own,
                                         Unit unit) {
-  const bool lead = threadIdx.x == kF32Consumers;
+  const bool lead = threadIdx.x == kConsumers;
   const int lag = m == 1 ? LAG1 : 0;
   int done = 0;
   if (lead && m == 1) own(0);

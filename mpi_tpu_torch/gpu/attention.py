@@ -328,8 +328,8 @@ def _plan_smem(source: str, plan: str, d: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def wide_cluster(d: int) -> Tuple[int, int]:
-    """(C, m) of the forward and the float32 backward above d = 256
-    (``WideCluster`` in csrc/ring_attention.cuh): clusters of C blocks, the
+    """(C, m) of the forward and the backward above d = 256 (``WideCluster``
+    in csrc/ring_attention.cuh): clusters of C blocks, the
     largest divisor of d / 128 that is at most 8, each block taking m =
     d / 128 / C passes over its walk, one output chunk a pass."""
     consts = _plan_consts("ring_attention.cuh", "WideCluster", d)
@@ -347,17 +347,18 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     stride of d + 4: the forward (``FwdF32Plan``) holds 64 W Q rows and two
     stages of 32-row K and V tiles, the backward (``F32Plan``) two resident
     64-row and two streamed 32-row tiles and 256 bytes of lse/delta rows.
-    Above, the bf16 backward of attention_bwd_wide.cu streams 64- or
-    128-column chunks of d through a ring of stages beside buffers of each
-    128-column operand of its output product; the forward of
-    csrc/attention_wide.cu and the float32 backward run in clusters: the
-    bf16 forward (``WideFwdBf16Plan``) holds its own 64 x 128 Q chunk, two
-    stages of a K chunk and a V (or Q) chunk, and two parities of the S
-    partial its cluster sums; the float32 forms (``WideFwdF32Plan``,
-    ``WideDqF32Plan``, ``WideDkvF32Plan``) one 128-column chunk of their
-    own 64-row tiles, two stages of two streamed 32-row tiles and their lo
-    tiles, two parities of the partials, and their output products' B
-    tiles.  No plan's bytes depend on d."""
+    Above, the forward (csrc/attention_wide.cu) and the backward
+    (csrc/attention_bwd_wide.cu) run in clusters: the bf16 forward
+    (``WideFwdBf16Plan``) holds its own 64 x 128 Q chunk, two stages of a K
+    chunk and a V (or Q) chunk, and two parities of the S partial its
+    cluster sums; the float32 forms (``WideFwdF32Plan``, ``WideDqF32Plan``,
+    ``WideDkvF32Plan``) one 128-column chunk of their own 64-row tiles, two
+    stages of two streamed 32-row tiles and their lo tiles, two parities of
+    the partials, and their output products' B tiles; the bf16 backward
+    (``WideDqBf16Plan``, ``WideDkvBf16Plan``) the same regions in bf16 with
+    64-row streamed tiles and no lo tiles, its partials 64 x 64, and its
+    output products' A tiles (P and dS as hi, mid and lo).  No plan's bytes
+    depend on d."""
     plans = _WIDE_PLANS if _wide(d) else _PLANS
     return {name: _plan_smem(src, names[dtype], d) for name, (src, names) in plans.items()}
 

@@ -11,7 +11,15 @@ rank threads in this process (``transport.local.run_local``), which is
 what a local world is; ``socket`` and ``shm`` under the port's launcher,
 one process per rank, as their worlds run.  A process transport launches
 one world of the largest group size and measures each smaller size on the
-split of its lowest ranks while the others wait at a barrier.  Tensors
+split of its lowest ranks while the others wait at a barrier.  The
+launcher starts one process for it, which imports torch and the package
+once and forks the world's rank processes (importing torch is most of a
+rank process's start).  Those processes start with the sweep and import
+while the local legs run; a world forks its ranks only when the legs
+before it have ended, so no two legs measure at once.  The table's
+``generated.parts_s`` holds the sweep's parts: each local leg, and for
+each launched world its import, when the legs before it let it go, each
+rank's fork, CUDA context and ``init()``, each band and the teardown.  Tensors
 live on the card unless ``--device cpu`` is given.  It emits a table in
 the ``tuning`` format: one row per (transport, nranks, collective, payload
 band), the bands from ``tuning.band_edges``, each row trust-stamped
@@ -39,9 +47,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import signal
 import statistics
 import sys
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -50,6 +61,7 @@ import torch
 from .. import coll_sm as _coll_sm
 from .. import communicator as _communicator
 from .. import schedules
+from ..membership import ENV_RANK, ENV_SIZE
 from .. import tuning as _tuning
 from ..tuning import table as _table
 
@@ -180,48 +192,158 @@ def _process_leg(transport: str, ranks: Sequence[int], sizes: Sequence[int],
     """A rank process of a launched sweep world: measure each group size
     on the split of the world's lowest ranks (the rest wait at the world
     barrier); world rank 0 writes ``{nranks: [[coll, size, {algo: ms}],
-    ...]}`` to ``out_path``."""
+    ...]}`` to ``out_path``, and every rank the wall-clock times of its
+    start, its CUDA context, its ``init()`` and each band to
+    ``<out_path>.<rank>``."""
     import mpi_tpu_torch
 
+    stamps = {"start": time.time()}
+    dev = mpi_tpu_torch._rank_device(int(os.environ[ENV_RANK]))
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)  # the CUDA context
+    stamps["cuda"] = time.time()
     comm = mpi_tpu_torch.init()
+    stamps["init"] = time.time()
     if comm._t.tuning_transport != transport:
         raise RuntimeError(f"tune leg for {transport!r} runs on a "
                            f"{comm._t.tuning_transport!r} world")
-    measured = {}
+    measured, bands = {}, {}
     for p in ranks:
+        t0 = time.time()
         sub = comm.split(0 if comm.rank < p else None)
         if sub is not None:
             cells = _leg(sub, transport, sizes, iters)
             measured[p] = [[c, s, algs] for (c, s), algs in cells.items()]
             sub.free()
         comm.barrier()
+        bands[p] = [t0, time.time()]
+    stamps["bands"] = bands
+    stamps["end"] = time.time()
     if comm.rank == 0:
-        tmp = out_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(measured, f)
-        os.replace(tmp, out_path)
+        _write_json(out_path, measured)
+    _write_json(f"{out_path}.{comm.rank}", stamps)
     mpi_tpu_torch.finalize()
 
 
-def _launched_cells(transport: str, ranks: Sequence[int],
-                    sizes: Sequence[int], iters: int, device) -> Dict[int, Dict]:
-    """One launched world of ``max(ranks)`` rank processes on ``transport``;
-    returns {nranks: {(coll, size): {algo: ms}}}."""
-    from .. import launcher
+def _write_json(path: str, doc) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
 
-    with tempfile.TemporaryDirectory(prefix="mpi_tpu_torch_tune_") as tmp:
-        out_path = os.path.join(tmp, "cells.json")
+
+def _leg_world(transport: str, ranks: Sequence[int], sizes: Sequence[int],
+               iters: int, out_path: str) -> int:
+    """The one process the launcher starts for a sweep world: torch and the
+    package are imported, and it never touches the card, so once the sweep
+    lets it go (``<out_path>.go`` exists) it forks the world's
+    ``max(ranks)`` rank processes (``MPI_TPU_RANK`` and ``MPI_TPU_SIZE``
+    set in each), each of which makes its own CUDA context; it forks none
+    if the sweep gives up on it (``<out_path>.abort``).  Returns the first
+    nonzero exit code of a rank (the others are then killed), else 0."""
+    n = max(ranks)
+    _write_json(f"{out_path}.imported", time.time())
+    while not os.path.exists(f"{out_path}.go"):
+        if os.path.exists(f"{out_path}.abort"):
+            return 0
+        time.sleep(0.01)
+    pids = []
+
+    def stop(signum, frame):  # the launcher's kill: take the ranks along
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        raise SystemExit(128 + signum)
+
+    signal.signal(signal.SIGTERM, stop)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    for r in range(n):
+        pid = os.fork()
+        if pid == 0:  # a rank: it leaves by os._exit, as a forked child does
+            code = 1
+            try:
+                signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                os.environ.update({ENV_RANK: str(r), ENV_SIZE: str(n)})
+                _process_leg(transport, ranks, sizes, iters, out_path)
+                code = 0
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(code)
+        pids.append(pid)
+    code, live = 0, set(pids)
+    while live:
+        pid, status = os.wait()
+        live.discard(pid)
+        rc = os.waitstatus_to_exitcode(status)
+        if rc and not code:
+            code = rc if rc > 0 else 128 - rc
+            for other in live:
+                os.kill(other, signal.SIGKILL)
+    return code
+
+
+class _LaunchedWorld:
+    """One launched world of ``max(ranks)`` rank processes on ``transport``,
+    started at once (its process imports meanwhile) and let go by
+    ``result()``, which returns ({nranks: {(coll, size): {algo: ms}}}, its
+    parts in seconds: from the launch to the imports and to the go, each
+    rank's fork, CUDA context and ``init()``, each band on rank 0 and the
+    teardown); ``abort()`` ends it unmeasured."""
+
+    def __init__(self, transport: str, ranks: Sequence[int], sizes: Sequence[int],
+                 iters: int, device) -> None:
+        from .. import launcher
+
+        self.transport, self.n = transport, max(ranks)
+        self.tmp = tempfile.mkdtemp(prefix="mpi_tpu_torch_tune_")
+        self.out = os.path.join(self.tmp, "cells.json")
         argv = ["-m", "mpi_tpu_torch.tools.tune", "--leg", transport,
-                "--leg-out", out_path, "--ranks", ",".join(map(str, ranks)),
+                "--leg-out", self.out, "--ranks", ",".join(map(str, ranks)),
                 "--sizes", ",".join(map(str, sizes)), "--iters", str(iters)]
-        rc = launcher.launch(max(ranks), argv, timeout=600.0,
-                             backend=transport, device=str(device))
-        if rc != 0:
-            raise RuntimeError(f"tune: the {transport} sweep world exited {rc}")
-        with open(out_path) as f:
-            measured = json.load(f)
-    return {int(p): {(c, s): algs for c, s, algs in cells}
-            for p, cells in measured.items()}
+        self.rc: List = []
+        self.launched = time.time()
+        self.thread = threading.Thread(target=lambda: self.rc.append(launcher.launch(
+            1, argv, timeout=600.0, backend=transport, device=str(device))), daemon=True)
+        self.thread.start()
+
+    def result(self) -> Tuple[Dict[int, Dict], Dict]:
+        try:
+            go = time.time()
+            _write_json(self.out + ".go", go)
+            self.thread.join()
+            ended = time.time()
+            if self.rc != [0]:
+                raise RuntimeError(f"tune: the {self.transport} sweep world exited "
+                                   f"{self.rc[0] if self.rc else 'with an error'}")
+            with open(self.out) as f:
+                measured = json.load(f)
+            with open(self.out + ".imported") as f:
+                imported = json.load(f)
+            stamps = []
+            for r in range(self.n):
+                with open(f"{self.out}.{r}") as f:
+                    stamps.append(json.load(f))
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        start = max(imported, go)
+        parts = {"imports": round(imported - self.launched, 3),
+                 "go": round(go - self.launched, 3),
+                 "ranks": [{"fork": round(st["start"] - start, 3),
+                            "cuda": round(st["cuda"] - st["start"], 3),
+                            "init": round(st["init"] - st["cuda"], 3)} for st in stamps],
+                 "bands": {p: round(b - a, 3) for p, (a, b) in stamps[0]["bands"].items()},
+                 "teardown": round(ended - max(st["end"] for st in stamps), 3)}
+        return ({int(p): {(c, s): algs for c, s, algs in cells}
+                 for p, cells in measured.items()}, parts)
+
+    def abort(self) -> None:
+        _write_json(self.out + ".abort", time.time())
+        self.thread.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def _rows(transport: str, p: int, cells: Dict, sizes: Sequence[int],
@@ -262,27 +384,36 @@ def sweep(transports: Sequence[str] = TRANSPORTS,
     saved_table = _tuning.table_path()
     _tuning.set_table_path(None)  # the measuring worlds are table-blind
     rows: List[_table.Row] = []
+    parts: Dict[str, Dict] = {}
+    for transport in transports:
+        if transport not in TRANSPORTS:
+            raise ValueError(f"unknown transport {transport!r} "
+                             f"(accepted: {', '.join(TRANSPORTS)})")
+    worlds = {t: _LaunchedWorld(t, ranks, sizes, iters, device)
+              for t in transports if t in PROCESS_TRANSPORTS}
     try:
         for transport in transports:
             if transport in PROCESS_TRANSPORTS:
                 # every rank of the launched world is a process, the idle
                 # ones included
                 world = max(ranks)
-                for p, cells in sorted(_launched_cells(
-                        transport, ranks, sizes, iters, device).items()):
+                cells_by_p, parts[transport] = worlds.pop(transport).result()
+                for p, cells in sorted(cells_by_p.items()):
                     rows += _rows(transport, p, cells, sizes,
                                   (world + 1) <= ncpu, tie_factor)
             elif transport == "local":
+                parts[transport] = {}
                 for p in ranks:
+                    t_leg = time.perf_counter()
                     res = run_local(_leg, p, args=(transport, tuple(sizes),
                                                    iters),
                                     device=device, timeout=600.0)
+                    parts[transport][p] = round(time.perf_counter() - t_leg, 3)
                     rows += _rows(transport, p, res[0], sizes,
                                   (p + 1) <= ncpu, tie_factor)
-            else:
-                raise ValueError(f"unknown transport {transport!r} "
-                                 f"(accepted: {', '.join(TRANSPORTS)})")
     finally:
+        for w in worlds.values():  # not reached: a leg before it failed
+            w.abort()
         _tuning.set_table_path(saved_table or None)
     return _table.new_doc(rows, transports, generated={
         "tool": "mpi_tpu_torch.tools.tune",
@@ -294,6 +425,7 @@ def sweep(transports: Sequence[str] = TRANSPORTS,
         "ranks_as": {t: "processes" if t in PROCESS_TRANSPORTS else "threads"
                      for t in transports},
         "wall_s": round(time.perf_counter() - t0, 3),
+        "parts_s": parts,
     })
 
 
@@ -341,10 +473,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     if args.check is not None:
         return check(args.check)
-    if args.leg is not None:  # a rank of a launched sweep world
-        _process_leg(args.leg, _ints(args.ranks), _ints(args.sizes),
-                     args.iters, args.leg_out)
-        return 0
+    if args.leg is not None:  # the process of a launched sweep world
+        code = _leg_world(args.leg, _ints(args.ranks), _ints(args.sizes),
+                          args.iters, args.leg_out)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)  # its ranks have ended; no interpreter teardown
     doc = sweep(tuple(args.transports.split(",")), _ints(args.ranks),
                 _ints(args.sizes), device=args.device, iters=args.iters,
                 tie_factor=args.tie_factor)

@@ -235,11 +235,14 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 198656
     assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
     assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
-    # above d = 256: the same bytes at every d (the bf16 backward: 64 x 64 or
-    # 64 x 128 tiles; the forward's clusters in bf16: 1 KB of alignment, the
-    # own 64 x 128 Q chunk 16 384, two stages of a K chunk and a V (or Q)
-    # chunk 65 536, two parities of the 64 x 64 float32 partial 32 768: two
-    # blocks an SM; the float32 clusters: 1 KB of alignment, the own 64 x
+    # above d = 256: the same bytes at every d (the forward's clusters in
+    # bf16: 1 KB of alignment, the own 64 x 128 Q chunk 16 384, two stages of
+    # a K chunk and a V (or Q) chunk 65 536, two parities of the 64 x 64
+    # float32 partial 32 768: two blocks an SM; the bf16 backward's: 1 KB of
+    # alignment, the own 64 x 128 tiles 32 768, two stages of two 64 x 128
+    # tiles 65 536, two parities of the 64 x 64 partials of S and dP 65 536,
+    # the 64 x 64 A tiles (dq: dS hi, mid and lo 24 576; dkv: P and dS
+    # 49 152) and the mbarriers; the float32 clusters: 1 KB of alignment, the own 64 x
     # 128 tiles (forward: Q 32 768; backward: two, 65 536), two stages of
     # two 32 x 128 tiles 65 536, their lo tiles (forward: K's 16 384;
     # backward 32 768), two parities of the partials (forward: S 16 384;
@@ -249,7 +252,7 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     # rescales, and the mbarriers)
     for d in (384, 512, 640, 1024, 1152, 2048):
         assert attention.kernel_smem_bytes(d, torch.bfloat16) == {
-            "fwd": 115712, "bwd_dq": 99328, "bwd_dkv": 198656}
+            "fwd": 115712, "bwd_dq": 189504, "bwd_dkv": 214080}
         assert 2 * (attention.kernel_smem_bytes(d, torch.bfloat16)["fwd"] + 1024) <= 228 * 1024
         assert attention.kernel_smem_bytes(d) == {
             "fwd": 158000, "bwd_dq": 214080, "bwd_dkv": 230464}
@@ -257,8 +260,8 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     # the diagnosis, where a block would need more than it may use
     monkeypatch.setattr(attention, "_SMEM_LIMIT", 150_000)
     with pytest.raises(NotImplementedError,
-                       match=r"bwd_dkv kernel \(csrc/attention_bwd_wide.cu\) at head dim "
-                             r"512, torch.bfloat16, would need 198656 bytes .* beyond the "
+                       match=r"bwd_dq kernel \(csrc/attention_bwd_wide.cu\) at head dim "
+                             r"512, torch.bfloat16, would need 189504 bytes .* beyond the "
                              r"150000"):
         attention._kernel_plan(512, torch.bfloat16)
     with pytest.raises(NotImplementedError,
@@ -277,7 +280,13 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     monkeypatch.setattr(attention, "_SMEM_LIMIT", 230_463)
     with pytest.raises(NotImplementedError, match=r"bwd_dkv kernel .* 230464 bytes"):
         attention._kernel_plan(640)
-    attention._kernel_plan(640, torch.bfloat16)  # bf16: 198656 bytes at most
+    attention._kernel_plan(640, torch.bfloat16)  # bf16: 214080 bytes at most
+    # between the bf16 dQ kernel's 189 504 and its dK/dV kernel's 214 080
+    monkeypatch.setattr(attention, "_SMEM_LIMIT", 200_000)
+    with pytest.raises(NotImplementedError,
+                       match=r"bwd_dkv kernel \(csrc/attention_bwd_wide.cu\) at head dim "
+                             r"1152, torch.bfloat16, would need 214080 bytes"):
+        attention._kernel_plan(1152, torch.bfloat16)
 
 
 @pytest.mark.parametrize("d,clusters,passes", [
@@ -317,6 +326,31 @@ def test_wide_forward_cluster_arithmetic(d):
                  for key, rate in (("bf16", chip_smoke.BF16_FLOPS),
                                    ("f32", chip_smoke.TF32_FLOPS))}
         assert (round(floor["bf16"], 3), round(floor["f32"], 3)) == (13.341, 53.311)
+
+
+@pytest.mark.parametrize("d", [384, 512, 640, 1024, 1152, 2048])
+def test_wide_backward_design_floor(d):
+    """The backward above d = 256 (csrc/attention_bwd_wide.cu) forms S and
+    dP once a pass of its clusters in both dtypes: chip_smoke.py counts its
+    design floor as (4m + 6) d and (4m + 12) d flops an entry in bf16 (dS,
+    and P, in three bf16 terms in the output products) and 3 (4m + 2) d
+    and 3 (4m + 4) d in float32; at the wide serving shape (P = 8, 8/2
+    heads, d = 512, causal S = 32 768) 22.235 and 35.577 ms in bf16, 79.967
+    and 106.623 in float32 (the narrow backward's floors)."""
+    m = attention.wide_cluster(d)[1]
+    assert chip_smoke.wide_floor_flops("bf16", "bwd_dq", d) == 4 * m + 6
+    assert chip_smoke.wide_floor_flops("bf16", "bwd_dkv", d) == 4 * m + 12
+    assert chip_smoke.wide_floor_flops("f32", "bwd_dq", d) == 3 * (4 * m + 2)
+    assert chip_smoke.wide_floor_flops("f32", "bwd_dkv", d) == 3 * (4 * m + 4)
+    if d == 512:
+        entries = chip_smoke.causal_entries((8, 8, 2, 4096, 512))
+        floor = {(key, kind): chip_smoke.wide_floor_flops(key, kind, d) * d * entries / rate * 1e3
+                 for key, rate in (("bf16", chip_smoke.BF16_FLOPS),
+                                   ("f32", chip_smoke.TF32_FLOPS))
+                 for kind in ("bwd_dq", "bwd_dkv")}
+        assert {k: round(v, 3) for k, v in floor.items()} == {
+            ("bf16", "bwd_dq"): 22.235, ("bf16", "bwd_dkv"): 35.577,
+            ("f32", "bwd_dq"): 79.967, ("f32", "bwd_dkv"): 106.623}
 
 
 def test_smem_bytes_follow_the_plans_in_the_sources(tmp_path, monkeypatch):

@@ -22,7 +22,10 @@ in the order of the float32 sums and in exp2 (the card's ex2.approx is
 within two ulps), so these tests are the evidence, before the card sees
 the kernels, that the split depth fits the tolerance.  In the backward a
 single bf16 P and dS, or a single TF32 product, does not fit it; in the
-forward, whose only float32 operand is P, neither does.
+forward, whose only float32 operand is P, neither does.  The forms above
+d = 256 (csrc/attention_wide.cu, attention_bwd_wide.cu) run in
+thread-block clusters: the forward's order of sums, and the bf16
+backward's, are emulated at the end of the file.
 """
 
 import numpy as np
@@ -439,3 +442,148 @@ def test_cluster_forward_matches_the_reference():
     want = jax_forward(q, k, v, "f32", causal=True)
     got, _ = emulated_wide_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# -- the backward above d = 256 in thread-block clusters, bf16
+# (csrc/attention_bwd_wide.cu)
+#
+# The forward's clusters: for each 64-row tile of the other side, S and dP
+# are the sums of the cluster's bf16 partials (``cluster_qk`` with
+# ``wide_partial_bf16``: exact products summed in float32, each block's m
+# chunks in unit order, the C partials in rank order); P and dS enter the
+# output products in three bf16 terms, hi, mid and lo, one product a tile
+# (a chain of tensor-core sums a tile long), each added to a float32
+# running sum in its walk's order: dQ over the arrivals' K/V tiles in ring
+# order, dK and dV over the visiting ranks, the GQA heads and the Q tiles.
+# At m > 1 pass p forms its own S and dP for its own output chunks.
+
+
+def split3_bf16(x):
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, (r - mid).to(torch.bfloat16).float()
+
+
+def mm_split3_bf16(a, b):
+    """a float32 in three bf16 terms; b exact in bf16."""
+    hi, mid, lo = split3_bf16(a)
+    return hi @ b + mid @ b + lo @ b
+
+
+def test_three_bf16_terms_keep_cancelling_sums_within_the_float32_allowance():
+    """An output of the bf16 backward sums products of P (or dS) entries
+    with bf16 rows.  Where large products cancel, the sum is near 0 and its
+    float32 allowance is about the absolute 1e-5: two bf16 terms (hi, lo)
+    leave up to 2^-17 of each entry and pass it (found on an H100 at
+    d = 1024, MQA, causal: dV of an early key row); three are the entry
+    itself.  Products and sums in float64, so that only the split
+    differs."""
+    rs = np.random.RandomState(7)
+    p = rs.uniform(0.25, 1.0, (64, 128))
+    p = torch.from_numpy(np.concatenate([p, p * (1 + rs.uniform(-1e-6, 1e-6, p.shape))], 1)
+                         .astype(np.float32))
+    b = torch.from_numpy(rs.randn(128, 64).astype(np.float32)).to(torch.bfloat16).double()
+    b = torch.cat([b, -b])
+    exact = p.double() @ b
+    allow = 1e-5 + 1e-4 * exact.abs()
+    two = sum(t.double() @ b for t in split_bf16(p))
+    three = sum(t.double() @ b for t in split3_bf16(p))
+    assert float(((two - exact).abs() / allow).max()) > 1.0
+    assert float(((three - exact).abs() / allow).max()) < 0.01
+
+
+def emulated_wide_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False, cast=True):
+    """The bf16 cluster backward's arithmetic on the CPU (shapes as
+    ``ring_attention_bwd_plain``, multi-head); inputs whose values are
+    bf16 (of either dtype)."""
+    nranks, hq, sb, d = q.shape
+    hkv = k.shape[1]
+    rep = hq // hkv
+    heads = torch.arange(hq) // rep
+    scale = 1.0 / np.sqrt(d)
+    C, m = attention.wide_cluster(d)
+    gl = groups or [list(range(nranks))]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    lse4 = lse.reshape(nranks, hq, sb, 1)
+    mask = torch.arange(sb)[None, :] <= torch.arange(sb)[:, None]
+    tiles = [slice(t0, min(sb, t0 + 64)) for t0 in range(0, sb, 64)]
+    dq, dk, dv = torch.zeros(qf.shape), torch.zeros(kf.shape), torch.zeros(kf.shape)
+    for pass_ in range(m):
+        qk = cluster_qk(d, pass_, wide_partial_bf16)
+        cols = torch.cat([torch.arange((c * m + pass_) * 128, (c * m + pass_ + 1) * 128)
+                          for c in range(C)])
+        for grp in gl:
+            g = len(grp)
+            p_of, ds_of = {}, {}  # (r, j): P and dS of rank r's queries, block j's keys
+            for r, w in enumerate(grp):
+                for j in range(g):
+                    if causal and j > r:
+                        continue
+                    kb, vb = kf[grp[j]][heads], vf[grp[j]][heads]
+                    p = torch.exp(qk(qf[w], kb.transpose(-1, -2)) * scale - lse4[w])
+                    if causal and j == r:
+                        p = torch.where(mask, p, torch.zeros_like(p))
+                    p_of[r, j] = p
+                    ds_of[r, j] = p * (qk(dof[w], vb.transpose(-1, -2)) - delta[w]) * scale
+            for r, w in enumerate(grp):
+                run = torch.zeros(hq, sb, d)
+                for a in range(g):
+                    j = (r - a) % g
+                    if (r, j) in ds_of:
+                        kb = kf[grp[j]][heads]
+                        for t in tiles:
+                            run = run + mm_split3_bf16(ds_of[r, j][..., t], kb[:, t])
+                dq[w][..., cols] = run[..., cols]
+            for j, kw in enumerate(grp):
+                run_k, run_v = torch.zeros(hkv, sb, d), torch.zeros(hkv, sb, d)
+                for a in range(g):
+                    r = (j + a) % g
+                    if (r, j) not in p_of:
+                        continue
+                    w = grp[r]
+                    for t in range(rep):
+                        hs = slice(t, hq, rep)  # head t of each K/V head
+                        for qt in tiles:
+                            run_v = run_v + mm_split3_bf16(
+                                p_of[r, j][hs][:, qt].transpose(-1, -2), dof[w][hs][:, qt])
+                            run_k = run_k + mm_split3_bf16(
+                                ds_of[r, j][hs][:, qt].transpose(-1, -2), qf[w][hs][:, qt])
+                dk[kw][..., cols] = run_k[..., cols]
+                dv[kw][..., cols] = run_v[..., cols]
+    if cast:
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [512, 640, 1152])
+def test_cluster_backward_within_check_close_of_plain(d, causal):
+    """d = 512 (clusters of 4), 640 (5) and 1152 (3 blocks of 3 passes),
+    GQA 4/2 in two groups of 2 on a world of 4, Sb = 80 (a 64-row tile and
+    a partial one of 16): the bf16 cluster backward's order of sums against
+    the plain backward, dq, dk and dv."""
+    groups = [[0, 1], [2, 3]]
+    ops = world(4, 4, 2, 80, d, torch.bfloat16, causal, groups, seed=d + 2 + causal)
+    got = emulated_wide_bwd(*ops, groups, causal=causal)
+    want = attention.ring_attention_bwd_plain(*ops, groups, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        chip_smoke.check_close(torch, f"cluster backward {name}", a, b, torch.bfloat16)
+
+
+def test_cluster_backward_matches_jax_grad_of_the_reference():
+    """At d = 512 (GQA, causal, Sb = 80) on inputs whose values are bf16:
+    the cluster backward's order of sums, before its final rounding,
+    against ``jax.grad`` through the reference's fused backward in
+    interpret mode, with tests/test_torch_attention_grad.py's float32
+    tolerance."""
+    rnd = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()  # noqa: E731
+    q, k, v, ct = (rnd(a) for a in inputs(2, 4, 2, 80, 512, seed=31))
+    want = jax_grads(q, k, v, ct, "f32", True)
+    tq, tk, tv, tct = (torch.from_numpy(a) for a in (q, k, v, ct))
+    out, lse = attention.ring_attention_plain(tq, tk, tv, causal=True, with_lse=True)
+    got = emulated_wide_bwd(tq, tk, tv, out, lse, tct, causal=True, cast=False)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", **TOL["f32"])

@@ -120,22 +120,19 @@ def test_wide_world_off_cpu_raises_and_never_falls_back():
 
 
 @pytest.mark.parametrize("name,dtype", [
-    pytest.param("bwd_dq", torch.float32, id="bwd_dq"),
-    pytest.param("bwd_dkv", torch.float32, id="bwd_dkv"),
-    pytest.param("fwd", torch.float32, id="fwd-float32")])
-def test_wide_f32_refused_cluster_launch_raises_and_never_falls_back(name, dtype, monkeypatch):
-    """A float32 launch above d = 256 (the forward and both backward
-    kernels run in thread-block clusters) that the card refuses (no room
+    pytest.param("bwd_dq", torch.float32, id="bwd_dq-float32"),
+    pytest.param("bwd_dkv", torch.float32, id="bwd_dkv-float32"),
+    pytest.param("fwd", torch.float32, id="fwd-float32"),
+    pytest.param("bwd_dq", torch.bfloat16, id="bwd_dq-bfloat16"),
+    pytest.param("bwd_dkv", torch.bfloat16, id="bwd_dkv-bfloat16"),
+    pytest.param("fwd", torch.bfloat16, id="fwd-bfloat16")])
+def test_wide_refused_cluster_launch_raises_and_never_falls_back(name, dtype, monkeypatch):
+    """A launch above d = 256 (the forward and both backward kernels run in
+    thread-block clusters, in both dtypes) that the card refuses (no room
     for one cluster: ring_attention.cuh's kNoCluster) or whose source does
     not build raises with the reason; it is not counted, and neither the
     plain version nor another form runs in its place."""
     _refused_cluster_launch(name, dtype, monkeypatch)
-
-
-def test_wide_bf16_forward_refused_cluster_launch_raises_and_never_falls_back(monkeypatch):
-    """The same for the bf16 forward above d = 256, which runs in clusters
-    too (the bf16 backward does not)."""
-    _refused_cluster_launch("fwd", torch.bfloat16, monkeypatch)
 
 
 def _refused_cluster_launch(name, dtype, monkeypatch):

@@ -62,14 +62,15 @@ def test_every_source_has_its_signatures_and_headers():
 
 def test_the_cluster_helpers_live_in_the_shared_header():
     """The forms that run in thread-block clusters (the forward of
-    csrc/attention_wide.cu in both dtypes, the float32 backward of
-    attention_bwd_wide.cu) share, from csrc/ring_attention.cuh, the cluster
-    rule (``WideCluster``, ``cluster_blocks``), ``launch_cluster`` (with the
+    csrc/attention_wide.cu and the backward of attention_bwd_wide.cu, both
+    in both dtypes) share, from csrc/ring_attention.cuh, the cluster rule
+    (``WideCluster``, ``cluster_blocks``), ``launch_cluster`` (with the
     block's thread count), the tensor-map encoder (``encode_tiled``,
-    ``tile_map``, ``f32_map``, ``bf16_map``), the float32 forms' producer
-    (``produce``, its lag at m = 1 a template argument), lo-tile writer
-    (``write_lo``) and partial (``partial_blocks``, over a range of 32-column
-    blocks) and the refusal codes: each is
+    ``tile_map``, ``f32_map``, ``bf16_map``), the producer (``produce``,
+    its lag at m = 1 a template argument), the partials' store
+    (``store_partial``), the float32 forms' lo-tile writer (``write_lo``)
+    and partial (``partial_blocks``, over a range of 32-column blocks), the
+    bf16 forms' partial (``chunk_product``) and the refusal codes: each is
     defined there once and in neither source, both sources use them, and
     the wrapper's refusals are the codes the header returns."""
     from mpi_tpu_torch.gpu import attention
@@ -89,6 +90,8 @@ def test_the_cluster_helpers_live_in_the_shared_header():
         "write_lo": r"template <int TS, int BLOCKS>\n__device__ __forceinline__ void write_lo\(",
         "partial_blocks": r"template <int T, int TS, int BLOCKS>\n"
                           r"__device__ __forceinline__ void partial_blocks\(",
+        "store_partial": r"template <int NV>\n__device__ __forceinline__ void store_partial\(",
+        "chunk_product": r"__device__ __forceinline__ void chunk_product\(",
     }
     for name, pattern in defined.items():
         assert len(re.findall(pattern, header)) == 1, name
@@ -101,10 +104,9 @@ def test_the_cluster_helpers_live_in_the_shared_header():
                                       "partial_blocks<T, TS, 2>("),
                 "attention_bwd_wide.cu": ("produce<NS, 1>(", "write_lo<TS, 4>(lo, st, 0, t)",
                                           "partial_blocks<T, TS, 4>(")}
-    for source, uses in (("attention_wide.cu", ("launch_cluster<", "cluster_blocks(",
-                                                "f32_map(", "bf16_map(")),
-                         ("attention_bwd_wide.cu", ("launch_cluster<", "cluster_blocks(",
-                                                    "f32_map("))):
+    shared = ("launch_cluster<", "cluster_blocks(", "f32_map", "bf16_map", "store_partial<",
+              "chunk_product(")
+    for source, uses in (("attention_wide.cu", shared), ("attention_bwd_wide.cu", shared)):
         uses += f32_uses[source]
         text = (_build.SRC_DIR / source).read_text()
         for name, pattern in defined.items():

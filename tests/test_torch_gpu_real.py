@@ -157,6 +157,39 @@ def test_wide_head_f32_backward_is_bitwise_deterministic_on_the_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [640, 1152])
+def test_wide_head_bf16_backward_clusters_match_plain_on_the_card(d):
+    """The bf16 backward's clusters at d = 640 (5 blocks, 1 pass) and 1152
+    (3 blocks, 3 passes each), as the first wide-head test."""
+    _wide_head_case(d, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_wide_head_bf16_backward_is_bitwise_deterministic_on_the_card():
+    """Two runs of the bf16 backward above d = 256 are bitwise equal, at
+    d = 640 (one pass) and 1152 (three): every block of a cluster sums the
+    partials of S and dP in rank order, every output is a running sum in
+    its walk's order, and no output is summed with atomics."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for d in (640, 1152):
+        q, do = (torch.randn(P, 4, 112, d, device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(P, 2, 112, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        out, lse = attention.ring_attention_plain(q, k, v, causal=True, with_lse=True)
+        attention.reset_launches()
+        first = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+        second = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=True)
+        torch.cuda.synchronize()
+        assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [640, 1152])
 def test_wide_head_forward_clusters_match_plain_on_the_card(d, dtype):

@@ -111,38 +111,3 @@ def test_phase11_grid_is_the_one_wide_ab_compares():
         assert sum(case[0] > 256 for case in grid) == 64
         assert {case[1] for case in grid if case[0] in (640, 1152)} == {112}
     assert sum(case[0] in wide_ab.BITWISE_DIMS for case in bf16) == 48
-
-
-def test_the_bf16_wide_backward_fault_is_recorded_where_it_is_not_held(monkeypatch):
-    """Phase 11 records the bf16 backward above d = 256 (ROADMAP Queue 3
-    item 1) with ``note_bf16_wide_backward``: its share of the bf16
-    allowance where ``check_close`` holds it and where it is only measured,
-    by kernel; a check past the allowance there is counted, not raised,
-    while ``check_close`` raises on the same values, and non-finite values
-    raise in both."""
-    import pytest
-    import torch
-
-    import chip_smoke
-
-    monkeypatch.setattr(chip_smoke, "KNOWN_FAULTS", {})
-    monkeypatch.setattr(chip_smoke, "ALLOWANCE_USED", {})
-    want = torch.full((4,), 3.7)
-    past = want + 0.03125  # two bf16 ulps of 3.7: 1.067 of the allowance
-    chip_smoke.note_bf16_wide_backward(torch, "d=640 case dv", past, want, held=False)
-    chip_smoke.note_bf16_wide_backward(torch, "d=640 case dq", want, want, held=False)
-    chip_smoke.note_bf16_wide_backward(torch, "d=512 case dk", want + 0.015625, want, held=True)
-    dkv = chip_smoke.KNOWN_FAULTS["attention_bwd_dkv_wide"]
-    assert dkv["fault"] == "ROADMAP Queue 3 item 1"
-    assert dkv["recorded"]["checks"] == 1 and dkv["recorded"]["over_allowance"] == 1
-    assert dkv["recorded"]["max_allowance_share"] == pytest.approx(0.03125 / (
-        1e-5 + (1e-4 + 2 ** -7) * 3.7), rel=1e-5)
-    assert dkv["recorded"]["worst"] == "d=640 case dv"
-    assert dkv["held"]["checks"] == 1 and 0.5 < dkv["held"]["max_allowance_share"] < 0.55
-    dq = chip_smoke.KNOWN_FAULTS["attention_bwd_dq_wide"]["recorded"]
-    assert (dq["checks"], dq["over_allowance"], dq["max_allowance_share"]) == (1, 0, 0.0)
-    with pytest.raises(RuntimeError, match="kernel disagrees"):
-        chip_smoke.check_close(torch, "d=640 case dv", past, want, torch.bfloat16)
-    with pytest.raises(RuntimeError, match="non-finite"):
-        chip_smoke.note_bf16_wide_backward(torch, "d=640 case dk", want / 0.0 * 0.0, want,
-                                           held=False)

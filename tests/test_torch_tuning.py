@@ -427,3 +427,56 @@ def test_tune_sweep_writes_a_valid_table_that_serves(tmp_path, capsys):
     assert all(torch.equal(r, torch.full((256,), 2.0)) for r in res)
     assert mpit.pvar_read("tuned_table_hits") - h0 == 2
     assert tuning.last_decision()["source"] == "table:trusted"
+
+
+def test_tune_sweep_records_its_parts(tmp_path):
+    """The sweep's parts land in ``generated.parts_s``: each local leg, and
+    for the launched shm world the import of its one launched process, each
+    forked rank's start, CUDA context (none here) and ``init()``, each band
+    and the teardown; they account for the sweep's wall."""
+    out = tmp_path / "table.json"
+    assert tune.main(["--device", "cpu", "--transports", "local,shm", "--ranks", "2,3",
+                      "--sizes", "1024", "--iters", "1", "--out", str(out)]) == 0
+    gen = json.loads(out.read_text())["generated"]
+    parts = gen["parts_s"]
+    assert set(parts["local"]) == {"2", "3"}
+    shm = parts["shm"]
+    assert len(shm["ranks"]) == 3 and set(shm["bands"]) == {"2", "3"}
+    assert all(set(r) == {"fork", "cuda", "init"} and min(r.values()) >= 0 for r in shm["ranks"])
+    assert min(shm["imports"], shm["teardown"]) >= 0
+    launched = shm["imports"] + max(sum(r.values()) for r in shm["ranks"]) + \
+        sum(shm["bands"].values()) + shm["teardown"]
+    assert sum(parts["local"].values()) + launched <= gen["wall_s"] + 0.5
+
+
+def test_tune_leg_world_ends_when_a_rank_fails(tmp_path):
+    """The launched process of a sweep world forks its ranks; a rank that
+    fails (here: a socket leg in an shm world) ends the world with a nonzero
+    exit code, and no rank is left running."""
+    from mpi_tpu_torch import launcher
+
+    argv = ["-m", "mpi_tpu_torch.tools.tune", "--leg", "socket", "--leg-out",
+            str(tmp_path / "cells.json"), "--ranks", "2", "--sizes", "1024", "--iters", "1"]
+    (tmp_path / "cells.json.go").write_text("0")  # the sweep lets it go at once
+    assert launcher.launch(1, argv, timeout=120.0, backend="shm", device="cpu") != 0
+    assert not (tmp_path / "cells.json").exists()
+    left = subprocess.run(["pgrep", "-f", str(tmp_path)], capture_output=True, text=True)
+    assert left.stdout.strip() == ""
+
+
+def test_tune_sweep_ends_its_worlds_when_a_leg_fails(monkeypatch):
+    """The launched worlds start with the sweep and import while the local
+    legs run; a local leg that fails ends the sweep with its error, and the
+    world it never reached ends unmeasured (no rank forked, no process
+    left)."""
+    from mpi_tpu_torch.transport import local
+
+    def failing(*args, **kwargs):
+        raise RuntimeError("a local leg failed")
+
+    monkeypatch.setattr(local, "run_local", failing)
+    with pytest.raises(RuntimeError, match="a local leg failed"):
+        tune.sweep(("local", "shm"), ranks=(2,), sizes=(1024,), device="cpu", iters=1)
+    left = subprocess.run(["pgrep", "-f", "mpi_tpu_torch.tools.tune --leg"],
+                          capture_output=True, text=True)
+    assert left.stdout.strip() == ""
