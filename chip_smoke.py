@@ -109,7 +109,10 @@ ok line:
     blocks, and of 3 blocks of 3 passes each, of the forward and of the
     backward), forward (out and lse) and backward (dq, dk, dv), with the
     tolerances of ``check_close`` (Sb = 8, 16, 48 and 112 end in a partial
-    tile; the grid is ``parity_grid``);
+    tile; the grid is ``parity_grid``); then the bf16 backward at d = 128,
+    causal, on the split check's inputs (``SPLIT_SEEDS`` x
+    ``SPLIT_SHAPES``, numpy draws as tests/test_torch_attention_split.py
+    makes them), held the same way and its largest share recorded;
 12. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
     float32 (the record): the forward (out and lse) and the backward
     kernels against the plain version (see ``check_close``), the backward
@@ -127,7 +130,8 @@ ok line:
     TFLOP/s, the rate of a float32-accurate product split into three TF32
     tensor-core products, as every attention kernel multiplies; bytes over
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
-    (``FLOOR_FLOPS_PER_ENTRY``);
+    (``FLOOR_FLOPS_PER_ENTRY``); for bfloat16 also the backward pair's
+    time over SDPA's backward and its kernels' registers and spills;
 12a. the forms above d = 256 (``csrc/attention_wide.cu``,
     ``csrc/attention_bwd_wide.cu``) on their main paths: the wide-head
     serving leg, ``serving_program`` through ``run(..., nranks=8)`` at
@@ -545,6 +549,9 @@ def ptxas_table(reports):
                 if k:
                     cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f' else 'bf16'}, "
                                      f"{k.group(3)}>")
+                k = re.search(r"\d(attn_bwd_d[a-z]+)_bf16_kernelILi(\d+)E", m.group(1))
+                if k:
+                    cur["kernel"] = f"{k.group(1)}_bf16_kernel<bf16, {k.group(2)}>"
                 k = re.search(r"\d(attn_[a-z_]+_wide)_(bf16|f32)E", m.group(1))
                 if k:
                     cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f32' else 'bf16'}, "
@@ -665,6 +672,11 @@ def attention_bound(kind, dtype_bytes, peak, shape, reads, writes):
 
 # the largest share of its allowance that any comparison used, by kind
 ALLOWANCE_USED = {}
+# the narrow bf16 backward's split check: (P, query heads, K/V heads, Sb) at
+# d = 128, causal, inputs drawn by numpy's RandomState(seed) as
+# tests/test_torch_attention_split.py draws them (SPLIT_SHAPES there)
+SPLIT_SEEDS = range(101, 107)
+SPLIT_SHAPES = ((4, 8, 1, 64), (8, 4, 1, 32), (4, 4, 2, 64))
 
 
 def parity_grid(f32):
@@ -757,6 +769,7 @@ def attention_phases(torch, dev, gen, record, paths):
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     import mpi_tpu_torch
+    from mpi_tpu_torch import _build
     from mpi_tpu_torch.examples import long_context_training as lct
     from mpi_tpu_torch.gpu import attention
 
@@ -880,6 +893,25 @@ def attention_phases(torch, dev, gen, record, paths):
     check_close(torch, "bf16 views off 16 bytes: out", out,
                 attention.ring_attention_plain(*views, causal=True), torch.bfloat16)
     record["attention_misaligned_view_forward"] = "bitwise equal to the aligned copies"
+    # the narrow bf16 backward on the split check's seeds (P and dS as two
+    # bf16 terms), held by the same allowance
+    split_used = 0.0
+    for seed in SPLIT_SEEDS:
+        rs = np.random.RandomState(seed)
+        for n, hq, hkv, sb in SPLIT_SHAPES:
+            q, k, v, do = (torch.from_numpy(rs.randn(n, h, sb, 128).astype(np.float32))
+                           .to(dev).to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+            pout, plse = attention.ring_attention_plain(q, k, v, causal=True, with_lse=True)
+            grads = attention.ring_attention_bwd_world(q, k, v, pout, plse, do, causal=True)
+            pgrads = attention.ring_attention_bwd_plain(q, k, v, pout, plse, do, causal=True)
+            for nm, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
+                case = f"seed {seed} {n}x{hq}/{hkv}x{sb} {nm}"
+                split_used = max(split_used, allowance_share(torch, case, a, b, torch.bfloat16)[1])
+                check_close(torch, case, a, b, torch.bfloat16)
+    record["attention_split_seeds"] = {"seeds": list(SPLIT_SEEDS), "shapes": SPLIT_SHAPES,
+                                       "largest_share": split_used}
+    log(f"narrow bf16 backward on seeds {SPLIT_SEEDS.start}-{SPLIT_SEEDS.stop - 1}: largest "
+        f"share of the allowance {split_used:.4f}")
     record["attention_parity_cases"] = n_cases
     record["attention_parity_wide"] = {"cases": n_wide, "s": t_wide}
     log(f"attention parity: {n_cases} cases (forward and backward) within tolerance, "
@@ -983,6 +1015,14 @@ def attention_phases(torch, dev, gen, record, paths):
             key, rate = ("bf16", BF16_FLOPS) if dtype == torch.bfloat16 else ("f32", TF32_FLOPS)
             t[f"{kind}_design_floor_ms"] = (FLOOR_FLOPS_PER_ENTRY[key][kind] * shape[4]
                                             * causal_entries(shape) / rate * 1e3)
+        if dtype == torch.bfloat16:
+            # the narrow bf16 backward's pair against SDPA's backward, and its
+            # kernels' registers and spills (ptxas)
+            t["bwd_pair_over_library"] = (t["bwd_dq"] + t["bwd_dkv"]) / t["library_bwd"]
+            t["bwd_ptxas"] = {row["kernel"]: (row.get("registers"), row.get("spill_stores"),
+                                              row.get("spill_loads"))
+                              for row in ptxas_table(_build.PTXAS_REPORT)
+                              if "_bf16_kernel<" in row.get("kernel", "")}
         timing[tag] = t
         log(f"attention timing {tag}: " + ", ".join(
             f"{key} {val:.3f}" if isinstance(val, float) else f"{key} {val}"

@@ -44,34 +44,66 @@
 // Design.  On one card all ranks' blocks share one memory, so no block
 // travels: a thread block reads the blocks its ring would have delivered,
 // in the order it would have delivered them.  Every block owns its outputs
-// (no atomics, deterministic sums).
-//   attn_bwd_dkv: one block per (owner block j, K/V head, 64-row K tile,
-//   128-column half of d).  K and V stay resident; the block walks the
-//   visiting ranks, the GQA heads and the Q/dO tiles (on the diagonal only
-//   q-tiles that reach the k-tile), staged by cp.async.  dK and dV
-//   accumulate in registers (64 x 128 float32 each: 64 registers a thread)
-//   and are written once.  At d = 256 the two column halves are two blocks,
-//   each recomputing S^T and dP^T: a 64 x 256 tile would need 128 registers
-//   a thread for each of dK and dV.
-//   attn_bwd_dq: one block per (rank, query head, 64-row Q tile); Q and dO
-//   stay resident, the K/V tiles of the arrivals stream through in ring
-//   order.  Under causal masking rank g-1 has g arrivals and rank 0 one, so
-//   the grid starts the heaviest blocks first (last rank, last q-tile).
-//   bf16 (one warpgroup of 128 threads): tiles of 64 rows in the 128-byte
-//   swizzle (hopper.cuh), two stages of the streamed tiles.  S^T = K Q^T
-//   (dkv) or S = Q K^T (dq) and the dP products are m64n64k16 wgmmas with
-//   both operands K-major in shared memory; P and dS never leave registers:
-//   their accumulator fragments are split into hi/lo A operands of
-//   m64n128k16 wgmmas whose B (dO, Q or K, MN-major for this product) is the
-//   same swizzled tile read with the transpose bit.  Shared memory 1 KB
-//   alignment + 6 tiles of 64 x d bf16 + 1 KB of lse/delta rows: 100 352
-//   bytes at d = 128 (two blocks an SM), 198 656 at d = 256.
-//   float32 (four warps of 16 rows): resident tiles of 64 rows and one stage
-//   of 32-row streamed tiles, row stride d + 4: (2 x 64 + 2 x 32) (d + 4) x 4
-//   + 256 bytes = 101 632 at d = 128 (two blocks an SM), 199 936 at d = 256.
-//   The accumulator of P or dS is the A operand of the next m16n8k8 with its
-//   k index permuted (k = t <-> column 2t, k = t + 4 <-> 2t + 1); the B rows
-//   are read in the same permutation.
+// (no atomics, deterministic sums).  attn_bwd_dkv's block holds a K/V tile
+// and walks the visiting ranks, the GQA heads and the Q/dO tiles (on the
+// diagonal only q-tiles that reach the k-tile); attn_bwd_dq's holds a Q/dO
+// tile and walks the arrivals' K/V tiles in ring order, the heaviest blocks
+// first (under causal masking rank g-1 has g arrivals and rank 0 one).
+//   bf16 (attn_bwd_dq_bf16_kernel, attn_bwd_dkv_bf16_kernel): 384 threads,
+//   one block an SM.  A producer warpgroup gives its registers to the two
+//   consumer warpgroups (setmaxnreg, 40 and 232 a thread), and one of its
+//   threads keeps the streamed tiles in flight by TMA (3-D tensor maps,
+//   128-byte swizzle, rows past Sb read as zeros; lse and delta by 1-D
+//   maps) into NS stages with full and empty mbarriers; the consumers issue
+//   no copy and pass no block-wide barrier.  S (S^T) and dP (dP^T) are
+//   m64nTS wgmmas with both tiles K-major in shared memory; P and dS are
+//   split into hi and lo bf16 A operands of m64n128k16 wgmmas whose B (dO,
+//   Q or K, MN-major for this product) is the streamed tile read with the
+//   transpose bit.  Products stay in flight under the gradient math, in
+//   each warpgroup: tile i's S and dP products are issued before tile
+//   i - 1's output products, so while the warpgroup turns tile i's S and dP
+//   into P and dS, the tensor core runs tile i - 1's output products
+//   (wgmma_wait<1>, then wgmma_wait<0> before tile i's fragments are
+//   written; see the consumers' loop); the two warpgroups,
+//   each on its own tiles, fill each other's gaps.  The other way,
+//   ping-pong of the warpgroups on named barriers, orders the two
+//   warpgroups' math against each other's products but leaves each
+//   warpgroup's own products waiting on its math; here a warpgroup's
+//   products run under its own math, with no barrier a tile.
+//   attn_bwd_dq: 128 Q rows a block, 64 a warpgroup (dQ: 64 or 128
+//   registers a thread), K/V tiles of TS = 64 rows (d = 128, NS = 4) or 32
+//   (d = 256, NS = 3, so that 128 rows of Q and dO fit beside them); dS
+//   stays in registers (the A operand of dS K).
+//   attn_bwd_dkv: Q/dO tiles of TS = 32 rows with their lse and delta,
+//   NS = 4: S^T and dP^T (32 registers a thread), the output accumulators
+//   (128) and tile i - 1's P and dS fragments in flight (32) fit the
+//   consumers' 232 registers (with 64-row tiles they spilled).  At d = 128:
+//   128 K rows a block, 64 a warpgroup with its dK and dV.  At d = 256 a
+//   64 x 256 float32 accumulator is 128 registers
+//   a thread, so the block keeps 64 K rows and gives each warpgroup one
+//   output: warpgroup 0 forms S^T, P and dV += P^T dO, warpgroup 1 dP^T,
+//   dS and dK += dS^T Q, so S^T and dP^T are formed once a K tile (the
+//   earlier form ran a block for each 128-column half, each forming both);
+//   P goes to warpgroup 1 through shared memory (two tile parities, named
+//   barriers).
+//   The order of every sum is the earlier one-warpgroup form's: S and dP one
+//   tensor-core chain over d; an output one tensor-core accumulator over
+//   the whole walk, per 16-row k step its lo then hi product.  A 128-row
+//   block adds exact zeros where its rows lie past the diagonal or Sb.
+//   Bound: the reference's 6d (dq) and 8d (dkv) flops an entry; the hi/lo
+//   split doubles the output products, a design floor of 8d and 12d, 1.33x
+//   and 1.5x the bound (2x over both kernels' 10d).  Shared memory
+//   (DqBf16Plan, DkvBf16Plan): 197 696 / 230 464 bytes (dq, d = 128 / 256),
+//   133 184 / 215 104 (dkv).
+//   float32 (four warps of 16 rows): one block per (rank, head, 64-row
+//   tile) for dq and per (owner, K/V head, 64-row K tile, 128-column half
+//   of d) for dkv (dK and dV, 64 x 128 float32 each: 64 registers a
+//   thread); resident tiles of 64 rows and one stage of 32-row streamed
+//   tiles staged by cp.async, row stride d + 4: (2 x 64 + 2 x 32) (d + 4) x
+//   4 + 256 bytes = 101 632 at d = 128 (two blocks an SM), 199 936 at d =
+//   256.  The accumulator of P or dS is the A operand of the next m16n8k8
+//   with its k index permuted (k = t <-> column 2t, k = t + 4 <-> 2t + 1);
+//   the B rows are read in the same permutation.
 
 #include <math.h>
 
@@ -81,267 +113,566 @@
 
 namespace {
 
-template <int D> struct Bf16Plan {
-  static constexpr int T = 64, TILE = T * D * 2;
-  static constexpr int SMEM = 1024 + 6 * TILE + 4 * T * 4;
-};
 template <int D> struct F32Plan {
   static constexpr int T = 64, TS = 32, LD = D + 4;
   static constexpr int SMEM = (2 * T + 2 * TS) * LD * 4 + 2 * TS * 4;
 };
 
-// ----------------------------------------------------------- bf16: dK, dV
-template <int D>
-__device__ __forceinline__ void dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                         const bf16* __restrict__ v,
-                                         const bf16* __restrict__ dout,
-                                         const float* __restrict__ lse,
-                                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                                         bf16* __restrict__ dv, Geo geo) {
-  constexpr int T = Bf16Plan<D>::T, TILE = Bf16Plan<D>::TILE, NH = D / 128;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* Ks = align1024(smem_raw);
-  uint8_t* Vs = Ks + TILE;
-  uint8_t* St = Vs + TILE;  // stage s: Q at St + 2s TILE, dO one TILE later
-  float* Rows = reinterpret_cast<float*>(St + 4 * TILE);  // stage s: lse at 2sT, delta T later
-  const int warp = threadIdx.x / 32, g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int kt = blockIdx.x / NH, n0 = (blockIdx.x % NH) * 128;
-  const int member = blockIdx.z, j = member % geo.g;  // the K/V block's owner
-  const int* G = geo.groups + (member - j);
-  const int kvh = blockIdx.y, rep = geo.hq / geo.hkv, sb = geo.sb, k0 = kt * T;
-  const long long kv_row0 = ((long long)G[j] * geo.hkv + kvh) * sb + k0;
-  const DkvWalk walk(geo, j, k0, T);
-
-  stage_bf16<T, D>(Ks, k + kv_row0 * D, sb - k0);
-  stage_bf16<T, D>(Vs, v + kv_row0 * D, sb - k0);
-  auto fetch = [&](int i) {
-    int arr, t, qt;
-    walk.at(i, arr, t, qt);
-    const int r = (j + arr) % geo.g, q0 = qt * T, s = i & 1;
-    const long long row0 = ((long long)G[r] * geo.hq + kvh * rep + t) * sb + q0;
-    stage_bf16<T, D>(St + 2 * s * TILE, q + row0 * D, sb - q0);
-    stage_bf16<T, D>(St + (2 * s + 1) * TILE, dout + row0 * D, sb - q0);
-    stage_rows<T>(Rows + 2 * s * T, lse + row0, sb - q0);
-    stage_rows<T>(Rows + (2 * s + 1) * T, delta + row0, sb - q0);
-    cp_async_commit();
-  };
-  fetch(0);  // K and V travel in the first group
-
-  float adk[64], adv[64];
-#pragma unroll
-  for (int e = 0; e < 64; ++e) adk[e] = adv[e] = 0.f;
-  const uint32_t ka = smem_addr(Ks), va = smem_addr(Vs);
-  for (int i = 0; i < walk.total; ++i) {
-    if (i + 1 < walk.total) {
-      fetch(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_async_shared();
-    __syncthreads();
-    int arr, t, qt;
-    walk.at(i, arr, t, qt);
-    const int s = i & 1, q0 = qt * T;
-    const bool diag = geo.causal && arr == 0;
-    const uint32_t qa = smem_addr(St + 2 * s * TILE), oa = qa + TILE;
-
-    // S^T = K Q^T, dP^T = V dO^T (rows: k, columns: q)
-    float st[32], dpt[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
-    reg_fence(st);
-    reg_fence(dpt);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t off = (ks / 4) * (T * 128) + (ks % 4) * 32;
-      wgmma_m64n64k16_ss(st, desc_kmajor(ka + off), desc_kmajor(qa + off));
-      wgmma_m64n64k16_ss(dpt, desc_kmajor(va + off), desc_kmajor(oa + off));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(st);
-    reg_fence(dpt);
-
-    const float* L = Rows + 2 * s * T;
-    const float* Dl = L + T;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 8 * jj + 2 * t4 + c, qi = q0 + col;
-        const float lq = L[col], dq = Dl[col];
-#pragma unroll
-        for (int ii = 0; ii < 2; ++ii) {
-          const int e = 4 * jj + 2 * ii + c, kj = k0 + 16 * warp + g4 + 8 * ii;
-          grad_entry(st[e], dpt[e], lq, dq, geo.scale, qi >= sb || (diag && kj > qi));
-        }
-      }
-    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      acc_to_frag(st, kk, ph[kk], pl[kk]);
-      acc_to_frag(dpt, kk, dh[kk], dl[kk]);
-    }
-
-    // dV += P^T dO, dK += dS^T Q over this tile's 64 q rows (the k steps)
-    reg_fence(adk);
-    reg_fence(adv);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t off = (n0 / 64) * (T * 128) + kk * 2048;
-      const uint64_t bo = desc_mnmajor(oa + off, T), bq = desc_mnmajor(qa + off, T);
-      wgmma_m64n128k16_rs_tb(adv, pl[kk], bo);
-      wgmma_m64n128k16_rs_tb(adv, ph[kk], bo);
-      wgmma_m64n128k16_rs_tb(adk, dl[kk], bq);
-      wgmma_m64n128k16_rs_tb(adk, dh[kk], bq);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(adk);
-    reg_fence(adv);
-    __syncthreads();  // this stage is free for the tile after next
+// ------------------------------------------------------------------- bf16
+// The bf16 kernels: a producer warpgroup, one thread of which issues every
+// TMA load, and two consumer warpgroups (kClusterThreads threads, no
+// cluster; setmaxnreg moves the producers' registers to the consumers).
+// The block's shared memory, in the plan's order (1024-byte aligned, the
+// swizzle's need): the own tiles, NS stages of the streamed tiles, the
+// exchange region (dK/dV), the lse and delta rows of each stage (dK/dV),
+// the mbarriers.
+template <typename Plan>
+struct Bf16Smem {
+  uint8_t* own;        // [2][T x D]: Q and dO (dq), K and V (dkv)
+  uint8_t* stage;      // NS x [2][TS x D]: K and V (dq), Q and dO (dkv)
+  uint8_t* xch;        // dkv at d = 256: P of two tile parities
+  float* rows;         // NS x [2][TS]: lse and delta of a stage's q rows (dkv)
+  uint64_t* full;      // [NS]: a stage's loads landed
+  uint64_t* empty;     // [NS]: the consumers are done with a stage
+  uint64_t* own_full;  // the own tiles landed
+  __device__ explicit Bf16Smem(uint8_t* raw) {
+    own = align1024(raw);
+    stage = own + Plan::OWN;
+    xch = stage + Plan::NS * Plan::STAGE;
+    rows = reinterpret_cast<float*>(xch + Plan::XCH);
+    full = reinterpret_cast<uint64_t*>(xch + Plan::XCH + Plan::NS * Plan::ROWS);
+    empty = full + Plan::NS;
+    own_full = empty + Plan::NS;
   }
-#pragma unroll
-  for (int jj = 0; jj < 16; ++jj)
-#pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int row = 16 * warp + g4 + 8 * ii, e = 4 * jj + 2 * ii;
-      if (k0 + row >= sb) continue;
-      const long long at = (kv_row0 + row) * D + n0 + 8 * jj + 2 * t4;
-      store2(dk + at, adk[e], adk[e + 1]);
-      store2(dv + at, adv[e], adv[e + 1]);
+  // one thread, before anything else
+  __device__ void init() const {
+    for (int s = 0; s < Plan::NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
     }
+    mbar_init(own_full, 1);
+    fence_mbar_init();
+  }
+};
+
+// The producer: thread kConsumers loads the own tiles (`own`), then tile n
+// of the walk into stage n % NS (`unit`) once the consumers have released
+// the tile the stage held before.  (ring_attention.cuh's produce also
+// passes the cluster forms' barriers: these blocks have none.)
+template <int NS, typename Own, typename Unit>
+__device__ __forceinline__ void stream_tiles(int tiles, uint64_t* empty, Own own, Unit unit) {
+  if (threadIdx.x != kConsumers) return;
+  own();
+  for (int n = 0; n < tiles; ++n) {
+    const int s = n % NS;
+    if (n >= NS) mbar_wait(empty + s, (n / NS - 1) & 1);
+    unit(n, s);
+  }
 }
 
+// v, opaque to the compiler: descriptors built from it are built again at
+// each use, not hoisted out of the loop into registers
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// acc (m64nN) = A B^T over d: A the warpgroup's 64 rows of an own tile of
+// T rows (at a), B a streamed tile of N rows (at b), both K-major; one
+// tensor-core chain over d
+template <int D, int T, int N>
+__device__ __forceinline__ void rows_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint64_t da = desc_kmajor(opaque(a) + (ks / 4) * (T * 128) + (ks % 4) * 32);
+    const uint64_t db = desc_kmajor(b + (ks / 4) * (N * 128) + (ks % 4) * 32);
+    if constexpr (N == 64) wgmma_m64n64k16_ss(acc, da, db, ks > 0);
+    else wgmma_m64n32k16_ss(acc, da, db, ks > 0);
+  }
+}
+
+// The consumers' walks, stepped a tile at a time (walk.at divides)
+struct DqCursor {
+  int arr = 0, kt = 0;
+  __device__ void next(const DqWalk& w) {
+    if (++kt < (arr == 0 ? w.first : w.nk)) return;
+    kt = 0;
+    ++arr;
+  }
+};
+struct DkvCursor {
+  int arr, t, qt;
+  __device__ explicit DkvCursor(const DkvWalk& w) : arr(0), t(0), qt(w.qs) {}
+  __device__ void next(const DkvWalk& w, int rep) {
+    if (++qt < w.nq) return;
+    qt = arr == 0 ? w.qs : 0;
+    if (++t < rep) return;
+    t = qt = 0;
+    ++arr;
+  }
+};
+
+// P of a score entry, 2^(s scale log2(e) - lse log2(e)) by ex2.approx
+// (within 2 ulp; results below 2^-126 flush to 0), from scale2 = scale
+// log2(e) and lse2 = lse log2(e); 0 where masked
+__device__ __forceinline__ float prob(float s, float scale2, float lse2, bool masked) {
+  float p;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(s * scale2 - lse2));
+  return masked ? 0.f : p;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) x[e] = 0.f;
+  reg_fence(x);
+}
+
+// The consumers' loop, in each bf16 form: iteration i issues tile i's S
+// and dP products, then tile i - 1's output products, one commit group
+// each; wgmma_wait<1> finds S and dP done and leaves the outputs running on
+// the tensor core while the warpgroup turns S and dP into P and dS (the
+// exponentials, the masks); wgmma_wait<0> then frees tile i - 1's stage and
+// fragments, and P and dS are split into tile i's.  No group is in flight across the loop's back edge: where one
+// was (tile i + 1's S and dP issued before tile i's outputs), ptxas
+// serialised every wgmma of the kernel (C7514, on the first builds).
+
 // --------------------------------------------------------------- bf16: dQ
+// A block per (rank, query head, 128-row Q tile), the heaviest first (the
+// last rank of a group, its last q-tile); warpgroup wg owns Q rows 64 wg ..
+// 64 wg + 63 and their dQ (NH x 64 registers a thread).  K and V stream in
+// TS-row tiles (DqWalk).
+template <int D> struct DqBf16Plan {
+  static constexpr int T = 128, TS = D == 128 ? 64 : 32, NS = D == 128 ? 4 : 3,
+      OWN = 2 * T * D * 2, STAGE = 2 * TS * D * 2, XCH = 0, ROWS = 0, BARS = 64;
+  static constexpr int SMEM = 1024 + OWN + NS * STAGE + XCH + NS * ROWS + BARS;
+};
+
 template <int D>
-__device__ __forceinline__ void dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                        const bf16* __restrict__ v,
-                                        const bf16* __restrict__ dout,
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                                        Geo geo) {
-  constexpr int T = Bf16Plan<D>::T, TILE = Bf16Plan<D>::TILE, NH = D / 128;
+__global__ void __launch_bounds__(kClusterThreads, 1)
+attn_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                        const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, Geo geo) {
+  using Plan = DqBf16Plan<D>;
+  constexpr int T = Plan::T, TS = Plan::TS, NS = Plan::NS, NH = D / 128, NB = D / 64;
+  constexpr int OWN1 = Plan::OWN / 2, HALF = Plan::STAGE / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* Qs = align1024(smem_raw);
-  uint8_t* Os = Qs + TILE;
-  uint8_t* St = Os + TILE;  // stage s: K at St + 2s TILE, V one TILE later
-  const int warp = threadIdx.x / 32, g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  // the heaviest blocks first: the last rank of a group, its last q-tile
+  const Bf16Smem<Plan> sm(smem_raw);
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int grp = blockIdx.z / geo.g, r = geo.g - 1 - blockIdx.z % geo.g;
   const int* G = geo.groups + grp * geo.g;
   const int h = blockIdx.y, kvh = h / (geo.hq / geo.hkv), sb = geo.sb, q0 = qt * T;
-  const long long row0 = ((long long)G[r] * geo.hq + h) * sb;
-  const DqWalk walk(geo, r, q0, T, T);
+  const int zq = G[r] * geo.hq + h;  // the query head's plane
+  const long long row0 = (long long)zq * sb;
+  const DqWalk walk(geo, r, q0, T, TS);
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
 
-  stage_bf16<T, D>(Qs, q + (row0 + q0) * D, sb - q0);
-  stage_bf16<T, D>(Os, dout + (row0 + q0) * D, sb - q0);
-  auto fetch = [&](int i) {
-    int arr, kt;
-    walk.at(i, arr, kt);
-    const int jb = (r - arr + geo.g) % geo.g, s = i & 1;
-    const long long kv = ((long long)G[jb] * geo.hkv + kvh) * sb + kt * T;
-    stage_bf16<T, D>(St + 2 * s * TILE, k + kv * D, sb - kt * T);
-    stage_bf16<T, D>(St + (2 * s + 1) * TILE, v + kv * D, sb - kt * T);
-    cp_async_commit();
-  };
-  fetch(0);  // Q and dO travel in the first group
-
-  float L[2], Dl[2];
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    stream_tiles<NS>(
+        walk.total, sm.empty,
+        [&] {
+          mbar_expect_tx(sm.own_full, Plan::OWN);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(sm.own + cb * T * 128, &mq, sm.own_full, 64 * cb, q0, zq);
+            tma_load_3d(sm.own + OWN1 + cb * T * 128, &mo, sm.own_full, 64 * cb, q0, zq);
+          }
+        },
+        [&](int n, int s) {
+          int arr, kt;
+          walk.at(n, arr, kt);
+          const int z = G[(r - arr + geo.g) % geo.g] * geo.hkv + kvh, y = kt * TS;
+          uint8_t* st = sm.stage + s * Plan::STAGE;
+          mbar_expect_tx(sm.full + s, Plan::STAGE);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(st + cb * TS * 128, &mk, sm.full + s, 64 * cb, y, z);
+            tma_load_3d(st + HALF + cb * TS * 128, &mv, sm.full + s, 64 * cb, y, z);
+          }
+        });
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4,
+              t4 = t % 4;
+    const int qw = q0 + 64 * wg;  // the warpgroup's first row
+    float L[2], Dl[2];
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int qi = q0 + 16 * warp + g4 + 8 * ii;
-    L[ii] = qi < sb ? lse[row0 + qi] : 0.f;
-    Dl[ii] = qi < sb ? delta[row0 + qi] : 0.f;
+    for (int ii = 0; ii < 2; ++ii) {
+      const int qi = qw + 16 * w + g4 + 8 * ii;
+      L[ii] = qi < sb ? lse[row0 + qi] : 0.f;
+      Dl[ii] = qi < sb ? delta[row0 + qi] : 0.f;
+    }
+    float adq[NH][64];
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) zero(adq[nh]);
+    const uint32_t qa = smem_addr(sm.own) + wg * 64 * 128, oa = qa + OWN1;
+    float s[TS / 2], dp[TS / 2];     // S = Q K^T, dP = dO V^T (rows: q, columns: k)
+    uint32_t dh[TS / 16][4], dl[TS / 16][4];  // dS, hi and lo
+    auto products = [&](int i) {
+      mbar_wait(sm.full + i % NS, (i / NS) & 1);
+      const uint32_t ka = smem_addr(sm.stage + (i % NS) * Plan::STAGE);
+      wgmma_fence();
+      rows_product<D, T, TS>(s, qa, ka);
+      rows_product<D, T, TS>(dp, oa, ka + HALF);
+      wgmma_commit();
+    };
+    const float scale2 = geo.scale * kLog2e, L2[2] = {L[0] * kLog2e, L[1] * kLog2e};
+    DqCursor cur;
+    auto grads = [&] {  // tile `cur`'s P and dS, in place; masks only where a tile needs them
+      const int k0 = cur.kt * TS;
+      const bool diag = geo.causal && cur.arr == 0;
+      auto entries = [&](auto edge) {
+        constexpr bool masks = decltype(edge)::value;
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int qi = qw + 16 * w + g4 + 8 * ii;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * jj + 2 * ii + c, kj = k0 + 8 * jj + 2 * t4 + c;
+              s[e] = prob(s[e], scale2, L2[ii],
+                          masks && (kj >= sb || qi >= sb || (diag && kj > qi)));
+              dp[e] = s[e] * (dp[e] - Dl[ii]) * geo.scale;
+            }
+          }
+      };
+      if (diag || k0 + TS > sb || qw + 64 > sb) entries(std::true_type());
+      else entries(std::false_type());
+      cur.next(walk);
+    };
+    auto output = [&](int i) {  // dQ += dS K over tile i's TS k rows, by 128-column half
+      const uint32_t ka = smem_addr(sm.stage + (i % NS) * Plan::STAGE);
+      wgmma_fence();
+#pragma unroll
+      for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+        for (int kk = 0; kk < TS / 16; ++kk) {
+          const uint64_t bk = desc_mnmajor(ka + 2 * nh * (TS * 128) + kk * 2048, TS);
+          wgmma_m64n128k16_rs_tb(adq[nh], dl[kk], bk);
+          wgmma_m64n128k16_rs_tb(adq[nh], dh[kk], bk);
+        }
+      wgmma_commit();
+    };
+    mbar_wait(sm.own_full, 0);
+    products(0);
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    grads();
+#pragma unroll
+    for (int kk = 0; kk < TS / 16; ++kk) acc_to_frag(dp, kk, dh[kk], dl[kk]);
+#pragma unroll 1
+    for (int i = 1; i < walk.total; ++i) {
+      products(i);
+      output(i - 1);
+      wgmma_wait<1>();  // tile i's S and dP; tile i - 1's dQ product runs on
+      reg_fence(s);
+      reg_fence(dp);
+      grads();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int nh = 0; nh < NH; ++nh) reg_fence(adq[nh]);
+      mbar_arrive(sm.empty + (i - 1) % NS);
+#pragma unroll
+      for (int kk = 0; kk < TS / 16; ++kk) acc_to_frag(dp, kk, dh[kk], dl[kk]);
+    }
+    output(walk.total - 1);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) reg_fence(adq[nh]);
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int qi = qw + 16 * w + g4 + 8 * ii;
+      if (qi >= sb) continue;
+#pragma unroll
+      for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int e = 4 * jj + 2 * ii;
+          store2(dq + (row0 + qi) * D + 128 * nh + 8 * jj + 2 * t4, adq[nh][e], adq[nh][e + 1]);
+        }
+    }
   }
-  float adq[NH][64];
-#pragma unroll
-  for (int nh = 0; nh < NH; ++nh)
-#pragma unroll
-    for (int e = 0; e < 64; ++e) adq[nh][e] = 0.f;
-  const uint32_t qa = smem_addr(Qs), oa = smem_addr(Os);
-  for (int i = 0; i < walk.total; ++i) {
-    if (i + 1 < walk.total) {
-      fetch(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_async_shared();
-    __syncthreads();
-    int arr, kt;
-    walk.at(i, arr, kt);
-    const int k0 = kt * T;
-    const bool diag = geo.causal && arr == 0;
-    const uint32_t ka = smem_addr(St + 2 * (i & 1) * TILE), va = ka + TILE;
+}
 
-    // S = Q K^T, dP = dO V^T (rows: q, columns: k)
-    float s[32], dp[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
-    reg_fence(s);
-    reg_fence(dp);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t off = (ks / 4) * (T * 128) + (ks % 4) * 32;
-      wgmma_m64n64k16_ss(s, desc_kmajor(qa + off), desc_kmajor(ka + off));
-      wgmma_m64n64k16_ss(dp, desc_kmajor(oa + off), desc_kmajor(va + off));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(s);
-    reg_fence(dp);
+// ------------------------------------------------------------ bf16: dK, dV
+// A block per (owner j, K/V head, K tile), owners in order (owner 0 visits
+// the most ranks under causal).  Q and dO stream in TS-row tiles with their
+// lse and delta rows (DkvWalk).
+//   d = 128: a 128-row K tile; warpgroup wg owns K rows 64 wg .. 64 wg + 63
+//   and their dK and dV, and forms S^T and dP^T of its rows.
+//   d = 256: a 64-row K tile both warpgroups share, one output each (a
+//   64 x 256 float32 accumulator is 128 registers a thread): warpgroup 0
+//   forms S^T, then P, hands P to warpgroup 1 through the exchange region
+//   (two tile parities, named barriers 4 + parity "P is there" and 6 +
+//   parity "its slot is free") and sums dV += P^T dO; warpgroup 1 forms
+//   dP^T, then dS = P (dP^T - delta) scale, and sums dK += dS^T Q.
+template <int D> struct DkvBf16Plan {
+  static constexpr int T = D == 128 ? 128 : 64, TS = 32, NS = 4, OWN = 2 * T * D * 2,
+      STAGE = 2 * TS * D * 2, XCH = D == 128 ? 0 : 2 * 64 * TS * 4, ROWS = 2 * TS * 4,
+      BARS = 64;
+  static constexpr int SMEM = 1024 + OWN + NS * STAGE + XCH + NS * ROWS + BARS;
+};
 
+template <int D>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                         const __grid_constant__ CUtensorMap ml, const __grid_constant__ CUtensorMap md,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, Geo geo) {
+  using Plan = DkvBf16Plan<D>;
+  constexpr int T = Plan::T, TS = Plan::TS, NS = Plan::NS, NB = D / 64;
+  constexpr int OWN1 = Plan::OWN / 2, HALF = Plan::STAGE / 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Bf16Smem<Plan> sm(smem_raw);
+  const int kt = blockIdx.x, member = blockIdx.z, j = member % geo.g;  // the K/V block's owner
+  const int* G = geo.groups + (member - j);
+  const int kvh = blockIdx.y, rep = geo.hq / geo.hkv, sb = geo.sb, k0 = kt * T;
+  const int zk = G[j] * geo.hkv + kvh;  // the K/V head's plane
+  const long long kv_row0 = (long long)zk * sb + k0;
+  const DkvWalk walk(geo, j, k0, TS);
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    stream_tiles<NS>(
+        walk.total, sm.empty,
+        [&] {
+          mbar_expect_tx(sm.own_full, Plan::OWN);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(sm.own + cb * T * 128, &mk, sm.own_full, 64 * cb, k0, zk);
+            tma_load_3d(sm.own + OWN1 + cb * T * 128, &mv, sm.own_full, 64 * cb, k0, zk);
+          }
+        },
+        [&](int n, int s) {
+          int arr, ht, qt;
+          walk.at(n, arr, ht, qt);
+          const int z = G[(j + arr) % geo.g] * geo.hq + kvh * rep + ht, y = qt * TS;
+          uint8_t* st = sm.stage + s * Plan::STAGE;
+          float* rw = sm.rows + s * 2 * TS;
+          mbar_expect_tx(sm.full + s, Plan::STAGE + Plan::ROWS);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(st + cb * TS * 128, &mq, sm.full + s, 64 * cb, y, z);
+            tma_load_3d(st + HALF + cb * TS * 128, &mo, sm.full + s, 64 * cb, y, z);
+          }
+          tma_load_1d(rw, &ml, sm.full + s, z * sb + y);
+          tma_load_1d(rw + TS, &md, sm.full + s, z * sb + y);
+        });
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4,
+            t4 = t % 4;
+  if constexpr (D == 128) {
+    const int kw = k0 + 64 * wg;  // the warpgroup's first row
+    const uint32_t ka = smem_addr(sm.own) + wg * 64 * 128, va = ka + OWN1;
+    float adk[64], adv[64];
+    zero(adk);
+    zero(adv);
+    float st[TS / 2], dpt[TS / 2];  // S^T = K Q^T, dP^T = V dO^T (rows: k, columns: q)
+    auto products = [&](int i) {
+      mbar_wait(sm.full + i % NS, (i / NS) & 1);
+      const uint32_t qa = smem_addr(sm.stage + (i % NS) * Plan::STAGE);
+      wgmma_fence();
+      rows_product<D, T, TS>(st, ka, qa);
+      rows_product<D, T, TS>(dpt, va, qa + HALF);
+      wgmma_commit();
+    };
+    const float scale2 = geo.scale * kLog2e;
+    DkvCursor cur(walk);
+    auto grads = [&](int i) {  // tile i's P^T and dS^T, in place
+      const int q0 = cur.qt * TS;
+      const bool diag = geo.causal && cur.arr == 0;
+      const float* L = sm.rows + (i % NS) * 2 * TS;
+      const float* Dl = L + TS;
+      auto entries = [&](auto edge) {
+        constexpr bool masks = decltype(edge)::value;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = 8 * jj + 2 * t4 + c, qi = q0 + col;
+            const float l2 = L[col] * kLog2e, dl = Dl[col];
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii) {
+              const int e = 4 * jj + 2 * ii + c, kj = kw + 16 * w + g4 + 8 * ii;
+              st[e] = prob(st[e], scale2, l2, masks && (qi >= sb || (diag && kj > qi)));
+              dpt[e] = st[e] * (dpt[e] - dl) * geo.scale;
+            }
+          }
+      };
+      if (diag || q0 + TS > sb) entries(std::true_type());
+      else entries(std::false_type());
+      cur.next(walk, rep);
+    };
+    uint32_t ph[TS / 16][4], pl[TS / 16][4], dh[TS / 16][4], dl[TS / 16][4];
+    auto frags = [&] {  // P^T and dS^T, hi and lo, as A fragments
+#pragma unroll
+      for (int kk = 0; kk < TS / 16; ++kk) {
+        acc_to_frag(st, kk, ph[kk], pl[kk]);
+        acc_to_frag(dpt, kk, dh[kk], dl[kk]);
+      }
+    };
+    auto outputs = [&](int i) {  // dV += P^T dO, dK += dS^T Q over tile i's TS q rows
+      const uint32_t qa = smem_addr(sm.stage + (i % NS) * Plan::STAGE), oa = qa + HALF;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TS / 16; ++kk) {
+        const uint64_t bo = desc_mnmajor(oa + kk * 2048, TS), bq = desc_mnmajor(qa + kk * 2048, TS);
+        wgmma_m64n128k16_rs_tb(adv, pl[kk], bo);
+        wgmma_m64n128k16_rs_tb(adv, ph[kk], bo);
+        wgmma_m64n128k16_rs_tb(adk, dl[kk], bq);
+        wgmma_m64n128k16_rs_tb(adk, dh[kk], bq);
+      }
+      wgmma_commit();
+    };
+    mbar_wait(sm.own_full, 0);
+    products(0);
+    wgmma_wait<0>();
+    reg_fence(st);
+    reg_fence(dpt);
+    grads(0);
+    frags();
+#pragma unroll 1
+    for (int i = 1; i < walk.total; ++i) {
+      products(i);
+      outputs(i - 1);
+      wgmma_wait<1>();  // tile i's S^T and dP^T; tile i - 1's outputs run on
+      reg_fence(st);
+      reg_fence(dpt);
+      grads(i);
+      wgmma_wait<0>();  // tile i - 1's fragments and stage are free
+      reg_fence(adk);
+      reg_fence(adv);
+      mbar_arrive(sm.empty + (i - 1) % NS);
+      frags();
+    }
+    outputs(walk.total - 1);
+    wgmma_wait<0>();
+    reg_fence(adk);
+    reg_fence(adv);
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
 #pragma unroll
       for (int ii = 0; ii < 2; ++ii) {
-        const int qi = q0 + 16 * warp + g4 + 8 * ii;
+        const int row = 64 * wg + 16 * w + g4 + 8 * ii, e = 4 * jj + 2 * ii;
+        if (k0 + row >= sb) continue;
+        const long long at_out = (kv_row0 + row) * D + 8 * jj + 2 * t4;
+        store2(dk + at_out, adk[e], adk[e + 1]);
+        store2(dv + at_out, adv[e], adv[e + 1]);
+      }
+  } else {
+    const uint32_t xa = smem_addr(sm.own + wg * OWN1);  // K (warpgroup 0) or V
+    float* px = reinterpret_cast<float*>(sm.xch);       // P of parity p at px + p 64 TS
+    float acc[2][64];                                   // dV or dK, by 128-column half
+    zero(acc[0]);
+    zero(acc[1]);
+    float x[TS / 2];  // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T
+    uint32_t fh[TS / 16][4], fl[TS / 16][4];  // P or dS, hi and lo
+    auto products = [&](int i) {
+      mbar_wait(sm.full + i % NS, (i / NS) & 1);
+      wgmma_fence();
+      rows_product<D, T, TS>(x, xa, smem_addr(sm.stage + (i % NS) * Plan::STAGE + wg * HALF));
+      wgmma_commit();
+    };
+    const float scale2 = geo.scale * kLog2e;
+    DkvCursor cur(walk);
+    auto grads = [&](int i) {  // warpgroup 0: P, handed over; warpgroup 1: dS; in place
+      const int q0 = cur.qt * TS, par = i & 1;
+      const bool diag = geo.causal && cur.arr == 0;
+      cur.next(walk, rep);
+      const float* R = sm.rows + (i % NS) * 2 * TS + wg * TS;  // lse or delta
+      float4* slot = reinterpret_cast<float4*>(px + par * 64 * TS);
+      if (wg == 0) {
+        auto entries = [&](auto edge) {
+          constexpr bool masks = decltype(edge)::value;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 4 * jj + 2 * ii + c, kj = k0 + 8 * jj + 2 * t4 + c;
-          grad_entry(s[e], dp[e], L[ii], Dl[ii], geo.scale,
-                     kj >= sb || qi >= sb || (diag && kj > qi));
+          for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int col = 8 * jj + 2 * t4 + c, qi = q0 + col;
+              const float l2 = R[col] * kLog2e;
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                const int e = 4 * jj + 2 * ii + c, kj = k0 + 16 * w + g4 + 8 * ii;
+                x[e] = prob(x[e], scale2, l2, masks && (qi >= sb || (diag && kj > qi)));
+              }
+            }
+        };
+        if (diag || q0 + TS > sb) entries(std::true_type());
+        else entries(std::false_type());
+        if (i >= 2) named_sync(6 + par, 256);  // warpgroup 1 has read tile i - 2's P
+#pragma unroll
+        for (int q = 0; q < TS / 8; ++q)
+          slot[q * 128 + t] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+        named_arrive(4 + par, 256);
+      } else {
+        named_sync(4 + par, 256);  // tile i's P is there
+#pragma unroll
+        for (int q = 0; q < TS / 8; ++q) {
+          const float4 p = slot[q * 128 + t];
+          const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = 4 * q + u, col = 8 * q + 2 * t4 + (u & 1);
+            x[e] = pe[u] * (x[e] - R[col]) * geo.scale;
+          }
         }
+        if (i + 2 < walk.total) named_arrive(6 + par, 256);
       }
-    uint32_t dh[4][4], dl[4][4];
+    };
+    auto output = [&](int i) {  // warpgroup 0: dV += P^T dO; 1: dK += dS^T Q, by half
+      const uint32_t b = smem_addr(sm.stage + (i % NS) * Plan::STAGE + (1 - wg) * HALF);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_frag(dp, kk, dh[kk], dl[kk]);
-
-    // dQ += dS K over this tile's 64 k rows, one 128-column half at a time
+      for (int kk = 0; kk < TS / 16; ++kk)
 #pragma unroll
-    for (int nh = 0; nh < NH; ++nh) reg_fence(adq[nh]);
-    wgmma_fence();
+        for (int nh = 0; nh < 2; ++nh) {
+          const uint64_t bb = desc_mnmajor(b + 2 * nh * (TS * 128) + kk * 2048, TS);
+          wgmma_m64n128k16_rs_tb(acc[nh], fl[kk], bb);
+          wgmma_m64n128k16_rs_tb(acc[nh], fh[kk], bb);
+        }
+      wgmma_commit();
+    };
+    mbar_wait(sm.own_full, 0);
+    products(0);
+    wgmma_wait<0>();
+    reg_fence(x);
+    grads(0);
 #pragma unroll
-    for (int nh = 0; nh < NH; ++nh)
+    for (int kk = 0; kk < TS / 16; ++kk) acc_to_frag(x, kk, fh[kk], fl[kk]);
+#pragma unroll 1
+    for (int i = 1; i < walk.total; ++i) {
+      products(i);
+      output(i - 1);
+      wgmma_wait<1>();  // tile i's S^T (dP^T); tile i - 1's output product runs on
+      reg_fence(x);
+      grads(i);
+      wgmma_wait<0>();
+      reg_fence(acc[0]);
+      reg_fence(acc[1]);
+      mbar_arrive(sm.empty + (i - 1) % NS);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bk = desc_mnmajor(ka + 2 * nh * (T * 128) + kk * 2048, T);
-        wgmma_m64n128k16_rs_tb(adq[nh], dl[kk], bk);
-        wgmma_m64n128k16_rs_tb(adq[nh], dh[kk], bk);
-      }
-    wgmma_commit();
-    wgmma_wait_all();
+      for (int kk = 0; kk < TS / 16; ++kk) acc_to_frag(x, kk, fh[kk], fl[kk]);
+    }
+    output(walk.total - 1);
+    wgmma_wait<0>();
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    bf16* out = wg == 0 ? dv : dk;
 #pragma unroll
-    for (int nh = 0; nh < NH; ++nh) reg_fence(adq[nh]);
-    __syncthreads();
-  }
+    for (int nh = 0; nh < 2; ++nh)
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int qi = q0 + 16 * warp + g4 + 8 * ii;
-    if (qi >= sb) continue;
+      for (int jj = 0; jj < 16; ++jj)
 #pragma unroll
-    for (int nh = 0; nh < NH; ++nh)
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        const int e = 4 * jj + 2 * ii;
-        store2(dq + (row0 + qi) * D + 128 * nh + 8 * jj + 2 * t4, adq[nh][e], adq[nh][e + 1]);
-      }
+        for (int ii = 0; ii < 2; ++ii) {
+          const int row = 16 * w + g4 + 8 * ii, e = 4 * jj + 2 * ii;
+          if (k0 + row >= sb) continue;
+          store2(out + (kv_row0 + row) * D + 128 * nh + 8 * jj + 2 * t4, acc[nh][e], acc[nh][e + 1]);
+        }
   }
 }
 
@@ -553,17 +884,13 @@ __device__ __forceinline__ void dq_f32(const float* __restrict__ q, const float*
 }
 
 // ----------------------------------------------------------------- launches
-template <typename E, int D> constexpr int smem_bytes() {
-  return std::is_same<E, bf16>::value ? Bf16Plan<D>::SMEM : F32Plan<D>::SMEM;
-}
-
+// float32 (E is float: the bf16 forms are the kernels above)
 template <typename E, int D>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
                    const E* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, E* __restrict__ dq, Geo geo) {
-  if constexpr (std::is_same<E, bf16>::value) dq_bf16<D>(q, k, v, dout, lse, delta, dq, geo);
-  else dq_f32<D>(q, k, v, dout, lse, delta, dq, geo);
+  dq_f32<D>(q, k, v, dout, lse, delta, dq, geo);
 }
 
 template <typename E, int D>
@@ -572,33 +899,85 @@ attn_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* _
                     const E* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, E* __restrict__ dk, E* __restrict__ dv,
                     Geo geo) {
-  if constexpr (std::is_same<E, bf16>::value) dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, geo);
-  else dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, geo);
+  dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, geo);
 }
 
-template <typename E, int D>
-int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dq, Geo geo, int ngroups, cudaStream_t s) {
-  constexpr int bytes = smem_bytes<E, D>();
-  int err = set_smem(attn_bwd_dq_kernel<E, D>, bytes);
+template <int D>
+int bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, void* dq, Geo geo, int ngroups, cudaStream_t s) {
+  constexpr int bytes = F32Plan<D>::SMEM;
+  int err = set_smem(attn_bwd_dq_kernel<float, D>, bytes);
   if (err) return err;
   dim3 grid((geo.sb + 63) / 64, geo.hq, ngroups * geo.g);
-  attn_bwd_dq_kernel<E, D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dq), geo);
+  attn_bwd_dq_kernel<float, D><<<grid, kThreads, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), geo);
   return (int)cudaGetLastError();
 }
 
-template <typename E, int D>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-            const float* delta, void* dk, void* dv, Geo geo, int ngroups, cudaStream_t s) {
-  constexpr int bytes = smem_bytes<E, D>();
-  int err = set_smem(attn_bwd_dkv_kernel<E, D>, bytes);
+template <int D>
+int bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* delta, void* dk, void* dv, Geo geo, int ngroups, cudaStream_t s) {
+  constexpr int bytes = F32Plan<D>::SMEM;
+  int err = set_smem(attn_bwd_dkv_kernel<float, D>, bytes);
   if (err) return err;
   dim3 grid((geo.sb + 63) / 64 * (D / 128), geo.hkv, ngroups * geo.g);
-  attn_bwd_dkv_kernel<E, D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const E*>(dout), lse, delta, static_cast<E*>(dk), static_cast<E*>(dv), geo);
+  attn_bwd_dkv_kernel<float, D><<<grid, kThreads, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), geo);
+  return (int)cudaGetLastError();
+}
+
+// lse or delta, [n] float32, as a 1-D tensor map in boxes of `rows`: a box
+// past the end reads zeros
+int rows_map(CUtensorMap* map, const float* base, long long n, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {(cuuint64_t)n * 4};
+  const cuuint32_t box[1] = {(cuuint32_t)rows}, unit[1] = {1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadMap;
+}
+
+template <int D>
+int bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* delta, void* dq, Geo geo, int ngroups, cudaStream_t s) {
+  using Plan = DqBf16Plan<D>;
+  const int planes = ngroups * geo.g;
+  CUtensorMap mq, mo, mk, mv;
+  int err = bf16_map(&mq, q, D, geo.sb, planes * geo.hq, Plan::T);
+  if (!err) err = bf16_map(&mo, dout, D, geo.sb, planes * geo.hq, Plan::T);
+  if (!err) err = bf16_map(&mk, k, D, geo.sb, planes * geo.hkv, Plan::TS);
+  if (!err) err = bf16_map(&mv, v, D, geo.sb, planes * geo.hkv, Plan::TS);
+  if (!err) err = set_smem(attn_bwd_dq_bf16_kernel<D>, Plan::SMEM);
+  if (err) return err;
+  dim3 grid((geo.sb + Plan::T - 1) / Plan::T, geo.hq, planes);
+  attn_bwd_dq_bf16_kernel<D><<<grid, kClusterThreads, Plan::SMEM, s>>>(
+      mq, mo, mk, mv, lse, delta, static_cast<bf16*>(dq), geo);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 const float* delta, void* dk, void* dv, Geo geo, int ngroups, cudaStream_t s) {
+  using Plan = DkvBf16Plan<D>;
+  const int planes = ngroups * geo.g;
+  CUtensorMap mk, mv, mq, mo, ml, md;
+  int err = bf16_map(&mk, k, D, geo.sb, planes * geo.hkv, Plan::T);
+  if (!err) err = bf16_map(&mv, v, D, geo.sb, planes * geo.hkv, Plan::T);
+  if (!err) err = bf16_map(&mq, q, D, geo.sb, planes * geo.hq, Plan::TS);
+  if (!err) err = bf16_map(&mo, dout, D, geo.sb, planes * geo.hq, Plan::TS);
+  if (!err) err = rows_map(&ml, lse, (long long)planes * geo.hq * geo.sb, Plan::TS);
+  if (!err) err = rows_map(&md, delta, (long long)planes * geo.hq * geo.sb, Plan::TS);
+  if (!err) err = set_smem(attn_bwd_dkv_bf16_kernel<D>, Plan::SMEM);
+  if (err) return err;
+  dim3 grid((geo.sb + Plan::T - 1) / Plan::T, geo.hkv, planes);
+  attn_bwd_dkv_bf16_kernel<D><<<grid, kClusterThreads, Plan::SMEM, s>>>(
+      mk, mv, mq, mo, ml, md, static_cast<bf16*>(dk), static_cast<bf16*>(dv), geo);
   return (int)cudaGetLastError();
 }
 
@@ -617,10 +996,10 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v,
   Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0 && d == 128) return bwd_dq<float, 128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  if (dtype == 0 && d == 256) return bwd_dq<float, 256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  if (dtype == 1 && d == 128) return bwd_dq<bf16, 128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  if (dtype == 1 && d == 256) return bwd_dq<bf16, 256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
+  if (dtype == 0 && d == 128) return bwd_dq_f32<128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
+  if (dtype == 0 && d == 256) return bwd_dq_f32<256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
+  if (dtype == 1 && d == 128) return bwd_dq_bf16<128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
+  if (dtype == 1 && d == 256) return bwd_dq_bf16<256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
   return kBadShape;
 }
 
@@ -634,13 +1013,9 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v,
   Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0 && d == 128)
-    return bwd_dkv<float, 128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
-  if (dtype == 0 && d == 256)
-    return bwd_dkv<float, 256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
-  if (dtype == 1 && d == 128)
-    return bwd_dkv<bf16, 128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
-  if (dtype == 1 && d == 256)
-    return bwd_dkv<bf16, 256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
+  if (dtype == 0 && d == 128) return bwd_dkv_f32<128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
+  if (dtype == 0 && d == 256) return bwd_dkv_f32<256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
+  if (dtype == 1 && d == 128) return bwd_dkv_bf16<128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
+  if (dtype == 1 && d == 256) return bwd_dkv_bf16<256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   return kBadShape;
 }

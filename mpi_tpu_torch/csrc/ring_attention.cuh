@@ -7,8 +7,10 @@
 // backward's P and dS of a score entry, the float32 fragment helpers of
 // the TF32 products, and what the forms that run in thread-block clusters
 // share (the cluster's size, its launch, the float32 tensor maps and output
-// products).  The backward runs one warpgroup (or four warps) per block,
-// the forward several; the staging loops take the block's thread count.
+// products).  The float32 backward at d <= 256 runs four warps a block, the
+// forward several warpgroups, the forms above d = 256 and the bf16 backward
+// a producer and two consumer warpgroups; the staging loops take the
+// block's thread count.
 #pragma once
 
 #include <cuda.h>
@@ -320,8 +322,9 @@ template <int ND = 3> constexpr bool clusters_agree() {
 }
 static_assert(clusters_agree(), "WideCluster and cluster_blocks disagree");
 
-// the threads of the float32 forms and of the bf16 backward: consumer
-// warpgroups and a producer warpgroup that keeps their TMA loads in flight
+// the threads of the float32 forms above d = 256 and of the bf16 backward
+// (at every d): consumer warpgroups and a producer warpgroup that keeps
+// their TMA loads in flight
 constexpr int kConsumers = 256;                   // two consumer warpgroups
 constexpr int kClusterThreads = kConsumers + 128;  // and a producer warpgroup
 // registers a thread after setmaxnreg (an SM sub-partition holds one warp

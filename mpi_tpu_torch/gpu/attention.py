@@ -282,10 +282,12 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
 # the shared-memory plan of each kernel per input dtype: a ``struct`` in its
 # source (a ``template <int D>`` one for d in _HEAD_DIMS) whose ``SMEM`` is
 # the bytes a block uses
-_BWD = ("attention_bwd.cu", {torch.bfloat16: "Bf16Plan", torch.float32: "F32Plan"})
 _PLANS = {"fwd": ("attention.cu", {torch.bfloat16: "FwdBf16Plan",
                                    torch.float32: "FwdF32Plan"}),
-          "bwd_dq": _BWD, "bwd_dkv": _BWD}
+          "bwd_dq": ("attention_bwd.cu", {torch.bfloat16: "DqBf16Plan",
+                                          torch.float32: "F32Plan"}),
+          "bwd_dkv": ("attention_bwd.cu", {torch.bfloat16: "DkvBf16Plan",
+                                           torch.float32: "F32Plan"})}
 _WIDE_PLANS = {"fwd": ("attention_wide.cu", {torch.bfloat16: "WideFwdBf16Plan",
                                              torch.float32: "WideFwdF32Plan"}),
                "bwd_dq": ("attention_bwd_wide.cu", {torch.bfloat16: "WideDqBf16Plan",
@@ -342,8 +344,10 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     the 128-byte swizzle after 1 KB of alignment: the forward
     (csrc/attention.cu ``FwdBf16Plan``) holds W resident Q tiles, two
     stages of K and three of V; the backward (csrc/attention_bwd.cu
-    ``Bf16Plan``, both kernels alike) two resident tiles, two stages of two
-    streamed ones and 1 KB of lse/delta rows.  float32 tiles have a row
+    ``DqBf16Plan``, ``DkvBf16Plan``) its two resident tiles (128-row Q and
+    dO; K and V, 128 rows at d = 128, 64 at 256), NS stages of its two
+    streamed tiles (dK/dV with their lse and delta rows) and, for dK/dV at
+    d = 256, P of two tile parities.  float32 tiles have a row
     stride of d + 4: the forward (``FwdF32Plan``) holds 64 W Q rows and two
     stages of 32-row K and V tiles, the backward (``F32Plan``) two resident
     64-row and two streamed 32-row tiles and 256 bytes of lse/delta rows.

@@ -1,23 +1,29 @@
 """Hold this tree's ring-attention forward above d = 256
-(``csrc/attention_wide.cu``) against a parent tree's, on one card, in one
-process.
+(``csrc/attention_wide.cu``), or with ``--source attention_bwd`` its
+backward at d = 128 and 256 (``csrc/attention_bwd.cu``), against a parent
+tree's, on one card, in one process.
 
-    python -m mpi_tpu_torch.tools.wide_ab --parent PARENT [--out chiprun_out/wide_ab.json]
+    python -m mpi_tpu_torch.tools.wide_ab --parent PARENT [--source attention_wide|attention_bwd] [--out chiprun_out/wide_ab.json]
 
-Builds both trees' ``attention_wide.cu`` (each beside its own headers,
-with ``_build.NVCC_FLAGS``, both at once) and prints each build's
-registers and spills; then swaps each into ``_build._LIBS["attention_wide"]``
-and
+Builds both trees' source (each beside its own headers, with
+``_build.NVCC_FLAGS``, both at once) and prints each build's registers and
+spills; then swaps each into ``_build._LIBS`` and
 
-* compares their bf16 out and lse bit for bit on ``chip_smoke.py`` phase
-  11's bf16 cases (``chip_smoke.parity_grid``) at d = 384, 512 and 1024,
-  where the clusters make one pass and sum in the parent's order;
-* times the forward of both at the wide serving shape
+* ``attention_wide``: compares their bf16 out and lse bit for bit on
+  ``chip_smoke.py`` phase 11's bf16 cases (``chip_smoke.parity_grid``) at
+  d = 384, 512 and 1024, where the clusters make one pass and sum in the
+  parent's order; times the forward of both at the wide serving shape
   (``chip_smoke.WIDE_SERVE``, causal, bf16 and float32) with CUDA events,
-  in turns: parent, this tree, this tree, parent.
+  in turns: parent, this tree, this tree, parent;
+* ``attention_bwd``: holds both trees' bf16 dq, dk and dv against the plain
+  version on phase 11's bf16 cases at d = 128 and 256 (the largest share of
+  ``chip_smoke.check_close``'s allowance each, and how many cases are
+  bitwise the parent's); times ``bwd_dq`` and ``bwd_dkv`` of both at the
+  serving shape (``chip_smoke.SERVE``, causal, bf16) in the same turns.
 
-Writes ``--out`` and prints one line a result; exits 1 unless every case
-is bitwise equal.  It needs a CUDA card.
+Writes ``--out`` and prints one line a result; exits 1 unless every
+forward case is bitwise equal, or every backward case within the
+allowance.  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ BITWISE_DIMS = (384, 512, 1024)
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="root of the parent tree")
+    ap.add_argument("--source", default="attention_wide",
+                    choices=("attention_wide", "attention_bwd"))
     ap.add_argument("--out", default="chiprun_out/wide_ab.json")
     args = ap.parse_args(argv)
     import torch
@@ -49,8 +57,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     lib_dir = os.path.join(os.path.dirname(os.path.abspath(args.out)), "wide_ab_build")
     os.makedirs(lib_dir, exist_ok=True)
-    sources = {"parent": os.path.join(args.parent, "mpi_tpu_torch", "csrc", "attention_wide.cu"),
-               "cur": str(_build.SRC_DIR / "attention_wide.cu")}
+    sources = {"parent": os.path.join(args.parent, "mpi_tpu_torch", "csrc", f"{args.source}.cu"),
+               "cur": str(_build.SRC_DIR / f"{args.source}.cu")}
     procs = {}
     for name, src in sources.items():
         dst = os.path.join(lib_dir, f"{name}.so")
@@ -71,7 +79,7 @@ def main(argv=None) -> int:
             print(log[-4000:], flush=True)
             continue
         lib = ctypes.CDLL(dst)
-        for fn, argtypes in _build.SIGNATURES["attention_wide"].items():
+        for fn, argtypes in _build.SIGNATURES[args.source].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -79,6 +87,12 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
         return 1
+
+    if args.source == "attention_bwd":
+        ok = narrow_bwd(torch, chip_smoke, _build, attention, libs, res)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+        return 0 if ok else 1
 
     def fwd(name, q, k, v, groups, causal):
         _build._LIBS["attention_wide"] = libs[name]
@@ -126,6 +140,52 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
     return 0 if not differ else 1
+
+
+def narrow_bwd(torch, chip_smoke, _build, attention, libs, res) -> bool:
+    """The ``attention_bwd`` comparison; True iff every case of both trees
+    is within the allowance."""
+    def bwd(name, *args, **kw):
+        _build._LIBS["attention_bwd"] = libs[name]
+        return attention.ring_attention_bwd_world(*args, **kw)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    used = {"parent": 0.0, "cur": 0.0}
+    same = cases = 0
+    for dh, sb, hq, hkv, causal, groups in chip_smoke.parity_grid(False):
+        if dh > 256:
+            continue
+        q, k, v, do = (torch.randn((chip_smoke.P, h, sb, dh), device="cuda", generator=gen)
+                       .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+        out, lse = attention.ring_attention_plain(q, k, v, groups, causal=causal, with_lse=True)
+        want = attention.ring_attention_bwd_plain(q, k, v, out, lse, do, groups, causal=causal)
+        got = {name: bwd(name, q, k, v, out, lse, do, groups, causal=causal) for name in libs}
+        torch.cuda.synchronize()
+        for name, grads in got.items():
+            for a, b in zip(grads, want):
+                used[name] = max(used[name], chip_smoke.allowance_share(
+                    torch, "grad", a, b, torch.bfloat16)[1])
+        same += all(torch.equal(a, b) for a, b in zip(got["parent"], got["cur"]))
+        cases += 1
+    res["bf16_backward_vs_plain"] = {"largest_share": used, "cases": cases,
+                                     "bitwise_parent": same}
+    print(f"bf16 backward at d = 128 and 256, {cases} cases: largest share of the allowance "
+          f"{used}, bitwise the parent's in {same}", flush=True)
+    g = chip_smoke.SERVE
+    q, do = (torch.randn(chip_smoke.P, g["heads"], g["seq_per_rank"], g["d"], device="cuda",
+                         generator=gen).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(chip_smoke.P, g["kv_heads"], g["seq_per_rank"], g["d"], device="cuda",
+                        generator=gen).to(torch.bfloat16) for _ in range(2))
+    out, lse = attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
+    ops = attention.bwd_operands(q, k, v, out, lse, do, causal=True)
+    for name in ("parent", "cur", "cur", "parent"):
+        _build._LIBS["attention_bwd"] = libs[name]
+        for kind in ("bwd_dq", "bwd_dkv"):
+            ms = chip_smoke.time_ms(torch, lambda: attention.launch_bwd(kind, ops), reps=3,
+                                    warmup=1)
+            res.setdefault("serving_ms", {}).setdefault(kind, {}).setdefault(name, []).append(ms)
+            print(f"time {kind} {name}: {ms:.3f} ms", flush=True)
+    return max(used.values()) <= 1.0
 
 
 if __name__ == "__main__":

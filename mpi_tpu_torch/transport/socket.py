@@ -632,9 +632,19 @@ class SocketTransport(Transport):
           still on the old endpoint of a replaced slot — retry against a
           re-read port file until the replacement publishes;
         * otherwise prune the retained window to the peer's mark, REPLAY
-          the frames beyond it and register the connection."""
+          the frames beyond it and register the connection.
+
+        A closing transport dials no more and registers nothing, whoever
+        dials (the ack flusher's and the keepalive's dials pass no
+        ``abort``): its peers' old ports may by then be another world's
+        listeners, whose handshake would count a reconnect and a masked
+        fault in this process (``link_reconnects``, ``link_faults_masked``)
+        and replay this world's frames into theirs."""
         skew_since = None
         while True:
+            if self._closing:
+                raise _LinkAbort(f"rank {self.world_rank}: transport closed "
+                                 f"while connecting to rank {dest}")
             if abort is not None:
                 abort()
             port = _membership.read_port(self._rdv, dest)
@@ -658,6 +668,10 @@ class SocketTransport(Transport):
                     ack = _recv_exact(conn, _HELLO_ACK.size)
                 except OSError:
                     ack = None
+                if ack is not None and self._closing:
+                    conn.close()
+                    raise _LinkAbort(f"rank {self.world_rank}: transport closed "
+                                     f"while connecting to rank {dest}")
                 if ack is not None:
                     peer_epoch, resume_seq = _HELLO_ACK.unpack(ack)
                     if peer_epoch > self.epoch:

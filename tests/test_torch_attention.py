@@ -231,8 +231,19 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["fwd"] == 230400
     assert attention.kernel_smem_bytes(128)["fwd"] == 168960
     assert attention.kernel_smem_bytes(256)["fwd"] == 199680
-    assert attention.kernel_smem_bytes(128, torch.bfloat16)["bwd_dkv"] == 100352
-    assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 198656
+    # the bf16 backward (csrc/attention_bwd.cu DqBf16Plan, DkvBf16Plan): 1 KB
+    # of alignment, the own tiles, NS stages of the streamed tiles, the
+    # exchange region, a stage's lse and delta rows each, 64 bytes of
+    # mbarriers.  dq: 128-row Q and dO 2 x 128 d x 2, NS = 4 stages of
+    # 64-row K and V 2 x 64 x 128 x 2 at d = 128, NS = 3 of 32-row ones at
+    # d = 256.  dkv, four stages of 32-row Q and dO and 4 x 256 bytes of
+    # rows: at d = 128 128-row K and V 65 536, the stages 65 536; at
+    # d = 256 64-row K and V 65 536, the stages 131 072, P of two tile
+    # parities 16 384
+    assert attention.kernel_smem_bytes(128, torch.bfloat16)["bwd_dq"] == 1024 + 65536 + 4 * 32768 + 64
+    assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 1024 + 131072 + 3 * 32768 + 64
+    assert attention.kernel_smem_bytes(128, torch.bfloat16)["bwd_dkv"] == 1024 + 65536 + 4 * 16384 + 4 * 256 + 64
+    assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dkv"] == 1024 + 65536 + 4 * 32768 + 16384 + 4 * 256 + 64
     assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
     assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
     # above d = 256: the same bytes at every d (the forward's clusters in

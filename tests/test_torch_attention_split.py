@@ -587,3 +587,131 @@ def test_cluster_backward_matches_jax_grad_of_the_reference():
     got = emulated_wide_bwd(tq, tk, tv, out, lse, tct, causal=True, cast=False)
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", **TOL["f32"])
+
+
+def emulated_narrow_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False, cast=True):
+    """The bf16 backward's order of sums at d = 128 and 256
+    (csrc/attention_bwd.cu ``attn_bwd_dq_bf16_kernel``,
+    ``attn_bwd_dkv_bf16_kernel``) on the CPU (shapes as
+    ``ring_attention_bwd_plain``, multi-head; inputs whose values are
+    bf16): S and dP one running float32 sum over d in 16-column steps; P =
+    2^(S scale log2(e) - lse log2(e)) (exp2, as the kernels); P and dS split
+    hi and lo; every output one running float32 sum over its
+    block's walk (dQ: arrivals r, r - 1, ..., then k rows; dK, dV: visiting
+    ranks j, j + 1, ..., GQA heads in increasing order, then q rows), a
+    16-row k step at a time, its lo then its hi product.  A 128-row block's
+    rows past the diagonal add exact zeros, so they do not show here."""
+    nranks, hq, sb, d = q.shape
+    hkv = k.shape[1]
+    rep = hq // hkv
+    heads = torch.arange(hq) // rep
+    scale = 1.0 / np.sqrt(d)
+    gl = groups or [list(range(nranks))]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    lse4 = lse.reshape(nranks, hq, sb, 1)
+    mask = torch.arange(sb)[None, :] <= torch.arange(sb)[:, None]
+    steps = [slice(s0, min(sb, s0 + 16)) for s0 in range(0, sb, 16)]
+
+    def chain(a, b):
+        """a [..., m, d] b^T [..., d, n] in 16-column steps of d"""
+        acc = a[..., :16] @ b[..., :16].transpose(-1, -2)
+        for c0 in range(16, d, 16):
+            acc = acc + a[..., c0:c0 + 16] @ b[..., c0:c0 + 16].transpose(-1, -2)
+        return acc
+
+    def add_steps(acc, x, b):
+        """acc + x b, a 16-row k step at a time, lo then hi"""
+        for st in steps:
+            hi, lo = split_bf16(x[..., st])
+            acc = acc + lo @ b[..., st, :]
+            acc = acc + hi @ b[..., st, :]
+        return acc
+
+    dq, dk, dv = torch.zeros(qf.shape), torch.zeros(kf.shape), torch.zeros(kf.shape)
+    for grp in gl:
+        g = len(grp)
+        p_of, ds_of = {}, {}  # (r, j): P and dS of rank r's queries, block j's keys
+        for r, w in enumerate(grp):
+            for j in range(g):
+                if causal and j > r:
+                    continue
+                kb, vb = kf[grp[j]][heads], vf[grp[j]][heads]
+                p = torch.exp2(chain(qf[w], kb) * (scale * LOG2E) - lse4[w] * LOG2E)
+                if causal and j == r:
+                    p = torch.where(mask, p, torch.zeros_like(p))
+                p_of[r, j] = p
+                ds_of[r, j] = p * (chain(dof[w], vb) - delta[w]) * scale
+        for r, w in enumerate(grp):
+            for a in range(g):
+                j = (r - a) % g
+                if (r, j) in ds_of:
+                    dq[w] = add_steps(dq[w], ds_of[r, j], kf[grp[j]][heads])
+        for j, kw in enumerate(grp):
+            for a in range(g):
+                r = (j + a) % g
+                if (r, j) not in p_of:
+                    continue
+                w = grp[r]
+                for t in range(rep):
+                    hs = slice(t, hq, rep)  # head t of each K/V head
+                    dv[kw] = add_steps(dv[kw], p_of[r, j][hs].transpose(-1, -2), dof[w][hs])
+                    dk[kw] = add_steps(dk[kw], ds_of[r, j][hs].transpose(-1, -2), qf[w][hs])
+    if cast:
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_bf16_backward_order_within_check_close_of_plain(d, causal):
+    """d = 128 and 256, GQA 4/2 in two groups of 2 on a world of 4, Sb = 80
+    (five 16-row k steps, a partial 64-row tile): the bf16 backward's order
+    of sums against the plain backward, dq, dk and dv."""
+    groups = [[0, 1], [2, 3]]
+    ops = world(4, 4, 2, 80, d, torch.bfloat16, causal, groups, seed=d + 5 + causal)
+    got = emulated_narrow_bwd(*ops, groups, causal=causal)
+    want = attention.ring_attention_bwd_plain(*ops, groups, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        chip_smoke.check_close(torch, f"narrow backward {name}", a, b, torch.bfloat16)
+
+
+def test_narrow_bf16_backward_order_matches_jax_grad_of_the_reference():
+    """At d = 128 (GQA, causal, Sb = 80) on inputs whose values are bf16:
+    the bf16 backward's order of sums against ``jax.grad`` through the
+    reference's fused backward in interpret mode, before the final rounding,
+    under check_close's bf16 rule, which the kernel's bf16 outputs are held
+    to on the card.  The float32 tolerance of
+    tests/test_torch_attention_grad.py is met but for one dV element of
+    40 960 (2.0e-5 off where 2^-17 of each P entry, what the hi and lo terms
+    leave, meets cancelling products)."""
+    rnd = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()  # noqa: E731
+    q, k, v, ct = (rnd(a) for a in inputs(2, 4, 2, 80, 128, seed=37))
+    want = jax_grads(q, k, v, ct, "f32", True)
+    tq, tk, tv, tct = (torch.from_numpy(a) for a in (q, k, v, ct))
+    out, lse = attention.ring_attention_plain(tq, tk, tv, causal=True, with_lse=True)
+    got = emulated_narrow_bwd(tq, tk, tv, out, lse, tct, causal=True, cast=False)
+    for name, g, w in zip("qkv", got, want):
+        chip_smoke.check_close(torch, f"narrow backward d{name} vs jax.grad", g,
+                               torch.from_numpy(w), torch.bfloat16)
+
+
+# (P, query heads, K/V heads, Sb) of the backward's split check at d = 128,
+# causal, on seeds 101-106 (chip_smoke.SPLIT_SEEDS holds the same on the card)
+SPLIT_SHAPES = ((4, 8, 1, 64), (8, 4, 1, 32), (4, 4, 2, 64))
+
+
+@pytest.mark.parametrize("seed", range(101, 107))
+def test_narrow_bf16_backward_two_terms_stay_within_the_allowance(seed):
+    """P and dS as two bf16 terms (hi, lo) in the bf16 backward's order of
+    sums keep every causal case of SPLIT_SHAPES within check_close's bf16
+    allowance of the plain backward (the three-term split is needed only
+    where outputs sum cancelling products past the float32 allowance)."""
+    for P, hq, hkv, sb in SPLIT_SHAPES:
+        ops = world(P, hq, hkv, sb, 128, torch.bfloat16, True, seed=seed)
+        got = emulated_narrow_bwd(*ops, causal=True)
+        want = attention.ring_attention_bwd_plain(*ops, causal=True)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            chip_smoke.check_close(torch, f"seed {seed} {P}x{hq}/{hkv}x{sb} {name}", a, b,
+                                   torch.bfloat16)

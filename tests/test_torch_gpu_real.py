@@ -234,6 +234,53 @@ def test_wide_head_forward_is_bitwise_deterministic_on_the_card(dtype):
             assert torch.equal(a, b), d
 
 
+def _narrow_bf16_backward(d, causal):
+    """The bf16 backward at head dim ``d`` (128 or 256: csrc/attention_bwd.cu's
+    TMA producer and two consumer warpgroups) twice, and the plain version,
+    on GQA 4/2 blocks of Sb = 112 (a partial 128-row block, a partial
+    streamed tile)."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(d + causal)
+    q, do = (torch.randn(P, 4, 112, d, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(P, 2, 112, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = attention.ring_attention_plain(q, k, v, causal=causal, with_lse=True)
+    attention.reset_launches()
+    first = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=causal)
+    second = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=causal)
+    ref = attention.ring_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    return first, second, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_bf16_backward_matches_plain_on_the_card(d, causal):
+    """dq, dk and dv of the bf16 backward at d = 128 and 256 against the
+    plain version, by the rule of the wide-head tests."""
+    got, _, ref = _narrow_bf16_backward(d, causal)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-4 + 2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_bf16_backward_is_bitwise_deterministic_on_the_card(d):
+    """Two launches of the bf16 backward at d = 128 and 256 are bitwise
+    equal: every block owns its outputs, sums in its walk's order, and
+    the dK/dV block at d = 256 hands P from one warpgroup to the other in
+    a fixed order."""
+    first, second, _ = _narrow_bf16_backward(d, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_wgmma_reads_a_raw_float32_word_as_truncated_tf32():
     """TF32 ``wgmma`` reads a raw float32 word in shared memory as that

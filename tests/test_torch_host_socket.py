@@ -12,6 +12,7 @@ import sys
 import tempfile
 import textwrap
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from mpi_tpu import mpit as ref_mpit
 from mpi_tpu import ops as ref_ops
 from mpi_tpu_torch import mpit, ops
 from mpi_tpu_torch.communicator import P2PCommunicator
+from mpi_tpu_torch.transport.base import TransportError
 from mpi_tpu_torch.transport.socket import SocketTransport
 from tests.test_socket_backend import run_socket_world as ref_socket_world
 from tests.test_torch_host_local import assert_same, seeded, to_torch
@@ -264,6 +266,32 @@ def test_socket_link_heals_and_replays_after_a_dropped_connection():
 
     assert port_socket_world(prog, 2)[1] == [float(k) for k in range(10)]
     assert mpit.pvar_read("link_reconnects") == before + 1
+
+
+def test_a_closing_transport_registers_no_reconnect():
+    """Once a transport begins to close it dials no more, whoever dials
+    (the ack flusher's and the keepalive's dials pass no abort): a dial
+    that found a listener, its peer's or another world's on a reused port,
+    would count a reconnect and a masked fault in this process while
+    another test reads them (the port's test_link_stall_is_not_a_fault
+    under load; ROADMAP Queue 3)."""
+    def prog(c):
+        c.barrier()
+        if c.rank == 0:
+            t = c._t
+            with t._send_lock(1):
+                t._drop_conn(1)
+                before = mpit.pvar_read("link_reconnects")
+                t._closing = True  # close() has begun
+                try:
+                    with pytest.raises(TransportError, match="transport closed"):
+                        t._establish_locked(1, time.monotonic() + 2.0, iter(lambda: 0.01, None))
+                finally:
+                    t._closing = False  # let the world's close() run in full
+            return mpit.pvar_read("link_reconnects") - before, 1 in t._conns
+        return None
+
+    assert port_socket_world(prog, 2)[0] == (0, False)
 
 
 def test_retained_frame_is_copied_before_an_in_place_write():

@@ -94,6 +94,24 @@ def test_wide_ab_refuses_without_a_card(tmp_path):
     assert not out.exists()
 
 
+def test_wide_ab_narrow_backward_refuses_without_a_card(tmp_path):
+    """``wide_ab --source attention_bwd`` (the bf16 backward at d = 128 and
+    256 against a parent tree's, within the allowance, timed at the serving
+    shape) refuses without a card as the forward's comparison does; it
+    compares phase 11's 96 bf16 cases at those head dims."""
+    import chip_smoke
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = tmp_path / "wide_ab.json"
+    res = subprocess.run([sys.executable, "-m", "mpi_tpu_torch.tools.wide_ab",
+                          "--parent", str(ROOT), "--source", "attention_bwd", "--out", str(out)],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2, res.stderr
+    assert "no CUDA device" in res.stderr
+    assert not out.exists()
+    assert sum(case[0] <= 256 for case in chip_smoke.parity_grid(False)) == 96
+
+
 def test_phase11_grid_is_the_one_wide_ab_compares():
     """``chip_smoke.parity_grid`` is phase 11's grid, read by
     ``tools/wide_ab.py`` too: float32 184 cases, bf16 160, 64 of each above
