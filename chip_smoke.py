@@ -115,9 +115,9 @@ ok line:
     makes them), held the same way and its largest share recorded;
 12. attention at the serving shape, in bfloat16 (the ``kernels`` line) and
     float32 (the record): the forward (out and lse) and the backward
-    kernels against the plain version (see ``check_close``), the backward
-    against itself (two launches must be bitwise equal: no atomics, a
-    fixed order of sums); then timing with CUDA events (medians of 3:
+    kernels against the plain version (see ``check_close``), the forward
+    and the backward each against itself (two launches must be bitwise
+    equal: no atomics, a fixed order of sums); then timing with CUDA events (medians of 3:
     forward and backward count the checks' launches, which were their
     warm-up; each backward kernel alone 3 launches after them): forward,
     backward (both kernels and each alone), the plain versions (the
@@ -130,8 +130,9 @@ ok line:
     TFLOP/s, the rate of a float32-accurate product split into three TF32
     tensor-core products, as every attention kernel multiplies; bytes over
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
-    (``FLOOR_FLOPS_PER_ENTRY``); for bfloat16 also the backward pair's
-    time over SDPA's backward and its kernels' registers and spills;
+    (``FLOOR_FLOPS_PER_ENTRY``); for bfloat16 also the forward's time over
+    SDPA's forward, the backward pair's over SDPA's backward, and the
+    kernels' registers and spills (``fwd_ptxas``, ``bwd_ptxas``);
 12a. the forms above d = 256 (``csrc/attention_wide.cu``,
     ``csrc/attention_bwd_wide.cu``) on their main paths: the wide-head
     serving leg, ``serving_program`` through ``run(..., nranks=8)`` at
@@ -549,7 +550,7 @@ def ptxas_table(reports):
                 if k:
                     cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f' else 'bf16'}, "
                                      f"{k.group(3)}>")
-                k = re.search(r"\d(attn_bwd_d[a-z]+)_bf16_kernelILi(\d+)E", m.group(1))
+                k = re.search(r"\d(attn_(?:fwd|bwd_d[a-z]+))_bf16_kernelILi(\d+)E", m.group(1))
                 if k:
                     cur["kernel"] = f"{k.group(1)}_bf16_kernel<bf16, {k.group(2)}>"
                 k = re.search(r"\d(attn_[a-z_]+_wide)_(bf16|f32)E", m.group(1))
@@ -931,6 +932,12 @@ def attention_phases(torch, dev, gen, record, paths):
         do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
         fwd = lambda: attention.ring_attention_world(q, k, v, causal=True, with_lse=True)
         (out, lse), fwd_ms = time_once(torch, fwd)
+        (out2, lse2), fwd2_ms = time_once(torch, fwd)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise RuntimeError(f"{tag} forward: two launches differ (not deterministic)")
+        log(f"{tag} forward at the serving shape: two launches bitwise equal")
+        record.setdefault("deterministic_forward", {})[tag] = True
+        del out2, lse2
         (pout, plse), plain_fwd_ms = time_once(torch, lambda: attention.ring_attention_plain(
             q, k, v, causal=True, with_lse=True))
         errs[("fwd", dtype)] = max(errs[("fwd", dtype)], check_close(
@@ -966,7 +973,7 @@ def attention_phases(torch, dev, gen, record, paths):
         # medians of 3 launches, the checks' launches among them (they were
         # the warm-up); the plain versions once, the checks' runs
         t = {
-            "fwd": statistics.median([fwd_ms] + [time_once(torch, fwd)[1] for _ in range(2)]),
+            "fwd": statistics.median([fwd_ms, fwd2_ms, time_once(torch, fwd)[1]]),
             "bwd": statistics.median([bwd_ms, bwd2_ms, time_once(torch, bwd)[1]]),
             "bwd_dq": time_ms(torch, lambda: attention.launch_bwd("bwd_dq", ops),
                               reps=3, warmup=0),
@@ -1016,13 +1023,17 @@ def attention_phases(torch, dev, gen, record, paths):
             t[f"{kind}_design_floor_ms"] = (FLOOR_FLOPS_PER_ENTRY[key][kind] * shape[4]
                                             * causal_entries(shape) / rate * 1e3)
         if dtype == torch.bfloat16:
-            # the narrow bf16 backward's pair against SDPA's backward, and its
-            # kernels' registers and spills (ptxas)
+            # the narrow bf16 forward against SDPA's forward, the backward's
+            # pair against SDPA's backward, and their kernels' registers and
+            # spills (ptxas)
+            t["fwd_over_library"] = t["fwd"] / t["library_fwd"]
             t["bwd_pair_over_library"] = (t["bwd_dq"] + t["bwd_dkv"]) / t["library_bwd"]
-            t["bwd_ptxas"] = {row["kernel"]: (row.get("registers"), row.get("spill_stores"),
-                                              row.get("spill_loads"))
-                              for row in ptxas_table(_build.PTXAS_REPORT)
-                              if "_bf16_kernel<" in row.get("kernel", "")}
+            built = [row for row in ptxas_table(_build.PTXAS_REPORT)
+                     if "_bf16_kernel<" in row.get("kernel", "")]
+            for kind, prefix in (("fwd", "attn_fwd"), ("bwd", "attn_bwd")):
+                t[f"{kind}_ptxas"] = {row["kernel"]: (row.get("registers"), row.get("spill_stores"),
+                                                      row.get("spill_loads"))
+                                      for row in built if row["kernel"].startswith(prefix)}
         timing[tag] = t
         log(f"attention timing {tag}: " + ", ".join(
             f"{key} {val:.3f}" if isinstance(val, float) else f"{key} {val}"

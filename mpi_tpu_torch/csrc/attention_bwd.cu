@@ -119,87 +119,9 @@ template <int D> struct F32Plan {
 };
 
 // ------------------------------------------------------------------- bf16
-// The bf16 kernels: a producer warpgroup, one thread of which issues every
-// TMA load, and two consumer warpgroups (kClusterThreads threads, no
-// cluster; setmaxnreg moves the producers' registers to the consumers).
-// The block's shared memory, in the plan's order (1024-byte aligned, the
-// swizzle's need): the own tiles, NS stages of the streamed tiles, the
-// exchange region (dK/dV), the lse and delta rows of each stage (dK/dV),
-// the mbarriers.
-template <typename Plan>
-struct Bf16Smem {
-  uint8_t* own;        // [2][T x D]: Q and dO (dq), K and V (dkv)
-  uint8_t* stage;      // NS x [2][TS x D]: K and V (dq), Q and dO (dkv)
-  uint8_t* xch;        // dkv at d = 256: P of two tile parities
-  float* rows;         // NS x [2][TS]: lse and delta of a stage's q rows (dkv)
-  uint64_t* full;      // [NS]: a stage's loads landed
-  uint64_t* empty;     // [NS]: the consumers are done with a stage
-  uint64_t* own_full;  // the own tiles landed
-  __device__ explicit Bf16Smem(uint8_t* raw) {
-    own = align1024(raw);
-    stage = own + Plan::OWN;
-    xch = stage + Plan::NS * Plan::STAGE;
-    rows = reinterpret_cast<float*>(xch + Plan::XCH);
-    full = reinterpret_cast<uint64_t*>(xch + Plan::XCH + Plan::NS * Plan::ROWS);
-    empty = full + Plan::NS;
-    own_full = empty + Plan::NS;
-  }
-  // one thread, before anything else
-  __device__ void init() const {
-    for (int s = 0; s < Plan::NS; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kConsumers);
-    }
-    mbar_init(own_full, 1);
-    fence_mbar_init();
-  }
-};
-
-// The producer: thread kConsumers loads the own tiles (`own`), then tile n
-// of the walk into stage n % NS (`unit`) once the consumers have released
-// the tile the stage held before.  (ring_attention.cuh's produce also
-// passes the cluster forms' barriers: these blocks have none.)
-template <int NS, typename Own, typename Unit>
-__device__ __forceinline__ void stream_tiles(int tiles, uint64_t* empty, Own own, Unit unit) {
-  if (threadIdx.x != kConsumers) return;
-  own();
-  for (int n = 0; n < tiles; ++n) {
-    const int s = n % NS;
-    if (n >= NS) mbar_wait(empty + s, (n / NS - 1) & 1);
-    unit(n, s);
-  }
-}
-
-// v, opaque to the compiler: descriptors built from it are built again at
-// each use, not hoisted out of the loop into registers
-__device__ __forceinline__ uint32_t opaque(uint32_t v) {
-  asm volatile("" : "+r"(v));
-  return v;
-}
-
-// acc (m64nN) = A B^T over d: A the warpgroup's 64 rows of an own tile of
-// T rows (at a), B a streamed tile of N rows (at b), both K-major; one
-// tensor-core chain over d
-template <int D, int T, int N>
-__device__ __forceinline__ void rows_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const uint64_t da = desc_kmajor(opaque(a) + (ks / 4) * (T * 128) + (ks % 4) * 32);
-    const uint64_t db = desc_kmajor(b + (ks / 4) * (N * 128) + (ks % 4) * 32);
-    if constexpr (N == 64) wgmma_m64n64k16_ss(acc, da, db, ks > 0);
-    else wgmma_m64n32k16_ss(acc, da, db, ks > 0);
-  }
-}
-
-// The consumers' walks, stepped a tile at a time (walk.at divides)
-struct DqCursor {
-  int arr = 0, kt = 0;
-  __device__ void next(const DqWalk& w) {
-    if (++kt < (arr == 0 ? w.first : w.nk)) return;
-    kt = 0;
-    ++arr;
-  }
-};
+// The bf16 kernels: ring_attention.cuh's producer and consumers (Bf16Smem,
+// stream_tiles, rows_product, DqCursor, prob); the dK/dV block's walk,
+// stepped a tile at a time (DkvWalk::at divides)
 struct DkvCursor {
   int arr, t, qt;
   __device__ explicit DkvCursor(const DkvWalk& w) : arr(0), t(0), qt(w.qs) {}
@@ -211,22 +133,6 @@ struct DkvCursor {
     ++arr;
   }
 };
-
-// P of a score entry, 2^(s scale log2(e) - lse log2(e)) by ex2.approx
-// (within 2 ulp; results below 2^-126 flush to 0), from scale2 = scale
-// log2(e) and lse2 = lse log2(e); 0 where masked
-__device__ __forceinline__ float prob(float s, float scale2, float lse2, bool masked) {
-  float p;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(s * scale2 - lse2));
-  return masked ? 0.f : p;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N]) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) x[e] = 0.f;
-  reg_fence(x);
-}
 
 // The consumers' loop, in each bf16 form: iteration i issues tile i's S
 // and dP products, then tile i - 1's output products, one commit group

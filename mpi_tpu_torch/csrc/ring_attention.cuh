@@ -2,15 +2,17 @@
 // (attention_bwd.cu) share, and with them their forms for head dims above
 // 256 (attention_wide.cu, attention_bwd_wide.cu): the geometry of a launch,
 // the ring-order walks of a query tile over the K/V tiles and of a K/V
-// tile over the query tiles, cp.async staging of bf16 (swizzled) and
-// float32 (padded) tiles, the online-softmax fold of a tile's scores, the
-// backward's P and dS of a score entry, the float32 fragment helpers of
-// the TF32 products, and what the forms that run in thread-block clusters
-// share (the cluster's size, its launch, the float32 tensor maps and output
-// products).  The float32 backward at d <= 256 runs four warps a block, the
-// forward several warpgroups, the forms above d = 256 and the bf16 backward
-// a producer and two consumer warpgroups; the staging loops take the
-// block's thread count.
+// tile over the query tiles, cp.async staging of float32 (padded) tiles,
+// the online-softmax fold of a tile's scores, the backward's P and dS of a
+// score entry, the float32 fragment helpers of the TF32 products, what the
+// forms that run in thread-block clusters share (the cluster's size, its
+// launch, the float32 tensor maps and output products), and what the bf16
+// forward and backward at d <= 256 share (their shared memory, their TMA
+// producer, the stepped walk of a query block, the tile product S = Q K^T,
+// exponentials by ex2).  The float32 backward at d <= 256 runs four warps a
+// block, the float32 forward several warpgroups, the forms above d = 256
+// and the bf16 forms a producer and two consumer warpgroups; the staging
+// loops take the block's thread count.
 #pragma once
 
 #include <cuda.h>
@@ -164,17 +166,6 @@ struct KvBlock {
 };
 
 // -- staging ------------------------------------------------------------------
-// rows [0, R) of a row-major [*, D] bf16 block into a swizzled tile, zeros
-// beyond `valid` rows (NT threads copy)
-template <int R, int D, int NT = kThreads>
-__device__ __forceinline__ void stage_bf16(uint8_t* dst, const bf16* src, int valid) {
-  constexpr int C = D / 8;
-  for (int idx = threadIdx.x; idx < R * C; idx += NT) {
-    const int r = idx / C, c = (idx % C) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + sw128_offset(r, c, R), ok ? src + (long long)r * D + c : src, ok);
-  }
-}
 // rows [0, R) of a row-major [*, D] float32 block into a tile of row stride
 // D + 4, zeros beyond `valid` rows (NT threads copy)
 template <int R, int D, int NT = kThreads>
@@ -205,13 +196,30 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
 }
 
 // -- the softmax of a tile ----------------------------------------------------------
+// 2^x by ex2.approx (within 2 ulp; results below 2^-126 flush to 0); above
+// 2^-126 exp2f's value (exp2f takes the same MUFU.EX2 there, and around it
+// tests and scales for results below)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+template <bool Ex2>
+__device__ __forceinline__ float pow2(float x) {
+  if constexpr (Ex2) return ex2(x);
+  else return exp2f(x);
+}
+
 // One tile's scores (NC groups of 8 columns in the m16n8 accumulator layout:
 // s[n][2i + c] = S[row g + 8i][8n + 2t + c]) folded into the online-softmax
 // state of the thread's two rows, in place: s becomes P = 2^(x - m'), where
 // x = S scale log2(e), or -1e30 where the diagonal block masks it, or -inf
 // past the block's rows; m (log2 units) and l are updated and alpha =
-// 2^(m - m') is what the O accumulator must be rescaled by.
-template <int NC>
+// 2^(m - m') is what the O accumulator must be rescaled by.  Masks = false
+// is for a tile the caller knows to hold no masked entry and no column
+// past the block's rows: the same values without the tests.  Ex2: the
+// exponentials by ex2, not exp2f.
+template <int NC, bool Masks = true, bool Ex2 = false>
 __device__ __forceinline__ void fold_scores(float (&s)[NC][4], float (&m)[2], float (&l)[2],
                                             float (&alpha)[2], int qi0, int kj0, int sb,
                                             bool diag, float scale2) {
@@ -222,8 +230,10 @@ __device__ __forceinline__ void fold_scores(float (&s)[NC][4], float (&m)[2], fl
     for (int e = 0; e < 4; ++e) {
       const int qi = qi0 + 8 * (e >> 1), kj = kj0 + 8 * n + (e & 1);
       float x = s[n][e] * scale2;
-      if (kj >= sb) x = -INFINITY;            // past the block's rows
-      else if (diag && kj > qi) x = kMasked;  // _causal_mask
+      if constexpr (Masks) {
+        if (kj >= sb) x = -INFINITY;            // past the block's rows
+        else if (diag && kj > qi) x = kMasked;  // _causal_mask
+      }
       s[n][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
@@ -233,14 +243,14 @@ __device__ __forceinline__ void fold_scores(float (&s)[NC][4], float (&m)[2], fl
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
     const float m_new = fmaxf(m[i], mx[i]);
-    alpha[i] = exp2f(m[i] - m_new);  // 0 on the first tile (m = -inf)
+    alpha[i] = pow2<Ex2>(m[i] - m_new);  // 0 on the first tile (m = -inf)
     m[i] = m_new;
   }
 #pragma unroll
   for (int n = 0; n < NC; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(s[n][e] - m[e >> 1]);
+      const float p = pow2<Ex2>(s[n][e] - m[e >> 1]);
       s[n][e] = p;
       sum[e >> 1] += p;
     }
@@ -333,6 +343,104 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kNoCluster = 1001;   // cudaOccupancyMaxActiveClusters found no room for a cluster
 constexpr int kNoEncoder = 1002;   // the CUDA driver's cuTensorMapEncodeTiled was not found
 constexpr int kBadMap = 1003;      // cuTensorMapEncodeTiled refused a tensor
+
+// -- the bf16 forms at d <= 256 (attention.cu's forward, attention_bwd.cu's backward) --
+// A producer warpgroup, one thread of which issues every TMA load, and two
+// consumer warpgroups (kClusterThreads threads, no cluster; setmaxnreg
+// moves the producers' registers to the consumers).  The block's shared
+// memory, in the plan's order (1024-byte aligned, the swizzle's need): the
+// own tiles, NS stages of the streamed tiles, the exchange region (dK/dV),
+// the lse and delta rows of each stage (dK/dV), the mbarriers.
+template <typename Plan>
+struct Bf16Smem {
+  uint8_t* own;        // [2][T x D]: Q and dO (dq), K and V (dkv); [T x D]: Q (the forward)
+  uint8_t* stage;      // NS x [2][TS x D]: K and V (dq), Q and dO (dkv); K or V (the forward)
+  uint8_t* xch;        // dkv at d = 256: P of two tile parities
+  float* rows;         // NS x [2][TS]: lse and delta of a stage's q rows (dkv)
+  uint64_t* full;      // [NS]: a stage's loads landed
+  uint64_t* empty;     // [NS]: the consumers are done with a stage
+  uint64_t* own_full;  // the own tiles landed
+  __device__ explicit Bf16Smem(uint8_t* raw) {
+    own = align1024(raw);
+    stage = own + Plan::OWN;
+    xch = stage + Plan::NS * Plan::STAGE;
+    rows = reinterpret_cast<float*>(xch + Plan::XCH);
+    full = reinterpret_cast<uint64_t*>(xch + Plan::XCH + Plan::NS * Plan::ROWS);
+    empty = full + Plan::NS;
+    own_full = empty + Plan::NS;
+  }
+  // one thread, before anything else
+  __device__ void init() const {
+    for (int s = 0; s < Plan::NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_init(own_full, 1);
+    fence_mbar_init();
+  }
+};
+
+// The producer: thread kConsumers loads the own tiles (`own`), then unit n
+// of the walk into stage n % NS (`unit`) once the consumers have released
+// the unit the stage held before.  (produce, above, also passes the
+// cluster forms' barriers: these blocks have none.)
+template <int NS, typename Own, typename Unit>
+__device__ __forceinline__ void stream_tiles(int tiles, uint64_t* empty, Own own, Unit unit) {
+  if (threadIdx.x != kConsumers) return;
+  own();
+  for (int n = 0; n < tiles; ++n) {
+    const int s = n % NS;
+    if (n >= NS) mbar_wait(empty + s, (n / NS - 1) & 1);
+    unit(n, s);
+  }
+}
+
+// v, opaque to the compiler: descriptors built from it are built again at
+// each use, not hoisted out of the loop into registers
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// acc (m64nN) = A B^T over d: A the warpgroup's 64 rows of an own tile of
+// T rows (at a), B a streamed tile of N rows (at b), both K-major; one
+// tensor-core chain over d
+template <int D, int T, int N>
+__device__ __forceinline__ void rows_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint64_t da = desc_kmajor(opaque(a) + (ks / 4) * (T * 128) + (ks % 4) * 32);
+    const uint64_t db = desc_kmajor(b + (ks / 4) * (N * 128) + (ks % 4) * 32);
+    if constexpr (N == 128) wgmma_m64n128k16_ss(acc, da, db, ks > 0);
+    else if constexpr (N == 64) wgmma_m64n64k16_ss(acc, da, db, ks > 0);
+    else wgmma_m64n32k16_ss(acc, da, db, ks > 0);
+  }
+}
+
+// The walk of a query block (DqWalk), stepped a tile at a time (DqWalk::at
+// divides)
+struct DqCursor {
+  int arr = 0, kt = 0;
+  __device__ void next(const DqWalk& w) {
+    if (++kt < (arr == 0 ? w.first : w.nk)) return;
+    kt = 0;
+    ++arr;
+  }
+};
+
+// P of a score entry, 2^(s scale log2(e) - lse log2(e)) by ex2, from
+// scale2 = scale log2(e) and lse2 = lse log2(e); 0 where masked
+__device__ __forceinline__ float prob(float s, float scale2, float lse2, bool masked) {
+  const float p = ex2(s * scale2 - lse2);
+  return masked ? 0.f : p;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) x[e] = 0.f;
+  reg_fence(x);
+}
 
 // word (row, col) of a float32 tile in the 128-byte swizzle (sw128_f32)
 __device__ __forceinline__ float ld_f32(const uint8_t* tile, int row, int col, int rows) {

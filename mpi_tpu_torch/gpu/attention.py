@@ -340,10 +340,11 @@ def wide_cluster(d: int) -> Tuple[int, int]:
 
 def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """Shared memory per block of each kernel at head dim ``d``, from the
-    plans in the sources.  For d in ``_HEAD_DIMS``: bf16 tiles are 64 x d in
-    the 128-byte swizzle after 1 KB of alignment: the forward
-    (csrc/attention.cu ``FwdBf16Plan``) holds W resident Q tiles, two
-    stages of K and three of V; the backward (csrc/attention_bwd.cu
+    plans in the sources.  For d in ``_HEAD_DIMS``: bf16 tiles are in the
+    128-byte swizzle after 1 KB of alignment: the forward
+    (csrc/attention.cu ``FwdBf16Plan``) holds its 128-row Q tile and NS
+    one-tile stages of K or V tiles (128 rows at d = 128, 64 at 256); the
+    backward (csrc/attention_bwd.cu
     ``DqBf16Plan``, ``DkvBf16Plan``) its two resident tiles (128-row Q and
     dO; K and V, 128 rows at d = 128, 64 at 256), NS stages of its two
     streamed tiles (dK/dV with their lse and delta rows) and, for dK/dV at

@@ -1,9 +1,10 @@
 """Hold this tree's ring-attention forward above d = 256
-(``csrc/attention_wide.cu``), or with ``--source attention_bwd`` its
-backward at d = 128 and 256 (``csrc/attention_bwd.cu``), against a parent
-tree's, on one card, in one process.
+(``csrc/attention_wide.cu``), or with ``--source attention`` its forward
+at d = 128 and 256 (``csrc/attention.cu``), or with ``--source
+attention_bwd`` its backward at d = 128 and 256 (``csrc/attention_bwd.cu``),
+against a parent tree's, on one card, in one process.
 
-    python -m mpi_tpu_torch.tools.wide_ab --parent PARENT [--source attention_wide|attention_bwd] [--out chiprun_out/wide_ab.json]
+    python -m mpi_tpu_torch.tools.wide_ab --parent PARENT [--source attention_wide|attention|attention_bwd] [--out chiprun_out/wide_ab.json]
 
 Builds both trees' source (each beside its own headers, with
 ``_build.NVCC_FLAGS``, both at once) and prints each build's registers and
@@ -15,6 +16,12 @@ spills; then swaps each into ``_build._LIBS`` and
   parent's order; times the forward of both at the wide serving shape
   (``chip_smoke.WIDE_SERVE``, causal, bf16 and float32) with CUDA events,
   in turns: parent, this tree, this tree, parent;
+* ``attention``: compares both trees' bf16 out and lse bit for bit on
+  phase 11's bf16 cases at d = 128 and 256 and holds both against the
+  plain version (the largest share of ``chip_smoke.check_close``'s
+  allowance each); times the bf16 forward of both, and SDPA's forward
+  once, at the serving shape (``chip_smoke.SERVE``, causal) and at
+  d = 256 with the same sequence and 16/4 heads, in the same turns;
 * ``attention_bwd``: holds both trees' bf16 dq, dk and dv against the plain
   version on phase 11's bf16 cases at d = 128 and 256 (the largest share of
   ``chip_smoke.check_close``'s allowance each, and how many cases are
@@ -22,7 +29,7 @@ spills; then swaps each into ``_build._LIBS`` and
   serving shape (``chip_smoke.SERVE``, causal, bf16) in the same turns.
 
 Writes ``--out`` and prints one line a result; exits 1 unless every
-forward case is bitwise equal, or every backward case within the
+wide forward case is bitwise equal, or every narrow case within the
 allowance.  It needs a CUDA card.
 """
 
@@ -42,7 +49,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="root of the parent tree")
     ap.add_argument("--source", default="attention_wide",
-                    choices=("attention_wide", "attention_bwd"))
+                    choices=("attention_wide", "attention", "attention_bwd"))
     ap.add_argument("--out", default="chiprun_out/wide_ab.json")
     args = ap.parse_args(argv)
     import torch
@@ -88,8 +95,9 @@ def main(argv=None) -> int:
             json.dump(res, f, indent=1)
         return 1
 
-    if args.source == "attention_bwd":
-        ok = narrow_bwd(torch, chip_smoke, _build, attention, libs, res)
+    if args.source in ("attention", "attention_bwd"):
+        narrow = narrow_fwd if args.source == "attention" else narrow_bwd
+        ok = narrow(torch, chip_smoke, _build, attention, libs, res)
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
         return 0 if ok else 1
@@ -140,6 +148,65 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
     return 0 if not differ else 1
+
+
+def narrow_fwd(torch, chip_smoke, _build, attention, libs, res) -> bool:
+    """The ``attention`` comparison; True iff every case of both trees is
+    within the allowance."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def fwd(name, *args, **kw):
+        _build._LIBS["attention"] = libs[name]
+        return attention.ring_attention_world(*args, **kw)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    used = {"parent": 0.0, "cur": 0.0}
+    same, differ = 0, []
+    for dh, sb, hq, hkv, causal, groups in chip_smoke.parity_grid(False):
+        if dh > 256:
+            continue
+        q, k, v = (torch.randn((chip_smoke.P, h, sb, dh), device="cuda", generator=gen)
+                   .to(torch.bfloat16) for h in (hq, hkv, hkv))
+        want = attention.ring_attention_plain(q, k, v, groups, causal=causal, with_lse=True)
+        got = {name: fwd(name, q, k, v, groups, causal=causal, with_lse=True) for name in libs}
+        torch.cuda.synchronize()
+        case = f"d={dh} sb={sb} {hq}/{hkv} causal={causal} groups={groups is not None}"
+        for name, (out, lse) in got.items():
+            used[name] = max(used[name],
+                             chip_smoke.allowance_share(torch, f"{case} out", out, want[0],
+                                                        torch.bfloat16)[1],
+                             chip_smoke.allowance_share(torch, f"{case} lse", lse, want[1],
+                                                        torch.float32)[1])
+        if all(torch.equal(a, b) for a, b in zip(got["parent"], got["cur"])):
+            same += 1
+        else:
+            differ.append(case)
+    res["bf16_forward_vs_parent"] = {"largest_share": used, "equal": same, "differ": differ}
+    print(f"bf16 forward at d = 128 and 256, {same + len(differ)} cases: largest share of the "
+          f"allowance {used}, out and lse bitwise the parent's in {same}; differ: {differ[:4]}",
+          flush=True)
+    for label, g in (("serving", chip_smoke.SERVE),
+                     ("d256", dict(chip_smoke.SERVE, d=256, heads=16, kv_heads=4))):
+        q = torch.randn(chip_smoke.P, g["heads"], g["seq_per_rank"], g["d"], device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn(chip_smoke.P, g["kv_heads"], g["seq_per_rank"], g["d"],
+                            device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
+        for name in ("parent", "cur", "cur", "parent"):
+            ms = chip_smoke.time_ms(torch, lambda: fwd(name, q, k, v, causal=True, with_lse=True),
+                                    reps=3, warmup=1)
+            res.setdefault("serving_ms", {}).setdefault(label, {}).setdefault(name, []).append(ms)
+            print(f"time fwd {label} {name}: {ms:.3f} ms", flush=True)
+        ql, kl, vl = (chip_smoke.world_to_sequence(a) for a in (q, k, v))
+        with torch.no_grad(), sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                           SDPBackend.EFFICIENT_ATTENTION]):
+            ms = chip_smoke.time_ms(torch, lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, enable_gqa=True), reps=3, warmup=1)
+        res.setdefault("library_fwd_ms", {})[label] = ms
+        print(f"time SDPA forward {label}: {ms:.3f} ms", flush=True)
+        del q, k, v, ql, kl, vl
+        torch.cuda.empty_cache()
+    return max(used.values()) <= 1.0
 
 
 def narrow_bwd(torch, chip_smoke, _build, attention, libs, res) -> bool:

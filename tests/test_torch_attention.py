@@ -225,10 +225,14 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
         for dt in (torch.float32, torch.bfloat16):
             attention._kernel_plan(d, dt)
             assert max(attention.kernel_smem_bytes(d, dt).values()) <= attention._SMEM_LIMIT
-    # the forward: Q tiles of three warpgroups at d = 128 (two for bf16 at
-    # d = 256, one for float32), sharing the staged K/V tiles
-    assert attention.kernel_smem_bytes(128, torch.bfloat16)["fwd"] == 132096
-    assert attention.kernel_smem_bytes(256, torch.bfloat16)["fwd"] == 230400
+    # the bf16 forward (csrc/attention.cu FwdBf16Plan): 1 KB of alignment,
+    # the 128-row Q tile 128 d x 2, NS one-tile stages of a K or V tile
+    # (NS = 6 of 128 x 128 at d = 128, 5 of 64 x 256 at d = 256), 2 NS + 1
+    # mbarriers
+    assert attention.kernel_smem_bytes(128, torch.bfloat16)["fwd"] == 1024 + 32768 + 6 * 32768 + 13 * 8
+    assert attention.kernel_smem_bytes(256, torch.bfloat16)["fwd"] == 1024 + 65536 + 5 * 32768 + 11 * 8
+    # the float32 forward: Q tiles of three warpgroups at d = 128 (one at
+    # d = 256), sharing the staged K/V tiles
     assert attention.kernel_smem_bytes(128)["fwd"] == 168960
     assert attention.kernel_smem_bytes(256)["fwd"] == 199680
     # the bf16 backward (csrc/attention_bwd.cu DqBf16Plan, DkvBf16Plan): 1 KB
@@ -366,16 +370,17 @@ def test_wide_backward_design_floor(d):
 
 def test_smem_bytes_follow_the_plans_in_the_sources(tmp_path, monkeypatch):
     """``kernel_smem_bytes`` evaluates the plan structs of the sources: a
-    copy of csrc/ with one more staged V tile in the bf16 forward's plan
-    gives one more 64 x d bf16 tile, and nothing else moves."""
+    copy of csrc/ with one more stage in the bf16 forward's plan gives one
+    more staged K or V tile (128 x 128 bf16 at d = 128, 64 x 256 at
+    d = 256: 32 768 bytes) and its two mbarriers, and nothing else moves."""
     from mpi_tpu_torch import _build
 
     for f in _build.SRC_DIR.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     cu = tmp_path / "attention.cu"
     text = cu.read_text()
-    assert text.count("(W + 2 + 3) * TILE") == 1
-    cu.write_text(text.replace("(W + 2 + 3) * TILE", "(W + 2 + 4) * TILE"))
+    assert text.count("NS = D == 128 ? 6 : 5,") == 1
+    cu.write_text(text.replace("NS = D == 128 ? 6 : 5,", "NS = D == 128 ? 7 : 6,"))
     before = {(d, dt): attention.kernel_smem_bytes(d, dt)
               for d in (128, 256) for dt in (torch.float32, torch.bfloat16)}
     monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
@@ -383,7 +388,7 @@ def test_smem_bytes_follow_the_plans_in_the_sources(tmp_path, monkeypatch):
     try:
         for (d, dt), was in before.items():
             now = attention.kernel_smem_bytes(d, dt)
-            grown = 64 * d * 2 if dt == torch.bfloat16 else 0
+            grown = 32768 + 2 * 8 if dt == torch.bfloat16 else 0
             assert now == dict(was, fwd=was["fwd"] + grown), (d, dt)
     finally:
         attention._plan_smem.cache_clear()

@@ -15,12 +15,14 @@ What the kernels multiply:
   tensor core reads with its low 13 bits cleared as well; a product is
   a_lo b_hi + a_hi b_hi + a_hi b_lo.
 
-The forward folds the K/V block in tiles of 64 (bf16) or 32 (float32)
-rows with the online rescale, in log2 units (scores times scale log2(e),
-exp2, lse = m ln 2 + log l).  The emulation differs from the kernels only
-in the order of the float32 sums and in exp2 (the card's ex2.approx is
-within two ulps), so these tests are the evidence, before the card sees
-the kernels, that the split depth fits the tolerance.  In the backward a
+The forward folds the K/V block in tiles of 128 (bf16 at d = 128), 64
+(bf16 at d = 256) or 32 (float32) rows with the online rescale, in log2
+units (scores times scale log2(e), exp2, lse = m ln 2 + log l), in blocks
+of 128 Q rows (bf16) with the kernel's shortcuts where asked.  The
+emulation differs from the kernels only in the order of the float32 sums
+and in exp2 (the card's ex2.approx is within two ulps), so these tests are
+the evidence, before the card sees the kernels, that the split depth fits
+the tolerance.  In the backward a
 single bf16 P and dS, or a single TF32 product, does not fit it; in the
 forward, whose only float32 operand is P, neither does.  The forms above
 d = 256 (csrc/attention_wide.cu, attention_bwd_wide.cu) run in
@@ -128,19 +130,37 @@ def emulated_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False,
 
 
 # the forward's products: (Q K^T, P V) and its k-tile rows, by input dtype
+# (bf16: 64-row tiles at d = 256, 128-row ones at d = 128, kernel_fwd_products)
 FWD_PRODUCTS = {torch.float32: (mm_3xtf32, mm_3xtf32, 32),
                 torch.bfloat16: (torch.matmul, mm_split_bf16, 64)}
+
+
+def kernel_fwd_products(dtype, d):
+    """The forward kernel's products and k-tile rows at head dim ``d``
+    (csrc/attention.cu ``FwdBf16Plan``, ``FwdF32Plan``)."""
+    qk, pv, tile = FWD_PRODUCTS[dtype]
+    return qk, pv, 128 if dtype == torch.bfloat16 and d == 128 else tile
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
 
-def emulated_fwd(q, k, v, groups=None, *, causal=False, products=None, cast=True):
+def emulated_fwd(q, k, v, groups=None, *, causal=False, products=None, cast=True, rows=None,
+                 shortcuts=False):
     """The forward kernel's arithmetic on the CPU (shapes as
     ``ring_attention_plain``, multi-head): each arrival's K/V block in
-    tiles of 64 (bf16) or 32 (float32) rows, each tile folded into the
-    float32 state (m in log2 units, l, o); returns (out, lse)."""
-    qk, pv, tile = products or FWD_PRODUCTS[q.dtype]
+    tiles of 128 (bf16 at d = 128), 64 (bf16 at d = 256) or 32 (float32)
+    rows, each tile folded into the float32 state (m in log2 units, l, o);
+    returns (out, lse).
+
+    ``rows``: the Q rows of a kernel block (None: a rank's whole block at
+    once).  A block walks, on its diagonal arrival, the k-tiles up to the
+    one holding its last row (``DqWalk``), and every row of it folds every
+    tile of that walk; the rows are folded a warp's 16 at a time.
+    ``shortcuts``: the bf16 kernel's, for each warp's rows: a tile with no
+    masked entry for them folds without the mask, and o is not rescaled in
+    a head where alpha is 1 for all of them."""
     nranks, hq, sb, d = q.shape
+    qk, pv, tile = products or kernel_fwd_products(q.dtype, d)
     rep = hq // k.shape[1]
     heads = torch.arange(hq) // rep
     scale2 = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32) * torch.tensor(
@@ -148,32 +168,43 @@ def emulated_fwd(q, k, v, groups=None, *, causal=False, products=None, cast=True
     gl = groups or [list(range(nranks))]
     qf, kf, vf = (t.float() for t in (q, k, v))
     mask = torch.arange(sb)[None, :] <= torch.arange(sb)[:, None]
+    nk = -(-sb // tile)
+    block, warp = (sb, sb) if rows is None else (rows, 16)
     out = torch.empty(qf.shape)
     lse = torch.empty((nranks, hq, sb))
     for grp in gl:
         g = len(grp)
         for r, w in enumerate(grp):
-            m = torch.full((hq, sb, 1), -np.inf)
-            l = torch.zeros((hq, sb, 1))
-            o = torch.zeros((hq, sb, d))
-            for a in range(g):
-                j = (r - a) % g
-                if causal and j > r:
-                    continue
-                kb, vb = kf[grp[j]][heads], vf[grp[j]][heads]
-                for k0 in range(0, sb, tile):
-                    cols = slice(k0, min(sb, k0 + tile))
-                    x = qk(qf[w], kb[:, cols].transpose(-1, -2)) * scale2
-                    if causal and j == r:
-                        x = torch.where(mask[:, cols], x, torch.full_like(x, -1e30))
-                    m_new = torch.maximum(m, x.amax(-1, keepdim=True))
-                    alpha = torch.exp2(m - m_new)
-                    p = torch.exp2(x - m_new)
-                    l = l * alpha + p.sum(-1, keepdim=True)
-                    o = o * alpha + pv(p, vb[:, cols])
-                    m = m_new
-            out[w] = o / l
-            lse[w] = (m * LN2 + torch.log(l))[..., 0]
+            for b0 in range(0, sb, block):
+                first = min(nk, (b0 + block - 1) // tile + 1)
+                for w0 in range(b0, min(sb, b0 + block), warp):
+                    qs = slice(w0, min(sb, w0 + warp))
+                    m = torch.full((hq, qs.stop - w0, 1), -np.inf)
+                    l = torch.zeros((hq, qs.stop - w0, 1))
+                    o = torch.zeros((hq, qs.stop - w0, d))
+                    for a in range(g):
+                        j = (r - a) % g
+                        if causal and j > r:
+                            continue
+                        diag = causal and j == r
+                        kb, vb = kf[grp[j]][heads], vf[grp[j]][heads]
+                        for k0 in range(0, (first if diag else nk) * tile, tile):
+                            cols = slice(k0, min(sb, k0 + tile))
+                            x = qk(qf[w][:, qs], kb[:, cols].transpose(-1, -2)) * scale2
+                            if diag and not (shortcuts and k0 + tile - 1 <= w0):
+                                x = torch.where(mask[qs, cols], x, torch.full_like(x, -1e30))
+                            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                            alpha = torch.exp2(m - m_new)
+                            p = torch.exp2(x - m_new)
+                            l = l * alpha + p.sum(-1, keepdim=True)
+                            if shortcuts:
+                                o = torch.where((alpha == 1).all(1, keepdim=True), o, o * alpha)
+                            else:
+                                o = o * alpha
+                            o = o + pv(p, vb[:, cols])
+                            m = m_new
+                    out[w][:, qs] = o / l
+                    lse[w][:, qs] = (m * LN2 + torch.log(l))[..., 0]
     return (out.to(q.dtype) if cast else out), lse
 
 
@@ -285,6 +316,85 @@ def test_split_forward_matches_the_reference():
     want = jax_forward(q, k, v, "f32", causal=True)
     got, _ = emulated_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("sb", [80, 208])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)])
+def test_narrow_bf16_forward_128_row_blocks_are_bitwise_the_192_row_ones(hq, hkv, causal, sb,
+                                                                         tile):
+    """The bf16 forward at d = 128 in blocks of 128 Q rows with the
+    kernel's shortcuts (csrc/attention.cu ``attn_fwd_bf16_kernel``) gives
+    out and lse bitwise equal to blocks of 192 rows without them (the
+    earlier form's three warpgroups), at the earlier form's 64-row K/V
+    tiles and at the kernel's 128: a block's walk only adds tiles that are
+    all masked for its earlier rows (P = 0, alpha = 1: exact zeros).
+    {MHA, GQA in two groups of 2, MQA} x {full, causal}, Sb = 80 (one
+    block of either size) and 208 (blocks that end at other rows), both
+    ending in a partial tile; within check_close of the plain forward."""
+    groups = [[0, 1], [2, 3]] if hkv == 2 else None
+    q, k, v, _, _, _ = world(4, hq, hkv, sb, 128, torch.bfloat16, causal, groups,
+                             seed=hq + 10 * hkv + sb)
+    products = (torch.matmul, mm_split_bf16, tile)
+    new = emulated_fwd(q, k, v, groups, causal=causal, products=products, rows=128,
+                       shortcuts=True)
+    old = emulated_fwd(q, k, v, groups, causal=causal, products=products, rows=192)
+    assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+    want, want_lse = attention.ring_attention_plain(q, k, v, groups, causal=causal,
+                                                    with_lse=True)
+    chip_smoke.check_close(torch, "128-row blocks out", new[0], want, torch.bfloat16)
+    chip_smoke.check_close(torch, "128-row blocks lse", new[1], want_lse, torch.float32)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)])
+def test_narrow_bf16_forward_shortcuts_change_no_bit(hq, hkv, d):
+    """The bf16 forward's unmasked path (a tile with no masked entry for a
+    warp's rows folds without the mask) and its skipped rescale (alpha 1
+    for all of a warp's rows) change no bit of out and lse, causal, in
+    128-row blocks at Sb = 208, d = 128 and 256 (where the earlier form's
+    blocks were 128 rows too)."""
+    q, k, v, _, _, _ = world(4, hq, hkv, 208, d, torch.bfloat16, True, seed=d + hq + hkv)
+    cut = emulated_fwd(q, k, v, causal=True, rows=128, shortcuts=True, cast=False)
+    full = emulated_fwd(q, k, v, causal=True, rows=128, cast=False)
+    assert torch.equal(cut[0], full[0]) and torch.equal(cut[1], full[1])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)])
+def test_narrow_bf16_forward_128_row_tiles_within_check_close_of_plain(hq, hkv, causal):
+    """At d = 128 the bf16 forward folds 128-row K/V tiles (the earlier
+    form 64): its running maximum steps every 128 columns, so P rounds at
+    other places than the earlier form's and out and lse are not its bits;
+    both stay within check_close of the plain forward.  {MHA, GQA in two
+    groups of 2, MQA} x {full, causal}, Sb = 208 (a full and a partial
+    128-row tile), in the kernel's 128-row blocks with its shortcuts."""
+    groups = [[0, 1], [2, 3]] if hkv == 2 else None
+    q, k, v, _, _, _ = world(4, hq, hkv, 208, 128, torch.bfloat16, causal, groups,
+                             seed=hq + hkv + causal)
+    want, want_lse = attention.ring_attention_plain(q, k, v, groups, causal=causal,
+                                                    with_lse=True)
+    for tile in (128, 64):
+        out, lse = emulated_fwd(q, k, v, groups, causal=causal, rows=128, shortcuts=True,
+                                products=(torch.matmul, mm_split_bf16, tile))
+        chip_smoke.check_close(torch, f"{tile}-row tiles out", out, want, torch.bfloat16)
+        chip_smoke.check_close(torch, f"{tile}-row tiles lse", lse, want_lse, torch.float32)
+
+
+def test_narrow_bf16_forward_matches_the_reference():
+    """At d = 128 (GQA, causal, Sb = 208) on inputs whose values are bf16:
+    the bf16 forward's 128-row tiles, blocks and shortcuts, before the
+    final rounding, against the reference's Pallas forward in interpret
+    mode in float32, within check_close's float32 allowance (out 1e-5)."""
+    rs = np.random.RandomState(29)
+    q, k, v = (torch.from_numpy(rs.randn(2, h, 208, 128).astype(np.float32))
+               .to(torch.bfloat16).float() for h in (4, 2, 2))
+    want = jax_forward(*(t.numpy() for t in (q, k, v)), "f32", causal=True)
+    got, _ = emulated_fwd(*(t.to(torch.bfloat16) for t in (q, k, v)), causal=True, rows=128,
+                          shortcuts=True, cast=False)
+    chip_smoke.check_close(torch, "128-row tiles out vs reference", got, torch.tensor(want),
+                           torch.float32)
 
 
 finite = st.floats(min_value=2.0 ** -100, max_value=2.0 ** 100, allow_nan=False,

@@ -234,6 +234,49 @@ def test_wide_head_forward_is_bitwise_deterministic_on_the_card(dtype):
             assert torch.equal(a, b), d
 
 
+def _narrow_bf16_forward(d, causal):
+    """The bf16 forward at head dim ``d`` (128 or 256: csrc/attention.cu's
+    TMA producer and two consumer warpgroups) twice, and the plain version,
+    on GQA 4/2 blocks of Sb = 208 (two 128-row blocks, the second partial; a
+    partial 64-row tile)."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(d + causal)
+    q = torch.randn(P, 4, 208, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(P, 2, 208, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    attention.reset_launches()
+    first = attention.ring_attention_world(q, k, v, causal=causal, with_lse=True)
+    second = attention.ring_attention_world(q, k, v, causal=causal, with_lse=True)
+    ref = attention.ring_attention_plain(q, k, v, causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"fwd": 2, "bwd_dq": 0, "bwd_dkv": 0}
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    return first, second, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_bf16_forward_matches_plain_on_the_card(d, causal):
+    """out and lse of the bf16 forward at d = 128 and 256 against the plain
+    version: out by the rule of the wide-head tests, lse within 1e-5."""
+    (out, lse), _, (pout, plse) = _narrow_bf16_forward(d, causal)
+    torch.testing.assert_close(out.float(), pout.float(), rtol=2.0 ** -7, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_bf16_forward_is_bitwise_deterministic_on_the_card(d):
+    """Two launches of the bf16 forward at d = 128 and 256 are bitwise
+    equal: every block owns its rows and folds its walk in a fixed order."""
+    first, second, _ = _narrow_bf16_forward(d, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def _narrow_bf16_backward(d, causal):
     """The bf16 backward at head dim ``d`` (128 or 256: csrc/attention_bwd.cu's
     TMA producer and two consumer warpgroups) twice, and the plain version,

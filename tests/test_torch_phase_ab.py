@@ -112,6 +112,42 @@ def test_wide_ab_narrow_backward_refuses_without_a_card(tmp_path):
     assert sum(case[0] <= 256 for case in chip_smoke.parity_grid(False)) == 96
 
 
+def test_wide_ab_narrow_forward_refuses_without_a_card(tmp_path):
+    """``wide_ab --source attention`` (the bf16 forward at d = 128 and 256
+    against a parent tree's, bit for bit and within the allowance, timed at
+    the serving shape and at d = 256) refuses without a card as the other
+    comparisons do."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = tmp_path / "wide_ab.json"
+    res = subprocess.run([sys.executable, "-m", "mpi_tpu_torch.tools.wide_ab",
+                          "--parent", str(ROOT), "--source", "attention", "--out", str(out)],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2, res.stderr
+    assert "no CUDA device" in res.stderr
+    assert not out.exists()
+
+
+def test_ptxas_table_names_every_attention_instance():
+    """``chip_smoke.ptxas_table`` names each instance from ``nvcc -Xptxas
+    -v`` output (phase 12 prints the bf16 forward's and backward's
+    registers and spills by these names)."""
+    import chip_smoke
+
+    space = "_GLOBAL__N__c5f705b1_12_attention_cu_c5f705b1"
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '_ZN{len(space)}{space}{name}' for 'sm_90a'\n"
+        f"ptxas info    : Used {regs} registers, used 0 barriers, 16 bytes cumulative stack size\n"
+        f"    {spill} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads"
+        for name, regs, spill in (
+            ("20attn_fwd_bf16_kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16PfNS_3GeoE", 168, 0),
+            ("15attn_fwd_kernelIfLi256EEEvPKT_S3_S3_PS1_PfNS_3GeoE", 255, 8),
+            ("23attn_bwd_dq_bf16_kernelILi256EEEv14CUtensorMap_st", 168, 0)))
+    rows = chip_smoke.ptxas_table({"attention": log})
+    assert [(r["kernel"], r["registers"], r["spill_stores"]) for r in rows] == [
+        ("attn_fwd_bf16_kernel<bf16, 128>", 168, 0), ("attn_fwd_kernel<float32, 256>", 255, 8),
+        ("attn_bwd_dq_bf16_kernel<bf16, 256>", 168, 0)]
+
+
 def test_phase11_grid_is_the_one_wide_ab_compares():
     """``chip_smoke.parity_grid`` is phase 11's grid, read by
     ``tools/wide_ab.py`` too: float32 184 cases, bf16 160, 64 of each above
