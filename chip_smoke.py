@@ -130,9 +130,11 @@ ok line:
     TFLOP/s, the rate of a float32-accurate product split into three TF32
     tensor-core products, as every attention kernel multiplies; bytes over
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
-    (``FLOOR_FLOPS_PER_ENTRY``); for bfloat16 also the forward's time over
-    SDPA's forward, the backward pair's over SDPA's backward, and the
-    kernels' registers and spills (``fwd_ptxas``, ``bwd_ptxas``);
+    (``FLOOR_FLOPS_PER_ENTRY``), the backward pair's time over SDPA's
+    backward (``bwd_pair_over_library``) and the registers and spills of
+    the kernels with a producer and consumer warpgroups (``bwd_ptxas``: the
+    bf16 backward, and the float32 one at d = 128); for bfloat16 also the
+    forward's time over SDPA's forward and its registers (``fwd_ptxas``);
 12a. the forms above d = 256 (``csrc/attention_wide.cu``,
     ``csrc/attention_bwd_wide.cu``) on their main paths: the wide-head
     serving leg, ``serving_program`` through ``run(..., nranks=8)`` at
@@ -550,9 +552,10 @@ def ptxas_table(reports):
                 if k:
                     cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f' else 'bf16'}, "
                                      f"{k.group(3)}>")
-                k = re.search(r"\d(attn_(?:fwd|bwd_d[a-z]+))_bf16_kernelILi(\d+)E", m.group(1))
+                k = re.search(r"\d(attn_(?:fwd|bwd_d[a-z]+))_(bf16|f32)_kernelILi(\d+)E", m.group(1))
                 if k:
-                    cur["kernel"] = f"{k.group(1)}_bf16_kernel<bf16, {k.group(2)}>"
+                    cur["kernel"] = (f"{k.group(1)}_{k.group(2)}_kernel<"
+                                     f"{'bf16' if k.group(2) == 'bf16' else 'float32'}, {k.group(3)}>")
                 k = re.search(r"\d(attn_[a-z_]+_wide)_(bf16|f32)E", m.group(1))
                 if k:
                     cur["kernel"] = (f"{k.group(1)}<{'float32' if k.group(2) == 'f32' else 'bf16'}, "
@@ -1022,18 +1025,22 @@ def attention_phases(torch, dev, gen, record, paths):
             key, rate = ("bf16", BF16_FLOPS) if dtype == torch.bfloat16 else ("f32", TF32_FLOPS)
             t[f"{kind}_design_floor_ms"] = (FLOOR_FLOPS_PER_ENTRY[key][kind] * shape[4]
                                             * causal_entries(shape) / rate * 1e3)
+        # the backward's pair against SDPA's backward, the narrow bf16
+        # forward against SDPA's forward, and the registers and spills
+        # (ptxas) of the kernels with a producer and consumer warpgroups:
+        # the bf16 forward and backward, the float32 backward at d = 128
+        t["bwd_pair_over_library"] = (t["bwd_dq"] + t["bwd_dkv"]) / t["library_bwd"]
+        form = "_bf16_kernel<" if dtype == torch.bfloat16 else "_f32_kernel<"
+        built = [row for row in ptxas_table(_build.PTXAS_REPORT)
+                 if form in row.get("kernel", "")]
+        kinds = (("fwd", "attn_fwd"), ("bwd", "attn_bwd")) if dtype == torch.bfloat16 else \
+            (("bwd", "attn_bwd"),)
         if dtype == torch.bfloat16:
-            # the narrow bf16 forward against SDPA's forward, the backward's
-            # pair against SDPA's backward, and their kernels' registers and
-            # spills (ptxas)
             t["fwd_over_library"] = t["fwd"] / t["library_fwd"]
-            t["bwd_pair_over_library"] = (t["bwd_dq"] + t["bwd_dkv"]) / t["library_bwd"]
-            built = [row for row in ptxas_table(_build.PTXAS_REPORT)
-                     if "_bf16_kernel<" in row.get("kernel", "")]
-            for kind, prefix in (("fwd", "attn_fwd"), ("bwd", "attn_bwd")):
-                t[f"{kind}_ptxas"] = {row["kernel"]: (row.get("registers"), row.get("spill_stores"),
-                                                      row.get("spill_loads"))
-                                      for row in built if row["kernel"].startswith(prefix)}
+        for kind, prefix in kinds:
+            t[f"{kind}_ptxas"] = {row["kernel"]: (row.get("registers"), row.get("spill_stores"),
+                                                  row.get("spill_loads"))
+                                  for row in built if row["kernel"].startswith(prefix)}
         timing[tag] = t
         log(f"attention timing {tag}: " + ", ".join(
             f"{key} {val:.3f}" if isinstance(val, float) else f"{key} {val}"

@@ -27,19 +27,11 @@
 //   2^-16 |x|), and a product with them is two wgmmas.  Ten bf16 products per
 //   entry over both kernels, where the bound counts five: the design floor
 //   is twice the bf16 bound.
-//   float32 inputs: every operand is split into TF32 hi and lo and a product
-//   is a_lo b_hi + a_hi b_lo + a_hi b_hi (within about 3 x 2^-20 relative;
-//   plain TF32 would leave the float32 tolerance), on mma.sync.m16n8k8 TF32
-//   at a third of the TF32 rate, each product's partial added to its float32
-//   accumulator outside the tensor core (hopper.cuh, mma_3xtf32).  wgmma's
-//   TF32 form has no transpose bit, so P^T dO, dS^T Q and dS K would need
-//   their B tile staged transposed, and
-//   the hi and lo copies of every tile in shared memory: at d = 256 the
-//   dK/dV block would hold K, V (2 x 64 x 256 x 4 x 2 = 256 KB with both
-//   copies) before any Q tile, over the 227 KB a block may use.  mma.sync
-//   takes both operands from registers: one float32 tile in shared memory
-//   (row stride d + 4 floats, conflict-free for the fragment reads), split
-//   in registers as it is read.
+//   float32 inputs: every operand is split into TF32 hi = x with its low 13
+//   bits cleared and lo = x - hi, and a product is a_lo b_hi + a_hi b_lo +
+//   a_hi b_hi (within about 3 x 2^-20 relative; plain TF32 would leave the
+//   float32 tolerance): three TF32 products an entry's product, so the
+//   bound is 6d and 8d flops an entry at a third of the TF32 rate.
 //
 // Design.  On one card all ranks' blocks share one memory, so no block
 // travels: a thread block reads the blocks its ring would have delivered,
@@ -95,15 +87,67 @@
 //   and 1.5x the bound (2x over both kernels' 10d).  Shared memory
 //   (DqBf16Plan, DkvBf16Plan): 197 696 / 230 464 bytes (dq, d = 128 / 256),
 //   133 184 / 215 104 (dkv).
-//   float32 (four warps of 16 rows): one block per (rank, head, 64-row
-//   tile) for dq and per (owner, K/V head, 64-row K tile, 128-column half
-//   of d) for dkv (dK and dV, 64 x 128 float32 each: 64 registers a
-//   thread); resident tiles of 64 rows and one stage of 32-row streamed
-//   tiles staged by cp.async, row stride d + 4: (2 x 64 + 2 x 32) (d + 4) x
-//   4 + 256 bytes = 101 632 at d = 128 (two blocks an SM), 199 936 at d =
-//   256.  The accumulator of P or dS is the A operand of the next m16n8k8
-//   with its k index permuted (k = t <-> column 2t, k = t + 4 <-> 2t + 1);
-//   the B rows are read in the same permutation.
+//   float32 at d = 128 (attn_bwd_dq_f32_kernel, attn_bwd_dkv_f32_kernel):
+//   the same producer and two consumer warpgroups on TF32 wgmma
+//   (m64nNk8), 64 own rows a block, streamed tiles of 32 rows in two
+//   stages (DqF32Plan, DkvF32Plan: 230 464 / 230 976 bytes).  wgmma reads a
+//   32-bit operand from shared memory K-major only, so, as the forms above
+//   d = 256 (attention_bwd_wide.cu) do:
+//     S (S^T) and dP (dP^T): A the own tile, read by ldmatrix (its b16
+//     layout is the TF32 A fragment's) and split in registers; B the
+//     stage's tile read raw (the tensor core takes a raw word's TF32 bits,
+//     truncated) with its lo rows, which the producer's warps 1-3 write
+//     once a stage landed, right after each column block's raw rows, so
+//     that one m64n64 wgmma over [b_hi; b_lo] forms a_hi b_hi and a_hi
+//     b_lo together.  Warpgroup 0 forms S (S^T) and P, warpgroup 1 dP
+//     (dP^T) and dS; P goes to warpgroup 1 through shared memory (dq: in
+//     the dS tiles, where dS is written over it), named barriers between
+//     them, no block-wide barrier a tile.
+//     Outputs formed transposed, dQ^T = K^T dS^T, dV^T = dO^T P, dK^T =
+//     Q^T dS: A the stage's tile transposed, its hi the raw word and its lo
+//     the stage's lo word (no tile is split twice a staging), B the
+//     block's own P or dS tile, written K-major as hi rows then lo rows.
+//     dQ: each warpgroup 64 of the 128 columns, a_hi [b_hi; b_lo] in one
+//     m64n128 wgmma, tile i - 1's product issued after tile i's S (dP) and
+//     in flight under tile i's P (dS); dK/dV: warpgroup 0 dV, 1 dK, each in
+//     two 64-column halves after the tile's P (dS), in 64 accumulator
+//     registers (the merged product's 96 beside dV^T's 64 spilled; with a
+//     half in flight under the next tile's P a warpgroup would need more
+//     than its 232 registers).
+//   Every chain of tensor-core sums is four k steps long (a 32-column block
+//   of S and dP, a 32-row tile of an output): a_hi b_hi one chain, the small
+//   products one or two more, added as a_hi b_hi + (a_lo b_hi + a_hi b_lo)
+//   by round-to-nearest float32 adds (PR 18 measured 0.475 of the float32
+//   allowance at four k steps and 1.49 over a 128-column chain); an output
+//   is a float32 running sum over the block's walk.  Tiles with no masked
+//   entry and no row past Sb take an unmasked path; the consumers step
+//   their walks (dq: DqCursor; dK/dV: its q-tile alone, the diagonal's
+//   tiles being the first walk.first); P is 2^(S scale log2(e) - lse
+//   log2(e)) by ex2.approx.
+//   Bound: the reference's 6d and 8d flops an entry, three TF32 products
+//   each, and this form does no more (the design floor is the bound).
+//   What the parent form (four warps, split-TF32 mma.sync, one cp.async
+//   stage) waited on, and what this form does about it: its products ran
+//   as warp products at a third of mma.sync's TF32 rate (here wgmma, two a
+//   k step where a_hi meets b_hi and b_lo); no copy overlapped the
+//   products (here TMA into two stages from a producer); every warp split
+//   the same streamed tile again (here each stage's lo is written once, and
+//   each own tile is split once a tile, by the one warpgroup that reads
+//   it); its float32 adds joined one k step's partials (here chains of
+//   four); at d = 256 dK/dV formed S^T and dP^T once per 128-column half
+//   (d = 256 keeps that form, below); every entry tested the mask and
+//   every tile divided (here an unmasked path and stepped walks).
+//   float32 at d = 256: the four-warp form (one block per (rank, head,
+//   64-row tile) for dq and per (owner, K/V head, 64-row K tile, 128-column
+//   half of d) for dkv; split-TF32 mma.sync; resident tiles of 64 rows and
+//   one stage of 32-row streamed tiles staged by cp.async, row stride d +
+//   4: (2 x 64 + 2 x 32) (d + 4) x 4 + 256 bytes = 199 936, F32Plan).  The
+//   form above does not fit there: its 64-row own tiles alone are 131 072
+//   bytes, and two stages of two 32-row streamed tiles and their lo
+//   another 131 072 or more, past the 232 448 a block may use.  The
+//   accumulator of P or dS is the A operand of the next m16n8k8 with its k
+//   index permuted (k = t <-> column 2t, k = t + 4 <-> 2t + 1); the B rows
+//   are read in the same permutation.
 
 #include <math.h>
 
@@ -582,6 +626,613 @@ attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap mk, const __grid_co
   }
 }
 
+// ----------------------------------------------------- float32 at d = 128
+// A TMA producer warpgroup and two consumer warpgroups (kClusterThreads
+// threads, one block an SM), TF32 wgmma.  T = 64 own rows a block, shared
+// by both consumer warpgroups; streamed tiles of TS = 32 rows in NS = 2
+// stages.  A stage holds each streamed operand as D / 32 column blocks of
+// its TS raw rows (TMA) followed by their TS lo rows (x - hi, written by
+// the producer's warps 1-3 once the block landed), so one 2TS-row B
+// operand gives a product's a_hi b_hi and a_hi b_lo in one wgmma.  The
+// output products' B tiles (P, dS: hi then lo, K-major, 64 rows each)
+// follow.
+template <int D> struct DqF32Plan {
+  static constexpr int T = 64, TS = 32, NS = 2, OWN = 2 * T * D * 4, STAGE = 2 * 2 * TS * D * 4,
+      BT = 2 * 2 * T * TS * 4, ROWS = 0, BARS = 64;
+  static constexpr int SMEM = 1024 + OWN + NS * STAGE + BT + NS * ROWS + BARS;
+};
+template <int D> struct DkvF32Plan {
+  static constexpr int T = 64, TS = 32, NS = 2, OWN = 2 * T * D * 4, STAGE = 2 * 2 * TS * D * 4,
+      BT = 2 * 2 * T * TS * 4, ROWS = 2 * TS * 4, BARS = 64;
+  static constexpr int SMEM = 1024 + OWN + NS * STAGE + BT + NS * ROWS + BARS;
+};
+
+// the regions of the block's shared memory, in the plan's order
+template <typename Plan>
+struct F32Smem {
+  static constexpr int kOp = Plan::STAGE / 2;        // a streamed operand in a stage
+  static constexpr int kBlock = 2 * Plan::TS * 128;  // a column block: raw rows, then lo rows
+  static constexpr int kLoWriters = 96;              // the producer's warps 1-3
+  uint8_t* own;        // [2][D / 32][T x 128 bytes]: Q and dO (dq), K and V (dkv)
+  uint8_t* stage;      // NS x [2][D / 32][raw, lo][TS x 128 bytes]: K and V (dq), Q and dO (dkv)
+  uint8_t* bt;         // the outputs' B tiles, T x TS, hi then lo
+  float* rows;         // dkv: NS x [2][TS] lse and delta of a stage's q rows
+  uint64_t* full;      // [NS]: a stage's loads landed
+  uint64_t* empty;     // [NS]: the consumers are done with a stage
+  uint64_t* own_full;  // the own tiles landed
+  uint64_t* lo_full;   // [NS]: a stage's lo rows are written
+  __device__ explicit F32Smem(uint8_t* raw) {
+    own = align1024(raw);
+    stage = own + Plan::OWN;
+    bt = stage + Plan::NS * Plan::STAGE;
+    rows = reinterpret_cast<float*>(bt + Plan::BT);
+    full = reinterpret_cast<uint64_t*>(bt + Plan::BT + Plan::NS * Plan::ROWS);
+    empty = full + Plan::NS;
+    own_full = empty + Plan::NS;
+    lo_full = own_full + 1;
+  }
+  // one thread, before anything else
+  __device__ void init() const {
+    for (int s = 0; s < Plan::NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+      mbar_init(lo_full + s, kLoWriters);
+    }
+    mbar_init(own_full, 1);
+    fence_mbar_init();
+  }
+  // until tile n's stage holds its raw and lo rows
+  __device__ void wait_lo(int n) const {
+    mbar_wait(lo_full + n % Plan::NS, (n / Plan::NS) & 1);
+    mbar_wait(full + n % Plan::NS, (n / Plan::NS) & 1);
+  }
+};
+
+// The producer's warps 1-3: once stage n % NS's loads have landed, the lo
+// rows (x - hi of every word, in the raw rows' layout) after each column
+// block's raw rows
+template <typename Plan>
+__device__ __forceinline__ void write_stage_lo(const F32Smem<Plan>& sm, int tiles) {
+  constexpr int Q4 = Plan::TS * 128 / 16, N4 = Plan::STAGE / 32,  // float4s: a block's raw, a stage's
+      NW = F32Smem<Plan>::kLoWriters;
+  const int t = threadIdx.x - kConsumers - 32;
+  for (int n = 0; n < tiles; ++n) {
+    const int s = n % Plan::NS;
+    mbar_wait(sm.full + s, (n / Plan::NS) & 1);
+    float4* st = reinterpret_cast<float4*>(sm.stage + s * Plan::STAGE);
+    for (int i = t; i < N4; i += NW) {
+      float4* raw = st + (i / Q4) * 2 * Q4 + i % Q4;
+      float4 x = *raw;
+      x.x -= __uint_as_float(__float_as_uint(x.x) & 0xFFFFE000u);
+      x.y -= __uint_as_float(__float_as_uint(x.y) & 0xFFFFE000u);
+      x.z -= __uint_as_float(__float_as_uint(x.z) & 0xFFFFE000u);
+      x.w -= __uint_as_float(__float_as_uint(x.w) & 0xFFFFE000u);
+      raw[Q4] = x;
+    }
+    fence_async_shared();
+    mbar_arrive(sm.lo_full + s);
+  }
+}
+
+// four 8 x 4 tiles of 32-bit words from shared memory, lane L giving the
+// address of row L % 8 of tile L / 8: thread i gets word i % 4 of row i / 4
+// of each (ldmatrix's b16 layout, two b16 a word), which is the A fragment
+// layout of a TF32 m64nNk8 product when the tiles are (rows 0-7, k 0-3),
+// (8-15, 0-3), (0-7, 4-7), (8-15, 4-7) of the warp's 16 rows
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// f (m64n32: the T own rows by the tile's TS streamed rows) = A B^T over
+// the BLOCKS 32-column blocks of d: A the own T-row tile at `a` (read by
+// ldmatrix, split in registers), B the streamed operand at `b` (each
+// column block its raw rows, then its lo rows).  A block's chains, four k
+// steps each: a_hi [b_hi; b_lo] (m64n64: a_hi b_hi in columns 0-31, a_hi
+// b_lo in 32-63) and a_lo b_hi; its part a_hi b_hi + (a_lo b_hi + a_hi
+// b_lo) by round-to-nearest float32 adds, the blocks' parts added in order
+template <int T, int TS, int BLOCKS>
+__device__ __forceinline__ void form_blocks(float (&f)[16], uint32_t a, uint32_t b, int w,
+                                            int lane) {
+  // the lane's row of the warp's 16 and its chunk's offset in a k step
+  const int rr = lane % 8, row = 16 * w + rr + 8 * ((lane / 8) & 1), half = lane / 16;
+  const uint32_t arow = a + row * 128;
+#pragma unroll 1
+  for (int cb = 0; cb < BLOCKS; ++cb) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldsm_x4(ah[kk], arow + cb * (T * 128) + (((2 * kk + half) ^ rr) << 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t x = ah[kk][e];
+        ah[kk][e] = x & 0xFFFFE000u;
+        al[kk][e] = __float_as_uint(__uint_as_float(x) - __uint_as_float(ah[kk][e]));
+      }
+    }
+    float hh[32], lh[16];  // a_hi [b_hi; b_lo], a_lo b_hi
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bb = desc_kmajor(b + cb * 2 * TS * 128 + kk * 32);
+      wgmma_m64n64k8_tf32(hh, ah[kk], bb, kk > 0);
+      wgmma_m64n32k8_tf32(lh, al[kk], bb, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(hh);
+    reg_fence(lh);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float part = hh[e] + (lh[e] + hh[16 + e]);
+      f[e] = cb == 0 ? part : f[e] + part;
+    }
+  }
+}
+
+// word (row, col) of a streamed operand at `op` (column blocks of TS raw
+// rows then TS lo rows; `lo` 1 for the lo word)
+template <int TS>
+__device__ __forceinline__ uint32_t stage_word(uint32_t op, int row, int col, int lo) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(op + (col >> 5) * (2 * TS * 128) + lo * TS * 128 + row * 128 +
+                     ((((col >> 2) & 7) ^ (row & 7)) << 4) + (col & 3) * 4));
+  return v;
+}
+
+// The A operand of an output product formed transposed (m64, k = the TS
+// streamed rows): columns m0 + 16 w + g4 (+ 8) of a streamed operand, rows
+// 8 kk + t4 (+ 4); hi the raw word (the tensor core reads its TF32 bits),
+// lo the stage's lo word
+template <int TS>
+__device__ __forceinline__ void out_frags(uint32_t (&ah)[TS / 8][4], uint32_t (&al)[TS / 8][4],
+                                          uint32_t op, int m0, int w, int g4, int t4) {
+  const int c0 = m0 + 16 * w + g4;
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const int r = 8 * kk + t4;
+    const int rc[4][2] = {{r, c0}, {r, c0 + 8}, {r + 4, c0}, {r + 4, c0 + 8}};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ah[kk][e] = stage_word<TS>(op, rc[e][0], rc[e][1], 0) & 0xFFFFE000u;
+      al[kk][e] = stage_word<TS>(op, rc[e][0], rc[e][1], 1);
+    }
+  }
+}
+
+// An output product over the tile's TS streamed rows, formed transposed
+// (m64: 64 output columns; n: the T = 64 own rows), A from out_frags, B the
+// block's own T x TS tile hi (at bh) and its lo after it, issued as one
+// commit group of two chains: a_hi [b_hi; b_lo] into hh (m64n128) and a_lo
+// b_hi into lh (m64n64); the first product of a chain does not read its
+// accumulator
+template <int TS>
+__device__ __forceinline__ void out_issue(float (&hh)[64], float (&lh)[32],
+                                          const uint32_t (&ah)[TS / 8][4],
+                                          const uint32_t (&al)[TS / 8][4], uint32_t bh) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const uint64_t bb = desc_kmajor(bh + kk * 32);
+    wgmma_m64n128k8_tf32(hh, ah[kk], bb, kk > 0);
+    wgmma_m64n64k8_tf32(lh, al[kk], bb, kk > 0);
+  }
+  wgmma_commit();
+}
+// pins an A operand's registers (hi or lo fragments) until here: a wgmma
+// reads its register operands after it is issued, and a value the compiler
+// holds in them before its wait_group (the operand being dead once the
+// wgmma is issued, as far as the compiler knows) is what the tensor core
+// reads (a variant that loaded the next block's operands under a block's
+// products came out wrong)
+template <int K>
+__device__ __forceinline__ void keep(uint32_t (&r)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// acc += a_hi b_hi + (a_lo b_hi + a_hi b_lo), once their group has completed
+__device__ __forceinline__ void out_add(float (&acc)[32], float (&hh)[64], float (&lh)[32]) {
+  reg_fence(hh);
+  reg_fence(lh);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] += hh[e] + (lh[e] + hh[32 + e]);
+}
+// The same product in 64 accumulator registers where 96 do not fit (dK/dV):
+// a_hi b_hi into f, and a_lo b_hi then a_hi b_lo, a k step at a time, into
+// one chain `small` (output_half's chains); acc += f + small
+template <int TS>
+__device__ __forceinline__ void out_issue_small(float (&f)[32], float (&small)[32],
+                                                const uint32_t (&ah)[TS / 8][4],
+                                                const uint32_t (&al)[TS / 8][4], uint32_t bh) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const uint64_t h = desc_kmajor(bh + kk * 32), l = desc_kmajor(bh + 64 * 128 + kk * 32);
+    wgmma_m64n64k8_tf32(small, al[kk], h, kk > 0);
+    wgmma_m64n64k8_tf32(small, ah[kk], l, 1);
+    wgmma_m64n64k8_tf32(f, ah[kk], h, kk > 0);
+  }
+  wgmma_commit();
+}
+__device__ __forceinline__ void out_add_small(float (&acc)[32], float (&f)[32], float (&small)[32]) {
+  reg_fence(f);
+  reg_fence(small);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] += f[e] + small[e];
+}
+
+// ------------------------------------------------ float32 at d = 128: dQ
+// A block per (rank, query head, 64-row Q tile), the heaviest first; K and
+// V stream in 32-row tiles (DqWalk).  Warpgroup 0 forms S = Q K^T and P,
+// warpgroup 1 dP = dO V^T and dS, each over all 64 rows.  P goes to
+// warpgroup 1 in the dS tiles of the tile's parity (named barrier 4 +
+// parity "P is there"), where warpgroup 1 turns it into dS, hi and lo, in
+// place (8 + parity "dS is there"; 10 + parity "warpgroup 1's product of
+// the tile two back is done", before warpgroup 0 writes P there).
+// Output: dQ^T = K^T dS^T, warpgroup wg the columns 64 wg .. 64 wg + 63
+// of dQ (32 registers a thread), tile i - 1's issued after tile i's S
+// (dP) and in flight under tile i's P (dS).
+template <int D>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                       const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, Geo geo) {
+  using Plan = DqF32Plan<D>;
+  using Smem = F32Smem<Plan>;
+  constexpr int T = Plan::T, TS = Plan::TS, NS = Plan::NS, NB = D / 32;
+  constexpr int OWN1 = Plan::OWN / 2, BTILE = T * TS * 4;
+  static_assert(D == 128 && T == 64 && TS == 32, "form_blocks and out_issue read these tiles");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Smem sm(smem_raw);
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int grp = blockIdx.z / geo.g, r = geo.g - 1 - blockIdx.z % geo.g;
+  const int* G = geo.groups + grp * geo.g;
+  const int h = blockIdx.y, kvh = h / (geo.hq / geo.hkv), sb = geo.sb, q0 = qt * T;
+  const int zq = G[r] * geo.hq + h;  // the query head's plane
+  const long long row0 = (long long)zq * sb;
+  const DqWalk walk(geo, r, q0, T, TS);
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumers + 32) {
+      write_stage_lo(sm, walk.total);
+      return;
+    }
+    DqCursor at;
+    stream_tiles<NS>(
+        walk.total, sm.empty,
+        [&] {
+          mbar_expect_tx(sm.own_full, Plan::OWN);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(sm.own + cb * T * 128, &mq, sm.own_full, 32 * cb, q0, zq);
+            tma_load_3d(sm.own + OWN1 + cb * T * 128, &mo, sm.own_full, 32 * cb, q0, zq);
+          }
+        },
+        [&](int, int s) {
+          const int z = G[(r - at.arr + geo.g) % geo.g] * geo.hkv + kvh, y = at.kt * TS;
+          at.next(walk);
+          uint8_t* st = sm.stage + s * Plan::STAGE;
+          mbar_expect_tx(sm.full + s, Plan::STAGE / 2);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(st + cb * Smem::kBlock, &mk, sm.full + s, 32 * cb, y, z);
+            tma_load_3d(st + Smem::kOp + cb * Smem::kBlock, &mv, sm.full + s, 32 * cb, y, z);
+          }
+        });
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4,
+            t4 = t % 4;
+  float L2[2], Dl[2];  // lse log2(e) and delta of the thread's two rows
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int qi = q0 + 16 * w + g4 + 8 * ii;
+    L2[ii] = qi < sb ? lse[row0 + qi] * kLog2e : 0.f;
+    Dl[ii] = qi < sb ? delta[row0 + qi] : 0.f;
+  }
+  const float scale2 = geo.scale * kLog2e;
+  const uint32_t bt = smem_addr(sm.bt);  // dS (P) of parity p: hi at bt + 2 p BTILE, lo after it
+  float acc[32];  // dQ^T: columns 64 wg + 16 w + g4 (+ 8) of dQ, its 64 rows
+  zero(acc);
+  float x[TS / 2];  // warpgroup 0: S, then P; warpgroup 1: dP, then dS (rows q, columns k)
+  uint32_t ah[TS / 8][4], al[TS / 8][4];  // A of the output in flight (K^T, hi and lo)
+  float hh[64], lh[32];
+  DqCursor cur;
+  // tile i's S (dP) into x
+  auto form = [&](int i) {
+    sm.wait_lo(i);
+    form_blocks<T, TS, NB>(x, smem_addr(sm.own + wg * OWN1),
+                           smem_addr(sm.stage + i % NS * Plan::STAGE) + wg * Smem::kOp, w, t % 32);
+  };
+  // the A of tile i's output (K^T: its columns 64 wg ..); its stage released
+  auto load_a = [&](int i) {
+    out_frags<TS>(ah, al, smem_addr(sm.stage + i % NS * Plan::STAGE), 64 * wg, w, g4, t4);
+    mbar_arrive(sm.empty + i % NS);
+  };
+  // tile i's P (warpgroup 0) into the dS tiles of parity i & 1, or dS
+  // (warpgroup 1) from it, hi and lo, in place
+  auto grads = [&](int i) {
+    const int par = i & 1;
+    uint8_t* hi = sm.bt + 2 * par * BTILE;
+    if (wg == 0) {
+      const int k0 = cur.kt * TS;
+      const bool diag = geo.causal && cur.arr == 0;
+      cur.next(walk);
+      auto entries = [&](auto edge) {
+        constexpr bool masks = decltype(edge)::value;
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int qi = q0 + 16 * w + g4 + 8 * ii;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * jj + 2 * ii + c, kj = k0 + 8 * jj + 2 * t4 + c;
+              x[e] = prob(x[e], scale2, L2[ii],
+                          masks && (kj >= sb || qi >= sb || (diag && kj > qi)));
+            }
+          }
+      };
+      if (diag || k0 + TS > sb || q0 + T > sb) entries(std::true_type());
+      else entries(std::false_type());
+      if (i >= 2) named_sync(10 + par, 256);  // warpgroup 1's tile i - 2 product is done
+#pragma unroll
+      for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int e = 4 * jj + 2 * ii;
+          *reinterpret_cast<float2*>(hi + sw128_f32(16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, T)) =
+              make_float2(x[e], x[e + 1]);
+        }
+      named_arrive(4 + par, 256);
+    } else {
+      named_sync(4 + par, 256);  // tile i's P is there
+#pragma unroll
+      for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int e = 4 * jj + 2 * ii, row = 16 * w + g4 + 8 * ii, col = 8 * jj + 2 * t4;
+          const float2 p = *reinterpret_cast<const float2*>(hi + sw128_f32(row, col, T));
+          x[e] = p.x * (x[e] - Dl[ii]) * geo.scale;
+          x[e + 1] = p.y * (x[e + 1] - Dl[ii]) * geo.scale;
+          put_split2<T>(hi, hi + BTILE, row, col, x[e], x[e + 1]);
+        }
+      fence_async_shared();
+      named_sync(3, 128);  // the warpgroup's own product reads them next
+      named_arrive(8 + par, 256);
+    }
+  };
+  // tile i's dQ^T product (A in ah, al), issued; then waited and added
+  auto issue = [&](int i) {
+    if (wg == 0) named_sync(8 + (i & 1), 256);  // tile i's dS is there
+    out_issue<TS>(hh, lh, ah, al, bt + 2 * (i & 1) * BTILE);
+  };
+  auto retire = [&](int i) {
+    wgmma_wait<0>();
+    keep(ah);  // in flight under grads(i): no other value may take their registers
+    keep(al);
+    out_add(acc, hh, lh);
+    if (wg == 1 && i + 2 < walk.total) named_arrive(10 + (i & 1), 256);  // its tiles are free
+  };
+  mbar_wait(sm.own_full, 0);
+  form(0);
+  grads(0);
+  load_a(0);
+#pragma unroll 1
+  for (int i = 1; i < walk.total; ++i) {
+    form(i);
+    issue(i - 1);  // in flight under tile i's P (dS)
+    grads(i);
+    retire(i - 1);
+    load_a(i);  // stage i is held to here: stage i + 2 still has a tile's time to land
+  }
+  issue(walk.total - 1);
+  retire(walk.total - 1);
+  // acc[4j + 2i + c] = dQ[q0 + 8j + 2 t4 + c][64 wg + 16 w + g4 + 8i]
+  const int col0 = 64 * wg + 16 * w + g4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int qi = q0 + 8 * j + 2 * t4 + c;
+      if (qi >= sb) continue;
+      float* out = dq + (row0 + qi) * D + col0;
+      out[0] = acc[4 * j + c];
+      out[8] = acc[4 * j + 2 + c];
+    }
+}
+
+// -------------------------------------------- float32 at d = 128: dK, dV
+// A block per (owner j, K/V head, 64-row K tile), owners in order; Q and dO
+// stream in 32-row tiles with their lse and delta rows (DkvWalk).
+// Warpgroup 0 forms S^T = K Q^T and P^T, warpgroup 1 dP^T = V dO^T and
+// dS^T, each over all 64 K rows; P goes into the P tiles (hi and lo),
+// which warpgroup 1 reads back (hi + lo is P) for dS (named barriers 4 "P
+// is there", 6 "its tiles are free"), dS into the dS tiles.  Outputs:
+// warpgroup 0 dV^T = dO^T P, warpgroup 1 dK^T = Q^T dS, each the 128
+// columns in two halves of 64 (acc[2][32]), one half after the other once
+// the tile's P (dS) is in its tiles, A read from the stage just before its
+// product, in 64 accumulator registers (out_issue_small: the merged form's
+// 96 spilled beside dV^T's 64): with a half in flight under the next
+// tile's P (dS) a warpgroup would hold the next tile's A beside it, over
+// its 232 registers.
+template <int D>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                        const __grid_constant__ CUtensorMap ml, const __grid_constant__ CUtensorMap md,
+                        float* __restrict__ dk, float* __restrict__ dv, Geo geo) {
+  using Plan = DkvF32Plan<D>;
+  using Smem = F32Smem<Plan>;
+  constexpr int T = Plan::T, TS = Plan::TS, NS = Plan::NS, NB = D / 32;
+  constexpr int OWN1 = Plan::OWN / 2, BTILE = T * TS * 4;
+  static_assert(D == 128 && T == 64 && TS == 32, "form_blocks and out_issue read these tiles");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Smem sm(smem_raw);
+  const int kt = blockIdx.x, member = blockIdx.z, j = member % geo.g;  // the K/V block's owner
+  const int* G = geo.groups + (member - j);
+  const int kvh = blockIdx.y, rep = geo.hq / geo.hkv, sb = geo.sb, k0 = kt * T;
+  const int zk = G[j] * geo.hkv + kvh;  // the K/V head's plane
+  const long long kv_row0 = (long long)zk * sb + k0;
+  const DkvWalk walk(geo, j, k0, TS);
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumers + 32) {
+      write_stage_lo(sm, walk.total);
+      return;
+    }
+    stream_tiles<NS>(
+        walk.total, sm.empty,
+        [&] {
+          mbar_expect_tx(sm.own_full, Plan::OWN);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(sm.own + cb * T * 128, &mk, sm.own_full, 32 * cb, k0, zk);
+            tma_load_3d(sm.own + OWN1 + cb * T * 128, &mv, sm.own_full, 32 * cb, k0, zk);
+          }
+        },
+        [&](int n, int s) {  // DkvWalk::at: a cursor's state spilled in 40 registers
+          int arr, ht, qt;
+          walk.at(n, arr, ht, qt);
+          const int z = G[(j + arr) % geo.g] * geo.hq + kvh * rep + ht, y = qt * TS;
+          uint8_t* st = sm.stage + s * Plan::STAGE;
+          float* rw = sm.rows + s * 2 * TS;
+          mbar_expect_tx(sm.full + s, Plan::STAGE / 2 + Plan::ROWS);
+          for (int cb = 0; cb < NB; ++cb) {
+            tma_load_3d(st + cb * Smem::kBlock, &mq, sm.full + s, 32 * cb, y, z);
+            tma_load_3d(st + Smem::kOp + cb * Smem::kBlock, &mo, sm.full + s, 32 * cb, y, z);
+          }
+          tma_load_1d(rw, &ml, sm.full + s, z * sb + y);
+          tma_load_1d(rw + TS, &md, sm.full + s, z * sb + y);
+        });
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4,
+            t4 = t % 4;
+  const float scale2 = geo.scale * kLog2e;
+  // the B tiles: P (hi, lo), then dS (hi, lo)
+  uint8_t* pt = sm.bt;
+  uint8_t* dst = sm.bt + 2 * BTILE;
+  float acc[2][32];  // dV^T (warpgroup 0) or dK^T (1), by 64-column half
+  zero(acc[0]);
+  zero(acc[1]);
+  float x[TS / 2];  // warpgroup 0: S^T, then P^T; warpgroup 1: dP^T, then dS^T (rows k, columns q)
+  uint32_t ah[TS / 8][4], al[TS / 8][4];  // A of an output half: dO^T (0) or Q^T (1)
+  float of[32], os[32];
+  // the walk stepped a tile at a time, as much of it as the consumers
+  // read: the q-tile (tiles before walk.first are the diagonal's)
+  int qt = walk.qs;
+  mbar_wait(sm.own_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < walk.total; ++i) {
+    const int s = i % NS;
+    sm.wait_lo(i);
+    const uint32_t st = smem_addr(sm.stage + s * Plan::STAGE);
+    form_blocks<T, TS, NB>(x, smem_addr(sm.own + wg * OWN1), st + wg * Smem::kOp, w, t % 32);
+    float R[TS / 8][2];  // lse (warpgroup 0) or delta (1) of the thread's columns
+    const float* rw = sm.rows + s * 2 * TS + wg * TS;
+#pragma unroll
+    for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) R[jj][c] = rw[8 * jj + 2 * t4 + c];
+    if (wg == 0) {  // P^T into the P tiles
+      const int q0 = qt * TS;
+      const bool diag = geo.causal && i < walk.first;
+      auto entries = [&](auto edge) {
+        constexpr bool masks = decltype(edge)::value;
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qi = q0 + 8 * jj + 2 * t4 + c;
+            const float l2 = R[jj][c] * kLog2e;
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii) {
+              const int e = 4 * jj + 2 * ii + c, kj = k0 + 16 * w + g4 + 8 * ii;
+              x[e] = prob(x[e], scale2, l2, masks && (qi >= sb || (diag && kj > qi)));
+            }
+          }
+      };
+      if (diag || q0 + TS > sb) entries(std::true_type());
+      else entries(std::false_type());
+      if (i >= 1) named_sync(6, 256);  // warpgroup 1 has read tile i - 1's P
+#pragma unroll
+      for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int e = 4 * jj + 2 * ii;
+          put_split2<T>(pt, pt + BTILE, 16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, x[e], x[e + 1]);
+        }
+      fence_async_shared();
+      named_sync(2, 128);  // the warpgroup's own products read them next
+      named_arrive(4, 256);
+    } else {  // dS^T = P^T (dP^T - delta) scale into the dS tiles
+      named_sync(4, 256);  // tile i's P is there
+#pragma unroll
+      for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int e = 4 * jj + 2 * ii;
+          const uint32_t off = sw128_f32(16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, T);
+          const float2 h2 = *reinterpret_cast<const float2*>(pt + off);
+          const float2 l2 = *reinterpret_cast<const float2*>(pt + BTILE + off);
+          x[e] = (h2.x + l2.x) * (x[e] - R[jj][0]) * geo.scale;
+          x[e + 1] = (h2.y + l2.y) * (x[e + 1] - R[jj][1]) * geo.scale;
+        }
+      if (i + 1 < walk.total) named_arrive(6, 256);
+#pragma unroll
+      for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int e = 4 * jj + 2 * ii;
+          put_split2<T>(dst, dst + BTILE, 16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, x[e], x[e + 1]);
+        }
+      fence_async_shared();
+      named_sync(3, 128);  // the warpgroup's own products read them next
+    }
+    if (++qt == walk.nq) qt = i + 1 < walk.first ? walk.qs : 0;
+    // warpgroup 0: dV^T += dO^T P; 1: dK^T += Q^T dS, by half
+    const uint32_t other = st + (1 - wg) * Smem::kOp;  // dO (warpgroup 0) or Q (1)
+    const uint32_t bh = smem_addr(wg == 0 ? pt : dst);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      out_frags<TS>(ah, al, other, 64 * hf, w, g4, t4);
+      out_issue_small<TS>(of, os, ah, al, bh);
+      wgmma_wait<0>();
+      out_add_small(acc[hf], of, os);
+    }
+    mbar_arrive(sm.empty + s);
+  }
+  // acc[hf][4j + 2i + c] = dX[k0 + 8j + 2 t4 + c][64 hf + 16 w + g4 + 8i]
+  float* out = wg == 0 ? dv : dk;
+  const int col0 = 16 * w + g4;
+#pragma unroll
+  for (int jq = 0; jq < 8; ++jq)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int row = 8 * jq + 2 * t4 + c;
+      if (k0 + row >= sb) continue;
+      float* o = out + (kv_row0 + row) * D + col0;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        o[64 * hf] = acc[hf][4 * jq + c];
+        o[64 * hf + 8] = acc[hf][4 * jq + 2 + c];
+      }
+    }
+}
+
 // -------------------------------------------------------- float32: dK, dV
 template <int D>
 __device__ __forceinline__ void dkv_f32(const float* __restrict__ q,
@@ -887,6 +1538,44 @@ int bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, 
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int bwd_dq_f32_wg(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                  const float* delta, void* dq, Geo geo, int ngroups, cudaStream_t s) {
+  using Plan = DqF32Plan<D>;
+  const int planes = ngroups * geo.g;
+  CUtensorMap mq, mo, mk, mv;
+  int err = f32_map(&mq, q, D, geo.sb, planes * geo.hq, Plan::T);
+  if (!err) err = f32_map(&mo, dout, D, geo.sb, planes * geo.hq, Plan::T);
+  if (!err) err = f32_map(&mk, k, D, geo.sb, planes * geo.hkv, Plan::TS);
+  if (!err) err = f32_map(&mv, v, D, geo.sb, planes * geo.hkv, Plan::TS);
+  if (!err) err = set_smem(attn_bwd_dq_f32_kernel<D>, Plan::SMEM);
+  if (err) return err;
+  dim3 grid((geo.sb + Plan::T - 1) / Plan::T, geo.hq, planes);
+  attn_bwd_dq_f32_kernel<D><<<grid, kClusterThreads, Plan::SMEM, s>>>(
+      mq, mo, mk, mv, lse, delta, static_cast<float*>(dq), geo);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_dkv_f32_wg(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                   const float* delta, void* dk, void* dv, Geo geo, int ngroups, cudaStream_t s) {
+  using Plan = DkvF32Plan<D>;
+  const int planes = ngroups * geo.g;
+  CUtensorMap mk, mv, mq, mo, ml, md;
+  int err = f32_map(&mk, k, D, geo.sb, planes * geo.hkv, Plan::T);
+  if (!err) err = f32_map(&mv, v, D, geo.sb, planes * geo.hkv, Plan::T);
+  if (!err) err = f32_map(&mq, q, D, geo.sb, planes * geo.hq, Plan::TS);
+  if (!err) err = f32_map(&mo, dout, D, geo.sb, planes * geo.hq, Plan::TS);
+  if (!err) err = rows_map(&ml, lse, (long long)planes * geo.hq * geo.sb, Plan::TS);
+  if (!err) err = rows_map(&md, delta, (long long)planes * geo.hq * geo.sb, Plan::TS);
+  if (!err) err = set_smem(attn_bwd_dkv_f32_kernel<D>, Plan::SMEM);
+  if (err) return err;
+  dim3 grid((geo.sb + Plan::T - 1) / Plan::T, geo.hkv, planes);
+  attn_bwd_dkv_f32_kernel<D><<<grid, kClusterThreads, Plan::SMEM, s>>>(
+      mk, mv, mq, mo, ml, md, static_cast<float*>(dk), static_cast<float*>(dv), geo);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, dout [P, Hq, Sb, d], k/v [P, Hkv, Sb, d] (dtype: 0 float32, 1 bfloat16);
@@ -902,7 +1591,7 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v,
   Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0 && d == 128) return bwd_dq_f32<128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
+  if (dtype == 0 && d == 128) return bwd_dq_f32_wg<128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
   if (dtype == 0 && d == 256) return bwd_dq_f32<256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
   if (dtype == 1 && d == 128) return bwd_dq_bf16<128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
   if (dtype == 1 && d == 256) return bwd_dq_bf16<256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
@@ -919,7 +1608,7 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v,
   Geo geo = make_geo(groups, g, hq, hkv, sb, scale, causal);
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
-  if (dtype == 0 && d == 128) return bwd_dkv_f32<128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
+  if (dtype == 0 && d == 128) return bwd_dkv_f32_wg<128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   if (dtype == 0 && d == 256) return bwd_dkv_f32<256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   if (dtype == 1 && d == 128) return bwd_dkv_bf16<128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   if (dtype == 1 && d == 256) return bwd_dkv_bf16<256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);

@@ -279,15 +279,16 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
 
 # -- the CUDA kernels --------------------------------------------------------------
 
-# the shared-memory plan of each kernel per input dtype: a ``struct`` in its
-# source (a ``template <int D>`` one for d in _HEAD_DIMS) whose ``SMEM`` is
-# the bytes a block uses
+# the shared-memory plan of each kernel per input dtype (or, where the head
+# dims take different forms, per input dtype and head dim): a ``struct`` in
+# its source (a ``template <int D>`` one for d in _HEAD_DIMS) whose ``SMEM``
+# is the bytes a block uses
 _PLANS = {"fwd": ("attention.cu", {torch.bfloat16: "FwdBf16Plan",
                                    torch.float32: "FwdF32Plan"}),
           "bwd_dq": ("attention_bwd.cu", {torch.bfloat16: "DqBf16Plan",
-                                          torch.float32: "F32Plan"}),
+                                          torch.float32: {128: "DqF32Plan", 256: "F32Plan"}}),
           "bwd_dkv": ("attention_bwd.cu", {torch.bfloat16: "DkvBf16Plan",
-                                           torch.float32: "F32Plan"})}
+                                           torch.float32: {128: "DkvF32Plan", 256: "F32Plan"}})}
 _WIDE_PLANS = {"fwd": ("attention_wide.cu", {torch.bfloat16: "WideFwdBf16Plan",
                                              torch.float32: "WideFwdF32Plan"}),
                "bwd_dq": ("attention_bwd_wide.cu", {torch.bfloat16: "WideDqBf16Plan",
@@ -350,8 +351,15 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     streamed tiles (dK/dV with their lse and delta rows) and, for dK/dV at
     d = 256, P of two tile parities.  float32 tiles have a row
     stride of d + 4: the forward (``FwdF32Plan``) holds 64 W Q rows and two
-    stages of 32-row K and V tiles, the backward (``F32Plan``) two resident
-    64-row and two streamed 32-row tiles and 256 bytes of lse/delta rows.
+    stages of 32-row K and V tiles, the backward at d = 256 (``F32Plan``)
+    two resident 64-row and two streamed 32-row tiles and 256 bytes of
+    lse/delta rows.  The float32 backward at d = 128 (``DqF32Plan``,
+    ``DkvF32Plan``) holds its tiles in the 128-byte swizzle after 1 KB of
+    alignment: two resident 64-row tiles (Q and dO; K and V), two stages of
+    two streamed 32-row tiles, each 32-column block's raw rows followed by
+    their lo rows (dK/dV with their lse and delta rows), and its output
+    products' B tiles (64 x 32, hi then lo: dQ's dS of two tile parities,
+    P handed over in them; dK/dV's P and dS).
     Above, the forward (csrc/attention_wide.cu) and the backward
     (csrc/attention_bwd_wide.cu) run in clusters: the bf16 forward
     (``WideFwdBf16Plan``) holds its own 64 x 128 Q chunk, two stages of a K
@@ -365,7 +373,12 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     output products' A tiles (P and dS as hi, mid and lo).  No plan's bytes
     depend on d."""
     plans = _WIDE_PLANS if _wide(d) else _PLANS
-    return {name: _plan_smem(src, names[dtype], d) for name, (src, names) in plans.items()}
+    return {name: _plan_smem(src, _plan_name(names[dtype], d), d)
+            for name, (src, names) in plans.items()}
+
+
+def _plan_name(name, d: int) -> str:
+    return name[d] if isinstance(name, dict) else name
 
 
 def _kernel_plan(d: int, dtype: torch.dtype = torch.float32) -> None:

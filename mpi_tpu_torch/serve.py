@@ -1809,6 +1809,17 @@ class WorldServer:
                         os.kill(target, _signal.SIGKILL)
                     except OSError:
                         pass
+            # and declare them dead now, not when the monitor next sees
+            # the process gone: a torch worker's exit takes long enough
+            # that the release below would hand the killed slot back to
+            # the idle pool, and stats() would report a whole pool with
+            # nothing lost and nothing healing
+            with self._cond:
+                for s, proc, pid in stuck_procs:
+                    w = self._workers.get((pool_id, s))
+                    if w is not None and w.proc is proc and w.pid == pid:
+                        self._mark_dead_locked(
+                            w, "killed past the lease timeout")
             sys.stderr.write(
                 f"mpi_tpu_torch.serve: job {job_id} on lease {lease_id} "
                 f"blew the {timeout}s lease timeout; quarantined "

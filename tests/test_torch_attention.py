@@ -248,7 +248,16 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dq"] == 1024 + 131072 + 3 * 32768 + 64
     assert attention.kernel_smem_bytes(128, torch.bfloat16)["bwd_dkv"] == 1024 + 65536 + 4 * 16384 + 4 * 256 + 64
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["bwd_dkv"] == 1024 + 65536 + 4 * 32768 + 16384 + 4 * 256 + 64
-    assert attention.kernel_smem_bytes(128)["bwd_dq"] == 101632
+    # the float32 backward at d = 128 (DqF32Plan, DkvF32Plan): 1 KB of
+    # alignment, 64-row own tiles 2 x 64 x 128 x 4, NS = 2 stages of two
+    # 32-row streamed tiles with their lo rows 2 x 65 536, the 64 x 32 B
+    # tiles 32 768 (dq: dS hi and lo of two parities, P handed over in
+    # them; dkv: P and dS hi and lo), dkv's stage rows 2 x 256, 64 bytes of
+    # mbarriers; at d = 256 the four-warp form (F32Plan): (2 x 64 + 2 x 32)
+    # rows of stride 260 floats and 256 bytes of rows
+    assert attention.kernel_smem_bytes(128)["bwd_dq"] == 1024 + 65536 + 2 * 65536 + 32768 + 64
+    assert attention.kernel_smem_bytes(128)["bwd_dkv"] == 1024 + 65536 + 2 * 65536 + 32768 + 2 * 256 + 64
+    assert attention.kernel_smem_bytes(256)["bwd_dq"] == (2 * 64 + 2 * 32) * 260 * 4 + 256
     assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
     # above d = 256: the same bytes at every d (the forward's clusters in
     # bf16: 1 KB of alignment, the own 64 x 128 Q chunk 16 384, two stages of

@@ -825,3 +825,144 @@ def test_narrow_bf16_backward_two_terms_stay_within_the_allowance(seed):
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             chip_smoke.check_close(torch, f"seed {seed} {P}x{hq}/{hkv}x{sb} {name}", a, b,
                                    torch.bfloat16)
+
+
+# -- the float32 backward at d = 128 (attention_bwd.cu attn_bwd_dq_f32_kernel,
+# attn_bwd_dkv_f32_kernel): TF32 wgmma, three products a product, the
+# outputs formed transposed
+
+
+def tf32_chain(a, b):
+    """a b as the float32 kernels form the chains of (at most) four k steps
+    of one block of d or one streamed tile: both operands split (TF32
+    truncation), a_hi b_hi + (a_lo b_hi + a_hi b_lo), each term a chain on
+    the tensor core (a_hi b_hi and a_hi b_lo in one wgmma of twice the
+    width; dK/dV's outputs sum the two small terms in one chain), added by
+    float32 adds."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def emulated_narrow_f32_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False,
+                            chain=tf32_chain):
+    """The float32 backward's order of sums (csrc/attention_bwd.cu at d =
+    128) on the CPU (shapes as ``ring_attention_bwd_plain``, multi-head):
+    S (S^T) and dP (dP^T) as chains over 32-column blocks of d (four k
+    steps each), the blocks' chains added in order; P = 2^(S scale log2(e) -
+    lse log2(e)) (exp2, as the kernels), dS = P (dP - delta) scale; every
+    output formed transposed, dQ^T = K^T dS^T, dV^T = dO^T P, dK^T = Q^T dS,
+    one chain over each 32-row tile of the streamed side, added to a float32
+    running sum in its block's walk (dQ: arrivals r, r - 1, ..., then k
+    tiles; dK, dV: visiting ranks j, j + 1, ..., GQA heads in increasing
+    order, then q tiles).  A block's rows past the diagonal add exact
+    zeros, so they do not show here.  ``chain``: the product of one chain
+    (``tf32_chain``; a plain TF32 product for the negative control)."""
+    nranks, hq, sb, d = q.shape
+    hkv = k.shape[1]
+    rep = hq // hkv
+    heads = torch.arange(hq) // rep
+    scale = 1.0 / np.sqrt(d)
+    gl = groups or [list(range(nranks))]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    lse4 = lse.reshape(nranks, hq, sb, 1)
+    mask = torch.arange(sb)[None, :] <= torch.arange(sb)[:, None]
+    tiles = [slice(t0, min(sb, t0 + 32)) for t0 in range(0, sb, 32)]
+    T = lambda x: x.transpose(-1, -2)  # noqa: E731
+
+    def formed(a, b):
+        """a [..., m, d] b^T [..., d, n]: one chain a 32-column block of d"""
+        acc = chain(a[..., :32], T(b[..., :32]))
+        for c0 in range(32, d, 32):
+            acc = acc + chain(a[..., c0:c0 + 32], T(b[..., c0:c0 + 32]))
+        return acc
+
+    dq, dk, dv = torch.zeros(qf.shape), torch.zeros(kf.shape), torch.zeros(kf.shape)
+    for grp in gl:
+        g = len(grp)
+        p_of, ds_of = {}, {}  # (r, j): P and dS of rank r's queries, block j's keys
+        for r, w in enumerate(grp):
+            for j in range(g):
+                if causal and j > r:
+                    continue
+                kb, vb = kf[grp[j]][heads], vf[grp[j]][heads]
+                p = torch.exp2(formed(qf[w], kb) * (scale * LOG2E) - lse4[w] * LOG2E)
+                if causal and j == r:
+                    p = torch.where(mask, p, torch.zeros_like(p))
+                p_of[r, j] = p
+                ds_of[r, j] = p * (formed(dof[w], vb) - delta[w]) * scale
+        for r, w in enumerate(grp):
+            acc = torch.zeros(hq, d, sb)  # dQ^T
+            for a in range(g):
+                j = (r - a) % g
+                if (r, j) in ds_of:
+                    kb = kf[grp[j]][heads]
+                    for t in tiles:
+                        acc = acc + chain(T(kb[:, t]), T(ds_of[r, j][..., t]))
+            dq[w] = T(acc)
+        for j, kw in enumerate(grp):
+            acc_k, acc_v = torch.zeros(hkv, d, sb), torch.zeros(hkv, d, sb)  # dK^T, dV^T
+            for a in range(g):
+                r = (j + a) % g
+                if (r, j) not in p_of:
+                    continue
+                w = grp[r]
+                for t in range(rep):
+                    hs = slice(t, hq, rep)  # head t of each K/V head
+                    for qt in tiles:
+                        acc_v = acc_v + chain(T(dof[w][hs][:, qt]), p_of[r, j][hs][:, qt])
+                        acc_k = acc_k + chain(T(qf[w][hs][:, qt]), ds_of[r, j][hs][:, qt])
+            dk[kw], dv[kw] = T(acc_k), T(acc_v)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)])
+def test_narrow_f32_backward_order_within_check_close_of_plain(hq, hkv, causal, d):
+    """{MHA, GQA, MQA} x {full, causal} x d = 128 and 256, on a world of 4
+    and in two groups of 2, Sb = 8 (one partial tile) and 80 (two 32-row
+    tiles and a partial one): the float32 backward's order of sums against
+    the plain backward, dq, dk and dv, under check_close's float32 rule,
+    which the kernels are held to on the card.  (At d = 256 the card runs
+    the four-warp form; the order is held there too.)"""
+    for sb in (8, 80):
+        for groups in (None, [[0, 1], [2, 3]]):
+            ops = world(4, hq, hkv, sb, d, torch.float32, causal, groups,
+                        seed=d + sb + hq + hkv + causal)
+            got = emulated_narrow_f32_bwd(*ops, groups, causal=causal)
+            want = attention.ring_attention_bwd_plain(*ops, groups, causal=causal)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+                chip_smoke.check_close(torch, f"narrow f32 {name} sb={sb} groups={groups}", a, b,
+                                       torch.float32)
+
+
+def test_narrow_f32_backward_order_matches_jax_grad_of_the_reference():
+    """At d = 128 (GQA, causal, Sb = 80): the float32 backward's order of
+    sums against ``jax.grad`` through the reference's fused backward in
+    interpret mode, with tests/test_torch_attention_grad.py's float32
+    tolerance."""
+    q, k, v, ct = inputs(2, 4, 2, 80, 128, seed=41)
+    want = jax_grads(q, k, v, ct, "f32", True)
+    tq, tk, tv, tct = (torch.from_numpy(a) for a in (q, k, v, ct))
+    out, lse = attention.ring_attention_plain(tq, tk, tv, causal=True, with_lse=True)
+    got = emulated_narrow_f32_bwd(tq, tk, tv, out, lse, tct, causal=True)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", **TOL["f32"])
+
+
+def test_narrow_f32_backward_plain_tf32_leaves_the_allowance():
+    """The negative control: the same order with every product a single
+    TF32 product (no lo terms) leaves the float32 allowance of the plain
+    backward, where the three products stay within it."""
+    ops = world(4, 4, 2, 80, 128, torch.float32, True, seed=43)
+    want = attention.ring_attention_bwd_plain(*ops, causal=True)
+    three = emulated_narrow_f32_bwd(*ops, causal=True)
+    one = emulated_narrow_f32_bwd(*ops, causal=True, chain=mm_1xtf32)
+    worst = 0.0
+    for name, a, b, c in zip(("dq", "dk", "dv"), three, one, want):
+        chip_smoke.check_close(torch, f"three products {name}", a, c, torch.float32)
+        allow = 1e-5 + 1e-4 * c.abs()
+        worst = max(worst, float(((b - c).abs() / allow).max()))
+    assert worst > 1.0

@@ -324,6 +324,52 @@ def test_narrow_bf16_backward_is_bitwise_deterministic_on_the_card(d):
         assert torch.equal(a, b)
 
 
+def _narrow_f32_backward(d, causal):
+    """The float32 backward at head dim ``d`` twice, and the plain version,
+    on GQA 4/2 blocks of Sb = 112 (a partial 64-row block, a partial
+    32-row streamed tile): at d = 128 csrc/attention_bwd.cu's TMA producer
+    and two consumer warpgroups on TF32 ``wgmma``, at d = 256 its
+    four-warp form."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(d + causal + 7)
+    q, do = (torch.randn(P, 4, 112, d, device="cuda", generator=gen) for _ in range(2))
+    k, v = (torch.randn(P, 2, 112, d, device="cuda", generator=gen) for _ in range(2))
+    out, lse = attention.ring_attention_plain(q, k, v, causal=causal, with_lse=True)
+    attention.reset_launches()
+    first = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=causal)
+    second = attention.ring_attention_bwd_world(q, k, v, out, lse, do, causal=causal)
+    ref = attention.ring_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    return first, second, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_f32_backward_matches_plain_on_the_card(d, causal):
+    """dq, dk and dv of the float32 backward at d = 128 and 256 against the
+    plain version, within the float32 allowance (rtol 1e-4, atol 1e-5)."""
+    got, _, ref = _narrow_f32_backward(d, causal)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_f32_backward_is_bitwise_deterministic_on_the_card(d):
+    """Two launches of the float32 backward at d = 128 and 256 are bitwise
+    equal: every block owns its outputs and sums in its walk's order; at
+    d = 128 its warpgroups hand P over in a fixed order."""
+    first, second, _ = _narrow_f32_backward(d, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_wgmma_reads_a_raw_float32_word_as_truncated_tf32():
     """TF32 ``wgmma`` reads a raw float32 word in shared memory as that

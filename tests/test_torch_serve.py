@@ -318,6 +318,60 @@ def test_worker_without_a_device_fails_start_by_name():
     assert all(w.proc.poll() is not None for w in srv._workers.values())
 
 
+def job_sleep_holding_the_link(comm, secs: float):
+    """A job that wedges its worker and leaves a forked child holding the
+    worker's descriptors, its control connection among them, for ``secs``:
+    the server sees no end of that connection when it kills the worker."""
+    pid = os.fork()
+    if pid == 0:
+        time.sleep(secs)
+        os._exit(0)
+    time.sleep(secs)
+    return 0
+
+
+def test_lease_timeout_declares_the_killed_worker_dead_at_once():
+    """The worker killed past a lease timeout is dead in the server's
+    books when the client's ``TimeoutError`` arrives: ``stats()`` says so
+    at once, the release does not hand the slot back to the idle pool,
+    and the pool heals to a correct full-size world.  The killed worker's
+    control connection outlives it (``job_sleep_holding_the_link``) and
+    the monitor ticks every 3 s, so a server that waited for either to see
+    the death would still report a whole pool with nothing lost: the
+    reference case ``tests/test_serve.py::
+    test_lease_timeout_quarantines_wedged_worker`` then returns from its
+    heal wait at once and fails, as it did under load, where a torch
+    worker's exit is slow to close its connection."""
+    from mpi_tpu_torch import serve
+
+    # by its import path, so the workers can unpickle it
+    from tests.test_torch_serve import job_sleep_holding_the_link as job
+
+    srv = serve.WorldServer(pool_size=3, backend="socket", detect_timeout_s=10.0,
+                            heartbeat_s=3.0, rejoin_timeout_s=60.0,
+                            env_extra={"MPI_TPU_DEVICE": "cpu"})
+    with srv:
+        client = serve.connect(srv)
+        try:
+            lease = client.acquire(1, timeout=30.0)
+            with pytest.raises(TimeoutError, match="did not complete"):
+                lease.run(job, 20.0, timeout=1.0)
+            st = client.stats()
+            assert st["workers_lost"] == 1 and st["epoch"] == 1, st
+            lease.release()
+            st = client.stats()
+            assert st["idle"] == 2, st
+            deadline = time.monotonic() + 90.0
+            while not (st["idle"] == 3 and not st["healing"]):
+                assert time.monotonic() < deadline, st
+                time.sleep(0.2)
+                st = client.stats()
+            assert st["workers_lost"] == 1
+            assert client.run(serve.job_allreduce, 64, nranks=3, timeout=60.0) == 6.0
+        finally:
+            client.close()
+
+
 def test_results_move_to_the_cpu():
     import torch
 
