@@ -63,11 +63,13 @@
 //   d = 256).  Iteration i issues tile i's S, then tile i - 1's P V, one
 //   commit group each; wgmma_wait<1> finds S done (K's stage is released)
 //   and leaves P V on the tensor core while the warpgroup folds tile i's
-//   scores; wgmma_wait<0> releases V's stage, O is rescaled by e^(m - m'),
-//   and P is split.  No group is in flight across the loop's back edge
-//   (ptxas then serialises every wgmma: the backward's first builds,
-//   C7514).  The two warpgroups run on their own, each filling the other's
-//   gaps: no barrier a tile between them.  (A ping-pong of the two on
+//   scores; wgmma_wait<0> releases V's stage (and tile i - 1's P
+//   fragments, whose registers are pinned to it by keep:
+//   ring_attention.cuh), O is rescaled by e^(m - m'), and P is split.  No
+//   group is in flight across the loop's back edge (ptxas then serialises
+//   every wgmma: the backward's first builds, C7514).  The two warpgroups
+//   run on their own, each filling the other's gaps: no barrier a tile
+//   between them.  (A ping-pong of the two on
 //   named barriers orders one's softmax against the other's products but
 //   leaves each one's own products waiting on its softmax; the backward's
 //   builds measured no gain from it.)  TS: at d = 128 a 128-row tile halves
@@ -252,6 +254,8 @@ attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_consta
     mbar_arrive(sm.empty + (2 * i) % NS);  // its K is read
     fold();
     wgmma_wait<0>();
+    keep(ph);  // tile i - 1's P, in flight under fold(): its registers to here
+    keep(pl);
 #pragma unroll
     for (int nh = 0; nh < NH; ++nh) reg_fence(acc[nh]);
     mbar_arrive(sm.empty + (2 * i - 1) % NS);  // tile i - 1's V is read

@@ -56,7 +56,8 @@
 //   i - 1's output products, so while the warpgroup turns tile i's S and dP
 //   into P and dS, the tensor core runs tile i - 1's output products
 //   (wgmma_wait<1>, then wgmma_wait<0> before tile i's fragments are
-//   written; see the consumers' loop); the two warpgroups,
+//   written; see the consumers' loop; the fragments in flight are pinned
+//   to that wait, keep in ring_attention.cuh); the two warpgroups,
 //   each on its own tiles, fill each other's gaps.  The other way,
 //   ping-pong of the warpgroups on named barriers, orders the two
 //   warpgroups' math against each other's products but leaves each
@@ -87,67 +88,91 @@
 //   and 1.5x the bound (2x over both kernels' 10d).  Shared memory
 //   (DqBf16Plan, DkvBf16Plan): 197 696 / 230 464 bytes (dq, d = 128 / 256),
 //   133 184 / 215 104 (dkv).
-//   float32 at d = 128 (attn_bwd_dq_f32_kernel, attn_bwd_dkv_f32_kernel):
-//   the same producer and two consumer warpgroups on TF32 wgmma
-//   (m64nNk8), 64 own rows a block, streamed tiles of 32 rows in two
-//   stages (DqF32Plan, DkvF32Plan: 230 464 / 230 976 bytes).  wgmma reads a
-//   32-bit operand from shared memory K-major only, so, as the forms above
-//   d = 256 (attention_bwd_wide.cu) do:
-//     S (S^T) and dP (dP^T): A the own tile, read by ldmatrix (its b16
-//     layout is the TF32 A fragment's) and split in registers; B the
-//     stage's tile read raw (the tensor core takes a raw word's TF32 bits,
-//     truncated) with its lo rows, which the producer's warps 1-3 write
-//     once a stage landed, right after each column block's raw rows, so
-//     that one m64n64 wgmma over [b_hi; b_lo] forms a_hi b_hi and a_hi
-//     b_lo together.  Warpgroup 0 forms S (S^T) and P, warpgroup 1 dP
-//     (dP^T) and dS; P goes to warpgroup 1 through shared memory (dq: in
-//     the dS tiles, where dS is written over it), named barriers between
-//     them, no block-wide barrier a tile.
+//   float32 (attn_bwd_dq_f32_kernel, attn_bwd_dkv_f32_kernel): the same
+//   producer and two consumer warpgroups on TF32 wgmma (m64nNk8), 64 own
+//   rows a block, streamed tiles of TS = 32 rows.  wgmma reads a 32-bit
+//   operand from shared memory K-major only, so, as the forms above d = 256
+//   (attention_bwd_wide.cu) do:
+//     S (S^T) and dP (dP^T): A the own tile (its lo read by ldmatrix, whose
+//     b16 layout is the TF32 A fragment's, and split in registers); B the
+//     streamed tile read raw (the tensor core takes a raw word's TF32 bits,
+//     truncated) with its lo rows, which the producer's warps 1-3 write once
+//     it landed, right after each 32-column block's raw rows, so that one
+//     m64n64 wgmma over [b_hi; b_lo] forms a_hi b_hi and a_hi b_lo together.
+//     Warpgroup 0 forms S (S^T) and P, warpgroup 1 dP (dP^T) and dS; P goes
+//     to warpgroup 1 through shared memory (dq: in the dS tiles, where dS is
+//     written over it), named barriers between them, no block-wide barrier
+//     a tile.
 //     Outputs formed transposed, dQ^T = K^T dS^T, dV^T = dO^T P, dK^T =
-//     Q^T dS: A the stage's tile transposed, its hi the raw word and its lo
-//     the stage's lo word (no tile is split twice a staging), B the
+//     Q^T dS: A the streamed tile transposed, split once a staging, B the
 //     block's own P or dS tile, written K-major as hi rows then lo rows.
-//     dQ: each warpgroup 64 of the 128 columns, a_hi [b_hi; b_lo] in one
-//     m64n128 wgmma, tile i - 1's product issued after tile i's S (dP) and
-//     in flight under tile i's P (dS); dK/dV: warpgroup 0 dV, 1 dK, each in
-//     two 64-column halves after the tile's P (dS), in 64 accumulator
-//     registers (the merged product's 96 beside dV^T's 64 spilled; with a
-//     half in flight under the next tile's P a warpgroup would need more
-//     than its 232 registers).
+//   At d = 128 (DqF32Plan, DkvF32Plan: 230 464 / 230 976 bytes) the own
+//   tiles' hi comes from the same ldmatrix (a_hi [b_hi; b_lo] one
+//   register-A wgmma) and the streamed tiles land whole in two stages, each
+//   output's A taking its lo from the stage: dQ, each warpgroup 64 of the
+//   128 columns, a_hi [b_hi; b_lo] as one m64n128 wgmma, tile i - 1's
+//   product issued after tile i's S (dP) and in flight under tile i's P
+//   (dS); dK/dV: warpgroup 0 dV, 1 dK, each in two 64-column halves after
+//   the tile's P (dS), in 64 accumulator registers (the merged product's 96
+//   beside dV^T's 64 spilled; with a half in flight under the next tile's P
+//   a warpgroup would need more than its 232 registers).
+//   At d = 256 (DqF32UnitPlan, DkvF32UnitPlan) the own 64-row tiles alone
+//   are 131 072 bytes and a stage of two streamed 32-row tiles with their lo
+//   rows another 131 072, past the 232 448 a block may use, so the streamed
+//   side comes as column-chunk units through one ring of four 16 384-byte
+//   slots: 1 024 alignment + 131 072 own + 65 536 ring + 32 768 B tiles
+//   (+ 512 dK/dV's lse and delta rows) + 104 of mbarriers = 230 504 (dq) /
+//   231 016 (dK/dV) bytes.  A forming unit is one operand's 32 rows x 64
+//   columns with its lo rows (S, dP: two 32-column blocks of d, chained in
+//   order, so a tile's chunks are taken one after another and the whole
+//   tile is never needed at once); an output unit its 32 rows x 128
+//   columns raw, the A of two m64 blocks (128 columns of d), split once by
+//   the one warpgroup that reads it.  The ring alternates the warpgroups'
+//   units (unit n is warpgroup n & 1's), a tile's forming units first and
+//   its output units after them, the chunks streamed a second time from
+//   L2; the next tile's first units land under the outputs.  The own
+//   tile's hi is read by the tensor core from shared memory (a_hi
+//   [b_hi; b_lo] with A K-major in shared memory), its lo by ldmatrix.
+//   dq: the 128 columns of dQ a warpgroup as two m64 blocks in
+//   out_issue_small's chains (64 registers), one tile behind S and dP
+//   (tile i - 1's after tile i's P and dS: warpgroup 0 never waits for
+//   dS); 240 registers a consumer thread, 24 the producer's.  dK/dV: S^T and dP^T
+//   once a K tile (the four-warp form formed them once per 128-column half
+//   of d), warpgroup 0 dV^T and 1 dK^T over the whole of d (128 accumulator
+//   registers a thread), an m64 block at a time in two halves of the own
+//   rows (32 registers each); 232 registers.  The outputs are not in
+//   flight under the next tile's gradient math: the registers do not allow
+//   it (no spill at these splits, with the addresses of a unit's words four
+//   registers and the lse and delta rows read from shared memory; 128
+//   accumulators and one m64 block's A and products left no room).
 //   Every chain of tensor-core sums is four k steps long (a 32-column block
 //   of S and dP, a 32-row tile of an output): a_hi b_hi one chain, the small
 //   products one or two more, added as a_hi b_hi + (a_lo b_hi + a_hi b_lo)
 //   by round-to-nearest float32 adds (PR 18 measured 0.475 of the float32
 //   allowance at four k steps and 1.49 over a 128-column chain); an output
-//   is a float32 running sum over the block's walk.  Tiles with no masked
-//   entry and no row past Sb take an unmasked path; the consumers step
-//   their walks (dq: DqCursor; dK/dV: its q-tile alone, the diagonal's
-//   tiles being the first walk.first); P is 2^(S scale log2(e) - lse
-//   log2(e)) by ex2.approx.
+//   is a float32 running sum over the block's walk; the order of sums is the
+//   same at d = 128 and 256.  Tiles with no masked entry and no row past Sb
+//   take an unmasked path; the consumers step their walks (dq: DqCursor;
+//   dK/dV: its q-tile alone, the diagonal's tiles being the first
+//   walk.first); P is 2^(S scale log2(e) - lse log2(e)) by ex2.approx.
 //   Bound: the reference's 6d and 8d flops an entry, three TF32 products
-//   each, and this form does no more (the design floor is the bound).
-//   What the parent form (four warps, split-TF32 mma.sync, one cp.async
-//   stage) waited on, and what this form does about it: its products ran
-//   as warp products at a third of mma.sync's TF32 rate (here wgmma, two a
-//   k step where a_hi meets b_hi and b_lo); no copy overlapped the
-//   products (here TMA into two stages from a producer); every warp split
-//   the same streamed tile again (here each stage's lo is written once, and
-//   each own tile is split once a tile, by the one warpgroup that reads
-//   it); its float32 adds joined one k step's partials (here chains of
-//   four); at d = 256 dK/dV formed S^T and dP^T once per 128-column half
-//   (d = 256 keeps that form, below); every entry tested the mask and
-//   every tile divided (here an unmasked path and stepped walks).
-//   float32 at d = 256: the four-warp form (one block per (rank, head,
-//   64-row tile) for dq and per (owner, K/V head, 64-row K tile, 128-column
-//   half of d) for dkv; split-TF32 mma.sync; resident tiles of 64 rows and
-//   one stage of 32-row streamed tiles staged by cp.async, row stride d +
-//   4: (2 x 64 + 2 x 32) (d + 4) x 4 + 256 bytes = 199 936, F32Plan).  The
-//   form above does not fit there: its 64-row own tiles alone are 131 072
-//   bytes, and two stages of two 32-row streamed tiles and their lo
-//   another 131 072 or more, past the 232 448 a block may use.  The
-//   accumulator of P or dS is the A operand of the next m16n8k8 with its k
-//   index permuted (k = t <-> column 2t, k = t + 4 <-> 2t + 1); the B rows
-//   are read in the same permutation.
+//   each, and this form multiplies no more (the design floor is the
+//   bound); at d = 256 it reads more: the streamed tiles twice from L2 (the
+//   second time for the outputs: dq K again, 32 KB a tile beside the first
+//   64 KB of K and V; dK/dV Q and dO again, 64 KB beside 64 KB), and dK/dV's
+//   outputs issue m64n32 products (twice the instructions of m64n64 for the
+//   same flops).
+//   What the four-warp form that the float32 kernels replaced waited on, and
+//   what this form does about it: its products ran as warp products at a
+//   third of mma.sync's TF32 rate (here wgmma, a_hi meeting b_hi and b_lo
+//   in one); no copy overlapped the products (here TMA into a ring from a
+//   producer); every warp split the same streamed tile again (here its lo
+//   is written once a staging, each own tile split once a tile by the one
+//   warpgroup that reads it, an output's A once by the one that reads it);
+//   its float32 adds joined one k step's partials (here chains of four); at
+//   d = 256 dK/dV formed S^T and dP^T once per 128-column half (here once a
+//   K tile); every entry tested the mask and every tile divided (here an
+//   unmasked path and stepped walks).
 
 #include <math.h>
 
@@ -156,11 +181,6 @@
 #include "ring_attention.cuh"
 
 namespace {
-
-template <int D> struct F32Plan {
-  static constexpr int T = 64, TS = 32, LD = D + 4;
-  static constexpr int SMEM = (2 * T + 2 * TS) * LD * 4 + 2 * TS * 4;
-};
 
 // ------------------------------------------------------------------- bf16
 // The bf16 kernels: ring_attention.cuh's producer and consumers (Bf16Smem,
@@ -183,7 +203,9 @@ struct DkvCursor {
 // each; wgmma_wait<1> finds S and dP done and leaves the outputs running on
 // the tensor core while the warpgroup turns S and dP into P and dS (the
 // exponentials, the masks); wgmma_wait<0> then frees tile i - 1's stage and
-// fragments, and P and dS are split into tile i's.  No group is in flight across the loop's back edge: where one
+// fragments (their registers pinned to it by keep: the compiler may not give
+// them another value while the tensor core reads them), and P and dS are
+// split into tile i's.  No group is in flight across the loop's back edge: where one
 // was (tile i + 1's S and dP issued before tile i's outputs), ptxas
 // serialised every wgmma of the kernel (C7514, on the first builds).
 
@@ -322,6 +344,8 @@ attn_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_con
       reg_fence(dp);
       grads();
       wgmma_wait<0>();
+      keep(dh);  // tile i - 1's dS, in flight under grads(): its registers to here
+      keep(dl);
 #pragma unroll
       for (int nh = 0; nh < NH; ++nh) reg_fence(adq[nh]);
       mbar_arrive(sm.empty + (i - 1) % NS);
@@ -495,6 +519,10 @@ attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap mk, const __grid_co
       reg_fence(dpt);
       grads(i);
       wgmma_wait<0>();  // tile i - 1's fragments and stage are free
+      keep(ph);  // in flight under grads(i): their registers to here
+      keep(pl);
+      keep(dh);
+      keep(dl);
       reg_fence(adk);
       reg_fence(adv);
       mbar_arrive(sm.empty + (i - 1) % NS);
@@ -602,6 +630,8 @@ attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap mk, const __grid_co
       reg_fence(x);
       grads(i);
       wgmma_wait<0>();
+      keep(fh);  // tile i - 1's P (dS), in flight under grads(i): its registers to here
+      keep(fl);
       reg_fence(acc[0]);
       reg_fence(acc[1]);
       mbar_arrive(sm.empty + (i - 1) % NS);
@@ -821,19 +851,6 @@ __device__ __forceinline__ void out_issue(float (&hh)[64], float (&lh)[32],
     wgmma_m64n64k8_tf32(lh, al[kk], bb, kk > 0);
   }
   wgmma_commit();
-}
-// pins an A operand's registers (hi or lo fragments) until here: a wgmma
-// reads its register operands after it is issued, and a value the compiler
-// holds in them before its wait_group (the operand being dead once the
-// wgmma is issued, as far as the compiler knows) is what the tensor core
-// reads (a variant that loaded the next block's operands under a block's
-// products came out wrong)
-template <int K>
-__device__ __forceinline__ void keep(uint32_t (&r)[K][4]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 // acc += a_hi b_hi + (a_lo b_hi + a_hi b_lo), once their group has completed
@@ -1233,257 +1250,662 @@ attn_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap mk, const __grid_con
     }
 }
 
-// -------------------------------------------------------- float32: dK, dV
-template <int D>
-__device__ __forceinline__ void dkv_f32(const float* __restrict__ q,
-                                        const float* __restrict__ k,
-                                        const float* __restrict__ v,
-                                        const float* __restrict__ dout,
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ delta, float* __restrict__ dk,
-                                        float* __restrict__ dv, Geo geo) {
-  constexpr int T = F32Plan<D>::T, TS = F32Plan<D>::TS, LD = F32Plan<D>::LD, NH = D / 128;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + T * LD;
-  float* Qs = Vs + T * LD;
-  float* Os = Qs + TS * LD;
-  float* L = Os + TS * LD;
-  float* Dl = L + TS;
-  const int warp = threadIdx.x / 32, g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int kt = blockIdx.x / NH, n0 = (blockIdx.x % NH) * 128;
-  const int member = blockIdx.z, j = member % geo.g;
-  const int* G = geo.groups + (member - j);
-  const int kvh = blockIdx.y, rep = geo.hq / geo.hkv, sb = geo.sb, k0 = kt * T;
-  const long long kv_row0 = ((long long)G[j] * geo.hkv + kvh) * sb + k0;
-  const DkvWalk walk(geo, j, k0, TS);
+// ----------------------------------------------------- float32 at d = 256
+// The d = 128 form's producer and two consumer warpgroups, its chains and
+// its outputs formed transposed, with the own 64-row tiles resident (two of
+// 64 x 256, 131 072 bytes) and the streamed operands as column-chunk units
+// through one ring of NS = 4 slots of 16 384 bytes:
+//   a forming unit: one operand's TS = 32 rows x 64 columns, each of its
+//   two 32-column blocks its raw rows (TMA) then its lo rows (written once
+//   by the producer's warps 1-3), the B of S (S^T) and dP (dP^T) over
+//   those 64 columns of d;
+//   an output unit: one operand's 32 rows x 128 columns, raw (TMA), the A
+//   of two m64 blocks (128 columns of d) of an output formed transposed,
+//   split in registers by the one warpgroup that reads it.
+// The ring alternates the warpgroups' units (unit n is warpgroup n & 1's,
+// in slots n % 4), so each warpgroup counts its own and every slot has one
+// reader.  A tile's forming units come first, K (Q) and V (dO) chunk by
+// chunk; then the output units, for which the producer streams the tile's
+// chunks a second time (from L2); the next tile's first chunks land under
+// the outputs.
+template <int D> struct DqF32UnitPlan {
+  static constexpr int T = 64, TS = 32, NS = 4, OWN = 2 * T * D * 4, UNIT = 2 * TS * 64 * 4,
+      BT = 2 * 2 * T * TS * 4, ROWS = 0, BARS = 8 * (3 * NS + 1);
+  static constexpr int SMEM = 1024 + OWN + NS * UNIT + BT + NS * ROWS + BARS;
+};
+template <int D> struct DkvF32UnitPlan {
+  static constexpr int T = 64, TS = 32, NS = 4, OWN = 2 * T * D * 4, UNIT = 2 * TS * 64 * 4,
+      BT = 2 * 2 * T * TS * 4, ROWS = TS * 4, BARS = 8 * (3 * NS + 1);
+  static constexpr int SMEM = 1024 + OWN + NS * UNIT + BT + NS * ROWS + BARS;
+};
 
-  stage_f32<T, D>(Ks, k + kv_row0 * D, sb - k0);
-  stage_f32<T, D>(Vs, v + kv_row0 * D, sb - k0);
-  float adk[16][4], adv[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
-  const float* Kw = Ks + 16 * warp * LD;
-  const float* Vw = Vs + 16 * warp * LD;
-  for (int i = 0; i < walk.total; ++i) {
-    int arr, t, qt;
-    walk.at(i, arr, t, qt);
-    const int r = (j + arr) % geo.g, q0 = qt * TS;
-    const bool diag = geo.causal && arr == 0;
-    const long long row0 = ((long long)G[r] * geo.hq + kvh * rep + t) * sb + q0;
-    stage_f32<TS, D>(Qs, q + row0 * D, sb - q0);
-    stage_f32<TS, D>(Os, dout + row0 * D, sb - q0);
-    stage_rows<TS>(L, lse + row0, sb - q0);
-    stage_rows<TS>(Dl, delta + row0, sb - q0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S^T = K Q^T, dP^T = V dO^T (rows: this warp's 16 k, columns: 32 q)
-    float st[TS / 8][4], dpt[TS / 8][4];
-#pragma unroll
-    for (int n = 0; n < TS / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll 2
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const int c0 = 8 * ks + t4;
-      Tf32x2 ka[4], va[4];
-      frag_rows(Kw, LD, g4, c0, ka);
-      frag_rows(Vw, LD, g4, c0, va);
-#pragma unroll
-      for (int n = 0; n < TS / 8; ++n) {
-        const float* qr = Qs + (8 * n + g4) * LD + c0;
-        const float* orow = Os + (8 * n + g4) * LD + c0;
-        mma_3xtf32(st[n], ka, split(qr[0]), split(qr[4]));
-        mma_3xtf32(dpt[n], va, split(orow[0]), split(orow[4]));
-      }
+// the regions of the block's shared memory, in the plan's order
+template <typename Plan>
+struct F32UnitSmem {
+  static constexpr int kLoWriters = 96;  // the producer's warps 1-3
+  uint8_t* own;        // [2][D / 32][T x 128 bytes]: Q and dO (dq), K and V (dkv)
+  uint8_t* ring;       // NS units
+  uint8_t* bt;         // the outputs' B tiles, T x TS, hi then lo
+  float* rows;         // dkv: NS x [TS]: lse (delta) of the last Q (dO) forming unit of a tile
+  uint64_t* full;      // [NS]: a unit's loads landed
+  uint64_t* empty;     // [NS]: its warpgroup is done with it
+  uint64_t* lo_full;   // [NS]: its lo rows are written (an output unit: passed)
+  uint64_t* own_full;  // the own tiles landed
+  __device__ explicit F32UnitSmem(uint8_t* raw) {
+    own = align1024(raw);
+    ring = own + Plan::OWN;
+    bt = ring + Plan::NS * Plan::UNIT;
+    rows = reinterpret_cast<float*>(bt + Plan::BT);
+    full = reinterpret_cast<uint64_t*>(bt + Plan::BT + Plan::NS * Plan::ROWS);
+    empty = full + Plan::NS;
+    lo_full = empty + Plan::NS;
+    own_full = lo_full + Plan::NS;
+  }
+  // one thread, before anything else
+  __device__ void init() const {
+    for (int s = 0; s < Plan::NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128);
+      mbar_init(lo_full + s, kLoWriters);
     }
+    mbar_init(own_full, 1);
+    fence_mbar_init();
+  }
+  __device__ uint8_t* slot(int n) const { return ring + n % Plan::NS * Plan::UNIT; }
+  // until unit n is in its slot, with its lo rows
+  __device__ void wait(int n) const {
+    mbar_wait(lo_full + n % Plan::NS, (n / Plan::NS) & 1);
+    mbar_wait(full + n % Plan::NS, (n / Plan::NS) & 1);
+  }
+  // the producer's thread: unit n's slot, once the unit before it there is
+  // released, its full barrier expecting `bytes`
+  __device__ uint8_t* claim(int n, uint32_t bytes) const {
+    const int s = n % Plan::NS;
+    if (n >= Plan::NS) mbar_wait(empty + s, (n / Plan::NS - 1) & 1);
+    mbar_expect_tx(full + s, bytes);
+    return ring + s * Plan::UNIT;
+  }
+};
+
+// a forming unit: columns c0 .. c0 + 63 of the TS rows at (y, z), each
+// 32-column block's raw rows before the room of its lo rows
+template <int TS>
+__device__ __forceinline__ void load_forming(uint8_t* slot, const CUtensorMap* map, uint64_t* bar,
+                                             int c0, int y, int z) {
+  tma_load_3d(slot, map, bar, c0, y, z);
+  tma_load_3d(slot + 2 * TS * 128, map, bar, c0 + 32, y, z);
+}
+// an output unit: columns c0 .. c0 + 127, raw
+template <int TS>
+__device__ __forceinline__ void load_output(uint8_t* slot, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int y, int z) {
 #pragma unroll
-    for (int n = 0; n < TS / 8; ++n)
+  for (int b = 0; b < 4; ++b) tma_load_3d(slot + b * TS * 128, map, bar, c0 + 32 * b, y, z);
+}
+
+// The producer's warps 1-3, unit n of the ring once it landed: a forming
+// unit's lo rows (x - hi of every word, after each block's raw rows); an
+// output unit is passed (its lo_full phase keeps the slots' phases in step,
+// so that no writer is lapped)
+template <typename Plan>
+__device__ __forceinline__ void unit_lo(const F32UnitSmem<Plan>& sm, int n, bool forming) {
+  constexpr int Q4 = Plan::TS * 128 / 16, NW = F32UnitSmem<Plan>::kLoWriters;  // float4s of a block's raw rows
+  const int t = threadIdx.x - kConsumers - 32;
+  mbar_wait(sm.full + n % Plan::NS, (n / Plan::NS) & 1);
+  if (forming) {
+    float4* u = reinterpret_cast<float4*>(sm.slot(n));
+    for (int i = t; i < 2 * Q4; i += NW) {
+      float4* raw = u + (i / Q4) * 2 * Q4 + i % Q4;
+      float4 x = *raw;
+      x.x -= __uint_as_float(__float_as_uint(x.x) & 0xFFFFE000u);
+      x.y -= __uint_as_float(__float_as_uint(x.y) & 0xFFFFE000u);
+      x.z -= __uint_as_float(__float_as_uint(x.z) & 0xFFFFE000u);
+      x.w -= __uint_as_float(__float_as_uint(x.w) & 0xFFFFE000u);
+      raw[Q4] = x;
+    }
+    fence_async_shared();
+  }
+  mbar_arrive(sm.lo_full + n % Plan::NS);
+}
+
+// f (m64n32: the T own rows by a unit's TS streamed rows) over the unit's
+// two 32-column blocks, blocks cb0 and cb0 + 1 of d: A the own tile at `a`
+// (its hi the raw words, which the tensor core reads as TF32, from shared
+// memory; its lo by ldmatrix, split in registers), B the unit at `b` (each
+// block's raw rows, then its lo rows).  A block's chains, four k steps
+// each, as form_blocks': a_hi [b_hi; b_lo] (m64n64) and a_lo b_hi
+// (m64n32), its part a_hi b_hi + (a_lo b_hi + a_hi b_lo) by round-to-nearest
+// float32 adds; the blocks' parts added in order (block 0 of d starts f)
+template <int T, int TS>
+__device__ __forceinline__ void form_unit(float (&f)[16], uint32_t a, uint32_t b, int cb0, int w,
+                                          int lane) {
+  const int rr = lane % 8, row = 16 * w + rr + 8 * ((lane / 8) & 1), half = lane / 16;
+  const uint32_t arow = a + row * 128;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int cb = cb0 + h;
+    uint32_t al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldsm_x4(al[kk], arow + cb * (T * 128) + (((2 * kk + half) ^ rr) << 4));
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * t4 + (e & 1), qi = q0 + col;
-        const int kj = k0 + 16 * warp + g4 + 8 * (e >> 1);
-        grad_entry(st[n][e], dpt[n][e], L[col], Dl[col], geo.scale,
-                   qi >= sb || (diag && kj > qi));
-      }
-
-    // dV += P^T dO, dK += dS^T Q over the tile's 32 q rows
-#pragma unroll
-    for (int kq = 0; kq < TS / 8; ++kq) {
-      Tf32x2 pa[4], da[4];
-      frag_acc(st[kq], pa);
-      frag_acc(dpt[kq], da);
-      const float* o0 = Os + (8 * kq + 2 * t4) * LD + n0 + g4;
-      const float* qq0 = Qs + (8 * kq + 2 * t4) * LD + n0 + g4;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        mma_3xtf32(adv[n], pa, split(o0[8 * n]), split(o0[LD + 8 * n]));
-        mma_3xtf32(adk[n], da, split(qq0[8 * n]), split(qq0[LD + 8 * n]));
+        const uint32_t x = al[kk][e];
+        al[kk][e] = __float_as_uint(__uint_as_float(x) - __uint_as_float(x & 0xFFFFE000u));
       }
     }
-    __syncthreads();
+    float hh[32], lh[16];  // a_hi [b_hi; b_lo], a_lo b_hi
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // descriptors built at each use (opaque bases)
+      const uint64_t bb = desc_kmajor(opaque(b) + h * 2 * TS * 128 + kk * 32);
+      wgmma_m64n64k8_tf32_ss(hh, desc_kmajor(opaque(a) + cb * (T * 128) + kk * 32), bb, kk > 0);
+      wgmma_m64n32k8_tf32(lh, al[kk], bb, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(al);
+    reg_fence(hh);
+    reg_fence(lh);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float part = hh[e] + (lh[e] + hh[16 + e]);
+      f[e] = cb == 0 ? part : f[e] + part;
+    }
   }
+}
+
+// The byte offsets in an output unit (TS rows x 128 columns, 32-column
+// blocks in the 128-byte swizzle) of the four words a thread reads for the
+// first m64 block's first k step: (row t4 (+ 4), column 16 w + g4 (+ 8)).
+// Its other words are these plus 8 192 a block of 64 columns (two column
+// blocks on) and 1 024 a k step (eight rows on): the swizzle's row and
+// chunk bits do not change, so four registers address the unit
+template <int TS>
+__device__ __forceinline__ void unit_offsets(uint32_t (&off)[4], int w, int g4, int t4) {
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int e = 0; e < 4; ++e) off[e] = sw128_f32(t4 + 4 * (e >> 1), 16 * w + g4 + 8 * (e & 1), TS);
+}
+// The A operand of an output product formed transposed (m64: columns
+// 64 mb .. 64 mb + 63 of an output unit at `u`; k: its TS rows), each word
+// split once, in registers: rows 8 kk + t4 (+ 4), columns 64 mb + 16 w + g4
+// (+ 8) (`off` from unit_offsets)
+template <int TS>
+__device__ __forceinline__ void unit_frags(uint32_t (&ah)[TS / 8][4], uint32_t (&al)[TS / 8][4],
+                                           uint32_t u, const uint32_t (&off)[4], int mb) {
 #pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int row = 16 * warp + g4 + 8 * ii;
-      if (k0 + row >= sb) continue;
-      const long long at = (kv_row0 + row) * D + n0 + 8 * n + 2 * t4;
-      store2(dk + at, adk[n][2 * ii], adk[n][2 * ii + 1]);
-      store2(dv + at, adv[n][2 * ii], adv[n][2 * ii + 1]);
+  for (int kk = 0; kk < TS / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t x;
+      asm volatile("ld.shared.b32 %0, [%1];\n"
+                   : "=r"(x)
+                   : "r"(u + off[e] + 2 * mb * TS * 128 + kk * 1024));
+      ah[kk][e] = x & 0xFFFFE000u;
+      al[kk][e] = __float_as_uint(__uint_as_float(x) - __uint_as_float(ah[kk][e]));
     }
 }
 
-// ------------------------------------------------------------ float32: dQ
-template <int D>
-__device__ __forceinline__ void dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                                       const float* __restrict__ v,
-                                       const float* __restrict__ dout,
-                                       const float* __restrict__ lse,
-                                       const float* __restrict__ delta, float* __restrict__ dq,
-                                       Geo geo) {
-  constexpr int T = F32Plan<D>::T, TS = F32Plan<D>::TS, LD = F32Plan<D>::LD, NT = D / 8;
+// out_issue_small's chains for 32 of the 64 own rows (B from `bh`, the hi
+// rows of that half, its lo rows 64 rows on) in 32 registers, each k step's
+// descriptors built just before its wgmmas (an opaque base) rather than all
+// held at once; out_add_quarter: acc's columns 32 nh .. 32 nh + 31 +=
+// f + small
+template <int TS>
+__device__ __forceinline__ void out_issue_quarter(float (&f)[16], float (&small)[16],
+                                                  const uint32_t (&ah)[TS / 8][4],
+                                                  const uint32_t (&al)[TS / 8][4], uint32_t bh) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TS / 8; ++kk) {
+    const uint32_t hb = opaque(bh) + kk * 32;
+    const uint64_t h = desc_kmajor(hb), l = desc_kmajor(hb + 64 * 128);
+    wgmma_m64n32k8_tf32(small, al[kk], h, kk > 0);
+    wgmma_m64n32k8_tf32(small, ah[kk], l, 1);
+    wgmma_m64n32k8_tf32(f, ah[kk], h, kk > 0);
+  }
+  wgmma_commit();
+}
+__device__ __forceinline__ void out_add_quarter(float (&acc)[32], int nh, float (&f)[16],
+                                                float (&small)[16]) {
+  reg_fence(f);
+  reg_fence(small);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[16 * nh + e] += f[e] + small[e];
+}
+
+// ------------------------------------------------ float32 at d = 256: dQ
+// Registers a thread after setmaxnreg: dq's consumers take 240 and its
+// producer warpgroup 24 (its consumers spill at 232; its producer fits in
+// 24).  A block's warps start at 168 (65 536 / 384, rounded down to 8), so
+// the pool is 12 x 168 a lane: 4 x 24 + 8 x 240 fits it exactly, where
+// 4 x 32 + 8 x 240 would leave the consumers waiting on setmaxnreg forever.
+// dK/dV keeps kProducerRegs and kConsumerRegs (40, 232).
+constexpr int kDqProducerRegs = 24, kDqConsumerRegs = 240;
+static_assert(4 * kDqProducerRegs + 8 * kDqConsumerRegs <= 12 * 168, "the block's register pool");
+
+// A block per (rank, query head, 64-row Q tile), the heaviest first; K and
+// V stream in 32-row tiles (DqWalk), each as four forming units and, for
+// dQ, two output units.  Warpgroup 0 forms S = Q K^T and P, warpgroup 1
+// dP = dO V^T and dS, as at d = 128 (P handed over in the dS tiles of the
+// tile's parity, named barriers 4 + parity "P is there", 8 + parity "dS is
+// there", 10 + parity "warpgroup 1's product of the tile two back is
+// done").  Output: dQ^T = K^T dS^T, warpgroup wg the columns 128 wg ..
+// 128 wg + 127 of dQ as two m64 blocks (64 registers a thread), each in
+// out_issue_small's chains (64 registers); one tile behind: tile i - 1's
+// after tile i's P (dS), so that warpgroup 0 does not wait for dS; the ring
+// carries tile i - 1's output units after tile i's forming units.
+template <>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+attn_bwd_dq_f32_kernel<256>(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                            const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, Geo geo) {
+  constexpr int D = 256;
+  using Plan = DqF32UnitPlan<D>;
+  using Smem = F32UnitSmem<Plan>;
+  constexpr int T = Plan::T, TS = Plan::TS, NB = D / 32;
+  constexpr int OWN1 = Plan::OWN / 2, BTILE = T * TS * 4, FORM = 2 * TS * 64 * 4 / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Os = Qs + T * LD;
-  float* Ks = Os + T * LD;
-  float* Vs = Ks + TS * LD;
-  const int warp = threadIdx.x / 32, g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  const Smem sm(smem_raw);
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int grp = blockIdx.z / geo.g, r = geo.g - 1 - blockIdx.z % geo.g;
   const int* G = geo.groups + grp * geo.g;
   const int h = blockIdx.y, kvh = h / (geo.hq / geo.hkv), sb = geo.sb, q0 = qt * T;
-  const long long row0 = ((long long)G[r] * geo.hq + h) * sb;
+  const int zq = G[r] * geo.hq + h;  // the query head's plane
+  const long long row0 = (long long)zq * sb;
   const DqWalk walk(geo, r, q0, T, TS);
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
 
-  stage_f32<T, D>(Qs, q + (row0 + q0) * D, sb - q0);
-  stage_f32<T, D>(Os, dout + (row0 + q0) * D, sb - q0);
-  float L[2], Dl[2];
-#pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int qi = q0 + 16 * warp + g4 + 8 * ii;
-    L[ii] = qi < sb ? lse[row0 + qi] : 0.f;
-    Dl[ii] = qi < sb ? delta[row0 + qi] : 0.f;
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kDqProducerRegs>();
+    if (threadIdx.x >= kConsumers + 32) {  // tile i's forming units, then tile i - 1's output units
+      for (int i = 0, n = 0; i <= walk.total; ++i) {
+        if (i < walk.total)
+          for (int u = 0; u < 8; ++u) unit_lo(sm, n++, true);
+        if (i > 0)
+          for (int u = 0; u < 2; ++u) unit_lo(sm, n++, false);
+      }
+      return;
+    }
+    if (threadIdx.x != kConsumers) return;
+    mbar_expect_tx(sm.own_full, Plan::OWN);
+    for (int cb = 0; cb < NB; ++cb) {
+      tma_load_3d(sm.own + cb * T * 128, &mq, sm.own_full, 32 * cb, q0, zq);
+      tma_load_3d(sm.own + OWN1 + cb * T * 128, &mo, sm.own_full, 32 * cb, q0, zq);
+    }
+    DqCursor at;
+    int zp = 0, yp = 0;  // tile i - 1's plane and first row
+    for (int i = 0, n = 0; i <= walk.total; ++i) {
+      int z = 0, y = 0;
+      if (i < walk.total) {
+        z = G[(r - at.arr + geo.g) % geo.g] * geo.hkv + kvh;
+        y = at.kt * TS;
+        at.next(walk);
+        for (int c = 0; c < 4; ++c) {
+          load_forming<TS>(sm.claim(n, FORM), &mk, sm.full + n % Plan::NS, 64 * c, y, z);
+          ++n;
+          load_forming<TS>(sm.claim(n, FORM), &mv, sm.full + n % Plan::NS, 64 * c, y, z);
+          ++n;
+        }
+      }
+      if (i > 0)
+        for (int c = 0; c < 2; ++c, ++n)
+          load_output<TS>(sm.claim(n, Plan::UNIT), &mk, sm.full + n % Plan::NS, 128 * c, yp, zp);
+      zp = z;
+      yp = y;
+    }
+    return;
   }
-  float adq[NT][4];
+  setmaxnreg_inc<kDqConsumerRegs>();
+  // the warpgroup a compile-time constant: its shared addresses and the
+  // descriptors built from them are then uniform (uniform registers),
+  // not per-thread values
+  auto consumer = [&](auto which) {
+    constexpr int wg = decltype(which)::value;
+    const int t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4, t4 = t % 4;
+    float L2[2], Dl[2];  // lse log2(e) and delta of the thread's two rows
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+    for (int ii = 0; ii < 2; ++ii) {
+      const int qi = q0 + 16 * w + g4 + 8 * ii;
+      L2[ii] = qi < sb ? lse[row0 + qi] * kLog2e : 0.f;
+      Dl[ii] = qi < sb ? delta[row0 + qi] : 0.f;
+    }
+    const float scale2 = geo.scale * kLog2e;
+    uint32_t woff[4];  // the thread's words in an output unit
+    unit_offsets<TS>(woff, w, g4, t4);
+    const uint32_t bt = smem_addr(sm.bt);  // dS (P) of parity p: hi at bt + 2 p BTILE, lo after it
+    const uint32_t own = smem_addr(sm.own + wg * OWN1);  // Q (warpgroup 0) or dO
+    float acc[2][32];  // dQ^T: columns 128 wg + 64 mb + 16 w + g4 (+ 8) of dQ, its 64 rows
+    zero(acc[0]);
+    zero(acc[1]);
+    float x[TS / 2];  // warpgroup 0: S, then P; warpgroup 1: dP, then dS (rows q, columns k)
+    int k = 0;        // the warpgroup's units so far: its next is unit 2 k + wg
+    DqCursor cur;
+    // tile i's S (dP) into x, over the tile's four forming units of K (V);
+    // x's last value is dead from here (zeroed, so the compiler does not
+    // hold it through the outputs: form_unit's first block overwrites it)
+    auto form = [&] {
+      zero(x);
+#pragma unroll 1
+      for (int c = 0; c < 4; ++c, ++k) {
+        const int n = 2 * k + wg;
+        sm.wait(n);
+        form_unit<T, TS>(x, own, smem_addr(sm.slot(n)), 2 * c, w, t % 32);
+        mbar_arrive(sm.empty + n % Plan::NS);
+      }
+    };
+    // tile i's P (warpgroup 0) into the dS tiles of parity i & 1, or dS
+    // (warpgroup 1) from it, hi and lo, in place
+    auto grads = [&](int i) {
+      const int par = i & 1;
+      uint8_t* hi = sm.bt + 2 * par * BTILE;
+      if (wg == 0) {
+        const int k0 = cur.kt * TS;
+        const bool diag = geo.causal && cur.arr == 0;
+        cur.next(walk);
+        auto entries = [&](auto edge) {
+          constexpr bool masks = decltype(edge)::value;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adq[n][e] = 0.f;
-  const float* Qw = Qs + 16 * warp * LD;
-  const float* Ow = Os + 16 * warp * LD;
-  for (int i = 0; i < walk.total; ++i) {
-    int arr, kt;
-    walk.at(i, arr, kt);
-    const int jb = (r - arr + geo.g) % geo.g, k0 = kt * TS;
-    const bool diag = geo.causal && arr == 0;
-    const long long kv = ((long long)G[jb] * geo.hkv + kvh) * sb + k0;
-    stage_f32<TS, D>(Ks, k + kv * D, sb - k0);
-    stage_f32<TS, D>(Vs, v + kv * D, sb - k0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+          for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii) {
+              const int qi = q0 + 16 * w + g4 + 8 * ii;
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int e = 4 * jj + 2 * ii + c, kj = k0 + 8 * jj + 2 * t4 + c;
+                x[e] = prob(x[e], scale2, L2[ii],
+                            masks && (kj >= sb || qi >= sb || (diag && kj > qi)));
+              }
+            }
+        };
+        if (diag || k0 + TS > sb || q0 + T > sb) entries(std::true_type());
+        else entries(std::false_type());
+        if (i >= 2) named_sync(10 + par, 256);  // warpgroup 1's tile i - 2 product is done
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int e = 4 * jj + 2 * ii;
+            *reinterpret_cast<float2*>(hi + sw128_f32(16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, T)) =
+                make_float2(x[e], x[e + 1]);
+          }
+        named_arrive(4 + par, 256);
+      } else {
+        named_sync(4 + par, 256);  // tile i's P is there
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int e = 4 * jj + 2 * ii, row = 16 * w + g4 + 8 * ii, col = 8 * jj + 2 * t4;
+            const float2 p = *reinterpret_cast<const float2*>(hi + sw128_f32(row, col, T));
+            x[e] = p.x * (x[e] - Dl[ii]) * geo.scale;
+            x[e + 1] = p.y * (x[e + 1] - Dl[ii]) * geo.scale;
+            put_split2<T>(hi, hi + BTILE, row, col, x[e], x[e + 1]);
+          }
+        fence_async_shared();
+        named_sync(3, 128);  // the warpgroup's own products read them next
+        named_arrive(8 + par, 256);
+      }
+    };
+    // tile i's dQ^T += K^T dS^T over its output unit, one m64 block at a time
+    auto output = [&](int i) {
+      const int par = i & 1, n = 2 * k + wg;
+      if (wg == 0) named_sync(8 + par, 256);  // tile i's dS is there
+      sm.wait(n);
+      const uint32_t u = smem_addr(sm.slot(n));
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        uint32_t ah[TS / 8][4], al[TS / 8][4];
+        float of[32], os[32];
+        unit_frags<TS>(ah, al, u, woff, mb);
+        out_issue_small<TS>(of, os, ah, al, bt + 2 * par * BTILE);
+        wgmma_wait<0>();
+        keep(ah);
+        keep(al);
+        out_add_small(acc[mb], of, os);
+      }
+      mbar_arrive(sm.empty + n % Plan::NS);
+      ++k;
+      if (wg == 1 && i + 2 < walk.total) named_arrive(10 + par, 256);  // its tiles are free
+    };
+    mbar_wait(sm.own_full, 0);
+#pragma unroll 1
+    for (int i = 0; i < walk.total; ++i) {
+      form();
+      grads(i);
+      if (i > 0) output(i - 1);
+    }
+    output(walk.total - 1);
+    // acc[mb][4j + 2i + c] = dQ[q0 + 8j + 2 t4 + c][128 wg + 64 mb + 16 w + g4 + 8i]
+    const int col0 = 128 * wg + 16 * w + g4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qi = q0 + 8 * j + 2 * t4 + c;
+        if (qi >= sb) continue;
+        float* out = dq + (row0 + qi) * D + col0;
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          out[64 * mb] = acc[mb][4 * j + c];
+          out[64 * mb + 8] = acc[mb][4 * j + 2 + c];
+        }
+      }
+  };
+  if (threadIdx.x < 128) consumer(std::integral_constant<int, 0>());
+  else consumer(std::integral_constant<int, 1>());
+}
 
-    // S = Q K^T, dP = dO V^T (rows: this warp's 16 q, columns: 32 k)
-    float s[TS / 8][4], dp[TS / 8][4];
-#pragma unroll
-    for (int n = 0; n < TS / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll 2
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const int c0 = 8 * ks + t4;
-      Tf32x2 qa[4], oa[4];
-      frag_rows(Qw, LD, g4, c0, qa);
-      frag_rows(Ow, LD, g4, c0, oa);
-#pragma unroll
-      for (int n = 0; n < TS / 8; ++n) {
-        const float* kr = Ks + (8 * n + g4) * LD + c0;
-        const float* vr = Vs + (8 * n + g4) * LD + c0;
-        mma_3xtf32(s[n], qa, split(kr[0]), split(kr[4]));
-        mma_3xtf32(dp[n], oa, split(vr[0]), split(vr[4]));
+// -------------------------------------------- float32 at d = 256: dK, dV
+// A block per (owner j, K/V head, 64-row K tile), owners in order; Q and dO
+// stream in 32-row tiles (DkvWalk), each as four forming units (the last
+// of Q with the tile's lse rows, of dO with its delta rows) and four output
+// units.  Warpgroup 0 forms S^T = K Q^T and P^T, warpgroup 1 dP^T = V dO^T
+// and dS^T, once a K tile; P goes into the P tiles (hi and lo), which
+// warpgroup 1 reads back (hi + lo is P) for dS (named barriers 4 "P is
+// there", 6 "its tiles are free"), dS into the dS tiles.  Outputs:
+// warpgroup 0 dV^T = dO^T P, warpgroup 1 dK^T = Q^T dS, each the whole of
+// d as four m64 blocks (128 registers a thread), after the tile's P (dS),
+// one m64 block at a time, each half of the own rows in 32 registers
+// (out_issue_quarter).
+template <>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+attn_bwd_dkv_f32_kernel<256>(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                             const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                             const __grid_constant__ CUtensorMap ml, const __grid_constant__ CUtensorMap md,
+                             float* __restrict__ dk, float* __restrict__ dv, Geo geo) {
+  constexpr int D = 256;
+  using Plan = DkvF32UnitPlan<D>;
+  using Smem = F32UnitSmem<Plan>;
+  constexpr int T = Plan::T, TS = Plan::TS, NB = D / 32;
+  constexpr int OWN1 = Plan::OWN / 2, BTILE = T * TS * 4, FORM = 2 * TS * 64 * 4 / 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Smem sm(smem_raw);
+  const int kt = blockIdx.x, member = blockIdx.z, j = member % geo.g;  // the K/V block's owner
+  const int* G = geo.groups + (member - j);
+  const int kvh = blockIdx.y, rep = geo.hq / geo.hkv, sb = geo.sb, k0 = kt * T;
+  const int zk = G[j] * geo.hkv + kvh;  // the K/V head's plane
+  const DkvWalk walk(geo, j, k0, TS);
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumers + 32) {  // a tile's eight forming units, then its four output units
+      for (int i = 0, n = 0; i < walk.total; ++i)
+        for (int u = 0; u < 12; ++u) unit_lo(sm, n++, u < 8);
+      return;
+    }
+    if (threadIdx.x != kConsumers) return;
+    mbar_expect_tx(sm.own_full, Plan::OWN);
+    for (int cb = 0; cb < NB; ++cb) {
+      tma_load_3d(sm.own + cb * T * 128, &mk, sm.own_full, 32 * cb, k0, zk);
+      tma_load_3d(sm.own + OWN1 + cb * T * 128, &mv, sm.own_full, 32 * cb, k0, zk);
+    }
+    DkvCursor at(walk);
+    for (int i = 0, n = 0; i < walk.total; ++i) {
+      const int z = G[(j + at.arr) % geo.g] * geo.hq + kvh * rep + at.t, y = at.qt * TS;
+      at.next(walk, rep);
+      for (int c = 0; c < 4; ++c) {
+        const int rows = c == 3 ? Plan::ROWS : 0;
+        uint8_t* s = sm.claim(n, FORM + rows);
+        load_forming<TS>(s, &mq, sm.full + n % Plan::NS, 64 * c, y, z);
+        if (rows) tma_load_1d(sm.rows + n % Plan::NS * TS, &ml, sm.full + n % Plan::NS, z * sb + y);
+        ++n;
+        s = sm.claim(n, FORM + rows);
+        load_forming<TS>(s, &mo, sm.full + n % Plan::NS, 64 * c, y, z);
+        if (rows) tma_load_1d(sm.rows + n % Plan::NS * TS, &md, sm.full + n % Plan::NS, z * sb + y);
+        ++n;
+      }
+      for (int c = 0; c < 2; ++c) {  // dO for dV^T (warpgroup 0), Q for dK^T (1)
+        load_output<TS>(sm.claim(n, Plan::UNIT), &mo, sm.full + n % Plan::NS, 128 * c, y, z);
+        ++n;
+        load_output<TS>(sm.claim(n, Plan::UNIT), &mq, sm.full + n % Plan::NS, 128 * c, y, z);
+        ++n;
       }
     }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  // the warpgroup a compile-time constant: its shared addresses and the
+  // descriptors built from them are then uniform (uniform registers),
+  // not per-thread values
+  auto consumer = [&](auto which) {
+    constexpr int wg = decltype(which)::value;
+    const int t = threadIdx.x % 128, w = t / 32, g4 = (t % 32) / 4, t4 = t % 4;
+    const float scale2 = geo.scale * kLog2e;
+    uint32_t woff[4];  // the thread's words in an output unit
+    unit_offsets<TS>(woff, w, g4, t4);
+    // the B tiles: P (hi, lo), then dS (hi, lo)
+    uint8_t* pt = sm.bt;
+    uint8_t* dst = sm.bt + 2 * BTILE;
+    const uint32_t own = smem_addr(sm.own + wg * OWN1);  // K (warpgroup 0) or V
+    const uint32_t bh = smem_addr(wg == 0 ? pt : dst);
+    float acc[4][32];  // dV^T (warpgroup 0) or dK^T (1), by 64-column block of d
 #pragma unroll
-    for (int n = 0; n < TS / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = q0 + 16 * warp + g4 + 8 * (e >> 1);
-        const int kj = k0 + 8 * n + 2 * t4 + (e & 1);
-        grad_entry(s[n][e], dp[n][e], L[e >> 1], Dl[e >> 1], geo.scale,
-                   kj >= sb || qi >= sb || (diag && kj > qi));
+    for (int b = 0; b < 4; ++b) zero(acc[b]);
+    float x[TS / 2];  // warpgroup 0: S^T, then P^T; warpgroup 1: dP^T, then dS^T (rows k, columns q)
+    int k = 0;        // the warpgroup's units so far: its next is unit 2 k + wg
+    // the walk stepped a tile at a time, as much of it as the consumers
+    // read: the q-tile (tiles before walk.first are the diagonal's)
+    int qt = walk.qs;
+    mbar_wait(sm.own_full, 0);
+#pragma unroll 1
+    for (int i = 0; i < walk.total; ++i) {
+      // this tile's lse (warpgroup 0) or delta (1) rows: in the rows of its
+      // last forming unit, which no later load overwrites before the tile's
+      // gradients are formed
+      const float* Rs = sm.rows + (2 * (k + 3) + wg) % Plan::NS * TS + 2 * t4;
+      zero(x);  // its last value dead (the first block overwrites it): not held through the outputs
+#pragma unroll 1
+      for (int c = 0; c < 4; ++c, ++k) {
+        const int n = 2 * k + wg;
+        sm.wait(n);
+        form_unit<T, TS>(x, own, smem_addr(sm.slot(n)), 2 * c, w, t % 32);
+        mbar_arrive(sm.empty + n % Plan::NS);
       }
-
-    // dQ += dS K over the tile's 32 k rows
+      if (wg == 0) {  // P^T into the P tiles
+        const int q0 = qt * TS;
+        const bool diag = geo.causal && i < walk.first;
+        auto entries = [&](auto edge) {
+          constexpr bool masks = decltype(edge)::value;
 #pragma unroll
-    for (int kk = 0; kk < TS / 8; ++kk) {
-      Tf32x2 da[4];
-      frag_acc(dp[kk], da);
-      const float* kr = Ks + (8 * kk + 2 * t4) * LD + g4;
+          for (int jj = 0; jj < TS / 8; ++jj)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) mma_3xtf32(adq[n], da, split(kr[8 * n]), split(kr[LD + 8 * n]));
+            for (int c = 0; c < 2; ++c) {
+              const int qi = q0 + 8 * jj + 2 * t4 + c;
+              const float l2 = Rs[8 * jj + c] * kLog2e;
+#pragma unroll
+              for (int ii = 0; ii < 2; ++ii) {
+                const int e = 4 * jj + 2 * ii + c, kj = k0 + 16 * w + g4 + 8 * ii;
+                x[e] = prob(x[e], scale2, l2, masks && (qi >= sb || (diag && kj > qi)));
+              }
+            }
+        };
+        if (diag || q0 + TS > sb) entries(std::true_type());
+        else entries(std::false_type());
+        if (i >= 1) named_sync(6, 256);  // warpgroup 1 has read tile i - 1's P
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int e = 4 * jj + 2 * ii;
+            put_split2<T>(pt, pt + BTILE, 16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, x[e], x[e + 1]);
+          }
+        fence_async_shared();
+        named_sync(2, 128);  // the warpgroup's own products read them next
+        named_arrive(4, 256);
+      } else {  // dS^T = P^T (dP^T - delta) scale into the dS tiles
+        named_sync(4, 256);  // tile i's P is there
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int e = 4 * jj + 2 * ii;
+            const uint32_t off = sw128_f32(16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, T);
+            const float2 h2 = *reinterpret_cast<const float2*>(pt + off);
+            const float2 l2 = *reinterpret_cast<const float2*>(pt + BTILE + off);
+            x[e] = (h2.x + l2.x) * (x[e] - Rs[8 * jj]) * geo.scale;
+            x[e + 1] = (h2.y + l2.y) * (x[e + 1] - Rs[8 * jj + 1]) * geo.scale;
+          }
+        if (i + 1 < walk.total) named_arrive(6, 256);
+#pragma unroll
+        for (int jj = 0; jj < TS / 8; ++jj)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            const int e = 4 * jj + 2 * ii;
+            put_split2<T>(dst, dst + BTILE, 16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, x[e], x[e + 1]);
+          }
+        fence_async_shared();
+        named_sync(3, 128);  // the warpgroup's own products read them next
+      }
+      if (++qt == walk.nq) qt = i + 1 < walk.first ? walk.qs : 0;
+      // warpgroup 0: dV^T += dO^T P; 1: dK^T += Q^T dS, over its two output
+      // units, one m64 block at a time
+#pragma unroll
+      for (int c = 0; c < 2; ++c, ++k) {
+        const int n = 2 * k + wg;
+        sm.wait(n);
+        const uint32_t u = smem_addr(sm.slot(n));
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          uint32_t ah[TS / 8][4], al[TS / 8][4];
+          unit_frags<TS>(ah, al, u, woff, mb);
+#pragma unroll
+          for (int nh = 0; nh < 2; ++nh) {  // K rows 32 nh .. 32 nh + 31: 32 temporaries
+            float of[16], os[16];
+            out_issue_quarter<TS>(of, os, ah, al, bh + nh * 32 * 128);
+            wgmma_wait<0>();
+            out_add_quarter(acc[2 * c + mb], nh, of, os);
+          }
+          keep(ah);  // in flight across the first half's sums
+          keep(al);
+        }
+        mbar_arrive(sm.empty + n % Plan::NS);
+      }
     }
-    __syncthreads();
-  }
+    // acc[b][4j + 2i + c] = dX[k0 + 8j + 2 t4 + c][64 b + 16 w + g4 + 8i]
+    float* out = wg == 0 ? dv : dk;
+    const int col0 = 16 * w + g4;
+    const long long kv_row0 = (long long)zk * sb + k0;  // formed here: not held through the walk
 #pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int qi = q0 + 16 * warp + g4 + 8 * ii;
-    if (qi >= sb) continue;
+    for (int jq = 0; jq < 8; ++jq)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      store2(dq + (row0 + qi) * D + 8 * n + 2 * t4, adq[n][2 * ii], adq[n][2 * ii + 1]);
-  }
-}
-
-// ----------------------------------------------------------------- launches
-// float32 (E is float: the bf16 forms are the kernels above)
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                   const E* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, E* __restrict__ dq, Geo geo) {
-  dq_f32<D>(q, k, v, dout, lse, delta, dq, geo);
-}
-
-template <typename E, int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                    const E* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, E* __restrict__ dk, E* __restrict__ dv,
-                    Geo geo) {
-  dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, geo);
-}
-
-template <int D>
-int bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dq, Geo geo, int ngroups, cudaStream_t s) {
-  constexpr int bytes = F32Plan<D>::SMEM;
-  int err = set_smem(attn_bwd_dq_kernel<float, D>, bytes);
-  if (err) return err;
-  dim3 grid((geo.sb + 63) / 64, geo.hq, ngroups * geo.g);
-  attn_bwd_dq_kernel<float, D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), geo);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                const float* delta, void* dk, void* dv, Geo geo, int ngroups, cudaStream_t s) {
-  constexpr int bytes = F32Plan<D>::SMEM;
-  int err = set_smem(attn_bwd_dkv_kernel<float, D>, bytes);
-  if (err) return err;
-  dim3 grid((geo.sb + 63) / 64 * (D / 128), geo.hkv, ngroups * geo.g);
-  attn_bwd_dkv_kernel<float, D><<<grid, kThreads, bytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), geo);
-  return (int)cudaGetLastError();
+      for (int c = 0; c < 2; ++c) {
+        const int row = 8 * jq + 2 * t4 + c;
+        if (k0 + row >= sb) continue;
+        float* o = out + (kv_row0 + row) * D + col0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          o[64 * b] = acc[b][4 * jq + c];
+          o[64 * b + 8] = acc[b][4 * jq + 2 + c];
+        }
+      }
+  };
+  if (threadIdx.x < 128) consumer(std::integral_constant<int, 0>());
+  else consumer(std::integral_constant<int, 1>());
 }
 
 // lse or delta, [n] float32, as a 1-D tensor map in boxes of `rows`: a box
@@ -1538,10 +1960,11 @@ int bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, 
   return (int)cudaGetLastError();
 }
 
+// the float32 forms at d = 128 and 256 (their plans)
 template <int D>
 int bwd_dq_f32_wg(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                   const float* delta, void* dq, Geo geo, int ngroups, cudaStream_t s) {
-  using Plan = DqF32Plan<D>;
+  using Plan = std::conditional_t<D == 128, DqF32Plan<D>, DqF32UnitPlan<D>>;
   const int planes = ngroups * geo.g;
   CUtensorMap mq, mo, mk, mv;
   int err = f32_map(&mq, q, D, geo.sb, planes * geo.hq, Plan::T);
@@ -1559,7 +1982,7 @@ int bwd_dq_f32_wg(const void* q, const void* k, const void* v, const void* dout,
 template <int D>
 int bwd_dkv_f32_wg(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, void* dk, void* dv, Geo geo, int ngroups, cudaStream_t s) {
-  using Plan = DkvF32Plan<D>;
+  using Plan = std::conditional_t<D == 128, DkvF32Plan<D>, DkvF32UnitPlan<D>>;
   const int planes = ngroups * geo.g;
   CUtensorMap mk, mv, mq, mo, ml, md;
   int err = f32_map(&mk, k, D, geo.sb, planes * geo.hkv, Plan::T);
@@ -1592,7 +2015,7 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v,
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
   if (dtype == 0 && d == 128) return bwd_dq_f32_wg<128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
-  if (dtype == 0 && d == 256) return bwd_dq_f32<256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
+  if (dtype == 0 && d == 256) return bwd_dq_f32_wg<256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
   if (dtype == 1 && d == 128) return bwd_dq_bf16<128>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
   if (dtype == 1 && d == 256) return bwd_dq_bf16<256>(q, k, v, dout, L, Dl, dq, geo, ngroups, s);
   return kBadShape;
@@ -1609,7 +2032,7 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v,
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
   if (dtype == 0 && d == 128) return bwd_dkv_f32_wg<128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
-  if (dtype == 0 && d == 256) return bwd_dkv_f32<256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
+  if (dtype == 0 && d == 256) return bwd_dkv_f32_wg<256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   if (dtype == 1 && d == 128) return bwd_dkv_bf16<128>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   if (dtype == 1 && d == 256) return bwd_dkv_bf16<256>(q, k, v, dout, L, Dl, dk, dv, geo, ngroups, s);
   return kBadShape;

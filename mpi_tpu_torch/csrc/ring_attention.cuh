@@ -9,10 +9,11 @@
 // launch, the float32 tensor maps and output products), and what the bf16
 // forward and backward at d <= 256 share (their shared memory, their TMA
 // producer, the stepped walk of a query block, the tile product S = Q K^T,
-// exponentials by ex2).  The float32 backward at d <= 256 runs four warps a
-// block, the float32 forward several warpgroups, the forms above d = 256
-// and the bf16 forms a producer and two consumer warpgroups; the staging
-// loops take the block's thread count.
+// exponentials by ex2, the pin of an in-flight register operand).  The
+// float32 forward runs several warpgroups of four warps (cp.async staging,
+// its loops take the block's thread count); the backward at every d, the
+// forms above d = 256 and the bf16 forward a producer and two consumer
+// warpgroups.
 #pragma once
 
 #include <cuda.h>
@@ -175,16 +176,6 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, int vali
     const int r = idx / C, c = (idx % C) * 4;
     const bool ok = r < valid;
     cp_async16(dst + r * (D + 4) + c, ok ? src + (long long)r * D + c : src, ok);
-  }
-}
-
-// N float32 values (lse or delta of a tile's rows), zeros beyond `valid`
-// (a multiple of 8)
-template <int N>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int valid) {
-  for (int idx = threadIdx.x; idx < N / 4; idx += kThreads) {
-    const bool ok = 4 * idx < valid;
-    cp_async16(dst + 4 * idx, ok ? src + 4 * idx : src, ok);
   }
 }
 
@@ -400,6 +391,22 @@ __device__ __forceinline__ void stream_tiles(int tiles, uint64_t* empty, Own own
 __device__ __forceinline__ uint32_t opaque(uint32_t v) {
   asm volatile("" : "+r"(v));
   return v;
+}
+
+// pins an A operand's registers (hi or lo fragments, bf16 or TF32) until
+// here, the wait that retires the wgmma reading them: a wgmma reads its
+// register operands after it is issued, and a value the compiler holds in
+// them before its wait_group (the operand being dead once the wgmma is
+// issued, as far as the compiler knows) is what the tensor core reads (a
+// variant that loaded the next block's operands under a block's products
+// came out wrong).  Every register-A operand in flight across other code
+// is kept to its wait.
+template <int K>
+__device__ __forceinline__ void keep(uint32_t (&r)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 // acc (m64nN) = A B^T over d: A the warpgroup's 64 rows of an own tile of

@@ -286,9 +286,9 @@ def ring_attention_bwd_plain(q, k, v, out, lse, dout, groups: Groups = None, *,
 _PLANS = {"fwd": ("attention.cu", {torch.bfloat16: "FwdBf16Plan",
                                    torch.float32: "FwdF32Plan"}),
           "bwd_dq": ("attention_bwd.cu", {torch.bfloat16: "DqBf16Plan",
-                                          torch.float32: {128: "DqF32Plan", 256: "F32Plan"}}),
+                                          torch.float32: {128: "DqF32Plan", 256: "DqF32UnitPlan"}}),
           "bwd_dkv": ("attention_bwd.cu", {torch.bfloat16: "DkvBf16Plan",
-                                           torch.float32: {128: "DkvF32Plan", 256: "F32Plan"}})}
+                                           torch.float32: {128: "DkvF32Plan", 256: "DkvF32UnitPlan"}})}
 _WIDE_PLANS = {"fwd": ("attention_wide.cu", {torch.bfloat16: "WideFwdBf16Plan",
                                              torch.float32: "WideFwdF32Plan"}),
                "bwd_dq": ("attention_bwd_wide.cu", {torch.bfloat16: "WideDqBf16Plan",
@@ -349,17 +349,19 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     ``DqBf16Plan``, ``DkvBf16Plan``) its two resident tiles (128-row Q and
     dO; K and V, 128 rows at d = 128, 64 at 256), NS stages of its two
     streamed tiles (dK/dV with their lse and delta rows) and, for dK/dV at
-    d = 256, P of two tile parities.  float32 tiles have a row
-    stride of d + 4: the forward (``FwdF32Plan``) holds 64 W Q rows and two
-    stages of 32-row K and V tiles, the backward at d = 256 (``F32Plan``)
-    two resident 64-row and two streamed 32-row tiles and 256 bytes of
-    lse/delta rows.  The float32 backward at d = 128 (``DqF32Plan``,
-    ``DkvF32Plan``) holds its tiles in the 128-byte swizzle after 1 KB of
-    alignment: two resident 64-row tiles (Q and dO; K and V), two stages of
-    two streamed 32-row tiles, each 32-column block's raw rows followed by
-    their lo rows (dK/dV with their lse and delta rows), and its output
-    products' B tiles (64 x 32, hi then lo: dQ's dS of two tile parities,
-    P handed over in them; dK/dV's P and dS).
+    d = 256, P of two tile parities.  The float32 forward (``FwdF32Plan``)
+    holds 64 W Q rows and two stages of 32-row K and V tiles, in rows of
+    stride d + 4.  The float32 backward holds its tiles in the 128-byte
+    swizzle after 1 KB of alignment: two resident 64-row tiles (Q and dO; K
+    and V) and its output products' B tiles (64 x 32, hi then lo: dQ's dS
+    of two tile parities, P handed over in them; dK/dV's P and dS); at
+    d = 128 (``DqF32Plan``, ``DkvF32Plan``) two stages of two streamed
+    32-row tiles, each 32-column block's raw rows followed by their lo rows
+    (dK/dV with their lse and delta rows); at d = 256 (``DqF32UnitPlan``,
+    ``DkvF32UnitPlan``) a ring of four 16 KB units, a unit one streamed
+    operand's 32 rows by 64 columns with their lo rows (forming S and dP)
+    or by 128 columns raw (an output's A), dK/dV with a unit's lse or delta
+    rows.
     Above, the forward (csrc/attention_wide.cu) and the backward
     (csrc/attention_bwd_wide.cu) run in clusters: the bf16 forward
     (``WideFwdBf16Plan``) holds its own 64 x 128 Q chunk, two stages of a K

@@ -31,11 +31,16 @@ swaps each into ``_build._LIBS`` and
   at the serving shape (``chip_smoke.SERVE``, causal) in the same turns,
   and in float32 also at d = 256 with the same sequence and 16/4 heads,
   with SDPA's float32 backward alone once at each (K/V heads repeated, as
-  phase 12 times it).
+  phase 12 times it); at each timed shape holds both trees' dq, dk and dv
+  from the timed operands against the plain backward (one call, timed:
+  the largest share of the normwise allowance phase 12 holds the serving
+  shape to) and this tree's two launches bitwise; prints each tree's
+  kernels' share of their bounds and, in float32, the pair's ratio to
+  SDPA's backward, at each shape.
 
 Writes ``--out`` and prints one line a result; exits 1 unless every
 wide forward case is bitwise equal, or every narrow case within the
-allowance.  It needs a CUDA card.
+allowance (at the timed shapes too).  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -264,6 +269,7 @@ def narrow_bwd(torch, chip_smoke, _build, attention, libs, res, dtype) -> bool:
     print(f"{tag} backward at d = 128 and 256, {cases} cases: largest share of the allowance "
           f"{used}, bitwise the parent's in {same}"
           + (f", two launches bitwise equal: {repeatable}" if f32 else ""), flush=True)
+    timed_ok = True
     shapes = [("serving", chip_smoke.SERVE)]
     if f32:
         shapes.append(("d256", dict(chip_smoke.SERVE, d=256, heads=16, kv_heads=4)))
@@ -283,7 +289,28 @@ def narrow_bwd(torch, chip_smoke, _build, attention, libs, res, dtype) -> bool:
                 res.setdefault("serving_ms", {}).setdefault(key, {}).setdefault(
                     kind, {}).setdefault(name, []).append(ms)
                 print(f"time {tag} {label} {kind} {name}: {ms:.3f} ms", flush=True)
+        got = {}
+        for name in ("parent", "cur", "again"):
+            _build._LIBS["attention_bwd"] = libs["parent" if name == "parent" else "cur"]
+            got[name] = attention.launch_bwd("bwd_dq", ops) + attention.launch_bwd("bwd_dkv", ops)
         del ops
+        want, plain_ms = chip_smoke.time_once(torch, lambda: attention.ring_attention_bwd_plain(
+            q, k, v, out, lse, do, causal=True))
+        twice = all(torch.equal(a, b) for a, b in zip(got["cur"], got["again"]))
+        held = {"plain_ms": plain_ms, "two_launches_bitwise_equal": twice}
+        for name in ("parent", "cur"):
+            normwise, elementwise = hold_timed(torch, chip_smoke, got[name], want, dtype)
+            held[name] = {"normwise_share": normwise, "elementwise_share": elementwise}
+            timed_ok &= normwise <= 1.0
+        timed_ok &= twice
+        res.setdefault("timed_vs_plain", {})[key] = held
+        print(f"{key} against the plain backward ({plain_ms:.3f} ms, one call): largest share of "
+              f"the normwise allowance parent {held['parent']['normwise_share']:.4g}, this tree "
+              f"{held['cur']['normwise_share']:.4g} (elementwise, recorded only: parent "
+              f"{held['parent']['elementwise_share']:.4g}, this tree "
+              f"{held['cur']['elementwise_share']:.4g}); this tree's two launches bitwise equal: "
+              f"{twice}", flush=True)
+        del got, want
         if f32:
             rep = g["heads"] // g["kv_heads"]
             ql, dol = (chip_smoke.world_to_sequence(a).requires_grad_(a is q) for a in (q, do))
@@ -296,9 +323,56 @@ def narrow_bwd(torch, chip_smoke, _build, attention, libs, res, dtype) -> bool:
             res.setdefault("library_bwd_ms", {})[key] = ms
             print(f"time SDPA {tag} backward alone {label}: {ms:.3f} ms", flush=True)
             del ql, kl, vl, dol, o
+        shares(chip_smoke, res, key, (chip_smoke.P, g["heads"], g["kv_heads"], g["seq_per_rank"],
+                                      g["d"]), f32)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
-    return max(used.values()) <= 1.0 and repeatable
+    return max(used.values()) <= 1.0 and repeatable and timed_ok
+
+
+def hold_timed(torch, chip_smoke, got, want, dtype):
+    """One tree's (dq, dk, dv) at a timed shape against the plain
+    backward's on the same operands: (the largest share of
+    ``chip_smoke.check_close``'s allowance there, normwise as phase 12
+    holds the serving shape; the largest share of the elementwise
+    allowance, recorded only)."""
+    return tuple(max(chip_smoke.allowance_share(torch, "grad", a, b, dtype, normwise=nw)[1]
+                     for a, b in zip(got, want)) for nw in (True, False))
+
+
+# what each backward kernel reads and writes once (phase 12's bounds)
+BWD_IO = {"bwd_dq": ({"q": 2, "kv": 2, "rows": 2}, {"q": 1}),
+          "bwd_dkv": ({"q": 2, "kv": 2, "rows": 2}, {"kv": 2})}
+
+
+def shares(chip_smoke, res, key, shape, f32):
+    """Each tree's backward kernels at one shape beside their bounds (the
+    median of a tree's runs: ms, % of bound, TFLOP/s) and, in float32, the
+    pair's ratio to SDPA's float32 backward alone; into ``res`` and
+    printed."""
+    import statistics
+
+    peak = chip_smoke.F32_SPLIT_TF32_FLOPS if f32 else chip_smoke.BF16_FLOPS
+    runs = res["serving_ms"][key]
+    out = res.setdefault("bounds", {}).setdefault(key, {})
+    for kind, (reads, writes) in BWD_IO.items():
+        bound, by, _ = chip_smoke.attention_bound(kind, 4 if f32 else 2, peak, shape, reads, writes)
+        out[kind] = {"bound_ms": bound, "bound_by": by}
+        for name, ms in runs[kind].items():
+            med = statistics.median(ms)
+            flops = chip_smoke.FLOPS_PER_ENTRY[kind] * shape[4] * chip_smoke.causal_entries(shape)
+            out[kind][name] = {"ms": med, "pct_of_bound": 100.0 * bound / med,
+                               "tflops": flops / (med * 1e-3) / 1e12}
+            print(f"{key} {kind} {name}: {med:.3f} ms, {out[kind][name]['pct_of_bound']:.2f}% of "
+                  f"its {bound:.3f} ms bound ({by}), {out[kind][name]['tflops']:.1f} TFLOP/s",
+                  flush=True)
+    lib = res.get("library_bwd_ms", {}).get(key)
+    if lib:
+        for name in runs["bwd_dq"]:
+            pair = out["bwd_dq"][name]["ms"] + out["bwd_dkv"][name]["ms"]
+            out[f"pair_over_library_{name}"] = pair / lib
+            print(f"{key} pair {name}: {pair:.3f} ms, {pair / lib:.3f}x SDPA's {lib:.3f}",
+                  flush=True)
 
 
 if __name__ == "__main__":

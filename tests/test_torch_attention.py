@@ -253,12 +253,16 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     # 32-row streamed tiles with their lo rows 2 x 65 536, the 64 x 32 B
     # tiles 32 768 (dq: dS hi and lo of two parities, P handed over in
     # them; dkv: P and dS hi and lo), dkv's stage rows 2 x 256, 64 bytes of
-    # mbarriers; at d = 256 the four-warp form (F32Plan): (2 x 64 + 2 x 32)
-    # rows of stride 260 floats and 256 bytes of rows
+    # mbarriers
     assert attention.kernel_smem_bytes(128)["bwd_dq"] == 1024 + 65536 + 2 * 65536 + 32768 + 64
     assert attention.kernel_smem_bytes(128)["bwd_dkv"] == 1024 + 65536 + 2 * 65536 + 32768 + 2 * 256 + 64
-    assert attention.kernel_smem_bytes(256)["bwd_dq"] == (2 * 64 + 2 * 32) * 260 * 4 + 256
-    assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 199936
+    # at d = 256 (DqF32UnitPlan, DkvF32UnitPlan): 1 KB of alignment, 64-row
+    # own tiles 2 x 64 x 256 x 4, a ring of NS = 4 units of 16 384 (32 rows
+    # x 64 columns raw and lo, or x 128 columns raw), the 64 x 32 B tiles
+    # 32 768, dkv's unit rows (lse or delta) 4 x 128, 13 mbarriers (full,
+    # empty and lo_full of each slot, the own tiles')
+    assert attention.kernel_smem_bytes(256)["bwd_dq"] == 1024 + 131072 + 4 * 16384 + 32768 + 13 * 8
+    assert attention.kernel_smem_bytes(256)["bwd_dkv"] == 1024 + 131072 + 4 * 16384 + 32768 + 4 * 128 + 13 * 8
     # above d = 256: the same bytes at every d (the forward's clusters in
     # bf16: 1 KB of alignment, the own 64 x 128 Q chunk 16 384, two stages of
     # a K chunk and a V (or Q) chunk 65 536, two parities of the 64 x 64

@@ -827,9 +827,9 @@ def test_narrow_bf16_backward_two_terms_stay_within_the_allowance(seed):
                                    torch.bfloat16)
 
 
-# -- the float32 backward at d = 128 (attention_bwd.cu attn_bwd_dq_f32_kernel,
-# attn_bwd_dkv_f32_kernel): TF32 wgmma, three products a product, the
-# outputs formed transposed
+# -- the float32 backward at d = 128 and 256 (attention_bwd.cu
+# attn_bwd_dq_f32_kernel, attn_bwd_dkv_f32_kernel): TF32 wgmma, three
+# products a product, the outputs formed transposed
 
 
 def tf32_chain(a, b):
@@ -846,7 +846,7 @@ def tf32_chain(a, b):
 def emulated_narrow_f32_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False,
                             chain=tf32_chain):
     """The float32 backward's order of sums (csrc/attention_bwd.cu at d =
-    128) on the CPU (shapes as ``ring_attention_bwd_plain``, multi-head):
+    128 and 256) on the CPU (shapes as ``ring_attention_bwd_plain``, multi-head):
     S (S^T) and dP (dP^T) as chains over 32-column blocks of d (four k
     steps each), the blocks' chains added in order; P = 2^(S scale log2(e) -
     lse log2(e)) (exp2, as the kernels), dS = P (dP - delta) scale; every
@@ -924,8 +924,9 @@ def test_narrow_f32_backward_order_within_check_close_of_plain(hq, hkv, causal, 
     and in two groups of 2, Sb = 8 (one partial tile) and 80 (two 32-row
     tiles and a partial one): the float32 backward's order of sums against
     the plain backward, dq, dk and dv, under check_close's float32 rule,
-    which the kernels are held to on the card.  (At d = 256 the card runs
-    the four-warp form; the order is held there too.)"""
+    which the kernels are held to on the card (at d = 256 its column-chunk
+    units take a tile's 32-column blocks in the same order, and each
+    output still sums one chain a 32-row tile)."""
     for sb in (8, 80):
         for groups in (None, [[0, 1], [2, 3]]):
             ops = world(4, hq, hkv, sb, d, torch.float32, causal, groups,
@@ -944,6 +945,21 @@ def test_narrow_f32_backward_order_matches_jax_grad_of_the_reference():
     interpret mode, with tests/test_torch_attention_grad.py's float32
     tolerance."""
     q, k, v, ct = inputs(2, 4, 2, 80, 128, seed=41)
+    want = jax_grads(q, k, v, ct, "f32", True)
+    tq, tk, tv, tct = (torch.from_numpy(a) for a in (q, k, v, ct))
+    out, lse = attention.ring_attention_plain(tq, tk, tv, causal=True, with_lse=True)
+    got = emulated_narrow_f32_bwd(tq, tk, tv, out, lse, tct, causal=True)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}", **TOL["f32"])
+
+
+def test_narrow_f32_backward_order_at_d256_matches_jax_grad_of_the_reference():
+    """At d = 256 (GQA 4/2, causal, Sb = 80: two 32-row tiles and a
+    partial one, eight 32-column blocks of d): the float32 backward's order
+    of sums against ``jax.grad`` through the reference's fused backward in
+    interpret mode, with tests/test_torch_attention_grad.py's float32
+    tolerance."""
+    q, k, v, ct = inputs(2, 4, 2, 80, 256, seed=47)
     want = jax_grads(q, k, v, ct, "f32", True)
     tq, tk, tv, tct = (torch.from_numpy(a) for a in (q, k, v, ct))
     out, lse = attention.ring_attention_plain(tq, tk, tv, causal=True, with_lse=True)

@@ -327,9 +327,10 @@ def test_narrow_bf16_backward_is_bitwise_deterministic_on_the_card(d):
 def _narrow_f32_backward(d, causal):
     """The float32 backward at head dim ``d`` twice, and the plain version,
     on GQA 4/2 blocks of Sb = 112 (a partial 64-row block, a partial
-    32-row streamed tile): at d = 128 csrc/attention_bwd.cu's TMA producer
-    and two consumer warpgroups on TF32 ``wgmma``, at d = 256 its
-    four-warp form."""
+    32-row streamed tile): csrc/attention_bwd.cu's TMA producer and two
+    consumer warpgroups on TF32 ``wgmma``, at d = 128 with two stages of
+    whole streamed tiles, at d = 256 with the streamed tiles as column-chunk
+    units of one ring."""
     _card()
     from mpi_tpu_torch.gpu import attention
 
@@ -368,6 +369,35 @@ def test_narrow_f32_backward_is_bitwise_deterministic_on_the_card(d):
     first, second, _ = _narrow_f32_backward(d, True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_narrow_f32_backward_d256_mqa_ragged_matches_plain_on_the_card(causal):
+    """The float32 backward at d = 256 with one K/V head for four query
+    heads (MQA: every K/V block walks four GQA heads) in two ring groups of
+    four, Sb = 80: a partial 64-row own tile and a last streamed tile of 16
+    rows, whose units (forming and output) end past Sb and read zeros there.
+    dq, dk and dv against the plain version within the float32 allowance,
+    and two launches bitwise equal."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(80 + causal)
+    groups = [[0, 1, 2, 3], [4, 5, 6, 7]]
+    q, do = (torch.randn(P, 4, 80, 256, device="cuda", generator=gen) for _ in range(2))
+    k, v = (torch.randn(P, 1, 80, 256, device="cuda", generator=gen) for _ in range(2))
+    out, lse = attention.ring_attention_plain(q, k, v, groups, causal=causal, with_lse=True)
+    attention.reset_launches()
+    first = attention.ring_attention_bwd_world(q, k, v, out, lse, do, groups, causal=causal)
+    second = attention.ring_attention_bwd_world(q, k, v, out, lse, do, groups, causal=causal)
+    ref = attention.ring_attention_bwd_plain(q, k, v, out, lse, do, groups, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"fwd": 0, "bwd_dq": 2, "bwd_dkv": 2}
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    for a, b, c in zip(first, second, ref):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu

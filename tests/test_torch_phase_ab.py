@@ -152,7 +152,8 @@ def test_ptxas_table_names_every_attention_instance():
     """``chip_smoke.ptxas_table`` names each instance from ``nvcc -Xptxas
     -v`` output (phase 12 prints the bf16 forward's and backward's, and
     the float32 backward's at d = 128, registers and spills by these
-    names)."""
+    names; the float32 backward at d = 256 is an instance of the same
+    kernels)."""
     import chip_smoke
 
     space = "_GLOBAL__N__c5f705b1_12_attention_cu_c5f705b1"
@@ -165,12 +166,17 @@ def test_ptxas_table_names_every_attention_instance():
             ("15attn_fwd_kernelIfLi256EEEvPKT_S3_S3_PS1_PfNS_3GeoE", 255, 8),
             ("23attn_bwd_dq_bf16_kernelILi256EEEv14CUtensorMap_st", 168, 0),
             ("23attn_bwd_dkv_f32_kernelILi128EEEv14CUtensorMap_stS0_S0_S0_S0_S0_PfS1_NS_3GeoE",
+             168, 0),
+            ("22attn_bwd_dq_f32_kernelILi256EEEv14CUtensorMap_stS0_S0_S0_PKfS2_PfNS_3GeoE", 168, 0),
+            ("23attn_bwd_dkv_f32_kernelILi256EEEv14CUtensorMap_stS0_S0_S0_S0_S0_PfS1_NS_3GeoE",
              168, 0)))
     rows = chip_smoke.ptxas_table({"attention": log})
     assert [(r["kernel"], r["registers"], r["spill_stores"]) for r in rows] == [
         ("attn_fwd_bf16_kernel<bf16, 128>", 168, 0), ("attn_fwd_kernel<float32, 256>", 255, 8),
         ("attn_bwd_dq_bf16_kernel<bf16, 256>", 168, 0),
-        ("attn_bwd_dkv_f32_kernel<float32, 128>", 168, 0)]
+        ("attn_bwd_dkv_f32_kernel<float32, 128>", 168, 0),
+        ("attn_bwd_dq_f32_kernel<float32, 256>", 168, 0),
+        ("attn_bwd_dkv_f32_kernel<float32, 256>", 168, 0)]
 
 
 def test_phase11_grid_is_the_one_wide_ab_compares():
@@ -190,3 +196,31 @@ def test_phase11_grid_is_the_one_wide_ab_compares():
         assert sum(case[0] > 256 for case in grid) == 64
         assert {case[1] for case in grid if case[0] in (640, 1152)} == {112}
     assert sum(case[0] in wide_ab.BITWISE_DIMS for case in bf16) == 48
+
+
+def test_wide_ab_holds_a_timed_shape_to_the_normwise_allowance():
+    """``wide_ab.hold_timed`` measures a tree's (dq, dk, dv) at a timed
+    shape against the plain backward's as phase 12 holds the serving
+    shape: normwise (1e-4 of the largest |plain| of each gradient), with
+    the elementwise share beside it; a gradient off by more than its
+    allowance shows a share above 1 in either measure."""
+    import chip_smoke
+    import numpy as np
+    import torch
+
+    from mpi_tpu_torch.tools import wide_ab
+
+    rng = np.random.RandomState(0)
+    want = tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 for shape in ((2, 4, 16, 8), (2, 1, 16, 8), (2, 1, 16, 8)))
+    assert wide_ab.hold_timed(torch, chip_smoke, want, want, torch.float32) == (0.0, 0.0)
+    # every element moved by half the normwise allowance of its gradient:
+    # within it, and past the elementwise allowance of the smallest entries
+    near = tuple(w + 0.5e-4 * float(w.abs().max()) for w in want)
+    normwise, elementwise = wide_ab.hold_timed(torch, chip_smoke, near, want, torch.float32)
+    assert 0.49 < normwise <= 0.5 + 1e-3 and elementwise > 1.0
+    # one element of dv off by twice its normwise allowance
+    far = (want[0], want[1], want[2].clone())
+    far[2][1, 0, 3, 5] += 2e-4 * float(want[2].abs().max())
+    normwise, _ = wide_ab.hold_timed(torch, chip_smoke, far, want, torch.float32)
+    assert 1.99 < normwise < 2.01
