@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and exits non-zero without the final
 ok line:
 
-1. the card's name and power limit (nvidia-smi) and the kernel build
+1. the card's name and power limit (nvidia-smi), where the compiled
+   bytecode is kept (``cache_bytecode``), and the kernel build
    (``nvcc`` of every ``mpi_tpu_torch/csrc`` source, in parallel, timed),
    with the registers and spills ``ptxas`` reports for every kernel
    instance;
@@ -132,9 +133,9 @@ ok line:
     3.35 TB/s), the achieved TFLOP/s and each kernel's design floor
     (``FLOOR_FLOPS_PER_ENTRY``), the backward pair's time over SDPA's
     backward (``bwd_pair_over_library``) and the registers and spills of
-    the kernels with a producer and consumer warpgroups (``bwd_ptxas``: the
-    bf16 backward, and the float32 one at d = 128); for bfloat16 also the
-    forward's time over SDPA's forward and its registers (``fwd_ptxas``);
+    the kernels of each dtype, a producer and two consumer warpgroups each
+    (``bwd_ptxas``, ``fwd_ptxas``), and the forward's time over SDPA's
+    forward (``fwd_over_library``);
 12a. the forms above d = 256 (``csrc/attention_wide.cu``,
     ``csrc/attention_bwd_wide.cu``) on their main paths: the wide-head
     serving leg, ``serving_program`` through ``run(..., nranks=8)`` at
@@ -569,6 +570,31 @@ def ptxas_table(reports):
             if m and cur is not None:
                 cur["registers"] = int(m.group(1))
     return rows
+
+
+def cache_bytecode(module="torch"):
+    """Where the interpreter writes no bytecode (``PYTHONDONTWRITEBYTECODE``)
+    and the installed ``module`` ships none, every Python process compiles
+    its sources again when it imports it (torch: 7-9 s of CPU a process on
+    an H100 host, and phases 13-29 launch dozens of processes that import
+    torch, phase 22's timed tune sweep among them).  Then this process and
+    every process it starts keep the bytecode they compile in a directory
+    of their own under the temporary directory (``PYTHONPYCACHEPREFIX``),
+    removed at exit.  Returns that directory, else None."""
+    import atexit
+    import importlib.util
+
+    spec = importlib.util.find_spec(module)
+    if not sys.dont_write_bytecode or spec is None or not spec.origin or \
+            os.path.exists(importlib.util.cache_from_source(spec.origin)):
+        return None
+    prefix = tempfile.mkdtemp(prefix="chip_smoke_pyc_")
+    atexit.register(shutil.rmtree, prefix, True)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return prefix
 
 
 def card_line():
@@ -1025,19 +1051,16 @@ def attention_phases(torch, dev, gen, record, paths):
             key, rate = ("bf16", BF16_FLOPS) if dtype == torch.bfloat16 else ("f32", TF32_FLOPS)
             t[f"{kind}_design_floor_ms"] = (FLOOR_FLOPS_PER_ENTRY[key][kind] * shape[4]
                                             * causal_entries(shape) / rate * 1e3)
-        # the backward's pair against SDPA's backward, the narrow bf16
-        # forward against SDPA's forward, and the registers and spills
-        # (ptxas) of the kernels with a producer and consumer warpgroups:
-        # the bf16 forward and backward, the float32 backward at d = 128
+        # the backward's pair against SDPA's backward, the forward against
+        # SDPA's forward, and the registers and spills (ptxas) of the
+        # forward's and the backward's instances of this dtype (each a
+        # producer and two consumer warpgroups)
         t["bwd_pair_over_library"] = (t["bwd_dq"] + t["bwd_dkv"]) / t["library_bwd"]
         form = "_bf16_kernel<" if dtype == torch.bfloat16 else "_f32_kernel<"
         built = [row for row in ptxas_table(_build.PTXAS_REPORT)
                  if form in row.get("kernel", "")]
-        kinds = (("fwd", "attn_fwd"), ("bwd", "attn_bwd")) if dtype == torch.bfloat16 else \
-            (("bwd", "attn_bwd"),)
-        if dtype == torch.bfloat16:
-            t["fwd_over_library"] = t["fwd"] / t["library_fwd"]
-        for kind, prefix in kinds:
+        t["fwd_over_library"] = t["fwd"] / t["library_fwd"]
+        for kind, prefix in (("fwd", "attn_fwd"), ("bwd", "attn_bwd")):
             t[f"{kind}_ptxas"] = {row["kernel"]: (row.get("registers"), row.get("spill_stores"),
                                                   row.get("spill_loads"))
                                   for row in built if row["kernel"].startswith(prefix)}
@@ -3921,6 +3944,7 @@ def evidence_phase(torch, record):
 
 
 def main():
+    pyc = cache_bytecode()
     import torch
 
     if not torch.cuda.is_available():
@@ -3935,8 +3959,10 @@ def main():
 
     dev = torch.device("cuda", 0)
     record = {"card": card_line(), "device": torch.cuda.get_device_name(0),
-              "torch": torch.__version__, "cuda": torch.version.cuda}
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "bytecode_cache": pyc}
     log(f"card: {record['card']}")
+    log(f"bytecode: {'kept for every process under ' + pyc if pyc else 'as installed'}")
     # a float32 product must stay float32 (TF32 would leave the tolerances)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

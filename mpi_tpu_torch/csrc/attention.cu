@@ -24,10 +24,11 @@
 //   and lo = bf16(P - hi) (hopper.cuh, split_bf16x2), and P V is two
 //   wgmmas.  Three bf16 products per entry where the bound counts two (4d
 //   flops an entry): the design floor is 1.5 times the bf16 bound.
-//   float32 inputs: both products as split TF32 on mma.sync.m16n8k8, at a
-//   third of the TF32 rate, each product's partial added to its float32
-//   accumulator outside the tensor core (hopper.cuh, mma_3xtf32): the
-//   design floor is the split-TF32 bound.
+//   float32 inputs: every operand split into TF32 hi and lo (hopper.cuh),
+//   a product a_lo b_hi + a_hi b_hi + a_hi b_lo on TF32 wgmma in chains of
+//   four k steps added by float32 adds (hopper.cuh's TF32 note): three TF32
+//   products an entry's product, so the design floor is the split-TF32
+//   bound (the bound's 4d flops at a third of the TF32 rate).
 // The exponentials are exp2 of scores scaled by scale log2(e) (one multiply
 // and the special-function unit), m kept in the same units; lse converts
 // back with ln 2.
@@ -93,38 +94,84 @@
 //   tiles (exact zeros): at d = 256 out and lse are its bits; at d = 128
 //   the running maximum steps every 128 columns, not 64, so P rounds at
 //   other places (ROADMAP, recorded differences).
-//   float32 (W = 3 at d = 128, 1 at d = 256): Q resident in 64 W rows, K
-//   and V in 32-row tiles, two stages, staged by cp.async, row stride
-//   d + 4 (conflict-free fragment reads): (64 W + 4 x 32)(d + 4) x 4 =
-//   168 960 bytes at d = 128, 199 680 at d = 256.  P's accumulator is the
-//   A operand of P V with its k index permuted, as in attn_bwd_dq.
+//   float32 (attn_fwd_f32_kernel): the same producer and two consumer
+//   warpgroups (setmaxnreg 40 and 232), TF32 wgmma.  A 32-bit operand is
+//   read from shared memory K-major only, and V lands row-major, so O is
+//   formed transposed, O^T = V^T P^T, as in the forms above d = 256
+//   (attention_wide.cu): A is V read transposed from its landed tile and
+//   split in registers, B the warpgroup's P, written K-major after the fold
+//   as hi rows then lo rows (put_split2), and the rescale scales columns of
+//   O^T, its alpha by row through shared memory (one named barrier of the
+//   warpgroup, whose OR of alpha != 1 is the vote that skips it).  S = Q
+//   K^T as in the float32 backward (form_rows, after form_blocks): A the own Q
+//   rows read by ldmatrix and split in registers, B the streamed K tile
+//   read raw beside its lo rows, which the producer's warps 1-3 write once
+//   it lands, so a_hi [b_hi; b_lo] is one m64n64 wgmma; two commit groups a
+//   32-column block and two blocks' accumulators, so the tensor core has
+//   the next block while a block's parts are added.  P V: per 64 columns of
+//   O, over the 32-row tile, a_hi b_hi one chain and a_lo b_hi + a_hi b_lo
+//   another, added to O by float32 adds.  K and V stream in 32-row tiles as units of 128
+//   columns.  At d = 128 a block is 128 Q rows, warpgroup wg rows 64 wg ..
+//   and all of O's columns (64 accumulator registers a thread), two slots
+//   of whole tiles.  At d = 256, O's 64 rows by 256 columns would be 128
+//   registers a thread, so a block is 64 Q rows and warpgroup wg owns O's
+//   columns 128 wg ..; each forms S over its own half of d from its own K
+//   unit, and the two halves' sums are added through shared memory (two
+//   tile parities, a named barrier of both warpgroups), the same bits in
+//   both, which fold alike; one slot of a tile's two units, each released
+//   by its warpgroup alone, so a half reloads under the rest of its tile.
+//   Shared memory (FwdF32Plan): 1 KB alignment, Q 65 536, K units with lo
+//   rows 32 768 and V units 16 384 in two slots, the P tiles 32 768, at
+//   d = 256 the parts of S 32 768, the rows' alpha 512, 88 of mbarriers:
+//   198 232 and 231 000 bytes.
+//   What the earlier form (three or one warpgroups of four warps, split
+//   TF32 m16n8k8 warp products, per-thread asynchronous copies) waited on,
+//   and what this one does about it: its products ran at a third of the
+//   warp products' TF32 rate (here wgmma); no copy overlapped the products
+//   and every tile ended at a block-wide barrier (here a TMA producer and
+//   mbarriers, no block-wide barrier a tile); every warp split the same
+//   streamed words again (here K's lo once a staging, V split once by the
+//   warpgroup that reads it); every entry tested the mask and every tile
+//   divided (here an unmasked path and stepped walks).  The form that kept
+//   O in rows (P as a register A operand, the producer's warps writing each
+//   V tile's transpose, hi and lo) was measured on the card first: its
+//   warps 1-3 spent the whole tile transposing, and the consumers waited on
+//   them (PERF.md, Findings).
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "ring_attention.cuh"
 
 namespace {
 
 // bf16: 128 Q rows a block, 64 a consumer warpgroup; NS one-tile stages of
-// 64-row K or V tiles.  float32: W warpgroups (four warps each), each with
-// its own 64 Q rows, share two stages of 32-row K and V tiles.
+// K or V tiles.  float32: T Q rows a block, consumer warpgroup wg's own
+// rows from WROWS wg and its 128 columns of O from WCOLS wg (d = 128: rows
+// 64 wg .., every column; d = 256: the block's 64 rows, columns 128 wg ..);
+// a tile's K and V as U units of 128 columns, NS tiles of them (KU: a
+// 32-row K unit with its lo rows; VU: a V unit); PT: the warpgroups' P
+// tiles, hi and lo; XCH: d = 256, two parities of the warpgroups' parts of
+// S; RB: the rows' alpha.
 template <int D> struct FwdBf16Plan {
   static constexpr int T = 128, TS = D == 128 ? 128 : 64, NS = D == 128 ? 6 : 5, OWN = T * D * 2,
       STAGE = TS * D * 2, XCH = 0, ROWS = 0, BARS = 8 * (2 * NS + 1);
   static constexpr int SMEM = 1024 + OWN + NS * STAGE + XCH + NS * ROWS + BARS;
 };
 template <int D> struct FwdF32Plan {
-  static constexpr int W = D == 128 ? 3 : 1;
-  static constexpr int T = 64, TS = 32, LD = D + 4, THREADS = 128 * W;
-  static constexpr int SMEM = (W * T + 4 * TS) * LD * 4;
+  static constexpr int T = D == 128 ? 128 : 64, WROWS = D == 128 ? 64 : 0, WCOLS = D == 128 ? 0 : 128,
+      TS = 32, U = D / 128, NS = D == 128 ? 2 : 1, OWN = T * D * 4, KU = 2 * TS * 128 * 4,
+      VU = TS * 128 * 4, PT = 2 * 2 * 64 * TS * 4, XCH = D == 128 ? 0 : 2 * 2 * 64 * TS * 4,
+      RB = 2 * 64 * 4, BARS = 8 * (5 * NS * U + 1);
+  static constexpr int SMEM = 1024 + OWN + NS * U * (KU + VU) + PT + XCH + RB + BARS;
 };
 
 // out = o / l for the thread's two rows (o: NC groups of 8 columns from
-// column 0, layout as fold_scores'), lse = m ln 2 + log l; rows past Sb are
-// never written.  Apart: m ln 2 rounded on its own, never contracted with
-// the add into one fma (the bf16 forward: the bits of its earlier form's
-// lse, whose compiled code, like the float32 forward's, rounded it apart)
-template <bool Apart = false, int NC, typename E>
+// column 0, layout as fold_scores'), lse = m ln 2 + log l, m ln 2 rounded
+// on its own, never contracted with the add into one fma (the bits of the
+// bf16 forward's earlier form's lse); rows past Sb are never written
+template <int NC, typename E>
 __device__ __forceinline__ void write_rows(const float (&o)[NC][4], const float (&m)[2],
                                            const float (&l)[2], E* out, float* lse,
                                            long long row0, int qi0, int sb, int t4) {
@@ -135,11 +182,7 @@ __device__ __forceinline__ void write_rows(const float (&o)[NC][4], const float 
     E* dst = out + (row0 + qi) * (NC * 8) + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NC; ++n) store2(dst + 8 * n, o[n][2 * i] / l[i], o[n][2 * i + 1] / l[i]);
-    if constexpr (Apart) {
-      if (t4 == 0) lse[row0 + qi] = __fmul_rn(m[i], kLn2) + logf(l[i]);
-    } else {
-      if (t4 == 0) lse[row0 + qi] = m[i] * kLn2 + logf(l[i]);
-    }
+    if (t4 == 0) lse[row0 + qi] = __fmul_rn(m[i], kLn2) + logf(l[i]);
   }
 }
 
@@ -280,116 +323,390 @@ attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_consta
   for (int nh = 0; nh < NH; ++nh)
 #pragma unroll
     for (int e = 0; e < 64; ++e) o[16 * nh + e / 4][e % 4] = acc[nh][e];
-  write_rows<true>(o, m, l, out, lse, row0, qi0, sb, t4);
+  write_rows(o, m, l, out, lse, row0, qi0, sb, t4);
 }
 
 // ---------------------------------------------------------------- float32
+// The regions of the float32 kernel's shared memory, in the plan's order
+// (1024-byte aligned: the swizzle's need), and its mbarriers.  A tile's K
+// and V come as U units of 128 columns (d = 128: one, both warpgroups'; d =
+// 256: two, unit u warpgroup u's), unit u of tile n in slot (n % NS) U + u:
+// K's loads landed (k_full) and its lo rows written (k_lo), its readers
+// done with it (k_empty); V's loads landed (v_full), its readers done
+// (v_empty); the own tile landed.
+template <typename Plan>
+struct FwdF32Smem {
+  static constexpr int kWriters = 96, kSlots = Plan::NS * Plan::U;  // writers: the producer's warps 1-3
+  uint8_t* own;  // Q: [D / 32][T x 128 bytes]
+  uint8_t* kt;   // kSlots x [4][raw, lo][TS x 128 bytes]: K units
+  uint8_t* v;    // kSlots x [4][TS x 128 bytes]: V units
+  uint8_t* pt;   // [2][hi, lo][64 x 128 bytes]: each warpgroup's P, the B of O^T
+  uint8_t* xch;  // d = 256: [2 parities][2][64 x TS floats]: each warpgroup's part of S
+  float* rows;   // [2][64]: each warpgroup's alpha of a tile's rows (at the end, l)
+  uint64_t *k_full, *k_lo, *k_empty, *v_full, *v_empty, *own_full;
+  __device__ explicit FwdF32Smem(uint8_t* raw) {
+    own = align1024(raw);
+    kt = own + Plan::OWN;
+    v = kt + kSlots * Plan::KU;
+    pt = v + kSlots * Plan::VU;
+    xch = pt + Plan::PT;
+    rows = reinterpret_cast<float*>(xch + Plan::XCH);
+    k_full = reinterpret_cast<uint64_t*>(xch + Plan::XCH + Plan::RB);
+    k_lo = k_full + kSlots;
+    k_empty = k_lo + kSlots;
+    v_full = k_empty + kSlots;
+    v_empty = v_full + kSlots;
+    own_full = v_empty + kSlots;
+  }
+  // one thread, before anything else
+  __device__ void init() const {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(k_lo + s, kWriters);
+      mbar_init(k_empty + s, kConsumers / Plan::U);
+      mbar_init(v_full + s, 1);
+      mbar_init(v_empty + s, kConsumers / Plan::U);
+    }
+    mbar_init(own_full, 1);
+    fence_mbar_init();
+  }
+};
+
+// The producer's warps 1-3: once a K unit has landed, its lo rows after
+// each 32-column block's raw rows
+template <typename Plan>
+__device__ __forceinline__ void fwd_f32_lo(const FwdF32Smem<Plan>& sm, int tiles) {
+  constexpr int NS = Plan::NS, U = Plan::U, Q4 = Plan::TS * 128 / 16, N4 = 4 * Q4,
+      NW = FwdF32Smem<Plan>::kWriters;  // float4s: a block's raw rows, a unit's
+  const int t = threadIdx.x - kConsumers - 32;
+  for (int n = 0; n < tiles; ++n)
+    for (int u = 0; u < U; ++u) {
+      const int s = n % NS * U + u;
+      mbar_wait(sm.k_full + s, (n / NS) & 1);
+      float4* k = reinterpret_cast<float4*>(sm.kt + s * Plan::KU);
+      for (int i = t; i < N4; i += NW) {
+        float4* raw = k + (i / Q4) * 2 * Q4 + i % Q4;
+        const float4 x = *raw;
+        raw[Q4] = make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+      }
+      fence_async_shared();
+      mbar_arrive(sm.k_lo + s);
+    }
+}
+
+// f (m64nTS: the warpgroup's 64 own rows at `a`, in a T-row tile, by the
+// tile's TS streamed rows) = A B^T over four 32-column blocks of d: A read
+// by ldmatrix and split in registers (hi: the word with its low 13 bits
+// cleared; lo: the rest), B a K unit at `b` (each block's raw rows, then
+// its lo rows).  A block's chains, four k steps each: a_hi [b_hi; b_lo]
+// (m64n2TS: a_hi b_hi in columns 0 .. TS - 1, a_hi b_lo after them) and
+// a_lo b_hi (m64nTS); its part a_hi b_hi + (a_lo b_hi + a_hi b_lo) by
+// round-to-nearest float32 adds, the blocks' parts added in order.  Two
+// commit groups a block (k steps 0-1, 2-3: the A registers of one group)
+// and two blocks' accumulators, so that the tensor core has the next
+// group while a block's parts are added: at most two groups in flight,
+// every group waited within the call
+template <int T, int TS>
+__device__ __forceinline__ void form_rows(float (&f)[TS / 2], uint32_t a, uint32_t b, int w,
+                                          int lane) {
+  static_assert(TS == 32, "an m64n64 a_hi [b_hi; b_lo] product");
+  constexpr int NB = 4;
+  const int rr = lane % 8, row = 16 * w + rr + 8 * ((lane / 8) & 1), half = lane / 16;
+  const uint32_t arow = a + row * 128;
+  uint32_t ah[2][2][4], al[2][2][4];  // [group of a block][k step of it][]
+  float hh[2][TS], lh[2][TS / 2];     // [block parity]
+  using I0 = std::integral_constant<int, 0>;
+  using I1 = std::integral_constant<int, 1>;
+  // block cb's k steps 2 p, 2 p + 1 (A set p) into the accumulators of parity x
+  auto issue = [&](auto xc, auto pc, int cb) {
+    constexpr int x = decltype(xc)::value, p = decltype(pc)::value;
+#pragma unroll
+    for (int k2 = 0; k2 < 2; ++k2) {
+      ldsm_x4(ah[p][k2], arow + cb * (T * 128) + (((2 * (2 * p + k2) + half) ^ rr) << 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t v = ah[p][k2][e];
+        ah[p][k2][e] = v & 0xFFFFE000u;
+        al[p][k2][e] = __float_as_uint(tf32_lo(__uint_as_float(v)));
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int k2 = 0; k2 < 2; ++k2) {
+      const int kk = 2 * p + k2;
+      const uint64_t bb = desc_kmajor(opaque(b) + cb * 2 * TS * 128 + kk * 32);
+      wgmma_m64n64k8_tf32(hh[x], ah[p][k2], bb, kk > 0);
+      wgmma_m64n32k8_tf32(lh[x], al[p][k2], bb, kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto add = [&](auto xc, int cb) {
+    constexpr int x = decltype(xc)::value;
+    reg_fence(hh[x]);
+    reg_fence(lh[x]);
+#pragma unroll
+    for (int e = 0; e < TS / 2; ++e) {
+      const float part = hh[x][e] + (lh[x][e] + hh[x][TS / 2 + e]);
+      f[e] = cb == 0 ? part : f[e] + part;
+    }
+  };
+  issue(I0(), I0(), 0);
+  issue(I0(), I1(), 0);
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb) {
+    auto step = [&](auto xc, auto yc) {  // x: block cb's parity, y: the next block's
+      wgmma_wait<1>();  // block cb's first group
+      keep(ah[0]);
+      keep(al[0]);
+      if (cb + 1 < NB) {
+        issue(yc, I0(), cb + 1);
+        wgmma_wait<1>();  // block cb's second group
+      } else {
+        wgmma_wait<0>();
+      }
+      keep(ah[1]);
+      keep(al[1]);
+      add(xc, cb);
+      if (cb + 1 < NB) issue(yc, I1(), cb + 1);
+    };
+    if (cb % 2 == 0) step(I0(), I1());
+    else step(I1(), I0());
+  }
+}
+
+// A block per (rank, query head, T-row Q tile), the heaviest first; K and V
+// stream in 32-row tiles (DqWalk).  Consumer warpgroup wg: S = Q K^T for
+// its 64 own rows (from WROWS wg; at d = 256 over its half of d, the other
+// half's part of S taken from warpgroup 1 - wg), the fold, P into its B
+// tile; O^T = V^T P^T for its 128 columns of O (from WCOLS wg), two m64
+// blocks of 64 columns.
 template <int D>
-__device__ __forceinline__ void fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                                        const float* __restrict__ v, float* __restrict__ out,
-                                        float* __restrict__ lse, Geo geo) {
+__global__ void __launch_bounds__(kClusterThreads, 1)
+attn_fwd_f32_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv, float* __restrict__ out,
+                    float* __restrict__ lse, Geo geo) {
   using Plan = FwdF32Plan<D>;
-  constexpr int T = Plan::T, TS = Plan::TS, LD = Plan::LD, W = Plan::W, NT = Plan::THREADS;
+  using Smem = FwdF32Smem<Plan>;
+  constexpr int T = Plan::T, TS = Plan::TS, NS = Plan::NS, U = Plan::U, PT1 = Plan::PT / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // W T rows
-  float* St = Qs + W * T * LD;  // stage s: K at St + 2s TS LD, V TS LD later
-  const int warp = threadIdx.x / 32, g4 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  const Smem sm(smem_raw);
+  // the heaviest blocks first: the last rank of a group, its last q-tile
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int grp = blockIdx.z / geo.g, r = geo.g - 1 - blockIdx.z % geo.g;
   const int* G = geo.groups + grp * geo.g;
-  const int h = blockIdx.y, kvh = h / (geo.hq / geo.hkv), sb = geo.sb, q0 = qt * W * T;
-  const long long row0 = ((long long)G[r] * geo.hq + h) * sb;
-  const int qi0 = q0 + 16 * warp + g4;
-  const float scale2 = geo.scale * kLog2e;
-  const DqWalk walk(geo, r, q0, W * T, TS);
+  const int h = blockIdx.y, kvh = h / (geo.hq / geo.hkv), sb = geo.sb, q0 = qt * T;
+  const int zq = G[r] * geo.hq + h;  // the query head's plane
+  const long long row0 = (long long)zq * sb;
+  const DqWalk walk(geo, r, q0, T, TS);
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
 
-  stage_f32<W * T, D, NT>(Qs, q + (row0 + q0) * D, sb - q0);
-  auto fetch = [&](int i) {
-    int arr, kt;
-    walk.at(i, arr, kt);
-    const int jb = (r - arr + geo.g) % geo.g;
-    const long long kv = ((long long)G[jb] * geo.hkv + kvh) * sb + kt * TS;
-    float* Ks = St + 2 * (i & 1) * TS * LD;
-    stage_f32<TS, D, NT>(Ks, k + kv * D, sb - kt * TS);
-    stage_f32<TS, D, NT>(Ks + TS * LD, v + kv * D, sb - kt * TS);
-    cp_async_commit();
-  };
-  fetch(0);  // Q travels in the first group
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const float* Qw = Qs + 16 * warp * LD;
-  for (int i = 0; i < walk.total; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile i has landed; tile i - 1's stage is free
-    if (i + 1 < walk.total) fetch(i + 1);
-    int arr, kt;
-    walk.at(i, arr, kt);
-    const int k0 = kt * TS;
-    const float* Ks = St + 2 * (i & 1) * TS * LD;
-    const float* Vs = Ks + TS * LD;
-
-    // S = Q K^T (rows: this warp's 16 q, columns: 32 k)
-    float s[TS / 8][4];
-#pragma unroll
-    for (int n = 0; n < TS / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll 2
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const int c0 = 8 * ks + t4;
-      Tf32x2 qa[4];
-      frag_rows(Qw, LD, g4, c0, qa);
-#pragma unroll
-      for (int n = 0; n < TS / 8; ++n) {
-        const float* kr = Ks + (8 * n + g4) * LD + c0;
-        mma_3xtf32(s[n], qa, split(kr[0]), split(kr[4]));
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumers + 32) {
+      fwd_f32_lo(sm, walk.total);
+      return;
+    }
+    if (threadIdx.x != kConsumers) return;
+    mbar_expect_tx(sm.own_full, Plan::OWN);
+    for (int cb = 0; cb < D / 32; ++cb)
+      tma_load_3d(sm.own + cb * T * 128, &mq, sm.own_full, 32 * cb, q0, zq);
+    DqCursor at;  // the tile of the next K/V pair
+    for (int n = 0; n < walk.total; ++n) {
+      const int z = G[(r - at.arr + geo.g) % geo.g] * geo.hkv + kvh, y = at.kt * TS;
+      const uint32_t par = (n / NS - 1) & 1;
+      at.next(walk);
+      for (int u = 0; u < U; ++u) {
+        const int s = n % NS * U + u;
+        if (n >= NS) mbar_wait(sm.k_empty + s, par);
+        mbar_expect_tx(sm.k_full + s, TS * 128 * 4);
+        for (int cb = 0; cb < 4; ++cb)
+          tma_load_3d(sm.kt + s * Plan::KU + cb * 2 * TS * 128, &mk, sm.k_full + s,
+                      128 * u + 32 * cb, y, z);
+      }
+      for (int u = 0; u < U; ++u) {
+        const int s = n % NS * U + u;
+        if (n >= NS) mbar_wait(sm.v_empty + s, par);
+        mbar_expect_tx(sm.v_full + s, Plan::VU);
+        for (int cb = 0; cb < 4; ++cb)
+          tma_load_3d(sm.v + s * Plan::VU + cb * TS * 128, &mv, sm.v_full + s, 128 * u + 32 * cb,
+                      y, z);
       }
     }
-
-    float alpha[2];
-    fold_scores(s, m, l, alpha, qi0, k0 + 2 * t4, sb, geo.causal && arr == 0, scale2);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, w = t / 32, lane = t % 32,
+            g4 = lane / 4, t4 = lane % 4;
+  const int r0 = Plan::WROWS * wg, c0 = Plan::WCOLS * wg;  // the warpgroup's first row, column
+  const int u = U == 2 ? wg : 0;                         // and the unit of a tile it reads
+  const int qw = q0 + r0 + 16 * w, qi0 = qw + g4;  // the warp's, the thread's first row
+  const uint32_t qa = smem_addr(sm.own) + r0 * 128 + u * 4 * (T * 128), kb = smem_addr(sm.kt),
+                 vb = smem_addr(sm.v), pb = smem_addr(sm.pt) + wg * PT1;
+  uint8_t* pt = sm.pt + wg * PT1;  // P: hi rows, then lo rows
+  float* rows = sm.rows + 64 * wg;
+  const float scale2 = geo.scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  // O^T: acc[32 mb + 4 j + 2 i + c] = O[row 8 j + 2 t4 + c][column c0 + 64 mb + 16 w + g4 + 8 i]
+  float acc[64];
+  zero(acc);
+  float s[TS / 8][4];  // the tile's S, then its P
+  float(&sf)[TS / 2] = reinterpret_cast<float(&)[TS / 2]>(s);
+  uint32_t voff[4];  // at d = 256 formed at each tile (the parts of S take the registers)
+  if constexpr (U == 1) unit_offsets<TS>(voff, w, g4, t4);
+  DqCursor cur;  // the tile being folded
+  mbar_wait(sm.own_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < walk.total; ++i) {
+    const int st = i % NS * U + u;
+    const uint32_t par = (i / NS) & 1;
+    mbar_wait(sm.k_lo + st, par);
+    mbar_wait(sm.k_full + st, par);
+    form_rows<T, TS>(sf, qa, kb + st * Plan::KU, w, lane);
+    mbar_arrive(sm.k_empty + st);  // the K unit is read
+    if constexpr (U == 2) {
+      // S = the two warpgroups' parts added, the same bits in both
+      float4* x = reinterpret_cast<float4*>(sm.xch + (i & 1) * (Plan::XCH / 2));
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+      for (int j = 0; j < TS / 8; ++j)
+        x[wg * 512 + j * 128 + t] = make_float4(sf[4 * j], sf[4 * j + 1], sf[4 * j + 2], sf[4 * j + 3]);
+      named_sync(3, kConsumers);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-
-    // O += P V over the tile's 32 k rows
+      for (int j = 0; j < TS / 8; ++j) {
+        const float4 y = x[(1 - wg) * 512 + j * 128 + t];
+        sf[4 * j] += y.x;
+        sf[4 * j + 1] += y.y;
+        sf[4 * j + 2] += y.z;
+        sf[4 * j + 3] += y.w;
+      }
+    }
+    // the fold; masks only where the warp's rows need them
+    const int k0 = cur.kt * TS;
+    const bool diag = geo.causal && cur.arr == 0;
+    if (k0 + TS > sb || (diag && k0 + TS - 1 > qw))
+      fold_scores<TS / 8, true, true>(s, m, l, alpha, qi0, k0 + 2 * t4, sb, diag, scale2);
+    else
+      fold_scores<TS / 8, false, true>(s, m, l, alpha, qi0, k0 + 2 * t4, sb, diag, scale2);
+    cur.next(walk);
+    // P, hi and lo, into the warpgroup's B tile (K-major: 64 rows by the
+    // tile's TS columns), alpha by row; the last tile's products have read
+    // both (every warp of the warpgroup has passed their wait)
 #pragma unroll
-    for (int kk = 0; kk < TS / 8; ++kk) {
-      Tf32x2 pa[4];
-      frag_acc(s[kk], pa);
-      const float* vr = Vs + (8 * kk + 2 * t4) * LD + g4;
+    for (int jj = 0; jj < TS / 8; ++jj)
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        mma_3xtf32(acc[n], pa, split(vr[8 * n]), split(vr[LD + 8 * n]));
+      for (int ii = 0; ii < 2; ++ii)
+        put_split2<64>(pt, pt + PT1 / 2, 16 * w + g4 + 8 * ii, 8 * jj + 2 * t4, s[jj][2 * ii],
+                       s[jj][2 * ii + 1]);
+    if (t4 == 0) {
+      rows[16 * w + g4] = alpha[0];
+      rows[16 * w + g4 + 8] = alpha[1];
+    }
+    fence_async_shared();
+    // O^T's columns are rows of O: their alpha from shared memory; where
+    // alpha is 1 for every row of the warpgroup, the rescale changes no bit
+    if (named_sync_or(1 + wg, 128, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 a = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t4);
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii) {
+            float* o = acc + 32 * mb + 4 * j + 2 * ii;
+            o[0] = __fmul_rn(o[0], a.x);
+            o[1] = __fmul_rn(o[1], a.y);
+          }
+      }
+    }
+    mbar_wait(sm.v_full + st, par);
+    const uint32_t vs = vb + st * Plan::VU;
+    if constexpr (U == 2) unit_offsets<TS>(voff, opaque(w), opaque(g4), opaque(t4));
+    // O^T += V^T P^T, an m64 block (64 columns of O) at a time: A the V
+    // unit's columns read transposed and split in registers, B the P tile;
+    // over the tile's four k steps a_hi b_hi one chain and a_lo b_hi +
+    // a_hi b_lo another (64 registers: the m64n128 a_hi [b_hi; b_lo] and an
+    // m64n64 a_lo b_hi took 96 and spilled), added as a_hi b_hi + (a_lo
+    // b_hi + a_hi b_lo)
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      uint32_t ah[TS / 8][4], al[TS / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < TS / 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t x;
+          asm volatile("ld.shared.b32 %0, [%1];\n"
+                       : "=r"(x)
+                       : "r"(vs + voff[e] + 2 * mb * TS * 128 + kk * 1024));
+          ah[kk][e] = x & 0xFFFFE000u;
+          al[kk][e] = __float_as_uint(tf32_lo(__uint_as_float(x)));
+        }
+      if (mb == 1) mbar_arrive(sm.v_empty + st);  // the V unit is read
+      float big[32], small[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TS / 8; ++kk) {
+        const uint32_t hb = opaque(pb) + kk * 32;
+        const uint64_t bh = desc_kmajor(hb), bl = desc_kmajor(hb + 64 * 128);
+        wgmma_m64n64k8_tf32(small, al[kk], bh, kk > 0);
+        wgmma_m64n64k8_tf32(small, ah[kk], bl, 1);
+        wgmma_m64n64k8_tf32(big, ah[kk], bh, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(ah);
+      keep(al);
+      reg_fence(big);
+      reg_fence(small);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[32 * mb + e] += big[e] + small[e];
     }
   }
-  write_rows(acc, m, l, out, lse, row0, qi0, sb, t4);
+  // l by row through shared memory (every reader of the last alpha has
+  // passed the last tile's products); out = o / l, lse = m ln 2 + log l
+  // (the product rounded apart); at d = 256 both warpgroups hold the same m
+  // and l, and warpgroup 0 writes the lse
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int qi = qi0 + 8 * ii;
+    if (t4 == 0) {
+      rows[16 * w + g4 + 8 * ii] = l[ii];
+      if (qi < sb && (Plan::WROWS > 0 || wg == 0))
+        lse[row0 + qi] = __fmul_rn(m[ii], kLn2) + logf(l[ii]);
+    }
+  }
+  named_sync(1 + wg, 128);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int row = 8 * j + 2 * t4 + c, qi = q0 + r0 + row;
+      if (qi >= sb) continue;
+      const float li = rows[row];
+      float* dst = out + (row0 + qi) * D + c0 + 16 * w + g4;
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        dst[64 * mb] = acc[32 * mb + 4 * j + c] / li;
+        dst[64 * mb + 8] = acc[32 * mb + 4 * j + 2 + c] / li;
+      }
+    }
 }
 
 // ----------------------------------------------------------------- launches
-// float32 (E is float: the bf16 form is the kernel above)
-template <typename E, int D>
-__global__ void __launch_bounds__(FwdF32Plan<D>::THREADS)
-attn_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                E* __restrict__ out, float* __restrict__ lse, Geo geo) {
-  fwd_f32<D>(q, k, v, out, lse, geo);
-}
-
 template <int D>
 int fwd_f32_launch(const void* q, const void* k, const void* v, void* out, float* lse, Geo geo,
                    int ngroups, cudaStream_t s) {
   using Plan = FwdF32Plan<D>;
-  int err = set_smem(attn_fwd_kernel<float, D>, Plan::SMEM);
+  const int planes = ngroups * geo.g;
+  CUtensorMap mq, mk, mv;
+  int err = f32_map(&mq, q, D, geo.sb, planes * geo.hq, Plan::T);
+  if (!err) err = f32_map(&mk, k, D, geo.sb, planes * geo.hkv, Plan::TS);
+  if (!err) err = f32_map(&mv, v, D, geo.sb, planes * geo.hkv, Plan::TS);
+  if (!err) err = set_smem(attn_fwd_f32_kernel<D>, Plan::SMEM);
   if (err) return err;
-  dim3 grid((geo.sb + 64 * Plan::W - 1) / (64 * Plan::W), geo.hq, ngroups * geo.g);
-  attn_fwd_kernel<float, D><<<grid, Plan::THREADS, Plan::SMEM, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, geo);
+  dim3 grid((geo.sb + Plan::T - 1) / Plan::T, geo.hq, planes);
+  attn_fwd_f32_kernel<D><<<grid, kClusterThreads, Plan::SMEM, s>>>(mq, mk, mv,
+                                                                  static_cast<float*>(out), lse, geo);
   return (int)cudaGetLastError();
 }
 

@@ -163,9 +163,9 @@
 //   outputs issue m64n32 products (twice the instructions of m64n64 for the
 //   same flops).
 //   What the four-warp form that the float32 kernels replaced waited on, and
-//   what this form does about it: its products ran as warp products at a
-//   third of mma.sync's TF32 rate (here wgmma, a_hi meeting b_hi and b_lo
-//   in one); no copy overlapped the products (here TMA into a ring from a
+//   what this form does about it: its products ran as m16n8k8 warp
+//   products at a third of their TF32 rate (here wgmma, a_hi meeting b_hi
+//   and b_lo in one); no copy overlapped the products (here TMA into a ring from a
 //   producer); every warp split the same streamed tile again (here its lo
 //   is written once a staging, each own tile split once a tile by the one
 //   warpgroup that reads it, an output's A once by the one that reads it);
@@ -742,17 +742,6 @@ __device__ __forceinline__ void write_stage_lo(const F32Smem<Plan>& sm, int tile
     fence_async_shared();
     mbar_arrive(sm.lo_full + s);
   }
-}
-
-// four 8 x 4 tiles of 32-bit words from shared memory, lane L giving the
-// address of row L % 8 of tile L / 8: thread i gets word i % 4 of row i / 4
-// of each (ldmatrix's b16 layout, two b16 a word), which is the A fragment
-// layout of a TF32 m64nNk8 product when the tiles are (rows 0-7, k 0-3),
-// (8-15, 0-3), (0-7, 4-7), (8-15, 4-7) of the warp's 16 rows
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // f (m64n32: the T own rows by the tile's TS streamed rows) = A B^T over
@@ -1415,17 +1404,6 @@ __device__ __forceinline__ void form_unit(float (&f)[16], uint32_t a, uint32_t b
   }
 }
 
-// The byte offsets in an output unit (TS rows x 128 columns, 32-column
-// blocks in the 128-byte swizzle) of the four words a thread reads for the
-// first m64 block's first k step: (row t4 (+ 4), column 16 w + g4 (+ 8)).
-// Its other words are these plus 8 192 a block of 64 columns (two column
-// blocks on) and 1 024 a k step (eight rows on): the swizzle's row and
-// chunk bits do not change, so four registers address the unit
-template <int TS>
-__device__ __forceinline__ void unit_offsets(uint32_t (&off)[4], int w, int g4, int t4) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) off[e] = sw128_f32(t4 + 4 * (e >> 1), 16 * w + g4 + 8 * (e & 1), TS);
-}
 // The A operand of an output product formed transposed (m64: columns
 // 64 mb .. 64 mb + 63 of an output unit at `u`; k: its TS rows), each word
 // split once, in registers: rows 8 kk + t4 (+ 4), columns 64 mb + 16 w + g4

@@ -46,7 +46,7 @@
 //   K-major as hi and lo tiles after the reduction.  Every chain of tensor-
 //   core sums is four k steps long (32 columns of a partial, a tile of an
 //   output), the hi x hi products in one and the small ones in another,
-//   added by round-to-nearest float32 adds (mma_3xtf32's reason).
+//   added by round-to-nearest float32 adds (hopper.cuh's TF32 note).
 //   Shared memory (WideDqF32Plan, WideDkvF32Plan): 1 KB alignment, the own
 //   tiles (2 x 64 x 128), NS = 2 stages of two 32 x 128 streamed tiles, their
 //   lo tiles, the partials (2 parities x 2 x 64 x 32), the B tiles (dq: dS

@@ -1,9 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // bf16 and TF32 warpgroup products (wgmma) and their shared-memory
-// descriptors, the fences around them, cp.async staging with zero fill,
-// TMA tile loads and mbarriers, cluster and named barriers, the hi/lo
-// operand splits, and split TF32 warp products (mma.sync) for float32
-// inputs.
+// descriptors, the fences around them, TMA tile loads and mbarriers,
+// cluster and named barriers, and the hi/lo operand splits.
 // Inline PTX only, so a kernel that includes this header builds with nvcc
 // alone (no include path).
 //
@@ -74,7 +72,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// shared-memory writes of the generic proxy (cp.async) become visible to
+// shared-memory writes of the generic proxy (st.shared) become visible to
 // wgmma's reads (the async proxy)
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -258,6 +256,10 @@ __device__ __forceinline__ void acc_to_frag(const float (&acc)[R], int kk, uint3
 // operation and none of the conversion unit, where cvt.rna.tf32.f32 runs
 // (16 results a clock per SM, an eighth of the float32 add rate): every
 // operand of every product is split.
+// lo alone, from the raw word: x - hi (the tensor core reads a raw word as hi)
+__device__ __forceinline__ float tf32_lo(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
 struct Tf32x2 { uint32_t hi, lo; };
 __device__ __forceinline__ Tf32x2 split(float x) {
   Tf32x2 s;
@@ -267,6 +269,11 @@ __device__ __forceinline__ Tf32x2 split(float x) {
 }
 
 // -- TF32 warpgroup products (float32 inputs) -----------------------------------
+// Each float32 product is three TF32 products, a_lo b_hi + a_hi b_hi +
+// a_hi b_lo (split above; the dropped a_lo b_lo is below 2^-20 |a b|).  The
+// tensor core's float32 sums round toward zero, so over a long chain of
+// products its accumulator drifts: the kernels keep every chain a few k
+// steps long and add the chains' sums by round-to-nearest float32 adds.
 // D[64 x N] (+)= A[64 x 8] B[N x 8]^T, N = 32, 64 or 128: A from registers (a0 (g, t), a1 (g + 8,
 // t), a2 (g, t + 4), a3 (g + 8, t + 4) of the warp's 16 rows, g = lane / 4,
 // t = lane % 4), B K-major in shared memory (a 32-bit operand is read
@@ -410,55 +417,17 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
-
-// -- TF32 warp products (float32 inputs) -----------------------------------------
-// m16n8k8: g = lane / 4, t = lane % 4; A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
-// a3 (g + 8, t + 4); B b0 (k = t, n = g), b1 (t + 4, g); C c0 (g, 2t),
-// c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+// the named barrier `id` of `count` threads, returning whether `pred` held
+// in any of them
+__device__ __forceinline__ bool named_sync_or(int id, int count, bool pred) {
+  uint32_t r;
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// the same with a zero accumulator
-__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// c += a b as three TF32 products, a_lo b_hi + a_hi b_hi + a_hi b_lo (the
-// dropped a_lo b_lo is below 2^-20 |a b|).  The tensor core's float32 sums
-// round toward zero, so over a long chain of products its accumulator
-// drifts: the products go to two fresh partials on the tensor core (two
-// independent chains, so the next product need not wait for the last),
-// which are then added to c by round-to-nearest float32 adds.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Tf32x2 (&a)[4], Tf32x2 b0, Tf32x2 b1) {
-  const uint32_t ah[4] = {a[0].hi, a[1].hi, a[2].hi, a[3].hi};
-  const uint32_t al[4] = {a[0].lo, a[1].lo, a[2].lo, a[3].lo};
-  float p[4], r[4];
-  mma_tf32_zero(p, al, b0.hi, b1.hi);
-  mma_tf32_zero(r, ah, b0.lo, b1.lo);
-  mma_tf32(p, ah, b0.hi, b1.hi);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += p[e] + r[e];
-}
-
-// -- cp.async staging --------------------------------------------------------------
-// 16 bytes from global to shared; zeros when !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)pred), "r"(id), "r"(count)
+      : "memory");
+  return r != 0;
 }
 
 }  // namespace hopper

@@ -2,17 +2,14 @@
 // (attention_bwd.cu) share, and with them their forms for head dims above
 // 256 (attention_wide.cu, attention_bwd_wide.cu): the geometry of a launch,
 // the ring-order walks of a query tile over the K/V tiles and of a K/V
-// tile over the query tiles, cp.async staging of float32 (padded) tiles,
-// the online-softmax fold of a tile's scores, the backward's P and dS of a
-// score entry, the float32 fragment helpers of the TF32 products, what the
-// forms that run in thread-block clusters share (the cluster's size, its
-// launch, the float32 tensor maps and output products), and what the bf16
-// forward and backward at d <= 256 share (their shared memory, their TMA
-// producer, the stepped walk of a query block, the tile product S = Q K^T,
-// exponentials by ex2, the pin of an in-flight register operand).  The
-// float32 forward runs several warpgroups of four warps (cp.async staging,
-// its loops take the block's thread count); the backward at every d, the
-// forms above d = 256 and the bf16 forward a producer and two consumer
+// tile over the query tiles, the online-softmax fold of a tile's scores,
+// the backward's P and dS of a score entry, what the forms that run in
+// thread-block clusters share (the cluster's size, its launch, the float32
+// tensor maps and output products), and what the forward and backward at
+// d <= 256 share (the bf16 forms' shared memory, their TMA producer, the
+// stepped walk of a query block, the tile product S = Q K^T, exponentials
+// by ex2, the pin of an in-flight register operand, the ldmatrix read of a
+// float32 A fragment).  Every kernel runs a producer and two consumer
 // warpgroups.
 #pragma once
 
@@ -29,7 +26,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
-constexpr int kThreads = 128;  // one warpgroup, or four warps
 constexpr float kMasked = -1e30f;  // pallas_attention.py:109
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -94,8 +90,8 @@ constexpr int kChunk = 128;  // the output chunk: columns of an output a block o
 // m64n64k16 wgmmas with A and B swizzled 64 x 128 bf16 tiles read K-major
 // (at a and b), summed on the tensor core into a fresh accumulator, which is
 // then added to acc (or, for the first chunk, is acc) by round-to-nearest
-// float32 adds.  The tensor core's sums round toward zero (mma_3xtf32,
-// hopper.cuh): one chain over the whole of a wide d would drift, a chunk's
+// float32 adds.  The tensor core's sums round toward zero (hopper.cuh,
+// the TF32 products): one chain over the whole of a wide d would drift, a chunk's
 // chain is no longer than the d = 128 kernels' one.
 __device__ __forceinline__ void chunk_product(float (&acc)[32], uint32_t a, uint32_t b,
                                               bool first) {
@@ -166,19 +162,7 @@ struct KvBlock {
   }
 };
 
-// -- staging ------------------------------------------------------------------
-// rows [0, R) of a row-major [*, D] float32 block into a tile of row stride
-// D + 4, zeros beyond `valid` rows (NT threads copy)
-template <int R, int D, int NT = kThreads>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src, int valid) {
-  constexpr int C = D / 4;
-  for (int idx = threadIdx.x; idx < R * C; idx += NT) {
-    const int r = idx / C, c = (idx % C) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * (D + 4) + c, ok ? src + (long long)r * D + c : src, ok);
-  }
-}
-
+// -- stores ----------------------------------------------------------------------
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -259,24 +243,6 @@ __device__ __forceinline__ void grad_entry(float& s, float& dp, float lse, float
   const float p = masked ? 0.f : expf(s * scale - lse);
   s = p;
   dp = p * (dp - delta) * scale;
-}
-
-// -- float32 fragments of m16n8k8 -------------------------------------------------
-// A fragment of a 16-row strip (rows 16w.., columns c0 and c0 + 4), split
-__device__ __forceinline__ void frag_rows(const float* strip, int ld, int g4, int c0,
-                                          Tf32x2 (&a)[4]) {
-  a[0] = split(strip[g4 * ld + c0]);
-  a[1] = split(strip[(g4 + 8) * ld + c0]);
-  a[2] = split(strip[g4 * ld + c0 + 4]);
-  a[3] = split(strip[(g4 + 8) * ld + c0 + 4]);
-}
-// an m16n8 accumulator as the A operand of the next product, k permuted
-// (k = t <-> column 2t, k = t + 4 <-> column 2t + 1), split
-__device__ __forceinline__ void frag_acc(const float (&c)[4], Tf32x2 (&a)[4]) {
-  a[0] = split(c[0]);
-  a[1] = split(c[2]);
-  a[2] = split(c[1]);
-  a[3] = split(c[3]);
 }
 
 // -- launches -------------------------------------------------------------------
@@ -447,6 +413,30 @@ __device__ __forceinline__ void zero(float (&x)[N]) {
 #pragma unroll
   for (int e = 0; e < N; ++e) x[e] = 0.f;
   reg_fence(x);
+}
+
+// four 8 x 4 tiles of 32-bit words from shared memory, lane L giving the
+// address of row L % 8 of tile L / 8: thread i gets word i % 4 of row i / 4
+// of each (ldmatrix's b16 layout, two b16 a word), which is the A fragment
+// layout of a TF32 m64nNk8 product when the tiles are (rows 0-7, k 0-3),
+// (8-15, 0-3), (0-7, 4-7), (8-15, 4-7) of the warp's 16 rows
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The byte offsets in a unit of TS rows x 128 float32 columns (32-column
+// blocks in the 128-byte swizzle: the backward's output units, the
+// forward's V units) of the four words a thread reads for the
+// first m64 block's first k step: (row t4 (+ 4), column 16 w + g4 (+ 8)).
+// Its other words are these plus 8 192 a block of 64 columns (two column
+// blocks on) and 1 024 a k step (eight rows on): the swizzle's row and
+// chunk bits do not change, so four registers address the unit
+template <int TS>
+__device__ __forceinline__ void unit_offsets(uint32_t (&off)[4], int w, int g4, int t4) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) off[e] = sw128_f32(t4 + 4 * (e >> 1), 16 * w + g4 + 8 * (e & 1), TS);
 }
 
 // word (row, col) of a float32 tile in the 128-byte swizzle (sw128_f32)

@@ -350,8 +350,12 @@ def kernel_smem_bytes(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, i
     dO; K and V, 128 rows at d = 128, 64 at 256), NS stages of its two
     streamed tiles (dK/dV with their lse and delta rows) and, for dK/dV at
     d = 256, P of two tile parities.  The float32 forward (``FwdF32Plan``)
-    holds 64 W Q rows and two stages of 32-row K and V tiles, in rows of
-    stride d + 4.  The float32 backward holds its tiles in the 128-byte
+    holds its Q tile (128 rows at d = 128, 64 at 256) and two slots of
+    32-row K and V units of 128 columns (K's with its lo rows; d = 128: two
+    tiles of one unit, d = 256: one tile of two), the two consumer
+    warpgroups' P tiles (hi and lo) and, at d = 256, two parities of their
+    parts of S, in the 128-byte swizzle after 1 KB of alignment.  The
+    float32 backward holds its tiles in the 128-byte
     swizzle after 1 KB of alignment: two resident 64-row tiles (Q and dO; K
     and V) and its output products' B tiles (64 x 32, hi then lo: dQ's dS
     of two tile parities, P handed over in them; dK/dV's P and dS); at

@@ -17,12 +17,18 @@ swaps each into ``_build._LIBS`` and
   parent's order; times the forward of both at the wide serving shape
   (``chip_smoke.WIDE_SERVE``, causal, bf16 and float32) with CUDA events,
   in turns: parent, this tree, this tree, parent;
-* ``attention``: compares both trees' bf16 out and lse bit for bit on
-  phase 11's bf16 cases at d = 128 and 256 and holds both against the
-  plain version (the largest share of ``chip_smoke.check_close``'s
-  allowance each); times the bf16 forward of both, and SDPA's forward
-  once, at the serving shape (``chip_smoke.SERVE``, causal) and at
-  d = 256 with the same sequence and 16/4 heads, in the same turns;
+* ``attention``: in each ``--dtype``, holds both trees' out and lse
+  against the plain version on phase 11's cases of that dtype at d = 128
+  and 256 (the largest share of ``chip_smoke.check_close``'s allowance
+  each) and counts the cases whose out and lse are bitwise the parent's;
+  in float32 also whether two launches of this tree's are bitwise equal;
+  times the forward of both, and SDPA's forward once (bf16 with
+  ``enable_gqa``, float32 with the K/V heads repeated, as phase 12 times
+  them), at the serving shape (``chip_smoke.SERVE``, causal) and at
+  d = 256 with the same sequence and 16/4 heads, in the same turns; in
+  float32 holds both trees' out and lse from the timed operands against
+  the plain version (one call) and prints each tree's share of the
+  forward's bound and its ratio to SDPA's, at each shape;
 * ``attention_bwd``: holds both trees' dq, dk and dv against the plain
   version on phase 11's cases at d = 128 and 256 of each ``--dtype`` (the
   largest share of ``chip_smoke.check_close``'s allowance each, how many
@@ -61,7 +67,7 @@ def main(argv=None) -> int:
     ap.add_argument("--source", default="attention_wide",
                     choices=("attention_wide", "attention", "attention_bwd"))
     ap.add_argument("--dtype", default="both", choices=("bfloat16", "float32", "both"),
-                    help="the backward's input dtypes (--source attention_bwd)")
+                    help="the input dtypes (--source attention or attention_bwd)")
     ap.add_argument("--out", default="chiprun_out/wide_ab.json")
     args = ap.parse_args(argv)
     import torch
@@ -109,13 +115,10 @@ def main(argv=None) -> int:
         return 1
 
     if args.source in ("attention", "attention_bwd"):
-        if args.source == "attention":
-            ok = narrow_fwd(torch, chip_smoke, _build, attention, libs, res)
-        else:
-            dtypes = {"bfloat16": (torch.bfloat16,), "float32": (torch.float32,),
-                      "both": (torch.float32, torch.bfloat16)}[args.dtype]
-            ok = all([narrow_bwd(torch, chip_smoke, _build, attention, libs, res, dt)
-                      for dt in dtypes])
+        dtypes = {"bfloat16": (torch.bfloat16,), "float32": (torch.float32,),
+                  "both": (torch.float32, torch.bfloat16)}[args.dtype]
+        narrow = narrow_fwd if args.source == "attention" else narrow_bwd
+        ok = all([narrow(torch, chip_smoke, _build, attention, libs, res, dt) for dt in dtypes])
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
         return 0 if ok else 1
@@ -168,9 +171,12 @@ def main(argv=None) -> int:
     return 0 if not differ else 1
 
 
-def narrow_fwd(torch, chip_smoke, _build, attention, libs, res) -> bool:
-    """The ``attention`` comparison; True iff every case of both trees is
-    within the allowance."""
+def narrow_fwd(torch, chip_smoke, _build, attention, libs, res, dtype) -> bool:
+    """The ``attention`` comparison in one input dtype; True iff every case
+    of both trees is within the allowance (and, in float32, two launches of
+    this tree's are bitwise equal and both trees hold at the timed shapes)."""
+    import statistics
+
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -178,53 +184,94 @@ def narrow_fwd(torch, chip_smoke, _build, attention, libs, res) -> bool:
         _build._LIBS["attention"] = libs[name]
         return attention.ring_attention_world(*args, **kw)
 
+    f32 = dtype == torch.float32
+    tag = "float32" if f32 else "bf16"
     gen = torch.Generator(device="cuda").manual_seed(3)
     used = {"parent": 0.0, "cur": 0.0}
     same, differ = 0, []
-    for dh, sb, hq, hkv, causal, groups in chip_smoke.parity_grid(False):
+    repeatable = True
+    for dh, sb, hq, hkv, causal, groups in chip_smoke.parity_grid(f32):
         if dh > 256:
             continue
         q, k, v = (torch.randn((chip_smoke.P, h, sb, dh), device="cuda", generator=gen)
-                   .to(torch.bfloat16) for h in (hq, hkv, hkv))
+                   .to(dtype) for h in (hq, hkv, hkv))
         want = attention.ring_attention_plain(q, k, v, groups, causal=causal, with_lse=True)
         got = {name: fwd(name, q, k, v, groups, causal=causal, with_lse=True) for name in libs}
+        if f32:
+            again = fwd("cur", q, k, v, groups, causal=causal, with_lse=True)
+            repeatable &= all(torch.equal(a, b) for a, b in zip(got["cur"], again))
         torch.cuda.synchronize()
         case = f"d={dh} sb={sb} {hq}/{hkv} causal={causal} groups={groups is not None}"
         for name, (out, lse) in got.items():
             used[name] = max(used[name],
                              chip_smoke.allowance_share(torch, f"{case} out", out, want[0],
-                                                        torch.bfloat16)[1],
+                                                        dtype)[1],
                              chip_smoke.allowance_share(torch, f"{case} lse", lse, want[1],
                                                         torch.float32)[1])
         if all(torch.equal(a, b) for a, b in zip(got["parent"], got["cur"])):
             same += 1
         else:
             differ.append(case)
-    res["bf16_forward_vs_parent"] = {"largest_share": used, "equal": same, "differ": differ}
-    print(f"bf16 forward at d = 128 and 256, {same + len(differ)} cases: largest share of the "
-          f"allowance {used}, out and lse bitwise the parent's in {same}; differ: {differ[:4]}",
-          flush=True)
+    res[f"{tag}_forward_vs_parent"] = {"largest_share": used, "equal": same, "differ": differ}
+    if f32:
+        res[f"{tag}_forward_vs_parent"]["two_launches_bitwise_equal"] = repeatable
+    print(f"{tag} forward at d = 128 and 256, {same + len(differ)} cases: largest share of the "
+          f"allowance {used}, out and lse bitwise the parent's in {same}"
+          + (f", two launches bitwise equal: {repeatable}" if f32 else "")
+          + f"; differ: {differ[:4]}", flush=True)
+    timed_ok = True
     for label, g in (("serving", chip_smoke.SERVE),
                      ("d256", dict(chip_smoke.SERVE, d=256, heads=16, kv_heads=4))):
         q = torch.randn(chip_smoke.P, g["heads"], g["seq_per_rank"], g["d"], device="cuda",
-                        generator=gen).to(torch.bfloat16)
+                        generator=gen).to(dtype)
         k, v = (torch.randn(chip_smoke.P, g["kv_heads"], g["seq_per_rank"], g["d"],
-                            device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
+                            device="cuda", generator=gen).to(dtype) for _ in range(2))
+        key = label if not f32 else f"{tag}_{label}"
         for name in ("parent", "cur", "cur", "parent"):
             ms = chip_smoke.time_ms(torch, lambda: fwd(name, q, k, v, causal=True, with_lse=True),
                                     reps=3, warmup=1)
-            res.setdefault("serving_ms", {}).setdefault(label, {}).setdefault(name, []).append(ms)
-            print(f"time fwd {label} {name}: {ms:.3f} ms", flush=True)
+            res.setdefault("serving_ms", {}).setdefault(key, {}).setdefault(name, []).append(ms)
+            print(f"time fwd {key} {name}: {ms:.3f} ms", flush=True)
         ql, kl, vl = (chip_smoke.world_to_sequence(a) for a in (q, k, v))
+        if f32:  # as phase 12: the float32 library call takes expanded heads
+            rep = g["heads"] // g["kv_heads"]
+            kl, vl = kl.repeat_interleave(rep, 1), vl.repeat_interleave(rep, 1)
         with torch.no_grad(), sdpa_kernel([SDPBackend.FLASH_ATTENTION,
                                            SDPBackend.EFFICIENT_ATTENTION]):
             ms = chip_smoke.time_ms(torch, lambda: F.scaled_dot_product_attention(
-                ql, kl, vl, is_causal=True, enable_gqa=True), reps=3, warmup=1)
-        res.setdefault("library_fwd_ms", {})[label] = ms
-        print(f"time SDPA forward {label}: {ms:.3f} ms", flush=True)
-        del q, k, v, ql, kl, vl
+                ql, kl, vl, is_causal=True, enable_gqa=not f32), reps=3, warmup=1)
+        res.setdefault("library_fwd_ms", {})[key] = ms
+        print(f"time SDPA forward {key}: {ms:.3f} ms", flush=True)
+        del ql, kl, vl
+        if f32:
+            got = {name: fwd(name, q, k, v, causal=True, with_lse=True) for name in libs}
+            want, plain_ms = chip_smoke.time_once(torch, lambda: attention.ring_attention_plain(
+                q, k, v, causal=True, with_lse=True))
+            held = {"plain_ms": plain_ms}
+            for name, (out, lse) in got.items():
+                held[name] = max(
+                    chip_smoke.allowance_share(torch, "out", out, want[0], dtype)[1],
+                    chip_smoke.allowance_share(torch, "lse", lse, want[1], torch.float32)[1])
+                timed_ok &= held[name] <= 1.0
+            res.setdefault("timed_vs_plain", {})[key] = held
+            shape = (chip_smoke.P, g["heads"], g["kv_heads"], g["seq_per_rank"], g["d"])
+            bound, by, _ = chip_smoke.attention_bound(
+                "fwd", 4, chip_smoke.F32_SPLIT_TF32_FLOPS, shape, {"q": 1, "kv": 2},
+                {"q": 1, "rows": 1})
+            out = res.setdefault("bounds", {}).setdefault(key, {"bound_ms": bound,
+                                                                 "bound_by": by})
+            for name, runs in res["serving_ms"][key].items():
+                med = statistics.median(runs)
+                out[name] = {"ms": med, "pct_of_bound": 100.0 * bound / med,
+                             "over_library": med / ms}
+                print(f"{key} fwd {name}: {med:.3f} ms, {out[name]['pct_of_bound']:.2f}% of its "
+                      f"{bound:.3f} ms bound ({by}), {med / ms:.3f}x SDPA's {ms:.3f} ms; against "
+                      f"the plain version ({plain_ms:.3f} ms, one call): largest share of the "
+                      f"allowance {held[name]:.4g}", flush=True)
+            del got, want
+        del q, k, v
         torch.cuda.empty_cache()
-    return max(used.values()) <= 1.0
+    return max(used.values()) <= 1.0 and repeatable and timed_ok
 
 
 def narrow_bwd(torch, chip_smoke, _build, attention, libs, res, dtype) -> bool:

@@ -231,10 +231,15 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
     # mbarriers
     assert attention.kernel_smem_bytes(128, torch.bfloat16)["fwd"] == 1024 + 32768 + 6 * 32768 + 13 * 8
     assert attention.kernel_smem_bytes(256, torch.bfloat16)["fwd"] == 1024 + 65536 + 5 * 32768 + 11 * 8
-    # the float32 forward: Q tiles of three warpgroups at d = 128 (one at
-    # d = 256), sharing the staged K/V tiles
-    assert attention.kernel_smem_bytes(128)["fwd"] == 168960
-    assert attention.kernel_smem_bytes(256)["fwd"] == 199680
+    # the float32 forward (FwdF32Plan): 1 KB of alignment, the Q tile
+    # (128 rows at d = 128, 64 at d = 256) T d x 4, two slots of K and V
+    # units of 128 columns (d = 128: NS = 2 tiles of one unit; d = 256: one
+    # tile of two) with 32 rows each, K's with its lo rows 2 x 32 x 128 x 4,
+    # V's 32 x 128 x 4, the two warpgroups' P tiles (hi and lo, 64 x 32)
+    # 32 768, at d = 256 two parities of both warpgroups' parts of S 32 768,
+    # the rows' alpha 512, 11 mbarriers
+    assert attention.kernel_smem_bytes(128)["fwd"] == 1024 + 65536 + 2 * (32768 + 16384) + 32768 + 512 + 11 * 8
+    assert attention.kernel_smem_bytes(256)["fwd"] == 1024 + 65536 + 2 * (32768 + 16384) + 32768 + 32768 + 512 + 11 * 8
     # the bf16 backward (csrc/attention_bwd.cu DqBf16Plan, DkvBf16Plan): 1 KB
     # of alignment, the own tiles, NS stages of the streamed tiles, the
     # exchange region, a stage's lse and delta rows each, 64 bytes of
@@ -293,7 +298,7 @@ def test_kernel_plan_gives_the_byte_arithmetic(monkeypatch):
                              r"150000"):
         attention._kernel_plan(512, torch.bfloat16)
     with pytest.raises(NotImplementedError,
-                       match=r"fwd kernel \(csrc/attention.cu\) .* 168960 bytes"):
+                       match=r"fwd kernel \(csrc/attention.cu\) .* 198232 bytes"):
         attention._kernel_plan(128)
     with pytest.raises(NotImplementedError,
                        match=r"fwd kernel \(csrc/attention_wide.cu\) at head dim "

@@ -67,6 +67,34 @@ def mm_3xtf32(a, b):
     return (al @ bh + ah @ bh) + ah @ bl
 
 
+def tf32_chain(a, b):
+    """a b as the float32 kernels form the chains of (at most) four k steps
+    of one block of d or one streamed tile: both operands split (TF32
+    truncation), a_hi b_hi + (a_lo b_hi + a_hi b_lo), each term a chain on
+    the tensor core (a_hi b_hi and a_hi b_lo in one wgmma of twice the
+    width; dK/dV's outputs sum the two small terms in one chain), added by
+    float32 adds."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def tf32_blocks(a, b):
+    """a b (a [..., n, d], b [..., d, k]) as the float32 forward at d <= 256
+    forms S = Q K^T: one ``tf32_chain`` a 32-column block of d (four k
+    steps), the blocks of each 128 columns added in order; at d = 256 each
+    consumer warpgroup forms one 128-column half and the two halves' sums
+    are added."""
+    def half(c0):
+        acc = tf32_chain(a[..., c0:c0 + 32], b[..., c0:c0 + 32, :])
+        for c in range(c0 + 32, min(c0 + 128, a.shape[-1]), 32):
+            acc = acc + tf32_chain(a[..., c:c + 32], b[..., c:c + 32, :])
+        return acc
+    acc = half(0)
+    for c0 in range(128, a.shape[-1], 128):
+        acc = acc + half(c0)
+    return acc
+
+
 def mm_1xtf32(a, b):
     return tf32_trunc(a) @ tf32_trunc(b)
 
@@ -130,8 +158,12 @@ def emulated_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False,
 
 
 # the forward's products: (Q K^T, P V) and its k-tile rows, by input dtype
-# (bf16: 64-row tiles at d = 256, 128-row ones at d = 128, kernel_fwd_products)
-FWD_PRODUCTS = {torch.float32: (mm_3xtf32, mm_3xtf32, 32),
+# (bf16: 64-row tiles at d = 256, 128-row ones at d = 128, kernel_fwd_products;
+# float32 (csrc/attention.cu attn_fwd_f32_kernel): S a chain a 32-column
+# block of d (tf32_blocks), O^T = V^T P^T over the 32-row tile as a_hi b_hi
+# + (a_lo b_hi + a_hi b_lo), each term a chain, added to O by float32 adds
+# after O's rescale; the terms are those of P V with P and V split)
+FWD_PRODUCTS = {torch.float32: (tf32_blocks, tf32_chain, 32),
                 torch.bfloat16: (torch.matmul, mm_split_bf16, 64)}
 
 
@@ -306,6 +338,42 @@ def test_forward_one_term_leaves_the_float32_allowance(dtype, products):
     assert share > 1.0, share
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)])
+def test_split_forward_f32_at_d256_within_check_close_of_plain(hq, hkv, causal):
+    """The float32 forward's order of sums at d = 256 (eight 32-column
+    chains of S a tile; each warpgroup of a 64-row block forms the whole
+    of S and owns 128 columns of O, which changes no sum), {MHA, GQA, MQA}
+    x {full, causal}, Sb = 8 (one partial tile) and 80 (two 32-row tiles
+    and a partial one), on a world of 4 and in two groups of 2: out and lse
+    against the plain forward under check_close's float32 rule, with the
+    kernel's shortcuts (an unmasked path, the skipped rescale)."""
+    for sb in (8, 80):
+        for groups in (None, [[0, 1], [2, 3]]):
+            q, k, v, _, _, _ = world(4, hq, hkv, sb, 256, torch.float32, causal, groups,
+                                     seed=256 + sb + hq + hkv + causal)
+            out, lse = emulated_fwd(q, k, v, groups, causal=causal, rows=64, shortcuts=True)
+            want, want_lse = attention.ring_attention_plain(q, k, v, groups, causal=causal,
+                                                            with_lse=True)
+            assert out.dtype == want.dtype == torch.float32 and out.shape == want.shape
+            chip_smoke.check_close(torch, f"f32 d=256 sb={sb} out", out, want, torch.float32)
+            chip_smoke.check_close(torch, f"f32 d=256 sb={sb} lse", lse, want_lse,
+                                   torch.float32)
+
+
+@pytest.mark.parametrize("d,rows", [(128, 128), (256, 64)])
+def test_split_forward_f32_blocks_and_shortcuts_change_no_bit(d, rows):
+    """The float32 kernel's blocks (128 rows at d = 128, 64 at d = 256) fold
+    every tile of their walk into every row, the ones past a row's diagonal
+    all masked, and take the unmasked path and the skipped rescale: out and
+    lse bitwise the whole block's at once without them (causal GQA, Sb =
+    208: several blocks, the last ragged)."""
+    q, k, v, _, _, _ = world(2, 4, 2, 208, d, torch.float32, True, seed=d + 7)
+    whole = emulated_fwd(q, k, v, causal=True)
+    blocks = emulated_fwd(q, k, v, causal=True, rows=rows, shortcuts=True)
+    assert all(torch.equal(a, b) for a, b in zip(whole, blocks))
+
+
 def test_split_forward_matches_the_reference():
     """At one size (GQA, causal, Sb = 48: a full and a partial 32-row
     k-tile) the float32 forward's tiles and splits against the reference's
@@ -315,6 +383,19 @@ def test_split_forward_matches_the_reference():
     q, k, v = (rs.randn(4, h, 48, 128).astype(np.float32) for h in (4, 2, 2))
     want = jax_forward(q, k, v, "f32", causal=True)
     got, _ = emulated_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_split_forward_at_d256_matches_the_reference():
+    """At d = 256 (GQA, causal, Sb = 48: a full and a partial 32-row
+    k-tile) the float32 forward's order of sums against the reference's
+    Pallas forward in interpret mode, with tests/test_torch_attention.py's
+    float32 tolerance."""
+    rs = np.random.RandomState(23)
+    q, k, v = (rs.randn(4, h, 48, 256).astype(np.float32) for h in (4, 2, 2))
+    want = jax_forward(q, k, v, "f32", causal=True)
+    got, _ = emulated_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal=True, rows=64,
+                          shortcuts=True)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -830,17 +911,6 @@ def test_narrow_bf16_backward_two_terms_stay_within_the_allowance(seed):
 # -- the float32 backward at d = 128 and 256 (attention_bwd.cu
 # attn_bwd_dq_f32_kernel, attn_bwd_dkv_f32_kernel): TF32 wgmma, three
 # products a product, the outputs formed transposed
-
-
-def tf32_chain(a, b):
-    """a b as the float32 kernels form the chains of (at most) four k steps
-    of one block of d or one streamed tile: both operands split (TF32
-    truncation), a_hi b_hi + (a_lo b_hi + a_hi b_lo), each term a chain on
-    the tensor core (a_hi b_hi and a_hi b_lo in one wgmma of twice the
-    width; dK/dV's outputs sum the two small terms in one chain), added by
-    float32 adds."""
-    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
-    return ah @ bh + (al @ bh + ah @ bl)
 
 
 def emulated_narrow_f32_bwd(q, k, v, out, lse, dout, groups=None, *, causal=False,

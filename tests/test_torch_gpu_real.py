@@ -277,6 +277,55 @@ def test_narrow_bf16_forward_is_bitwise_deterministic_on_the_card(d):
         assert torch.equal(a, b)
 
 
+def _narrow_f32_forward(d, causal, hkv):
+    """The float32 forward at head dim ``d`` (128 or 256: csrc/attention.cu's
+    TMA producer and two consumer warpgroups on TF32 ``wgmma``, O formed
+    transposed) twice, and the plain version, on 4/``hkv`` heads (GQA 4/2
+    or MQA 4/1) in two ring groups of four, Sb = 208 (at d = 128 a full and
+    a partial 128-row block, at d = 256 three 64-row blocks and a partial
+    one; a partial last 32-row streamed tile)."""
+    _card()
+    from mpi_tpu_torch.gpu import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(d + causal + 10 * hkv)
+    groups = [[0, 1, 2, 3], [4, 5, 6, 7]]
+    q = torch.randn(P, 4, 208, d, device="cuda", generator=gen)
+    k, v = (torch.randn(P, hkv, 208, d, device="cuda", generator=gen) for _ in range(2))
+    attention.reset_launches()
+    first = attention.ring_attention_world(q, k, v, groups, causal=causal, with_lse=True)
+    second = attention.ring_attention_world(q, k, v, groups, causal=causal, with_lse=True)
+    ref = attention.ring_attention_plain(q, k, v, groups, causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == {"fwd": 2, "bwd_dq": 0, "bwd_dkv": 0}
+    assert attention.WIDE_LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    return first, second, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hkv", [2, 1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_f32_forward_matches_plain_on_the_card(d, causal, hkv):
+    """out and lse of the float32 forward at d = 128 and 256, GQA and MQA,
+    full and causal, against the plain version within the float32
+    allowance of ``chip_smoke.check_close`` (1e-5 each)."""
+    (out, lse), _, (pout, plse) = _narrow_f32_forward(d, causal, hkv)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, pout, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
+def test_narrow_f32_forward_is_bitwise_deterministic_on_the_card(d):
+    """Two launches of the float32 forward at d = 128 and 256 are bitwise
+    equal: every block owns its rows and folds its walk in a fixed order;
+    at d = 256 its warpgroups add the two halves of S in a fixed order."""
+    first, second, _ = _narrow_f32_forward(d, True, 1)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def _narrow_bf16_backward(d, causal):
     """The bf16 backward at head dim ``d`` (128 or 256: csrc/attention_bwd.cu's
     TMA producer and two consumer warpgroups) twice, and the plain version,

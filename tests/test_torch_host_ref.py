@@ -266,7 +266,7 @@ REFERENCE_FILES = (
     "mpit", "nonblocking", "ops_extended", "scan_reduce_scatter",
     "vector_collectives", "segmented_collectives2", "resilience", "codec",
     "sanitize_native", "zero_copy_user", "spawn", "io", "serve",
-    "federation_store", "federation")
+    "federation_store", "federation", "schedules")
 
 
 @pytest.mark.parametrize("name", REFERENCE_FILES)

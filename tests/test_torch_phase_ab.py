@@ -3,6 +3,7 @@
 card it refuses with exit code 2 and writes no record (the timing itself
 runs on the card, where ``PERF.md`` cites its records)."""
 
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -148,6 +149,26 @@ def test_wide_ab_narrow_forward_refuses_without_a_card(tmp_path):
     assert not out.exists()
 
 
+def test_wide_ab_narrow_float32_forward_refuses_without_a_card(tmp_path):
+    """``wide_ab --source attention --dtype float32`` (both trees' float32
+    forward at d = 128 and 256 against the plain version, bitwise counts,
+    two launches equal, timed at the serving shape and at d = 256 beside
+    SDPA's float32 forward) refuses without a card as the bf16 comparison
+    does; it holds phase 11's 120 float32 cases at those head dims."""
+    import chip_smoke
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = tmp_path / "wide_ab.json"
+    res = subprocess.run([sys.executable, "-m", "mpi_tpu_torch.tools.wide_ab",
+                          "--parent", str(ROOT), "--source", "attention", "--dtype",
+                          "float32", "--out", str(out)],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2, res.stderr
+    assert "no CUDA device" in res.stderr
+    assert not out.exists()
+    assert sum(case[0] <= 256 for case in chip_smoke.parity_grid(True)) == 120
+
+
 def test_ptxas_table_names_every_attention_instance():
     """``chip_smoke.ptxas_table`` names each instance from ``nvcc -Xptxas
     -v`` output (phase 12 prints the bf16 forward's and backward's, and
@@ -224,3 +245,45 @@ def test_wide_ab_holds_a_timed_shape_to_the_normwise_allowance():
     far[2][1, 0, 3, 5] += 2e-4 * float(want[2].abs().max())
     normwise, _ = wide_ab.hold_timed(torch, chip_smoke, far, want, torch.float32)
     assert 1.99 < normwise < 2.01
+
+
+def test_chip_smoke_keeps_bytecode_only_where_none_is_written(tmp_path, monkeypatch):
+    """``chip_smoke.cache_bytecode``: where bytecode is written, or the
+    module ships its own, it changes nothing; where neither, the script
+    and every process it starts keep what they compile under one
+    temporary directory (``PYTHONPYCACHEPREFIX``, writing on), so a second
+    process reads what the first compiled."""
+    import chip_smoke
+
+    pkg = tmp_path / "src" / "fresh_mod"
+    pkg.mkdir(parents=True)
+    (pkg / "__init__.py").write_text("VALUE = 7\n")
+    monkeypatch.syspath_prepend(str(tmp_path / "src"))
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    monkeypatch.setattr(chip_smoke.tempfile, "tempdir", str(tmp_path))
+    monkeypatch.delenv("PYTHONPYCACHEPREFIX", raising=False)
+
+    monkeypatch.setattr(sys, "dont_write_bytecode", False)
+    assert chip_smoke.cache_bytecode("fresh_mod") is None
+    assert chip_smoke.cache_bytecode("no_such_module_here") is None
+
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    monkeypatch.setenv("PYTHONDONTWRITEBYTECODE", "1")
+    shipped = pkg / "__pycache__"
+    shipped.mkdir()
+    (shipped / f"__init__.{sys.implementation.cache_tag}.pyc").write_bytes(b"")
+    assert chip_smoke.cache_bytecode("fresh_mod") is None
+    assert sys.dont_write_bytecode and sys.pycache_prefix is None
+
+    (shipped / f"__init__.{sys.implementation.cache_tag}.pyc").unlink()
+    prefix = chip_smoke.cache_bytecode("fresh_mod")
+    assert prefix and os.path.dirname(prefix) == str(tmp_path)
+    assert sys.pycache_prefix == prefix and not sys.dont_write_bytecode
+    assert os.environ["PYTHONPYCACHEPREFIX"] == prefix
+    assert "PYTHONDONTWRITEBYTECODE" not in os.environ
+    res = subprocess.run([sys.executable, "-c", "import fresh_mod; print(fresh_mod.VALUE)"],
+                         cwd=tmp_path / "src", capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0 and res.stdout.strip() == "7", res.stderr
+    kept = importlib.util.cache_from_source(str(pkg / "__init__.py"))
+    assert kept.startswith(prefix + os.sep) and os.path.isfile(kept)
+    assert not list(shipped.iterdir())
